@@ -6,10 +6,12 @@ Run from the root of a checkout on a machine with one CUDA card. It builds
 the port's kernels and the host native library from the checkout's sources,
 holds every kernel of the main path against its plain PyTorch version,
 drives the main path (embed_batch -> extract_batch) at 4K UHD, B=64, 16 KB
-secrets, and prints one line per measurement. The last two lines are JSON:
-the per-kernel record, then the device record. Any failure raises, and the
-process exits non-zero without printing them. Without CUDA, or without the
-package beside this file, it exits non-zero at once.
+secrets, then the serving surface (streams, rotating salts and keys, the
+channel report and quality, the soft-decision retry, ragged secrets with
+verify and jitter), and prints one line per measurement. The last two lines
+are JSON: the per-kernel record, then the device record. Any failure raises,
+and the process exits non-zero without printing them. Without CUDA, or
+without the package beside this file, it exits non-zero at once.
 
 Phases:
   1. probe   card name, power limit, CUDA and nvcc versions
@@ -19,6 +21,21 @@ Phases:
   4. path    512x512, B=8, 100 B round trip (also held against the port on
              the CPU), then 2160x3840, B=64, 16 KB: all secrets recovered,
              K1 launched, warm timings, PSNR, peak memory
+  5a. stream embed_stream -> extract_stream of the 4K batch, depth 2,
+             fixed salts: 64/64 every batch, images/s beside the serialized
+             loop's, peak memory with two batches in flight; first one
+             embed + extract dispatch under torch.cuda sync debug mode
+             "error" (queuing a batch must not wait for the card)
+  5b. rotate the stream with fresh salts every batch and a second master
+             key from the second half on: recovery must be 1.0
+  5c. BER    channel_report and quality_device on the stego of 5a: payload
+             post-ECC BER 0, raw BER, header post-ECC, PSNR and SSIM
+  5d. soft   the soft-decision margin workload (256x256 noise cover, 240 B,
+             B=8): the soft decode must recover more than the hard one
+  5e. ragged 1080p, B=8, 100 B to 4 KB secrets, verify=True, then jitter
+             0.2: all verified and read back; card stegos held against the
+             port's CPU stegos of the same inputs (+-1, cross-decode)
+Every path above must launch K1; its launches are counted per path.
 """
 
 from __future__ import annotations
@@ -38,11 +55,20 @@ PKG = REPO / "steganosaurus_tpu_torch"
 UHD_H, UHD_W, UHD_B, UHD_BASE, UHD_SECRET = 2160, 3840, 64, 32, 16384
 SMALL_H, SMALL_W, SMALL_B, SMALL_SECRET = 512, 512, 8, 100
 MASTER_KEY = bytes(range(32))
+MASTER_KEY2 = bytes(range(1, 33))
+STREAM_BATCHES = 4
+FHD_H, FHD_W, FHD_B = 1080, 1920, 8
 K1_REL_TOL = 1e-5
 # CPU reference check of the small phase: the card's bf16 products and the
 # CPU's bf16 emulation round in different places, so a few pixels may land
 # one step apart (the same bound as the CPU tests against the JAX package)
 SMALL_MAX_DIFF_FRAC = 1e-3
+# The same check at 1080p, B=8, 4 KB: more terms per pixel in every DFT
+# sum and 448 bf16 columns per plane in forward stage 2 (192 at 512x512),
+# so more pixels land one step apart. On the CPU the port and the JAX
+# package already differ in 0.12% of these bytes, the card and the CPU
+# port in 0.23%; every difference is +-1 and the stegos cross-decode.
+FHD_MAX_DIFF_FRAC = 5e-3
 
 
 def log(msg: str) -> None:
@@ -288,6 +314,295 @@ def phase_uhd(covers_d) -> int:
     return launches[ck.KERNEL]
 
 
+def timed(name: str, fn, *args):
+    """fn(*args), its wall time logged once the card is idle again."""
+    import torch
+
+    t = time.perf_counter()
+    out = fn(*args)
+    torch.cuda.synchronize()
+    log(f"phase {name}: {time.perf_counter() - t:.1f} s")
+    return out
+
+
+def count_launches(path: str, launches: dict, fn):
+    """Run fn() with every kernel count set to 0, record K1's launches for
+    `path` and fail if there were none. Returns fn()'s result."""
+    import torch
+
+    from steganosaurus_tpu_torch.spectral import corner_kernels as ck
+
+    for k in ck.LAUNCHES:
+        ck.LAUNCHES[k] = 0
+    out = fn()
+    torch.cuda.synchronize()
+    n = ck.LAUNCHES[ck.KERNEL]
+    if n <= 0:
+        raise AssertionError(f"{ck.KERNEL} was not launched on the {path} "
+                             f"path")
+    launches[path] = n
+    return out
+
+
+def run_stream(covers_d, secrets, salts_of, keys) -> tuple:
+    """embed_stream -> extract_stream over len(keys) copies of the batch,
+    depth 2, nchw; batch k embeds under salts_of(k) and keys[k]. Returns
+    (per-batch recovered counts, wall s, the last batch's stego)."""
+    import torch
+
+    import steganosaurus_tpu_torch as stt
+
+    B = covers_d.shape[0]
+    last = {}
+
+    def stegos(embeds):
+        for k, res in enumerate(embeds):
+            last["stego"] = res.stego
+            yield res.stego, keys[k]
+
+    t = time.perf_counter()
+    embeds = stt.embed_stream(
+        ((covers_d, secrets, salts_of(k), keys[k]) for k in range(len(keys))),
+        master_key=MASTER_KEY, depth=2, layout="nchw")
+    n_ok = [sum(g == s for g, s in zip(got, secrets))
+            for got in stt.extract_stream(stegos(embeds),
+                                          master_key=MASTER_KEY,
+                                          clen_hint=len(secrets[0]), depth=2,
+                                          layout="nchw")]
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t
+    if len(n_ok) != len(keys) or any(n > B for n in n_ok):
+        raise AssertionError(f"stream returned {n_ok} for {len(keys)} "
+                             f"batches of {B}")
+    return n_ok, dt, last["stego"]
+
+
+def phase_stream(covers_d, launches: dict):
+    """5a: the 4K stream with fixed salts against the serialized loop.
+    Returns the last streamed stego (5c reads it)."""
+    import torch
+
+    import steganosaurus_tpu_torch as stt
+
+    B = covers_d.shape[0]
+    n = STREAM_BATCHES
+    secrets = secrets_for(B, UHD_SECRET)
+    salts = [bytes([i]) * 16 for i in range(B)]
+
+    # queuing a batch must not wait for the card: no stream sync, no
+    # blocking copy anywhere in embed_batch or extract_dispatch
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        res = stt.embed_batch(covers_d, secrets, master_key=MASTER_KEY,
+                              salts=salts, device_resident=True,
+                              layout="nchw")
+        job = stt.extract_dispatch(res.stego, master_key=MASTER_KEY,
+                                   clen_hint=UHD_SECRET, layout="nchw")
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    if job.finalize() != secrets:
+        raise AssertionError("round trip under sync debug mode failed")
+    log("sync debug mode 'error': embed_batch + extract_dispatch queued "
+        "without a host sync")
+    del res, job
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    n_ok, dt, stego = count_launches("stream", launches, lambda: run_stream(
+        covers_d, secrets, lambda k: salts, [MASTER_KEY] * n))
+    peak = torch.cuda.max_memory_allocated()
+    if n_ok != [B] * n:
+        raise AssertionError(f"4K stream recovered {n_ok} of {B} per batch")
+    stream_ips = n * B / dt
+
+    t = time.perf_counter()
+    for _ in range(n):
+        res = stt.embed_batch(covers_d, secrets, master_key=MASTER_KEY,
+                              salts=salts, device_resident=True,
+                              layout="nchw")
+        got = stt.extract_batch(res.stego, master_key=MASTER_KEY,
+                                clen_hint=UHD_SECRET, layout="nchw")
+        if got != secrets:
+            raise AssertionError("serialized loop recovery failed")
+    torch.cuda.synchronize()
+    loop_ips = n * B / (time.perf_counter() - t)
+    log(f"4K stream, fixed salts, depth 2, {n} batches of {B}: recovered "
+        f"{n_ok} per batch; {stream_ips!r} img/s (wall {dt!r} s); "
+        f"serialized loop {loop_ips!r} img/s; peak memory with two batches "
+        f"in flight {peak / 2**30!r} GiB")
+    return stego
+
+
+def phase_rotating(covers_d, launches: dict) -> None:
+    """5b: fresh salts every batch (the JAX bench's rotating-salt recipe,
+    bench.py:724-726) and a second master key from the second half of the
+    batches on. Recovery is counted; anything under 1.0 fails."""
+    B = covers_d.shape[0]
+    n = STREAM_BATCHES
+    secrets = secrets_for(B, UHD_SECRET)
+    keys = [MASTER_KEY] * (n // 2) + [MASTER_KEY2] * (n - n // 2)
+
+    def salts_of(k):
+        return [bytes([i % 256, 200 + k % 56]) * 8 for i in range(B)]
+
+    n_ok, dt, _ = count_launches("rotating stream", launches,
+                                 lambda: run_stream(covers_d, secrets,
+                                                    salts_of, keys))
+    rate = sum(n_ok) / (n * B)
+    log(f"4K rotating-salt stream, key rotated at batch {n // 2}: recovered "
+        f"{n_ok} per batch, recovery rate {rate!r}; {n * B / dt!r} img/s "
+        f"(wall {dt!r} s, the new key's walk expansion included)")
+    if rate < 1.0:
+        raise AssertionError(f"rotating-salt recovery {rate} < 1.0")
+
+
+# The JAX package's own record on the same 4K covers (BENCH_r03.json)
+JAX_QUALITY = {"payload_ber_raw": 0.001595, "header_ber_raw": 0.001302,
+               "payload_ber_post_ecc": 0.0, "psnr_db": 36.34,
+               "ssim": 0.9486}
+
+
+def phase_quality(covers_d, stego, launches: dict) -> dict:
+    """5c: channel_report and quality_device on the stego of 5a. The
+    payload's post-ECC BER must be 0, as in the JAX record, and every image
+    must read back; an image whose Rep-3 header keeps a flipped bit is
+    listed (the soft decode recovers its header)."""
+    import steganosaurus_tpu_torch as stt
+
+    B = covers_d.shape[0]
+    secrets = secrets_for(B, UHD_SECRET)
+    salts = [bytes([i]) * 16 for i in range(B)]
+    t = time.perf_counter()
+    rep = count_launches("channel report", launches, lambda: stt.channel_report(
+        stego, secrets, salts, master_key=MASTER_KEY, layout="nchw",
+        per_image=True))
+    t_rep = time.perf_counter() - t
+    t = time.perf_counter()
+    psnr, ssim = stt.quality_device(covers_d, stego)
+    t_q = time.perf_counter() - t
+    hdr_bad = [i for i, r in enumerate(rep.pop("per_image"))
+               if r["header_ber_post_ecc"] > 0]
+    log(f"4K channel report ({t_rep!r} s): payload raw BER "
+        f"{rep['payload_ber_raw']!r}, header raw BER "
+        f"{rep['header_ber_raw']!r}, payload post-ECC "
+        f"{rep['payload_ber_post_ecc']!r}, header post-ECC "
+        f"{rep['header_ber_post_ecc']!r} (images {hdr_bad}); "
+        f"quality_device ({t_q!r} s): PSNR {psnr!r} dB, SSIM {ssim!r}; the "
+        f"JAX record on these covers: {JAX_QUALITY}")
+    if rep["payload_ber_post_ecc"] != 0.0:
+        raise AssertionError(f"payload post-ECC BER is not 0: {rep}")
+    if stt.extract_batch(stego, master_key=MASTER_KEY, clen_hint=UHD_SECRET,
+                         layout="nchw") != secrets:
+        raise AssertionError("the reported stego does not read back")
+    if not (math.isfinite(psnr) and 0.0 < ssim <= 1.0):
+        raise AssertionError(f"PSNR {psnr}, SSIM {ssim}")
+    return {**rep, "psnr_db": psnr, "ssim": ssim}
+
+
+def phase_soft(dev, launches: dict) -> None:
+    """5d: the soft-decision margin workload of tests/test_soft_decode.py:
+    one 256x256 full-range noise cover, 240-byte secrets, B=8, salts
+    bytes([i])*16. The soft decode must recover strictly more than the hard
+    one, and only true secrets."""
+    import numpy as np
+    import torch
+
+    import steganosaurus_tpu_torch as stt
+
+    rng = np.random.default_rng(1)
+    cover = rng.integers(0, 256, (256, 256, 3)).astype(np.uint8)
+    secret = bytes(rng.integers(0, 256, 240, dtype=np.uint8))
+    B = 8
+    covers = torch.from_numpy(np.stack([cover] * B)).to(dev)
+    hard_p = stt.Params(soft_decode_fallback=False)
+
+    def run():
+        st = stt.embed_batch(covers, [secret] * B, master_key=MASTER_KEY,
+                             params=hard_p, salts=[bytes([i]) * 16
+                                                   for i in range(B)],
+                             device_resident=True).stego
+        return (stt.extract_batch(st, master_key=MASTER_KEY, params=hard_p),
+                stt.extract_batch(st, master_key=MASTER_KEY))
+
+    hard, soft = count_launches("soft", launches, run)
+    ok_h = [i for i, g in enumerate(hard) if g is not None]
+    ok_s = [i for i, g in enumerate(soft) if g is not None]
+    log(f"soft margin workload (256x256 noise, 240 B, B={B}): hard decode "
+        f"recovered {len(ok_h)}/{B} {ok_h}, soft {len(ok_s)}/{B} {ok_s}")
+    if any(g is not None and g != secret for g in soft + hard):
+        raise AssertionError("a decode returned a wrong secret")
+    if not set(ok_h) <= set(ok_s) or len(ok_s) <= len(ok_h):
+        raise AssertionError("the soft decode did not recover more than "
+                             "the hard one")
+
+
+def phase_ragged(dev, launches: dict) -> None:
+    """5e: 1080p, B=8, secrets of 100 B to 4 KB; embed_batch(verify=True,
+    max_retries=4) must verify every image and the stego must read back,
+    without and with jitter 0.2. The card's stego of a plain embed under
+    fixed salts is held against the port's CPU stego of the same inputs:
+    +-1 on at most FHD_MAX_DIFF_FRAC of the bytes, and each reads the
+    other's stego."""
+    import numpy as np
+    import torch
+
+    import steganosaurus_tpu_torch as stt
+
+    rng = np.random.default_rng(31)
+    base = np.linspace(140, 230, FHD_W)
+    covers = np.clip(base[None, None, :, None]
+                     + rng.integers(-25, 26, (FHD_B, FHD_H, FHD_W, 3)), 0,
+                     255).astype(np.uint8)
+    covers = np.ascontiguousarray(covers.transpose(0, 3, 1, 2))
+    lens = [int(n) for n in np.linspace(100, 4096, FHD_B)]
+    secrets = [bytes(rng.integers(0, 256, n, dtype=np.uint8)) for n in lens]
+    salts = [bytes([i + 60]) * 16 for i in range(FHD_B)]
+    covers_d = torch.from_numpy(covers).to(dev)
+    for jitter in (0.0, 0.2):
+        p = stt.Params(jitter=jitter)
+
+        def run():
+            res = stt.embed_batch(covers_d, secrets, master_key=MASTER_KEY,
+                                  params=p, salts=salts, verify=True,
+                                  max_retries=4, device_resident=True,
+                                  layout="nchw")
+            got = stt.extract_batch(res.stego, master_key=MASTER_KEY,
+                                    params=p, clen_hint=max(lens),
+                                    layout="nchw")
+            return res, got
+
+        res, got = count_launches(f"ragged verify jitter={jitter}",
+                                  launches, run)
+        resalted = [i for i, (a, b) in enumerate(zip(res.salts, salts))
+                    if a != b]
+        n_ok = sum(g == s for g, s in zip(got, secrets))
+        card = stt.embed_batch(covers_d, secrets, master_key=MASTER_KEY,
+                               params=p, salts=salts, layout="nchw")
+        cpu = stt.embed_batch(covers, secrets, master_key=MASTER_KEY,
+                              params=p, salts=salts, layout="nchw",
+                              device="cpu")
+        diff = card.stego.astype(np.int16) - cpu.stego.astype(np.int16)
+        n_diff = int(np.count_nonzero(diff))
+        cross = (stt.extract_batch(card.stego, master_key=MASTER_KEY,
+                                   params=p, layout="nchw", device="cpu"),
+                 stt.extract_batch(cpu.stego, master_key=MASTER_KEY,
+                                   params=p, layout="nchw", device=dev))
+        n_cross = [sum(g == s for g, s in zip(got, secrets))
+                   for got in cross]
+        log(f"1080p B={FHD_B} ragged {lens[0]}..{lens[-1]} B, jitter "
+            f"{jitter}: verified {res.verified}, re-salted {resalted}, read "
+            f"back {n_ok}/{FHD_B}; card stego vs CPU port: {n_diff} of "
+            f"{diff.size} bytes differ, max |diff| {int(np.abs(diff).max())}"
+            f"; CPU reads the card's stego {n_cross[0]}/{FHD_B}, the card "
+            f"the CPU's {n_cross[1]}/{FHD_B}")
+        if not all(res.verified) or n_ok != FHD_B:
+            raise AssertionError(f"ragged verify failed at jitter {jitter}")
+        if (np.abs(diff).max() > 1 or n_diff / diff.size > FHD_MAX_DIFF_FRAC
+                or n_cross != [FHD_B, FHD_B]):
+            raise AssertionError("card stego disagrees with the CPU port")
+
+
 def main() -> int:
     if not (PKG / "__init__.py").is_file():
         print(f"chip_smoke: {PKG} is missing; run from a checkout of the "
@@ -303,6 +618,7 @@ def main() -> int:
     with tempfile.TemporaryDirectory(prefix="stt_walk_") as walk_cache:
         os.environ["STEGANOSAURUS_WALK_CACHE"] = walk_cache
         from steganosaurus_tpu_torch import runtime
+        from steganosaurus_tpu_torch.spectral import corner_kernels as ck
 
         runtime.configure_precision()
         dev = torch.device("cuda", 0)
@@ -327,8 +643,16 @@ def main() -> int:
         torch.cuda.synchronize()
         phase_small(dev)
         torch.cuda.synchronize()
-        k1["launches"] = phase_uhd(covers_d)
+        launches = {"round trip": phase_uhd(covers_d)}
         torch.cuda.synchronize()
+        stego = timed("stream", phase_stream, covers_d, launches)
+        timed("rotating", phase_rotating, covers_d, launches)
+        timed("quality", phase_quality, covers_d, stego, launches)
+        del stego
+        timed("soft", phase_soft, dev, launches)
+        timed("ragged", phase_ragged, dev, launches)
+        log(f"{ck.KERNEL} launches per path: {launches}")
+        k1["launches"] = sum(launches.values())
         log(f"smoke wall time {time.perf_counter() - t_all:.1f} s")
     print(json.dumps({"kernels": [{
         "name": k1["name"], "route": k1["route"], "source": k1["source"],

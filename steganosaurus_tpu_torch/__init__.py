@@ -1,23 +1,30 @@
 """steganosaurus_tpu_torch — the PyTorch + CUDA port of steganosaurus_tpu.
 
 The JAX package (steganosaurus_tpu/) is the reference; this package runs the
-same batch embed -> extract main path on an NVIDIA H100 and writes the same
-wire format, so stegos cross-decode between the two in both directions.
+same shared-walk batch embed -> extract path and its serving surface on an
+NVIDIA H100 and writes the same wire format, so stegos cross-decode between
+the two in both directions.
 
 Layout follows the JAX package so each module's counterpart is easy to find:
 
-- ``runtime``    device resolution, CUDA requirement, matmul precision.
+- ``runtime``    device resolution, CUDA requirement, matmul precision,
+                 host<->device copies that do not stall the stream.
 - ``_build``     builds ``csrc/*.cu`` with nvcc (sm_90a) and the host native
                  library (native/) from the repository's own sources.
 - ``spectral/``  corner pruned-DFT math; ``corner_kernels`` wraps the
                  hand-written stage-1 DFT kernel (csrc/corner_stage1.cu).
 - ``ops/``       MSB-first bit/word packing and repetition ECC on tensors.
-- ``parallel/``  the device cores: frame build, corner embed, fused extract.
-- ``pipeline/``  header framing and the embed_batch / extract_batch API.
+- ``parallel/``  the device cores: frame build, corner embed, fused extract,
+                 soft-decision retry, raw-bit read.
+- ``pipeline/``  header framing, the embed_batch / extract_batch API with
+                 verify, ragged secrets, jitter and channel_report, and the
+                 embed_stream / extract_stream pipelining.
+- ``utils/``     PSNR, SSIM, BER and ecc_report; quality_device on the card.
 
 Host crypto, the turtle-walk keystream and Params come straight from the
 JAX package's jax-free modules (steganosaurus_tpu.config, .crypto,
-.keystream, ._native_loader). This package never imports jax.
+.keystream, ._native_loader, .io.image, .utils.metrics' numpy metrics).
+This package never imports jax.
 """
 
 from steganosaurus_tpu.config import Params
@@ -32,6 +39,18 @@ _API = {
                       "extract_batch"),
     "extract_dispatch": ("steganosaurus_tpu_torch.pipeline.batch",
                          "extract_dispatch"),
+    "channel_report": ("steganosaurus_tpu_torch.pipeline.batch",
+                       "channel_report"),
+    "prefetch_walk": ("steganosaurus_tpu_torch.pipeline.batch",
+                      "prefetch_walk"),
+    "embed_stream": ("steganosaurus_tpu_torch.pipeline.stream",
+                     "embed_stream"),
+    "extract_stream": ("steganosaurus_tpu_torch.pipeline.stream",
+                       "extract_stream"),
+    "load_rgb_batches": ("steganosaurus_tpu_torch.pipeline.stream",
+                         "load_rgb_batches"),
+    "quality_device": ("steganosaurus_tpu_torch.utils.metrics",
+                       "quality_device"),
     "StegoError": ("steganosaurus_tpu_torch.pipeline.errors", "StegoError"),
 }
 

@@ -1,7 +1,8 @@
 """MSB-first big-endian i32 word packing between bytes and bits.
 
-Host side (numpy): byte strings -> words, the layout the embed core takes
-(the twin of steganosaurus_tpu/parallel/batch.py pack_bytes_words_host).
+Host side (numpy): byte strings -> words, the layout the embed core takes,
+and bit frames -> words -> bits (the twins of steganosaurus_tpu/parallel/
+batch.py pack_bytes_words_host, pack_bits_words_host, unpack_words_host).
 Device side (torch): words -> bits and bits -> words, the pair that
 steganosaurus_tpu.parallel.batch._unpack_bits_words / _pack_bits_words run
 inside the jitted cores. A word's bytes are big-endian and its bits
@@ -31,6 +32,25 @@ def pack_bytes_words_host(rows: list[bytes]) -> np.ndarray:
     for i, r in enumerate(rows):
         arr[i, :n] = np.frombuffer(r, np.uint8)
     return _be_words(arr)
+
+
+def pack_bits_words_host(bits: np.ndarray) -> np.ndarray:
+    """(B, n) 0/1 u8 -> (B, ceil(n/32)) int32 words, MSB first, the last
+    word zero-padded (the twin of steganosaurus_tpu/parallel/batch.py
+    pack_bits_words_host; unpack_bits_words inverts it)."""
+    byts = np.packbits(np.asarray(bits, np.uint8), axis=1)
+    pad = (-byts.shape[1]) % 4
+    if pad:
+        byts = np.pad(byts, ((0, 0), (0, pad)))
+    return _be_words(byts)
+
+
+def unpack_words_host(words: np.ndarray, n: int) -> np.ndarray:
+    """(B, k) int32 words -> (B, n) u8 bits, MSB first (the host twin of
+    unpack_bits_words; steganosaurus_tpu/parallel/batch.py
+    unpack_words_host)."""
+    byts = np.asarray(words).view(np.uint32).astype(">u4").view(np.uint8)
+    return np.unpackbits(byts.reshape(words.shape[0], -1), axis=1)[:, :n]
 
 
 def unpack_bits_words(words: torch.Tensor, n: int) -> torch.Tensor:

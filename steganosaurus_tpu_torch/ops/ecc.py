@@ -8,8 +8,10 @@ import torch
 
 
 def rep_encode(bits: torch.Tensor, n: int) -> torch.Tensor:
-    """Repeat each bit n times (reference rep{3,7}_encode_bits)."""
-    return bits.repeat_interleave(n, dim=-1)
+    """Repeat each bit n times (reference rep{3,7}_encode_bits): an expand
+    and a copy, with no host sync on CUDA."""
+    return bits.unsqueeze(-1).expand(*bits.shape, n).reshape(
+        *bits.shape[:-1], -1)
 
 
 def _groups(x: torch.Tensor, n: int) -> torch.Tensor:

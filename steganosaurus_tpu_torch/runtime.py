@@ -8,6 +8,7 @@ the caller hands it CPU tensors or asks for it by name.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -43,3 +44,38 @@ def resolve_device(device=None, like=None) -> torch.device:
     if dev.type == "cuda":
         require_cuda()
     return dev
+
+
+def upload(a: np.ndarray, dev: torch.device) -> torch.Tensor:
+    """A host array as a tensor on `dev`. To CUDA it goes through pinned
+    memory with a non-blocking copy: a pageable .to(cuda) synchronizes the
+    stream, which would make the host wait for every batch queued ahead of
+    it and undo the stream pipeline's overlap."""
+    t = torch.from_numpy(np.ascontiguousarray(a))
+    if dev.type != "cuda":
+        return t.to(dev)
+    return t.pin_memory().to(dev, non_blocking=True)
+
+
+class HostCopy:
+    """A device tensor's copy to the host, queued at construction and
+    waited for in numpy(). On CUDA the copy goes into pinned memory behind
+    the work that produced the tensor, and numpy() waits on an event
+    recorded right after it: only for that work, not for batches queued
+    later on the same stream (torch.cuda.synchronize() or a plain .cpu()
+    would wait for those too)."""
+
+    def __init__(self, t: torch.Tensor):
+        self._event = None
+        if t.device.type == "cuda":
+            self._host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+            self._host.copy_(t, non_blocking=True)
+            self._event = torch.cuda.Event()
+            self._event.record(torch.cuda.current_stream(t.device))
+        else:
+            self._host = t
+
+    def numpy(self) -> np.ndarray:
+        if self._event is not None:
+            self._event.synchronize()
+        return self._host.numpy()

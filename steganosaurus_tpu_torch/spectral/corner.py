@@ -222,18 +222,26 @@ def ifft_corner_real(dr: torch.Tensor, di: torch.Tensor, H: int, W: int,
     return t.reshape(*lead, H, W)
 
 
-def write_delta(cr, ci, sign, mask, cos_a, sin_a):
+def write_delta(cr, ci, sign, mask, cos_a, sin_a, cjd=None, sjd=None):
     """Dense hard phase-write delta over the corner (reference
-    write_bit_on_bin; the JAX write_delta's no-jitter, soft=False branch).
+    write_bit_on_bin; the JAX write_delta's soft=False branch).
 
     cr/ci: (..., Ky, Kx) corner spectrum. sign: per-image bit sign (+1/-1).
     mask: (3, Ky, Kx) f32, 1.0 where a walk bin lives. cos_a/sin_a: f32
-    scalars. Returns (dr, di) = 2*(nv - v) at walk bins (the pre-doubled
-    Hermitian-half write), 0 elsewhere; nv = mag * e^{i*s*alpha}."""
+    scalars. cjd/sjd: the walk's static (3, Ky, Kx) cos/sin jitter maps, or
+    None when Params.jitter == 0. Returns (dr, di) = 2*(nv - v) at walk
+    bins (the pre-doubled Hermitian-half write), 0 elsewhere;
+    nv = mag * e^{i*(jd + s*alpha)}."""
     mag = torch.sqrt(cr * cr + ci * ci).clamp_min(1e-12)
+    if cjd is None:
+        cos_t = cos_a
+        sin_t = sign * sin_a
+    else:
+        cos_t = cjd * cos_a - sign * (sjd * sin_a)
+        sin_t = sjd * cos_a + sign * (cjd * sin_a)
     m2 = 2.0 * mask
-    dr = m2 * (mag * cos_a - cr)
-    di = m2 * (mag * (sign * sin_a) - ci)
+    dr = m2 * (mag * cos_t - cr)
+    di = m2 * (mag * sin_t - ci)
     return dr, di
 
 
@@ -244,7 +252,9 @@ def apply_write_floor(dr, di, cr, ci, floor: float, img_pixels: float):
     that the spatial RMS of the write reaches `floor`; phases stay exactly
     on target and b == 1 is bit-identical to the plain write. The
     1/img_pixels pre-scaling keeps the quadratic's squares inside f32."""
-    s = torch.tensor(1.0 / img_pixels, dtype=dr.dtype, device=dr.device)
+    # 0-dim host tensors: an f32 scalar like JAX's, with no host-to-device
+    # copy (a blocking upload would stall the stream pipeline)
+    s = torch.tensor(1.0 / img_pixels, dtype=dr.dtype)
     hr, hi = (0.5 * s) * dr, (0.5 * s) * di
     wm = ((hr * hr + hi * hi) > 0).to(dr.dtype)
     crs, cis = cr * s, ci * s
@@ -253,7 +263,7 @@ def apply_write_floor(dr, di, cr, ci, floor: float, img_pixels: float):
     X = torch.sum(crs * hr + cis * hi, axes, keepdim=True)
     Hs = torch.sum(hr * hr + hi * hi, axes, keepdim=True)
     p = V + 2.0 * X + Hs
-    e_star = torch.tensor(1.5 * floor ** 2, dtype=dr.dtype, device=dr.device)
+    e_star = torch.tensor(1.5 * floor ** 2, dtype=dr.dtype)
     disc = torch.clamp_min((V + X) ** 2 - p * (V - e_star), 0.0)
     b = torch.clamp((V + X + torch.sqrt(disc)) / torch.clamp_min(p, 1e-30),
                     1.0, 32.0)
@@ -261,9 +271,21 @@ def apply_write_floor(dr, di, cr, ci, floor: float, img_pixels: float):
             b * di + 2.0 * (b - 1.0) * wm * ci)
 
 
-def read_bits_dense(ci, sign_sin_a):
-    """Phase read (no jitter) of corner values ci (any shape — the dense
-    corner or the values gathered at the walk bins): bit = 1 iff
-    sign(sin a) * Im(C) >= 0; with sin(a) == 0 every bit decodes 1, the
-    reference's tie rule. Re(C) enters only through a jitter angle."""
-    return (ci * sign_sin_a >= 0).to(torch.uint8)
+def decision_values(ci, sign_sin_a, cr=None, cjd=None, sjd=None):
+    """Phase-read decision values of corner values (any shape — the dense
+    corner or the values gathered at the walk bins):
+
+        d = sign(sin a) * (Im C * cos jd - Re C * sin jd),
+
+    or sign(sin a) * Im C without jitter (cjd is None; cr is then unused).
+    The hard bit is d >= 0; the matched-filter soft decode sums d."""
+    d = ci if cjd is None else ci * cjd - cr * sjd
+    return d * sign_sin_a
+
+
+def read_bits_dense(ci, sign_sin_a, cr=None, cjd=None, sjd=None):
+    """Phase read: bit = 1 iff decision_values(...) >= 0; with sin(a) == 0
+    every bit decodes 1, the reference's tie rule. Re(C) enters only
+    through a jitter angle."""
+    return (decision_values(ci, sign_sin_a, cr, cjd, sjd) >= 0).to(
+        torch.uint8)

@@ -124,7 +124,7 @@ def test_wrong_key_and_flagged_headers_read_as_none():
 
 
 @pytest.mark.parametrize("field,value", [
-    ("jitter", 0.1), ("soft_write", True), ("qim", 4), ("rs", True),
+    ("soft_write", True), ("qim", 4), ("rs", True),
     ("alpha_spread", 0.2), ("per_image_walk", True), ("pad_quantum", 64),
     ("adaptive_alpha", True), ("coherent", True),
     ("cover_dependent_path", True)])
@@ -139,17 +139,11 @@ def test_unsupported_params_raise(field, value):
 
 def test_unsupported_call_options_raise():
     imgs, secrets = _inputs("nhwc")
-    with pytest.raises(stt.StegoError, match="verify"):
-        stt.embed_batch(imgs, secrets, master_key=MK, verify=True,
-                        device="cpu")
     with pytest.raises(stt.StegoError, match="mesh"):
         stt.embed_batch(imgs, secrets, master_key=MK, mesh=object(),
                         device="cpu")
     with pytest.raises(stt.StegoError, match="mesh"):
         stt.extract_batch(imgs, master_key=MK, mesh=object(), device="cpu")
-    with pytest.raises(stt.StegoError, match="unequal"):
-        stt.embed_batch(imgs, secrets[:-1] + [b"short"], master_key=MK,
-                        device="cpu")
     with pytest.raises(ValueError):
         stt.embed_batch(imgs, secrets, device="cpu")  # no key
     with pytest.raises(ValueError):
@@ -178,13 +172,16 @@ def test_cuda_requested_without_cuda_raises():
 
 
 def test_port_never_imports_jax():
-    """Importing the port and running a CPU round trip leaves jax out of
-    sys.modules (the card's machine has no JAX)."""
+    """Importing the port (its stream and metrics modules too) and running
+    a CPU round trip leaves jax out of sys.modules (the card's machine has
+    no JAX)."""
     code = """
 import sys
 import numpy as np
 import torch
 import steganosaurus_tpu_torch as stt
+import steganosaurus_tpu_torch.pipeline.stream
+import steganosaurus_tpu_torch.utils.metrics
 torch.set_num_threads(2)
 rng = np.random.default_rng(0)
 imgs = rng.integers(100, 160, (2, 256, 256, 3), dtype=np.uint8)
@@ -200,3 +197,140 @@ print("jax" in sys.modules, any(m.startswith("jax") for m in sys.modules))
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr[-2000:]
     assert out.stdout.split() == ["False", "False"], out.stdout
+
+
+# --- ragged secrets, jitter and verify (128x128 covers, B=6) ---------------
+
+FAST = Params(pbkdf2_iter=500)
+JITTER = Params(pbkdf2_iter=500, jitter=0.2)
+# (params, secrets, salts): the JAX package's tests/test_batch.py ragged
+# case (:24-35) and jitter case (:340-358; its secrets are ragged too)
+CASES = {
+    "ragged": (FAST, [b"a", b"bb", b"ccc", b"x" * 40, b"hello world", b"z"],
+               [bytes([11 * i + 1]) * 16 for i in range(6)]),
+    "jitter": (JITTER, [bytes([70 + i]) * (7 + i) for i in range(6)],
+               [bytes([5 * i + 1]) * 16 for i in range(6)]),
+}
+
+
+def _small_covers():
+    """tests/test_batch.py's covers fixture: 6 x 128x128 gradient + noise."""
+    rng = np.random.default_rng(21)
+    base = np.linspace(170, 225, 128)
+    imgs = base[None, None, :, None] + rng.integers(-12, 13, (6, 128, 128, 3))
+    return np.clip(imgs, 0, 255).astype(np.uint8)
+
+
+def _case_stegos(case):
+    """(params, covers, secrets, torch result, JAX result) for one case."""
+    key = ("case", case)
+    if key not in _CACHE:
+        p, secrets, salts = CASES[case]
+        covers = _small_covers()
+        tres = stt.embed_batch(covers, secrets, password="pw", params=p,
+                               salts=salts, device="cpu")
+        jres = jbatch.embed_batch(covers, secrets, password="pw", params=p,
+                                  salts=salts)
+        _CACHE[key] = (p, covers, secrets, tres, jres)
+    return _CACHE[key]
+
+
+@pytest.mark.parametrize("case", ["ragged", "jitter"])
+def test_case_torch_embed_jax_extract(case):
+    p, covers, secrets, tres, jres = _case_stegos(case)
+    assert tres.stego.shape == covers.shape
+    assert tres.written_bits == jres.written_bits
+    assert len(set(tres.written_bits)) > 1  # the unequal-length path
+    assert jbatch.extract_batch(tres.stego, password="pw",
+                                params=p) == secrets
+
+
+@pytest.mark.parametrize("case", ["ragged", "jitter"])
+def test_case_jax_embed_torch_extract(case):
+    """Unhinted (header probe, then the payload pass) and hinted (one fused
+    pass) reads of the JAX package's stegos, and of the port's own."""
+    p, _, secrets, tres, jres = _case_stegos(case)
+    js = np.asarray(jres.stego)
+    longest = max(len(s) for s in secrets)
+    for stego in (js, tres.stego):
+        assert stt.extract_batch(stego, password="pw", params=p,
+                                 device="cpu") == secrets
+        assert stt.extract_batch(stego, password="pw", params=p,
+                                 clen_hint=longest, device="cpu") == secrets
+
+
+@pytest.mark.parametrize("case", ["ragged", "jitter"])
+def test_case_stego_bytes_match_jax(case):
+    _, _, _, tres, jres = _case_stegos(case)
+    diff = tres.stego.astype(np.int16) - np.asarray(jres.stego).astype(
+        np.int16)
+    n = int(np.count_nonzero(diff))
+    assert np.abs(diff).max() <= 1
+    assert n <= MAX_DIFF_FRAC * diff.size, (n, diff.size)
+
+
+def test_equal_and_ragged_frames_agree():
+    """The unequal-length path (host-built frames) and the equal-length
+    path (ECC expanded on the device) write the same frame: a batch made
+    ragged only by one extra image leaves the other rows' bytes unchanged
+    when the extra image's frame fits the same bucket."""
+    covers = _small_covers()[:3]
+    salts = [bytes([9 * i + 2]) * 16 for i in range(3)]
+    eq = stt.embed_batch(covers, [b"same"] * 3, password="pw", params=FAST,
+                         salts=salts, device="cpu")
+    rg = stt.embed_batch(covers, [b"same", b"same", b"sam"], password="pw",
+                         params=FAST, salts=salts, device="cpu")
+    assert eq.written_bits[0] - rg.written_bits[2] == 56
+    # same bucket; rows 0 and 1 write identical frames in both batches
+    np.testing.assert_array_equal(eq.stego[:2], rg.stego[:2])
+
+
+def test_verify_resalts_like_jax(monkeypatch):
+    """verify=True (tests/test_batch.py:65-97): every image reads back; a
+    failure forced on the first read-back is re-embedded with a fresh salt
+    and written into the stego in place. verified and the salts come out
+    as in the JAX package under the same forced failure."""
+    from steganosaurus_tpu.pipeline import batch as jpb
+    from steganosaurus_tpu_torch.pipeline import batch as tpb
+
+    covers = _small_covers()[:3]
+    secrets = [b"v0", b"v1", b"v2"]
+    res = stt.embed_batch(covers, secrets, password="pw", params=FAST,
+                          verify=True, device="cpu")
+    assert res.verified == [True, True, True]
+    assert len(res.salts) == 3 and all(len(s) == 16 for s in res.salts)
+    assert jbatch.extract_batch(res.stego, password="pw",
+                                params=FAST) == secrets
+
+    fixed = [bytes([i]) * 16 for i in range(3)]
+    outs = {}
+    for name, mod in (("torch", tpb), ("jax", jpb)):
+        real = mod.extract_batch
+        calls = {"n": 0}
+
+        def flaky(*a, _real=real, _calls=calls, **kw):
+            out = list(_real(*a, **kw))
+            _calls["n"] += 1
+            if _calls["n"] == 1:
+                out[1] = None
+            return out
+
+        monkeypatch.setattr(mod, "extract_batch", flaky)
+        kw = {"device": "cpu"} if name == "torch" else {}
+        outs[name] = mod.embed_batch(covers, secrets, password="pw",
+                                     params=FAST, salts=fixed, verify=True,
+                                     **kw)
+        monkeypatch.undo()
+        assert calls["n"] == 2  # the first read-back, then one retry
+    t, j = outs["torch"], outs["jax"]
+    assert t.verified == j.verified == [True, True, True]
+    for r in (t, j):
+        assert r.salts[0] == fixed[0] and r.salts[2] == fixed[2]
+        assert r.salts[1] != fixed[1]
+    assert isinstance(t.stego, np.ndarray)
+    assert jbatch.extract_batch(t.stego, password="pw",
+                                params=FAST) == secrets
+    # the re-embedded row is the embed under its new salt, in place
+    again = stt.embed_batch(covers, secrets, password="pw", params=FAST,
+                            salts=t.salts, device="cpu")
+    np.testing.assert_array_equal(t.stego, again.stego)

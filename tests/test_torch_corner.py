@@ -255,3 +255,39 @@ def test_write_delta_and_floor_match_jax():
                                atol=REL * float(jnp.max(jnp.abs(jbr))))
     np.testing.assert_allclose(bi.numpy(), np.asarray(jbi), rtol=0,
                                atol=REL * float(jnp.max(jnp.abs(jbi))))
+
+
+def test_jittered_write_and_read_match_jax():
+    """The jittered dense write (theta = jd + s*alpha) and the jittered
+    phase read d = sign(sin a) * (Im C cos jd - Re C sin jd) against the
+    JAX package's write_delta / read_bits_dense with cjd/sjd maps."""
+    rng = np.random.default_rng(15)
+    Ky, Kx = _dims()
+    cr = (rng.normal(size=(B, 3, Ky, Kx)) * 1e4).astype(np.float32)
+    ci = (rng.normal(size=(B, 3, Ky, Kx)) * 1e4).astype(np.float32)
+    sign = (rng.integers(0, 2, (B, 3, Ky, Kx)) * 2 - 1).astype(np.float32)
+    mask = (rng.random((3, Ky, Kx)) < 0.2).astype(np.float32)
+    jd = rng.uniform(-0.2, 0.2, (3, Ky, Kx)).astype(np.float32)
+    cjd, sjd = np.cos(jd), np.sin(jd)
+    alpha = np.float32(Params().alpha)
+    ca, sa = np.cos(alpha), np.sin(alpha)
+    t = [torch.from_numpy(a) for a in (cr, ci, sign, mask, cjd, sjd)]
+    dr, di = tcorner.write_delta(*t[:4], torch.tensor(ca), torch.tensor(sa),
+                                 t[4], t[5])
+    jdr, jdi = jcorner.write_delta(*map(jnp.asarray, (cr, ci, sign, mask)),
+                                   jnp.float32(ca), jnp.float32(sa),
+                                   jnp.asarray(cjd), jnp.asarray(sjd))
+    np.testing.assert_allclose(dr.numpy(), np.asarray(jdr), rtol=0,
+                               atol=REL * float(jnp.max(jnp.abs(jdr))))
+    np.testing.assert_allclose(di.numpy(), np.asarray(jdi), rtol=0,
+                               atol=REL * float(jnp.max(jnp.abs(jdi))))
+    # a written bin reads back its bit under the same jitter
+    nr, ni = t[0] + 0.5 * dr, t[1] + 0.5 * di
+    ssa = float(np.sign(np.sin(alpha)))
+    got = tcorner.read_bits_dense(ni, ssa, nr, t[4], t[5]).numpy()
+    want = np.asarray(jcorner.read_bits_dense(
+        jnp.asarray(nr.numpy()), jnp.asarray(ni.numpy()), ssa,
+        jnp.asarray(cjd), jnp.asarray(sjd)))
+    np.testing.assert_array_equal(got, want)
+    m = mask.astype(bool)[None].repeat(B, 0)
+    np.testing.assert_array_equal(got[m], (sign[m] > 0).astype(np.uint8))

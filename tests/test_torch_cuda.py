@@ -1,6 +1,7 @@
 """Card-only tests of the torch port: the hand-written K1 kernel
 (csrc/corner_stage1.cu) against its plain version, its wrapper's checks and
-launch count, and a small round trip through the kernel.
+launch count, a small round trip through the kernel, a two-batch stream,
+and the soft-decision retry pass.
 
 They skip without CUDA. This file imports neither jax nor the JAX package's
 device code, so it also runs on a machine without JAX:
@@ -92,3 +93,78 @@ def test_round_trip_on_card_goes_through_k1(dev):
     torch.cuda.synchronize()
     assert got == secrets
     assert ck.LAUNCHES[ck.KERNEL] >= n + 2
+
+
+def test_stream_on_card_matches_batches(dev):
+    """A stream of two 512x512 batches (depth 2, nchw) yields the stegos of
+    per-batch embed_batch calls byte for byte, and extract_stream reads
+    them back."""
+    import steganosaurus_tpu_torch as stt
+
+    rng = np.random.default_rng(3)
+    imgs = [torch.from_numpy(rng.integers(90, 170, (4, 3, 512, 512),
+                                          dtype=np.uint8)).to(dev)
+            for _ in range(2)]
+    secrets = [[bytes([k * 4 + i]) * (60 + i) for i in range(4)]
+               for k in range(2)]
+    salts = [[bytes([k * 4 + i + 1]) * 16 for i in range(4)]
+             for k in range(2)]
+    mk = bytes(range(32))
+    streamed = list(stt.embed_stream(
+        zip(imgs, secrets, salts), master_key=mk, depth=2, layout="nchw"))
+    for k, res in enumerate(streamed):
+        ref = stt.embed_batch(imgs[k], secrets[k], master_key=mk,
+                              salts=salts[k], device_resident=True,
+                              layout="nchw")
+        torch.cuda.synchronize()
+        assert res.stego.device == imgs[k].device
+        assert torch.equal(res.stego, ref.stego)
+    got = list(stt.extract_stream((r.stego for r in streamed),
+                                  master_key=mk, depth=2, layout="nchw"))
+    assert got == secrets
+
+
+def test_soft_retry_pass_on_card_launches_k1(dev, monkeypatch):
+    """The soft-decision retry pass on the margin workload (256x256 noise
+    cover, 240 B, B=8), with the fused pass's inline soft rows dropped so
+    the retry pass is what recovers: it recovers more than the hard decode
+    and launches K1."""
+    import steganosaurus_tpu_torch as stt
+    from steganosaurus_tpu_torch.pipeline import batch as tbatch
+    from steganosaurus_tpu_torch.spectral import corner_kernels as ck
+
+    rng = np.random.default_rng(1)
+    cover = rng.integers(0, 256, (256, 256, 3)).astype(np.uint8)
+    secret = bytes(rng.integers(0, 256, 240, dtype=np.uint8))
+    B, mk = 8, bytes(range(32))
+    covers = torch.from_numpy(np.stack([cover] * B)).to(dev)
+    hard_p = stt.Params(soft_decode_fallback=False)
+    stego = stt.embed_batch(covers, [secret] * B, master_key=mk,
+                            params=hard_p, salts=[bytes([i]) * 16
+                                                  for i in range(B)],
+                            device_resident=True).stego
+    hard = stt.extract_batch(stego, master_key=mk, params=hard_p)
+    n_hard = sum(g is not None for g in hard)
+    assert n_hard < B, "the margin workload no longer fails hard"
+
+    real_dispatch = tbatch._ExtractJob._dispatch_pass
+    real_retry = tbatch._ExtractJob._soft_retry_failed
+    retry_launches = []
+
+    def no_inline(self, *a, **kw):
+        hard_rows, _, _ = real_dispatch(self, *a, **kw)
+        return hard_rows, None, None
+
+    def counted_retry(self, headers, out):
+        n = ck.LAUNCHES[ck.KERNEL]
+        real_retry(self, headers, out)
+        retry_launches.append(ck.LAUNCHES[ck.KERNEL] - n)
+
+    monkeypatch.setattr(tbatch._ExtractJob, "_dispatch_pass", no_inline)
+    monkeypatch.setattr(tbatch._ExtractJob, "_soft_retry_failed",
+                        counted_retry)
+    got = stt.extract_batch(stego, master_key=mk)
+    torch.cuda.synchronize()
+    assert retry_launches and retry_launches[0] >= 1
+    assert sum(g is not None for g in got) > n_hard
+    assert all(g is None or g == secret for g in got)

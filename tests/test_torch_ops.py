@@ -173,3 +173,41 @@ def test_statics_from_numpy_matches_own_pos_map():
     # slot share its bin), every other bin reads `bucket`
     slots = pos[pos < bucket]
     assert len(torch.unique(slots)) == nbits
+
+
+def test_jitter_statics_match_jax():
+    """With Params.jitter != 0 the static maps are (pos, cjd, sjd), equal
+    to the JAX package's: pos exactly, the cos/sin maps to f32 rounding."""
+    PH, PW = 384, 640
+    params = Params(jitter=0.2)
+    Ky, Kx = tcorner.corner_dims(PH, PW, params.rmax)
+    nbits = 912 + (64 + 16) * 56
+    bucket = -(-nbits // 4096) * 4096
+    jmaps, jn = jbatch._corner_statics_device(None, MK, params, PH, PW, nbits,
+                                              bucket, Ky, Kx, None)
+    maps, n = tbatch._corner_statics_device(None, MK, params, PH, PW, nbits,
+                                            bucket, Ky, Kx,
+                                            torch.device("cpu"))
+    assert n == jn and len(maps) == len(jmaps) == 3
+    want = tpb.statics_from_numpy([np.asarray(m) for m in jmaps], "cpu")
+    torch.testing.assert_close(maps[0], want[0], rtol=0, atol=0)
+    for got, ref in zip(maps[1:], want[1:]):
+        torch.testing.assert_close(got, ref, rtol=0, atol=1e-6)
+    assert (maps[2] != 0).any()  # the sine map carries the walk's jitter
+
+
+def test_host_bit_words_round_trip():
+    """pack_bits_words_host / unpack_words_host against the JAX package's
+    pack_bits_words_host and unpack_words_host, and the device unpack."""
+    rng = np.random.default_rng(12)
+    bits = rng.integers(0, 2, (3, 4096)).astype(np.uint8)
+    words = tbits.pack_bits_words_host(bits)
+    np.testing.assert_array_equal(words, jpb.pack_bits_words_host(bits))
+    np.testing.assert_array_equal(tbits.unpack_words_host(words, 4096), bits)
+    np.testing.assert_array_equal(
+        jpb.unpack_words_host(words, 4000), bits[:, :4000])
+    np.testing.assert_array_equal(
+        tbits.unpack_bits_words(torch.from_numpy(words), 4096).numpy(), bits)
+    odd = bits[:, :100]   # a partial last word is zero-padded
+    np.testing.assert_array_equal(
+        tbits.unpack_words_host(tbits.pack_bits_words_host(odd), 100), odd)

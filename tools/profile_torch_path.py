@@ -1,6 +1,6 @@
 """Where the time goes in the torch port's main path, on one CUDA card.
 
-    python3 tools/profile_torch_path.py [TRACE_DIR]
+    python3 tools/profile_torch_path.py [--stream] [TRACE_DIR]
 
 Runs one warm embed_batch -> extract_batch round trip of chip_smoke.py's 4K
 workload (2160x3840, B=64, 16 KB; seed-42 bench covers, rng(7) secrets,
@@ -10,8 +10,14 @@ separately: host wall ms (ending in torch.cuda.synchronize), device busy ms
 device ms per stage, and the top kernels. Stages are profiler ranges put
 around the corner functions for this run only (stage1 = the K1 wrapper,
 stage2 = the adaptive y-contraction, write, floor, ifft; "other" is the
-rest: bit lookup, u8 epilogue, walk gather, ECC decode). The Chrome traces
-go to TRACE_DIR/profile_torch_path_{embed,extract}.json (default
+rest: bit lookup, u8 epilogue, walk gather, ECC decode).
+
+--stream profiles a two-batch embed_stream -> extract_stream (depth 2) of
+the same workload against the serialized loop of two round trips, and
+prints wall ms, device busy ms and idle share of each: the overlap of host
+and device work that the stream buys shows as a lower idle share.
+
+The Chrome traces go to TRACE_DIR/profile_torch_path_<window>.json (default
 build/profile/, gitignored).
 """
 
@@ -36,10 +42,36 @@ def _span(name, fn):
     return wrapped
 
 
-def main() -> int:
+def _profile(name: str, fn, out: pathlib.Path, spans: set):
+    """Run fn() under torch.profiler; print and return (wall ms, device
+    busy ms, device events other than the stage spans, span ms by name)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t) * 1e3
+    # the stage ranges appear on the device as annotations spanning their
+    # kernels (K1, launched through ctypes, is attributed to its range only
+    # there); every other device event is a kernel or a copy
+    dev_evts = [e for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA]
+    kernels = [e for e in dev_evts if e.key not in spans]
+    span_ms = {e.key: e.self_device_time_total / 1e3 for e in dev_evts
+               if e.key in spans}
+    busy = sum(e.self_device_time_total for e in kernels) / 1e3
+    print(f"{name}: wall {wall!r} ms, device busy {busy!r} ms, idle share "
+          f"{max(0.0, 1.0 - busy / wall)!r}")
+    prof.export_chrome_trace(str(out / f"profile_torch_path_{name}.json"))
+    return wall, busy, kernels, span_ms
+
+
+def main() -> int:
+    import torch
 
     if not torch.cuda.is_available():
         print("profile_torch_path: needs a CUDA card", file=sys.stderr)
@@ -82,30 +114,36 @@ def main() -> int:
     extract(embed())                 # warm: walk expansion, tables, library
     torch.cuda.synchronize()
     chip_smoke.phase_probe()
-    out = pathlib.Path(sys.argv[1]) if len(sys.argv) > 1 else (
-        REPO / "build" / "profile")
+    args = sys.argv[1:]
+    stream_mode = "--stream" in args
+    args = [a for a in args if a != "--stream"]
+    out = pathlib.Path(args[0]) if args else REPO / "build" / "profile"
     out.mkdir(parents=True, exist_ok=True)
+    names = {s[0] for s in stages}
+    if stream_mode:
+        def loop():
+            for _ in range(2):
+                extract(embed())
+
+        def stream():
+            embeds = stt.embed_stream(
+                ((covers, secrets, salts) for _ in range(2)), master_key=mk,
+                depth=2, layout="nchw")
+            for got in stt.extract_stream((r.stego for r in embeds),
+                                          master_key=mk, clen_hint=secret,
+                                          depth=2, layout="nchw"):
+                assert got == secrets, "payload recovery failed"
+
+        stream()                     # warm the stream's own first use
+        torch.cuda.synchronize()
+        for name, fn in (("loop2", loop), ("stream2", stream),
+                         ("stream2_again", stream), ("loop2_again", loop)):
+            _profile(name, fn, out, names)
+        return 0
     stego = embed()
     torch.cuda.synchronize()
     for name, fn in (("embed", embed), ("extract", lambda: extract(stego))):
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            wall = (time.perf_counter() - t) * 1e3
-        # the stage ranges appear on the device as annotations spanning
-        # their kernels (K1, launched through ctypes, is attributed to its
-        # range only there); every other device event is a kernel
-        names = {s[0] for s in stages}
-        dev_evts = [e for e in prof.key_averages()
-                    if e.device_type == DeviceType.CUDA]
-        kernels = [e for e in dev_evts if e.key not in names]
-        spans = {e.key: e.self_device_time_total / 1e3 for e in dev_evts
-                 if e.key in names}
-        busy = sum(e.self_device_time_total for e in kernels) / 1e3
-        print(f"{name}: wall {wall!r} ms, device busy {busy!r} ms, idle "
-              f"share {max(0.0, 1.0 - busy / wall)!r}")
+        _, busy, kernels, spans = _profile(name, fn, out, names)
         for key, ms in spans.items():
             print(f"  stage {key:8s} {ms:10.3f} ms")
         print(f"  stage {'other':8s} {busy - sum(spans.values()):10.3f} ms")
@@ -113,7 +151,6 @@ def main() -> int:
                         reverse=True)[:10]:
             print(f"  kernel {e.self_device_time_total / 1e3:10.3f} ms "
                   f"x{e.count:<3d} {e.key[:80]}")
-        prof.export_chrome_trace(str(out / f"profile_torch_path_{name}.json"))
     return 0
 
 
