@@ -8,7 +8,9 @@ holds every kernel of the main path against its plain PyTorch version,
 drives the main path (embed_batch -> extract_batch) at 4K UHD, B=64, 16 KB
 secrets, then the serving surface (streams, rotating salts and keys, the
 channel report and quality, the soft-decision retry, ragged secrets with
-verify and jitter), and prints one line per measurement. The last two lines
+verify and jitter), every corner wire mode (soft write, alpha spread, QIM,
+RS, padding, per-image walks, Params.stealth() at 4K), and prints one
+line per measurement. The last two lines
 are JSON: the per-kernel record, then the device record. Any failure raises,
 and the process exits non-zero without printing them. Without CUDA, or
 without the package beside this file, it exits non-zero at once.
@@ -35,6 +37,22 @@ Phases:
   5e. ragged 1080p, B=8, 100 B to 4 KB secrets, verify=True, then jitter
              0.2: all verified and read back; card stegos held against the
              port's CPU stegos of the same inputs (+-1, cross-decode)
+  5f. modes  1080p, B=8, 4 KB, fixed salts, one Params per wire mode
+             (soft_write, alpha_spread=0.5, qim=3, rs, pad_quantum=1024,
+             per_image_walk, Params.stealth()): 8/8 on the card, card vs
+             CPU port stego +-1 (ripple planes of threshold rules counted
+             and bounded; none when the CPU port writes on the card's own
+             spectrum), cross-decode 8/8 both ways; planted faults of the
+             QIM write held against the same bounds; then a mixed batch of
+             every jitter-0 mode read in one extract_batch call, 8/8
+  5g. stealth Params.stealth() at 4K, B=16, 16 KB: 16/16, warm embed and
+             extract ms, host walk seconds cold and warm, PSNR beside the
+             default write's, peak memory; then a 3-batch stealth stream
+             beside the serialized loop (images/s, host CPU seconds, walk
+             cache left empty)
+  5h. RS pad Params(rs=True, pad_quantum=4096) at 4K, B=64, 16 KB: 64/64,
+             warm round trip with its host RS coding timed inside it,
+             channel_report payload post-ECC BER 0, PSNR
 Every path above must launch K1; its launches are counted per path.
 """
 
@@ -69,6 +87,31 @@ SMALL_MAX_DIFF_FRAC = 1e-3
 # package already differ in 0.12% of these bytes, the card and the CPU
 # port in 0.23%; every difference is +-1 and the stegos cross-decode.
 FHD_MAX_DIFF_FRAC = 5e-3
+# 5f, the wire modes at 1080p: 4 KB secrets. A write rule with a threshold
+# (a QIM bin whose lattice coordinate sits on a half-step, a soft-write bin
+# on its margin) can send one bin to another target when the card's and
+# the CPU's forward spectra differ in the last bits; the decoded bit is
+# the same, but its image-plane takes a low-frequency ripple that moves
+# more than RIPPLE_FRAC of the plane's bytes by 1 (a "ripple plane"). 5f
+# shows the cause each run: the CPU port fed the card's own forward
+# spectrum writes a stego with no ripple plane against the card's. A
+# ripple plane may move at most RIPPLE_MAX_FRAC of its bytes, and a
+# threshold mode may show at most MODE_MAX_RIPPLE_PLANES of its 24 planes;
+# both bounds sit between the readings of the correct rules and those of
+# planted faults of the card-side QIM rule, which 5f also runs and which
+# must fail them. First readings: the correct rules showed at most 7
+# ripple planes, each with at most 3.0% of its bytes moved; the dither
+# shift and floor-for-round faults 24 of 24, 88-92%, max |diff| 18-27;
+# the CPU port on the card's spectrum no ripple plane.
+MODE_SECRET = 4096
+RIPPLE_FRAC = 0.01
+RIPPLE_MAX_FRAC = 0.05
+MODE_MAX_RIPPLE_PLANES = 12
+# 5g: Params.stealth() at 4K, 16 KB: per-image walks cost one salt-keyed
+# host expansion per image at embed and again at extract (8 threads); the
+# stealth stream runs STEALTH_BATCHES batches with fresh salts
+STEALTH_B = 16
+STEALTH_BATCHES = 3
 
 
 def log(msg: str) -> None:
@@ -603,6 +646,446 @@ def phase_ragged(dev, launches: dict) -> None:
             raise AssertionError("card stego disagrees with the CPU port")
 
 
+def _fhd_mode_covers():
+    """(8, 3, 1080, 1920) u8 gradient + [-25, 25] noise covers, seed 41."""
+    import numpy as np
+
+    rng = np.random.default_rng(41)
+    base = np.linspace(140, 230, FHD_W)
+    covers = np.clip(base[None, None, :, None]
+                     + rng.integers(-25, 26, (FHD_B, FHD_H, FHD_W, 3)), 0,
+                     255).astype(np.uint8)
+    return np.ascontiguousarray(covers.transpose(0, 3, 1, 2))
+
+
+def _stego_diff(card, cpu) -> dict:
+    """Card stego vs CPU port stego of the same inputs ((B, 3, H, W) u8):
+    bytes differing, max |diff|, the ripple planes (image-planes with more
+    than RIPPLE_FRAC of their bytes differing), the largest share of
+    differing bytes in one plane, and the bytes differing outside the
+    ripple planes."""
+    import numpy as np
+
+    diff = card.astype(np.int16) - cpu.astype(np.int16)
+    per_plane = np.mean(diff != 0, axis=(2, 3))                # (B, 3)
+    ripple = per_plane > RIPPLE_FRAC
+    return {"n": int(np.count_nonzero(diff)), "size": diff.size,
+            "max": int(np.abs(diff).max()), "planes": int(ripple.sum()),
+            "of": ripple.size, "plane_max": float(per_plane.max()),
+            "out": int(np.count_nonzero(diff[~ripple]))}
+
+
+def _diff_line(d: dict) -> str:
+    return (f"{d['n']} of {d['size']} bytes differ, max |diff| {d['max']}, "
+            f"ripple planes {d['planes']} of {d['of']} (largest plane "
+            f"share {d['plane_max']!r}), {d['out']} outside them")
+
+
+def _within_bounds(d: dict, discontinuous: bool) -> bool:
+    """Every byte within +-1; at most FHD_MAX_DIFF_FRAC of the bytes
+    differ outside the ripple planes; no plane moves more than
+    RIPPLE_MAX_FRAC of its bytes; at most MODE_MAX_RIPPLE_PLANES ripple
+    planes for a threshold write rule (QIM, soft write), none for the
+    continuous hard write."""
+    return (d["max"] <= 1 and d["out"] <= FHD_MAX_DIFF_FRAC * d["size"]
+            and d["plane_max"] <= RIPPLE_MAX_FRAC
+            and d["planes"] <= (MODE_MAX_RIPPLE_PLANES if discontinuous
+                                else 0))
+
+
+def _with_card_spectrum(run_card, run_cpu):
+    """(run_card(), run_cpu()), where the CPU embed run_cpu() takes the
+    forward corner spectrum the card embed run_card() computed in place of
+    its own; the write rules, the floor, the inverse DFT and the epilogue
+    still run on the CPU. Each embed computes the spectrum once."""
+    from steganosaurus_tpu_torch.spectral import corner
+
+    real = corner.fwd_corner
+    seen = []
+
+    def capture(*a, **k):
+        out = real(*a, **k)
+        seen.append(tuple(t.cpu() for t in out))
+        return out
+
+    def replay(imgs_u8, *a, **k):
+        cr, ci = seen[0]
+        if cr.shape[:-2] != imgs_u8.shape[:-2]:
+            raise AssertionError(f"spectrum {tuple(cr.shape)} for images "
+                                 f"{tuple(imgs_u8.shape)}")
+        return cr.clone(), ci.clone()
+
+    corner.fwd_corner = capture
+    try:
+        card = run_card()
+    finally:
+        corner.fwd_corner = real
+    if len(seen) != 1:
+        raise AssertionError(f"the card embed computed {len(seen)} spectra")
+    corner.fwd_corner = replay
+    try:
+        cpu = run_cpu()
+    finally:
+        corner.fwd_corner = real
+    return card, cpu
+
+
+def _planted_faults():
+    """(name, patch) pairs of deliberate faults of the card-side QIM write;
+    patch() applies one and returns the function that undoes it. The
+    static-map cache is emptied both ways, so no faulty map outlives its
+    run."""
+    import torch
+
+    from steganosaurus_tpu_torch.pipeline import batch as tbatch
+
+    def patched(obj, name, fn):
+        def apply():
+            real = getattr(obj, name)
+            tbatch._CORNER_STATICS_CACHE.clear()
+            setattr(obj, name, fn(real))
+
+            def undo():
+                setattr(obj, name, real)
+                tbatch._CORNER_STATICS_CACHE.clear()
+            return undo
+        return apply
+
+    def shifted(real):  # slot k takes slot k + 1's dither
+        return lambda kind, *a, **k: (torch.roll(real(kind, *a, **k), -1)
+                                      if kind == "dither"
+                                      else real(kind, *a, **k))
+
+    return [
+        ("dither shifted by one slot",
+         patched(tbatch, "_slot_values_device", shifted)),
+        # the other centroid of the same bit's coset for about half the
+        # bins: every bit still decodes
+        ("floor in place of round in the lattice",
+         patched(torch, "round", lambda real: torch.floor)),
+        ("round half away from zero in the lattice",
+         patched(torch, "round", lambda real: lambda q: torch.where(
+             q < 0, -torch.floor(0.5 - q), torch.floor(q + 0.5)))),
+    ]
+
+
+def phase_modes(dev, launches: dict) -> None:
+    """5f: every corner wire mode at 1080p, B=8, 4 KB secrets, fixed salts:
+    the card embeds and reads back 8/8; its stego is held against the CPU
+    port's stego of the same inputs (_within_bounds); the CPU reads the
+    card's stego and the card the CPU's, 8/8 each. For each threshold
+    write rule the CPU embed is run again on the card's own forward
+    spectrum, which must leave no ripple plane: the ripples come from the
+    two spectra, not from the rules. Planted faults of the card-side QIM
+    rule are held against the same bounds and must fail them. Then one
+    mixed batch — row i from mode i's card stego, one row per jitter-0
+    mode plus the default and a composite — read in a single
+    extract_batch call."""
+    import numpy as np
+    import torch
+
+    import steganosaurus_tpu_torch as stt
+    from steganosaurus_tpu_torch.pipeline import batch as tbatch
+
+    covers = _fhd_mode_covers()
+    covers_d = torch.from_numpy(covers).to(dev)
+    secrets = secrets_for(FHD_B, MODE_SECRET)
+    salts = [bytes([i + 120]) * 16 for i in range(FHD_B)]
+    Params = stt.Params
+    modes = {
+        "soft_write": Params(soft_write=True),
+        "alpha_spread=0.5": Params(alpha_spread=0.5),
+        "qim=3": Params(qim=3),
+        "rs": Params(rs=True),
+        "pad_quantum=1024": Params(pad_quantum=1024),
+        "per_image_walk": Params(per_image_walk=True),
+        "stealth": Params.stealth(),
+    }
+    kw = dict(master_key=MASTER_KEY, layout="nchw")
+    card_stegos = {}
+    cpu_stegos = {}
+    for name, p in modes.items():
+        hint = tbatch._wire_clen(MODE_SECRET, p)
+
+        def run(p=p, hint=hint):
+            t = time.perf_counter()
+            st = stt.embed_batch(covers_d, secrets, params=p, salts=salts,
+                                 device_resident=True, **kw).stego
+            got = stt.extract_batch(st, params=p, clen_hint=hint, **kw)
+            torch.cuda.synchronize()
+            return st, got, time.perf_counter() - t
+
+        st, got, dt = count_launches(f"5f {name}", launches, run)
+        n_ok = sum(g == s for g, s in zip(got, secrets))
+        card = st.cpu().numpy()
+        cpu = stt.embed_batch(covers, secrets, params=p, salts=salts,
+                              device="cpu", **kw).stego
+        cross = (stt.extract_batch(card, params=p, device="cpu", **kw),
+                 stt.extract_batch(cpu, params=p, device=dev, **kw))
+        n_cross = [sum(g == s for g, s in zip(c, secrets)) for c in cross]
+        threshold = bool(p.qim or p.soft_write)
+        d = _stego_diff(card, cpu)
+        log(f"5f 1080p B={FHD_B} {MODE_SECRET} B {name}: card round trip "
+            f"{n_ok}/{FHD_B} ({dt!r} s wall); card vs CPU port: "
+            f"{_diff_line(d)}; CPU reads the card's stego "
+            f"{n_cross[0]}/{FHD_B}, the card the CPU's {n_cross[1]}/{FHD_B}")
+        if (n_ok != FHD_B or n_cross != [FHD_B, FHD_B]
+                or not _within_bounds(d, threshold)):
+            raise AssertionError(f"5f {name}: recovery {n_ok}, cross "
+                                 f"{n_cross}, card vs CPU port "
+                                 f"{_diff_line(d)}")
+        if threshold:
+            card2, cpu2 = _with_card_spectrum(
+                lambda p=p: stt.embed_batch(covers_d, secrets, params=p,
+                                            salts=salts, **kw).stego,
+                lambda p=p: stt.embed_batch(covers, secrets, params=p,
+                                            salts=salts, device="cpu",
+                                            **kw).stego)
+            d2 = _stego_diff(card2, cpu2)
+            log(f"5f {name}, the CPU port on the card's forward spectrum: "
+                f"{_diff_line(d2)}")
+            if d2["planes"] != 0 or not _within_bounds(d2, False):
+                raise AssertionError(f"5f {name}: ripple planes remain on "
+                                     f"the card's own spectrum: "
+                                     f"{_diff_line(d2)}")
+        card_stegos[name] = st
+        cpu_stegos[name] = cpu
+
+    p = modes["qim=3"]
+    for fault, apply in _planted_faults():
+        undo = apply()
+        try:
+            bad = stt.embed_batch(covers_d, secrets, params=p, salts=salts,
+                                  device_resident=True, **kw).stego
+        finally:
+            undo()
+        got = stt.extract_batch(bad, params=p, clen_hint=MODE_SECRET, **kw)
+        bad = bad.cpu().numpy()
+        d = _stego_diff(bad, cpu_stegos["qim=3"])
+        moved = int(np.count_nonzero(bad != card_stegos["qim=3"].cpu()
+                                     .numpy()))
+        caught = not _within_bounds(d, True)
+        log(f"5f planted fault in the card's qim=3 write, {fault}: card vs "
+            f"CPU port {_diff_line(d)}; within the bounds {not caught}; "
+            f"{moved} bytes differ from the correct card stego; the card "
+            f"reads it back {sum(g == s for g, s in zip(got, secrets))}"
+            f"/{FHD_B}")
+        # a fault that leaves the stego as it was cannot be seen at this
+        # shape; any other must fall outside the bounds
+        if moved and not caught:
+            raise AssertionError(f"5f planted fault {fault!r} passes the "
+                                 f"card vs CPU port bounds")
+
+    composite = Params(per_image_walk=True, rs=True, qim=4, pad_quantum=512,
+                       alpha_spread=0.5, soft_write=True)
+    card_stegos["composite"] = stt.embed_batch(
+        covers_d, secrets, params=composite, salts=salts,
+        device_resident=True, **kw).stego
+    mixed_modes = [None, "soft_write", "alpha_spread=0.5", "qim=3", "rs",
+                   "pad_quantum=1024", "per_image_walk", "composite"]
+    default = stt.embed_batch(covers_d[:1], secrets[:1], salts=salts[:1],
+                              device_resident=True, **kw).stego
+    mixed = torch.cat([default] + [card_stegos[m][i:i + 1]
+                                   for i, m in enumerate(mixed_modes)
+                                   if m is not None])
+    got = count_launches("5f mixed", launches, lambda: stt.extract_batch(
+        mixed, params=Params(), clen_hint=MODE_SECRET, **kw))
+    n_ok = sum(g == s for g, s in zip(got, secrets))
+    log(f"5f mixed batch (default, {', '.join(mixed_modes[1:])}), one "
+        f"extract_batch call: {n_ok}/{FHD_B}")
+    if n_ok != FHD_B:
+        raise AssertionError(f"5f mixed batch recovered {n_ok}/{FHD_B}")
+
+
+def _timed_attr(obj, name: str, times: list):
+    """Patch obj.<name> to append each call's host seconds to `times`;
+    returns the function that undoes it."""
+    real = getattr(obj, name)
+
+    def timed(*a, **k):
+        t = time.perf_counter()
+        try:
+            return real(*a, **k)
+        finally:
+            times.append(time.perf_counter() - t)
+
+    setattr(obj, name, timed)
+    return lambda: setattr(obj, name, real)
+
+
+def phase_stealth(covers_d, launches: dict) -> None:
+    """5g: Params.stealth() at 4K UHD, B=STEALTH_B, 16 KB, master key — the
+    slice's full-width path: recovery, warm embed and extract ms (host
+    walks included), the per-image walks' host seconds apart (the first
+    call expands the shared header prefix too; each later batch expands
+    its B salt-keyed payload walks again, at embed and at extract), mean
+    PSNR beside the default write's on the same covers, peak memory, K1
+    launches. Then the stealth stream: STEALTH_BATCHES batches with fresh
+    salts through embed_stream -> extract_stream, beside the serialized
+    loop of as many batches, with the host CPU seconds of each and the
+    per-image walk cache left after the stream (the stream's prefetches
+    must all be consumed)."""
+    import torch
+
+    import steganosaurus_tpu_torch as stt
+    from steganosaurus_tpu_torch.pipeline import batch as tbatch
+
+    covers = covers_d[:STEALTH_B].contiguous()
+    B = covers.shape[0]
+    secrets = secrets_for(B, UHD_SECRET)
+    salts = [bytes([i + 7]) * 16 for i in range(B)]
+    p = stt.Params.stealth()
+    kw = dict(master_key=MASTER_KEY, layout="nchw")
+    walk_s: list[float] = []
+    undo = _timed_attr(tbatch, "_piw_walk_arrays", walk_s)
+    try:
+        def round_trip():
+            t0 = time.perf_counter()
+            res = stt.embed_batch(covers, secrets, params=p, salts=salts,
+                                  device_resident=True, **kw)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            got = stt.extract_batch(res.stego, params=p,
+                                    clen_hint=UHD_SECRET, **kw)
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            n_ok = sum(g == s for g, s in zip(got, secrets))
+            if n_ok != B:
+                raise AssertionError(f"5g stealth recovered {n_ok}/{B}")
+            return res.stego, (t1 - t0) * 1e3, (t2 - t1) * 1e3
+
+        _, e0, x0 = round_trip()
+        cold = list(walk_s)
+        walk_s.clear()
+        torch.cuda.reset_peak_memory_stats()
+        stego, e_ms, x_ms = count_launches("5g stealth 4K", launches,
+                                           round_trip)
+        peak = torch.cuda.max_memory_allocated()
+    finally:
+        undo()
+    psnr = psnr_mean(stego, covers)
+    plain = stt.embed_batch(covers, secrets, salts=salts,
+                            device_resident=True, **kw).stego
+    psnr_plain = psnr_mean(plain, covers)
+    log(f"5g stealth 4K {UHD_H}x{UHD_W} B={B} {UHD_SECRET} B: recovered "
+        f"{B}/{B}; first round trip embed {e0!r} ms, extract {x0!r} ms; "
+        f"warm embed {e_ms!r} ms, extract {x_ms!r} ms "
+        f"({B / ((e_ms + x_ms) / 1e3)!r} img/s); host walk s "
+        f"(embed, extract): cold {cold!r}, warm {walk_s!r}; mean PSNR "
+        f"{psnr!r} dB (default write on the same covers {psnr_plain!r} "
+        f"dB); peak memory {peak / 2**30!r} GiB; K1 launches "
+        f"{launches['5g stealth 4K']}")
+    if not (math.isfinite(psnr) and stego.shape == covers.shape):
+        raise AssertionError(f"5g PSNR {psnr}, shape {tuple(stego.shape)}")
+    del stego, plain
+
+    n = STEALTH_BATCHES
+
+    def stream():
+        embeds = stt.embed_stream(((covers, secrets) for _ in range(n)),
+                                  params=p, depth=2, **kw)
+        return [sum(g == s for g, s in zip(got, secrets))
+                for got in stt.extract_stream((r.stego for r in embeds),
+                                              params=p, clen_hint=UHD_SECRET,
+                                              depth=2, **kw)]
+
+    tbatch._PIW_CACHE.clear()
+    t, c = time.perf_counter(), time.process_time()
+    n_ok = count_launches("5g stealth stream", launches, stream)
+    s_wall, s_cpu = time.perf_counter() - t, time.process_time() - c
+    left = len(tbatch._PIW_CACHE)
+    t, c = time.perf_counter(), time.process_time()
+    for _ in range(n):
+        res = stt.embed_batch(covers, secrets, params=p,
+                              device_resident=True, **kw)
+        if stt.extract_batch(res.stego, params=p, clen_hint=UHD_SECRET,
+                             **kw) != secrets:
+            raise AssertionError("5g serialized stealth loop failed")
+    torch.cuda.synchronize()
+    l_wall, l_cpu = time.perf_counter() - t, time.process_time() - c
+    log(f"5g stealth stream, fresh salts, depth 2, {n} batches of {B}: "
+        f"recovered {n_ok} per batch; {n * B / s_wall!r} img/s (wall "
+        f"{s_wall!r} s, host CPU {s_cpu!r} s, {s_cpu / s_wall!r} cores "
+        f"busy); serialized loop {n * B / l_wall!r} img/s (wall {l_wall!r} "
+        f"s, host CPU {l_cpu!r} s, {l_cpu / l_wall!r} cores busy); "
+        f"per-image walk cache entries left after the stream: {left}; "
+        f"{os.cpu_count()} host CPUs")
+    if n_ok != [B] * n or left != 0:
+        raise AssertionError(f"5g stealth stream recovered {n_ok} of {B} "
+                             f"per batch, {left} cache entries left")
+
+
+def phase_rs_padded(covers_d, launches: dict) -> None:
+    """5h: Params(rs=True, pad_quantum=4096) at 4K, B=64, 16 KB: recovery,
+    warm round trip with the host's RS encode and decode and its frame
+    build timed inside it (the path's own calls, on its own frames), the
+    channel_report with the RS payload (post-ECC BER must be 0), mean
+    PSNR."""
+    import torch
+
+    import steganosaurus_tpu_torch as stt
+    from steganosaurus_tpu_torch.pipeline import batch as tbatch
+
+    B = covers_d.shape[0]
+    secrets = secrets_for(B, UHD_SECRET)
+    salts = [bytes([i]) * 16 for i in range(B)]
+    p = stt.Params(rs=True, pad_quantum=4096)
+    hint = tbatch._wire_clen(UHD_SECRET, p)
+    kw = dict(master_key=MASTER_KEY, layout="nchw")
+
+    def round_trip():
+        t0 = time.perf_counter()
+        res = stt.embed_batch(covers_d, secrets, params=p, salts=salts,
+                              device_resident=True, **kw)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        got = stt.extract_batch(res.stego, params=p, clen_hint=hint, **kw)
+        torch.cuda.synchronize()
+        n_ok = sum(g == s for g, s in zip(got, secrets))
+        if n_ok != B:
+            raise AssertionError(f"5h RS padded recovered {n_ok}/{B}")
+        t2 = time.perf_counter()
+        return res, (t1 - t0) * 1e3, (t2 - t1) * 1e3
+
+    round_trip()
+    enc_s: list[float] = []
+    dec_s: list[float] = []
+    frames_s: list[float] = []
+    undos = [_timed_attr(tbatch.rs_mod, "rs_encode_interleaved", enc_s),
+             _timed_attr(tbatch.rs_mod, "rs_decode_interleaved", dec_s),
+             _timed_attr(tbatch, "_host_frames", frames_s)]
+    try:
+        res, e_ms, x_ms = count_launches("5h rs+pad 4K", launches,
+                                         round_trip)
+    finally:
+        for undo in undos:
+            undo()
+    ms = e_ms + x_ms
+    rep = count_launches("5h channel report", launches,
+                         lambda: stt.channel_report(res.stego, secrets,
+                                                    salts, params=p, **kw))
+    psnr = psnr_mean(res.stego, covers_d)
+    log(f"5h host work inside the warm round trip: RS encode {len(enc_s)} "
+        f"calls {sum(enc_s) * 1e3!r} ms (inside the frame build, "
+        f"{sum(frames_s) * 1e3!r} ms), RS decode {len(dec_s)} calls "
+        f"{sum(dec_s) * 1e3!r} ms, of {B} x {hint + 16} B messages")
+    log(f"5h RS + pad_quantum=4096 4K B={B} {UHD_SECRET} B (wire clen "
+        f"{hint}, {res.written_bits[0]} frame bits): recovered {B}/{B}, "
+        f"warm round trip {ms!r} ms (embed {e_ms!r}, extract {x_ms!r}; "
+        f"{B / (ms / 1e3)!r} img/s), mean PSNR "
+        f"{psnr!r} dB; channel_report: payload raw BER "
+        f"{rep['payload_ber_raw']!r}, post-ECC {rep['payload_ber_post_ecc']!r}"
+        f", header raw {rep['header_ber_raw']!r}, post-ECC "
+        f"{rep['header_ber_post_ecc']!r}")
+    if rep["payload_ber_post_ecc"] != 0.0 or not math.isfinite(psnr):
+        raise AssertionError(f"5h: {rep}, PSNR {psnr}")
+    # one encode per image; one hard decode per image, more where a row's
+    # soft header re-parses differently
+    if len(enc_s) != B or len(dec_s) < B:
+        raise AssertionError(f"5h: {len(enc_s)} RS encodes and {len(dec_s)} "
+                             f"decodes for {B} images")
+
+
 def main() -> int:
     if not (PKG / "__init__.py").is_file():
         print(f"chip_smoke: {PKG} is missing; run from a checkout of the "
@@ -651,6 +1134,9 @@ def main() -> int:
         del stego
         timed("soft", phase_soft, dev, launches)
         timed("ragged", phase_ragged, dev, launches)
+        timed("modes", phase_modes, dev, launches)
+        timed("stealth", phase_stealth, covers_d, launches)
+        timed("rs padded", phase_rs_padded, covers_d, launches)
         log(f"{ck.KERNEL} launches per path: {launches}")
         k1["launches"] = sum(launches.values())
         log(f"smoke wall time {time.perf_counter() - t_all:.1f} s")

@@ -1,9 +1,10 @@
 """steganosaurus_tpu_torch — the PyTorch + CUDA port of steganosaurus_tpu.
 
 The JAX package (steganosaurus_tpu/) is the reference; this package runs the
-same shared-walk batch embed -> extract path and its serving surface on an
-NVIDIA H100 and writes the same wire format, so stegos cross-decode between
-the two in both directions.
+same batch embed -> extract path and its serving surface on an NVIDIA H100,
+in every corner wire mode (shared or per-image walks, hard or soft write,
+jitter, alpha spread, QIM, Rep-7 or RS, padding), and writes the same wire
+format, so stegos cross-decode between the two in both directions.
 
 Layout follows the JAX package so each module's counterpart is easy to find:
 
@@ -14,16 +15,19 @@ Layout follows the JAX package so each module's counterpart is easy to find:
 - ``spectral/``  corner pruned-DFT math; ``corner_kernels`` wraps the
                  hand-written stage-1 DFT kernel (csrc/corner_stage1.cu).
 - ``ops/``       MSB-first bit/word packing and repetition ECC on tensors.
-- ``parallel/``  the device cores: frame build, corner embed, fused extract,
-                 soft-decision retry, raw-bit read.
-- ``pipeline/``  header framing, the embed_batch / extract_batch API with
-                 verify, ragged secrets, jitter and channel_report, and the
+- ``parallel/``  the device cores: frame build, corner embed (shared and
+                 per-image walks), fused extract, soft-decision retry,
+                 raw-bit read.
+- ``pipeline/``  header framing, spread amplitudes and QIM dithers, the
+                 embed_batch / extract_batch API with verify, ragged
+                 secrets, every wire mode and channel_report, and the
                  embed_stream / extract_stream pipelining.
 - ``utils/``     PSNR, SSIM, BER and ecc_report; quality_device on the card.
 
 Host crypto, the turtle-walk keystream and Params come straight from the
 JAX package's jax-free modules (steganosaurus_tpu.config, .crypto,
-.keystream, ._native_loader, .io.image, .utils.metrics' numpy metrics).
+.keystream, ._native_loader, .ops.rs, .io.image, .utils.metrics' numpy
+metrics).
 This package never imports jax.
 """
 
@@ -43,6 +47,8 @@ _API = {
                        "channel_report"),
     "prefetch_walk": ("steganosaurus_tpu_torch.pipeline.batch",
                       "prefetch_walk"),
+    "prefetch_piw_walks": ("steganosaurus_tpu_torch.pipeline.batch",
+                           "prefetch_piw_walks"),
     "embed_stream": ("steganosaurus_tpu_torch.pipeline.stream",
                      "embed_stream"),
     "extract_stream": ("steganosaurus_tpu_torch.pipeline.stream",

@@ -3,26 +3,39 @@
 The port's twin of the corner half of steganosaurus_tpu/parallel/batch.py.
 JAX builds each core as a cached jitted factory; here each is a plain
 function that PyTorch runs eagerly on the device of its inputs, with the
-static configuration passed as keyword arguments.
+static configuration passed as keyword arguments. Every core carries every
+corner wire mode the JAX batch cores carry: the hard or soft write, the
+jittered write and read, per-bin amplitudes (Params.alpha_spread), QIM on
+the payload slots (Params.qim), and the Rep-7 or RS (raw coded bits)
+payload section.
 
-- corner_statics_core: the static slot map `pos` of a walk, and the cos/sin
-  jitter maps `cjd`/`sjd` when Params.jitter != 0.
+- corner_statics_core: the static maps of a shared walk: the slot map
+  `pos`, and the cos/sin jitter maps, the cos/sin amplitude maps and the
+  QIM dither and payload-slot maps when the Params ask for them.
 - _frame_from_words: stream words -> Rep-3/Rep-7 ECC frame bits (the
-  equal-length path; unequal lengths upload host-built frames instead).
-- corner_embed_core: forward corner DFT -> dense hard write -> write
-  floor -> inverse corner DFT -> u8 stego.
+  equal-length Rep-7 path; other frames are built on the host).
+- corner_embed_core: forward corner DFT -> dense write (hard or soft,
+  QIM on payload bins) -> write floor -> inverse corner DFT -> u8 stego.
+- corner_piw_embed_core: the same for per-image walks: each image gathers
+  its own bins, computes its write values and scatters them into a zero
+  corner.
 - corner_extract_fused_core: forward corner DFT -> decision values at the
-  walk bins -> Rep-3 header + Rep-7 payload words, hard and (optionally)
-  matched-filter soft.
+  walk bins -> Rep-3 header + payload words, hard and (optionally) soft.
+  A shared walk is (n,) index tensors, per-image walks (B, n): the one
+  core is the twin of JAX's corner_extract_fused_core and
+  corner_piw_extract_core.
 - corner_soft_extract_core: the soft-decision retry pass (f32 decision
-  values, matched-filter combining).
+  values, matched-filter combining; RS confidences), either walk.
 - corner_raw_bits_core: the raw (pre-ECC) bits at the walk bins, for the
   channel report.
 
 The JAX single-chip cores pack 32 images per i32 word before every bit
 gather because TPU gathers pay a full HBM granule per row
 (steganosaurus_tpu/parallel/batch.py:465-473); the port gathers per image
-directly and has no batch packing.
+directly and has no batch packing. The JAX shared-walk reads gather from
+dense jitter, dither and payload-mask maps; the port takes each walk slot's
+own jitter angle, dither and slot index (slot >= 912 is a payload slot),
+which are the values those maps hold at the walk's bins.
 """
 
 from __future__ import annotations
@@ -38,30 +51,57 @@ from steganosaurus_tpu_torch.spectral import corner
 HEADER_BITS = 304    # 38 header bytes
 HEADER_REP = 3
 PAYLOAD_REP = 7
+HEADER_SLOTS = HEADER_BITS * HEADER_REP   # 912: QIM starts at this slot
 
 
 def corner_statics_core(plane, y, x, Ky: int, Kx: int, bucket: int,
-                        jit=None) -> tuple[torch.Tensor, ...]:
-    """Static corner maps of a walk: (pos,), or (pos, cjd, sjd) when the
-    walk's per-slot jitter angles `jit` are given (Params.jitter != 0).
+                        jit=None, alphas=None, dither=None
+                        ) -> tuple[torch.Tensor, ...]:
+    """Static corner maps of a shared walk, in the JAX package's order:
+    (pos, [cjd, sjd], [cad, sad], [dq, qm]).
 
     pos: (3, Ky, Kx) int64, the walk slot owning each corner bin, and
-    `bucket` where no walk bin lives. cjd/sjd: (3, Ky, Kx) f32 cos/sin of
-    the owning slot's jitter, 1 and 0 elsewhere. plane/y/x/jit: the walk's
-    (bucket,) tensors, tail-padded by repeating the last real bin. The
-    padded duplicates carry the frame's last bit and the last bin's jitter,
-    so which of them the scatter keeps does not matter."""
+    `bucket` where no walk bin lives. cjd/sjd, when the per-slot jitter
+    angles `jit` are given: cos/sin of the owning slot's jitter, 1 and 0
+    elsewhere. cad/sad, when the per-slot amplitudes `alphas` are given
+    (Params.alpha_spread): cos/sin of the owning slot's amplitude, 1 and 0
+    elsewhere. dq/qm, when the per-slot QIM dithers `dither` are given: the
+    owning slot's dither, and 1.0 where that slot is a payload slot (>=
+    HEADER_SLOTS), 0 elsewhere. All maps f32 but pos.
+
+    plane/y/x and the per-slot arrays are the walk's (bucket,) tensors,
+    tail-padded by repeating the last real slot's values, so which of the
+    duplicate writes the scatter keeps does not matter."""
     dev = plane.device
     idx = (plane, y, x)
     pos = torch.full((3, Ky, Kx), bucket, dtype=torch.int64, device=dev)
-    pos.index_put_(idx, torch.arange(bucket, dtype=torch.int64, device=dev))
-    if jit is None:
-        return (pos,)
-    cjd = torch.ones((3, Ky, Kx), dtype=torch.float32, device=dev)
-    sjd = torch.zeros((3, Ky, Kx), dtype=torch.float32, device=dev)
-    cjd.index_put_(idx, torch.cos(jit))
-    sjd.index_put_(idx, torch.sin(jit))
-    return pos, cjd, sjd
+    slots = torch.arange(bucket, dtype=torch.int64, device=dev)
+    pos.index_put_(idx, slots)
+    out = (pos,)
+
+    def put(fill: float, vals):
+        m = torch.full((3, Ky, Kx), fill, dtype=torch.float32, device=dev)
+        return m.index_put_(idx, vals)
+
+    if jit is not None:
+        out += (put(1.0, torch.cos(jit)), put(0.0, torch.sin(jit)))
+    if alphas is not None:
+        out += (put(1.0, torch.cos(alphas)), put(0.0, torch.sin(alphas)))
+    if dither is not None:
+        out += (put(0.0, dither),
+                put(0.0, (slots >= HEADER_SLOTS).to(torch.float32)))
+    return out
+
+
+def _unpack_maps(maps, has_jitter: bool, has_spread: bool, qim: bool):
+    """(pos, cjd, sjd, cad, sad, dq, qm) from a corner_statics_core tuple,
+    None for each pair the tuple does not carry."""
+    it = iter(maps[1:])
+    pos = maps[0]
+    cjd, sjd = (next(it), next(it)) if has_jitter else (None, None)
+    cad, sad = (next(it), next(it)) if has_spread else (None, None)
+    dq, qm = (next(it), next(it)) if qim else (None, None)
+    return pos, cjd, sjd, cad, sad, dq, qm
 
 
 def statics_from_numpy(maps, device) -> tuple[torch.Tensor, ...]:
@@ -84,7 +124,7 @@ def _frame_from_words(words: torch.Tensor, stream_bytes: int,
     over the payload bits (reference frame layout, steganosaur.cpp:986-995),
     tail-padded by repeating each image's last bit."""
     nwords = -(-stream_bytes // 4)
-    nmax = HEADER_BITS * HEADER_REP + (stream_bytes - 38) * 8 * PAYLOAD_REP
+    nmax = HEADER_SLOTS + (stream_bytes - 38) * 8 * PAYLOAD_REP
     bits = bit_ops.unpack_bits_words(words, nwords * 32)[:, :stream_bytes * 8]
     frame = torch.cat([ecc.rep_encode(bits[:, :HEADER_BITS], HEADER_REP),
                        ecc.rep_encode(bits[:, HEADER_BITS:], PAYLOAD_REP)],
@@ -110,21 +150,42 @@ def _cos_sin(alpha: float):
     return torch.cos(a), torch.sin(a)
 
 
+def _epilogue(t: torch.Tensor, planes: torch.Tensor, center: bool,
+              layout: str) -> torch.Tensor:
+    """real(IFFT2(delta)) t (B, 3, H, W) f32 -> u8 stego in `layout`:
+    planes + delta -> floor(x + 0.5) clamped to [0, 255] (round half away
+    from zero on the surviving range, as the reference; torch.round would
+    round half to even). The embed cores drop the corner spectrum and the
+    deltas before the inverse DFT and this, so peak memory holds one
+    (B, 3, H, W) f32 tensor at a time."""
+    t = spectral.apply_center(t, center)
+    out = t.add_(planes).add_(0.5).floor_().clamp_(0.0, 255.0)
+    out = out.to(torch.uint8)
+    if layout != "nchw":
+        out = out.permute(0, 2, 3, 1).contiguous()
+    return out
+
+
 def corner_embed_core(imgs: torch.Tensor, frame: torch.Tensor, maps,
                       alpha: float, *, Ky: int, Kx: int, center: bool,
-                      layout: str, floor: float) -> torch.Tensor:
-    """Corner embed, single device: (imgs u8 in `layout`, frame (B, bucket)
-    u8 ECC frame bits, maps (pos[, cjd, sjd]) from corner_statics_core) ->
-    u8 stego in the same layout.
+                      layout: str, floor: float, soft: bool = False,
+                      has_jitter: bool = False, has_spread: bool = False,
+                      qim_levels: int = 0) -> torch.Tensor:
+    """Corner embed over a shared walk, single device: (imgs u8 in
+    `layout`, frame (B, bucket) u8 ECC frame bits, maps from
+    corner_statics_core — which pairs it carries is said by has_jitter,
+    has_spread and qim_levels) -> u8 stego in the same layout.
 
-    Forward corner DFT -> each bin's frame bit through `pos` -> dense hard
-    write_delta (jittered when the maps carry cjd/sjd) -> write floor
-    (floor > 0) -> inverse corner DFT -> planes + delta -> floor(x + 0.5)
-    clamped to [0, 255] (round half away from zero on the surviving range,
-    as the reference; torch.round would round half to even)."""
+    Forward corner DFT -> each bin's frame bit through `pos` -> dense
+    write_delta (soft when `soft`, jittered with cjd/sjd, amplitudes from
+    cad/sad under spread) or, with qim_levels, write_delta_qim (payload
+    bins on the dithered lattice) -> write floor -> inverse corner DFT ->
+    the u8 epilogue."""
     planes = _planes_u8(imgs, layout)
     B, _, H, W = planes.shape
-    pos, jit_maps = maps[0], tuple(maps[1:])
+    pos, cjd, sjd, cad, sad, dq, qm = _unpack_maps(maps, has_jitter,
+                                                   has_spread,
+                                                   bool(qim_levels))
     bucket = frame.shape[1]
     mode = corner.precision()
     tabs = corner.dft_tables_device(H, Ky, W, Kx, planes.device)
@@ -134,112 +195,245 @@ def corner_embed_core(imgs: torch.Tensor, frame: torch.Tensor, maps,
     bit = table[:, pos.reshape(-1)].reshape(B, 3, Ky, Kx)
     sign = bit.to(torch.float32) * 2.0 - 1.0
     mask = (pos < bucket).to(torch.float32)
-    dr, di = corner.write_delta(cr, ci, sign, mask, *_cos_sin(alpha),
-                                *jit_maps)
+    ca, sa = _cos_sin(alpha) if cad is None else (cad, sad)
+    if qim_levels:
+        dr, di = corner.write_delta_qim(cr, ci, sign, mask, qm, ca, sa, dq,
+                                        qim_levels, cjd, sjd, soft=soft)
+    else:
+        dr, di = corner.write_delta(cr, ci, sign, mask, ca, sa, cjd, sjd,
+                                    soft=soft)
+    del sign, bit, table, mask
     if floor:
         dr, di = corner.apply_write_floor(dr, di, cr, ci, floor,
                                           float(H) * float(W))
-    del cr, ci, sign
+    del cr, ci
     t = corner.ifft_corner_real(dr, di, H, W, tabs, mode)
     del dr, di
-    t = spectral.apply_center(t, center)
-    out = t.add_(planes).add_(0.5).floor_().clamp_(0.0, 255.0)
-    out = out.to(torch.uint8)
-    if layout != "nchw":
-        out = out.permute(0, 2, 3, 1).contiguous()
-    return out
+    return _epilogue(t, planes, center, layout)
 
 
-def _decode_sections(raw: torch.Tensor, hdr_stream_bits: int) -> torch.Tensor:
+def _flat(plane, y, x, Ky: int, Kx: int) -> torch.Tensor:
+    """(B, n) per-image walk indices -> int64 offsets into a flattened
+    (3, Ky, Kx) corner."""
+    return (plane.to(torch.int64) * Ky + y.to(torch.int64)) * Kx \
+        + x.to(torch.int64)
+
+
+def _clamped(per_slot: torch.Tensor, nbits: torch.Tensor) -> torch.Tensor:
+    """(B, n) values per_slot[min(k, nbits[b] - 1)]: a shared slot-aligned
+    array read up to each image's last real slot, so an image's tail-pad
+    duplicates carry that slot's value."""
+    n = per_slot.shape[0]
+    k = torch.arange(n, device=per_slot.device)
+    return per_slot[torch.minimum(k[None, :], nbits[:, None] - 1)]
+
+
+def corner_piw_embed_core(imgs: torch.Tensor, frame: torch.Tensor, plane, y,
+                          x, jit, alpha: float, *, Ky: int, Kx: int,
+                          center: bool, layout: str, floor: float,
+                          soft: bool = False, alphas=None, dither=None,
+                          nbits=None, qim_levels: int = 0) -> torch.Tensor:
+    """Corner embed over per-image walks (JAX corner_piw_embed_core):
+    (imgs u8, frame (B, n) u8 frame bits, plane/y/x (B, n) walk indices,
+    jit (B, n) f32 jitter angles) -> u8 stego in `layout`.
+
+    Each image gathers its own bins from the corner spectrum, computes its
+    write values there (write_delta with the slot's own jitter and
+    amplitude; QIM on slots >= HEADER_SLOTS when qim_levels) and scatters them
+    into a zero corner; then the write floor, the inverse DFT and the u8
+    epilogue. alphas (n,) (Params.alpha_spread) and dither (n,) (QIM) are
+    the shared slot-aligned per-slot arrays, read up to each image's last
+    real slot nbits[b] - 1 (nbits (B,) int64), so the tail-pad duplicates
+    of the last real bin scatter identical values."""
+    planes = _planes_u8(imgs, layout)
+    B, _, H, W = planes.shape
+    mode = corner.precision()
+    tabs = corner.dft_tables_device(H, Ky, W, Kx, planes.device)
+    cr, ci = corner.fwd_corner(planes, center, Ky, Kx, tabs, mode)
+    flat = _flat(plane, y, x, Ky, Kx)
+    vr = cr.reshape(B, -1).gather(1, flat)
+    vi = ci.reshape(B, -1).gather(1, flat)
+    s = frame.to(torch.float32) * 2.0 - 1.0
+    if alphas is None:
+        ca, sa = _cos_sin(alpha)
+    else:
+        a = _clamped(alphas, nbits)
+        ca, sa = torch.cos(a), torch.sin(a)
+    dr_v, di_v = corner.write_delta(vr, vi, s, 1.0, ca, sa, torch.cos(jit),
+                                    torch.sin(jit), soft=soft)
+    if qim_levels:
+        qr, qi = corner.qim_lattice_delta(vr, vi, s, _clamped(dither, nbits),
+                                          qim_levels)
+        pay = torch.arange(flat.shape[1], device=flat.device) >= HEADER_SLOTS
+        dr_v = torch.where(pay, qr, dr_v)
+        di_v = torch.where(pay, qi, di_v)
+    del vr, vi, s
+    dr = torch.zeros_like(cr).reshape(B, -1).scatter_(1, flat, dr_v)
+    di = torch.zeros_like(ci).reshape(B, -1).scatter_(1, flat, di_v)
+    del flat, dr_v, di_v
+    dr, di = dr.reshape(cr.shape), di.reshape(ci.shape)
+    if floor:
+        dr, di = corner.apply_write_floor(dr, di, cr, ci, floor,
+                                          float(H) * float(W))
+    del cr, ci
+    t = corner.ifft_corner_real(dr, di, H, W, tabs, mode)
+    del dr, di
+    return _epilogue(t, planes, center, layout)
+
+
+def _decode_sections(raw: torch.Tensor, hdr_stream_bits: int,
+                     payload_rep: int = PAYLOAD_REP) -> torch.Tensor:
     """(B, n) hard bits -> (B, words) int32: Rep-3 header words (when
-    hdr_stream_bits) then Rep-7 payload words, MSB-first packed."""
+    hdr_stream_bits) then payload words under payload_rep (7 = Rep-7, 1 =
+    the raw coded bits of the RS wire), MSB-first packed."""
     outs = []
     if hdr_stream_bits:
         outs.append(bit_ops.pack_bits_words(
             ecc.rep_decode(raw[:, :hdr_stream_bits], HEADER_REP)))
     outs.append(bit_ops.pack_bits_words(
-        ecc.rep_decode(raw[:, hdr_stream_bits:], PAYLOAD_REP)))
+        ecc.rep_decode(raw[:, hdr_stream_bits:], payload_rep)))
     return torch.cat(outs, dim=1)
 
 
-def _decode_sections_soft(d: torch.Tensor,
-                          hdr_stream_bits: int) -> torch.Tensor:
-    """Matched-filter twin of _decode_sections over decision values d."""
+def _soft_parts(d: torch.Tensor, hdr_stream_bits: int, payload_rep: int):
+    """(words, conf): the matched-filter twin of _decode_sections over
+    decision values d, and for the RS wire (payload_rep == 1) the payload's
+    hard sign bits with a per-coded-byte confidence, min |d| over the
+    byte's 8 bits, (B, n_bytes) f32 (else conf is None)."""
     outs = []
     if hdr_stream_bits:
         outs.append(bit_ops.pack_bits_words(
             ecc.rep_decode_soft(d[:, :hdr_stream_bits], HEADER_REP)))
-    outs.append(bit_ops.pack_bits_words(
-        ecc.rep_decode_soft(d[:, hdr_stream_bits:], PAYLOAD_REP)))
-    return torch.cat(outs, dim=1)
+    pay = d[:, hdr_stream_bits:]
+    conf = None
+    if payload_rep == 1:
+        outs.append(bit_ops.pack_bits_words((pay >= 0).to(torch.uint8)))
+        conf = pay.abs().reshape(pay.shape[0], -1, 8).amin(-1)
+    else:
+        outs.append(bit_ops.pack_bits_words(
+            ecc.rep_decode_soft(pay, payload_rep)))
+    return torch.cat(outs, dim=1), conf
+
+
+def _decode_sections_soft(d: torch.Tensor, hdr_stream_bits: int,
+                          payload_rep: int = PAYLOAD_REP) -> torch.Tensor:
+    """One int32 row per image laid out [hdr soft words | payload soft
+    words | conf as f32 bits (RS only)], the layout
+    pipeline.batch._ExtractJob._soft_sections parses."""
+    words, conf = _soft_parts(d, hdr_stream_bits, payload_rep)
+    if conf is None:
+        return words
+    return torch.cat([words, conf.to(torch.float32).view(torch.int32)],
+                     dim=1)
 
 
 def _walk_decisions(imgs: torch.Tensor, alpha: float, plane, y, x, *,
                     Ky: int, Kx: int, center: bool, layout: str,
-                    jit=None) -> torch.Tensor:
-    """(B, n) f32 decision values d at the walk bins plane/y/x (n,):
-    forward corner DFT, then d = sign(sin a) * (Im C * cos jd - Re C *
-    sin jd) (spectral/corner.py decision_values), jd the bins' jitter
-    angles `jit` (n,). The JAX cores gather the same products from dense
-    cos/sin jitter maps; each walk bin's map entry is cos/sin of its own
-    slot's angle, so the values are the same. Without jitter (jit None) d
-    needs Im C alone, and Re C is freed as soon as the DFT returns."""
+                    jit=None, dither=None, qim_levels: int = 0,
+                    qim_from: int = 0) -> torch.Tensor:
+    """(B, n) f32 decision values d at the walk bins: forward corner DFT,
+    then d = sign(sin a) * (Im C * cos jd - Re C * sin jd)
+    (spectral/corner.py decision_values), jd the slots' jitter angles `jit`
+    — and, with qim_levels, d = -cos(L * (theta - dither)) * |C| on slots
+    >= qim_from (qim_values_dense), `dither` the slots' own dithers.
+
+    plane/y/x (and jit) are a shared walk's (n,) tensors, or per-image
+    walks' (B, n). Without jitter and QIM a shared read needs Im C alone,
+    and Re C is freed as soon as the DFT returns. Per-image walks floor
+    the QIM magnitude at 1e-12, as JAX's per-image cores do (its dense
+    shared-walk read does not)."""
     planes = _planes_u8(imgs, layout)
-    _, _, H, W = planes.shape
+    B, _, H, W = planes.shape
     mode = corner.precision()
     tabs = corner.dft_tables_device(H, Ky, W, Kx, planes.device)
     cr, ci = corner.fwd_corner(planes, center, Ky, Kx, tabs, mode)
     ssa = float(np.sign(np.sin(np.float32(alpha))))
-    if jit is None:
+    per_image = plane.dim() == 2
+    if per_image:
+        flat = _flat(plane, y, x, Ky, Kx)
+        vi = ci.reshape(B, -1).gather(1, flat)
+        vr = cr.reshape(B, -1).gather(1, flat)
+    elif jit is None and not qim_levels:
         del cr
         return corner.decision_values(ci[:, plane, y, x], ssa)
-    return corner.decision_values(ci[:, plane, y, x], ssa, cr[:, plane, y, x],
-                                  torch.cos(jit), torch.sin(jit))
+    else:
+        vi, vr = ci[:, plane, y, x], cr[:, plane, y, x]
+    del cr, ci
+    q = vi.shape[1] if not qim_levels else qim_from
+    if jit is None:
+        d = corner.decision_values(vi[:, :q], ssa)
+    else:
+        jh = jit[..., :q]
+        d = corner.decision_values(vi[:, :q], ssa, vr[:, :q], torch.cos(jh),
+                                   torch.sin(jh))
+    if not qim_levels:
+        return d
+    dq = corner.qim_values_dense(vr[:, q:], vi[:, q:], dither[q:],
+                                 qim_levels,
+                                 mag_floor=1e-12 if per_image else 0.0)
+    return torch.cat([d, dq], dim=1)
 
 
 def corner_extract_fused_core(imgs: torch.Tensor, alpha: float, plane, y, x,
                               *, Ky: int, Kx: int, center: bool, layout: str,
                               hdr_stream_bits: int, with_soft: bool,
-                              jit=None):
-    """Corner extract: (imgs u8 in `layout`, walk plane/y/x (n,) and their
-    jitter angles jit (n,) or None) -> (B, words) int32 decoded rows laid
-    out [hdr words | payload words] (the header section, 10 words = 38
-    bytes + 2 pad, only when hdr_stream_bits), or (hard, soft) rows when
-    with_soft.
+                              jit=None, dither=None, qim_levels: int = 0,
+                              qim_from: int = 0,
+                              payload_rep: int = PAYLOAD_REP):
+    """Corner extract: (imgs u8 in `layout`, walk plane/y/x — a shared
+    (n,) walk or per-image (B, n) walks — their jitter angles or None,
+    their QIM dithers when qim_levels) -> (B, words) int32 decoded rows
+    laid out [hdr words | payload words] (the header section, 10 words =
+    38 bytes + 2 pad, only when hdr_stream_bits), or (hard, soft) rows
+    when with_soft.
 
-    The hard bit at a bin is d >= 0 (_walk_decisions). The soft rows
-    combine each group's copies by the sum of d, with d rounded to bf16
-    first, as the JAX core does before its gather."""
+    The hard bit at a bin is d >= 0 (_walk_decisions; QIM on slots >=
+    qim_from). The payload decodes under payload_rep (7 = Rep-7, 1 = the
+    RS wire's raw coded bits). The soft rows (_decode_sections_soft, RS
+    confidences included) combine each group's copies by the sum of d,
+    with d rounded to bf16 first, as the JAX core does before its
+    gather."""
     d = _walk_decisions(imgs, alpha, plane, y, x, Ky=Ky, Kx=Kx,
-                        center=center, layout=layout, jit=jit)
-    hard = _decode_sections((d >= 0).to(torch.uint8), hdr_stream_bits)
+                        center=center, layout=layout, jit=jit, dither=dither,
+                        qim_levels=qim_levels, qim_from=qim_from)
+    hard = _decode_sections((d >= 0).to(torch.uint8), hdr_stream_bits,
+                            payload_rep)
     if not with_soft:
         return hard
     soft = _decode_sections_soft(d.to(torch.bfloat16).to(torch.float32),
-                                 hdr_stream_bits)
+                                 hdr_stream_bits, payload_rep)
     return hard, soft
 
 
 def corner_soft_extract_core(imgs: torch.Tensor, alpha: float, plane, y, x,
                              *, Ky: int, Kx: int, center: bool, layout: str,
-                             hdr_stream_bits: int, jit=None):
+                             hdr_stream_bits: int, jit=None, dither=None,
+                             qim_levels: int = 0,
+                             payload_rep: int = PAYLOAD_REP):
     """The soft-decision retry pass (JAX corner_soft_extract_core, shared
-    walk, Rep-7): matched-filter decode of the Rep-3 header and Rep-7
-    payload copies from f32 decision values (no bf16 rounding, unlike the
-    fused pass's inline soft rows). Returns (B, words) int32 rows in the
-    corner_extract_fused_core layout."""
+    walk with (n,) indices or per-image walks with (B, n)): matched-filter
+    decode of the Rep-3 header and Rep-7 payload copies from f32 decision
+    values (no bf16 rounding, unlike the fused pass's inline soft rows),
+    QIM on the payload slots (>= hdr_stream_bits) when qim_levels. Returns
+    (B, words) int32 rows in the corner_extract_fused_core layout, and for
+    the RS wire (payload_rep == 1) (rows, conf): the payload's hard bits
+    and its (B, n_bytes) f32 per-coded-byte confidences."""
     d = _walk_decisions(imgs, alpha, plane, y, x, Ky=Ky, Kx=Kx,
-                        center=center, layout=layout, jit=jit)
-    return _decode_sections_soft(d, hdr_stream_bits)
+                        center=center, layout=layout, jit=jit, dither=dither,
+                        qim_levels=qim_levels, qim_from=hdr_stream_bits)
+    words, conf = _soft_parts(d, hdr_stream_bits, payload_rep)
+    return words if conf is None else (words, conf)
 
 
 def corner_raw_bits_core(imgs: torch.Tensor, alpha: float, plane, y, x, *,
                          Ky: int, Kx: int, center: bool, layout: str,
-                         jit=None) -> torch.Tensor:
-    """Raw (pre-ECC) bits at the walk bins, packed MSB first into (B,
-    ceil(n/32)) int32 words: the channel report's read (JAX
-    corner_bits_core + corner_gather_raw_core, without the batch
-    packing)."""
+                         jit=None, dither=None, qim_levels: int = 0
+                         ) -> torch.Tensor:
+    """Raw (pre-ECC) bits of a shared walk's frame slots, packed MSB first
+    into (B, ceil(n/32)) int32 words: the channel report's read (JAX
+    corner_bits_core + corner_gather_raw_core, without the batch packing),
+    payload slots (>= 912) by the QIM rule when qim_levels."""
     d = _walk_decisions(imgs, alpha, plane, y, x, Ky=Ky, Kx=Kx,
-                        center=center, layout=layout, jit=jit)
+                        center=center, layout=layout, jit=jit, dither=dither,
+                        qim_levels=qim_levels, qim_from=HEADER_SLOTS)
     return bit_ops.pack_bits_words((d >= 0).to(torch.uint8))

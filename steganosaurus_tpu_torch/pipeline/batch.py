@@ -1,32 +1,46 @@
 """Batched embed/extract under one shared key (the throughput path), in torch.
 
-The port's twin of steganosaurus_tpu/pipeline/batch.py for the shared-walk
-corner fast path on one device, in the reference wire format (FLAGS = 0:
-hard write, Rep-3 header, Rep-7 payload): secrets of equal or unequal
-length, Params.jitter, embed with read-back verification and re-salting,
-extract with the inline soft decode and the soft-decision retry pass, the
-channel report, and the walk prefetch that pipeline/stream.py runs on a
-worker thread.
+The port's twin of steganosaurus_tpu/pipeline/batch.py for the corner fast
+path on one device, in every corner wire mode the JAX batch path writes:
+the hard or soft write (Params.soft_write), jitter, per-bin amplitudes
+(Params.alpha_spread), dithered phase QIM on the payload (Params.qim), the
+Rep-7 or RS(255,223) payload (Params.rs), length padding
+(Params.pad_quantum), the shared walk or per-image walks
+(Params.per_image_walk), and any composition of them (Params.stealth()).
+Secrets may differ in length; embed verifies and re-salts on request;
+extract reads every mode from the header's FLAGS (mixed batches too), with
+the inline soft decode and the soft-decision retry pass; the channel report
+and the walk prefetches that pipeline/stream.py runs on a worker thread
+complete the surface.
 
-- host: per-image AEAD and header framing, ONE turtle-walk expansion for
-  the batch (the walk key is salt-independent, steganosaur.cpp:1134-1143);
-  both come from the JAX package's jax-free modules (crypto, keystream).
-- device: the walk indices and the static slot maps live on the device,
-  cached per key; covers cross to the device once as u8 and may stay there
-  (pass a CUDA tensor, get a CUDA tensor back with device_resident=True).
+- host: per-image AEAD and header framing, RS coding (ops/rs.py), ONE
+  turtle-walk expansion for a shared-walk batch (the walk key is
+  salt-independent, steganosaur.cpp:1134-1143), or the shared header
+  prefix plus one salt-keyed payload walk per image on a thread pool; all
+  from the JAX package's jax-free modules (crypto, keystream, ops.rs).
+- device: shared-walk indices, per-slot keyed values and static maps live
+  on the device, cached per key; covers cross to the device once as u8 and
+  may stay there (pass a CUDA tensor, get a CUDA tensor back with
+  device_resident=True).
 - no hidden host sync: uploads go through pinned memory without blocking
   (runtime.upload) and each pull waits only for its own work
   (runtime.HostCopy), so embed_batch and extract_dispatch queue their
   device work and return; pipeline/stream.py overlaps batches on that.
 
-Params the port does not carry yet raise StegoError naming the field
-(_check_params). The images' device is the input tensor's device, else the
-`device` argument, else CUDA (runtime.resolve_device).
+The port has no single-image path yet, so three Params fields still raise
+StegoError naming the field (_check_params: adaptive_alpha, coherent,
+cover_dependent_path), and extraction reads as None a row whose header
+carries FLAG_COHERENT or fails both parses, where the JAX package hands
+such rows to its single-image extract_array. The images' device is the
+input tensor's device, else the `device` argument, else CUDA
+(runtime.resolve_device).
 """
 
 from __future__ import annotations
 
+import threading
 from collections import OrderedDict
+from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass
 
 import numpy as np
@@ -34,10 +48,13 @@ import torch
 
 from steganosaurus_tpu import crypto, keystream
 from steganosaurus_tpu.config import Params
+from steganosaurus_tpu.ops import rs as rs_mod
 from steganosaurus_tpu_torch import _build, runtime, spectral
 from steganosaurus_tpu_torch.ops import bits as bit_ops
 from steganosaurus_tpu_torch.parallel import batch as pbatch
 from steganosaurus_tpu_torch.pipeline import header as header_mod
+from steganosaurus_tpu_torch.pipeline import qim as qim_mod
+from steganosaurus_tpu_torch.pipeline import spread as spread_mod
 from steganosaurus_tpu_torch.pipeline.errors import StegoError
 from steganosaurus_tpu_torch.pipeline.header import Header
 from steganosaurus_tpu_torch.spectral import corner
@@ -45,12 +62,10 @@ from steganosaurus_tpu_torch.utils import metrics
 
 _HEADER_STREAM_BITS = header_mod.FIXED_LEN * 8 * 3
 
-# Params fields whose non-default values the port does not implement yet,
-# with the default each must hold.
-_UNSUPPORTED = (("soft_write", False), ("qim", 0), ("rs", False),
-                ("alpha_spread", 0.0), ("per_image_walk", False),
-                ("pad_quantum", 0), ("adaptive_alpha", False),
-                ("coherent", False), ("cover_dependent_path", False))
+# Params fields whose non-default values need the single-image path, which
+# the port does not have yet, with the default each must hold.
+_UNSUPPORTED = (("adaptive_alpha", False), ("coherent", False),
+                ("cover_dependent_path", False))
 
 
 def _check_params(params: Params, mesh) -> None:
@@ -61,6 +76,7 @@ def _check_params(params: Params, mesh) -> None:
     if mesh is not None:
         raise StegoError("mesh is not supported by steganosaurus_tpu_torch "
                          "yet (single device only)")
+    qim_mod.validate(params)
 
 
 def _check_key(password, master_key) -> None:
@@ -104,6 +120,34 @@ def _rows(t: torch.Tensor, idx: list[int], dev) -> tuple[torch.Tensor,
     return sel, t.index_select(0, sel)
 
 
+def _bucket(nbits: int) -> int:
+    return -(-nbits // 4096) * 4096
+
+
+def _payload_stream_bits(nbytes: int, rs: bool) -> int:
+    """Payload stream bits of `nbytes` of ct||tag under the payload FEC:
+    interleaved RS(255,223) coded bytes, or Rep-7."""
+    return rs_mod.coded_len(nbytes) * 8 if rs else nbytes * 8 * 7
+
+
+def _wire_clen(secret_len: int, params: Params) -> int:
+    """The header clen of a secret: its length, padded under pad_quantum."""
+    if params.pad_quantum:
+        return header_mod.padded_len(secret_len, params.pad_quantum)
+    return secret_len
+
+
+def _flags(params: Params) -> int:
+    """Header FLAGS of the wire mode Params select (FLAG_PADDED is added by
+    seal_stream)."""
+    flags = header_mod.FLAG_PER_IMAGE_WALK if params.per_image_walk else 0
+    if params.qim:
+        flags = header_mod.flags_with_qim(flags, params.qim)
+    if params.rs:
+        flags |= header_mod.FLAG_RS_PAYLOAD
+    return flags
+
+
 @dataclass
 class BatchEmbedResult:
     stego: np.ndarray | torch.Tensor  # numpy, or a device tensor if
@@ -130,11 +174,11 @@ def _walk_indices(password, master_key, params, PH, PW, nbits,
     )
 
 
-# Device-resident walk indices and static maps, keyed by everything they are
-# a pure function of (path key, dims, walk params, slice, device): one
-# expansion and one upload serve every later batch under the key. Plain
-# OrderedDicts, used from the calling thread only (prefetch_walk never
-# touches them).
+# Device-resident walk indices, per-slot keyed values and static maps,
+# keyed by everything they are a pure function of (path key, dims, walk
+# params, slice, device): one expansion and one upload serve every later
+# batch under the key. Plain OrderedDicts, used from the calling thread
+# only (the prefetches never touch them).
 _DEV_IDX_CACHE: OrderedDict[tuple, tuple] = OrderedDict()
 _CORNER_STATICS_CACHE: OrderedDict[tuple, tuple] = OrderedDict()
 _DEV_CACHE_MAX = 16
@@ -173,77 +217,254 @@ def _walk_indices_device(password, master_key, params, PH, PW, nbits, skip,
     return _cache_put(_DEV_IDX_CACHE, key, ent)
 
 
+def _slot_values_device(kind: str, path_key: bytes, params: Params, L: int,
+                        nbits: int, bucket: int, device) -> torch.Tensor:
+    """(bucket,) f32 device tensor of the keyed per-slot values of frame
+    slots [0, nbits), tail-padded by repeating slot nbits - 1 (the JAX
+    statics' padding): kind "alpha" is Params.alpha_spread's amplitudes
+    (pipeline/spread.py), kind "dither" the level-L QIM dithers
+    (pipeline/qim.py). nbits == bucket gives the unpadded draws."""
+    key = (kind, path_key, params.alpha, params.alpha_spread, L, nbits,
+           bucket, device)
+    ent = _DEV_IDX_CACHE.get(key)
+    if ent is None:
+        a = (spread_mod.spread_alphas(path_key, params, nbits)
+             if kind == "alpha" else qim_mod.dither_angles(path_key, L, nbits))
+        ent = runtime.upload(np.concatenate(
+            [a, np.repeat(a[nbits - 1], bucket - nbits)]).astype(np.float32),
+            device)
+    return _cache_put(_DEV_IDX_CACHE, key, ent)
+
+
 def _corner_statics_device(password, master_key, params, PH, PW, nbits,
                            bucket, Ky, Kx, device):
     """(maps, nprod): the static corner maps of the walk's first `bucket`
     slots (parallel.batch.corner_statics_core) — the JAX package's maps
-    tuple for the Params the port carries: (pos,), or (pos, cjd, sjd) when
-    Params.jitter != 0."""
+    tuple (pos, [cjd, sjd], [cad, sad], [dq, qm]): the jitter pair when
+    Params.jitter != 0, the amplitude pair when Params.alpha_spread != 0,
+    the QIM pair when Params.qim is nonzero. Only the embed builds them
+    (the reads take each walk slot's own values), so the level is always
+    Params.qim. Keyed as the JAX cache is: alpha joins the key only under
+    spread (the amplitude maps bake cos/sin(alpha_i)), and the QIM level
+    always."""
     path_key = crypto.derive_path_key(password, master_key, None)
+    has_spread = params.alpha_spread != 0.0
+    L = params.qim
     key = (path_key, PH, PW, params.rmin, params.rmax, params.density,
-           params.jitter, nbits, bucket, Ky, Kx, device)
+           params.jitter, nbits, bucket, Ky, Kx, device,
+           (params.alpha, params.alpha_spread) if has_spread else None, L)
     ent = _CORNER_STATICS_CACHE.get(key)
     if ent is None:
         (plane, y, x, jit), nprod = _walk_indices_device(
             password, master_key, params, PH, PW, nbits, 0, bucket, device)
+
+        def slots(kind):
+            return _slot_values_device(kind, path_key, params, L, nbits,
+                                       bucket, device)
+
         maps = pbatch.corner_statics_core(
             plane, y, x, Ky, Kx, bucket,
-            jit if params.jitter != 0.0 else None)
+            jit if params.jitter != 0.0 else None,
+            alphas=slots("alpha") if has_spread else None,
+            dither=slots("dither") if L else None)
         ent = (maps, nprod)
     return _cache_put(_CORNER_STATICS_CACHE, key, ent)
+
+
+# Prefetched per-image payload walks (per-image-walk streams), keyed by
+# (path_key, salt, dims, walk params, need). Entries are single-use —
+# salts rotate per batch — so consumers POP them; prefetch_piw_walks fills
+# them on a worker thread while earlier batches hold the device.
+_PIW_CACHE: OrderedDict[tuple, tuple] = OrderedDict()
+_PIW_CACHE_MAX = 256
+_PIW_CACHE_LOCK = threading.Lock()
+
+
+def _piw_key(path_key, salt, params, PH, PW, need):
+    return (path_key, salt, PH, PW, params.rmin, params.rmax, params.density,
+            params.jitter, need)
+
+
+def _piw_header_walk(path_key, params, PH, PW):
+    """(plane, y, x, jitter, visited) of the shared 912-slot header prefix
+    (keystream caches it, under its own lock)."""
+    _build.ensure_native()
+    kw, kr, kg, kb = crypto.derive_turtle_keys(path_key)
+    return keystream.header_walk_with_visited(
+        kw, (kr, kg, kb), PH, PW, params.rmin, params.rmax, params.density,
+        params.jitter, _HEADER_STREAM_BITS)
+
+
+def _piw_expand(path_key, salt, params, PH, PW, need, vis):
+    """One salt-keyed payload expansion of `need` bits resuming from the
+    header's visited bitmap, tail-padded past exhaustion (allow_short)."""
+    sk = crypto.derive_turtle_keys(crypto.derive_salt_path_key(path_key,
+                                                               salt))
+    return keystream.turtle_expand_chained(
+        sk[0], sk[1:], PH, PW, params.rmin, params.rmax, params.density,
+        params.jitter, need, vis, allow_short=True)
+
+
+def _piw_expand_one(path_key, salt, params, PH, PW, need, vis):
+    """_piw_expand, consuming a prefetched entry when there is one."""
+    key = _piw_key(path_key, salt, params, PH, PW, need)
+    with _PIW_CACHE_LOCK:
+        ent = _PIW_CACHE.pop(key, None)
+    if ent is not None:
+        return ent
+    return _piw_expand(path_key, salt, params, PH, PW, need, vis)
+
+
+def _piw_map(fn, n: int, name: str = "piw-walk") -> list:
+    """[fn(0), ..., fn(n-1)] on up to 8 threads named `name`: the native
+    walker releases the GIL, so a batch pays the longest expansion, not
+    their sum."""
+    with ThreadPoolExecutor(max_workers=max(1, min(8, n)),
+                            thread_name_prefix=name) as ex:
+        return list(ex.map(fn, range(n)))
+
+
+def prefetch_piw_walks(password, master_key, params: Params, H: int, W: int,
+                       salts: list[bytes], secret_lens: list[int]) -> None:
+    """Warm the per-image payload-walk cache for an upcoming batch: the B
+    salt-keyed expansions are the per-image-walk mode's dominant host cost,
+    and pipeline.stream runs this on a worker thread (with salts drawn up
+    front) while the batches in flight hold the device. The needs are the
+    embed's own (padded clen, FEC mode), so embed_batch finds the entries.
+    Errors are swallowed: the embed that follows raises them with full
+    context."""
+    try:
+        PH, PW = spectral.fft_dims(H, W)
+        path_key = crypto.derive_path_key(password, master_key, None)
+        *_, vis = _piw_header_walk(path_key, params, PH, PW)
+        needs = [_payload_stream_bits(_wire_clen(n, params) + 16, params.rs)
+                 for n in secret_lens]
+
+        def one(i):
+            key = _piw_key(path_key, salts[i], params, PH, PW, needs[i])
+            with _PIW_CACHE_LOCK:
+                if key in _PIW_CACHE:
+                    return
+            ent = _piw_expand(path_key, salts[i], params, PH, PW, needs[i],
+                              vis)
+            with _PIW_CACHE_LOCK:
+                _PIW_CACHE[key] = ent
+                while len(_PIW_CACHE) > _PIW_CACHE_MAX:
+                    _PIW_CACHE.popitem(last=False)
+
+        _piw_map(one, len(salts), "piw-prefetch")
+    except Exception:  # noqa: BLE001 — deliberately quiet (see docstring)
+        pass
+
+
+def _piw_walk_arrays(password, master_key, params, PH, PW, salts,
+                     need_lens, bucket, strict=True):
+    """Per-image-walk (B, bucket) plane/y/x int32 and jitter f32 host
+    arrays (JAX _piw_walk_arrays).
+
+    Row i is the shared header prefix (912 slots) followed by the
+    salt-keyed payload walk of salts[i] resuming from the prefix's visited
+    state, expanded to need_lens[i] - 912 bits and tail-padded to `bucket`
+    by repeating the last real bin. strict=True (embed) raises StegoError
+    when an image's walk exhausts before its frame fits; strict=False
+    (extraction, where need_lens come from decoded and possibly corrupt
+    clens) lets the walk's own padding stand, so the image reads garbage
+    that the AEAD rejects and the batch goes on."""
+    path_key = crypto.derive_path_key(password, master_key, None)
+    hdr_n = _HEADER_STREAM_BITS
+    hp, hy, hx, hj, vis = _piw_header_walk(path_key, params, PH, PW)
+    outs = _piw_map(lambda i: _piw_expand_one(
+        path_key, salts[i], params, PH, PW, need_lens[i] - hdr_n, vis),
+        len(salts))
+    B = len(salts)
+    plane = np.empty((B, bucket), np.int32)
+    yarr = np.empty((B, bucket), np.int32)
+    xarr = np.empty((B, bucket), np.int32)
+    jarr = np.empty((B, bucket), np.float32)
+    for i, (pp, py, px, pj, n) in enumerate(outs):
+        need = need_lens[i] - hdr_n
+        if n < need and strict:
+            raise StegoError(
+                f"Message too large. Image {i}: salt-keyed payload walk "
+                f"exhausted after {n}/{need} bits.")
+        for dst, pre, pay in ((plane, hp, pp), (yarr, hy, py),
+                              (xarr, hx, px), (jarr, hj, pj)):
+            row = dst[i]
+            row[:hdr_n] = pre
+            row[hdr_n:hdr_n + need] = pay[:need]
+            row[hdr_n + need:] = row[hdr_n + need - 1]
+    return plane, yarr, xarr, jarr
+
+
+def _upload_walks(arrays, dev) -> tuple[torch.Tensor, ...]:
+    return tuple(runtime.upload(a, dev) for a in arrays)
 
 
 def prefetch_walk(password, master_key, params: Params, H: int, W: int,
                   secret_lens: list[int]) -> None:
     """Warm the HOST walk cache (keystream) for (key, dims, params) ahead
-    of use, shared walk only.
+    of use.
 
     The turtle walk is the pipeline's one strictly sequential host cost
     (~1.2 s for a fresh key at 4K/16 KB); pipeline.stream runs this on a
     worker thread when a stream's key rotates, so the expansion overlaps the
-    batches in flight instead of stalling the next embed_batch. It touches
-    only keystream's cache, which is locked, never _DEV_IDX_CACHE or
-    _CORNER_STATICS_CACHE. Errors are swallowed, as the JAX package's
-    prefetch_walk does: the next embed_batch under the key raises them with
-    full context, and nothing else depends on this call."""
+    batches in flight instead of stalling the next embed_batch. Under
+    per-image walks only the shared header prefix is salt-independent, so
+    only it is expanded. It touches only keystream's caches, which are
+    locked, never _DEV_IDX_CACHE or _CORNER_STATICS_CACHE. Errors are
+    swallowed, as the JAX package's prefetch_walk does: the next
+    embed_batch under the key raises them with full context, and nothing
+    else depends on this call."""
     try:
         PH, PW = spectral.fft_dims(H, W)
-        nmax = max(_HEADER_STREAM_BITS + (n + 16) * 8 * 7
-                   for n in secret_lens)
+        if params.per_image_walk:
+            _piw_header_walk(crypto.derive_path_key(password, master_key,
+                                                    None), params, PH, PW)
+            return
+        nmax = max(_HEADER_STREAM_BITS + _payload_stream_bits(
+            _wire_clen(n, params) + 16, params.rs) for n in secret_lens)
         _walk_indices(password, master_key, params, PH, PW, nmax,
                       allow_short=True)
     except Exception:  # noqa: BLE001 — deliberately quiet (see docstring)
         pass
 
 
-def _frame_bits(stream: bytes) -> np.ndarray:
-    """header||ct||tag -> the on-wire u8 frame bits: Rep-3 over the 304
-    header bits, then Rep-7 over the payload bits, MSB first (reference
-    frame layout, steganosaur.cpp:986-995)."""
-    bits = np.unpackbits(np.frombuffer(stream, np.uint8))
-    hdr = header_mod.FIXED_LEN * 8
-    return np.concatenate([np.repeat(bits[:hdr], 3),
-                           np.repeat(bits[hdr:], 7)])
+def _frame_bits(stream: bytes, rs: bool = False) -> np.ndarray:
+    """header||ct||tag -> the on-wire u8 frame bits, MSB first: Rep-3 over
+    the 304 header bits (reference frame layout, steganosaur.cpp:986-995),
+    then Rep-7 over the payload bits, or with `rs` the bits of the
+    payload's interleaved RS(255,223) coding (ops/rs.py)."""
+    hdr = header_mod.FIXED_LEN
+    h = np.repeat(np.unpackbits(np.frombuffer(stream[:hdr], np.uint8)), 3)
+    if rs:
+        p = np.unpackbits(np.frombuffer(
+            rs_mod.rs_encode_interleaved(stream[hdr:]), np.uint8))
+    else:
+        p = np.repeat(np.unpackbits(np.frombuffer(stream[hdr:], np.uint8)), 7)
+    return np.concatenate([h, p])
 
 
-def _host_frames(streams: list[bytes], bucket: int) -> np.ndarray:
-    """(B, bucket) u8 frames of unequal-length streams, each padded with its
-    own last bit (the JAX embed_batch _host_frames)."""
+def _host_frames(streams: list[bytes], bucket: int,
+                 rs: bool = False) -> np.ndarray:
+    """(B, bucket) u8 frames, each padded with its own last bit (the JAX
+    embed_batch _host_frames)."""
     bits = np.empty((len(streams), bucket), np.uint8)
     for i, s in enumerate(streams):
-        f = _frame_bits(s)
+        f = _frame_bits(s, rs)
         bits[i, :len(f)] = f
         bits[i, len(f):] = f[-1]
     return bits
 
 
 def _seal_streams(secrets, salts, password, master_key, params) -> list:
-    """header||ct||tag per image, FLAGS = 0 (the reference wire format)."""
+    """header||ct||tag per image, FLAGS from the Params' wire mode."""
     streams = []
+    flags = _flags(params)
     for secret, salt in zip(secrets, salts):
         with crypto.derive_keys_vault(password, master_key, salt=salt,
                                       iters=params.pbkdf2_iter) as km:
-            hdr_bytes, ct, tag = header_mod.seal_stream(secret, km, 0, 0)
+            hdr_bytes, ct, tag = header_mod.seal_stream(
+                secret, km, flags, params.pad_quantum)
         streams.append(hdr_bytes + ct + tag)
     return streams
 
@@ -269,19 +490,24 @@ def embed_batch(
     (processed on its own device). The stego keeps the input layout; it is
     a tensor on that device when device_resident, else a numpy array.
 
-    Secrets may differ in length: every frame is padded to the longest by
-    repeating its own last bit (surplus bins are never read back). Equal
-    lengths upload the sealed streams and expand the ECC on the device;
-    unequal ones upload host-built frames.
+    Every corner wire mode of the JAX package is written as it writes it
+    (module docstring); Params.per_image_walk embeds the payload on each
+    image's salt-keyed walk (corner_piw_embed_core), else one shared walk
+    serves the batch (corner_embed_core). Secrets may differ in length:
+    every frame is padded to the longest by repeating its own last bit
+    (surplus bins are never read back). Equal-length Rep-7 shared-walk
+    batches upload the sealed streams and expand the ECC on the device;
+    the rest upload host-built frames.
 
-    verify=True reads every image back (extract_batch, clen_hint the longest
-    secret) and re-embeds the failures with fresh salts up to max_retries
-    times, writing the new rows into the stego in place. Result.verified
-    reports each image; result.salts the final salts. Explicit `salts` are
-    respected on the first attempt only.
+    verify=True reads every image back (extract_batch, clen_hint the
+    longest secret's wire clen) and re-embeds the failures with fresh salts
+    up to max_retries times, writing the new rows into the stego in place.
+    Result.verified reports each image; result.salts the final salts.
+    Explicit `salts` are respected on the first attempt only.
     """
     _check_key(password, master_key)
     _check_params(params, mesh)
+    spread_mod.validate(params)
     B, H, W = _dims(imgs, layout)
     if len(secrets) != B:
         raise ValueError(f"{len(secrets)} secrets for {B} images")
@@ -294,33 +520,61 @@ def embed_batch(
     if len(salts) != B:
         raise ValueError(f"{len(salts)} salts for {B} images")
     streams = _seal_streams(secrets, salts, password, master_key, params)
-    frame_lens = [_HEADER_STREAM_BITS
-                  + (len(s) - header_mod.FIXED_LEN) * 8 * 7 for s in streams]
+    frame_lens = [_HEADER_STREAM_BITS + _payload_stream_bits(
+        len(s) - header_mod.FIXED_LEN, params.rs) for s in streams]
     nmax = max(frame_lens)
-    # one walk serves the batch, bucketed to a 4096 multiple; surplus slots
-    # repeat the last (bin, bit) pair and are never read back
-    bucket = -(-nmax // 4096) * 4096
+    # frames are bucketed to a 4096 multiple; surplus slots repeat the last
+    # (bin, bit) pair and are never read back
+    bucket = _bucket(nmax)
     Ky, Kx = corner.corner_dims(PH, PW, params.rmax)
-    maps, nprod = _corner_statics_device(password, master_key, params, PH, PW,
-                                         nmax, bucket, Ky, Kx, dev)
-    if nprod < nmax:
-        raise StegoError(f"Message too large. Need {nmax} bits (after ECC), "
-                         f"walk exhausted after {nprod}.")
-    if len(set(frame_lens)) == 1:
-        words = runtime.upload(bit_ops.pack_bytes_words_host(streams), dev)
-        frame = pbatch._frame_from_words(words, len(streams[0]), bucket)
+    path_key = crypto.derive_path_key(password, master_key, None)
+    has_spread = params.alpha_spread != 0.0
+    common = dict(Ky=Ky, Kx=Kx, center=params.center, layout=layout,
+                  floor=params.write_floor, soft=params.soft_write,
+                  qim_levels=params.qim)
+    if params.per_image_walk:
+        walks = _upload_walks(_piw_walk_arrays(
+            password, master_key, params, PH, PW, salts, frame_lens, bucket),
+            dev)
+        frame = bit_ops.unpack_bits_words(runtime.upload(
+            bit_ops.pack_bits_words_host(
+                _host_frames(streams, bucket, params.rs)), dev), bucket)
+
+        def full_draws(kind):  # slot-aligned, clamped per image on device
+            return _slot_values_device(kind, path_key, params, params.qim,
+                                       bucket, bucket, dev)
+
+        stego = pbatch.corner_piw_embed_core(
+            imgs_d, frame, *walks, params.alpha,
+            alphas=full_draws("alpha") if has_spread else None,
+            dither=full_draws("dither") if params.qim else None,
+            nbits=runtime.upload(np.asarray(frame_lens, np.int64), dev),
+            **common)
     else:
-        words = runtime.upload(
-            bit_ops.pack_bits_words_host(_host_frames(streams, bucket)), dev)
-        frame = bit_ops.unpack_bits_words(words, bucket)
-    stego = pbatch.corner_embed_core(
-        imgs_d, frame, maps, params.alpha, Ky=Ky, Kx=Kx,
-        center=params.center, layout=layout, floor=params.write_floor)
+        maps, nprod = _corner_statics_device(password, master_key, params,
+                                             PH, PW, nmax, bucket, Ky, Kx,
+                                             dev)
+        if nprod < nmax:
+            raise StegoError(f"Message too large. Need {nmax} bits (after "
+                             f"ECC), walk exhausted after {nprod}.")
+        if len(set(frame_lens)) == 1 and not params.rs:
+            words = runtime.upload(bit_ops.pack_bytes_words_host(streams),
+                                   dev)
+            frame = pbatch._frame_from_words(words, len(streams[0]), bucket)
+        else:
+            words = runtime.upload(bit_ops.pack_bits_words_host(
+                _host_frames(streams, bucket, params.rs)), dev)
+            frame = bit_ops.unpack_bits_words(words, bucket)
+        stego = pbatch.corner_embed_core(
+            imgs_d, frame, maps, params.alpha,
+            has_jitter=params.jitter != 0.0, has_spread=has_spread, **common)
 
     salts = list(salts)
     verified = None
     if verify:
-        maxlen = max(len(s) for s in secrets)
+        # the on-wire clen is the padded plaintext length: an unpadded hint
+        # would undersize the fused pass and cost a second one
+        maxlen = _wire_clen(max(len(s) for s in secrets), params)
         got = extract_batch(stego, password=password, master_key=master_key,
                             params=params, clen_hint=maxlen, layout=layout)
         verified = [g == s for g, s in zip(got, secrets)]
@@ -368,12 +622,16 @@ def channel_report(
 
     Re-derives each image's on-wire frame from (secret, salt) — the AEAD is
     deterministic given the salt — and reads the raw bits back at the walk
-    bins of the stego batch. Post-ECC BER > 0 on an image means its AEAD
-    fails and verify would re-salt it. The Rep-7 payload only: Params.rs
-    (and every other field the port does not carry) raises StegoError
-    naming the field."""
+    bins of the stego batch: payload slots by the QIM rule under
+    Params.qim, the post-ECC payload BER through the RS decode under
+    Params.rs. Post-ECC BER > 0 on an image means its AEAD fails and verify
+    would re-salt it. The shared walk only, as in the JAX package:
+    Params.per_image_walk raises StegoError."""
     _check_key(password, master_key)
     _check_params(params, mesh)
+    if params.per_image_walk:
+        raise StegoError("channel_report supports the shared-walk corner "
+                         "path only (Params.per_image_walk is not)")
     B, H, W = _dims(stego, layout)
     if len(secrets) != B or len(salts) != B:
         raise ValueError(f"{len(secrets)} secrets and {len(salts)} salts for "
@@ -381,22 +639,28 @@ def channel_report(
     dev = runtime.resolve_device(device, like=stego)
     stego_d = _to_device(stego, dev)
     PH, PW = spectral.fft_dims(H, W)
-    frames = [_frame_bits(s) for s in
-              _seal_streams(secrets, salts, password, master_key, params)]
+    streams = _seal_streams(secrets, salts, password, master_key, params)
+    frames = [_frame_bits(s, params.rs) for s in streams]
     nmax = max(len(f) for f in frames)
-    bucket = -(-nmax // 4096) * 4096
+    bucket = _bucket(nmax)
     (pl, yy, xx, jj), nprod = _walk_indices_device(
         password, master_key, params, PH, PW, nmax, 0, bucket, dev)
     if nprod < nmax:
         raise StegoError("stego batch cannot carry the claimed frames")
     Ky, Kx = corner.corner_dims(PH, PW, params.rmax)
+    dither = (_slot_values_device(
+        "dither", crypto.derive_path_key(password, master_key, None), params,
+        params.qim, nmax, bucket, dev) if params.qim else None)
     words = pbatch.corner_raw_bits_core(
         stego_d, params.alpha, pl, yy, xx, Ky=Ky, Kx=Kx,
         center=params.center, layout=layout,
-        jit=jj if params.jitter != 0.0 else None)
+        jit=jj if params.jitter != 0.0 else None, dither=dither,
+        qim_levels=params.qim)
     got = bit_ops.unpack_words_host(runtime.HostCopy(words).numpy(), bucket)
-    reports = [metrics.ecc_report(f, got[i, :len(f)], _HEADER_STREAM_BITS)
-               for i, f in enumerate(frames)]
+    reports = [metrics.ecc_report(
+        f, got[i, :len(f)], _HEADER_STREAM_BITS,
+        rs_payload_bytes=(len(s) - header_mod.FIXED_LEN) if params.rs else 0)
+        for i, (f, s) in enumerate(zip(frames, streams))]
     out = {k: float(np.mean([r[k] for r in reports])) for k in reports[0]}
     if per_image:
         out["per_image"] = [{k: float(v) for k, v in r.items()}
@@ -405,15 +669,26 @@ def channel_report(
 
 
 def _parse_hdr(buf: bytes) -> Header | None:
-    """A header this slice can read: right magic and version, and FLAGS == 0
-    (any wire-mode bit — per-image walk, RS, padding, coherent, QIM — is not
-    ported yet)."""
+    """A header this port can read: right magic and version, a valid QIM
+    level (1 is not one: a corrupt header), and no FLAG_COHERENT — the
+    coherent mode needs the single-image path the port does not have, so
+    such a row reads as None (the JAX package hands it to extract_array)."""
     hb = buf[:header_mod.FIXED_LEN]
     if hb[:4] != header_mod.MAGIC or hb[4] != header_mod.VERSION:
         return None
-    if hb[5] != 0:
+    if header_mod.qim_levels(hb[5]) == 1 or hb[5] & header_mod.FLAG_COHERENT:
         return None
     return Header.from_bytes(hb)
+
+
+def _mode(h: Header) -> tuple[int, bool]:
+    """(QIM level, RS flag) a header carries."""
+    return (header_mod.qim_levels(h.flags),
+            bool(h.flags & header_mod.FLAG_RS_PAYLOAD))
+
+
+def _is_piw(h: Header) -> bool:
+    return bool(h.flags & header_mod.FLAG_PER_IMAGE_WALK)
 
 
 def _to_bufs(words: np.ndarray) -> list[bytes]:
@@ -425,7 +700,13 @@ class _ExtractJob:
     """An in-flight batch extraction. The fused header + hinted payload pass
     and the copy of its hard rows to the host are queued on the device at
     construction (CUDA work is asynchronous) and waited for only in
-    finalize(), so host work between the two overlaps it."""
+    finalize(), so host work between the two overlaps it.
+
+    The fused pass assumes the wire mode Params name (QIM level, RS or
+    Rep-7) for its payload section; headers always decode (they are never
+    QIM-written), and images whose header carries another mode get a
+    corrected payload-only pass in finalize, so a wrong assumption never
+    misdecodes."""
 
     def __init__(self, imgs, password, master_key, params, mesh, clen_hint,
                  layout="nhwc", device=None):
@@ -438,23 +719,25 @@ class _ExtractJob:
         self._dev = dev
         PH, PW = spectral.fft_dims(H, W)
         self._key = (password, master_key)
+        self._path_key = crypto.derive_path_key(password, master_key, None)
         self._params = params
+        self._qim, self._rs = params.qim, params.rs
         self._dims = (PH, PW)
         self._corner_kk = corner.corner_dims(PH, PW, params.rmax)
         # Walk capacity upper bound: each accepted bit marks a bin and its
         # conjugate. Bounds the gather under a corrupt header clen and an
         # oversized hint.
         self._cap_bits = 3 * PH * PW // 2
-        self._hint_bits = (min(self._payload_bits(clen_hint), self._cap_bits)
-                           if clen_hint else 0)
+        self._hint_bits = (min(self._payload_bits(clen_hint, params.rs),
+                               self._cap_bits) if clen_hint else 0)
         self._covered_payload_bits = 0  # set by the with_header pass
         self._result: list[bytes | None] | None = None
         self._pending = self._dispatch_pass(self._hint_bits, True)
 
     @staticmethod
-    def _payload_bits(clen: int) -> int:
-        """Rep-7 payload stream bits for a ciphertext length."""
-        return (clen + 16) * 8 * 7
+    def _payload_bits(clen: int, rs: bool = False) -> int:
+        """Payload stream bits for a ciphertext length, by FEC mode."""
+        return _payload_stream_bits(clen + 16, rs)
 
     def _walk(self, total: int, skip: int, bucket_total: int):
         """Walk plane/y/x of slots [skip, total), padded to bucket_total -
@@ -466,22 +749,38 @@ class _ExtractJob:
             bucket_total - skip, self._dev)
         return pl, yy, xx, (jj if self._params.jitter != 0.0 else None)
 
-    def _dispatch_pass(self, payload_stream_bits: int, with_header: bool):
-        """Queue one read + ECC-decode pass; returns (hard, soft, info): the
-        HostCopy of the hard rows, and — with soft_decode_fallback on — the
-        soft rows left on the device and the pass's section layout
-        (hdr_bits, n_slots), else None and None.
+    def _dither(self, L: int, nbits: int, bucket: int) -> torch.Tensor:
+        """Level-L QIM dithers of frame slots [0, nbits), padded to
+        `bucket` by repeating slot nbits - 1."""
+        return _slot_values_device("dither", self._path_key, self._params,
+                                   L, nbits, bucket, self._dev)
+
+    def _sub(self, idxs: list[int]) -> torch.Tensor:
+        return (self._imgs_d if len(idxs) == self.B
+                else _rows(self._imgs_d, idxs, self._dev)[1])
+
+    def _dispatch_pass(self, payload_stream_bits: int, with_header: bool,
+                       qim: int | None = None, rs: bool | None = None):
+        """Queue one read + decode pass over the shared walk; returns (hard,
+        soft, info): the HostCopy of the hard rows, and — with
+        soft_decode_fallback on — the soft rows left on the device and the
+        pass's section layout (hdr_bits, n_slots, rep), else None and None.
+        `qim`/`rs` are the payload section's mode (default: the assumed
+        one); the header section always reads by the hard rule.
 
         The total frame length is bucketed to a 4096 multiple exactly as
         embed_batch buckets a frame of that length, so an embed -> extract
         round trip shares one cached walk upload. With no payload bits this
         is the header-only probe: 912 slots, no rounding."""
+        L = self._qim if qim is None else qim
+        rep = 1 if (self._rs if rs is None else rs) else 7
         hdr = _HEADER_STREAM_BITS
         if payload_stream_bits:
             total = hdr + payload_stream_bits
-            bucket_total = -(-total // 4096) * 4096
+            bucket_total = _bucket(total)
         else:
             total = bucket_total = hdr
+            L = 0  # the header never reads by the QIM rule
         hdr_bits = hdr if with_header else 0
         skip = 0 if with_header else hdr
         if with_header:
@@ -494,44 +793,106 @@ class _ExtractJob:
         words = pbatch.corner_extract_fused_core(
             self._imgs_d, self._params.alpha, pl, yy, xx, Ky=Ky, Kx=Kx,
             center=self._params.center, layout=self._layout,
-            hdr_stream_bits=hdr_bits, with_soft=with_soft, jit=jj)
+            hdr_stream_bits=hdr_bits, with_soft=with_soft, jit=jj,
+            dither=(self._dither(L, total, bucket_total)[skip:] if L
+                    else None),
+            qim_levels=L, qim_from=hdr_bits, payload_rep=rep)
         if not with_soft:
             return runtime.HostCopy(words), None, None
         hard, soft = words
-        return runtime.HostCopy(hard), soft, (hdr_bits, bucket_total - skip)
+        return (runtime.HostCopy(hard), soft,
+                (hdr_bits, bucket_total - skip, rep))
 
     @staticmethod
-    def _soft_sections(soft_d, info) -> list[bytes]:
-        """Pull a pass's soft rows and split them per image; the word count
-        mirrors the device-side packing exactly (checked)."""
-        hdr_bits, n_slots = info
+    def _soft_sections(soft_d, info):
+        """Pull a pass's soft rows and split them per image into (soft
+        bufs, RS confidences (B, n_bytes) f32 or None); the word counts
+        mirror the device-side packing exactly (checked)."""
+        hdr_bits, n_slots, rep = info
         hw = (hdr_bits // 3 + 31) // 32 if hdr_bits else 0
-        pw = ((n_slots - hdr_bits) // 7 + 31) // 32
+        wh = hw + ((n_slots - hdr_bits) // rep + 31) // 32
+        c = (n_slots - hdr_bits) // 8 if rep == 1 else 0
         words = runtime.HostCopy(soft_d).numpy()
-        if words.shape[1] != hw + pw:
+        if words.shape[1] != wh + c:
             raise RuntimeError(
                 f"soft-row word-layout mismatch: device rows have "
-                f"{words.shape[1]} words, host expects {hw + pw}")
-        return _to_bufs(words)
+                f"{words.shape[1]} words, host expects {wh}+{c}")
+        return (_to_bufs(words[:, :wh]),
+                words[:, wh:].view(np.float32) if c else None)
 
-    def _open_payload(self, hdr: Header, payload: bytes) -> bytes | None:
-        """AEAD-open a Rep-7-decoded payload section under `hdr`; None when
-        it is short or fails authentication."""
+    def _open_payload(self, hdr: Header, payload: bytes,
+                      conf=None) -> bytes | None:
+        """FEC-decode a payload byte section under `hdr` and AEAD-open it;
+        None when it is short or fails authentication. For an RS header the
+        section holds the coded bytes: the hard RS decode, or with `conf`
+        (per-coded-byte confidences of a soft pass) the errors-and-erasures
+        decode (ops/rs.py)."""
         password, master_key = self._key
-        rest = payload[: hdr.clen + 16]
-        if len(rest) < hdr.clen + 16:
+        m = hdr.clen + 16
+        if hdr.flags & header_mod.FLAG_RS_PAYLOAD:
+            ncoded = rs_mod.coded_len(m)
+            if len(payload) < ncoded:
+                return None
+            if conf is not None:
+                rest, _ = rs_mod.rs_decode_interleaved_soft(
+                    payload[:ncoded], m, conf[:ncoded])
+            else:
+                rest, _, _ = rs_mod.rs_decode_interleaved(payload[:ncoded], m)
+        else:
+            rest = payload[:m]
+        if len(rest) < m:
             return None
-        ct, tag = rest[: hdr.clen], rest[hdr.clen:]
+        ct, tag = rest[:hdr.clen], rest[hdr.clen:m]
         with crypto.derive_keys_vault(password, master_key, salt=hdr.salt,
                                       iters=self._params.pbkdf2_iter) as km:
             return header_mod.maybe_unpad(
                 km.open(hdr.to_bytes(), ct, tag), hdr.flags)
 
+    def _piw_rows(self, idxs: list[int], hdrs, needs: list[int], n: int):
+        """((plane, y, x, jitter) (len(idxs), n) device tensors of the
+        per-image walks of rows `idxs` — keyed by their headers' salts,
+        expanded to `needs` frame slots, header prefix included, tolerant
+        of exhaustion — and exactly those rows' images)."""
+        password, master_key = self._key
+        PH, PW = self._dims
+        arrays = _piw_walk_arrays(password, master_key, self._params, PH, PW,
+                                  [hdrs[i].salt for i in idxs], needs, n,
+                                  strict=False)
+        return _upload_walks(arrays, self._dev), self._sub(idxs)
+
+    def _dispatch_piw_pass(self, idxs: list[int], headers: list,
+                           qim: int = 0, rs: bool = False) -> list[bytes]:
+        """Per-image-walk payload pass for the header-flagged rows `idxs`
+        (JAX _ExtractJob._dispatch_piw_pass): each row's salt-keyed payload
+        walk is expanded (on 8 threads) from its decoded header's salt and
+        clen, then one forward DFT + per-image gather + decode over exactly
+        those rows, under the group's header-carried QIM level and FEC.
+        Returns payload byte buffers aligned with `idxs`."""
+        hdr = _HEADER_STREAM_BITS
+        needs = [min(self._payload_bits(headers[i].clen, rs), self._cap_bits)
+                 for i in idxs]
+        n = _bucket(max(needs))
+        (pl, yy, xx, jj), imgs = self._piw_rows(
+            idxs, headers, [hdr + m for m in needs], hdr + n)
+        Ky, Kx = self._corner_kk
+        words = pbatch.corner_extract_fused_core(
+            imgs, self._params.alpha, pl[:, hdr:], yy[:, hdr:], xx[:, hdr:],
+            Ky=Ky, Kx=Kx, center=self._params.center, layout=self._layout,
+            hdr_stream_bits=0, with_soft=False, jit=jj[:, hdr:],
+            # payload-only slots: payload bit k sits at frame slot 912 + k
+            dither=(self._dither(qim, hdr + n, hdr + n)[hdr:] if qim
+                    else None),
+            qim_levels=qim, qim_from=0, payload_rep=1 if rs else 7)
+        return _to_bufs(runtime.HostCopy(words).numpy())
+
     def finalize(self) -> list[bytes | None]:
-        """Wait for the fused pass, parse headers, run a payload-only second
-        pass if the hint was too small, AEAD-open everything, retry failures
-        from the same pass's matched-filter soft sections, then run the
-        soft-decision retry pass over what still fails. Idempotent."""
+        """Wait for the fused pass, parse headers, group the rows by the
+        wire mode their headers carry, run each group's payload pass where
+        the fused pass did not already decode it (payload-only shared-walk
+        passes by (QIM level, FEC); per-image-walk passes), AEAD-open
+        everything, retry failures from the same pass's matched-filter soft
+        sections, then run the soft-decision retry pass over what still
+        fails. Idempotent."""
         if self._pending is None:
             if self._result is not None:
                 return self._result
@@ -539,7 +900,7 @@ class _ExtractJob:
         hard0, soft0_d, info0 = self._pending
         self._pending = None
         bufs = _to_bufs(hard0.numpy())
-        pulled: dict[int, list[bytes]] = {}
+        pulled: dict[int, tuple] = {}
 
         def _soft_of(soft_d, info):
             key = id(soft_d)
@@ -551,12 +912,17 @@ class _ExtractJob:
         if soft0_d is not None and any(h is None for h in headers):
             # a header the hard Rep-3 majority corrupted can still parse
             # from the matched-filter sections of the same pass
-            soft_bufs0 = _soft_of(soft0_d, info0)
+            soft_bufs0, _ = _soft_of(soft0_d, info0)
             for i, h in enumerate(headers):
                 if h is None:
                     headers[i] = _parse_hdr(soft_bufs0[i])
-        idxs = [i for i, h in enumerate(headers) if h is not None]
-        if not idxs:
+        shared_by_mode: dict[tuple[int, bool], list[int]] = {}
+        piw_by_mode: dict[tuple[int, bool], list[int]] = {}
+        for i, h in enumerate(headers):
+            if h is not None:
+                (piw_by_mode if _is_piw(h) else shared_by_mode).setdefault(
+                    _mode(h), []).append(i)
+        if not shared_by_mode and not piw_by_mode:
             self._result = [None] * self.B
             return self._result
 
@@ -564,32 +930,42 @@ class _ExtractJob:
         # (soft rows, pass info, payload byte offset) per image, consulted
         # only if that image's hard open fails
         soft_src: list[tuple | None] = [None] * self.B
-        clens = {i: headers[i].clen for i in idxs}
-        big = [i for i in idxs
-               if self._payload_bits(clens[i]) >= self._cap_bits]
-        if big and soft0_d is not None:
-            # one Rep-3-corrupted clen would size the whole group's pass to
-            # full capacity: size by the smaller of the hard and soft claims
-            soft_bufs0 = _soft_of(soft0_d, info0)
-            for i in big:
-                h2 = _parse_hdr(soft_bufs0[i])
-                if h2 is not None:
-                    clens[i] = min(clens[i], h2.clen)
-        need = min(self._payload_bits(max(clens.values())), self._cap_bits)
-        if need <= self._covered_payload_bits:
-            # the fused pass already decoded the payload: it follows the
-            # 40-byte header block (38 bytes + 2 pad)
-            for i in idxs:
-                payloads[i] = bufs[i][40:]
-                if soft0_d is not None:
-                    soft_src[i] = (soft0_d, info0, 40)
-        else:  # hint too small or absent: payload-only pass
-            ghard, gsoft_d, ginfo = self._dispatch_pass(need, False)
-            grp = _to_bufs(ghard.numpy())
-            for i in idxs:
-                payloads[i] = grp[i]
-                if gsoft_d is not None:
-                    soft_src[i] = (gsoft_d, ginfo, 0)
+        for (L, R), idxs in shared_by_mode.items():
+            clens = {i: headers[i].clen for i in idxs}
+            big = [i for i in idxs
+                   if self._payload_bits(clens[i], R) >= self._cap_bits]
+            if big and soft0_d is not None:
+                # one Rep-3-corrupted clen would size the whole group's
+                # pass to full capacity: size by the smaller of the hard
+                # and soft claims
+                soft_bufs0, _ = _soft_of(soft0_d, info0)
+                for i in big:
+                    h2 = _parse_hdr(soft_bufs0[i])
+                    if h2 is not None:
+                        clens[i] = min(clens[i], h2.clen)
+            need = min(self._payload_bits(max(clens.values()), R),
+                       self._cap_bits)
+            if (L == self._qim and R == self._rs
+                    and need <= self._covered_payload_bits):
+                # the fused pass already decoded this group's payload rule:
+                # it follows the 40-byte header block (38 bytes + 2 pad)
+                for i in idxs:
+                    payloads[i] = bufs[i][40:]
+                    if soft0_d is not None:
+                        soft_src[i] = (soft0_d, info0, 40)
+            else:  # hint too small or absent, or another mode: a
+                #    payload-only pass under the group's own mode
+                ghard, gsoft_d, ginfo = self._dispatch_pass(need, False,
+                                                            qim=L, rs=R)
+                grp = _to_bufs(ghard.numpy())
+                for i in idxs:
+                    payloads[i] = grp[i]
+                    if gsoft_d is not None:
+                        soft_src[i] = (gsoft_d, ginfo, 0)
+        for (L, R), idxs in piw_by_mode.items():
+            for i, buf in zip(idxs, self._dispatch_piw_pass(idxs, headers,
+                                                            L, R)):
+                payloads[i] = buf
 
         out: list[bytes | None] = []
         for i, hdr in enumerate(headers):
@@ -600,17 +976,20 @@ class _ExtractJob:
             soft_pay = None
             if got is None and soft_src[i] is not None:
                 sd, info, off = soft_src[i]
-                soft_pay = _soft_of(sd, info)[i][off:]
-                got = self._open_payload(hdr, soft_pay)
+                soft_bufs, confs = _soft_of(sd, info)
+                soft_pay = (soft_bufs[i][off:],
+                            confs[i] if confs is not None else None)
+                got = self._open_payload(hdr, *soft_pay)
             if got is None and soft0_d is not None:
                 # a parseable hard header can still carry corrupted
-                # salt/clen/nonce bits; the soft header usually holds the
-                # true bytes
-                h2 = _parse_hdr(_soft_of(soft0_d, info0)[i])
+                # salt/clen/nonce/flag bits; the soft header usually holds
+                # the true bytes (same decode mode assumed: a mode mismatch
+                # fails again and goes to the retry pass)
+                h2 = _parse_hdr(_soft_of(soft0_d, info0)[0][i])
                 if h2 is not None and h2.to_bytes() != hdr.to_bytes():
                     got = self._open_payload(h2, payloads[i])
                     if got is None and soft_pay is not None:
-                        got = self._open_payload(h2, soft_pay)
+                        got = self._open_payload(h2, *soft_pay)
             out.append(got)
         if self._params.soft_decode_fallback and any(
                 h is not None and o is None for h, o in zip(headers, out)):
@@ -618,49 +997,82 @@ class _ExtractJob:
         self._result = out
         return out
 
-    def _soft_pass(self, grp: list[int], hdrs: dict) -> list[bytes]:
+    def _open_from(self, buf: bytes, conf=None) -> bytes | None:
+        """AEAD-open a soft retry row [40-byte header block | payload]
+        under the header it carries; with `conf` (RS) the payload holds
+        coded bytes for the errors-and-erasures decode."""
+        hb = buf[:header_mod.FIXED_LEN]
+        if hb[:4] != header_mod.MAGIC or hb[4] != header_mod.VERSION:
+            return None
+        return self._open_payload(Header.from_bytes(hb), buf[40:], conf)
+
+    def _soft_pass(self, grp: list[int], hdrs: dict, L: int, R: bool):
         """One corner_soft_extract_core pass over exactly the rows `grp`,
-        sized by the largest clen their headers `hdrs` claim; returns the
-        decoded rows ([40-byte header block | payload]) per image of grp."""
-        need = min(max(self._payload_bits(hdrs[i].clen) for i in grp),
+        sized by the largest clen their headers `hdrs` claim, in the wire
+        mode (L, R) and on the walk those headers select; returns (rows
+        [40-byte header block | payload] per image of grp, RS confidences
+        or None)."""
+        hdr = _HEADER_STREAM_BITS
+        need = min(max(self._payload_bits(hdrs[i].clen, R) for i in grp),
                    self._cap_bits)
-        total = _HEADER_STREAM_BITS + need
-        pl, yy, xx, jj = self._walk(total, 0, -(-total // 4096) * 4096)
-        imgs = (self._imgs_d if len(grp) == self.B
-                else _rows(self._imgs_d, grp, self._dev)[1])
+        total = hdr + need
+        bucket_total = _bucket(total)
+        if _is_piw(hdrs[grp[0]]):
+            needs = [hdr + min(self._payload_bits(hdrs[i].clen, R),
+                               self._cap_bits) for i in grp]
+            (pl, yy, xx, jj), imgs = self._piw_rows(grp, hdrs, needs,
+                                                    bucket_total)
+            dither = self._dither(L, bucket_total, bucket_total) if L else None
+        else:
+            pl, yy, xx, jj = self._walk(total, 0, bucket_total)
+            imgs = self._sub(grp)
+            dither = self._dither(L, total, bucket_total) if L else None
         Ky, Kx = self._corner_kk
-        words = pbatch.corner_soft_extract_core(
+        out = pbatch.corner_soft_extract_core(
             imgs, self._params.alpha, pl, yy, xx, Ky=Ky, Kx=Kx,
             center=self._params.center, layout=self._layout,
-            hdr_stream_bits=_HEADER_STREAM_BITS, jit=jj)
-        return _to_bufs(runtime.HostCopy(words).numpy())
+            hdr_stream_bits=hdr, jit=jj, dither=dither, qim_levels=L,
+            payload_rep=1 if R else 7)
+        words, conf = out if R else (out, None)
+        conf_np = runtime.HostCopy(conf).numpy() if R else None
+        return _to_bufs(runtime.HostCopy(words).numpy()), conf_np
 
     def _soft_retry_failed(self, headers, out) -> None:
         """Soft-decision re-decode of the images whose header parsed but
-        whose payload failed AEAD (JAX _ExtractJob._soft_retry_failed, the
-        shared-walk groups): one pass over exactly those rows re-reads
-        header AND payload by matched-filter combining of the Rep-3/Rep-7
-        copies in f32. Recovers margin failures the hard majority loses.
+        whose payload failed AEAD (JAX _ExtractJob._soft_retry_failed): one
+        pass per (walk, QIM level, FEC) group over exactly those rows
+        re-reads header AND payload by matched-filter combining of the
+        Rep-3/Rep-7 copies in f32, or with RS confidences for the
+        errors-and-erasures decode. Recovers margin failures the hard
+        majority loses.
 
         Round 2 re-reads an image whose soft header disagrees with the one
-        it was read under in salt or clen (a flip the hard Rep-3 majority
-        kept can mis-size or mis-key the pass). A soft header with any FLAGS
-        bit reads as None: this slice reads FLAGS = 0 only. Mutates `out`;
-        images that still fail stay None."""
+        it was read under in flags, salt or clen: a flip the hard Rep-3
+        majority kept can misroute, mis-size or mis-key the pass, and the
+        header bins always read by the half-plane rule, so the soft header
+        is reliable whatever the mode. Mutates `out`; images that still
+        fail stay None."""
         cur = {i: h for i, (h, o) in enumerate(zip(headers, out))
                if h is not None and o is None}
         for round_ in range(2):
-            grp = list(cur)
+            groups: dict[tuple, list[int]] = {}
+            for i, h in cur.items():
+                groups.setdefault((_is_piw(h), *_mode(h)), []).append(i)
             retry: dict[int, Header] = {}
-            for i, buf in zip(grp, self._soft_pass(grp, cur)):
-                h2 = _parse_hdr(buf)
-                got = (self._open_payload(h2, buf[40:]) if h2 is not None
-                       else None)
-                if got is not None:
-                    out[i] = got
-                elif round_ == 0 and h2 is not None and (
-                        h2.clen != cur[i].clen or h2.salt != cur[i].salt):
-                    retry[i] = h2
+            for (_, L, R), grp in groups.items():
+                bufs, conf = self._soft_pass(grp, cur, L, R)
+                for k, i in enumerate(grp):
+                    got = self._open_from(
+                        bufs[k], conf[k] if conf is not None else None)
+                    if got is not None:
+                        out[i] = got
+                        continue
+                    h2 = _parse_hdr(bufs[k])
+                    if round_ == 0 and h2 is not None and (
+                            h2.flags != cur[i].flags
+                            or h2.clen != cur[i].clen
+                            or h2.salt != cur[i].salt):
+                        retry[i] = h2
             cur = retry
             if not cur:
                 break
@@ -685,16 +1097,21 @@ def extract_batch(imgs, password: str | None = None,
 
     Returns one bytes per image, or None where extraction failed: bad magic
     or version, truncation, authentication failure — and, in this port, a
-    header whose FLAGS byte is not 0, since the wire modes those bits select
-    (per-image walk, RS, padding, coherent, QIM) are not ported yet. One bad
-    image never aborts the batch. With Params.soft_decode_fallback (the
-    default) an image that fails the hard decode is retried from the fused
-    pass's inline matched-filter soft sections, then by the separate
-    soft-decision retry pass.
+    header carrying FLAG_COHERENT or failing both the hard and the soft
+    parse (the JAX package resolves such rows with its single-image
+    extract_array, which the port does not have yet). One bad image never
+    aborts the batch. The wire mode of each image (per-image walk, QIM
+    level, RS, padding) is read from its header, so a batch may mix modes;
+    Params must give the walk (jitter, rmin, rmax, density) as embed used
+    it. With Params.soft_decode_fallback (the default) an image that fails
+    the hard decode is retried from the fused pass's inline matched-filter
+    soft sections, then by the separate soft-decision retry pass.
 
-    clen_hint: expected ciphertext length (the secret length). With it the
-    header and payload decode in one device pass; a hint that is too small
-    costs a second pass, never a wrong result.
+    clen_hint: expected on-wire ciphertext length — the secret length, or
+    header.padded_len(secret_len, q) under Params.pad_quantum=q. With it
+    the header and payload of the Params' own mode decode in one device
+    pass; a hint that is too small costs a second pass, never a wrong
+    result.
     """
     return _ExtractJob(imgs, password, master_key, params, mesh, clen_hint,
                        layout, device).finalize()

@@ -21,10 +21,12 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
+from steganosaurus_tpu import crypto
 from steganosaurus_tpu.config import Params
 from steganosaurus_tpu_torch.pipeline.batch import (
     embed_batch,
     extract_dispatch,
+    prefetch_piw_walks,
     prefetch_walk,
 )
 
@@ -64,7 +66,13 @@ def embed_stream(
     the stream-level key — when it CHANGES between batches, the new key's
     sequential turtle-walk expansion is run by prefetch_walk on a worker
     thread, overlapping the batches in flight (the walk cache is locked; the
-    later embed_batch finds it warm).
+    later embed_batch finds it warm). Under Params.per_image_walk a batch's
+    salts are drawn up front (when not given) and its salt-keyed payload
+    walks are expanded by prefetch_piw_walks on the same worker thread.
+    The stream reads one batch ahead of the one it embeds, so batch N+1's
+    host walks run while batch N embeds; batch N waits for its own
+    prefetch to finish and embed_batch pops every walk it made (none is
+    expanded twice, none is left in the cache).
 
     Yields one BatchEmbedResult per batch, in order, with the stego as a
     tensor on the device (feed it straight to extract_stream). Up to
@@ -75,14 +83,16 @@ def embed_stream(
     q: deque = deque()
     pool: ThreadPoolExecutor | None = None
 
-    def _drain():
-        res, ev = q.popleft()
-        # bounds the batches in flight; waits for this batch's kernels only
-        if ev is not None:
-            ev.synchronize()
-        return res
+    def _submit(fn, *args):
+        nonlocal pool
+        if pool is None:
+            pool = ThreadPoolExecutor(max_workers=1,
+                                      thread_name_prefix="walk-pf")
+        return pool.submit(fn, *args)
 
-    try:
+    def _prepared():
+        """(imgs, secrets, salts, key, password, piw future) per batch:
+        the host walk work of each batch is submitted here, in order."""
         last_mk = master_key
         for item in batches:
             imgs, secrets = item[0], item[1]
@@ -91,15 +101,37 @@ def embed_stream(
                   else master_key)
             pw = password if mk is None else None
             if mk != last_mk:
-                if pool is None:
-                    pool = ThreadPoolExecutor(max_workers=1,
-                                              thread_name_prefix="walk-pf")
-                pool.submit(prefetch_walk, pw, mk, params, *_hw(imgs, layout),
-                            [len(s) for s in secrets])
+                _submit(prefetch_walk, pw, mk, params, *_hw(imgs, layout),
+                        [len(s) for s in secrets])
                 last_mk = mk
-            # drain BEFORE queuing the new batch: the wait is the window in
-            # which a just-submitted walk prefetch makes progress, and the
-            # batches in flight stay at `depth`
+            walks = None
+            if params.per_image_walk:
+                if salts is None:
+                    salts = [crypto.get_random_bytes(16) for _ in secrets]
+                walks = _submit(prefetch_piw_walks, pw, mk, params,
+                                *_hw(imgs, layout), list(salts),
+                                [len(s) for s in secrets])
+            yield imgs, secrets, salts, mk, pw, walks
+
+    def _drain():
+        res, ev = q.popleft()
+        # bounds the batches in flight; waits for this batch's kernels only
+        if ev is not None:
+            ev.synchronize()
+        return res
+
+    try:
+        items = _prepared()
+        nxt = next(items, None)
+        while nxt is not None:
+            imgs, secrets, salts, mk, pw, walks = nxt
+            # one batch of look-ahead: batch N+1's walks expand on the
+            # worker while batch N embeds
+            nxt = next(items, None)
+            if walks is not None:
+                # batch N's own walks: embed_batch pops them rather than
+                # expanding them a second time beside the worker
+                walks.result()
             if len(q) >= depth:
                 yield _drain()
             res = embed_batch(imgs, secrets, password=pw, master_key=mk,

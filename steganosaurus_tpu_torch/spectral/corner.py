@@ -222,17 +222,47 @@ def ifft_corner_real(dr: torch.Tensor, di: torch.Tensor, H: int, W: int,
     return t.reshape(*lead, H, W)
 
 
-def write_delta(cr, ci, sign, mask, cos_a, sin_a, cjd=None, sjd=None):
-    """Dense hard phase-write delta over the corner (reference
-    write_bit_on_bin; the JAX write_delta's soft=False branch).
+def write_delta(cr, ci, sign, mask, cos_a, sin_a, cjd=None, sjd=None,
+                soft: bool = False):
+    """Dense phase-write delta over the corner (reference
+    write_bit_on_bin; steganosaurus_tpu.spectral.corner.write_delta).
 
     cr/ci: (..., Ky, Kx) corner spectrum. sign: per-image bit sign (+1/-1).
     mask: (3, Ky, Kx) f32, 1.0 where a walk bin lives. cos_a/sin_a: f32
-    scalars. cjd/sjd: the walk's static (3, Ky, Kx) cos/sin jitter maps, or
-    None when Params.jitter == 0. Returns (dr, di) = 2*(nv - v) at walk
-    bins (the pre-doubled Hermitian-half write), 0 elsewhere;
-    nv = mag * e^{i*(jd + s*alpha)}."""
+    scalars, or (3, Ky, Kx) maps of cos/sin(alpha_i) under
+    Params.alpha_spread (every use is elementwise, so maps broadcast like
+    the scalars). cjd/sjd: the walk's static (3, Ky, Kx) cos/sin jitter
+    maps, or None when Params.jitter == 0. Returns (dr, di) = 2*(nv - v) at
+    walk bins (the pre-doubled Hermitian-half write), 0 elsewhere.
+
+    Hard write: nv = mag * e^{i*(jd + s*alpha)}. soft=True
+    (Params.soft_write), the minimal-energy write: in the jitter-rotated
+    frame u = v * e^{-i*jd}, a bin with s*sigma*u_i >= mag*|sin a| already
+    decodes with margin and gets an exact-zero delta (apply_write_floor
+    takes the moved bins to be those with D != 0); the rest move to
+    (sign(u_r)*mag*|cos a|, s*sigma*mag*|sin a|), sigma = sign(sin a)."""
     mag = torch.sqrt(cr * cr + ci * ci).clamp_min(1e-12)
+    if soft:
+        sin_a = torch.as_tensor(sin_a)
+        cos_a = torch.as_tensor(cos_a)
+        sigma = torch.where(sin_a < 0, -1.0, 1.0)
+        abs_sin, abs_cos = sin_a.abs(), cos_a.abs()
+        if cjd is None:
+            u_r, u_i = cr, ci
+        else:
+            u_r = cr * cjd + ci * sjd
+            u_i = ci * cjd - cr * sjd
+        valid = sign * sigma * u_i >= mag * abs_sin
+        t_r = torch.where(u_r < 0, -1.0, 1.0) * (mag * abs_cos)
+        t_i = (sign * sigma) * (mag * abs_sin)
+        if cjd is None:
+            nv_r, nv_i = t_r, t_i
+        else:
+            nv_r = t_r * cjd - t_i * sjd
+            nv_i = t_r * sjd + t_i * cjd
+        m2 = 2.0 * mask
+        return (m2 * torch.where(valid, 0.0, nv_r - cr),
+                m2 * torch.where(valid, 0.0, nv_i - ci))
     if cjd is None:
         cos_t = cos_a
         sin_t = sign * sin_a
@@ -289,3 +319,61 @@ def read_bits_dense(ci, sign_sin_a, cr=None, cjd=None, sjd=None):
     through a jitter angle."""
     return (decision_values(ci, sign_sin_a, cr, cjd, sjd) >= 0).to(
         torch.uint8)
+
+
+def qim_values_dense(cr, ci, dq, L: int, mag_floor: float = 0.0):
+    """QIM decision values -cos(L * (theta - d)) * |C| (pipeline/qim.py
+    read rule; >= 0 reads bit 1, the magnitude weights the soft combiner).
+    Elementwise: cr/ci/dq may be the dense corner with the static dither
+    map, or the values gathered at walk bins with each slot's dither.
+    mag_floor: the floor under |C| (JAX's per-image-walk reads use 1e-12,
+    its dense read none)."""
+    mag = torch.sqrt(cr * cr + ci * ci).clamp_min(mag_floor)
+    theta = torch.atan2(ci, cr)
+    return -torch.cos(L * (theta - dq)) * mag
+
+
+def qim_lattice_delta(cr, ci, sign, dq, L: int):
+    """Pre-doubled delta 2*(nv - v) that moves each value's phase to the
+    nearest point of its bit's dithered lattice coset (ops/phase
+    embed_phases_qim): theta' = d + (round((theta - d)/Delta - b/2) + b/2)
+    * Delta, Delta = 2*pi/L, magnitude kept. torch.round rounds half to
+    even, as jnp.round does. Elementwise, like qim_values_dense."""
+    mag = torch.sqrt(cr * cr + ci * ci).clamp_min(1e-12)
+    theta = torch.atan2(ci, cr)
+    delta = float(np.float32(2.0 * math.pi / L))  # JAX's jnp.float32 step
+    half_b = (sign + 1.0) * 0.25          # bit/2 from the +-1 sign
+    q = (theta - dq) / delta - half_b
+    th_q = dq + (torch.round(q) + half_b) * delta
+    return (2.0 * (mag * torch.cos(th_q) - cr),
+            2.0 * (mag * torch.sin(th_q) - ci))
+
+
+def write_delta_qim(cr, ci, sign, mask, qm, cos_a, sin_a, dq, L: int,
+                    cjd=None, sjd=None, soft: bool = False):
+    """write_delta with the PAYLOAD bins quantized by dithered phase QIM
+    (steganosaurus_tpu.spectral.corner.write_delta_qim): qm (3, Ky, Kx) is
+    1.0 at payload walk bins (frame slot >= 912), dq the static dither map.
+    Header bins keep the hard or soft write over mask * (1 - qm); payload
+    bins take qim_lattice_delta. Returns the summed deltas."""
+    dr, di = write_delta(cr, ci, sign, mask * (1.0 - qm), cos_a, sin_a,
+                         cjd, sjd, soft=soft)
+    qr, qi = qim_lattice_delta(cr, ci, sign, dq, L)
+    return dr + qm * qr, di + qm * qi
+
+
+def read_bits_dense_qim(cr, ci, sign_sin_a, qm, dq, L: int, cjd=None,
+                        sjd=None):
+    """read_bits_dense with payload bins (qm > 0) read by the QIM rule."""
+    return (decision_values_dense_qim(cr, ci, sign_sin_a, qm, dq, L, cjd,
+                                      sjd) >= 0).to(torch.uint8)
+
+
+def decision_values_dense_qim(cr, ci, sign_sin_a, qm, dq, L: int, cjd=None,
+                              sjd=None):
+    """Blended soft-decision values: the QIM value at payload bins (qm > 0),
+    the half-plane value elsewhere. Every Rep-3/Rep-7 copy group lies on one
+    side of the header/payload split, so the two scales never meet inside a
+    combiner group."""
+    hard = decision_values(ci, sign_sin_a, cr, cjd, sjd)
+    return torch.where(qm > 0, qim_values_dense(cr, ci, dq, L), hard)

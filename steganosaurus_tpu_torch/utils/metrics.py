@@ -3,9 +3,9 @@
 The port's twin of steganosaurus_tpu/utils/metrics.py. The host versions
 psnr, ssim and ber are numpy and come from that module as they are (it
 imports no jax when loaded); ecc_report is re-implemented on the port's
-Rep-3/Rep-7 decode (the JAX one imports its ops.ecc, which imports jax),
-for the Rep-7 payload only; quality_device computes PSNR and block SSIM on
-the batch's own device.
+Rep-3/Rep-7 decode and the jax-free ops/rs.py (the JAX one imports its
+ops.ecc, which imports jax), for the Rep-7 and the RS payload;
+quality_device computes PSNR and block SSIM on the batch's own device.
 """
 
 from __future__ import annotations
@@ -14,6 +14,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from steganosaurus_tpu.ops import rs as rs_mod
 from steganosaurus_tpu.utils.metrics import ber, psnr, ssim
 from steganosaurus_tpu_torch.ops import ecc
 
@@ -25,21 +26,34 @@ def _rep_decode(bits: np.ndarray, n: int) -> np.ndarray:
         bits, np.uint8)), n).numpy()
 
 
+def _rs_decoded_bits(bits: np.ndarray, m: int) -> np.ndarray:
+    """The m-byte message bits of interleaved RS(255,223) coded bits."""
+    dec, _, _ = rs_mod.rs_decode_interleaved(
+        np.packbits(np.asarray(bits, np.uint8)).tobytes(), m)
+    return np.unpackbits(np.frombuffer(dec, np.uint8))
+
+
 def ecc_report(sent_frame: np.ndarray, received_frame: np.ndarray,
-               header_stream_bits: int) -> dict:
+               header_stream_bits: int, rs_payload_bytes: int = 0) -> dict:
     """BER before and after ECC for one embedded frame: sent/received are
-    full on-wire bit frames, the Rep-3 header stream followed by the Rep-7
-    payload stream (reference frame layout, steganosaur.cpp:986-995)."""
+    full on-wire bit frames, the Rep-3 header stream followed by the
+    payload stream — Rep-7 (reference frame layout, steganosaur.cpp:
+    986-995), or the interleaved RS(255,223) coded bits of a
+    rs_payload_bytes-byte message (= clen + 16) when that is given."""
     s = np.asarray(sent_frame).ravel()
     r = np.asarray(received_frame).ravel()
     h = header_stream_bits
+    if rs_payload_bytes:
+        pay_post = ber(_rs_decoded_bits(s[h:], rs_payload_bytes),
+                       _rs_decoded_bits(r[h:], rs_payload_bytes))
+    else:
+        pay_post = ber(_rep_decode(s[h:], 7), _rep_decode(r[h:], 7))
     return {
         "header_ber_raw": ber(s[:h], r[:h]),
         "header_ber_post_ecc": ber(_rep_decode(s[:h], 3),
                                    _rep_decode(r[:h], 3)),
         "payload_ber_raw": ber(s[h:], r[h:]),
-        "payload_ber_post_ecc": ber(_rep_decode(s[h:], 7),
-                                    _rep_decode(r[h:], 7)),
+        "payload_ber_post_ecc": pay_post,
     }
 
 

@@ -106,10 +106,15 @@ def test_torch_round_trip_without_hint_and_device_resident():
                              layout="nchw") == secrets
 
 
-def test_wrong_key_and_flagged_headers_read_as_none():
-    """An image the slice cannot read yields None, never an exception: a
-    wrong key, and a header whose FLAGS byte selects a wire mode the slice
-    does not carry (here FLAG_PADDED from Params.pad_quantum)."""
+def test_wrong_key_and_flagged_headers_read_as_none(monkeypatch):
+    """An image the port cannot read yields None, never an exception: a
+    wrong key, and a header whose FLAGS byte carries FLAG_COHERENT (a mode
+    that needs the single-image path the port does not have). A FLAGS bit
+    of a mode the port carries (here FLAG_PADDED from Params.pad_quantum)
+    reads back."""
+    from steganosaurus_tpu_torch.pipeline import batch as tpb
+    from steganosaurus_tpu_torch.pipeline import header as theader
+
     imgs, secrets = _inputs("nhwc")
     _, _, ts, _ = _stegos("nhwc")
     assert stt.extract_batch(ts, master_key=bytes(32), clen_hint=SECRET,
@@ -119,8 +124,14 @@ def test_wrong_key_and_flagged_headers_read_as_none():
                                          params=Params(pad_quantum=64)).stego)
     assert jbatch.extract_batch(padded, master_key=MK,
                                 params=Params(pad_quantum=64)) == secrets
-    assert stt.extract_batch(padded, master_key=MK,
-                             device="cpu") == [None] * B
+    assert stt.extract_batch(padded, master_key=MK, device="cpu") == secrets
+    monkeypatch.setattr(tpb, "_flags", lambda params: theader.FLAG_COHERENT)
+    flagged = stt.embed_batch(imgs[:2], secrets[:2], master_key=MK,
+                              salts=SALTS[:2], device="cpu").stego
+    monkeypatch.undo()
+    assert stt.extract_batch(np.concatenate([flagged[:1], ts[1:2]]),
+                             master_key=MK, clen_hint=SECRET,
+                             device="cpu") == [None, secrets[1]]
 
 
 @pytest.mark.parametrize("field,value", [
@@ -129,8 +140,18 @@ def test_wrong_key_and_flagged_headers_read_as_none():
     ("adaptive_alpha", True), ("coherent", True),
     ("cover_dependent_path", True)])
 def test_unsupported_params_raise(field, value):
+    """The fields that need the single-image path (adaptive_alpha,
+    coherent, cover_dependent_path) raise StegoError naming the field in
+    embed and extract; the wire-mode fields the port now carries embed and
+    read back instead."""
     imgs, secrets = _inputs("nhwc")
     p = Params().replace(**{field: value})
+    if field not in ("adaptive_alpha", "coherent", "cover_dependent_path"):
+        res = stt.embed_batch(imgs[:1], secrets[:1], master_key=MK,
+                              params=p, device="cpu")
+        assert stt.extract_batch(res.stego, master_key=MK, params=p,
+                                 device="cpu") == secrets[:1]
+        return
     with pytest.raises(stt.StegoError, match=field):
         stt.embed_batch(imgs, secrets, master_key=MK, params=p, device="cpu")
     with pytest.raises(stt.StegoError, match=field):

@@ -1,7 +1,8 @@
 """Card-only tests of the torch port: the hand-written K1 kernel
 (csrc/corner_stage1.cu) against its plain version, its wrapper's checks and
 launch count, a small round trip through the kernel, a two-batch stream,
-and the soft-decision retry pass.
+the soft-decision retry pass (Rep-7 and RS), a QIM extract and a
+per-image-walk embed.
 
 They skip without CUDA. This file imports neither jax nor the JAX package's
 device code, so it also runs on a machine without JAX:
@@ -164,6 +165,99 @@ def test_soft_retry_pass_on_card_launches_k1(dev, monkeypatch):
     monkeypatch.setattr(tbatch._ExtractJob, "_soft_retry_failed",
                         counted_retry)
     got = stt.extract_batch(stego, master_key=mk)
+    torch.cuda.synchronize()
+    assert retry_launches and retry_launches[0] >= 1
+    assert sum(g is not None for g in got) > n_hard
+    assert all(g is None or g == secret for g in got)
+
+
+def test_qim_extract_on_card_launches_k1(dev):
+    """A QIM stego made on the CPU reads back on the card (payload-only
+    pass under the header's level: no hint), through K1, and equals the
+    card's own stego to +-1."""
+    import steganosaurus_tpu_torch as stt
+    from steganosaurus_tpu_torch.spectral import corner_kernels as ck
+
+    rng = np.random.default_rng(11)
+    imgs = rng.integers(90, 170, (2, 256, 256, 3), dtype=np.uint8)
+    secrets = [b"qim-0" * 8, b"qim-1" * 8]
+    p = stt.Params(qim=3, pbkdf2_iter=500)
+    salts = [bytes([i + 1]) * 16 for i in range(2)]
+    cpu = stt.embed_batch(imgs, secrets, master_key=bytes(32), params=p,
+                          salts=salts, device="cpu").stego
+    n = ck.LAUNCHES[ck.KERNEL]
+    got = stt.extract_batch(torch.from_numpy(cpu).to(dev),
+                            master_key=bytes(32), params=p)
+    torch.cuda.synchronize()
+    assert got == secrets
+    assert ck.LAUNCHES[ck.KERNEL] >= n + 2   # probe + payload pass
+    card = stt.embed_batch(imgs, secrets, master_key=bytes(32), params=p,
+                           salts=salts, device=dev).stego
+    assert np.abs(card.astype(np.int16) - cpu.astype(np.int16)).max() <= 1
+
+
+def test_piw_embed_on_card_launches_k1(dev):
+    """Params.stealth() (per-image walks, QIM, spread, soft write, jitter)
+    embeds on the card through K1, and the CPU port reads it back."""
+    import steganosaurus_tpu_torch as stt
+    from steganosaurus_tpu_torch.spectral import corner_kernels as ck
+
+    rng = np.random.default_rng(12)
+    imgs = torch.from_numpy(rng.integers(90, 170, (3, 3, 256, 256),
+                                         dtype=np.uint8)).to(dev)
+    secrets = [bytes([i]) * (30 + i) for i in range(3)]
+    p = stt.Params.stealth(pbkdf2_iter=500)
+    n = ck.LAUNCHES[ck.KERNEL]
+    res = stt.embed_batch(imgs, secrets, master_key=bytes(32), params=p,
+                          device_resident=True, layout="nchw")
+    torch.cuda.synchronize()
+    assert ck.LAUNCHES[ck.KERNEL] == n + 1
+    assert res.stego.device == imgs.device
+    assert stt.extract_batch(res.stego.cpu().numpy(), master_key=bytes(32),
+                             params=p, layout="nchw",
+                             device="cpu") == secrets
+
+
+def test_rs_soft_retry_on_card_launches_k1(dev, monkeypatch):
+    """The RS margin workload (256x256 noise cover, 1200 B, B=8) with the
+    fused pass's inline soft rows dropped: the retry pass recovers more
+    than the hard decode through its per-coded-byte confidences, and
+    launches K1."""
+    import steganosaurus_tpu_torch as stt
+    from steganosaurus_tpu_torch.pipeline import batch as tbatch
+    from steganosaurus_tpu_torch.spectral import corner_kernels as ck
+
+    rng = np.random.default_rng(1)
+    cover = rng.integers(0, 256, (256, 256, 3)).astype(np.uint8)
+    secret = bytes(rng.integers(0, 256, 1200, dtype=np.uint8))
+    B, mk = 8, bytes(range(32))
+    covers = torch.from_numpy(np.stack([cover] * B)).to(dev)
+    hard_p = stt.Params(rs=True, soft_decode_fallback=False)
+    stego = stt.embed_batch(covers, [secret] * B, master_key=mk,
+                            params=hard_p, salts=[bytes([i]) * 16
+                                                  for i in range(B)],
+                            device_resident=True).stego
+    n_hard = sum(g is not None for g in stt.extract_batch(
+        stego, master_key=mk, params=hard_p))
+    assert n_hard < B, "the RS margin workload no longer fails hard"
+
+    real_dispatch = tbatch._ExtractJob._dispatch_pass
+    real_retry = tbatch._ExtractJob._soft_retry_failed
+    retry_launches = []
+
+    def no_inline(self, *a, **kw):
+        return real_dispatch(self, *a, **kw)[0], None, None
+
+    def counted_retry(self, headers, out):
+        n = ck.LAUNCHES[ck.KERNEL]
+        real_retry(self, headers, out)
+        retry_launches.append(ck.LAUNCHES[ck.KERNEL] - n)
+
+    monkeypatch.setattr(tbatch._ExtractJob, "_dispatch_pass", no_inline)
+    monkeypatch.setattr(tbatch._ExtractJob, "_soft_retry_failed",
+                        counted_retry)
+    got = stt.extract_batch(stego, master_key=mk,
+                            params=stt.Params(rs=True))
     torch.cuda.synchronize()
     assert retry_launches and retry_launches[0] >= 1
     assert sum(g is not None for g in got) > n_hard

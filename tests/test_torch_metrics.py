@@ -71,8 +71,10 @@ def test_channel_report_matches_jax(jitter, layout):
 
 
 def test_channel_report_of_the_ports_stego_and_rs_raises():
-    """The report of the port's own stego of the same inputs, and the RS
-    payload (not ported) raising StegoError naming the field."""
+    """The report of the port's own stego of the same inputs; under
+    Params.rs (carried since the wire modes were ported) the same Rep-7
+    stego reads as RS frames that do not match it, and per-image walks —
+    which the JAX report rejects too — raise StegoError naming the field."""
     p, covers, secrets, _ = _case(0.0)
     st = stt.embed_batch(covers, secrets, master_key=MK, params=p,
                          salts=SALTS, device="cpu").stego
@@ -81,9 +83,12 @@ def test_channel_report_of_the_ports_stego_and_rs_raises():
     ref = jbatch.channel_report(st, secrets, SALTS, master_key=MK, params=p)
     assert mine["payload_ber_post_ecc"] == ref["payload_ber_post_ecc"] == 0
     assert abs(mine["payload_ber_raw"] - ref["payload_ber_raw"]) <= RAW_TOL
-    with pytest.raises(stt.StegoError, match="rs"):
+    rs = stt.channel_report(st, secrets, SALTS, master_key=MK,
+                            params=Params(rs=True), device="cpu")
+    assert rs["payload_ber_raw"] > 0.1
+    with pytest.raises(stt.StegoError, match="per_image_walk"):
         stt.channel_report(st, secrets, SALTS, master_key=MK,
-                           params=Params(rs=True), device="cpu")
+                           params=Params(per_image_walk=True), device="cpu")
     with pytest.raises(ValueError):
         stt.channel_report(st, secrets, SALTS[:-1], master_key=MK,
                            device="cpu")
