@@ -18,11 +18,23 @@ without the package beside this file, it exits non-zero at once.
 Phases:
   1. probe   card name, power limit, CUDA and nvcc versions
   2. build   host native library + csrc/*.cu kernel library, timed
-  3. K1      corner_stage1 kernel vs plain at the main path's shape and a
-             ragged shape: max|kernel - plain| <= 1e-5 * max|plain|
+  3. K1      both stage-1 kernels vs their plain version, max|kernel -
+             plain| <= 1e-5 * max|plain|: corner_stage1_wgmma (wgmma + TMA,
+             W % 16 == 0) at the main path's shape, at 1080p B=8, at the
+             512x512 B=8 grid of phase 4 and at edge shapes; corner_stage1
+             (mma.sync, any W) at the 1079x1917 B=4 grid of 4b, at W = 203
+             and, for the comparison, at the main path's shape. cuobjdump
+             shows HGMMA and UTMALDG in the wgmma library; both kernels and
+             the library call torch.mm(x_bf16, T.T, out_dtype=f32), with and
+             without the u8 -> bf16 cast, timed in turns at the main shape
+             beside the bound; the wgmma kernel must be the faster kernel;
+             corner_stage1, its plain version and the library call timed
+             again at the 4b grid, the only path that launches it
   4. path    512x512, B=8, 100 B round trip (also held against the port on
              the CPU), then 2160x3840, B=64, 16 KB: all secrets recovered,
              K1 launched, warm timings, PSNR, peak memory
+  4b. ragged 1079x1917, B=4, 1 KB round trip: W % 16 != 0, so stage 1
+             goes through corner_stage1 there
   5a. stream embed_stream -> extract_stream of the 4K batch, depth 2,
              fixed salts: 64/64 every batch, images/s beside the serialized
              loop's, peak memory with two batches in flight; first one
@@ -53,7 +65,13 @@ Phases:
   5h. RS pad Params(rs=True, pad_quantum=4096) at 4K, B=64, 16 KB: 64/64,
              warm round trip with its host RS coding timed inside it,
              channel_report payload post-ECC BER 0, PSNR
-Every path above must launch K1; its launches are counted per path.
+Every path above must launch its K1 kernel (corner_stage1_wgmma, or
+corner_stage1 in 4b); the launches are counted per path and per kernel, and
+each (planes, H, W, Kx, center) the paths hand the stage-1 wrapper is
+recorded.
+  6. K1 shapes  every recorded shape that phase 3 did not check is held
+             against the plain version, through the wrapper, on seeded u8
+             images
 """
 
 from __future__ import annotations
@@ -112,6 +130,8 @@ MODE_MAX_RIPPLE_PLANES = 12
 # stealth stream runs STEALTH_BATCHES batches with fresh salts
 STEALTH_B = 16
 STEALTH_BATCHES = 3
+# 4b: a grid whose width is not a multiple of 16 (B, H, W)
+RAGGED_GRID = (4, 1079, 1917)
 
 
 def log(msg: str) -> None:
@@ -196,28 +216,93 @@ def phase_build() -> None:
         f"{time.perf_counter() - t:.3f} s")
 
 
-def _k1_compare(x, exr16, exi16, center: bool):
-    """(max_abs_err, max|plain|) of the K1 kernel against its plain version
-    on the same inputs."""
+# The card's peak rates for a kernel's bound (NVIDIA H100 SXM data sheet,
+# dense): bf16 tensor cores and HBM3.
+PEAK_BF16_FLOPS = 989e12
+PEAK_HBM_BYTES = 3.35e12
+# Edge shapes of the wgmma kernel: rows P*H not a multiple of its 128-row
+# tile, Kx not a multiple of its 256-column tile, W a multiple of 16 but not
+# of its 64-wide K block, P = 1, centering on and off. (2, 3, 67, 203) has
+# W % 16 != 0 and goes to the mma.sync kernel.
+K1_EDGES = [((1, 1, 67, 528), 45, True), ((2, 3, 67, 528), 1000, False),
+            ((1, 3, 100, 256), 45, False), ((2, 3, 67, 512), 1000, True),
+            ((1, 3, 37, 64), 64, True), ((2, 3, 67, 203), 45, True)]
+
+
+def _k1_err(out, ref):
+    """(max_abs_err, max|plain|) of a kernel's (ar, ai) against the plain
+    version's."""
+    err = max((o - r).abs().max().item() for o, r in zip(out, ref))
+    scale = max(r.abs().max().item() for r in ref)
+    return err, scale
+
+
+def _k1_check(what: str, out, ref) -> float:
+    err, scale = _k1_err(out, ref)
+    log(f"K1 {what}: max_abs_err {err!r} max|plain| {scale!r} "
+        f"rel {err / scale!r}")
+    if not err <= K1_REL_TOL * scale:
+        raise AssertionError(f"K1 {what} disagrees with its plain version: "
+                             f"{err} > {K1_REL_TOL}*{scale}")
+    return err
+
+
+def mma_stage1(x, exr16, exi16, center: bool):
+    """The mma.sync kernel (csrc/corner_stage1.cu) at any W, bypassing the
+    wrapper's routing by width: for holding it against the plain version
+    and timing it beside the wgmma kernel at the main path's shape, which
+    no path gives it (the wrapper sends W % 16 == 0 to the wgmma kernel)."""
     import torch
 
     from steganosaurus_tpu_torch.spectral import corner_kernels as ck
 
-    ar, ai = ck.fwd_stage1(x, exr16, exi16, center)
-    torch.cuda.synchronize()
-    pr, pi = ck.fwd_stage1_plain(x, exr16, exi16, center)
-    torch.cuda.synchronize()
-    err = max((ar - pr).abs().max().item(), (ai - pi).abs().max().item())
-    scale = max(pr.abs().max().item(), pi.abs().max().item())
-    return err, scale
+    out = [torch.empty((*x.shape[:-1], exr16.shape[0]), dtype=torch.float32,
+                       device=x.device) for _ in range(2)]
+    ck._launch_mma(x, exr16, exi16, *out, center)
+    return out
 
 
-def phase_k1(covers_d) -> dict:
-    """K1 against its plain version at the main path's shape (the whole 4K
-    batch, P = 192 planes) and at a ragged small shape with centering."""
+def k1_bound(P: int, H: int, W: int, Kx: int) -> tuple[float, str]:
+    """(ms, bound_by): least time of the stage-1 function on the card, the
+    larger of its operations over the bf16 peak and its bytes (u8 images
+    read once, both bf16 tables once, ar and ai written once) over the HBM
+    rate, and which of the two it is."""
+    M = P * H
+    flops = 2.0 * M * W * 2 * Kx
+    nbytes = M * W + 2 * Kx * W * 2 + 2 * M * Kx * 4
+    ops_ms = flops / PEAK_BF16_FLOPS * 1e3
+    bytes_ms = nbytes / PEAK_HBM_BYTES * 1e3
+    return ((ops_ms, "operations") if ops_ms >= bytes_ms
+            else (bytes_ms, "bytes"))
+
+
+def _k1_key(x, Kx: int, center: bool) -> tuple:
+    """(planes, H, W, Kx, center) of one stage-1 call on images x."""
+    H, W = x.shape[-2:]
+    return (x.numel() // (H * W), H, W, Kx, bool(center))
+
+
+def _grid_nchw(dev, B: int, h: int, w: int):
+    """make_covers(B, h, w) on the card as contiguous (B, 3, h, w) u8."""
+    import torch
+
+    return (torch.from_numpy(make_covers(B, h, w)).to(dev)
+            .permute(0, 3, 1, 2).contiguous())
+
+
+def phase_k1(covers_d) -> tuple[list[dict], set]:
+    """Both K1 kernels against their plain version: the wgmma kernel at the
+    main path's shape (the whole 4K batch, P = 192 planes), at 1080p B=8,
+    at phase 4's 512x512 B=8 grid and at the edge shapes; the mma.sync
+    kernel at 4b's 1079x1917 B=4 grid, at the ragged W = 203 and at the
+    main path's shape. Then both kernels and the library call timed in
+    turns at the main shape, the mma.sync kernel, its plain version and
+    the library call at the 4b grid, and the wgmma library's SASS. Returns
+    the kernels' records and the _k1_key of every shape checked here."""
     import numpy as np
     import torch
 
+    from steganosaurus_tpu_torch import _build
     from steganosaurus_tpu_torch.spectral import corner
     from steganosaurus_tpu_torch.spectral import corner_kernels as ck
 
@@ -225,40 +310,136 @@ def phase_k1(covers_d) -> dict:
     B, _, H, W = covers_d.shape
     Ky, Kx = corner.corner_dims(H, W, 0.45)
     tabs = corner.dft_tables_device(H, Ky, W, Kx, dev)
-    err, scale = _k1_compare(covers_d, tabs.exr16, tabs.exi16, False)
-    log(f"K1 {tuple(covers_d.shape)} Kx={Kx}: max_abs_err {err!r} "
-        f"max|plain| {scale!r} rel {err / scale!r}")
-    if not err <= K1_REL_TOL * scale:
-        raise AssertionError(f"K1 disagrees with its plain version at the "
-                             f"main path's shape: {err} > {K1_REL_TOL}*{scale}")
-    main_err = err
+    main = (covers_d, tabs.exr16, tabs.exi16, False)
+
+    def new(x, er, ei, c, tables=None):
+        return ck.fwd_stage1(x, er, ei, c, tables)
+
+    if ck.kernel_for(W) != ck.KERNEL_WGMMA:
+        raise AssertionError(f"W={W} does not route to {ck.KERNEL_WGMMA}")
+    plain = ck.fwd_stage1_plain(*main)
+    err_new = _k1_check(f"{ck.KERNEL_WGMMA} {tuple(covers_d.shape)} Kx={Kx}",
+                        new(*main, tabs.stage1), plain)
+    _k1_check(f"{ck.KERNEL} (bypassing the wrapper) "
+              f"{tuple(covers_d.shape)} Kx={Kx}", mma_stage1(*main), plain)
+    del plain
+    torch.cuda.empty_cache()
+    checked = {_k1_key(covers_d, Kx, False)}
+
+    # the other grids the paths give K1, at their own B, Kx and centering
+    # (off by default), through the wrapper: phase 4's 512x512 B=8 (the
+    # wgmma kernel) and 4b's 1079x1917 B=4 (the only path through
+    # corner_stage1)
+    if ck.kernel_for(RAGGED_GRID[2]) != ck.KERNEL:
+        raise AssertionError(f"W={RAGGED_GRID[2]} does not route to "
+                             f"{ck.KERNEL}")
+    grids = {}
+    for b, h, w in ((SMALL_B, SMALL_H, SMALL_W), RAGGED_GRID):
+        x = _grid_nchw(dev, b, h, w)
+        gky, gkx = corner.corner_dims(h, w, 0.45)
+        gt = corner.dft_tables_device(h, gky, w, gkx, dev)
+        args = (x, gt.exr16, gt.exi16, False)
+        err = _k1_check(f"{ck.kernel_for(w)} {tuple(x.shape)} Kx={gkx} "
+                        f"(path grid)", new(*args, gt.stage1),
+                        ck.fwd_stage1_plain(*args))
+        grids[w] = (x, gt, gkx, err)
+        checked.add(_k1_key(x, gkx, False))
 
     rng = np.random.default_rng(5)
-    xs = torch.from_numpy(rng.integers(0, 256, (2, 3, 67, 203),
-                                       dtype=np.uint8)).to(dev)
-    er, ei = corner._dft_tables(203, 45)
-    er16 = torch.from_numpy(er).to(dev).to(torch.bfloat16)
-    ei16 = torch.from_numpy(ei).to(dev).to(torch.bfloat16)
-    err, scale = _k1_compare(xs, er16, ei16, True)
-    log(f"K1 ragged (2, 3, 67, 203) Kx=45 center: max_abs_err {err!r} "
-        f"max|plain| {scale!r}")
-    if not err <= K1_REL_TOL * scale:
-        raise AssertionError(f"K1 disagrees with its plain version at a "
-                             f"ragged shape: {err} > {K1_REL_TOL}*{scale}")
+    fh, fw = FHD_H, FHD_W
+    x = torch.from_numpy(rng.integers(0, 256, (FHD_B, 3, fh, fw),
+                                      dtype=np.uint8)).to(dev)
+    fky, fkx = corner.corner_dims(fh, fw, 0.45)
+    ft = corner.dft_tables_device(fh, fky, fw, fkx, dev)
+    _k1_check(f"{ck.KERNEL_WGMMA} {tuple(x.shape)} Kx={fkx}",
+              new(x, ft.exr16, ft.exi16, False, ft.stage1),
+              ck.fwd_stage1_plain(x, ft.exr16, ft.exi16, False))
+    checked.add(_k1_key(x, fkx, False))
+    for shape, kx, center in K1_EDGES:
+        x = torch.from_numpy(rng.integers(0, 256, shape,
+                                          dtype=np.uint8)).to(dev)
+        er, ei = (torch.from_numpy(t).to(dev).to(torch.bfloat16)
+                  for t in corner._dft_tables(shape[-1], kx))
+        _k1_check(f"{ck.kernel_for(shape[-1])} {shape} Kx={kx} "
+                  f"center={center}", new(x, er, ei, center),
+                  ck.fwd_stage1_plain(x, er, ei, center))
+        checked.add(_k1_key(x, kx, center))
 
-    ms = cuda_ms(lambda: ck.fwd_stage1(covers_d, tabs.exr16, tabs.exi16,
-                                       False), 5)
-    plain_ms = cuda_ms(lambda: ck.fwd_stage1_plain(
-        covers_d, tabs.exr16, tabs.exi16, False), 3)
-    flop = 2.0 * 2 * B * 3 * H * W * Kx
-    log(f"K1 time at {tuple(covers_d.shape)}: kernel {ms!r} ms "
-        f"({flop / ms / 1e9:.1f} TFLOP/s), plain {plain_ms!r} ms")
+    sass = _build.sass_counts(ck.KERNEL_WGMMA)
+    log(f"K1 {ck.KERNEL_WGMMA} SASS (cuobjdump -sass): {sass}")
+    if not all(n > 0 for n in sass.values()):
+        raise AssertionError(f"{ck.KERNEL_WGMMA} is not wgmma + TMA: {sass}")
+
+    # in turns, one process, CUDA events: wgmma kernel, mma.sync kernel,
+    # the library call with and without the u8 -> bf16 cast
+    T = torch.cat([tabs.exr16, tabs.exi16])
+    rows = covers_d.reshape(-1, W)
+    rows16 = rows.to(torch.bfloat16)
+    f32 = torch.float32
+    runs = {
+        ck.KERNEL_WGMMA: (lambda: new(*main, tabs.stage1), 5),
+        ck.KERNEL: (lambda: mma_stage1(*main), 3),
+        "library": (lambda: torch.mm(rows.to(torch.bfloat16), T.T,
+                                     out_dtype=f32), 5),
+        "library_no_cast": (lambda: torch.mm(rows16, T.T, out_dtype=f32), 5),
+    }
+    times: dict = {k: [] for k in runs}
+    for _ in range(2):
+        for k, (fn, n) in runs.items():
+            times[k].append(cuda_ms(fn, n))
+    del rows16
+    plain_ms = cuda_ms(lambda: ck.fwd_stage1_plain(*main), 2)
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
-    return {"name": ck.KERNEL, "route": "cuda",
-            "source": "steganosaurus_tpu_torch/csrc/corner_stage1.cu",
-            "replaces": "steganosaurus_tpu/spectral/corner_pallas.py:55",
-            "max_abs_err": main_err, "ms": ms, "plain_ms": plain_ms}
+    ms = {k: sum(v) / len(v) for k, v in times.items()}
+    bound, bound_by = k1_bound(B * 3, H, W, Kx)
+    flop = 2.0 * 2 * B * 3 * H * W * Kx
+    for k, v in times.items():
+        log(f"K1 time at {tuple(covers_d.shape)} Kx={Kx}, {k}: {v!r} ms, "
+            f"mean {ms[k]!r} ms ({flop / ms[k] / 1e9:.1f} TFLOP/s)")
+    log(f"K1 plain version {plain_ms!r} ms; bound {bound!r} ms "
+        f"({bound_by}); wgmma kernel at {bound / ms[ck.KERNEL_WGMMA]:.3f} "
+        f"of the bound")
+    if not ms[ck.KERNEL_WGMMA] < ms[ck.KERNEL]:
+        raise AssertionError(f"{ck.KERNEL_WGMMA} is not faster than "
+                             f"{ck.KERNEL}: {times}")
+
+    # corner_stage1 where a path launches it: the 4b grid, in turns with
+    # its plain version and the library call
+    x, gt, gkx, err_old = grids[RAGGED_GRID[2]]
+    args = (x, gt.exr16, gt.exi16, False)
+    rows = x.reshape(-1, x.shape[-1])
+    T = torch.cat([gt.exr16, gt.exi16])
+    runs = {
+        ck.KERNEL: lambda: new(*args, gt.stage1),
+        "plain": lambda: ck.fwd_stage1_plain(*args),
+        "library": lambda: torch.mm(rows.to(torch.bfloat16), T.T,
+                                    out_dtype=f32),
+    }
+    rtimes: dict = {k: [] for k in runs}
+    for _ in range(2):
+        for k, fn in runs.items():
+            rtimes[k].append(cuda_ms(fn, 20))
+    rms = {k: sum(v) / len(v) for k, v in rtimes.items()}
+    rbound, rbound_by = k1_bound(x.shape[0] * 3, *x.shape[-2:], gkx)
+    for k, v in rtimes.items():
+        log(f"K1 time at the 4b grid {tuple(x.shape)} Kx={gkx}, {k}: {v!r} "
+            f"ms, mean {rms[k]!r} ms")
+    log(f"K1 {ck.KERNEL} at the 4b grid: bound {rbound!r} ms ({rbound_by}),"
+        f" at {rbound / rms[ck.KERNEL]:.3f} of it")
+    replaces = "steganosaurus_tpu/spectral/corner_pallas.py:55"
+    return [
+        {"name": ck.KERNEL_WGMMA, "route": "cuda",
+         "source": "steganosaurus_tpu_torch/csrc/corner_stage1_wgmma.cu",
+         "replaces": replaces, "max_abs_err": err_new,
+         "ms": ms[ck.KERNEL_WGMMA], "plain_ms": plain_ms, "bound_ms": bound,
+         "bound_by": bound_by, "library_ms": ms["library"]},
+        {"name": ck.KERNEL, "route": "cuda",
+         "source": "steganosaurus_tpu_torch/csrc/corner_stage1.cu",
+         "replaces": replaces, "max_abs_err": err_old, "ms": rms[ck.KERNEL],
+         "plain_ms": rms["plain"], "bound_ms": rbound,
+         "bound_by": rbound_by, "library_ms": rms["library"]},
+    ], checked
 
 
 def psnr_mean(stego, covers) -> float:
@@ -302,9 +483,9 @@ def phase_small(dev) -> None:
         raise AssertionError("card stego disagrees with the CPU reference")
 
 
-def phase_uhd(covers_d) -> int:
-    """The main path at 4K UHD, B=64, 16 KB. Returns K1's launch count of
-    the counted run."""
+def phase_uhd(covers_d) -> dict:
+    """The main path at 4K UHD, B=64, 16 KB. Returns the kernels' launch
+    counts of the counted run."""
     import torch
 
     import steganosaurus_tpu_torch as stt
@@ -352,9 +533,40 @@ def phase_uhd(covers_d) -> int:
         f"{B / (total / 1e3)!r} img/s, recovered {B}/{B}, mean PSNR "
         f"{psnr!r} dB, peak memory {peak / 2**30!r} GiB")
     log(f"launches in the counted round trip: {launches}")
-    if launches[ck.KERNEL] <= 0:
-        raise AssertionError(f"{ck.KERNEL} was not launched on the main path")
-    return launches[ck.KERNEL]
+    if launches[ck.KERNEL_WGMMA] <= 0:
+        raise AssertionError(f"{ck.KERNEL_WGMMA} was not launched on the "
+                             f"main path")
+    return launches
+
+
+def phase_ragged_grid(dev, launches: dict) -> None:
+    """A round trip at a width that is not a multiple of 16 (a user PNG of
+    any size): stage 1 goes through the mma.sync kernel there, and the
+    batch must read back B/B."""
+    import numpy as np
+    import torch
+
+    import steganosaurus_tpu_torch as stt
+    from steganosaurus_tpu_torch.spectral import corner_kernels as ck
+
+    B, h, w = RAGGED_GRID
+    if ck.kernel_for(w) != ck.KERNEL:
+        raise AssertionError(f"W={w} does not route to {ck.KERNEL}")
+    covers = torch.from_numpy(make_covers(B, h, w)).to(dev)
+    secrets = secrets_for(B, 1024)
+
+    def run():
+        res = stt.embed_batch(covers, secrets, master_key=MASTER_KEY,
+                              device_resident=True)
+        return stt.extract_batch(res.stego, master_key=MASTER_KEY)
+
+    got = count_launches(f"ragged grid {h}x{w}", launches, run,
+                         kernel=ck.KERNEL)
+    n_ok = sum(g == s for g, s in zip(got, secrets))
+    log(f"ragged grid {h}x{w} B={B} 1 KB: recovered {n_ok}/{B}, launches "
+        f"{launches[f'ragged grid {h}x{w}']}")
+    if n_ok != B:
+        raise AssertionError(f"ragged grid recovered {n_ok}/{B}")
 
 
 def timed(name: str, fn, *args):
@@ -368,22 +580,24 @@ def timed(name: str, fn, *args):
     return out
 
 
-def count_launches(path: str, launches: dict, fn):
-    """Run fn() with every kernel count set to 0, record K1's launches for
-    `path` and fail if there were none. Returns fn()'s result."""
+def count_launches(path: str, launches: dict, fn, kernel: str = ""):
+    """Run fn() with every kernel count set to 0, record the counts for
+    `path` and fail if `kernel` (the path's K1 kernel; by default the
+    wgmma one, which every grid width of the smoke but the ragged one
+    takes) was not launched. Returns fn()'s result."""
     import torch
 
     from steganosaurus_tpu_torch.spectral import corner_kernels as ck
 
+    kernel = kernel or ck.KERNEL_WGMMA
     for k in ck.LAUNCHES:
         ck.LAUNCHES[k] = 0
     out = fn()
     torch.cuda.synchronize()
-    n = ck.LAUNCHES[ck.KERNEL]
-    if n <= 0:
-        raise AssertionError(f"{ck.KERNEL} was not launched on the {path} "
+    if ck.LAUNCHES[kernel] <= 0:
+        raise AssertionError(f"{kernel} was not launched on the {path} "
                              f"path")
-    launches[path] = n
+    launches[path] = dict(ck.LAUNCHES)
     return out
 
 
@@ -1086,6 +1300,56 @@ def phase_rs_padded(covers_d, launches: dict) -> None:
                              f"decodes for {B} images")
 
 
+def record_k1_shapes(seen: dict):
+    """Wrap the stage-1 wrapper so that the _k1_key of every call on the
+    card lands in `seen`, mapped to the kernel it launches; returns the
+    function that undoes it. The wrapped call is the wrapper itself, so
+    launches are counted as before."""
+    from steganosaurus_tpu_torch.spectral import corner_kernels as ck
+
+    real = ck.fwd_stage1
+
+    def recorded(imgs_u8, exr_bf16, exi_bf16, center, tables=None):
+        if imgs_u8.is_cuda:
+            seen[_k1_key(imgs_u8, exr_bf16.shape[0], center)] = (
+                ck.kernel_for(imgs_u8.shape[-1]))
+        return real(imgs_u8, exr_bf16, exi_bf16, center, tables)
+
+    ck.fwd_stage1 = recorded
+    return lambda: setattr(ck, "fwd_stage1", real)
+
+
+def phase_k1_shapes(dev, seen: dict, checked: set) -> None:
+    """6: each (planes, H, W, Kx, center) that the paths gave the stage-1
+    wrapper and phase 3 did not check, held against the plain version
+    through the wrapper on seeded u8 images, with the tables the path
+    builds for it."""
+    import numpy as np
+    import torch
+
+    from steganosaurus_tpu_torch.spectral import corner
+    from steganosaurus_tpu_torch.spectral import corner_kernels as ck
+
+    rng = np.random.default_rng(6)
+    todo = sorted(k for k in seen if k not in checked)
+    log(f"K1 shapes the paths gave the wrapper: {len(seen)}, of which "
+        f"{len(seen) - len(todo)} checked in phase 3: "
+        f"{sorted(seen.items())}")
+    for key in todo:
+        P, H, W, Kx, center = key
+        if ck.kernel_for(W) != seen[key]:
+            raise AssertionError(f"{key} launched {seen[key]}")
+        x = torch.from_numpy(rng.integers(0, 256, (P, H, W),
+                                          dtype=np.uint8)).to(dev)
+        er, ei = (torch.from_numpy(t).to(dev).to(torch.bfloat16)
+                  for t in corner._dft_tables(W, Kx))
+        _k1_check(f"{seen[key]} path shape {key}",
+                  ck.fwd_stage1(x, er, ei, center),
+                  ck.fwd_stage1_plain(x, er, ei, center))
+        del x
+        torch.cuda.empty_cache()
+
+
 def main() -> int:
     if not (PKG / "__init__.py").is_file():
         print(f"chip_smoke: {PKG} is missing; run from a checkout of the "
@@ -1122,29 +1386,35 @@ def main() -> int:
             f"{tuple(covers_d.shape)} on the card in "
             f"{time.perf_counter() - t:.1f} s")
 
-        k1 = phase_k1(covers_d)
-        torch.cuda.synchronize()
-        phase_small(dev)
-        torch.cuda.synchronize()
-        launches = {"round trip": phase_uhd(covers_d)}
-        torch.cuda.synchronize()
-        stego = timed("stream", phase_stream, covers_d, launches)
-        timed("rotating", phase_rotating, covers_d, launches)
-        timed("quality", phase_quality, covers_d, stego, launches)
-        del stego
-        timed("soft", phase_soft, dev, launches)
-        timed("ragged", phase_ragged, dev, launches)
-        timed("modes", phase_modes, dev, launches)
-        timed("stealth", phase_stealth, covers_d, launches)
-        timed("rs padded", phase_rs_padded, covers_d, launches)
-        log(f"{ck.KERNEL} launches per path: {launches}")
-        k1["launches"] = sum(launches.values())
+        k1, checked = timed("K1", phase_k1, covers_d)
+        launches: dict = {}
+        seen: dict = {}
+        undo = record_k1_shapes(seen)
+        try:
+            count_launches("small", launches, lambda: phase_small(dev))
+            launches["round trip"] = phase_uhd(covers_d)
+            torch.cuda.synchronize()
+            timed("ragged grid", phase_ragged_grid, dev, launches)
+            stego = timed("stream", phase_stream, covers_d, launches)
+            timed("rotating", phase_rotating, covers_d, launches)
+            timed("quality", phase_quality, covers_d, stego, launches)
+            del stego
+            timed("soft", phase_soft, dev, launches)
+            timed("ragged", phase_ragged, dev, launches)
+            timed("modes", phase_modes, dev, launches)
+            timed("stealth", phase_stealth, covers_d, launches)
+            timed("rs padded", phase_rs_padded, covers_d, launches)
+        finally:
+            undo()
+        log(f"K1 launches per path: {launches}")
+        timed("K1 shapes", phase_k1_shapes, dev, seen, checked)
+        for k in k1:
+            k["launches"] = sum(n[k["name"]] for n in launches.values())
         log(f"smoke wall time {time.perf_counter() - t_all:.1f} s")
-    print(json.dumps({"kernels": [{
-        "name": k1["name"], "route": k1["route"], "source": k1["source"],
-        "replaces": k1["replaces"], "launches": k1["launches"],
-        "max_abs_err": k1["max_abs_err"], "ms": k1["ms"],
-        "plain_ms": k1["plain_ms"]}]}), flush=True)
+    keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    print(json.dumps({"kernels": [{key: k[key] for key in keys}
+                                  for k in k1]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -10,10 +10,12 @@ Layout follows the JAX package so each module's counterpart is easy to find:
 
 - ``runtime``    device resolution, CUDA requirement, matmul precision,
                  host<->device copies that do not stall the stream.
-- ``_build``     builds ``csrc/*.cu`` with nvcc (sm_90a) and the host native
-                 library (native/) from the repository's own sources.
+- ``_build``     builds each ``csrc/*.cu`` with nvcc (sm_90a) and the host
+                 native library (native/*.cc, g++) from the repository's own
+                 sources.
 - ``spectral/``  corner pruned-DFT math; ``corner_kernels`` wraps the
-                 hand-written stage-1 DFT kernel (csrc/corner_stage1.cu).
+                 hand-written stage-1 DFT kernels (csrc/corner_stage1_wgmma.cu
+                 for W % 16 == 0, csrc/corner_stage1.cu otherwise).
 - ``ops/``       MSB-first bit/word packing and repetition ECC on tensors.
 - ``parallel/``  the device cores: frame build, corner embed (shared and
                  per-image walks), fused extract, soft-decision retry,
@@ -24,14 +26,16 @@ Layout follows the JAX package so each module's counterpart is easy to find:
                  embed_stream / extract_stream pipelining.
 - ``utils/``     PSNR, SSIM, BER and ecc_report; quality_device on the card.
 
-Host crypto, the turtle-walk keystream and Params come straight from the
-JAX package's jax-free modules (steganosaurus_tpu.config, .crypto,
-.keystream, ._native_loader, .ops.rs, .io.image, .utils.metrics' numpy
-metrics).
-This package never imports jax.
+- ``config``, ``crypto/``, ``keystream/``, ``_native_loader``, ``ops/rs``,
+  ``io/image``: the host modules, copied from the JAX package's modules of
+  the same paths (Params, keys and AEAD, the turtle walk and its disk
+  cache, the native-library wrapper, RS(255,223), load_rgb), so the wire
+  format stays byte-identical (tests/test_torch_host.py).
+
+This package imports neither jax nor anything of steganosaurus_tpu.
 """
 
-from steganosaurus_tpu.config import Params
+from steganosaurus_tpu_torch.config import Params
 
 __version__ = "0.1.0"
 

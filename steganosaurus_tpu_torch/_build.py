@@ -1,24 +1,28 @@
 """Builds what the port needs on the card's machine, from this checkout only.
 
-1. The CUDA kernels: every ``csrc/*.cu`` is compiled by nvcc for sm_90a into
-   one shared library with a plain C interface, named by a hash of its
-   sources and flags, under ``build/kernels/`` (gitignored), and loaded with
-   ctypes. A source edit changes the hash, so a stale library is never
-   loaded.
-2. The host native library (native/: AEAD, key vault, turtle walk). Without
-   it the pure-Python turtle walk is ~1000x slower, which at 4K/16 KB eats
-   any time budget. cmake + ninja build it in place
-   (steganosaurus_tpu._native_loader.ensure_built); where either tool is
-   missing, g++ compiles native/*.cc into ``build/native/`` and
-   STEGANOSAURUS_NATIVE_LIB points the loader at it before its first load.
+1. The CUDA kernels: each ``csrc/*.cu`` is compiled by nvcc for sm_90a into
+   a shared library of its own with a plain C interface, all nvcc runs
+   started together, each named by a hash of its source and the flags,
+   under ``build/kernels/`` (gitignored), and loaded with ctypes. A source
+   edit changes the hash, so a stale library is never loaded. The wgmma
+   kernel reaches the driver's cuTensorMapEncodeTiled through
+   cudaGetDriverEntryPoint, so no library links against libcuda.
+2. The host native library (native/: AEAD, key vault, turtle walk, RS).
+   Without it the pure-Python turtle walk is ~1000x slower, which at
+   4K/16 KB eats any time budget. g++ compiles the repository's native/*.cc
+   into ``build/native/<digest>/`` (gitignored), named by a hash of the
+   sources, headers and flags, and the port's own _native_loader loads it.
+   The JAX package's build directory (native/build/) is never touched.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import pathlib
+import re
 import shutil
 import subprocess
 import threading
@@ -33,13 +37,14 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 GXX_FLAGS = ["-O3", "-std=c++17", "-shared", "-fPIC"]
 
 _lock = threading.Lock()
-_kernels: ctypes.CDLL | None = None
+_kernels: "Kernels | None" = None
 
 # C entry points of csrc/*.cu: name -> argtypes. Pointers and the stream are
 # c_void_p (a bare int would be cut to 32 bits), sizes and flags c_int.
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
     "corner_stage1": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "corner_stage1_wgmma": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
 }
 
 
@@ -62,61 +67,98 @@ def nvcc() -> str:
     raise RuntimeError("nvcc not found (PATH or /usr/local/cuda/bin)")
 
 
-def _compile(cmd: list[str], out: pathlib.Path) -> None:
-    """Run a compiler into a temporary name, then rename: a cut-off build
-    never leaves a half-written library under the final name."""
-    out.parent.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(out.name + f".tmp{os.getpid()}")
-    proc = subprocess.run(cmd + ["-o", str(tmp)], capture_output=True,
-                          text=True, timeout=900)
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"build failed: {' '.join(cmd)}\n"
-                           f"{proc.stdout[-4000:]}{proc.stderr[-4000:]}")
-    os.replace(tmp, out)
+def _compile(cmds: list[tuple[list[str], pathlib.Path]]) -> None:
+    """Run the compilers, all at once, each into a temporary name, then
+    rename: a cut-off build never leaves a half-written library under the
+    final name."""
+    procs = []
+    for cmd, out in cmds:
+        out.parent.mkdir(parents=True, exist_ok=True)
+        tmp = out.with_name(out.name + f".tmp{os.getpid()}")
+        procs.append((cmd, out, tmp, subprocess.Popen(
+            cmd + ["-o", str(tmp)], stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True)))
+    failed = []
+    for cmd, out, tmp, proc in procs:
+        log, _ = proc.communicate(timeout=900)
+        if proc.returncode != 0:
+            tmp.unlink(missing_ok=True)
+            failed.append(f"build failed: {' '.join(cmd)}\n{log[-4000:]}")
+        else:
+            os.replace(tmp, out)
+    if failed:
+        raise RuntimeError("\n".join(failed))
 
 
-def kernel_library() -> ctypes.CDLL:
-    """The loaded CUDA kernel library, built on first use."""
+class Kernels:
+    """The loaded kernel libraries: each C entry point of _SIGNATURES as an
+    attribute, and the path of the library that holds it."""
+
+    def __init__(self, libs: dict[str, pathlib.Path]):
+        self.paths = {}
+        for src, path in libs.items():
+            dll = ctypes.CDLL(str(path))
+            for name, argtypes in _SIGNATURES.items():
+                fn = getattr(dll, name, None)
+                if fn is None:
+                    continue
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+                setattr(self, name, fn)
+                self.paths[name] = path
+        missing = set(_SIGNATURES) - set(self.paths)
+        if missing:
+            raise RuntimeError(f"kernel entry points not found: {missing}")
+
+
+def kernel_library() -> Kernels:
+    """The loaded CUDA kernel libraries, built on first use."""
     global _kernels
     with _lock:
         if _kernels is None:
-            srcs = sorted(CSRC.glob("*.cu"))
-            lib = BUILD / "kernels" / (
-                f"libcorner_kernels_{_digest(srcs, NVCC_FLAGS)}.so")
-            if not lib.exists():
-                _compile([nvcc(), *NVCC_FLAGS, *map(str, srcs)], lib)
-            dll = ctypes.CDLL(str(lib))
-            for name, argtypes in _SIGNATURES.items():
-                fn = getattr(dll, name)
-                fn.argtypes = argtypes
-                fn.restype = ctypes.c_int
-            _kernels = dll
+            libs = {src: BUILD / "kernels" / (
+                f"lib{src.stem}_{_digest([src], NVCC_FLAGS)}.so")
+                for src in sorted(CSRC.glob("*.cu"))}
+            _compile([([nvcc(), *NVCC_FLAGS, str(src)], lib)
+                      for src, lib in libs.items() if not lib.exists()])
+            _kernels = Kernels(libs)
         return _kernels
 
 
+def sass_counts(name: str, opcodes=("HGMMA", "UTMALDG")) -> dict:
+    """How often each SASS opcode occurs in the built library that holds
+    the C entry point `name` (cuobjdump -sass, beside nvcc)."""
+    lib = kernel_library().paths[name]
+    tool = pathlib.Path(nvcc()).with_name("cuobjdump")
+    out = subprocess.run([str(tool), "-sass", str(lib)], capture_output=True,
+                         text=True, timeout=300, check=True).stdout
+    return {op: len(re.findall(rf"\b{op}\b", out)) for op in opcodes}
+
+
+@functools.lru_cache(maxsize=1)
+def native_library_path() -> pathlib.Path:
+    """Where the port's build of native/ lives (it may not exist yet)."""
+    native = REPO / "native"
+    srcs = sorted(native.glob("*.cc")) + sorted(native.glob("*.h"))
+    return (BUILD / "native" / _digest(srcs, GXX_FLAGS)
+            / "libsteganosaurus_native.so")
+
+
 def ensure_native():
-    """The loaded host native library (steganosaurus_tpu._native_loader),
-    built from native/ if missing. Raises if it cannot be built or loaded."""
-    from steganosaurus_tpu import _native_loader
+    """The loaded host native library (the port's _native_loader), compiled
+    from native/*.cc with g++ if missing. Raises if it cannot be built or
+    loaded."""
+    from steganosaurus_tpu_torch import _native_loader
 
     if os.environ.get("STEGANOSAURUS_NO_NATIVE"):
         raise RuntimeError("STEGANOSAURUS_NO_NATIVE is set: the port needs "
                            "the native host library")
     with _lock:
-        if shutil.which("cmake") and shutil.which("ninja"):
-            lib = _native_loader.ensure_built()
-        else:
-            if not os.environ.get("STEGANOSAURUS_NATIVE_LIB"):
-                native = REPO / "native"
-                srcs = sorted(native.glob("*.cc"))
-                so = BUILD / "native" / (
-                    f"{_digest(srcs + sorted(native.glob('*.h')), GXX_FLAGS)}"
-                    "/libsteganosaurus_native.so")
-                if not so.exists():
-                    _compile(["g++", *GXX_FLAGS, *map(str, srcs)], so)
-                os.environ["STEGANOSAURUS_NATIVE_LIB"] = str(so)
-            lib = _native_loader.get()
+        so = native_library_path()
+        if not so.exists():
+            srcs = sorted((REPO / "native").glob("*.cc"))
+            _compile([(["g++", *GXX_FLAGS, *map(str, srcs)], so)])
+    lib = _native_loader.get()
     if lib is None:
-        raise RuntimeError("host native library failed to build or load")
+        raise RuntimeError(f"host native library {so} failed to load")
     return lib

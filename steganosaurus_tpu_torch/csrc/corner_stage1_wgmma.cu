@@ -1,0 +1,452 @@
+// Corner DFT forward stage 1 (K1) for Hopper: TMA, wgmma with A from
+// registers, a persistent warp-specialised schedule.
+//
+// Replaces the TPU kernel steganosaurus_tpu/spectral/corner_pallas.py:fwd_stage1
+// (kernel body _s1_kernel): for every plane p and row h, and both DFT tables,
+//
+//     ar[p,h,k] = sum_w bf16(c(h,w) x[p,h,w]) * bf16(exr[k,w])
+//     ai[p,h,k] = sum_w bf16(c(h,w) x[p,h,w]) * bf16(exi[k,w])   (f32 accumulation)
+//
+// with x the u8 image batch and c = (-1)^(h+w) when `center` is set, else 1.
+//
+// Bound on the H100 (989 TFLOP/s bf16 dense, 3.35 TB/s) at the main shape,
+// 4K B=64 (P=192 planes of 2160x3840, Kx=1024): 2*P*H*W*2Kx = 6.52 TFLOP,
+// 6.60 ms of tensor-core time, against 1.59 GB of u8 read + 15.7 MB of
+// tables + 3.40 GB of f32 written, ~1.5 ms of HBM time. Compute-bound:
+// 6.60 ms.
+//
+// What the first kernel (corner_stage1.cu, kept for W % 16 != 0) lost:
+// 1. nvcuda::wmma 16x16x16 compiles to mma.sync, which does not reach
+//    Hopper's tensor-core rate; only wgmma does.
+// 2. The same warps that issue the MMAs did synchronous ld.global, the
+//    u8 -> bf16 conversion with a per-element centering sign, and st.shared.
+// 3. Two shared-memory stages with BK = 32: 120 __syncthreads over W = 3840,
+//    latency hidden only by two resident blocks per SM.
+// 4. A 128 x (64 + 64) tile: 51,840 short-lived blocks, each A row-block
+//    fetched 16 times, no overlap of an epilogue with the next tile.
+// 5. An epilogue through a per-warp 16x16 scratch with eight masked 4-byte
+//    stores per lane, for 3.4 GB of f32 output.
+//
+// What this kernel does about it:
+// 1. One GEMM over the concatenated table T = [exr; exi] (N = 2*Kxp rows,
+//    Kxp = Kx rounded up to 64), issued as wgmma.m64n256k16 with B from
+//    128-byte-swizzled shared memory and A from registers.
+// 2. Centering leaves the A operand: (-1)^w is folded into a second cached
+//    copy of T and (-1)^h is a row sign applied in the epilogue. Every
+//    bf16 x bf16 product is exact in f32, so flipping the sign of whole
+//    terms and of a whole row sum changes no bit in any fixed summation
+//    order. A is then the plain u8 image rows.
+// 3. TMA loads both operands (A: 128 x 64 u8 boxes of the (P*H, W) rows;
+//    B: 256 x 64 bf16 boxes of T, 128-byte swizzle) into a 5-stage ring
+//    with full/empty mbarriers. The tensor maps are encoded on the host
+//    with cuTensorMapEncodeTiled, reached through cudaGetDriverEntryPoint.
+//    Out-of-bounds rows and columns load as zeros, so ragged P*H and W
+//    (a multiple of 16, not of 64) need no masks in the main loop.
+// 4. Each consumer thread reads its A slice with two 16-byte shared loads
+//    per stage and converts u8 -> bf16 in registers (exact: every u8 is a
+//    bf16) with byte permutes and one f32 add, already in the wgmma
+//    A-fragment layout. The K order inside each 64-wide block is permuted
+//    to make that possible: logical k = 16s + r (s = k16 step, r in 0..15)
+//    reads pixel 16q + 4s + e with q = (r % 8) / 2, e = r % 2 + 2 (r / 8),
+//    and the host stores T with its columns in the same order
+//    (corner_kernels.stage1_tables). The sum over k is the sum over w.
+// 5. One producer warpgroup (setmaxnreg.dec to 40) issues the TMA loads;
+//    two consumer warpgroups (setmaxnreg.inc to 232) own 64 rows each of
+//    a 128 x 256 tile, 128 f32 accumulators a thread. 132 persistent
+//    blocks (one per SM) walk the tiles N-fastest, so the 2Kx/256 tiles of
+//    one row-block run side by side: A comes from HBM about once, and T
+//    (15.7 MB at 4K) stays in L2. Nothing orders the two consumer
+//    warpgroups: each waits for its own k-block's wgmmas (wait_group 0)
+//    before it converts the next A slice, so the tensor cores stay busy
+//    through a convert only while the other warpgroup's wgmmas are in
+//    flight.
+// 6. The epilogue applies the row sign, pairs lanes with one shuffle so
+//    each thread holds four consecutive columns of one row, and writes them
+//    with 16-byte stores straight from registers (scalar masked stores when
+//    Kx % 4 != 0). Both consumer warpgroups store their halves of the same
+//    tile before either starts the next tile's k-loop; only the producer's
+//    ring (up to STAGES k-blocks of the next tile) runs ahead meanwhile.
+//    The epilogue does not overlap the next tile's main loop: neither a
+//    shared-memory + TMA store nor consumer warpgroups on alternate tiles
+//    is done yet.
+
+#include <cuda.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int BM = 128;          // rows per tile (two consumer warpgroups)
+constexpr int BN = 256;          // table rows (output columns) per tile
+constexpr int BK = 64;           // contraction per stage
+constexpr int STAGES = 5;
+constexpr int A_BYTES = BM * BK;          // u8
+constexpr int B_BYTES = BN * BK * 2;      // bf16
+constexpr int STAGE_BYTES = A_BYTES + B_BYTES;
+constexpr int NTHREADS = 384;             // 2 consumer + 1 producer warpgroup
+constexpr int SMEM_BYTES = STAGES * STAGE_BYTES + 2 * STAGES * 8 + 1024;
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t addr = smem_u32(bar);
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n"
+        "}\n"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
+  }
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar))
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+                   smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
+                                            int c0, int c1, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%2, %3}], [%4];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// K-major operand in 128-byte-swizzled shared memory: rows of 128 bytes,
+// 8-row groups 1024 bytes apart (SBO), leading offset unused (LBO = 1).
+__device__ __forceinline__ uint64_t sw128_desc(const void* p) {
+  const uint64_t addr = smem_u32(p);
+  return ((addr & 0x3FFFF) >> 4) | (1ull << 16) | ((1024ull >> 4) << 32) |
+         (1ull << 62);
+}
+
+// Two u8 (bytes b and b+1 of w) -> one bf16x2 register, exactly: each byte
+// becomes the float 2^23 + u, minus 2^23 gives u, whose top 16 bits are
+// its bf16.
+__device__ __forceinline__ uint32_t u8x2_bf16x2(uint32_t w, uint32_t sel_lo,
+                                                uint32_t sel_hi) {
+  const float lo = __uint_as_float(__byte_perm(w, 0x4B000000u, sel_lo)) - 8388608.0f;
+  const float hi = __uint_as_float(__byte_perm(w, 0x4B000000u, sel_hi)) - 8388608.0f;
+  return __byte_perm(__float_as_uint(lo), __float_as_uint(hi), 0x7632);
+}
+
+__device__ __forceinline__ void wgmma_m64n256k16(float* d, uint32_t a0,
+                                                 uint32_t a1, uint32_t a2,
+                                                 uint32_t a3, uint64_t desc_b,
+                                                 uint32_t scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63,"
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79,"
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95,"
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111,"
+      "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127},"
+      "{%128, %129, %130, %131}, %132, p, 1, 1, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(desc_b), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait0() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// Keeps the compiler from moving accumulator reads or writes across the
+// asynchronous wgmma issue/wait points.
+__device__ __forceinline__ void fence_acc(float* d) {
+#pragma unroll
+  for (int i = 0; i < 128; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+__device__ __forceinline__ void store_out(float* ar, float* ai, long long m,
+                                          int c, int Kx, int Kxp, float v) {
+  if (c < Kxp) {
+    if (c < Kx) ar[m * Kx + c] = v;
+  } else if (c - Kxp < Kx) {
+    ai[m * Kx + (c - Kxp)] = v;
+  }
+}
+
+__global__ void __launch_bounds__(NTHREADS, 1)
+corner_stage1_wgmma_kernel(const __grid_constant__ CUtensorMap tm_a,
+                           const __grid_constant__ CUtensorMap tm_b,
+                           float* __restrict__ ar, float* __restrict__ ai,
+                           int M, int H, int Kx, int Kxp, int nkb,
+                           int n_tiles_n, int n_tiles, int center, int vec) {
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  uint8_t* smem_b = smem;                           // STAGES x 32 KB, 1024-aligned
+  uint8_t* smem_a = smem + STAGES * B_BYTES;        // STAGES x 8 KB
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem_a + STAGES * A_BYTES);
+  uint64_t* empty = full + STAGES;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 8);  // one arrival per consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == 2) {
+    // ---- producer warpgroup: one thread keeps the ring full ----
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (threadIdx.x == 256) {
+      int stage = 0;
+      uint32_t phase = 0;
+      for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+        const int m0 = (tile / n_tiles_n) * BM;
+        const int n0 = (tile % n_tiles_n) * BN;
+        for (int kb = 0; kb < nkb; ++kb) {
+          mbar_wait(&empty[stage], phase ^ 1);
+          mbar_expect_tx(&full[stage], STAGE_BYTES);
+          tma_load_2d(smem_b + stage * B_BYTES, &tm_b, kb * BK, n0, &full[stage]);
+          tma_load_2d(smem_a + stage * A_BYTES, &tm_a, kb * BK, m0, &full[stage]);
+          if (++stage == STAGES) {
+            stage = 0;
+            phase ^= 1;
+          }
+        }
+      }
+    }
+  } else {
+    // ---- consumer warpgroups: 64 rows x 256 columns each ----
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+    const int lane = threadIdx.x & 31;
+    const int warp = (threadIdx.x >> 5) & 3;
+    const int q = lane & 3;
+    const int r0 = wg * 64 + warp * 16 + (lane >> 2);  // tile row; r0 + 8 too
+    float d[128];
+#pragma unroll
+    for (int i = 0; i < 128; ++i) d[i] = 0.0f;
+    int stage = 0;
+    uint32_t phase = 0;
+    for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+      const int m0 = (tile / n_tiles_n) * BM;
+      const int n0 = (tile % n_tiles_n) * BN;
+      for (int kb = 0; kb < nkb; ++kb) {
+        mbar_wait(&full[stage], phase);
+        const uint8_t* a = smem_a + stage * A_BYTES;
+        const uint4 u0 = *reinterpret_cast<const uint4*>(a + r0 * BK + 16 * q);
+        const uint4 u1 = *reinterpret_cast<const uint4*>(a + (r0 + 8) * BK + 16 * q);
+        const uint32_t w0[4] = {u0.x, u0.y, u0.z, u0.w};
+        const uint32_t w1[4] = {u1.x, u1.y, u1.z, u1.w};
+        uint32_t fr[4][4];
+#pragma unroll
+        for (int s = 0; s < 4; ++s) {
+          // A fragment of k16 step s: rows r0 / r0+8, logical columns
+          // (2q, 2q+1) and (2q+8, 2q+9) = pixels 16q+4s+{0,1} and {2,3}
+          fr[s][0] = u8x2_bf16x2(w0[s], 0x7540, 0x7541);
+          fr[s][1] = u8x2_bf16x2(w1[s], 0x7540, 0x7541);
+          fr[s][2] = u8x2_bf16x2(w0[s], 0x7542, 0x7543);
+          fr[s][3] = u8x2_bf16x2(w1[s], 0x7542, 0x7543);
+        }
+        const uint64_t desc = sw128_desc(smem_b + stage * B_BYTES);
+        fence_acc(d);
+        wgmma_fence();
+#pragma unroll
+        for (int s = 0; s < 4; ++s)
+          wgmma_m64n256k16(d, fr[s][0], fr[s][1], fr[s][2], fr[s][3],
+                           desc + 2 * s, (kb > 0 || s > 0) ? 1u : 0u);
+        wgmma_commit();
+        wgmma_wait0();
+        fence_acc(d);
+        __syncwarp();
+        if (lane == 0) mbar_arrive(&empty[stage]);
+        if (++stage == STAGES) {
+          stage = 0;
+          phase ^= 1;
+        }
+      }
+
+      // ---- epilogue: row sign, then 16-byte (or masked scalar) stores ----
+      const long long mA = (long long)m0 + r0;
+      const long long mB = mA + 8;
+      const float sA = (center && ((mA % H) & 1)) ? -1.0f : 1.0f;
+      const float sB = (center && ((mB % H) & 1)) ? -1.0f : 1.0f;
+      const bool odd = q & 1;
+      if (vec) {
+        // lane pairs (q, q^1): the even lane takes row r0, columns
+        // 8g+2q..+3; the odd lane row r0+8, columns 8g+2(q-1)..+3
+        const long long m = odd ? mB : mA;
+        const float sg = odd ? sB : sA;
+        const bool live = m < M;
+#pragma unroll
+        for (int g = 0; g < 32; ++g) {
+          const float x0 = odd ? d[4 * g] : d[4 * g + 2];
+          const float x1 = odd ? d[4 * g + 1] : d[4 * g + 3];
+          const float y0 = __shfl_xor_sync(0xffffffffu, x0, 1);
+          const float y1 = __shfl_xor_sync(0xffffffffu, x1, 1);
+          float4 v;
+          if (odd) {
+            v = make_float4(y0, y1, d[4 * g + 2], d[4 * g + 3]);
+          } else {
+            v = make_float4(d[4 * g], d[4 * g + 1], y0, y1);
+          }
+          v.x *= sg;
+          v.y *= sg;
+          v.z *= sg;
+          v.w *= sg;
+          const int c = n0 + 8 * g + 2 * (q & 2);
+          if (live) {
+            if (c < Kxp) {
+              if (c < Kx) *reinterpret_cast<float4*>(ar + m * Kx + c) = v;
+            } else if (c - Kxp < Kx) {
+              *reinterpret_cast<float4*>(ai + m * Kx + (c - Kxp)) = v;
+            }
+          }
+        }
+      } else {
+#pragma unroll
+        for (int g = 0; g < 32; ++g) {
+          const int c = n0 + 8 * g + 2 * q;
+          if (mA < M) {
+            store_out(ar, ai, mA, c, Kx, Kxp, sA * d[4 * g]);
+            store_out(ar, ai, mA, c + 1, Kx, Kxp, sA * d[4 * g + 1]);
+          }
+          if (mB < M) {
+            store_out(ar, ai, mB, c, Kx, Kxp, sB * d[4 * g + 2]);
+            store_out(ar, ai, mB, c + 1, Kx, Kxp, sB * d[4 * g + 3]);
+          }
+        }
+      }
+    }
+  }
+}
+
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                void*, const cuuint64_t*, const cuuint64_t*,
+                                const cuuint32_t*, const cuuint32_t*,
+                                CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (!fn) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
+                                &q) == cudaSuccess &&
+        q == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+}  // namespace
+
+// C interface, loaded with ctypes (steganosaurus_tpu_torch/_build.py).
+// x: (P*H, W) u8 rows, W % 16 == 0, 16-byte aligned; t: (2*Kxp, Wp) bf16,
+// the concatenated, K-permuted table of corner_kernels.stage1_tables (the
+// (-1)^w-folded copy when center is set), Kxp and Wp multiples of 64;
+// ar/ai: (P*H, Kx) f32. All contiguous, on the device that owns `stream`.
+// Launches on `stream`, does not synchronise, and returns a CUDA error code
+// (0 on success; cudaErrorInvalidValue for shapes it does not take).
+extern "C" int corner_stage1_wgmma(const void* x, const void* t, void* ar,
+                                   void* ai, int P, int H, int W, int Kx,
+                                   int Kxp, int Wp, int center, void* stream) {
+  if (P <= 0 || H <= 0 || W <= 0 || Kx <= 0 || W % 16 != 0 ||
+      Kxp % 64 != 0 || Kxp < Kx || Wp % BK != 0 || Wp < W ||
+      (uintptr_t)x % 16 != 0 || (uintptr_t)t % 16 != 0)
+    return (int)cudaErrorInvalidValue;
+  const long long M = (long long)P * H;
+  if (M > 0x7fffffffLL - BM) return (int)cudaErrorInvalidValue;
+  EncodeTiled enc = encode_tiled();
+  if (!enc) return (int)cudaErrorNotSupported;
+
+  CUtensorMap tm_a, tm_b;
+  {
+    const cuuint64_t dims[2] = {(cuuint64_t)W, (cuuint64_t)M};
+    const cuuint64_t strides[1] = {(cuuint64_t)W};
+    const cuuint32_t box[2] = {BK, BM};
+    const cuuint32_t el[2] = {1, 1};
+    if (enc(&tm_a, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, const_cast<void*>(x), dims,
+            strides, box, el, CU_TENSOR_MAP_INTERLEAVE_NONE,
+            CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
+      return (int)cudaErrorInvalidValue;
+  }
+  {
+    const cuuint64_t dims[2] = {(cuuint64_t)Wp, (cuuint64_t)(2 * Kxp)};
+    const cuuint64_t strides[1] = {(cuuint64_t)Wp * 2};
+    const cuuint32_t box[2] = {BK, BN};
+    const cuuint32_t el[2] = {1, 1};
+    if (enc(&tm_b, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(t),
+            dims, strides, box, el, CU_TENSOR_MAP_INTERLEAVE_NONE,
+            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
+      return (int)cudaErrorInvalidValue;
+  }
+
+  int dev = 0, sms = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  cudaError_t err = cudaFuncSetAttribute(
+      corner_stage1_wgmma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      SMEM_BYTES);
+  if (err != cudaSuccess) return (int)err;
+
+  const int n_tiles_n = (2 * Kxp + BN - 1) / BN;
+  const long long n_tiles = ((M + BM - 1) / BM) * n_tiles_n;
+  if (n_tiles > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  const int grid = (int)(n_tiles < sms ? n_tiles : sms);
+  const int vec = (Kx % 4 == 0) && ((uintptr_t)ar % 16 == 0) &&
+                  ((uintptr_t)ai % 16 == 0);
+  corner_stage1_wgmma_kernel<<<grid, NTHREADS, SMEM_BYTES,
+                               (cudaStream_t)stream>>>(
+      tm_a, tm_b, (float*)ar, (float*)ai, (int)M, H, Kx, Kxp, Wp / BK,
+      n_tiles_n, (int)n_tiles, center ? 1 : 0, vec);
+  return (int)cudaGetLastError();
+}

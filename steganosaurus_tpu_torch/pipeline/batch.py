@@ -46,11 +46,10 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from steganosaurus_tpu import crypto, keystream
-from steganosaurus_tpu.config import Params
-from steganosaurus_tpu.ops import rs as rs_mod
-from steganosaurus_tpu_torch import _build, runtime, spectral
+from steganosaurus_tpu_torch import _build, crypto, keystream, runtime, spectral
+from steganosaurus_tpu_torch.config import Params
 from steganosaurus_tpu_torch.ops import bits as bit_ops
+from steganosaurus_tpu_torch.ops import rs as rs_mod
 from steganosaurus_tpu_torch.parallel import batch as pbatch
 from steganosaurus_tpu_torch.pipeline import header as header_mod
 from steganosaurus_tpu_torch.pipeline import qim as qim_mod
@@ -165,7 +164,7 @@ def _walk_indices(password, master_key, params, PH, PW, nbits,
     # the pure-Python walk is ~1000x slower than the native one: build the
     # native library if missing, and raise rather than fall back to it
     _build.ensure_native()
-    path_key = crypto.derive_path_key(password, master_key, None)
+    path_key = crypto.derive_path_key(password, master_key)
     key_walk, key_r, key_g, key_b = crypto.derive_turtle_keys(path_key)
     return keystream.turtle_expand(
         key_walk, (key_r, key_g, key_b), PH, PW,
@@ -198,7 +197,7 @@ def _walk_indices_device(password, master_key, params, PH, PW, nbits, skip,
     covering walk bits [skip, nbits), tail-padded with the last index,
     nproduced). nproduced < nbits means the walk exhausted (reads past it
     re-read the last bin; embed treats it as capacity exceeded)."""
-    path_key = crypto.derive_path_key(password, master_key, None)
+    path_key = crypto.derive_path_key(password, master_key)
     key = (path_key, PH, PW, params.rmin, params.rmax, params.density,
            params.jitter, skip, bucket, nbits, device)
     ent = _DEV_IDX_CACHE.get(key)
@@ -247,7 +246,7 @@ def _corner_statics_device(password, master_key, params, PH, PW, nbits,
     Params.qim. Keyed as the JAX cache is: alpha joins the key only under
     spread (the amplitude maps bake cos/sin(alpha_i)), and the QIM level
     always."""
-    path_key = crypto.derive_path_key(password, master_key, None)
+    path_key = crypto.derive_path_key(password, master_key)
     has_spread = params.alpha_spread != 0.0
     L = params.qim
     key = (path_key, PH, PW, params.rmin, params.rmax, params.density,
@@ -335,7 +334,7 @@ def prefetch_piw_walks(password, master_key, params: Params, H: int, W: int,
     context."""
     try:
         PH, PW = spectral.fft_dims(H, W)
-        path_key = crypto.derive_path_key(password, master_key, None)
+        path_key = crypto.derive_path_key(password, master_key)
         *_, vis = _piw_header_walk(path_key, params, PH, PW)
         needs = [_payload_stream_bits(_wire_clen(n, params) + 16, params.rs)
                  for n in secret_lens]
@@ -370,7 +369,7 @@ def _piw_walk_arrays(password, master_key, params, PH, PW, salts,
     (extraction, where need_lens come from decoded and possibly corrupt
     clens) lets the walk's own padding stand, so the image reads garbage
     that the AEAD rejects and the batch goes on."""
-    path_key = crypto.derive_path_key(password, master_key, None)
+    path_key = crypto.derive_path_key(password, master_key)
     hdr_n = _HEADER_STREAM_BITS
     hp, hy, hx, hj, vis = _piw_header_walk(path_key, params, PH, PW)
     outs = _piw_map(lambda i: _piw_expand_one(
@@ -418,8 +417,8 @@ def prefetch_walk(password, master_key, params: Params, H: int, W: int,
     try:
         PH, PW = spectral.fft_dims(H, W)
         if params.per_image_walk:
-            _piw_header_walk(crypto.derive_path_key(password, master_key,
-                                                    None), params, PH, PW)
+            _piw_header_walk(crypto.derive_path_key(password, master_key),
+                             params, PH, PW)
             return
         nmax = max(_HEADER_STREAM_BITS + _payload_stream_bits(
             _wire_clen(n, params) + 16, params.rs) for n in secret_lens)
@@ -527,7 +526,7 @@ def embed_batch(
     # (bin, bit) pair and are never read back
     bucket = _bucket(nmax)
     Ky, Kx = corner.corner_dims(PH, PW, params.rmax)
-    path_key = crypto.derive_path_key(password, master_key, None)
+    path_key = crypto.derive_path_key(password, master_key)
     has_spread = params.alpha_spread != 0.0
     common = dict(Ky=Ky, Kx=Kx, center=params.center, layout=layout,
                   floor=params.write_floor, soft=params.soft_write,
@@ -649,7 +648,7 @@ def channel_report(
         raise StegoError("stego batch cannot carry the claimed frames")
     Ky, Kx = corner.corner_dims(PH, PW, params.rmax)
     dither = (_slot_values_device(
-        "dither", crypto.derive_path_key(password, master_key, None), params,
+        "dither", crypto.derive_path_key(password, master_key), params,
         params.qim, nmax, bucket, dev) if params.qim else None)
     words = pbatch.corner_raw_bits_core(
         stego_d, params.alpha, pl, yy, xx, Ky=Ky, Kx=Kx,
@@ -719,7 +718,7 @@ class _ExtractJob:
         self._dev = dev
         PH, PW = spectral.fft_dims(H, W)
         self._key = (password, master_key)
-        self._path_key = crypto.derive_path_key(password, master_key, None)
+        self._path_key = crypto.derive_path_key(password, master_key)
         self._params = params
         self._qim, self._rs = params.qim, params.rs
         self._dims = (PH, PW)

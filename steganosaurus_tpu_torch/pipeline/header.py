@@ -76,7 +76,7 @@ def pad_plaintext(secret: bytes, quantum: int, aead_key) -> bytes:
     n = padded_len(len(secret), quantum) - len(inner)
     if not n:
         return inner
-    from steganosaurus_tpu import crypto
+    from steganosaurus_tpu_torch import crypto
 
     if hasattr(aead_key, "hkdf_expand"):
         expand = aead_key.hkdf_expand
@@ -120,7 +120,7 @@ def seal_stream(secret: bytes, km, flags: int,
     `km` is a KeyMaterial (legacy: keys as Python bytes) or a vaulted-keys
     object (crypto.derive_keys_vault: seal/HKDF run in the native mlock'd
     vault, the AEAD key never materializes in Python)."""
-    from steganosaurus_tpu import crypto
+    from steganosaurus_tpu_torch import crypto
 
     vk = km if hasattr(km, "seal") else crypto._FallbackKeys(km)
     pt = secret

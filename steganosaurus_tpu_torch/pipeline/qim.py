@@ -12,9 +12,8 @@ crypto.derive_qim_key(path_key); it reads back as bit = 1 iff
 soft-decision value. The header is never QIM-written and carries L in
 FLAGS bits 4-7, so extraction finds the level in the header.
 
-Re-implemented rather than imported (every steganosaurus_tpu.pipeline
-module imports jax); the dithers are bit-equal to the JAX package's
-(tests/test_torch_wire.py).
+Built on the port's copies of the keystream and crypto modules; the
+dithers are bit-equal to the JAX package's (tests/test_torch_wire.py).
 """
 
 from __future__ import annotations
@@ -23,8 +22,8 @@ import math
 
 import numpy as np
 
-from steganosaurus_tpu import crypto, keystream
-from steganosaurus_tpu.config import Params
+from steganosaurus_tpu_torch import crypto, keystream
+from steganosaurus_tpu_torch.config import Params
 from steganosaurus_tpu_torch.pipeline.errors import StegoError
 
 

@@ -8,10 +8,9 @@ has the derivation: bin i is written at
 with v_i drawn from a KS keystream keyed by
 crypto.derive_alpha_spread_key(path_key). The spread is one-sided, so every
 bin keeps at least the hard write's decode margin, and the read rule (the
-sign of sin(alpha)) needs no knowledge of it. Re-implemented rather than
-imported because importing any steganosaurus_tpu.pipeline module imports
-jax; built from the same jax-free keystream and crypto calls, so the
-amplitudes are bit-equal to the JAX package's (tests/test_torch_wire.py).
+sign of sin(alpha)) needs no knowledge of it. Built on the port's copies
+of the keystream and crypto modules, so the amplitudes are bit-equal to the
+JAX package's (tests/test_torch_wire.py).
 """
 
 from __future__ import annotations
@@ -20,8 +19,8 @@ import math
 
 import numpy as np
 
-from steganosaurus_tpu import crypto, keystream
-from steganosaurus_tpu.config import Params
+from steganosaurus_tpu_torch import crypto, keystream
+from steganosaurus_tpu_torch.config import Params
 from steganosaurus_tpu_torch.pipeline.errors import StegoError
 
 

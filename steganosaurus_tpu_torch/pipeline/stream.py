@@ -21,8 +21,8 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
-from steganosaurus_tpu import crypto
-from steganosaurus_tpu.config import Params
+from steganosaurus_tpu_torch import crypto
+from steganosaurus_tpu_torch.config import Params
 from steganosaurus_tpu_torch.pipeline.batch import (
     embed_batch,
     extract_dispatch,
@@ -209,8 +209,8 @@ def load_rgb_batches(paths, batch_size: int, threads: int = 8):
     Decode is backpressured: at most 2*threads images are decoded ahead of
     the consumer, so a stalled device pipeline never piles up decoded
     frames in host memory. Host code only, the JAX package's
-    load_rgb_batches on steganosaurus_tpu.io.image."""
-    from steganosaurus_tpu.io import image as image_io
+    load_rgb_batches on the port's io.image."""
+    from steganosaurus_tpu_torch.io import image as image_io
 
     paths = list(paths)
     window = max(2 * threads, 1)

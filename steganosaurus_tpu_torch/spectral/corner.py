@@ -11,7 +11,7 @@ the corner. Complex values are (re, im) f32 pairs, as in the JAX package.
 
 Precision modes (STEGANOSAURUS_MM_PRECISION), restricted to two:
 - "mix_adaptive" (default): forward stage 1 through the hand-written K1
-  kernel (corner_kernels.fwd_stage1, bf16 operands, f32 accumulation);
+  kernels (corner_kernels.fwd_stage1, bf16 operands, f32 accumulation);
   forward stage 2 in bf16 except the top SPLIT_X0 = 64 energy columns per
   (image, plane), which run in full f32; both inverse stages in bf16.
 - "highest": full f32 products everywhere — the arbiter.
@@ -79,7 +79,9 @@ def _dft_tables(N: int, K: int):
 
 class Tables(NamedTuple):
     """Device DFT tables for one (H, W) grid's (Ky, Kx) corner: y-axis
-    (Ky, H) and x-axis (Kx, W), in f32 and in bf16."""
+    (Ky, H) and x-axis (Kx, W), in f32 and in bf16; and, on CUDA, the
+    stage-1 kernel's concatenated x-axis table, plain and (-1)^w-folded
+    (corner_kernels.stage1_tables; None on other devices)."""
     eyr: torch.Tensor
     eyi: torch.Tensor
     exr: torch.Tensor
@@ -88,6 +90,7 @@ class Tables(NamedTuple):
     eyi16: torch.Tensor
     exr16: torch.Tensor
     exi16: torch.Tensor
+    stage1: tuple | None
 
 
 _DEV_TABLES: dict = {}
@@ -102,7 +105,10 @@ def dft_tables_device(H: int, Ky: int, W: int, Kx: int, device) -> Tables:
     if ent is None:
         f32 = [torch.from_numpy(a).to(device)
                for a in _dft_tables(H, Ky) + _dft_tables(W, Kx)]
-        ent = Tables(*f32, *(a.to(torch.bfloat16) for a in f32))
+        b16 = [a.to(torch.bfloat16) for a in f32]
+        s1 = (corner_kernels.stage1_tables(b16[2], b16[3])
+              if device.type == "cuda" else None)
+        ent = Tables(*f32, *b16, s1)
         _DEV_TABLES[key] = ent
         while len(_DEV_TABLES) > 16:
             _DEV_TABLES.pop(next(iter(_DEV_TABLES)))
@@ -150,7 +156,8 @@ def fwd_corner(imgs_u8: torch.Tensor, center: bool, Ky: int, Kx: int,
         cr = tabs.eyr @ ar - tabs.eyi @ ai
         ci = tabs.eyr @ ai + tabs.eyi @ ar
     else:
-        ar, ai = corner_kernels.fwd_stage1(x, tabs.exr16, tabs.exi16, center)
+        ar, ai = corner_kernels.fwd_stage1(x, tabs.exr16, tabs.exi16, center,
+                                           tabs.stage1)
         cr, ci = _fwd_y_split(ar, ai, tabs)
     return cr.reshape(*lead, Ky, Kx), ci.reshape(*lead, Ky, Kx)
 

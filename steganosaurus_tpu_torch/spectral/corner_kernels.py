@@ -1,31 +1,48 @@
-"""Forward corner-DFT stage 1 (K1): the hand-written Hopper kernel and its
-plain PyTorch version.
+"""Forward corner-DFT stage 1 (K1): the hand-written Hopper kernels and
+their plain PyTorch version.
 
 Replaces steganosaurus_tpu/spectral/corner_pallas.py:fwd_stage1. For every
 plane and row, against both DFT tables:
 
-    ar[..., h, k] = sum_w bf16(x[..., h, w]) * bf16(exr[k, w])
-    ai[..., h, k] = sum_w bf16(x[..., h, w]) * bf16(exi[k, w])
+    ar[..., h, k] = sum_w bf16(c(h,w) x[..., h, w]) * bf16(exr[k, w])
+    ai[..., h, k] = sum_w bf16(c(h,w) x[..., h, w]) * bf16(exi[k, w])
 
-with f32 accumulation. x is the u8 image batch itself ((..., H, W), e.g.
-NCHW (B, 3, H, W)); `center` folds the (-1)^(h+w) spectrum centering into
-the load. The kernel is csrc/corner_stage1.cu (see its header for the
-design and what bounds it on the card).
+with f32 accumulation, x the u8 image batch itself ((..., H, W), e.g. NCHW
+(B, 3, H, W)) and c = (-1)^(h+w) when `center` is set, else 1.
 
-`fwd_stage1` launches the kernel for CUDA tensors — or raises; nothing here
-catches a kernel failure and falls back — and takes `fwd_stage1_plain` only
-for CPU tensors. `LAUNCHES` counts kernel launches, one per launch and
-nowhere else, so a run can show that the main path went through the kernel.
+Two kernels, chosen by shape alone:
+
+- W % 16 == 0 (every grid the pipeline runs at 4K, 1080p, 512^2): the
+  wgmma + TMA kernel csrc/corner_stage1_wgmma.cu, one GEMM over the
+  concatenated table of stage1_tables with the centering folded out of the
+  A operand. TMA needs 16-byte row strides, hence the rule.
+- any other W: csrc/corner_stage1.cu (mma.sync through nvcuda::wmma, any
+  shape).
+
+`fwd_stage1` launches one of them for CUDA tensors — or raises; nothing here
+catches a build or launch failure and falls back — and takes
+`fwd_stage1_plain` only for CPU tensors. `LAUNCHES` counts each kernel's
+launches under its own name, one per launch and nowhere else, so a run can
+show that the main path went through the kernel.
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 
 from steganosaurus_tpu_torch import spectral
 
-KERNEL = "corner_stage1"
-LAUNCHES = {KERNEL: 0}
+KERNEL = "corner_stage1"              # any W
+KERNEL_WGMMA = "corner_stage1_wgmma"  # W % 16 == 0
+LAUNCHES = {KERNEL: 0, KERNEL_WGMMA: 0}
+BLOCK = 64  # the wgmma kernel's K block and the table's padding quantum
+
+
+def kernel_for(W: int) -> str:
+    """Name of the kernel fwd_stage1 launches for width-W images on CUDA."""
+    return KERNEL_WGMMA if W % 16 == 0 else KERNEL
 
 
 def fwd_stage1_plain(imgs_u8: torch.Tensor, exr: torch.Tensor,
@@ -45,6 +62,41 @@ def fwd_stage1_plain(imgs_u8: torch.Tensor, exr: torch.Tensor,
     return ar.reshape(*lead, Kx), ai.reshape(*lead, Kx)
 
 
+def _pad64(n: int) -> int:
+    return -(-n // BLOCK) * BLOCK
+
+
+@functools.lru_cache(maxsize=8)
+def k_order(Wp: int) -> torch.Tensor:
+    """(Wp,) int64: the pixel column each logical K position of the wgmma
+    kernel reads. Inside every 64-wide block, logical k = 16s + r (k16 step
+    s, r in 0..15) is pixel 16q + 4s + e with q = (r % 8) // 2 and
+    e = r % 2 + 2 (r // 8): the pixels a consumer thread puts in its wgmma
+    A fragments are then 16 consecutive bytes of one row."""
+    k = torch.arange(Wp)
+    base, k = k - k % BLOCK, k % BLOCK
+    s, r = k // 16, k % 16
+    return base + 16 * ((r % 8) // 2) + 4 * s + r % 2 + 2 * (r // 8)
+
+
+def stage1_tables(exr16: torch.Tensor, exi16: torch.Tensor):
+    """(t, t_centered): the wgmma kernel's B operand, (2*Kxp, Wp) bf16 on
+    the tables' device, Kxp = Kx and Wp = W rounded up to 64. Rows [0, Kx)
+    hold exr, rows [Kxp, Kxp + Kx) exi, the rest zeros; columns past W are
+    zeros; columns run in k_order. t_centered has (-1)^w folded in (a sign
+    flip, exact in bf16): with the (-1)^h row sign that the kernel applies
+    to its output it gives the centered product bit for bit."""
+    Kx, W = exr16.shape
+    Kxp, Wp = _pad64(Kx), _pad64(W)
+    t = torch.zeros((2 * Kxp, Wp), dtype=torch.bfloat16, device=exr16.device)
+    t[:Kx, :W] = exr16
+    t[Kxp:Kxp + Kx, :W] = exi16
+    sign = 1 - 2 * (torch.arange(Wp, device=t.device) % 2)
+    tc = t * sign.to(torch.bfloat16)
+    order = k_order(Wp).to(t.device)
+    return t[:, order].contiguous(), tc[:, order].contiguous()
+
+
 def _check(imgs_u8, exr, exi):
     if imgs_u8.dtype != torch.uint8 or imgs_u8.dim() < 2:
         raise ValueError(f"fwd_stage1: images must be u8 (..., H, W), got "
@@ -62,10 +114,12 @@ def _check(imgs_u8, exr, exi):
 
 
 def fwd_stage1(imgs_u8: torch.Tensor, exr_bf16: torch.Tensor,
-               exi_bf16: torch.Tensor, center: bool):
+               exi_bf16: torch.Tensor, center: bool, tables=None):
     """(..., H, W) u8 images, (Kx, W) bf16 tables -> ((..., H, Kx) ar, ai)
-    f32. CUDA tensors launch csrc/corner_stage1.cu on the current stream;
-    CPU tensors take fwd_stage1_plain; any other device raises."""
+    f32. CUDA tensors launch kernel_for(W) on the current stream; CPU
+    tensors take fwd_stage1_plain; any other device raises. `tables` is
+    stage1_tables(exr_bf16, exi_bf16), cached by the caller (corner.Tables);
+    it is built here when not given."""
     _check(imgs_u8, exr_bf16, exi_bf16)
     dev = imgs_u8.device
     if dev.type == "cpu":
@@ -75,23 +129,60 @@ def fwd_stage1(imgs_u8: torch.Tensor, exr_bf16: torch.Tensor,
     for name, t in (("images", imgs_u8), ("exr", exr_bf16), ("exi", exi_bf16)):
         if not t.is_contiguous():
             raise ValueError(f"fwd_stage1: {name} must be contiguous")
-    from steganosaurus_tpu_torch import _build
-
     H, W = imgs_u8.shape[-2:]
     Kx = exr_bf16.shape[0]
-    P = imgs_u8.numel() // (H * W)
     lead = imgs_u8.shape[:-1]
     ar = torch.empty((*lead, Kx), dtype=torch.float32, device=dev)
     ai = torch.empty((*lead, Kx), dtype=torch.float32, device=dev)
-    if P == 0:
+    if imgs_u8.numel() == 0:
         return ar, ai
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
+    if kernel_for(W) == KERNEL_WGMMA:
+        if tables is None:
+            tables = stage1_tables(exr_bf16, exi_bf16)
+        _launch_wgmma(imgs_u8, tables[1] if center else tables[0], ar, ai,
+                      Kx, center)
+    else:
+        _launch_mma(imgs_u8, exr_bf16, exi_bf16, ar, ai, center)
+    return ar, ai
+
+
+def _launch_mma(imgs_u8, exr_bf16, exi_bf16, ar, ai, center: bool) -> None:
+    """csrc/corner_stage1.cu on the current stream (any shape)."""
+    from steganosaurus_tpu_torch import _build
+
+    H, W = imgs_u8.shape[-2:]
+    P = imgs_u8.numel() // (H * W)
+    with torch.cuda.device(imgs_u8.device):
+        stream = torch.cuda.current_stream(imgs_u8.device).cuda_stream
         rc = _build.kernel_library().corner_stage1(
             imgs_u8.data_ptr(), exr_bf16.data_ptr(), exi_bf16.data_ptr(),
-            ar.data_ptr(), ai.data_ptr(), P, H, W, Kx, int(bool(center)),
-            stream)
+            ar.data_ptr(), ai.data_ptr(), P, H, W, exr_bf16.shape[0],
+            int(bool(center)), stream)
     if rc != 0:
-        raise RuntimeError(f"corner_stage1 launch failed: CUDA error {rc}")
+        raise RuntimeError(f"{KERNEL} launch failed: CUDA error {rc}")
     LAUNCHES[KERNEL] += 1
-    return ar, ai
+
+
+def _launch_wgmma(imgs_u8, t, ar, ai, Kx: int, center: bool) -> None:
+    """csrc/corner_stage1_wgmma.cu on the current stream (W % 16 == 0)."""
+    from steganosaurus_tpu_torch import _build
+
+    H, W = imgs_u8.shape[-2:]
+    Kxp, Wp = _pad64(Kx), _pad64(W)
+    if (t.dtype != torch.bfloat16 or tuple(t.shape) != (2 * Kxp, Wp)
+            or t.device != imgs_u8.device or not t.is_contiguous()):
+        raise ValueError(f"fwd_stage1: the concatenated table must be a "
+                         f"contiguous bf16 ({2 * Kxp}, {Wp}) on "
+                         f"{imgs_u8.device}, got {t.dtype} "
+                         f"{tuple(t.shape)} on {t.device}")
+    if imgs_u8.data_ptr() % 16:
+        raise ValueError("fwd_stage1: images must be 16-byte aligned")
+    P = imgs_u8.numel() // (H * W)
+    with torch.cuda.device(imgs_u8.device):
+        stream = torch.cuda.current_stream(imgs_u8.device).cuda_stream
+        rc = _build.kernel_library().corner_stage1_wgmma(
+            imgs_u8.data_ptr(), t.data_ptr(), ar.data_ptr(), ai.data_ptr(),
+            P, H, W, Kx, Kxp, Wp, int(bool(center)), stream)
+    if rc != 0:
+        raise RuntimeError(f"{KERNEL_WGMMA} launch failed: CUDA error {rc}")
+    LAUNCHES[KERNEL_WGMMA] += 1

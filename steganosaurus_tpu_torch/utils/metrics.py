@@ -1,11 +1,10 @@
 """Stego quality metrics: PSNR, SSIM, and ECC bit-error rates, in torch.
 
 The port's twin of steganosaurus_tpu/utils/metrics.py. The host versions
-psnr, ssim and ber are numpy and come from that module as they are (it
-imports no jax when loaded); ecc_report is re-implemented on the port's
-Rep-3/Rep-7 decode and the jax-free ops/rs.py (the JAX one imports its
-ops.ecc, which imports jax), for the Rep-7 and the RS payload;
-quality_device computes PSNR and block SSIM on the batch's own device.
+psnr, ssim and ber are numpy, copied from that module as they are;
+ecc_report runs on the port's Rep-3/Rep-7 decode and its ops/rs.py, for the
+Rep-7 and the RS payload; quality_device computes PSNR and block SSIM on the
+batch's own device.
 """
 
 from __future__ import annotations
@@ -14,11 +13,59 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from steganosaurus_tpu.ops import rs as rs_mod
-from steganosaurus_tpu.utils.metrics import ber, psnr, ssim
 from steganosaurus_tpu_torch.ops import ecc
+from steganosaurus_tpu_torch.ops import rs as rs_mod
 
 __all__ = ["ber", "ecc_report", "psnr", "quality_device", "ssim"]
+
+
+def psnr(cover: np.ndarray, stego: np.ndarray, peak: float = 255.0) -> float:
+    """Peak signal-to-noise ratio in dB over all channels."""
+    err = stego.astype(np.float64) - cover.astype(np.float64)
+    mse = float(np.mean(np.square(err)))
+    if mse == 0:
+        return float("inf")
+    return 10.0 * np.log10(peak * peak / mse)
+
+
+def ssim(cover: np.ndarray, stego: np.ndarray, peak: float = 255.0,
+         win: int = 8) -> float:
+    """Mean structural similarity (Wang et al. 2004), non-overlapping
+    win x win windows, per channel, standard constants K1=0.01, K2=0.03.
+    Block SSIM (not gaussian-windowed); for the >0.995 imperceptibility bar
+    the two agree to ~1e-4."""
+    a = cover.astype(np.float64)
+    b = stego.astype(np.float64)
+    if a.ndim == 2:
+        a = a[..., None]
+        b = b[..., None]
+    H, W, C = a.shape
+    h = (H // win) * win
+    w = (W // win) * win
+    # (nby, nbx, win, win, C) blocks
+    ab = a[:h, :w].reshape(h // win, win, w // win, win, C).transpose(0, 2, 1, 3, 4)
+    bb = b[:h, :w].reshape(h // win, win, w // win, win, C).transpose(0, 2, 1, 3, 4)
+    mu_a = ab.mean(axis=(2, 3))
+    mu_b = bb.mean(axis=(2, 3))
+    var_a = ab.var(axis=(2, 3))
+    var_b = bb.var(axis=(2, 3))
+    cov = (ab * bb).mean(axis=(2, 3)) - mu_a * mu_b
+    c1 = (0.01 * peak) ** 2
+    c2 = (0.03 * peak) ** 2
+    s = ((2 * mu_a * mu_b + c1) * (2 * cov + c2)) / (
+        (mu_a ** 2 + mu_b ** 2 + c1) * (var_a + var_b + c2)
+    )
+    return float(s.mean())
+
+
+def ber(sent_bits: np.ndarray, received_bits: np.ndarray) -> float:
+    """Raw bit-error rate between two 0/1 arrays (pre-ECC channel quality)."""
+    s = np.asarray(sent_bits).ravel()
+    r = np.asarray(received_bits).ravel()
+    n = min(len(s), len(r))
+    if n == 0:
+        return 0.0
+    return float(np.mean(s[:n] != r[:n]))
 
 
 def _rep_decode(bits: np.ndarray, n: int) -> np.ndarray:

@@ -8,6 +8,7 @@ bytes may differ only by +-1 on at most 0.1% of the bytes: the bf16 stages
 round in other places (torch's matmul vs XLA's dot sum in another order,
 and topk may break energy ties the other way)."""
 
+import dataclasses
 import os
 import pathlib
 import subprocess
@@ -17,9 +18,15 @@ import numpy as np
 import pytest
 import torch
 
-from steganosaurus_tpu.config import Params
+from steganosaurus_tpu.config import Params as JParams
 from steganosaurus_tpu.pipeline import batch as jbatch
 import steganosaurus_tpu_torch as stt
+from steganosaurus_tpu_torch.config import Params
+
+
+def jp(p: Params) -> JParams:
+    """The JAX package's own Params with the fields of the port's p."""
+    return JParams(**dataclasses.asdict(p))
 
 torch.set_num_threads(2)
 
@@ -121,9 +128,9 @@ def test_wrong_key_and_flagged_headers_read_as_none(monkeypatch):
                              device="cpu") == [None] * B
     padded = np.array(jbatch.embed_batch(imgs, secrets, master_key=MK,
                                          salts=SALTS,
-                                         params=Params(pad_quantum=64)).stego)
+                                         params=jp(Params(pad_quantum=64))).stego)
     assert jbatch.extract_batch(padded, master_key=MK,
-                                params=Params(pad_quantum=64)) == secrets
+                                params=jp(Params(pad_quantum=64))) == secrets
     assert stt.extract_batch(padded, master_key=MK, device="cpu") == secrets
     monkeypatch.setattr(tpb, "_flags", lambda params: theader.FLAG_COHERENT)
     flagged = stt.embed_batch(imgs[:2], secrets[:2], master_key=MK,
@@ -250,7 +257,7 @@ def _case_stegos(case):
         covers = _small_covers()
         tres = stt.embed_batch(covers, secrets, password="pw", params=p,
                                salts=salts, device="cpu")
-        jres = jbatch.embed_batch(covers, secrets, password="pw", params=p,
+        jres = jbatch.embed_batch(covers, secrets, password="pw", params=jp(p),
                                   salts=salts)
         _CACHE[key] = (p, covers, secrets, tres, jres)
     return _CACHE[key]
@@ -263,7 +270,7 @@ def test_case_torch_embed_jax_extract(case):
     assert tres.written_bits == jres.written_bits
     assert len(set(tres.written_bits)) > 1  # the unequal-length path
     assert jbatch.extract_batch(tres.stego, password="pw",
-                                params=p) == secrets
+                                params=jp(p)) == secrets
 
 
 @pytest.mark.parametrize("case", ["ragged", "jitter"])
@@ -321,7 +328,7 @@ def test_verify_resalts_like_jax(monkeypatch):
     assert res.verified == [True, True, True]
     assert len(res.salts) == 3 and all(len(s) == 16 for s in res.salts)
     assert jbatch.extract_batch(res.stego, password="pw",
-                                params=FAST) == secrets
+                                params=jp(FAST)) == secrets
 
     fixed = [bytes([i]) * 16 for i in range(3)]
     outs = {}
@@ -350,7 +357,7 @@ def test_verify_resalts_like_jax(monkeypatch):
         assert r.salts[1] != fixed[1]
     assert isinstance(t.stego, np.ndarray)
     assert jbatch.extract_batch(t.stego, password="pw",
-                                params=FAST) == secrets
+                                params=jp(FAST)) == secrets
     # the re-embedded row is the embed under its new salt, in place
     again = stt.embed_batch(covers, secrets, password="pw", params=FAST,
                             salts=t.salts, device="cpu")

@@ -15,9 +15,9 @@ import pytest
 import torch
 
 from steganosaurus_tpu import spectral as jspectral
-from steganosaurus_tpu.config import Params
 from steganosaurus_tpu.spectral import corner as jcorner
 from steganosaurus_tpu.spectral import corner_pallas
+from steganosaurus_tpu_torch.config import Params
 from steganosaurus_tpu_torch.pipeline import batch as tbatch
 from steganosaurus_tpu_torch.spectral import corner as tcorner
 from steganosaurus_tpu_torch.spectral import corner_kernels as tk
@@ -111,6 +111,116 @@ def test_stage1_wrapper_takes_plain_on_cpu_and_checks_inputs():
         tk.fwd_stage1(imgs, exr.to(torch.float32), exi, False)
     with pytest.raises(ValueError):
         tk.fwd_stage1(imgs, exr[:, :-1], exi[:, :-1], False)
+
+
+# --- the algebra the wgmma kernel (csrc/corner_stage1_wgmma.cu) relies on ---
+
+def _ragged_stage1_inputs(seed, P=3, Hs=37, Ws=80, Kx=45):
+    rng = np.random.default_rng(seed)
+    imgs = torch.from_numpy(rng.integers(0, 256, (P, Hs, Ws), dtype=np.uint8))
+    exr, exi = (torch.from_numpy(t).to(torch.bfloat16)
+                for t in tcorner._dft_tables(Ws, Kx))
+    return imgs, exr, exi
+
+
+def _wgmma_emulation(imgs, tables, Kx, center):
+    """What the wgmma kernel computes, in plain torch: the u8 rows padded to
+    Wp and read in k_order, one f32 product with the concatenated table,
+    the (-1)^h row sign, then the split of the columns into ar and ai."""
+    P, Hs, Ws = imgs.shape
+    t = tables[1] if center else tables[0]
+    Np, Wp = t.shape
+    rows = torch.zeros((P * Hs, Wp))
+    rows[:, :Ws] = imgs.reshape(-1, Ws).to(torch.float32)
+    out = rows[:, tk.k_order(Wp)] @ t.to(torch.float32).T
+    if center:
+        out *= (1 - 2 * (torch.arange(P * Hs) % Hs % 2)).to(out.dtype)[:, None]
+    Kxp = Np // 2
+    return (out[:, :Kx].reshape(P, Hs, Kx),
+            out[:, Kxp:Kxp + Kx].reshape(P, Hs, Kx))
+
+
+def test_stage1_centering_folds_out_of_the_operand_bit_for_bit():
+    """The plain version fed the (-1)^w-folded tables, then the (-1)^h row
+    sign, equals fwd_stage1_plain(..., center=True) bit for bit, at a
+    ragged shape: every bf16 x bf16 product is exact in f32, and a sign flip
+    of whole terms and of a whole row sum changes no rounding."""
+    imgs, exr, exi = _ragged_stage1_inputs(31, Ws=203)
+    sw = (1 - 2 * (torch.arange(203) % 2)).to(torch.bfloat16)
+    fr, fi = tk.fwd_stage1_plain(imgs, exr * sw, exi * sw, False)
+    sh = (1 - 2 * (torch.arange(37) % 2)).to(torch.float32)[:, None]
+    pr, pi = tk.fwd_stage1_plain(imgs, exr, exi, True)
+    assert torch.equal(fr * sh, pr) and torch.equal(fi * sh, pi)
+    assert not torch.equal(fr, pr)  # the centering did change the product
+
+
+def test_stage1_tables_layout():
+    """The concatenated table: exr rows then exi rows at Kxp = Kx rounded up
+    to 64, zeros elsewhere, columns in k_order (a permutation inside every
+    64-wide block), the centered copy the (-1)^w-signed one."""
+    _, exr, exi = _ragged_stage1_inputs(32, Ws=80, Kx=45)
+    t, tc = tk.stage1_tables(exr, exi)
+    assert t.shape == tc.shape == (128, 128) and t.dtype == torch.bfloat16
+    order = tk.k_order(128)
+    for b in range(2):
+        blk = order[64 * b:64 * (b + 1)]
+        assert sorted(blk.tolist()) == list(range(64 * b, 64 * (b + 1)))
+    # logical k = 16s + r of block 0 reads pixel 16q + 4s + e
+    assert order[:16].tolist() == [0, 1, 16, 17, 32, 33, 48, 49,
+                                   2, 3, 18, 19, 34, 35, 50, 51]
+    inv = torch.argsort(order)
+    plain_t = t[:, inv]
+    assert torch.equal(plain_t[:45, :80], exr)
+    assert torch.equal(plain_t[64:109, :80], exi)
+    assert not plain_t[45:64].any() and not plain_t[109:].any()
+    assert not plain_t[:, 80:].any()
+    sign = (1 - 2 * (torch.arange(128) % 2)).to(torch.bfloat16)
+    assert torch.equal(tc[:, inv], plain_t * sign)
+
+
+@pytest.mark.parametrize("center", [False, True])
+@pytest.mark.parametrize("Ws,Kx", [(80, 45), (528, 100), (64, 64)])
+def test_stage1_concatenated_gemm_matches_plain(center, Ws, Kx):
+    """The kernel's GEMM emulated on the CPU (k_order, padding, one product
+    with the concatenated table, row sign, the ar/ai column split) against
+    fwd_stage1_plain: within 1e-5 of max|plain| (the f32 sum runs in
+    another order), and bit for bit when every partial sum is exact
+    (integer tables of small magnitude)."""
+    imgs, exr, exi = _ragged_stage1_inputs(33 + Kx, P=2, Ws=Ws, Kx=Kx)
+    tables = tk.stage1_tables(exr, exi)
+    er, ei = _wgmma_emulation(imgs, tables, Kx, center)
+    pr, pi = tk.fwd_stage1_plain(imgs, exr, exi, center)
+    scale = float(max(pr.abs().max(), pi.abs().max()))
+    assert er.shape == pr.shape == (2, 37, Kx)
+    assert float(max((er - pr).abs().max(), (ei - pi).abs().max())) \
+        <= 1e-5 * scale
+    rng = np.random.default_rng(Ws)
+    ir, ii = (torch.from_numpy(rng.integers(-8, 9, (Kx, Ws))).to(
+        torch.bfloat16) for _ in range(2))
+    er, ei = _wgmma_emulation(imgs, tk.stage1_tables(ir, ii), Kx, center)
+    pr, pi = tk.fwd_stage1_plain(imgs, ir, ii, center)
+    assert torch.equal(er, pr) and torch.equal(ei, pi)
+
+
+def test_stage1_kernel_routing_by_width():
+    """W % 16 == 0 goes to the wgmma kernel, any other W to the mma.sync
+    one; each counts under its own name, and a CPU tensor counts nothing."""
+    assert tk.kernel_for(3840) == tk.kernel_for(1920) == tk.KERNEL_WGMMA
+    assert tk.kernel_for(512) == tk.kernel_for(528) == tk.KERNEL_WGMMA
+    assert tk.kernel_for(203) == tk.kernel_for(520) == tk.KERNEL
+    assert tk.kernel_for(3841) == tk.KERNEL
+    assert set(tk.LAUNCHES) == {tk.KERNEL, tk.KERNEL_WGMMA}
+    assert tk.KERNEL == "corner_stage1"
+    assert tk.KERNEL_WGMMA == "corner_stage1_wgmma"
+    before = dict(tk.LAUNCHES)
+    for Ws in (80, 203):
+        imgs, exr, exi = _ragged_stage1_inputs(34, Ws=Ws)
+        ar, ai = tk.fwd_stage1(imgs, exr, exi, True)
+        pr, pi = tk.fwd_stage1_plain(imgs, exr, exi, True)
+        assert torch.equal(ar, pr) and torch.equal(ai, pi)
+    assert tk.LAUNCHES == before
+    tabs = tcorner.dft_tables_device(37, 64, 80, 64, "cpu")
+    assert tabs.stage1 is None  # built on CUDA devices only
 
 
 @pytest.mark.parametrize("center", [False, True])

@@ -1,6 +1,8 @@
-"""Card-only tests of the torch port: the hand-written K1 kernel
-(csrc/corner_stage1.cu) against its plain version, its wrapper's checks and
-launch count, a small round trip through the kernel, a two-batch stream,
+"""Card-only tests of the torch port: the hand-written K1 kernels
+(csrc/corner_stage1_wgmma.cu for W % 16 == 0, csrc/corner_stage1.cu for
+any other W) against their plain version, at the wgmma kernel's edge
+shapes too, the wrapper's routing, checks and launch counts, round trips
+through the kernel (small, and 1080p B=8), a two-batch stream,
 the soft-decision retry pass (Rep-7 and RS), a QIM extract and a
 per-image-walk embed.
 
@@ -60,13 +62,19 @@ def test_k1_matches_plain(dev, shape, Kx, center):
 
 
 def test_k1_wrapper_counts_and_checks(dev):
+    """Each kernel counts under its own name, chosen by W % 16 alone; bad
+    inputs raise before any launch."""
     from steganosaurus_tpu_torch.spectral import corner_kernels as ck
 
     x = torch.zeros((1, 3, 64, 256), dtype=torch.uint8, device=dev)
     exr, exi = _tables(256, 64, dev)
-    n = ck.LAUNCHES[ck.KERNEL]
+    n = dict(ck.LAUNCHES)
     ck.fwd_stage1(x, exr, exi, False)
-    assert ck.LAUNCHES[ck.KERNEL] == n + 1
+    assert ck.LAUNCHES == {**n, ck.KERNEL_WGMMA: n[ck.KERNEL_WGMMA] + 1}
+    y = torch.zeros((1, 3, 64, 250), dtype=torch.uint8, device=dev)
+    ck.fwd_stage1(y, *_tables(250, 64, dev), True)
+    assert ck.LAUNCHES[ck.KERNEL] == n[ck.KERNEL] + 1
+    n = dict(ck.LAUNCHES)
     with pytest.raises(ValueError):
         ck.fwd_stage1(x.transpose(-1, -2).contiguous().transpose(-1, -2),
                       exr, exi, False)
@@ -74,7 +82,66 @@ def test_k1_wrapper_counts_and_checks(dev):
         ck.fwd_stage1(x, exr.cpu(), exi.cpu(), False)
     with pytest.raises(ValueError):
         ck.fwd_stage1(x, exr.float(), exi.float(), False)
-    assert ck.LAUNCHES[ck.KERNEL] == n + 1
+    with pytest.raises(ValueError):  # a table of another Kx
+        ck.fwd_stage1(x, exr, exi, False, ck.stage1_tables(
+            torch.cat([exr, exr]), torch.cat([exi, exi])))
+    with pytest.raises(ValueError):  # 16-byte alignment for TMA
+        ck.fwd_stage1(torch.zeros(1 + 64 * 256, dtype=torch.uint8,
+                                  device=dev)[1:].view(1, 64, 256),
+                      exr, exi, False)
+    assert ck.LAUNCHES == n
+
+
+@pytest.mark.parametrize("shape,Kx,center", [
+    ((1, 1, 67, 528), 45, True),      # P = 1, W % 64 != 0, Kx % 64 != 0
+    ((2, 3, 67, 528), 1000, False),   # P*H % 128 != 0, Kx % 256 != 0
+    ((1, 3, 100, 256), 45, False),
+    ((2, 3, 67, 512), 1000, True),
+    ((1, 3, 37, 64), 64, True),       # a single K block
+    ((1, 3, 1080, 1920), 512, True),  # one 1080p image
+])
+def test_k1_wgmma_edges_match_plain(dev, shape, Kx, center):
+    """The wgmma kernel at the edge shapes, with and without the cached
+    concatenated table."""
+    from steganosaurus_tpu_torch.spectral import corner_kernels as ck
+
+    assert ck.kernel_for(shape[-1]) == ck.KERNEL_WGMMA
+    rng = np.random.default_rng(sum(shape) + Kx)
+    x = torch.from_numpy(rng.integers(0, 256, shape, dtype=np.uint8)).to(dev)
+    exr, exi = _tables(shape[-1], Kx, dev)
+    n = ck.LAUNCHES[ck.KERNEL_WGMMA]
+    pr, pi = ck.fwd_stage1_plain(x, exr, exi, center)
+    scale = max(pr.abs().max().item(), pi.abs().max().item())
+    for tables in (None, ck.stage1_tables(exr, exi)):
+        ar, ai = ck.fwd_stage1(x, exr, exi, center, tables)
+        torch.cuda.synchronize()
+        assert ar.shape == pr.shape == (*shape[:-1], Kx)
+        assert (ar - pr).abs().max().item() <= REL * scale
+        assert (ai - pi).abs().max().item() <= REL * scale
+    assert ck.LAUNCHES[ck.KERNEL_WGMMA] == n + 2
+
+
+def test_1080p_round_trip_through_the_wgmma_kernel(dev):
+    """1080p, B=8, 1 KB: embed and extract on the card through the wgmma
+    kernel (and never the mma.sync one), every secret read back."""
+    import steganosaurus_tpu_torch as stt
+    from steganosaurus_tpu_torch.spectral import corner_kernels as ck
+
+    rng = np.random.default_rng(8)
+    base = np.linspace(150, 235, 1920)[None, None, :]
+    imgs = np.clip(base + rng.integers(-18, 19, (8, 3, 1080, 1920)), 0,
+                   255).astype(np.uint8)
+    secrets = [bytes(rng.integers(0, 256, 1024, dtype=np.uint8))
+               for _ in range(8)]
+    n = dict(ck.LAUNCHES)
+    res = stt.embed_batch(torch.from_numpy(imgs).to(dev), secrets,
+                          master_key=bytes(32), device_resident=True,
+                          layout="nchw")
+    got = stt.extract_batch(res.stego, master_key=bytes(32), layout="nchw")
+    torch.cuda.synchronize()
+    assert got == secrets
+    assert ck.LAUNCHES[ck.KERNEL_WGMMA] >= n[ck.KERNEL_WGMMA] + 2
+    assert ck.LAUNCHES[ck.KERNEL] == n[ck.KERNEL]
 
 
 def test_round_trip_on_card_goes_through_k1(dev):
@@ -85,7 +152,7 @@ def test_round_trip_on_card_goes_through_k1(dev):
     imgs = torch.from_numpy(rng.integers(100, 160, (2, 3, 256, 256),
                                          dtype=np.uint8)).to(dev)
     secrets = [b"x" * 32, b"y" * 32]
-    n = ck.LAUNCHES[ck.KERNEL]
+    n = ck.LAUNCHES[ck.KERNEL_WGMMA]
     res = stt.embed_batch(imgs, secrets, master_key=bytes(32),
                           device_resident=True, layout="nchw")
     assert res.stego.device == imgs.device
@@ -93,7 +160,7 @@ def test_round_trip_on_card_goes_through_k1(dev):
                             layout="nchw")
     torch.cuda.synchronize()
     assert got == secrets
-    assert ck.LAUNCHES[ck.KERNEL] >= n + 2
+    assert ck.LAUNCHES[ck.KERNEL_WGMMA] >= n + 2
 
 
 def test_stream_on_card_matches_batches(dev):
@@ -157,9 +224,9 @@ def test_soft_retry_pass_on_card_launches_k1(dev, monkeypatch):
         return hard_rows, None, None
 
     def counted_retry(self, headers, out):
-        n = ck.LAUNCHES[ck.KERNEL]
+        n = ck.LAUNCHES[ck.KERNEL_WGMMA]
         real_retry(self, headers, out)
-        retry_launches.append(ck.LAUNCHES[ck.KERNEL] - n)
+        retry_launches.append(ck.LAUNCHES[ck.KERNEL_WGMMA] - n)
 
     monkeypatch.setattr(tbatch._ExtractJob, "_dispatch_pass", no_inline)
     monkeypatch.setattr(tbatch._ExtractJob, "_soft_retry_failed",
@@ -185,12 +252,12 @@ def test_qim_extract_on_card_launches_k1(dev):
     salts = [bytes([i + 1]) * 16 for i in range(2)]
     cpu = stt.embed_batch(imgs, secrets, master_key=bytes(32), params=p,
                           salts=salts, device="cpu").stego
-    n = ck.LAUNCHES[ck.KERNEL]
+    n = ck.LAUNCHES[ck.KERNEL_WGMMA]
     got = stt.extract_batch(torch.from_numpy(cpu).to(dev),
                             master_key=bytes(32), params=p)
     torch.cuda.synchronize()
     assert got == secrets
-    assert ck.LAUNCHES[ck.KERNEL] >= n + 2   # probe + payload pass
+    assert ck.LAUNCHES[ck.KERNEL_WGMMA] >= n + 2   # probe + payload pass
     card = stt.embed_batch(imgs, secrets, master_key=bytes(32), params=p,
                            salts=salts, device=dev).stego
     assert np.abs(card.astype(np.int16) - cpu.astype(np.int16)).max() <= 1
@@ -207,11 +274,11 @@ def test_piw_embed_on_card_launches_k1(dev):
                                          dtype=np.uint8)).to(dev)
     secrets = [bytes([i]) * (30 + i) for i in range(3)]
     p = stt.Params.stealth(pbkdf2_iter=500)
-    n = ck.LAUNCHES[ck.KERNEL]
+    n = ck.LAUNCHES[ck.KERNEL_WGMMA]
     res = stt.embed_batch(imgs, secrets, master_key=bytes(32), params=p,
                           device_resident=True, layout="nchw")
     torch.cuda.synchronize()
-    assert ck.LAUNCHES[ck.KERNEL] == n + 1
+    assert ck.LAUNCHES[ck.KERNEL_WGMMA] == n + 1
     assert res.stego.device == imgs.device
     assert stt.extract_batch(res.stego.cpu().numpy(), master_key=bytes(32),
                              params=p, layout="nchw",
@@ -249,9 +316,9 @@ def test_rs_soft_retry_on_card_launches_k1(dev, monkeypatch):
         return real_dispatch(self, *a, **kw)[0], None, None
 
     def counted_retry(self, headers, out):
-        n = ck.LAUNCHES[ck.KERNEL]
+        n = ck.LAUNCHES[ck.KERNEL_WGMMA]
         real_retry(self, headers, out)
-        retry_launches.append(ck.LAUNCHES[ck.KERNEL] - n)
+        retry_launches.append(ck.LAUNCHES[ck.KERNEL_WGMMA] - n)
 
     monkeypatch.setattr(tbatch._ExtractJob, "_dispatch_pass", no_inline)
     monkeypatch.setattr(tbatch._ExtractJob, "_soft_retry_failed",

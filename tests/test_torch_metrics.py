@@ -6,15 +6,22 @@ bin on the decision boundary can read the other way), PSNR within 1e-3 dB
 and SSIM within 1e-5 of the f64 numpy metrics and of JAX's quality_device
 (f32 sums in another order)."""
 
+import dataclasses
 import numpy as np
 import pytest
 import torch
 
-from steganosaurus_tpu.config import Params
+from steganosaurus_tpu.config import Params as JParams
 from steganosaurus_tpu.pipeline import batch as jbatch
 from steganosaurus_tpu.utils import metrics as jmetrics
 import steganosaurus_tpu_torch as stt
 from steganosaurus_tpu_torch.utils import metrics as tmetrics
+from steganosaurus_tpu_torch.config import Params
+
+
+def jp(p: Params) -> JParams:
+    """The JAX package's own Params with the fields of the port's p."""
+    return JParams(**dataclasses.asdict(p))
 
 torch.set_num_threads(2)
 
@@ -37,7 +44,7 @@ def _inputs(jitter: float):
                for i in range(B)]
     p = Params(jitter=jitter)
     stego = np.array(jbatch.embed_batch(covers, secrets, master_key=MK,
-                                        params=p, salts=SALTS).stego)
+                                        params=jp(p), salts=SALTS).stego)
     return p, covers, secrets, stego
 
 
@@ -59,7 +66,7 @@ def test_channel_report_matches_jax(jitter, layout):
     mine = stt.channel_report(stego, secrets, SALTS, master_key=MK, params=p,
                               layout=layout, per_image=True, device="cpu")
     ref = jbatch.channel_report(stego, secrets, SALTS, master_key=MK,
-                                params=p, layout=layout, per_image=True)
+                                params=jp(p), layout=layout, per_image=True)
     assert set(mine) == set(ref)
     for k in ("header_ber_post_ecc", "payload_ber_post_ecc"):
         assert mine[k] == ref[k] == 0.0
@@ -80,7 +87,7 @@ def test_channel_report_of_the_ports_stego_and_rs_raises():
                          salts=SALTS, device="cpu").stego
     mine = stt.channel_report(st, secrets, SALTS, master_key=MK, params=p,
                               device="cpu")
-    ref = jbatch.channel_report(st, secrets, SALTS, master_key=MK, params=p)
+    ref = jbatch.channel_report(st, secrets, SALTS, master_key=MK, params=jp(p))
     assert mine["payload_ber_post_ecc"] == ref["payload_ber_post_ecc"] == 0
     assert abs(mine["payload_ber_raw"] - ref["payload_ber_raw"]) <= RAW_TOL
     rs = stt.channel_report(st, secrets, SALTS, master_key=MK,
@@ -109,9 +116,13 @@ def test_ecc_report_matches_jax():
     assert mine["payload_ber_post_ecc"] > 0 and mine["header_ber_raw"] > 0
     assert tmetrics.ecc_report(sent, sent, hdr) == {
         k: 0.0 for k in mine}
-    # the host metrics are the JAX module's own numpy functions
-    assert (tmetrics.psnr, tmetrics.ssim, tmetrics.ber) == (
-        jmetrics.psnr, jmetrics.ssim, jmetrics.ber)
+    # the host metrics are the port's copies of the JAX module's numpy
+    # functions: the same values on the same frames and images
+    assert tmetrics.ber(sent, recv) == jmetrics.ber(sent, recv)
+    imgs = rng.integers(0, 256, (2, 40, 48, 3)).astype(np.uint8)
+    for f in ("psnr", "ssim"):
+        assert getattr(tmetrics, f)(imgs[0], imgs[1]) == getattr(
+            jmetrics, f)(imgs[0], imgs[1])
 
 
 @pytest.mark.parametrize("layout", ["nhwc", "nchw"])

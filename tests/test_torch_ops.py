@@ -4,13 +4,14 @@ maps against the JAX package (steganosaurus_tpu_torch vs steganosaurus_tpu).
 Inputs are numpy arrays made from a seed and handed to both packages; every
 comparison here is exact (integer and bit data)."""
 
+import dataclasses
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
-from steganosaurus_tpu import crypto
-from steganosaurus_tpu.config import Params
+from steganosaurus_tpu import crypto as jcrypto
+from steganosaurus_tpu.config import Params as JParams
 from steganosaurus_tpu.ops import ecc as jecc
 from steganosaurus_tpu.parallel import batch as jpb
 from steganosaurus_tpu.pipeline import batch as jbatch
@@ -21,6 +22,13 @@ from steganosaurus_tpu_torch.parallel import batch as tpb
 from steganosaurus_tpu_torch.pipeline import batch as tbatch
 from steganosaurus_tpu_torch.pipeline import header as theader
 from steganosaurus_tpu_torch.spectral import corner as tcorner
+from steganosaurus_tpu_torch import crypto as tcrypto
+from steganosaurus_tpu_torch.config import Params
+
+
+def jp(p: Params) -> JParams:
+    """The JAX package's own Params with the fields of the port's p."""
+    return JParams(**dataclasses.asdict(p))
 
 torch.set_num_threads(2)
 
@@ -43,7 +51,7 @@ def test_seal_stream_bytes_match(flags, pad_quantum):
     secret = bytes(rng.integers(0, 256, 128, dtype=np.uint8))
     salt = bytes([9]) * 16
     outs = []
-    for mod in (jheader, theader):
+    for mod, crypto in ((jheader, jcrypto), (theader, tcrypto)):
         with crypto.derive_keys_vault(None, MK, salt=salt, iters=1) as km:
             outs.append(mod.seal_stream(secret, km, flags, pad_quantum))
     assert outs[0] == outs[1]
@@ -57,8 +65,9 @@ def test_seal_stream_bytes_match(flags, pad_quantum):
 def test_maybe_unpad_and_padded_len_match():
     rng = np.random.default_rng(2)
     secret = bytes(rng.integers(0, 256, 50, dtype=np.uint8))
-    with crypto.derive_keys_vault(None, MK, salt=bytes(16), iters=1) as km:
+    with tcrypto.derive_keys_vault(None, MK, salt=bytes(16), iters=1) as km:
         pt = theader.pad_plaintext(secret, 64, km)
+    with jcrypto.derive_keys_vault(None, MK, salt=bytes(16), iters=1) as km:
         assert pt == jheader.pad_plaintext(secret, 64, km)
     assert len(pt) == theader.padded_len(50, 64) == jheader.padded_len(50, 64)
     for flags in (0, theader.FLAG_PADDED):
@@ -160,7 +169,7 @@ def test_statics_from_numpy_matches_own_pos_map():
     Ky, Kx = tcorner.corner_dims(PH, PW, params.rmax)
     nbits = 912 + (128 + 16) * 56
     bucket = -(-nbits // 4096) * 4096
-    jmaps, jn = jbatch._corner_statics_device(None, MK, params, PH, PW, nbits,
+    jmaps, jn = jbatch._corner_statics_device(None, MK, jp(params), PH, PW, nbits,
                                               bucket, Ky, Kx, None)
     (pos_j,) = tpb.statics_from_numpy([np.asarray(m) for m in jmaps], "cpu")
     (pos,), n = tbatch._corner_statics_device(None, MK, params, PH, PW, nbits,
@@ -183,7 +192,7 @@ def test_jitter_statics_match_jax():
     Ky, Kx = tcorner.corner_dims(PH, PW, params.rmax)
     nbits = 912 + (64 + 16) * 56
     bucket = -(-nbits // 4096) * 4096
-    jmaps, jn = jbatch._corner_statics_device(None, MK, params, PH, PW, nbits,
+    jmaps, jn = jbatch._corner_statics_device(None, MK, jp(params), PH, PW, nbits,
                                               bucket, Ky, Kx, None)
     maps, n = tbatch._corner_statics_device(None, MK, params, PH, PW, nbits,
                                             bucket, Ky, Kx,

@@ -9,18 +9,25 @@ recovery 1.0, and stego bytes differ from JAX's by +-1 on at most
 MAX_DIFF_FRAC of the bytes, outside at most one image-plane a QIM
 half-step moved (tests/test_torch_wire.py has the mechanism)."""
 
+import dataclasses
 import threading
 
 import numpy as np
 import pytest
 import torch
 
-from steganosaurus_tpu import keystream
-from steganosaurus_tpu.config import Params
+from steganosaurus_tpu.config import Params as JParams
 from steganosaurus_tpu.pipeline import batch as jbatch
 import steganosaurus_tpu_torch as stt
 from steganosaurus_tpu_torch.pipeline import batch as tbatch
 from steganosaurus_tpu_torch.pipeline import stream as tstream
+from steganosaurus_tpu_torch import keystream
+from steganosaurus_tpu_torch.config import Params
+
+
+def jp(p: Params) -> JParams:
+    """The JAX package's own Params with the fields of the port's p."""
+    return JParams(**dataclasses.asdict(p))
 
 torch.set_num_threads(2)
 
@@ -96,7 +103,7 @@ def _stegos(mode):
         ts = stt.embed_batch(covers, secrets, master_key=MK, params=p,
                              salts=SALTS, device="cpu").stego
         js = np.array(jbatch.embed_batch(covers, secrets, master_key=MK,
-                                         params=p, salts=SALTS).stego)
+                                         params=jp(p), salts=SALTS).stego)
         _CACHE[mode] = (covers, secrets, ts, js)
     return _CACHE[mode]
 
@@ -105,7 +112,7 @@ def _stegos(mode):
 def test_piw_torch_embed_jax_extract(mode):
     _, secrets, ts, _ = _stegos(mode)
     assert jbatch.extract_batch(ts, master_key=MK,
-                                params=MODES[mode]) == secrets
+                                params=jp(MODES[mode])) == secrets
 
 
 @pytest.mark.parametrize("mode", list(MODES))
@@ -170,7 +177,7 @@ def test_mixed_shared_and_piw_batch():
                              device="cpu") == secrets
     assert stt.extract_batch(stack, master_key=MK, params=MODES["piw"],
                              clen_hint=120, device="cpu") == secrets
-    assert jbatch.extract_batch(stack, master_key=MK, params=p0) == secrets
+    assert jbatch.extract_batch(stack, master_key=MK, params=jp(p0)) == secrets
 
 
 def test_piw_verify_resalts(monkeypatch):
@@ -197,7 +204,7 @@ def test_piw_verify_resalts(monkeypatch):
     assert res.verified == [True] * 3
     assert res.salts[:2] == SALTS[:2] and res.salts[2] != SALTS[2]
     assert jbatch.extract_batch(res.stego, master_key=MK,
-                                params=p) == secrets
+                                params=jp(p)) == secrets
 
 
 def test_prefetch_piw_walks_feeds_embed(monkeypatch):
@@ -272,7 +279,7 @@ def test_embed_stream_piw_prefetch_matches_batches(monkeypatch):
         iter([(covers[:2], secrets[:2])]), master_key=MK, params=p,
         device="cpu"))
     assert jbatch.extract_batch(drawn[0].stego.numpy(), master_key=MK,
-                                params=p) == secrets[:2]
+                                params=jp(p)) == secrets[:2]
     got = list(tstream.extract_stream((r.stego for r in streamed),
                                       master_key=MK, params=p, depth=2,
                                       device="cpu"))

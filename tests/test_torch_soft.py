@@ -7,15 +7,22 @@ f32 retry pass) recovers some of them. The workload sits on the decision
 boundary by design, so the two packages' recovered sets may differ by one
 image: the port's bf16 stages round in other places than XLA's."""
 
+import dataclasses
 import numpy as np
 import pytest
 import torch
 
-from steganosaurus_tpu.config import Params
+from steganosaurus_tpu.config import Params as JParams
 from steganosaurus_tpu.pipeline import batch as jbatch
 import steganosaurus_tpu_torch as stt
 from steganosaurus_tpu_torch.parallel import batch as tpbatch
 from steganosaurus_tpu_torch.pipeline import batch as tbatch
+from steganosaurus_tpu_torch.config import Params
+
+
+def jp(p: Params) -> JParams:
+    """The JAX package's own Params with the fields of the port's p."""
+    return JParams(**dataclasses.asdict(p))
 
 torch.set_num_threads(2)
 
@@ -47,7 +54,7 @@ def _stego(which):
                                  device="cpu").stego
         else:
             st = np.array(jbatch.embed_batch(covers, [secret] * B,
-                                             master_key=MK, params=HARD,
+                                             master_key=MK, params=jp(HARD),
                                              salts=SALTS).stego)
         _CACHE[which] = (st, secret)
     return _CACHE[which]
@@ -135,7 +142,7 @@ def test_recovered_sets_match_jax():
     image (printed when they differ)."""
     stego, secret = _stego("jax")
     mine = _extract(stego, SOFT)
-    ref = jbatch.extract_batch(stego, master_key=MK, params=SOFT)
+    ref = jbatch.extract_batch(stego, master_key=MK, params=jp(SOFT))
     for got in (mine, ref):
         assert all(g is None or g == secret for g in got)
     ok_mine = {i for i, g in enumerate(mine) if g is not None}

@@ -4,17 +4,24 @@ stegos equal the per-batch stegos byte for byte, a key rotation mid-stream
 decodes, and the JAX package reads the streamed stegos (ports of
 tests/test_batch.py:255-277 and :490-550, 128x128 covers)."""
 
+import dataclasses
 import threading
 
 import numpy as np
 import pytest
 import torch
 
-from steganosaurus_tpu import keystream
-from steganosaurus_tpu.config import Params
+from steganosaurus_tpu.config import Params as JParams
 from steganosaurus_tpu.pipeline import batch as jbatch
 import steganosaurus_tpu_torch as stt
 from steganosaurus_tpu_torch.pipeline import stream as tstream
+from steganosaurus_tpu_torch import keystream
+from steganosaurus_tpu_torch.config import Params
+
+
+def jp(p: Params) -> JParams:
+    """The JAX package's own Params with the fields of the port's p."""
+    return JParams(**dataclasses.asdict(p))
 
 torch.set_num_threads(2)
 
@@ -49,7 +56,7 @@ def test_stream_matches_batch(layout):
         np.testing.assert_array_equal(res.stego.numpy(), ref.stego)
         assert res.salts == sl
         assert jbatch.extract_batch(res.stego.numpy(), password="pw",
-                                    params=FAST, layout=layout) == secs
+                                    params=jp(FAST), layout=layout) == secs
     got = list(tstream.extract_stream((r.stego for r in streamed),
                                       password="pw", params=FAST, depth=2,
                                       layout=layout, device="cpu"))
@@ -86,7 +93,7 @@ def test_stream_key_rotation_prefetch(monkeypatch):
     assert stt.extract_batch(got[2].stego, master_key=MK2,
                              params=FAST) == secrets
     assert jbatch.extract_batch(got[2].stego.numpy(), master_key=MK2,
-                                params=FAST) == secrets
+                                params=jp(FAST)) == secrets
 
 
 def test_extract_stream_key_rotation():
@@ -95,10 +102,10 @@ def test_extract_stream_key_rotation():
     covers = _covers()
     secrets = [b"stream-rot-a", b"stream-rot-b"]
     salts = [bytes([50]) * 16, bytes([51]) * 16]
-    r1 = jbatch.embed_batch(covers[:2], secrets, master_key=MK1, params=FAST,
+    r1 = jbatch.embed_batch(covers[:2], secrets, master_key=MK1, params=jp(FAST),
                             salts=salts)
     r2 = jbatch.embed_batch(covers[2:4], secrets, master_key=MK2,
-                            params=FAST, salts=salts)
+                            params=jp(FAST), salts=salts)
     got = list(tstream.extract_stream(
         iter([np.asarray(r1.stego), (np.asarray(r2.stego), MK2),
               np.asarray(r1.stego)]),

@@ -25,6 +25,7 @@ composition in Params.stealth() (per-image walks: tests/test_torch_piw.py).
   recovers RS images through its per-coded-byte confidences.
 """
 
+import dataclasses
 import itertools
 import math
 
@@ -34,7 +35,7 @@ import torch
 
 import jax.numpy as jnp
 from steganosaurus_tpu import crypto
-from steganosaurus_tpu.config import Params
+from steganosaurus_tpu.config import Params as JParams
 from steganosaurus_tpu.pipeline import batch as jbatch
 from steganosaurus_tpu.pipeline import qim as jqim
 from steganosaurus_tpu.pipeline import spread as jspread
@@ -45,6 +46,12 @@ from steganosaurus_tpu_torch.pipeline import batch as tbatch
 from steganosaurus_tpu_torch.pipeline import qim as tqim
 from steganosaurus_tpu_torch.pipeline import spread as tspread
 from steganosaurus_tpu_torch.spectral import corner as tcorner
+from steganosaurus_tpu_torch.config import Params
+
+
+def jp(p: Params) -> JParams:
+    """The JAX package's own Params with the fields of the port's p."""
+    return JParams(**dataclasses.asdict(p))
 
 torch.set_num_threads(2)
 
@@ -77,9 +84,9 @@ MODES = {
                                                 (0.0, 0.5, 100)])
 def test_spread_alphas_bit_equal(spread, alpha, nbits):
     p = Params(alpha=alpha, alpha_spread=spread)
-    pk = crypto.derive_path_key(None, MK, None)
+    pk = crypto.derive_path_key(None, MK)
     got = tspread.spread_alphas(pk, p, nbits)
-    want = jspread.spread_alphas(pk, p, nbits)
+    want = jspread.spread_alphas(pk, jp(p), nbits)
     if spread == 0.0:
         assert got is None and want is None
         return
@@ -90,7 +97,7 @@ def test_spread_alphas_bit_equal(spread, alpha, nbits):
 
 @pytest.mark.parametrize("L", [2, 3, 15])
 def test_dither_angles_bit_equal(L):
-    pk = crypto.derive_path_key("pw", None, None)
+    pk = crypto.derive_path_key("pw", None)
     got = tqim.dither_angles(pk, L, 5000)
     np.testing.assert_array_equal(got, jqim.dither_angles(pk, L, 5000))
     assert got.dtype == np.float32
@@ -106,7 +113,7 @@ def test_invalid_modes_raise_like_jax(p, mods):
     with pytest.raises(stt.StegoError):
         port.validate(p)
     with pytest.raises(Exception, match="alpha_spread|qim"):
-        jax_mod.validate(p)
+        jax_mod.validate(jp(p))
 
 
 # --- dense write and read rules ----------------------------------------------
@@ -230,7 +237,7 @@ def test_statics_maps_match_jax():
     for L in (3, 5):
         params = Params(jitter=0.2, alpha_spread=0.7, qim=L)
         jmaps, jn = jbatch._corner_statics_device(
-            None, MK, params, PH, PW, nbits, bucket, Ky, Kx, None)
+            None, MK, jp(params), PH, PW, nbits, bucket, Ky, Kx, None)
         maps, n = tbatch._corner_statics_device(
             None, MK, params, PH, PW, nbits, bucket, Ky, Kx,
             torch.device("cpu"))
@@ -275,7 +282,7 @@ def _stegos(mode):
         ts = stt.embed_batch(covers, secrets, master_key=MK, params=p,
                              salts=SALTS, device="cpu").stego
         js = np.array(jbatch.embed_batch(covers, secrets, master_key=MK,
-                                         params=p, salts=SALTS).stego)
+                                         params=jp(p), salts=SALTS).stego)
         _CACHE[mode] = (covers, secrets, ts, js)
     return _CACHE[mode]
 
@@ -284,7 +291,7 @@ def _stegos(mode):
 def test_mode_torch_embed_jax_extract(mode):
     _, secrets, ts, _ = _stegos(mode)
     assert jbatch.extract_batch(ts, master_key=MK,
-                                params=MODES[mode]) == secrets
+                                params=jp(MODES[mode])) == secrets
 
 
 @pytest.mark.parametrize("mode", list(MODES))
@@ -324,7 +331,7 @@ def test_written_bits_match_jax():
               Params(rs=True, pad_quantum=100, **FAST)):
         t = stt.embed_batch(covers, secrets, master_key=MK, params=p,
                             salts=SALTS[:2], device="cpu")
-        j = jbatch.embed_batch(covers, secrets, master_key=MK, params=p,
+        j = jbatch.embed_batch(covers, secrets, master_key=MK, params=jp(p),
                                salts=SALTS[:2])
         assert t.written_bits == j.written_bits
 
@@ -356,7 +363,7 @@ def test_mixed_mode_batch_in_one_call():
         assert stt.extract_batch(stack, master_key=MK, params=Params(**FAST),
                                  clen_hint=200, device="cpu") == secrets, who
         assert jbatch.extract_batch(stack, master_key=MK,
-                                    params=Params(**FAST)) == secrets, who
+                                    params=jp(Params(**FAST))) == secrets, who
 
 
 def test_coherent_stego_reads_as_none():
@@ -371,14 +378,14 @@ def test_coherent_stego_reads_as_none():
     secrets = [b"plain-row", b"coherent-row", b"qim-row"]
     p = Params(**FAST)
     coh = np.asarray(embed_array(covers[1], secrets[1], master_key=MK,
-                                 params=Params(coherent=True, **FAST),
+                                 params=jp(Params(coherent=True, **FAST)),
                                  salt=bytes(16)).stego)
     plain = stt.embed_batch(covers[0:1], secrets[:1], master_key=MK,
                             params=p, device="cpu").stego[0]
     qim = stt.embed_batch(covers[2:3], secrets[2:], master_key=MK,
                           params=MODES["qim"], device="cpu").stego[0]
     stack = np.stack([plain, coh, qim])
-    assert jbatch.extract_batch(stack, master_key=MK, params=p) == secrets
+    assert jbatch.extract_batch(stack, master_key=MK, params=jp(p)) == secrets
     assert stt.extract_batch(stack, master_key=MK, params=p,
                              device="cpu") == [secrets[0], None, secrets[2]]
 
@@ -394,7 +401,7 @@ def test_channel_report_modes_match_jax(mode):
         mine = stt.channel_report(stego, secrets, SALTS, master_key=MK,
                                   params=p, per_image=True, device="cpu")
         ref = jbatch.channel_report(stego, secrets, SALTS, master_key=MK,
-                                    params=p, per_image=True)
+                                    params=jp(p), per_image=True)
         assert set(mine) == set(ref)
         for k in ("header_ber_post_ecc", "payload_ber_post_ecc"):
             assert mine[k] == ref[k] == 0.0
@@ -434,7 +441,7 @@ def test_rs_soft_recovers_through_confidences(monkeypatch, inline):
     (inline rows dropped): either recovers an RS image the hard decode
     loses, through the errors-and-erasures decode of its per-coded-byte
     confidences; only true secrets come back."""
-    from steganosaurus_tpu.ops import rs as rs_mod
+    from steganosaurus_tpu_torch.ops import rs as rs_mod
 
     stego, secret = _rs_margin()
     hard = stt.extract_batch(stego, master_key=MK,
@@ -501,4 +508,4 @@ def test_full_wire_lattice():
     got = stt.extract_batch(stack, password="pw", params=p, device="cpu")
     bad = [i for i, (g, s) in enumerate(zip(got, secrets)) if g != s]
     assert not bad, [COMBOS[i] for i in bad[:4]]
-    assert jbatch.extract_batch(stack, password="pw", params=p) == secrets
+    assert jbatch.extract_batch(stack, password="pw", params=jp(p)) == secrets
