@@ -9,8 +9,10 @@ drives the main path (embed_batch -> extract_batch) at 4K UHD, B=64, 16 KB
 secrets, then the serving surface (streams, rotating salts and keys, the
 channel report and quality, the soft-decision retry, ragged secrets with
 verify and jitter), every corner wire mode (soft write, alpha spread, QIM,
-RS, padding, per-image walks, Params.stealth() at 4K), and prints one
-line per measurement. The last two lines
+RS, padding, per-image walks, Params.stealth() at 4K), the single-image
+embed_array -> extract_array in every wire mode, the full-grid
+adaptive_alpha batch and a batch extraction with coherent rows, and prints
+one line per measurement. The last two lines
 are JSON: the per-kernel record, then the device record. Any failure raises,
 and the process exits non-zero without printing them. Without CUDA, or
 without the package beside this file, it exits non-zero at once.
@@ -65,10 +67,38 @@ Phases:
   5h. RS pad Params(rs=True, pad_quantum=4096) at 4K, B=64, 16 KB: 64/64,
              warm round trip with its host RS coding timed inside it,
              channel_report payload post-ECC BER 0, PSNR
-Every path above must launch its K1 kernel (corner_stage1_wgmma, or
-corner_stage1 in 4b); the launches are counted per path and per kernel, and
-each (planes, H, W, Kx, center) the paths hand the stage-1 wrapper is
-recorded.
+  7a. single embed_array -> extract_array of a 4K bench cover, 16 KB,
+             default Params, at salts 0, 1 and 2: the header misses at
+             salts 0 and 1 and reads back at salt 2 (SINGLE_SALT_READS),
+             on the card and in the CPU port alike, on the card's stegos
+             and the CPU port's; each miss has one Rep-3 header group with
+             two of its three slots read wrong, the same slots at both
+             salts and on both readers, on weak cover bins (|F| printed
+             beside the per-bin u8 rounding noise); extract_batch (its
+             soft header) reads the missed stegos. Then cold and warm
+             ms, device busy vs host wall, PSNR within 0.01 dB of the CPU
+             port's on the same cover, torch.kthvalue vs the bisection
+             median, bit-equal
+  7b. single 1080p, 4 KB (1 KB coherent), one Params per wire mode
+             (coherent, coherent + QIM, adaptive_alpha,
+             cover_dependent_path and complex128 included), one salt
+             each: round trip on the card (every embed pass on the card's
+             TorchBackend; complex128 in f64 there), the CPU port reads
+             each card stego, card vs CPU port bytes, coherent refine
+             passes; cover-hash feature mismatches card vs CPU at 1080p
+             and 4K
+  7c. full-grid adaptive_alpha batch at 4K, B=16, 16 KB with verify=True:
+             16/16, ms, PSNR, peak memory
+  7d. mixed  extract_batch over standard stegos, coherent stegos and a plain
+             cover at 1080p: every secret, None for the cover
+  7e. wrong key  extract_batch of the 4K B=64 stegos under another key:
+             every row fails both header parses and goes through
+             extract_array, all None; cold and warm ms
+Every path of phases 4-5 and 7d-7e must launch its K1 kernel
+(corner_stage1_wgmma, or corner_stage1 in 4b); the single-image paths and
+the full-grid batch cores (7a-7c) run torch.fft and must launch none. The
+launches are counted per path and per kernel, and each (planes, H, W, Kx,
+center) the paths hand the stage-1 wrapper is recorded.
   6. K1 shapes  every recorded shape that phase 3 did not check is held
              against the plain version, through the wrapper, on seeded u8
              images
@@ -132,6 +162,24 @@ STEALTH_B = 16
 STEALTH_BATCHES = 3
 # 4b: a grid whose width is not a multiple of 16 (B, H, W)
 RAGGED_GRID = (4, 1079, 1917)
+# 7a: the single-image path's key (a fresh one, so its cold run pays the
+# walk expansion) and the card-vs-CPU PSNR bound: the write is the same math
+SINGLE_KEY = bytes(range(2, 34))
+PSNR_TOL_DB = 0.01
+# 7a: salt index -> whether the 4K round trip reads back. The header's walk
+# is keyed by the key alone, so every salt writes its header on the same
+# bins; under SINGLE_KEY two slots of one Rep-3 group (a bit of the magic)
+# sit on weak cover bins, where the written phase's margin |F| sin(alpha)
+# is within about 1.5x the per-bin u8 rounding noise, and where the salt's
+# header bits make both read wrong, extract_array (in either package: it
+# has no soft header trial) finds no magic. tests/test_torch_single.py
+# holds the same mechanism against the JAX package on a smaller cover.
+SINGLE_SALT_READS = {0: False, 1: False, 2: True}
+# 7c: the adaptive_alpha batch (full-grid cores): B at 4K, 16 KB
+ADAPTIVE_B = 16
+# 7b, 7d: a coherent bit takes a whole (y, x) site, three plane-bins, so a
+# 1080p cover carries ~1.6 KB coherently; the coherent rows carry 1 KB
+COHERENT_SECRET = 1024
 
 
 def log(msg: str) -> None:
@@ -1300,6 +1348,487 @@ def phase_rs_padded(covers_d, launches: dict) -> None:
                              f"decodes for {B} images")
 
 
+def count_no_launches(path: str, launches: dict, fn):
+    """Run fn() with every kernel count set to 0 and record the counts for
+    `path`, a path with no hand kernel (the single-image path and the
+    full-grid batch cores run torch.fft, never the corner DFT): any K1
+    launch there means the path took the wrong route. Returns fn()'s
+    result."""
+    import torch
+
+    from steganosaurus_tpu_torch.spectral import corner_kernels as ck
+
+    for k in ck.LAUNCHES:
+        ck.LAUNCHES[k] = 0
+    out = fn()
+    torch.cuda.synchronize()
+    launches[path] = dict(ck.LAUNCHES)
+    if any(launches[path].values()):
+        raise AssertionError(f"the {path} path launched K1: "
+                             f"{launches[path]}")
+    return out
+
+
+def read_back(stego, **kw):
+    """extract_array's secret, or None where it raises StegoError (a header
+    whose Rep-3 majority fails reads as "Magic not found": the single-image
+    extract has no soft header trial, in either package)."""
+    import steganosaurus_tpu_torch as stt
+
+    try:
+        return stt.extract_array(stego, **kw)
+    except stt.StegoError:
+        return None
+
+
+def device_busy(fn) -> tuple:
+    """(fn()'s result, host wall ms ending in synchronize, device busy ms):
+    the sum of the device time of every kernel and copy torch.profiler saw
+    while fn() ran."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t) * 1e3
+    busy = sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA) / 1e3
+    return out, wall, busy
+
+
+def _psnr_hwc(stego, cover) -> float:
+    """PSNR in dB of one (H, W, 3) u8 stego against its cover (numpy)."""
+    import numpy as np
+
+    d = stego.astype(np.float64) - cover.astype(np.float64)
+    return float(10.0 * np.log10(255.0 ** 2 / np.mean(d * d)))
+
+
+def _header_slot_errors(stego, secret: bytes, salt: bytes, p, backend):
+    """(the slots of the 912-slot Rep-3 header stream that `backend` reads
+    wrong off `stego`, the header walk (plane, y, x, jitter)). The true
+    bits are rebuilt from SINGLE_KEY, the salt and the secret: the sealed
+    header is a function of them."""
+    import numpy as np
+
+    from steganosaurus_tpu_torch import crypto, keystream, spectral
+    from steganosaurus_tpu_torch.pipeline import frame, header
+
+    H, W = stego.shape[:2]
+    n = frame.HEADER_STREAM_BITS
+    kw, kr, kg, kb = crypto.derive_turtle_keys(
+        crypto.derive_path_key(None, SINGLE_KEY))
+    walk = keystream.turtle_expand(kw, (kr, kg, kb), H, W, p.rmin, p.rmax,
+                                   p.density, p.jitter, n)
+    with crypto.derive_keys_vault(None, SINGLE_KEY, salt=salt,
+                                  iters=p.pbkdf2_iter) as km:
+        hb, ct, tag = header.seal_stream(secret, km, 0, p.pad_quantum)
+    want = frame.frame_bits(hb + ct + tag)[:n]
+    spec = backend.analyze(spectral.to_planes(stego), p, lazy=True)[0]
+    got = backend.read_bits(spec, None, walk[:3], walk[3], p.alpha, p)
+    return np.flatnonzero(got != want), walk
+
+
+def _double_groups(errs) -> list[int]:
+    """Rep-3 header groups with two or three of their slots in `errs`."""
+    import numpy as np
+
+    g, n = np.unique(np.asarray(errs) // 3, return_counts=True)
+    return g[n >= 2].tolist()
+
+
+def phase_single_4k(dev, launches: dict) -> None:
+    """7a: embed_array -> extract_array of one 4K bench cover (seed 42,
+    cover 0), 16 KB, default Params, on the card at the salts of
+    SINGLE_SALT_READS: each salt reads back or misses as listed, on the
+    card and in the CPU port alike (each reads both's stegos); a miss has
+    a Rep-3 header group with two slots read wrong, the same group at
+    every missed salt and on both readers; extract_batch reads the missed
+    stegos. Then at the salt that reads back: cold (salt 0: a fresh key's
+    walk expansion, cuFFT plans) and warm wall ms, the warm run's device
+    busy ms against its host wall, PSNR beside the CPU port's on the same
+    cover (within PSNR_TOL_DB), and the exact median of that spectrum:
+    torch.kthvalue against the bisection twin, bit for bit."""
+    import numpy as np
+    import torch
+
+    import steganosaurus_tpu_torch as stt
+    from steganosaurus_tpu_torch import spectral
+    from steganosaurus_tpu_torch.ops import stats
+    from steganosaurus_tpu_torch.pipeline import device as device_mod
+
+    cover = make_covers(UHD_BASE, UHD_H, UHD_W)[0]
+    secret = secrets_for(1, UHD_SECRET)[0]
+    p = stt.Params()
+    cover_d = torch.from_numpy(cover).to(dev)
+    kw = dict(master_key=SINGLE_KEY, params=p)
+
+    def round_trip(salt):
+        t0 = time.perf_counter()
+        res = stt.embed_array(cover_d, secret, salt=salt, **kw)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        got = read_back(res.stego, **kw)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        return res, got == secret, (t1 - t0) * 1e3, (t2 - t1) * 1e3
+
+    card_be = device_mod.TorchBackend(dev)
+    cpu_be = device_mod.TorchBackend("cpu")
+    sigma = math.sqrt(UHD_H * UHD_W / 12.0)  # u8 rounding noise per bin
+    walk_mags = None
+    tries, missed, groups_seen = [], [], set()
+    for i, want in SINGLE_SALT_READS.items():
+        salt = bytes([i]) * 16
+        res, ok, e_ms, x_ms = count_no_launches(
+            "7a single 4K cold" if i == 0 else f"7a single 4K salt {i}",
+            launches, lambda salt=salt: round_trip(salt))
+        card = res.stego.cpu().numpy()
+        cpu = stt.embed_array(cover, secret, salt=salt, device="cpu",
+                              **kw).stego
+        reads = (ok, read_back(card, device="cpu", **kw) == secret,
+                 count_no_launches(
+                     f"7a card reads the CPU port's salt {i}", launches,
+                     lambda cpu=cpu: read_back(torch.from_numpy(cpu).to(dev),
+                                               **kw)) == secret,
+                 read_back(cpu, device="cpu", **kw) == secret)
+        errs_card, walk = _header_slot_errors(res.stego, secret, salt, p,
+                                              card_be)
+        errs_cpu, _ = _header_slot_errors(card, secret, salt, p, cpu_be)
+        g_card, g_cpu = _double_groups(errs_card), _double_groups(errs_cpu)
+        if walk_mags is None:
+            spec = spectral.fft2(spectral.to_planes(cover_d))
+            walk_mags = spec[tuple(torch.from_numpy(a).long().to(dev)
+                                   for a in walk[:3])].abs().cpu().numpy()
+            del spec
+        weak = [(int(s), float(walk_mags[s])) for g in g_card
+                for s in range(3 * g, 3 * g + 3)]
+        log(f"7a salt {i}: reads back (card/card, CPU/card, card/CPU, "
+            f"CPU/CPU, reader/stego) {reads}, expected {want}; embed "
+            f"{e_ms!r} ms, extract {x_ms!r} ms; header slots read wrong "
+            f"on the card {errs_card.tolist()}, by the CPU port "
+            f"{errs_cpu.tolist()}; groups with two: card {g_card}, CPU "
+            f"port {g_cpu}; their slots' cover |F| {weak} (rounding noise "
+            f"{sigma!r} per bin)")
+        if any(r != want for r in reads) or g_card != g_cpu or (
+                bool(g_card) == want):
+            raise AssertionError(f"7a salt {i}: reads {reads}, expected "
+                                 f"{want}; groups {g_card} / {g_cpu}")
+        groups_seen |= set(g_card)
+        tries.append((i, e_ms, x_ms))
+        if want:
+            read_i, read_salt, cpu_read = i, salt, cpu
+        else:
+            missed.append(res.stego)
+    if len(groups_seen) != 1:
+        raise AssertionError(f"7a: the misses come from groups "
+                             f"{sorted(groups_seen)}, not one weak group")
+    got = count_launches(
+        "7a batch read of the missed salts", launches,
+        lambda: stt.extract_batch(torch.stack(missed), clen_hint=UHD_SECRET,
+                                  **kw))
+    log(f"7a extract_batch reads the {len(missed)} missed stegos: "
+        f"{sum(g == secret for g in got)}/{len(missed)}")
+    if any(g != secret for g in got):
+        raise AssertionError("7a: extract_batch lost a missed stego")
+    ce, cx = tries[0][1], tries[0][2]
+    torch.cuda.reset_peak_memory_stats()
+    (res, ok, e_ms, x_ms), wall, busy = count_no_launches(
+        "7a single 4K", launches,
+        lambda: device_busy(lambda: round_trip(read_salt)))
+    if not ok:
+        raise AssertionError("7a: the warm round trip lost the secret")
+    peak = torch.cuda.max_memory_allocated()
+    stego = res.stego
+    if stego.device != cover_d.device or stego.shape != cover_d.shape:
+        raise AssertionError(f"7a stego {stego.device} {tuple(stego.shape)}")
+    card = stego.cpu().numpy()
+    ps_card, ps_cpu = _psnr_hwc(card, cover), _psnr_hwc(cpu_read, cover)
+    diff = card.astype(np.int16) - cpu_read.astype(np.int16)
+    log(f"7a single image 4K {UHD_H}x{UHD_W} {UHD_SECRET} B default Params: "
+        f"recovered 1/1 at salt index {read_i}; salt 0 (cold) "
+        f"embed {ce!r} ms, extract {cx!r} ms; warm "
+        f"embed {e_ms!r} ms, extract {x_ms!r} ms (under the profiler: wall "
+        f"{wall!r} ms, device busy {busy!r} ms, idle share "
+        f"{max(0.0, 1.0 - busy / wall)!r}); PSNR {ps_card!r} dB, CPU port "
+        f"{ps_cpu!r} dB; card vs CPU port {int(np.count_nonzero(diff))} of "
+        f"{diff.size} bytes differ, max |diff| {int(np.abs(diff).max())}; "
+        f"peak memory {peak / 2**30!r} GiB")
+    if abs(ps_card - ps_cpu) > PSNR_TOL_DB or np.abs(diff).max() > 1:
+        raise AssertionError(f"7a: card PSNR {ps_card} vs CPU {ps_cpu}, "
+                             f"max |diff| {np.abs(diff).max()}")
+    spec = spectral.fft2(spectral.to_planes(cover_d))
+    mags = spec.abs().reshape(3, -1)
+    k = mags.shape[1] // 2
+    t = time.perf_counter()
+    kth = stats.median_upper(mags)
+    torch.cuda.synchronize()
+    t_kth = (time.perf_counter() - t) * 1e3
+    t = time.perf_counter()
+    twin = stats.kth_smallest_nonneg(mags, k)
+    torch.cuda.synchronize()
+    t_twin = (time.perf_counter() - t) * 1e3
+    equal = torch.equal(kth.view(torch.int32), twin.view(torch.int32))
+    log(f"7a median of |F| (3 x {mags.shape[1]}): kthvalue {kth.tolist()} "
+        f"({t_kth!r} ms), bisection twin {twin.tolist()} ({t_twin!r} ms), "
+        f"bit-equal {equal}")
+    if not equal:
+        raise AssertionError("7a: torch.kthvalue disagrees with the "
+                             "bisection twin")
+
+
+def _count_embeds(fn):
+    """(fn()'s result, {backend class name: embed_apply calls}): an
+    embed_array makes 1 + its coherent refine passes, all on one backend."""
+    from steganosaurus_tpu_torch.pipeline import device as device_mod
+
+    n: dict = {}
+    real = {cls: cls.embed_apply for cls in (device_mod.TorchBackend,
+                                             device_mod.NumpyBackend)}
+
+    def counted(real_fn):
+        def embed_apply(self, *a, **k):
+            key = type(self).__name__
+            n[key] = n.get(key, 0) + 1
+            return real_fn(self, *a, **k)
+        return embed_apply
+
+    for cls, fn_ in real.items():
+        cls.embed_apply = counted(fn_)
+    try:
+        out = fn()
+    finally:
+        for cls, fn_ in real.items():
+            cls.embed_apply = fn_
+    return out, n
+
+
+def _feature_mismatches(dev, covers) -> tuple[int, int]:
+    """(feature bytes that differ, feature bytes) between the card's and
+    the CPU port's cover-hash features of each (H, W, 3) cover."""
+    import numpy as np
+
+    import steganosaurus_tpu_torch as stt
+    from steganosaurus_tpu_torch import spectral
+    from steganosaurus_tpu_torch.pipeline import device as device_mod
+
+    p = stt.Params()
+    n = total = 0
+    for c in covers:
+        planes = spectral.to_planes(np.ascontiguousarray(c))
+        f_card = device_mod.TorchBackend(dev).analyze(planes, p)[3]
+        f_cpu = device_mod.TorchBackend("cpu").analyze(planes, p)[3]
+        n += int(np.count_nonzero(f_card != f_cpu))
+        total += f_cpu.size
+    return n, total
+
+
+def phase_single_modes(dev, launches: dict) -> None:
+    """7b: embed_array -> extract_array at 1080p, 4 KB (1 KB coherent), one
+    Params per wire mode and one salt each, on the card: every embed pass
+    on the card's TorchBackend (complex128 in f64 there; the CPU port runs
+    it in the f64 NumpyBackend). The CPU port reads each card stego, and
+    the card stego is held against the CPU port's stego of the same inputs
+    (bytes differing, max |diff|: hard-write modes and complex128 +-1,
+    threshold and coherent modes counted). cover_dependent_path runs on
+    midstep_cover. Then the cover-hash features of the card and the CPU
+    port on the 8 1080p mode covers and 4 4K bench covers: mismatched
+    bytes."""
+    import numpy as np
+    import torch
+
+    import steganosaurus_tpu_torch as stt
+    from steganosaurus_tpu_torch.utils.covers import midstep_cover
+
+    covers = np.ascontiguousarray(_fhd_mode_covers().transpose(0, 2, 3, 1))
+    Params = stt.Params
+    modes = {
+        "default": Params(), "jitter=0.3": Params(jitter=0.3),
+        "soft_write": Params(soft_write=True),
+        "alpha_spread=0.5": Params(alpha_spread=0.5),
+        "qim=3": Params(qim=3),
+        "rs+pad_quantum=1024": Params(rs=True, pad_quantum=1024),
+        "per_image_walk": Params(per_image_walk=True),
+        "stealth": Params.stealth(),
+        "coherent": Params(coherent=True),
+        "coherent+qim=4": Params(coherent=True, qim=4),
+        "adaptive_alpha": Params(adaptive_alpha=True),
+        "cover_dependent_path": Params(cover_dependent_path=True),
+        "complex128": Params(fft_dtype="complex128"),
+    }
+    loose = {"soft_write", "qim=3", "stealth", "coherent", "coherent+qim=4"}
+    cdp_cover = midstep_cover(FHD_H, FHD_W, 43)
+    for i, (name, p) in enumerate(modes.items()):
+        cover = (cdp_cover if name == "cover_dependent_path"
+                 else covers[i % FHD_B])
+        # a coherent bit takes a whole site (three planes): at 1080p the
+        # capacity holds COHERENT_SECRET, not MODE_SECRET
+        secret = secrets_for(1, COHERENT_SECRET if p.coherent
+                             else MODE_SECRET)[0]
+        cover_d = torch.from_numpy(cover).to(dev)
+
+        salt = bytes([16 * i + 1]) * 16
+
+        def run(cover_d=cover_d, p=p, secret=secret, salt=salt):
+            t = time.perf_counter()
+            res, passes = _count_embeds(lambda: stt.embed_array(
+                cover_d, secret, master_key=MASTER_KEY, params=p, salt=salt))
+            got = read_back(res.stego, master_key=MASTER_KEY, params=p)
+            torch.cuda.synchronize()
+            return res.stego, got, passes, time.perf_counter() - t
+
+        st, got, passes, dt = count_no_launches(f"7b {name}", launches, run)
+        kw = dict(master_key=MASTER_KEY, params=p, salt=salt)
+        card = st.cpu().numpy()
+        cpu_reads = read_back(card, master_key=MASTER_KEY, params=p,
+                              device="cpu")
+        cpu, cpu_passes = _count_embeds(lambda kw=kw, cover=cover, s=secret:
+                                        stt.embed_array(cover, s,
+                                                        device="cpu", **kw))
+        cpu = cpu.stego
+        diff = card.astype(np.int16) - cpu.astype(np.int16)
+        n, mx = int(np.count_nonzero(diff)), int(np.abs(diff).max())
+        log(f"7b single image 1080p {len(secret)} B {name}: card round trip "
+            f"{int(got == secret)}/1 ({dt!r} s wall), the CPU port reads "
+            f"the card's stego {int(cpu_reads == secret)}/1; card vs CPU "
+            f"port {n} of {diff.size} bytes differ, max |diff| {mx}; embed "
+            f"passes (1 + coherent refines) card {passes}, CPU port "
+            f"{cpu_passes}; PSNR {_psnr_hwc(card, cover)!r} dB")
+        bad = (got != secret or cpu_reads != secret
+               or set(passes) != {"TorchBackend"})
+        if name not in loose:
+            bad = bad or mx > 1 or n > FHD_MAX_DIFF_FRAC * diff.size
+        if bad:
+            raise AssertionError(f"7b {name}: recovery {got == secret}, CPU "
+                                 f"{cpu_reads == secret}, {n} bytes, max {mx}")
+    n, total = _feature_mismatches(dev, covers)
+    log(f"7b cover-hash features, card vs CPU port, 8 1080p covers: {n} of "
+        f"{total} bytes differ")
+    uhd = make_covers(UHD_BASE, UHD_H, UHD_W)[:4]
+    n, total = _feature_mismatches(dev, uhd)
+    log(f"7b cover-hash features, card vs CPU port, 4 4K covers: {n} of "
+        f"{total} bytes differ")
+
+
+def phase_adaptive_batch(covers_d, launches: dict) -> None:
+    """7c: an adaptive_alpha batch at 4K, B=16, 16 KB (nhwc: the full-grid
+    cores), embed with verify=True, then extract_batch: 16/16 verified and
+    read back, warm wall ms, PSNR, peak memory."""
+    import torch
+
+    import steganosaurus_tpu_torch as stt
+
+    B = ADAPTIVE_B
+    covers = covers_d[:B].permute(0, 2, 3, 1).contiguous()
+    secrets = secrets_for(B, UHD_SECRET)
+    p = stt.Params(adaptive_alpha=True)
+    salts = [bytes([i + 70]) * 16 for i in range(B)]
+
+    def run():
+        t0 = time.perf_counter()
+        res = stt.embed_batch(covers, secrets, master_key=MASTER_KEY,
+                              params=p, salts=salts, device_resident=True,
+                              verify=True)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        got = stt.extract_batch(res.stego, master_key=MASTER_KEY, params=p,
+                                clen_hint=UHD_SECRET)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        return res, got, (t1 - t0) * 1e3, (t2 - t1) * 1e3
+
+    count_no_launches("7c adaptive cold", launches, run)
+    torch.cuda.reset_peak_memory_stats()
+    res, got, e_ms, x_ms = count_no_launches("7c adaptive 4K", launches, run)
+    peak = torch.cuda.max_memory_allocated()
+    n_ok = sum(g == s for g, s in zip(got, secrets))
+    psnr = psnr_mean(res.stego.permute(0, 3, 1, 2), covers_d[:B])
+    log(f"7c adaptive_alpha 4K B={B} {UHD_SECRET} B: verified "
+        f"{sum(res.verified)}/{B}, recovered {n_ok}/{B}; warm embed with "
+        f"verify {e_ms!r} ms, extract {x_ms!r} ms; mean PSNR {psnr!r} dB; "
+        f"peak memory {peak / 2**30!r} GiB")
+    if n_ok != B or not all(res.verified) or not math.isfinite(psnr):
+        raise AssertionError(f"7c: verified {res.verified}, recovered "
+                             f"{n_ok}/{B}")
+
+
+def phase_mixed_coherent(dev, launches: dict) -> None:
+    """7d: one extract_batch over 1080p rows: two standard stegos
+    (embed_batch), a coherent and a coherent + QIM stego (embed_array), and
+    a plain cover: every secret comes back through the fused pass and the
+    single-image extract of the rows it cannot read, the cover as None."""
+    import numpy as np
+    import torch
+
+    import steganosaurus_tpu_torch as stt
+
+    covers = np.ascontiguousarray(
+        _fhd_mode_covers()[:5].transpose(0, 2, 3, 1))
+    covers_d = torch.from_numpy(covers).to(dev)
+    secrets = (secrets_for(2, MODE_SECRET)
+               + secrets_for(2, COHERENT_SECRET))
+    Params = stt.Params
+    std = stt.embed_batch(covers_d[:2], secrets[:2], master_key=MASTER_KEY,
+                          device_resident=True).stego
+    coh = [stt.embed_array(covers_d[2 + i], secrets[2 + i],
+                           master_key=MASTER_KEY,
+                           params=Params(coherent=True, qim=q),
+                           salt=bytes([200 + 8 * i]) * 16).stego
+           for i, q in enumerate((0, 4))]
+    batch = torch.cat([std, torch.stack(coh), covers_d[4:5]])
+    want = secrets + [None]
+
+    def run():
+        t = time.perf_counter()
+        got = stt.extract_batch(batch, master_key=MASTER_KEY,
+                                clen_hint=MODE_SECRET)
+        torch.cuda.synchronize()
+        return got, time.perf_counter() - t
+
+    got, dt = count_launches("7d mixed coherent", launches, run)
+    log(f"7d mixed 1080p batch (2 standard, coherent, coherent+qim=4, a "
+        f"plain cover), one extract_batch call ({dt!r} s): "
+        f"{sum(g == w for g, w in zip(got, want))}/5 as expected, the cover "
+        f"{'None' if got[4] is None else 'READ'}")
+    if got != want:
+        raise AssertionError(f"7d: {[g == w for g, w in zip(got, want)]}")
+
+
+def phase_wrong_key(covers_d, launches: dict) -> None:
+    """7e: the main path's 4K B=64 stegos through extract_batch under
+    another key: no header parses, so every row also goes through the
+    single-image extract_array (one FFT and two header reads each, as in
+    the JAX package), and all come back None. Cold and warm wall ms."""
+    import torch
+
+    import steganosaurus_tpu_torch as stt
+
+    secrets = secrets_for(UHD_B, UHD_SECRET)
+    salts = [bytes([i]) * 16 for i in range(UHD_B)]
+    stego = stt.embed_batch(covers_d, secrets, master_key=MASTER_KEY,
+                            salts=salts, device_resident=True,
+                            layout="nchw").stego
+
+    def run():
+        t = time.perf_counter()
+        got = stt.extract_batch(stego, master_key=MASTER_KEY2,
+                                clen_hint=UHD_SECRET, layout="nchw")
+        torch.cuda.synchronize()
+        return got, (time.perf_counter() - t) * 1e3
+
+    got, cold = count_launches("7e wrong key cold", launches, run)
+    got2, warm = count_launches("7e wrong key 4K", launches, run)
+    log(f"7e wrong-key extract_batch 4K B={UHD_B}: {got.count(None)}/"
+        f"{UHD_B} and {got2.count(None)}/{UHD_B} None; cold {cold!r} ms, "
+        f"warm {warm!r} ms ({warm / UHD_B!r} ms per row)")
+    if any(g is not None for g in got + got2):
+        raise AssertionError("7e: a wrong-key row read as a secret")
+
+
 def record_k1_shapes(seen: dict):
     """Wrap the stage-1 wrapper so that the _k1_key of every call on the
     card lands in `seen`, mapped to the kernel it launches; returns the
@@ -1404,6 +1933,11 @@ def main() -> int:
             timed("modes", phase_modes, dev, launches)
             timed("stealth", phase_stealth, covers_d, launches)
             timed("rs padded", phase_rs_padded, covers_d, launches)
+            timed("single 4K", phase_single_4k, dev, launches)
+            timed("single modes", phase_single_modes, dev, launches)
+            timed("adaptive batch", phase_adaptive_batch, covers_d, launches)
+            timed("mixed coherent", phase_mixed_coherent, dev, launches)
+            timed("wrong key", phase_wrong_key, covers_d, launches)
         finally:
             undo()
         log(f"K1 launches per path: {launches}")

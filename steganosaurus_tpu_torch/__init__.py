@@ -1,10 +1,14 @@
 """steganosaurus_tpu_torch — the PyTorch + CUDA port of steganosaurus_tpu.
 
 The JAX package (steganosaurus_tpu/) is the reference; this package runs the
-same batch embed -> extract path and its serving surface on an NVIDIA H100,
-in every corner wire mode (shared or per-image walks, hard or soft write,
-jitter, alpha spread, QIM, Rep-7 or RS, padding), and writes the same wire
-format, so stegos cross-decode between the two in both directions.
+same single-image embed_array / extract_array (and the file-level embed /
+extract) and the same batch embed -> extract path with its serving surface
+on an NVIDIA H100, in every wire mode the JAX package writes (shared or
+per-image walks, hard or soft write, jitter, alpha spread, QIM, Rep-7 or
+RS, padding, coherent, adaptive alpha, cover-dependent walks; f64 under
+Params(fft_dtype="complex128"), on the card or the CPU), and writes the
+same wire format, so stegos cross-decode between the two in both
+directions.
 
 Layout follows the JAX package so each module's counterpart is easy to find:
 
@@ -13,24 +17,33 @@ Layout follows the JAX package so each module's counterpart is easy to find:
 - ``_build``     builds each ``csrc/*.cu`` with nvcc (sm_90a) and the host
                  native library (native/*.cc, g++) from the repository's own
                  sources.
-- ``spectral/``  corner pruned-DFT math; ``corner_kernels`` wraps the
-                 hand-written stage-1 DFT kernels (csrc/corner_stage1_wgmma.cu
-                 for W % 16 == 0, csrc/corner_stage1.cu otherwise).
-- ``ops/``       MSB-first bit/word packing and repetition ECC on tensors.
-- ``parallel/``  the device cores: frame build, corner embed (shared and
-                 per-image walks), fused extract, soft-decision retry,
-                 raw-bit read.
-- ``pipeline/``  header framing, spread amplitudes and QIM dithers, the
-                 embed_batch / extract_batch API with verify, ragged
-                 secrets, every wire mode and channel_report, and the
-                 embed_stream / extract_stream pipelining.
-- ``utils/``     PSNR, SSIM, BER and ecc_report; quality_device on the card.
+- ``spectral/``  the full-grid FFT in the reference sign (torch.fft),
+                 medians, cover hash features; corner pruned-DFT math;
+                 ``corner_kernels`` wraps the hand-written stage-1 DFT
+                 kernels (csrc/corner_stage1_wgmma.cu for W % 16 == 0,
+                 csrc/corner_stage1.cu otherwise).
+- ``ops/``       MSB-first bit/word packing and repetition ECC on tensors;
+                 the full-spectrum phase write and read rules (phase),
+                 the exact median (stats), capacity (mask).
+- ``parallel/``  the batch device cores: frame build, corner embed (shared
+                 and per-image walks), fused extract, soft-decision retry,
+                 raw-bit read; the full-grid cores of adaptive alpha.
+- ``pipeline/``  embed_array / extract_array over a torch backend (f32, or
+                 f64 on a card) or the f64 host backend on the CPU
+                 (device.py); the ECC frame (frame.py); header framing, spread
+                 amplitudes and QIM dithers, the embed_batch /
+                 extract_batch API with verify, ragged secrets, every wire
+                 mode and channel_report, and the embed_stream /
+                 extract_stream pipelining.
+- ``utils/``     PSNR, SSIM, BER and ecc_report; quality_device on the card;
+                 the reference's debug dumps (debug).
 
 - ``config``, ``crypto/``, ``keystream/``, ``_native_loader``, ``ops/rs``,
-  ``io/image``: the host modules, copied from the JAX package's modules of
-  the same paths (Params, keys and AEAD, the turtle walk and its disk
-  cache, the native-library wrapper, RS(255,223), load_rgb), so the wire
-  format stays byte-identical (tests/test_torch_host.py).
+  ``io/image``, ``utils/debug``: the host modules, copied from the JAX
+  package's modules of the same paths (Params, keys and AEAD, the turtle
+  walk — coherent sites too — and its disk cache, the native-library
+  wrapper, RS(255,223), PNG load and save), so the wire format stays
+  byte-identical (tests/test_torch_host.py).
 
 This package imports neither jax nor anything of steganosaurus_tpu.
 """
@@ -42,6 +55,11 @@ __version__ = "0.1.0"
 # Lazy top-level API (PEP 562): importing the package stays cheap and
 # touches no device until a pipeline symbol is used.
 _API = {
+    "embed_array": ("steganosaurus_tpu_torch.pipeline.embed", "embed_array"),
+    "extract_array": ("steganosaurus_tpu_torch.pipeline.extract",
+                      "extract_array"),
+    "embed": ("steganosaurus_tpu_torch.pipeline.embed", "embed"),
+    "extract": ("steganosaurus_tpu_torch.pipeline.extract", "extract"),
     "embed_batch": ("steganosaurus_tpu_torch.pipeline.batch", "embed_batch"),
     "extract_batch": ("steganosaurus_tpu_torch.pipeline.batch",
                       "extract_batch"),

@@ -51,6 +51,12 @@ class NativeLib:
         ea = d.stego_turtle_expand.argtypes
         d.stego_turtle_expand_v.restype = ctypes.c_longlong
         d.stego_turtle_expand_v.argtypes = ea + [u64p, u64p]
+        # coherent site semantics (Params.coherent): the expand args with
+        # `int coherent` inserted after allow_short (index 12), then the two
+        # visited-bitmap pointers
+        d.stego_turtle_expand_vc.restype = ctypes.c_longlong
+        d.stego_turtle_expand_vc.argtypes = (
+            ea[:13] + [ctypes.c_int] + ea[13:] + [u64p, u64p])
         # key vault (native/keyvault.cc): mlock'd derived-key slots
         sz = ctypes.c_size_t
         d.stego_kv_derive_pass.restype = ctypes.c_int
@@ -242,12 +248,14 @@ class NativeLib:
     def turtle_expand_v(self, walk_key, plane_keys, H, W, rmin, rmax,
                         density, jitter_max, nbits, max_steps,
                         allow_short=False, init_visited=None,
-                        want_visited=False):
+                        want_visited=False, coherent=False):
         """turtle_expand with visited-bitmap chaining (per-image-walk mode).
 
         init_visited: uint64 array of (3*H*W + 63)//64 words, or None.
         want_visited=True appends the final visited bitmap to the return:
         (plane, y, x, jitter, nproduced[, visited]).
+        coherent=True selects the coherent site semantics (Params.coherent;
+        stego_turtle_expand_vc).
         """
         import numpy as np
 
@@ -264,18 +272,25 @@ class NativeLib:
         else:
             init_p = None
         out_vis = np.zeros(nwords, dtype=np.uint64) if want_visited else None
-        rc = self._dll.stego_turtle_expand_v(
+        args = [
             self._buf(walk_key), self._buf(plane_keys[0]),
             self._buf(plane_keys[1]), self._buf(plane_keys[2]),
             H, W, rmin, rmax, density, jitter_max, nbits, max_steps,
             int(allow_short),
+        ]
+        if coherent:
+            args.append(1)
+        args += [
             plane.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
             y.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
             x.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
             jit.ctypes.data_as(ctypes.POINTER(ctypes.c_double)),
             init_p,
             out_vis.ctypes.data_as(u64p) if want_visited else None,
-        )
+        ]
+        fn = (self._dll.stego_turtle_expand_vc if coherent
+              else self._dll.stego_turtle_expand_v)
+        rc = fn(*args)
         if rc < 0:
             raise RuntimeError(
                 f"native turtle_expand_v failed (rc={rc}): walk exhausted "

@@ -31,8 +31,8 @@ class Params:
     cover_dependent_path: bool = False  # experimental: spectral-hash-keyed walk
 
     # --- rebuild-only knobs (no reference equivalent) ---
-    # FFT compute dtype: "complex64" (TPU default) or "complex128" (CPU-only
-    # parity arbiter; TPU has no f64).
+    # FFT compute dtype: "complex64" (default) or "complex128" (the f64
+    # parity arbiter: the host backend on the CPU, cuFFT's Z2Z on a card).
     fft_dtype: str = "complex64"
     # Minimal-energy phase write: leave bins that already decode with
     # margin >= alpha untouched, clamp the rest to the margin boundary.

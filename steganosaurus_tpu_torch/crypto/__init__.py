@@ -243,13 +243,20 @@ def derive_keys_vault(password: str | None, master_key: bytes | None, *,
     return _FallbackKeys(derive_keys(password, salt, iters))
 
 
-def derive_path_key(password: str | None, master_key: bytes | None) -> bytes:
+def derive_path_key(
+    password: str | None,
+    master_key: bytes | None,
+    cover_hash: bytes | None = None,
+) -> bytes:
     """Turtle-walk path key (reference steganosaur.cpp:1017-1040, :1154-1176).
 
     Deliberately salt-independent so the header can be located before the salt
-    is known: SHA256(pass | master).
+    is known: SHA256(pass | master [+ cover_hash]) — the cover hash under
+    Params.cover_dependent_path.
     """
     ikm = master_key if master_key is not None else password.encode()
+    if cover_hash is not None:
+        return sha256(ikm + cover_hash)
     return sha256(ikm)
 
 

@@ -51,21 +51,24 @@ def ks_stream_bytes(key: bytes, n: int) -> bytes:
 
 def _expand_v_raw(walk_key, plane_keys, H, W, rmin, rmax, density,
                   jitter_max, nbits, max_steps, allow_short,
-                  init_visited, want_visited):
-    """Visited-chaining expansion: native turtle_expand_v when the library
-    is loaded, pure twin otherwise (identical streams — tested)."""
+                  init_visited, want_visited, coherent=False):
+    """Visited-chaining expansion: native turtle_expand_v (coherent:
+    turtle_expand_vc) when the library is loaded, pure twin otherwise
+    (identical streams — tested)."""
     lib = _native_loader.get()
     if lib is not None:
         return lib.turtle_expand_v(walk_key, plane_keys, H, W, rmin, rmax,
                                    density, jitter_max, nbits, max_steps,
                                    allow_short=allow_short,
                                    init_visited=init_visited,
-                                   want_visited=want_visited)
+                                   want_visited=want_visited,
+                                   coherent=coherent)
     return _pure.turtle_expand(walk_key, plane_keys, H, W, rmin, rmax,
                                density, jitter_max, nbits, max_steps,
                                allow_short=allow_short,
                                init_visited=init_visited,
-                               want_visited=want_visited)
+                               want_visited=want_visited,
+                               coherent=coherent)
 
 
 # Header-prefix cache for the per-image-walk mode: the shared walk's first
@@ -79,16 +82,20 @@ _HDR_CACHE_LOCK = threading.Lock()
 
 def header_walk_with_visited(walk_key, plane_keys, H: int, W: int,
                              rmin: float, rmax: float, density: float,
-                             jitter_max: float, nbits: int) -> tuple:
+                             jitter_max: float, nbits: int,
+                             coherent: bool = False) -> tuple:
     """(plane, y, x, jitter, visited_bitmap) for the shared walk's first
-    `nbits` bits — the header prefix of the per-image-walk mode
-    (pipeline/batch.py). visited_bitmap (uint64 words, native layout)
-    captures accepted bins, their conjugates AND density-skipped marks, so
-    a chained payload expansion never collides with the header's bins."""
-    # the JAX package's key layout, whose last field is its coherent-walk
-    # flag (always off here), so both packages share the disk cache's files
+    `nbits` bits — the header prefix of the per-image-walk and coherent
+    modes (pipeline/batch.py, pipeline/embed.py). visited_bitmap (uint64
+    words, native layout) captures accepted bins, their conjugates AND
+    density-skipped marks, so a chained payload expansion never collides
+    with the header's bins. coherent=True (Params.coherent): the header
+    rides the coherent site semantics too — a different walk from the
+    standard prefix (sites are consumed whole), which is what makes the
+    two-rule header trial on extraction well-defined (pipeline/extract.py).
+    The key layout is the JAX package's, so both share the disk cache."""
     key = (walk_key, plane_keys, H, W, rmin, rmax, density, jitter_max,
-           nbits, False)
+           nbits, coherent)
     with _HDR_CACHE_LOCK:
         ent = _HDR_CACHE.get(key)
         if ent is None:
@@ -101,7 +108,7 @@ def header_walk_with_visited(walk_key, plane_keys, H: int, W: int,
                 p, y, x, j, n, vis = _expand_v_raw(
                     walk_key, plane_keys, H, W, rmin, rmax, density,
                     jitter_max, nbits, _step_budget(nbits, H, W), False,
-                    None, True)
+                    None, True, coherent=coherent)
                 ent = (p, y, x, j, vis)
                 _disk.store("hdr", key,
                             {"plane": p, "y": y, "x": x, "jitter": j,
@@ -118,14 +125,16 @@ def header_walk_with_visited(walk_key, plane_keys, H: int, W: int,
 def turtle_expand_chained(walk_key, plane_keys, H: int, W: int, rmin: float,
                           rmax: float, density: float, jitter_max: float,
                           nbits: int, init_visited,
-                          allow_short: bool = False) -> tuple:
+                          allow_short: bool = False,
+                          coherent: bool = False) -> tuple:
     """Payload expansion resuming from `init_visited` (per-image-walk mode:
     fresh salt-keyed PRGs and seed position, header bins pre-marked).
     Returns (plane, y, x, jitter, nproduced) under allow_short, else the
-    4-tuple. Uncached — every (key, salt) pair is unique."""
+    4-tuple. Uncached — every (key, salt) pair is unique. coherent=True:
+    coherent site semantics (Params.coherent; _pure.turtle_expand)."""
     out = _expand_v_raw(walk_key, plane_keys, H, W, rmin, rmax, density,
                         jitter_max, nbits, _step_budget(nbits, H, W),
-                        allow_short, init_visited, False)
+                        allow_short, init_visited, False, coherent=coherent)
     # normalize backend return arity (native always appends nproduced)
     return out[:5] if allow_short else out[:4]
 

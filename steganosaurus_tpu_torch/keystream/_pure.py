@@ -108,6 +108,7 @@ def turtle_expand(
     allow_short: bool = False,
     init_visited: np.ndarray | None = None,
     want_visited: bool = False,
+    coherent: bool = False,
 ) -> tuple:
     """Expand the keyed walk into per-bit (plane, y, x, jitter) arrays.
 
@@ -115,6 +116,15 @@ def turtle_expand(
     mark-and-retry}` (:1076-1081 / :1206), then one per-plane jitter draw — two
     bytes consumed even when jitter_max == 0.0 (:719 / :1208) — then
     mark_here() on the accepted bin AND its conjugate (:805-809).
+
+    coherent=True (Params.coherent walks): a written bit rotates ALL THREE
+    planes at its (y, x) site by one common phase delta (ops/phase.py
+    coherent write), so a site is consumed as a WHOLE: the visited check
+    rejects a candidate if ANY plane of (y, x) or its conjugate is marked,
+    and every mark — accept and density-skip alike — marks all three planes
+    at both (y, x) and the conjugate. The walk dynamics (opcode stream,
+    plane hops, jitter draws keyed by the current plane) are otherwise
+    unchanged, so embed and extract replay each other exactly.
 
     `max_steps` bounds total walk steps, fixing the reference's unbounded-loop
     hazard on corrupted clen (doc/TESTING.md:151-156). On exhaustion: raises
@@ -159,6 +169,19 @@ def turtle_expand(
     out_y = np.empty(nbits, dtype=np.int32)
     out_x = np.empty(nbits, dtype=np.int32)
     out_j = np.empty(nbits, dtype=np.float64)
+
+    if coherent:
+        def _vis(p, yy, xx):
+            return bool(visited[:, yy, xx].any())
+
+        def _mark(p, yy, xx):
+            visited[:, yy, xx] = True
+    else:
+        def _vis(p, yy, xx):
+            return bool(visited[p, yy, xx])
+
+        def _mark(p, yy, xx):
+            visited[p, yy, xx] = True
 
     steps = 0
     for i in range(nbits):
@@ -205,30 +228,30 @@ def turtle_expand(
                     continue
                 if y == 0 and x == 0:
                     continue
-                if visited[plane, y, x]:
+                if _vis(plane, y, x):
                     continue
                 r = math.hypot(y, x)
                 if r < rlo or r > rhi:
                     continue
                 # magnitude check intentionally disabled (reference :797-799)
                 cy, cx = conj_idx(y, x, H, W)
-                if visited[plane, cy, cx]:
+                if _vis(plane, cy, cx):
                     continue
                 break
             if ks_walk.hit_density(density):
                 break
             # density skip: mark used-but-empty (reference :1079-1080)
-            visited[plane, y, x] = True
+            _mark(plane, y, x)
             cy, cx = conj_idx(y, x, H, W)
-            visited[plane, cy, cx] = True
+            _mark(plane, cy, cx)
 
         out_plane[i] = plane
         out_y[i] = y
         out_x[i] = x
         out_j[i] = ks_planes[plane].jitter(jitter_max)
-        visited[plane, y, x] = True
+        _mark(plane, y, x)
         cy, cx = conj_idx(y, x, H, W)
-        visited[plane, cy, cx] = True
+        _mark(plane, cy, cx)
 
     if want_visited:
         # with want_visited the produced count is always included (native

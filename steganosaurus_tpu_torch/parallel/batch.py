@@ -29,6 +29,14 @@ payload section.
 - corner_raw_bits_core: the raw (pre-ECC) bits at the walk bins, for the
   channel report.
 
+The full-grid cores (JAX batched_analyze_core, batched_embed_core,
+batched_gather_decode_core) carry Params.adaptive_alpha, whose write angle
+scales with |F| over the whole spectrum's median: a full-grid FFT per image
+(torch.fft), the per-bin write of ops/phase.py scattered into it, and the
+inverse FFT. The JAX package's batched_gather_bits_core and
+batched_read_core have no caller on any path (only its tests call them) and
+are not ported.
+
 The JAX single-chip cores pack 32 images per i32 word before every bit
 gather because TPU gathers pay a full HBM granule per row
 (steganosaurus_tpu/parallel/batch.py:465-473); the port gathers per image
@@ -46,6 +54,7 @@ import torch
 from steganosaurus_tpu_torch import spectral
 from steganosaurus_tpu_torch.ops import bits as bit_ops
 from steganosaurus_tpu_torch.ops import ecc
+from steganosaurus_tpu_torch.ops import phase as phase_ops
 from steganosaurus_tpu_torch.spectral import corner
 
 HEADER_BITS = 304    # 38 header bytes
@@ -437,3 +446,91 @@ def corner_raw_bits_core(imgs: torch.Tensor, alpha: float, plane, y, x, *,
                         center=center, layout=layout, jit=jit, dither=dither,
                         qim_levels=qim_levels, qim_from=HEADER_SLOTS)
     return bit_ops.pack_bits_words((d >= 0).to(torch.uint8))
+
+
+# --- full-grid cores (Params.adaptive_alpha) ---------------------------------
+
+def batched_analyze_core(imgs: torch.Tensor, *, center: bool,
+                         layout: str = "nhwc"):
+    """(imgs u8 in `layout`) -> ((B, 3, PH, PW) complex64 reference-sign
+    spectra, (B, 3) f32 upper medians of |F| per plane): one full-grid FFT
+    per image-plane, kept on the device for the header and payload reads."""
+    planes = _planes_u8(imgs, layout).to(torch.float32)
+    H, W = planes.shape[-2:]
+    PH, PW = spectral.fft_dims(H, W)
+    spec = spectral.fft2(spectral.pad_planes(
+        spectral.apply_center(planes, center), PH, PW))
+    return spec, spectral.median_abs(spec)
+
+
+def _gather_bins(spec: torch.Tensor, med: torch.Tensor, plane, y, x):
+    """(v, med_at): the (B, n) bins of spectra spec (B, 3, PH, PW) at a
+    shared (n,) walk or per-image (B, n) walks, and each bin's plane
+    median, with the index tuple that addresses them."""
+    plane, y, x = plane.long(), y.long(), x.long()
+    if plane.dim() == 1:
+        idx = (slice(None), plane, y, x)
+        return spec[idx], med[:, plane], idx
+    b = torch.arange(spec.shape[0], device=spec.device)[:, None]
+    idx = (b, plane, y, x)
+    return spec[idx], med[b, plane], idx
+
+
+def batched_embed_core(imgs: torch.Tensor, plane, y, x, bits_words, jit,
+                       alpha, n_valid=None, *, center: bool,
+                       soft: bool = False, floor: float = 0.0,
+                       layout: str = "nhwc") -> torch.Tensor:
+    """Full-grid batch embed (JAX batched_embed_core with packed bits and
+    adaptive alpha, the one mode that needs it):
+    (imgs u8, walk plane/y/x — a shared (n,) walk or per-image (B, n)
+    walks — bits_words (B, n/32) int32 MSB-first frame words, jit the
+    slots' jitter angles, alpha a number or the (n,) per-slot amplitudes,
+    n_valid the un-padded slot count (an int, or (B,) per image; slots
+    past it are tail-pad duplicates, left out of the write floor's energy))
+    -> u8 stego in `layout`.
+
+    Per image: full FFT, medians, the ops/phase.py write at the walk bins
+    (adaptive alpha; the soft write and the floor as asked), the
+    Hermitian-half scatter (2*nv - v at the primary bins only: real(IFFT)
+    sees exactly nv there and conj(nv) at the mirror), the inverse FFT and
+    the u8 rounding. Tail-pad duplicates carry their twin's value, so the
+    scatter keeps the same value whichever write wins."""
+    spec, med = batched_analyze_core(imgs, center=center, layout=layout)
+    H, W = (imgs.shape[2], imgs.shape[3]) if layout == "nchw" \
+        else (imgs.shape[1], imgs.shape[2])
+    PH, PW = spec.shape[-2:]
+    bits = bit_ops.unpack_bits_words(bits_words, bits_words.shape[-1] * 32)
+    v, med_at, idx = _gather_bins(spec, med, plane, y, x)
+    nv = phase_ops.write_values(v, bits, jit, alpha, med_at, True,
+                                soft=soft, floor=floor,
+                                img_pixels=float(H) * W, n_valid=n_valid,
+                                gain=(H * W) / (PH * PW))
+    spec[idx] = 2.0 * nv - v
+    del v, nv, med_at
+    t = spectral.ifft2_real(spec)[..., :H, :W]
+    del spec
+    out = spectral.from_planes(spectral.apply_center(t, center))
+    return out.permute(0, 3, 1, 2).contiguous() if layout == "nchw" else out
+
+
+def batched_gather_decode_core(spec: torch.Tensor, med: torch.Tensor, plane,
+                               y, x, jit, alpha: float, *,
+                               hdr_stream_bits: int,
+                               payload_rep: int = PAYLOAD_REP,
+                               with_soft: bool = False):
+    """Full-grid batch read + decode (JAX batched_gather_decode_core) under
+    the adaptive-alpha rule: spectra and medians from batched_analyze_core,
+    a shared (n,) walk or per-image (B, n) walks and their jitter angles ->
+    (B, words) int32 rows [Rep-3 header words (when hdr_stream_bits) |
+    payload words under payload_rep], or (hard, soft) rows with
+    with_soft: the soft rows come
+    from the same f32 decision values whose sign is the hard bit
+    (ops/phase.read_values), with no bf16 rounding."""
+    v, med_at, _ = _gather_bins(spec, med, plane, y, x)
+    if with_soft:
+        d = phase_ops.read_values_at(v, med_at, jit, alpha, True)
+        return (_decode_sections((d >= 0).to(torch.uint8), hdr_stream_bits,
+                                 payload_rep),
+                _decode_sections_soft(d, hdr_stream_bits, payload_rep))
+    raw = phase_ops.read_phases_at(v, med_at, jit, alpha, True)
+    return _decode_sections(raw, hdr_stream_bits, payload_rep)

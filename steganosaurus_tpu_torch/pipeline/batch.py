@@ -27,13 +27,16 @@ complete the surface.
   (runtime.HostCopy), so embed_batch and extract_dispatch queue their
   device work and return; pipeline/stream.py overlaps batches on that.
 
-The port has no single-image path yet, so three Params fields still raise
-StegoError naming the field (_check_params: adaptive_alpha, coherent,
-cover_dependent_path), and extraction reads as None a row whose header
-carries FLAG_COHERENT or fails both parses, where the JAX package hands
-such rows to its single-image extract_array. The images' device is the
-input tensor's device, else the `device` argument, else CUDA
-(runtime.resolve_device).
+Params.adaptive_alpha batches run the full-grid cores (one FFT per image,
+the per-bin write and read of ops/phase.py); extraction hands a row whose
+header carries FLAG_COHERENT, or fails both the hard and the soft parse, to
+the single-image extract_array (pipeline/extract.py) on its own device, as
+the JAX package does. Params the JAX batch path refuses are refused with
+its errors: cover_dependent_path and coherent embeds (both per-image: use
+embed_array), cover_dependent_path extracts, layout="nchw" with
+adaptive_alpha, and channel_report outside the shared-walk corner path.
+The images' device is the input tensor's device, else the `device`
+argument, else CUDA (runtime.resolve_device).
 """
 
 from __future__ import annotations
@@ -55,23 +58,16 @@ from steganosaurus_tpu_torch.pipeline import header as header_mod
 from steganosaurus_tpu_torch.pipeline import qim as qim_mod
 from steganosaurus_tpu_torch.pipeline import spread as spread_mod
 from steganosaurus_tpu_torch.pipeline.errors import StegoError
+from steganosaurus_tpu_torch.pipeline.extract import extract_array
+from steganosaurus_tpu_torch.pipeline.frame import (HEADER_STREAM_BITS,
+                                                    frame_bits)
 from steganosaurus_tpu_torch.pipeline.header import Header
 from steganosaurus_tpu_torch.spectral import corner
 from steganosaurus_tpu_torch.utils import metrics
 
-_HEADER_STREAM_BITS = header_mod.FIXED_LEN * 8 * 3
-
-# Params fields whose non-default values need the single-image path, which
-# the port does not have yet, with the default each must hold.
-_UNSUPPORTED = (("adaptive_alpha", False), ("coherent", False),
-                ("cover_dependent_path", False))
-
-
-def _check_params(params: Params, mesh) -> None:
-    for field, default in _UNSUPPORTED:
-        if getattr(params, field) != default:
-            raise StegoError(f"Params.{field}={getattr(params, field)!r} is "
-                             f"not supported by steganosaurus_tpu_torch yet")
+def _check_params(params: Params, mesh, layout: str = "nhwc") -> None:
+    if layout == "nchw" and params.adaptive_alpha:
+        raise StegoError("layout='nchw' is corner-path only")
     if mesh is not None:
         raise StegoError("mesh is not supported by steganosaurus_tpu_torch "
                          "yet (single device only)")
@@ -95,19 +91,6 @@ def _dims(imgs, layout: str) -> tuple[int, int, int]:
     else:
         B, H, W, _ = shape
     return B, H, W
-
-
-def _to_device(imgs, dev: torch.device) -> torch.Tensor:
-    if isinstance(imgs, torch.Tensor):
-        t = imgs
-    else:
-        a = np.ascontiguousarray(imgs)
-        # torch.from_numpy shares memory and warns on read-only buffers
-        # (e.g. a JAX array's numpy view): copy those
-        t = torch.from_numpy(a if a.flags.writeable else a.copy())
-    if t.dtype != torch.uint8:
-        raise ValueError(f"images must be uint8, got {t.dtype}")
-    return t.to(dev)
 
 
 def _rows(t: torch.Tensor, idx: list[int], dev) -> tuple[torch.Tensor,
@@ -291,7 +274,7 @@ def _piw_header_walk(path_key, params, PH, PW):
     kw, kr, kg, kb = crypto.derive_turtle_keys(path_key)
     return keystream.header_walk_with_visited(
         kw, (kr, kg, kb), PH, PW, params.rmin, params.rmax, params.density,
-        params.jitter, _HEADER_STREAM_BITS)
+        params.jitter, HEADER_STREAM_BITS)
 
 
 def _piw_expand(path_key, salt, params, PH, PW, need, vis):
@@ -370,7 +353,7 @@ def _piw_walk_arrays(password, master_key, params, PH, PW, salts,
     clens) lets the walk's own padding stand, so the image reads garbage
     that the AEAD rejects and the batch goes on."""
     path_key = crypto.derive_path_key(password, master_key)
-    hdr_n = _HEADER_STREAM_BITS
+    hdr_n = HEADER_STREAM_BITS
     hp, hy, hx, hj, vis = _piw_header_walk(path_key, params, PH, PW)
     outs = _piw_map(lambda i: _piw_expand_one(
         path_key, salts[i], params, PH, PW, need_lens[i] - hdr_n, vis),
@@ -420,27 +403,12 @@ def prefetch_walk(password, master_key, params: Params, H: int, W: int,
             _piw_header_walk(crypto.derive_path_key(password, master_key),
                              params, PH, PW)
             return
-        nmax = max(_HEADER_STREAM_BITS + _payload_stream_bits(
+        nmax = max(HEADER_STREAM_BITS + _payload_stream_bits(
             _wire_clen(n, params) + 16, params.rs) for n in secret_lens)
         _walk_indices(password, master_key, params, PH, PW, nmax,
                       allow_short=True)
     except Exception:  # noqa: BLE001 — deliberately quiet (see docstring)
         pass
-
-
-def _frame_bits(stream: bytes, rs: bool = False) -> np.ndarray:
-    """header||ct||tag -> the on-wire u8 frame bits, MSB first: Rep-3 over
-    the 304 header bits (reference frame layout, steganosaur.cpp:986-995),
-    then Rep-7 over the payload bits, or with `rs` the bits of the
-    payload's interleaved RS(255,223) coding (ops/rs.py)."""
-    hdr = header_mod.FIXED_LEN
-    h = np.repeat(np.unpackbits(np.frombuffer(stream[:hdr], np.uint8)), 3)
-    if rs:
-        p = np.unpackbits(np.frombuffer(
-            rs_mod.rs_encode_interleaved(stream[hdr:]), np.uint8))
-    else:
-        p = np.repeat(np.unpackbits(np.frombuffer(stream[hdr:], np.uint8)), 7)
-    return np.concatenate([h, p])
 
 
 def _host_frames(streams: list[bytes], bucket: int,
@@ -449,7 +417,7 @@ def _host_frames(streams: list[bytes], bucket: int,
     embed_batch _host_frames)."""
     bits = np.empty((len(streams), bucket), np.uint8)
     for i, s in enumerate(streams):
-        f = _frame_bits(s, rs)
+        f = frame_bits(s, rs)
         bits[i, :len(f)] = f
         bits[i, len(f):] = f[-1]
     return bits
@@ -466,6 +434,40 @@ def _seal_streams(secrets, salts, password, master_key, params) -> list:
                 secret, km, flags, params.pad_quantum)
         streams.append(hdr_bytes + ct + tag)
     return streams
+
+
+def _embed_full_grid(imgs_d, streams, frame_lens, bucket, password,
+                     master_key, params, salts, PH, PW, layout, dev):
+    """The Params.adaptive_alpha embed (JAX embed_batch's legacy branches):
+    host-built frames as packed words into batched_embed_core, on each
+    image's salt-keyed walk under per_image_walk (alpha the scalar, as
+    JAX's branch takes it), else on the shared walk with the spread
+    amplitudes as per-slot alphas. The write floor counts each image's own
+    frame (per-image walks) or the longest frame (shared walk)."""
+    nmax = max(frame_lens)
+    words = runtime.upload(bit_ops.pack_bits_words_host(
+        _host_frames(streams, bucket, params.rs)), dev)
+    if params.per_image_walk:
+        plane, y, x, jit = _upload_walks(_piw_walk_arrays(
+            password, master_key, params, PH, PW, salts, frame_lens, bucket),
+            dev)
+        alpha = params.alpha
+        n_valid = runtime.upload(np.asarray(frame_lens, np.int64), dev)
+    else:
+        (plane, y, x, jit), nprod = _walk_indices_device(
+            password, master_key, params, PH, PW, nmax, 0, bucket, dev)
+        if nprod < nmax:
+            raise StegoError(f"Message too large. Need {nmax} bits (after "
+                             f"ECC), walk exhausted after {nprod}.")
+        alpha = (_slot_values_device(
+            "alpha", crypto.derive_path_key(password, master_key), params,
+            0, nmax, bucket, dev) if params.alpha_spread != 0.0
+            else params.alpha)
+        n_valid = nmax
+    return pbatch.batched_embed_core(
+        imgs_d, plane, y, x, words, jit, alpha,
+        n_valid if params.write_floor else None, center=params.center,
+        soft=params.soft_write, floor=params.write_floor, layout=layout)
 
 
 def embed_batch(
@@ -492,7 +494,10 @@ def embed_batch(
     Every corner wire mode of the JAX package is written as it writes it
     (module docstring); Params.per_image_walk embeds the payload on each
     image's salt-keyed walk (corner_piw_embed_core), else one shared walk
-    serves the batch (corner_embed_core). Secrets may differ in length:
+    serves the batch (corner_embed_core). Params.adaptive_alpha takes the
+    full-grid batched_embed_core on either walk (nhwc only);
+    cover_dependent_path and coherent are per-image modes and raise (use
+    embed_array). Secrets may differ in length:
     every frame is padded to the longest by repeating its own last bit
     (surplus bins are never read back). Equal-length Rep-7 shared-walk
     batches upload the sealed streams and expand the ECC on the device;
@@ -505,13 +510,20 @@ def embed_batch(
     Explicit `salts` are respected on the first attempt only.
     """
     _check_key(password, master_key)
-    _check_params(params, mesh)
+    if params.cover_dependent_path:
+        raise StegoError("cover_dependent_path is per-image; use embed_array")
+    if params.coherent:
+        raise StegoError(
+            "coherent batch embedding is not wired into the fused batch "
+            "cores; use embed_array (extract_batch auto-detects and "
+            "resolves coherent stegos per image)")
+    _check_params(params, mesh, layout)
     spread_mod.validate(params)
     B, H, W = _dims(imgs, layout)
     if len(secrets) != B:
         raise ValueError(f"{len(secrets)} secrets for {B} images")
     dev = runtime.resolve_device(device, like=imgs)
-    imgs_d = _to_device(imgs, dev)
+    imgs_d = runtime.to_device(imgs, dev)
     PH, PW = spectral.fft_dims(H, W)
 
     if salts is None:
@@ -519,7 +531,7 @@ def embed_batch(
     if len(salts) != B:
         raise ValueError(f"{len(salts)} salts for {B} images")
     streams = _seal_streams(secrets, salts, password, master_key, params)
-    frame_lens = [_HEADER_STREAM_BITS + _payload_stream_bits(
+    frame_lens = [HEADER_STREAM_BITS + _payload_stream_bits(
         len(s) - header_mod.FIXED_LEN, params.rs) for s in streams]
     nmax = max(frame_lens)
     # frames are bucketed to a 4096 multiple; surplus slots repeat the last
@@ -531,7 +543,11 @@ def embed_batch(
     common = dict(Ky=Ky, Kx=Kx, center=params.center, layout=layout,
                   floor=params.write_floor, soft=params.soft_write,
                   qim_levels=params.qim)
-    if params.per_image_walk:
+    if params.adaptive_alpha:
+        stego = _embed_full_grid(imgs_d, streams, frame_lens, bucket,
+                                 password, master_key, params, salts, PH, PW,
+                                 layout, dev)
+    elif params.per_image_walk:
         walks = _upload_walks(_piw_walk_arrays(
             password, master_key, params, PH, PW, salts, frame_lens, bucket),
             dev)
@@ -624,22 +640,25 @@ def channel_report(
     bins of the stego batch: payload slots by the QIM rule under
     Params.qim, the post-ECC payload BER through the RS decode under
     Params.rs. Post-ECC BER > 0 on an image means its AEAD fails and verify
-    would re-salt it. The shared walk only, as in the JAX package:
-    Params.per_image_walk raises StegoError."""
+    would re-salt it. The shared-walk corner path only, as in the JAX
+    package: Params.adaptive_alpha, cover_dependent_path and
+    per_image_walk raise StegoError."""
     _check_key(password, master_key)
     _check_params(params, mesh)
-    if params.per_image_walk:
-        raise StegoError("channel_report supports the shared-walk corner "
-                         "path only (Params.per_image_walk is not)")
+    for field in ("adaptive_alpha", "cover_dependent_path",
+                  "per_image_walk"):
+        if getattr(params, field):
+            raise StegoError("channel_report supports the shared-walk corner "
+                             f"path only (Params.{field} is not)")
     B, H, W = _dims(stego, layout)
     if len(secrets) != B or len(salts) != B:
         raise ValueError(f"{len(secrets)} secrets and {len(salts)} salts for "
                          f"{B} images")
     dev = runtime.resolve_device(device, like=stego)
-    stego_d = _to_device(stego, dev)
+    stego_d = runtime.to_device(stego, dev)
     PH, PW = spectral.fft_dims(H, W)
     streams = _seal_streams(secrets, salts, password, master_key, params)
-    frames = [_frame_bits(s, params.rs) for s in streams]
+    frames = [frame_bits(s, params.rs) for s in streams]
     nmax = max(len(f) for f in frames)
     bucket = _bucket(nmax)
     (pl, yy, xx, jj), nprod = _walk_indices_device(
@@ -657,7 +676,7 @@ def channel_report(
         qim_levels=params.qim)
     got = bit_ops.unpack_words_host(runtime.HostCopy(words).numpy(), bucket)
     reports = [metrics.ecc_report(
-        f, got[i, :len(f)], _HEADER_STREAM_BITS,
+        f, got[i, :len(f)], HEADER_STREAM_BITS,
         rs_payload_bytes=(len(s) - header_mod.FIXED_LEN) if params.rs else 0)
         for i, (f, s) in enumerate(zip(frames, streams))]
     out = {k: float(np.mean([r[k] for r in reports])) for k in reports[0]}
@@ -668,16 +687,22 @@ def channel_report(
 
 
 def _parse_hdr(buf: bytes) -> Header | None:
-    """A header this port can read: right magic and version, a valid QIM
-    level (1 is not one: a corrupt header), and no FLAG_COHERENT — the
-    coherent mode needs the single-image path the port does not have, so
-    such a row reads as None (the JAX package hands it to extract_array)."""
+    """A parseable header: right magic and version, and a valid QIM level
+    (1 is not one: a corrupt header)."""
     hb = buf[:header_mod.FIXED_LEN]
     if hb[:4] != header_mod.MAGIC or hb[4] != header_mod.VERSION:
         return None
-    if header_mod.qim_levels(hb[5]) == 1 or hb[5] & header_mod.FLAG_COHERENT:
+    if header_mod.qim_levels(hb[5]) == 1:
         return None
     return Header.from_bytes(hb)
+
+
+def _is_coherent(h: Header | None) -> bool:
+    """A row the single-image extract_array resolves: its header failed
+    both parses (a coherent header rides the common-mode write the batch
+    readers cannot read), or it carries FLAG_COHERENT (a standard header
+    over a coherent payload)."""
+    return h is None or bool(h.flags & header_mod.FLAG_COHERENT)
 
 
 def _mode(h: Header) -> tuple[int, bool]:
@@ -710,11 +735,14 @@ class _ExtractJob:
     def __init__(self, imgs, password, master_key, params, mesh, clen_hint,
                  layout="nhwc", device=None):
         _check_key(password, master_key)
-        _check_params(params, mesh)
+        if params.cover_dependent_path:
+            raise StegoError(
+                "cover_dependent_path is per-image; use extract_array")
+        _check_params(params, mesh, layout)
         self.B, H, W = _dims(imgs, layout)
         self._layout = layout
         dev = runtime.resolve_device(device, like=imgs)
-        self._imgs_d = _to_device(imgs, dev)
+        self._imgs_d = runtime.to_device(imgs, dev)
         self._dev = dev
         PH, PW = spectral.fft_dims(H, W)
         self._key = (password, master_key)
@@ -723,6 +751,12 @@ class _ExtractJob:
         self._qim, self._rs = params.qim, params.rs
         self._dims = (PH, PW)
         self._corner_kk = corner.corner_dims(PH, PW, params.rmax)
+        # adaptive alpha needs the full-spectrum median: one full-grid FFT
+        # per image, kept for every read pass of the job
+        self._use_corner = not params.adaptive_alpha
+        if not self._use_corner:
+            self._spec, self._med = pbatch.batched_analyze_core(
+                self._imgs_d, center=params.center, layout=layout)
         # Walk capacity upper bound: each accepted bit marks a bin and its
         # conjugate. Bounds the gather under a corrupt header clen and an
         # oversized hint.
@@ -740,13 +774,17 @@ class _ExtractJob:
 
     def _walk(self, total: int, skip: int, bucket_total: int):
         """Walk plane/y/x of slots [skip, total), padded to bucket_total -
-        skip, and their jitter angles (None when Params.jitter == 0)."""
+        skip, and their jitter angles (None when Params.jitter == 0 and the
+        corner path reads them: its rule then needs no angles; the
+        full-grid read always takes them)."""
         password, master_key = self._key
         PH, PW = self._dims
         (pl, yy, xx, jj), _ = _walk_indices_device(
             password, master_key, self._params, PH, PW, total, skip,
             bucket_total - skip, self._dev)
-        return pl, yy, xx, (jj if self._params.jitter != 0.0 else None)
+        if self._use_corner and self._params.jitter == 0.0:
+            jj = None
+        return pl, yy, xx, jj
 
     def _dither(self, L: int, nbits: int, bucket: int) -> torch.Tensor:
         """Level-L QIM dithers of frame slots [0, nbits), padded to
@@ -773,7 +811,7 @@ class _ExtractJob:
         is the header-only probe: 912 slots, no rounding."""
         L = self._qim if qim is None else qim
         rep = 1 if (self._rs if rs is None else rs) else 7
-        hdr = _HEADER_STREAM_BITS
+        hdr = HEADER_STREAM_BITS
         if payload_stream_bits:
             total = hdr + payload_stream_bits
             bucket_total = _bucket(total)
@@ -789,13 +827,21 @@ class _ExtractJob:
         pl, yy, xx, jj = self._walk(total, skip, bucket_total)
         with_soft = bool(self._params.soft_decode_fallback)
         Ky, Kx = self._corner_kk
-        words = pbatch.corner_extract_fused_core(
-            self._imgs_d, self._params.alpha, pl, yy, xx, Ky=Ky, Kx=Kx,
-            center=self._params.center, layout=self._layout,
-            hdr_stream_bits=hdr_bits, with_soft=with_soft, jit=jj,
-            dither=(self._dither(L, total, bucket_total)[skip:] if L
-                    else None),
-            qim_levels=L, qim_from=hdr_bits, payload_rep=rep)
+        if not self._use_corner:
+            # the full-grid read (JAX's legacy branch: no QIM rule there;
+            # QIM and adaptive_alpha are mutually exclusive at embed)
+            words = pbatch.batched_gather_decode_core(
+                self._spec, self._med, pl, yy, xx, jj, self._params.alpha,
+                hdr_stream_bits=hdr_bits, payload_rep=rep,
+                with_soft=with_soft)
+        else:
+            words = pbatch.corner_extract_fused_core(
+                self._imgs_d, self._params.alpha, pl, yy, xx, Ky=Ky, Kx=Kx,
+                center=self._params.center, layout=self._layout,
+                hdr_stream_bits=hdr_bits, with_soft=with_soft, jit=jj,
+                dither=(self._dither(L, total, bucket_total)[skip:] if L
+                        else None),
+                qim_levels=L, qim_from=hdr_bits, payload_rep=rep)
         if not with_soft:
             return runtime.HostCopy(words), None, None
         hard, soft = words
@@ -867,13 +913,23 @@ class _ExtractJob:
         clen, then one forward DFT + per-image gather + decode over exactly
         those rows, under the group's header-carried QIM level and FEC.
         Returns payload byte buffers aligned with `idxs`."""
-        hdr = _HEADER_STREAM_BITS
+        hdr = HEADER_STREAM_BITS
         needs = [min(self._payload_bits(headers[i].clen, rs), self._cap_bits)
                  for i in idxs]
         n = _bucket(max(needs))
         (pl, yy, xx, jj), imgs = self._piw_rows(
             idxs, headers, [hdr + m for m in needs], hdr + n)
         Ky, Kx = self._corner_kk
+        if not self._use_corner:
+            spec, med = self._spec, self._med
+            if len(idxs) != self.B:
+                sel = runtime.upload(np.asarray(idxs, np.int64), self._dev)
+                spec, med = spec.index_select(0, sel), med.index_select(0, sel)
+            words = pbatch.batched_gather_decode_core(
+                spec, med, pl[:, hdr:], yy[:, hdr:], xx[:, hdr:], jj[:, hdr:],
+                self._params.alpha, hdr_stream_bits=0,
+                payload_rep=1 if rs else 7)
+            return _to_bufs(runtime.HostCopy(words).numpy())
         words = pbatch.corner_extract_fused_core(
             imgs, self._params.alpha, pl[:, hdr:], yy[:, hdr:], xx[:, hdr:],
             Ky=Ky, Kx=Kx, center=self._params.center, layout=self._layout,
@@ -915,15 +971,16 @@ class _ExtractJob:
             for i, h in enumerate(headers):
                 if h is None:
                     headers[i] = _parse_hdr(soft_bufs0[i])
+        # rows the batch readers cannot read go to the single-image
+        # extract_array (its two-rule header trial reads the coherent rule;
+        # a genuinely corrupt row pays one FFT and two header reads there)
+        coh_idx = [i for i, h in enumerate(headers) if _is_coherent(h)]
         shared_by_mode: dict[tuple[int, bool], list[int]] = {}
         piw_by_mode: dict[tuple[int, bool], list[int]] = {}
         for i, h in enumerate(headers):
-            if h is not None:
+            if not _is_coherent(h):
                 (piw_by_mode if _is_piw(h) else shared_by_mode).setdefault(
                     _mode(h), []).append(i)
-        if not shared_by_mode and not piw_by_mode:
-            self._result = [None] * self.B
-            return self._result
 
         payloads: list[bytes | None] = [None] * self.B
         # (soft rows, pass info, payload byte offset) per image, consulted
@@ -965,11 +1022,12 @@ class _ExtractJob:
             for i, buf in zip(idxs, self._dispatch_piw_pass(idxs, headers,
                                                             L, R)):
                 payloads[i] = buf
+        resolved = {i: self._extract_row(i) for i in coh_idx}
 
         out: list[bytes | None] = []
         for i, hdr in enumerate(headers):
-            if hdr is None:
-                out.append(None)
+            if i in resolved:
+                out.append(resolved[i])
                 continue
             got = self._open_payload(hdr, payloads[i])
             soft_pay = None
@@ -990,11 +1048,29 @@ class _ExtractJob:
                     if got is None and soft_pay is not None:
                         got = self._open_payload(h2, *soft_pay)
             out.append(got)
-        if self._params.soft_decode_fallback and any(
-                h is not None and o is None for h, o in zip(headers, out)):
+        # the retry's corner readers carry neither the coherent rule (those
+        # rows ran extract_array's own retry) nor the full-grid read (as in
+        # the JAX package, whose retry is corner-only)
+        if self._params.soft_decode_fallback and self._use_corner and any(
+                not _is_coherent(h) and o is None
+                for h, o in zip(headers, out)):
             self._soft_retry_failed(headers, out)
         self._result = out
         return out
+
+    def _extract_row(self, i: int) -> bytes | None:
+        """Row i through the single-image extract_array, on the device the
+        row lives on (no host copy); None on its StegoError, as the JAX
+        package's batch extract does."""
+        img = self._imgs_d[i]
+        if self._layout == "nchw":
+            img = img.permute(1, 2, 0)
+        password, master_key = self._key
+        try:
+            return extract_array(img, password=password,
+                                 master_key=master_key, params=self._params)
+        except StegoError:
+            return None
 
     def _open_from(self, buf: bytes, conf=None) -> bytes | None:
         """AEAD-open a soft retry row [40-byte header block | payload]
@@ -1011,7 +1087,7 @@ class _ExtractJob:
         mode (L, R) and on the walk those headers select; returns (rows
         [40-byte header block | payload] per image of grp, RS confidences
         or None)."""
-        hdr = _HEADER_STREAM_BITS
+        hdr = HEADER_STREAM_BITS
         need = min(max(self._payload_bits(hdrs[i].clen, R) for i in grp),
                    self._cap_bits)
         total = hdr + need
@@ -1052,7 +1128,7 @@ class _ExtractJob:
         is reliable whatever the mode. Mutates `out`; images that still
         fail stay None."""
         cur = {i: h for i, (h, o) in enumerate(zip(headers, out))
-               if h is not None and o is None}
+               if not _is_coherent(h) and o is None}
         for round_ in range(2):
             groups: dict[tuple, list[int]] = {}
             for i, h in cur.items():
@@ -1095,12 +1171,13 @@ def extract_batch(imgs, password: str | None = None,
     """Extract secrets from a batch of stego images (shared key).
 
     Returns one bytes per image, or None where extraction failed: bad magic
-    or version, truncation, authentication failure — and, in this port, a
-    header carrying FLAG_COHERENT or failing both the hard and the soft
-    parse (the JAX package resolves such rows with its single-image
-    extract_array, which the port does not have yet). One bad image never
+    or version, truncation, authentication failure. One bad image never
     aborts the batch. The wire mode of each image (per-image walk, QIM
     level, RS, padding) is read from its header, so a batch may mix modes;
+    a row whose header carries FLAG_COHERENT or fails both the hard and the
+    soft parse is resolved by the single-image extract_array (coherent
+    stegos written by either package's embed_array read back that way);
+    Params.adaptive_alpha reads through one full-grid FFT per image;
     Params must give the walk (jitter, rmin, rmax, density) as embed used
     it. With Params.soft_decode_fallback (the default) an image that fails
     the hard decode is retried from the fused pass's inline matched-filter

@@ -46,6 +46,20 @@ def resolve_device(device=None, like=None) -> torch.device:
     return dev
 
 
+def to_device(imgs, dev: torch.device) -> torch.Tensor:
+    """u8 images (a numpy array or a tensor) as a tensor on `dev`."""
+    if isinstance(imgs, torch.Tensor):
+        t = imgs
+    else:
+        a = np.ascontiguousarray(imgs)
+        # torch.from_numpy shares memory and warns on read-only buffers
+        # (e.g. a JAX array's numpy view): copy those
+        t = torch.from_numpy(a if a.flags.writeable else a.copy())
+    if t.dtype != torch.uint8:
+        raise ValueError(f"images must be uint8, got {t.dtype}")
+    return t.to(dev)
+
+
 def upload(a: np.ndarray, dev: torch.device) -> torch.Tensor:
     """A host array as a tensor on `dev`. To CUDA it goes through pinned
     memory with a non-blocking copy: a pageable .to(cuda) synchronizes the

@@ -114,11 +114,13 @@ def test_torch_round_trip_without_hint_and_device_resident():
 
 
 def test_wrong_key_and_flagged_headers_read_as_none(monkeypatch):
-    """An image the port cannot read yields None, never an exception: a
-    wrong key, and a header whose FLAGS byte carries FLAG_COHERENT (a mode
-    that needs the single-image path the port does not have). A FLAGS bit
-    of a mode the port carries (here FLAG_PADDED from Params.pad_quantum)
-    reads back."""
+    """An image that does not open yields None, never an exception: a
+    wrong key, and a header whose FLAGS byte carries FLAG_COHERENT over a
+    payload that was not written coherently (the row goes to the
+    single-image extract_array, which reads a coherent payload, fails its
+    AEAD and its soft retry, and raises StegoError, which the batch turns
+    into None). A FLAGS bit of a mode the port carries (here FLAG_PADDED
+    from Params.pad_quantum) reads back."""
     from steganosaurus_tpu_torch.pipeline import batch as tpb
     from steganosaurus_tpu_torch.pipeline import header as theader
 
@@ -147,22 +149,41 @@ def test_wrong_key_and_flagged_headers_read_as_none(monkeypatch):
     ("adaptive_alpha", True), ("coherent", True),
     ("cover_dependent_path", True)])
 def test_unsupported_params_raise(field, value):
-    """The fields that need the single-image path (adaptive_alpha,
-    coherent, cover_dependent_path) raise StegoError naming the field in
-    embed and extract; the wire-mode fields the port now carries embed and
-    read back instead."""
+    """The batch path refuses exactly what the JAX package's refuses, with
+    its errors: the per-image modes coherent (embed only: extraction reads
+    coherent rows through extract_array) and cover_dependent_path (embed
+    and extract), and adaptive_alpha in the nchw layout. Every other field
+    embeds and reads back, adaptive_alpha (nhwc) through the full-grid
+    cores."""
     imgs, secrets = _inputs("nhwc")
     p = Params().replace(**{field: value})
-    if field not in ("adaptive_alpha", "coherent", "cover_dependent_path"):
+    if field not in ("coherent", "cover_dependent_path"):
         res = stt.embed_batch(imgs[:1], secrets[:1], master_key=MK,
                               params=p, device="cpu")
         assert stt.extract_batch(res.stego, master_key=MK, params=p,
                                  device="cpu") == secrets[:1]
+        if field == "adaptive_alpha":
+            nchw = np.ascontiguousarray(imgs.transpose(0, 3, 1, 2))
+            for call in (stt.embed_batch, stt.extract_batch):
+                args = (nchw, secrets) if call is stt.embed_batch else (nchw,)
+                with pytest.raises(stt.StegoError, match="corner-path only"):
+                    call(*args, master_key=MK, params=p, layout="nchw",
+                         device="cpu")
         return
     with pytest.raises(stt.StegoError, match=field):
         stt.embed_batch(imgs, secrets, master_key=MK, params=p, device="cpu")
-    with pytest.raises(stt.StegoError, match=field):
-        stt.extract_batch(imgs, master_key=MK, params=p, device="cpu")
+    for jcall in (jbatch.embed_batch, jbatch.extract_batch):
+        jargs = (imgs, secrets) if jcall is jbatch.embed_batch else (imgs,)
+        if field == "coherent" and jcall is jbatch.extract_batch:
+            continue
+        with pytest.raises(Exception, match=field):
+            jcall(*jargs, master_key=MK, params=jp(p))
+    if field == "cover_dependent_path":
+        with pytest.raises(stt.StegoError, match=field):
+            stt.extract_batch(imgs, master_key=MK, params=p, device="cpu")
+    else:  # Params.coherent is embed-side only, as in the JAX package
+        assert stt.extract_batch(imgs[:1], master_key=MK, params=p,
+                                 device="cpu") == [None]
 
 
 def test_unsupported_call_options_raise():

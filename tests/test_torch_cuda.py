@@ -4,7 +4,10 @@ any other W) against their plain version, at the wgmma kernel's edge
 shapes too, the wrapper's routing, checks and launch counts, round trips
 through the kernel (small, and 1080p B=8), a two-batch stream,
 the soft-decision retry pass (Rep-7 and RS), a QIM extract and a
-per-image-walk embed.
+per-image-walk embed; the single-image path: a 1080p embed_array ->
+extract_array round trip, the exact median (kthvalue against the bisection
+twin) at 4K, a 1080p adaptive_alpha batch through the full-grid cores, and
+a complex128 round trip that stays on the card.
 
 They skip without CUDA. This file imports neither jax nor the JAX package's
 device code, so it also runs on a machine without JAX:
@@ -329,3 +332,101 @@ def test_rs_soft_retry_on_card_launches_k1(dev, monkeypatch):
     assert retry_launches and retry_launches[0] >= 1
     assert sum(g is not None for g in got) > n_hard
     assert all(g is None or g == secret for g in got)
+
+
+def _photo_like(h, w, seed, n=1):
+    """Smooth gradients plus noise, (n, h, w, 3) u8."""
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[:h, :w]
+    base = (96 + 60 * np.sin(xx / 97.0) * np.cos(yy / 61.0))[None, ..., None]
+    return np.clip(base + rng.integers(-20, 21, (n, h, w, 3)), 0,
+                   255).astype(np.uint8)
+
+
+def test_1080p_single_image_round_trip_on_card(dev):
+    """embed_array -> extract_array on a 1080p cover on the card (tensor in,
+    tensor out on the card), and the CPU port reads the card's stego; the
+    card and CPU stegos differ by at most 1."""
+    import steganosaurus_tpu_torch as stt
+
+    cover = _photo_like(1080, 1920, 31)[0]
+    secret = bytes(np.random.default_rng(32).integers(0, 256, 4096,
+                                                      dtype=np.uint8))
+    p = stt.Params(pbkdf2_iter=500)
+    res = stt.embed_array(torch.from_numpy(cover).to(dev), secret,
+                          password="pw", params=p, salt=bytes(16))
+    assert res.stego.device.type == "cuda"
+    assert stt.extract_array(res.stego, password="pw", params=p) == secret
+    cpu = stt.embed_array(cover, secret, password="pw", params=p,
+                          salt=bytes(16), device="cpu").stego
+    card = res.stego.cpu().numpy()
+    assert np.abs(card.astype(np.int16) - cpu.astype(np.int16)).max() <= 1
+    assert stt.extract_array(card, password="pw", params=p,
+                             device="cpu") == secret
+
+
+def test_median_kthvalue_equals_bisection_at_4k(dev):
+    """torch.kthvalue on the card returns the bisection twin's element, bit
+    for bit, on a 4K cover's spectrum magnitudes (3 x 8.3M)."""
+    from steganosaurus_tpu_torch import spectral
+    from steganosaurus_tpu_torch.ops import stats
+
+    cover = torch.from_numpy(_photo_like(2160, 3840, 33)[0]).to(dev)
+    spec = spectral.fft2(spectral.to_planes(cover))
+    mags = spec.abs().reshape(3, -1)
+    k = mags.shape[1] // 2
+    a = stats.median_upper(mags)
+    b = stats.kth_smallest_nonneg(mags, k)
+    torch.cuda.synchronize()
+    assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+    assert torch.equal(a, mags.sort(dim=1).values[:, k])
+
+
+def test_adaptive_alpha_batch_round_trip_1080p_on_card(dev):
+    """An adaptive_alpha batch (full-grid cores) at 1080p, B=4, 4 KB: embed
+    and extract on the card, read back by the CPU port too."""
+    import steganosaurus_tpu_torch as stt
+
+    covers = _photo_like(1080, 1920, 34, n=4)
+    rng = np.random.default_rng(35)
+    secrets = [bytes(rng.integers(0, 256, 4096, dtype=np.uint8))
+               for _ in range(4)]
+    p = stt.Params(adaptive_alpha=True, pbkdf2_iter=500)
+    res = stt.embed_batch(torch.from_numpy(covers).to(dev), secrets,
+                          master_key=bytes(32), params=p,
+                          device_resident=True, verify=True)
+    assert res.verified == [True] * 4
+    assert stt.extract_batch(res.stego, master_key=bytes(32),
+                             params=p) == secrets
+    assert stt.extract_batch(res.stego.cpu().numpy(), master_key=bytes(32),
+                             params=p, device="cpu") == secrets
+
+
+def test_complex128_round_trip_stays_on_card(dev):
+    """Params(fft_dtype="complex128") on a card tensor runs in f64 on the
+    card (a complex128 spectrum there, cuFFT's Z2Z), round-trips at 1080p,
+    and its stego is within +-1 of the CPU port's f64 host backend's and
+    read back by it."""
+    import steganosaurus_tpu_torch as stt
+    from steganosaurus_tpu_torch import spectral
+    from steganosaurus_tpu_torch.pipeline import device as device_mod
+
+    cover = _photo_like(1080, 1920, 36)[0]
+    secret = bytes(np.random.default_rng(37).integers(0, 256, 4096,
+                                                      dtype=np.uint8))
+    p = stt.Params(pbkdf2_iter=500, fft_dtype="complex128")
+    cover_d = torch.from_numpy(cover).to(dev)
+    be, src, _, _ = device_mod.backend_input(cover_d, p)
+    assert isinstance(be, device_mod.TorchBackend)
+    spec = be.analyze(spectral.to_planes(src), p, lazy=True)[0]
+    assert spec.device.type == "cuda" and spec.dtype == torch.complex128
+    res = stt.embed_array(cover_d, secret, password="pw", params=p,
+                          salt=bytes(16))
+    assert res.stego.device.type == "cuda"
+    assert stt.extract_array(res.stego, password="pw", params=p) == secret
+    card = res.stego.cpu().numpy()
+    cpu = stt.embed_array(cover, secret, password="pw", params=p,
+                          salt=bytes(16), device="cpu").stego
+    assert np.abs(card.astype(np.int16) - cpu.astype(np.int16)).max() <= 1
+    assert stt.extract_array(card, password="pw", params=p,
+                             device="cpu") == secret

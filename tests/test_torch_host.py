@@ -2,15 +2,16 @@
 independence from the JAX package.
 
 steganosaurus_tpu_torch carries its own copies of config, crypto,
-keystream, _native_loader, ops/rs, io/image and the numpy metrics, at the
-paths that mirror the JAX package. Each copy is held against its twin on
-the same numpy-seeded inputs, with the native library and with the
-pure-Python paths (STEGANOSAURUS_NO_NATIVE=1): Params are equal field for
-field, keys, AEAD output, walks and RS codewords byte- or array-equal, the
-metrics equal to 1e-12. Then the port runs an embed -> extract round trip
-with steganosaurus_tpu and jax blocked from import, and no module of the
-port, nor chip_smoke.py or tools/profile_torch_path.py, names the JAX
-package in an import.
+keystream, _native_loader, ops/rs, io/image, utils/debug and the numpy
+metrics, at the paths that mirror the JAX package. Each copy is held against
+its twin on the same numpy-seeded inputs, with the native library and with
+the pure-Python paths (STEGANOSAURUS_NO_NATIVE=1): Params are equal field
+for field, keys (the cover-hash path key too), AEAD output, walks (the
+coherent walks too) and RS codewords byte- or array-equal, PNG bytes and
+debug dumps equal, the metrics equal to 1e-12. Then the port runs batch and
+single-image round trips with steganosaurus_tpu and jax blocked from
+import, and no module of the port, nor chip_smoke.py or
+tools/profile_torch_path.py, names the JAX package in an import.
 """
 
 import ast
@@ -28,6 +29,7 @@ from steganosaurus_tpu import crypto as jcrypto
 from steganosaurus_tpu import keystream as jkeystream
 from steganosaurus_tpu.io import image as jimage
 from steganosaurus_tpu.ops import rs as jrs
+from steganosaurus_tpu.utils import debug as jdebug
 from steganosaurus_tpu.utils import metrics as jmetrics
 from steganosaurus_tpu_torch import _build
 from steganosaurus_tpu_torch import config as tconfig
@@ -35,6 +37,7 @@ from steganosaurus_tpu_torch import crypto as tcrypto
 from steganosaurus_tpu_torch import keystream as tkeystream
 from steganosaurus_tpu_torch.io import image as timage
 from steganosaurus_tpu_torch.ops import rs as trs
+from steganosaurus_tpu_torch.utils import debug as tdebug
 from steganosaurus_tpu_torch.utils import metrics as tmetrics
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
@@ -77,9 +80,14 @@ def test_params_equal(preset):
 def test_derived_keys_byte_equal(backend):
     rng = np.random.default_rng(1)
     mk, salt = _bytes(rng, 32), _bytes(rng, 16)
+    for args in (("pw", None), (None, mk), ("pw", None, salt * 2),
+                 (None, mk, bytes(32))):
+        assert tcrypto.derive_path_key(*args) == jcrypto.derive_path_key(
+            *args)
     for args in (("pw", None), (None, mk)):
         pk = tcrypto.derive_path_key(*args)
         assert pk == jcrypto.derive_path_key(*args)
+        assert tcrypto.derive_path_key(*args, None) == pk
     assert tcrypto.derive_turtle_keys(pk) == jcrypto.derive_turtle_keys(pk)
     for name in ("derive_alpha_spread_key", "derive_qim_key"):
         assert getattr(tcrypto, name)(pk) == getattr(jcrypto, name)(pk)
@@ -177,6 +185,34 @@ def test_chained_walks_array_equal(backend):
             np.testing.assert_array_equal(a, b)
 
 
+def test_coherent_walks_array_equal(backend):
+    """The coherent header prefix (sites consumed whole) and a coherent
+    payload walk chained from it, native and pure, equal JAX's; the
+    coherent prefix differs from the standard one."""
+    wk, pks = _walk_keys(8)
+    h, w = 128, 160  # room for 912 whole sites and a chained payload
+    args = (wk, pks, h, w, 0.05, 0.45, 0.7, 0.1, 912)
+    hdr_t = tkeystream.header_walk_with_visited(*args, coherent=True)
+    hdr_j = jkeystream.header_walk_with_visited(*args, coherent=True)
+    for a, b in zip(hdr_t, hdr_j):
+        np.testing.assert_array_equal(a, b)
+    std = tkeystream.header_walk_with_visited(*args)
+    assert not np.array_equal(std[4], hdr_t[4])
+    sites = set(zip(hdr_t[1].tolist(), hdr_t[2].tolist()))
+    assert len(sites) == 912  # one bit per whole (y, x) site
+    swk, spk = _walk_keys(9)
+    for short in (False, True):
+        t = tkeystream.turtle_expand_chained(swk, spk, h, w, 0.05, 0.45,
+                                             0.7, 0.1, 400, hdr_t[4],
+                                             allow_short=short, coherent=True)
+        j = jkeystream.turtle_expand_chained(swk, spk, h, w, 0.05, 0.45,
+                                             0.7, 0.1, 400, hdr_j[4],
+                                             allow_short=short, coherent=True)
+        assert len(t) == len(j) == (5 if short else 4)
+        for a, b in zip(t, j):
+            np.testing.assert_array_equal(a, b)
+
+
 def test_signed_unit_offsets_equal():
     key = bytes(range(32))
     for n in (1, 17, 5000):
@@ -237,6 +273,38 @@ def test_load_rgb_equal(tmp_path):
     np.testing.assert_array_equal(timage.load_rgb(str(fast)), img)
 
 
+def test_encode_and_save_png_byte_equal(tmp_path):
+    rng = np.random.default_rng(11)
+    for shape in ((37, 53, 3), (1, 1, 3), (64, 128, 3)):
+        img = rng.integers(0, 256, shape, dtype=np.uint8)
+        data = timage.encode_png(img)
+        assert data == jimage.encode_png(img)
+        path = tmp_path / f"{shape[0]}.png"
+        timage.save_png(str(path), img)
+        assert path.read_bytes() == data
+        np.testing.assert_array_equal(jimage.load_rgb(str(path)), img)
+    with pytest.raises(ValueError):
+        timage.encode_png(np.zeros((4, 4), np.uint8))
+
+
+def test_debug_dumps_equal(monkeypatch, capsys):
+    walk = (np.arange(12) % 3, np.arange(12) + 5, np.arange(12) * 2)
+    for env in ("", "0", "1"):
+        monkeypatch.setenv("STEGANOSAURUS_DEBUG", env)
+        outs = []
+        for mod in (tdebug, jdebug):
+            assert mod.enabled() == (env == "1")
+            mod.dump_dims("embed", 4, 5, 4, 5)
+            mod.dump_key_prefix("key", bytes(range(16)))
+            mod.dump_walk("embed", *walk)
+            mod.dump_header("hdr", b"FTTG\x02")
+            mod.log("done")
+            outs.append(capsys.readouterr().err)
+        assert outs[0] == outs[1]
+        assert (outs[0].count("[DEBUG]") == 14) == (env == "1")
+    assert tdebug.N_BITS_TO_DUMP == jdebug.N_BITS_TO_DUMP
+
+
 def test_metrics_equal():
     rng = np.random.default_rng(10)
     a = rng.integers(0, 256, (2, 67, 45, 3), dtype=np.uint8)
@@ -255,8 +323,9 @@ def test_metrics_equal():
 # --- independence ------------------------------------------------------------
 
 def test_round_trip_with_jax_package_blocked():
-    """A 128x128 B=2 embed -> extract on the CPU in a fresh interpreter
-    where importing steganosaurus_tpu or jax raises."""
+    """A 128x128 B=2 embed -> extract, then single-image round trips at
+    256x256 (default, coherent, the f64 backend), on the CPU in a fresh
+    interpreter where importing steganosaurus_tpu or jax raises."""
     code = """
 import sys
 sys.modules["steganosaurus_tpu"] = None
@@ -274,25 +343,39 @@ p = stt.Params(pbkdf2_iter=500)
 res = stt.embed_batch(imgs, secrets, password="pw", params=p, device="cpu")
 got = stt.extract_batch(res.stego, password="pw", params=p, device="cpu")
 assert got == secrets, got
+img = rng.integers(90, 170, (256, 256, 3), dtype=np.uint8)
+for q in (p, p.replace(coherent=True), p.replace(fft_dtype="complex128")):
+    one = stt.embed_array(img, b"single", password="pw", params=q,
+                          device="cpu")
+    assert stt.extract_array(one.stego, password="pw", params=q,
+                             device="cpu") == b"single"
+    got.append(b"single")
 print("recovered", len(got))
 """
     env = dict(os.environ, PYTHONPATH=str(REPO))
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr[-2000:]
-    assert out.stdout.split() == ["recovered", "2"], out.stdout
+    assert out.stdout.split() == ["recovered", "5"], out.stdout
 
 
 def _port_sources():
     files = sorted((REPO / "steganosaurus_tpu_torch").rglob("*.py"))
     return files + [REPO / "chip_smoke.py",
-                    REPO / "tools" / "profile_torch_path.py"]
+                    REPO / "tools" / "profile_torch_path.py",
+                    REPO / "tools" / "time_wrong_key_batch.py"]
 
 
 def test_no_port_module_imports_the_jax_package():
     bad = []
     files = _port_sources()
     assert len(files) > 20
+    names = {str(f.relative_to(REPO)) for f in files}
+    for mod in ("ops/phase.py", "ops/stats.py", "ops/mask.py",
+                "pipeline/device.py", "pipeline/embed.py",
+                "pipeline/extract.py", "pipeline/frame.py",
+                "utils/covers.py", "utils/debug.py"):
+        assert f"steganosaurus_tpu_torch/{mod}" in names
     for path in files:
         for node in ast.walk(ast.parse(path.read_text(), str(path))):
             if isinstance(node, ast.Import):

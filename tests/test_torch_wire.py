@@ -19,8 +19,8 @@ composition in Params.stealth() (per-image walks: tests/test_torch_piw.py).
   ~4% of that plane's bytes differ by 1 (measured: one such plane of 12
   at this size). Such planes are counted and bounded.
 - Extraction reads each image's mode from its header: a batch mixing
-  every mode reads back in one call, and a JAX coherent stego (a mode the
-  port cannot read yet) reads as None without disturbing its neighbours.
+  every mode reads back in one call, a JAX coherent stego among them too
+  (through the port's single-image extract_array).
 - channel_report (RS, QIM) agrees with JAX's, and the soft retry pass
   recovers RS images through its per-coded-byte confidences.
 """
@@ -369,9 +369,9 @@ def test_mixed_mode_batch_in_one_call():
 def test_coherent_stego_reads_as_none():
     """A JAX coherent stego (single-image embed_array: the mode's header
     rides the coherent write, and FLAG_COHERENT marks it) among two
-    shared-walk stegos: the JAX package reads all three (its batch extract
-    hands the row to extract_array); the port reads the coherent row as
-    None — it has no single-image path yet — and the others as before."""
+    shared-walk stegos: both packages read all three — their batch
+    extracts hand the row, whose header fails both batch parses, to their
+    single-image extract_array — so no row reads as None any more."""
     from steganosaurus_tpu.pipeline.embed import embed_array
 
     covers = _covers(n=3, h=256, w=256, seed=13)
@@ -387,7 +387,7 @@ def test_coherent_stego_reads_as_none():
     stack = np.stack([plain, coh, qim])
     assert jbatch.extract_batch(stack, master_key=MK, params=jp(p)) == secrets
     assert stt.extract_batch(stack, master_key=MK, params=p,
-                             device="cpu") == [secrets[0], None, secrets[2]]
+                             device="cpu") == secrets
 
 
 @pytest.mark.parametrize("mode", ["rs", "qim"])

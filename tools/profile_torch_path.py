@@ -1,6 +1,6 @@
 """Where the time goes in the torch port's main path, on one CUDA card.
 
-    python3 tools/profile_torch_path.py [--stream] [TRACE_DIR]
+    python3 tools/profile_torch_path.py [--stream | --single] [TRACE_DIR]
 
 Runs one warm embed_batch -> extract_batch round trip of chip_smoke.py's 4K
 workload (2160x3840, B=64, 16 KB; seed-42 bench covers, rng(7) secrets,
@@ -16,6 +16,13 @@ rest: bit lookup, u8 epilogue, walk gather, ECC decode).
 the same workload against the serialized loop of two round trips, and
 prints wall ms, device busy ms and idle share of each: the overlap of host
 and device work that the stream buys shows as a lower idle share.
+
+--single profiles one warm embed_array -> extract_array of the first of
+those covers with one 16 KB secret under default Params (chip_smoke.py's
+phase 7a at the salt that reads back: the full-grid single-image path), with
+the stages fft, median, capacity, features, write, ifft, u8 (the rounding
+epilogue) and read as profiler ranges, and the host seconds of the turtle
+walk beside them.
 
 The Chrome traces go to TRACE_DIR/profile_torch_path_<window>.json (default
 build/profile/, gitignored).
@@ -70,6 +77,85 @@ def _profile(name: str, fn, out: pathlib.Path, spans: set):
     return wall, busy, kernels, span_ms
 
 
+def _host_timed(fn, times: list):
+    """fn, appending each call's host seconds to `times`."""
+    @functools.wraps(fn)
+    def wrapped(*args, **kwargs):
+        t = time.perf_counter()
+        try:
+            return fn(*args, **kwargs)
+        finally:
+            times.append(time.perf_counter() - t)
+
+    return wrapped
+
+
+def _print_stages(busy: float, kernels, spans: dict) -> None:
+    for key, ms in spans.items():
+        print(f"  stage {key:8s} {ms:10.3f} ms")
+    print(f"  stage {'other':8s} {busy - sum(spans.values()):10.3f} ms")
+    for e in sorted(kernels, key=lambda e: e.self_device_time_total,
+                    reverse=True)[:10]:
+        print(f"  kernel {e.self_device_time_total / 1e3:10.3f} ms "
+              f"x{e.count:<3d} {e.key[:80]}")
+
+
+def single_image(out: pathlib.Path) -> int:
+    """--single: the 4K single-image round trip, stage by stage."""
+    import torch
+
+    import chip_smoke
+    import steganosaurus_tpu_torch as stt
+    from steganosaurus_tpu_torch import keystream, spectral
+    from steganosaurus_tpu_torch.ops import mask, phase
+
+    stages = [("fft", spectral, "fft2"), ("median", spectral, "median_abs"),
+              ("capacity", mask, "capacity_bits"),
+              ("features", spectral, "cover_hash_features"),
+              ("write", phase, "embed_phases"),
+              ("ifft", spectral, "ifft2_real"),
+              ("u8", spectral, "from_planes"),
+              ("read", phase, "read_phases")]
+    for name, mod, attr in stages:
+        setattr(mod, attr, _span(name, getattr(mod, attr)))
+    walk_s: list = []
+    for attr in ("turtle_expand", "header_walk_with_visited",
+                 "turtle_expand_chained"):
+        setattr(keystream, attr, _host_timed(getattr(keystream, attr),
+                                             walk_s))
+    dev = torch.device("cuda", 0)
+    cover = torch.from_numpy(chip_smoke.make_covers(
+        chip_smoke.UHD_BASE, chip_smoke.UHD_H, chip_smoke.UHD_W)[0]).to(dev)
+    secret = chip_smoke.secrets_for(1, chip_smoke.UHD_SECRET)[0]
+    mk = chip_smoke.SINGLE_KEY
+
+    salt = bytes([next(i for i, ok in chip_smoke.SINGLE_SALT_READS.items()
+                       if ok)]) * 16
+
+    def embed():
+        return stt.embed_array(cover, secret, master_key=mk,
+                               salt=salt).stego
+
+    def extract(stego):
+        assert stt.extract_array(stego, master_key=mk) == secret, \
+            "payload recovery failed"
+
+    extract(embed())                 # warm: walk expansion, cuFFT plans
+    torch.cuda.synchronize()
+    chip_smoke.phase_probe()
+    stego = embed()
+    torch.cuda.synchronize()
+    names = {s[0] for s in stages}
+    for name, fn in (("single_embed", embed),
+                     ("single_extract", lambda: extract(stego))):
+        walk_s.clear()
+        _, busy, kernels, spans = _profile(name, fn, out, names)
+        print(f"  host walk {sum(walk_s) * 1e3:10.3f} ms over "
+              f"{len(walk_s)} calls (cached after the warm-up)")
+        _print_stages(busy, kernels, spans)
+    return 0
+
+
 def main() -> int:
     import torch
 
@@ -77,6 +163,18 @@ def main() -> int:
         print("profile_torch_path: needs a CUDA card", file=sys.stderr)
         return 2
     sys.path.insert(0, str(REPO))
+    args = sys.argv[1:]
+    stream_mode = "--stream" in args
+    single_mode = "--single" in args
+    args = [a for a in args if a not in ("--stream", "--single")]
+    out = pathlib.Path(args[0]) if args else REPO / "build" / "profile"
+    out.mkdir(parents=True, exist_ok=True)
+    if single_mode:
+        from steganosaurus_tpu_torch import _build, runtime
+
+        runtime.configure_precision()
+        _build.ensure_native()
+        return single_image(out)
     import chip_smoke
     import steganosaurus_tpu_torch as stt
     from steganosaurus_tpu_torch import _build, runtime
@@ -114,11 +212,6 @@ def main() -> int:
     extract(embed())                 # warm: walk expansion, tables, library
     torch.cuda.synchronize()
     chip_smoke.phase_probe()
-    args = sys.argv[1:]
-    stream_mode = "--stream" in args
-    args = [a for a in args if a != "--stream"]
-    out = pathlib.Path(args[0]) if args else REPO / "build" / "profile"
-    out.mkdir(parents=True, exist_ok=True)
     names = {s[0] for s in stages}
     if stream_mode:
         def loop():
@@ -144,13 +237,7 @@ def main() -> int:
     torch.cuda.synchronize()
     for name, fn in (("embed", embed), ("extract", lambda: extract(stego))):
         _, busy, kernels, spans = _profile(name, fn, out, names)
-        for key, ms in spans.items():
-            print(f"  stage {key:8s} {ms:10.3f} ms")
-        print(f"  stage {'other':8s} {busy - sum(spans.values()):10.3f} ms")
-        for e in sorted(kernels, key=lambda e: e.self_device_time_total,
-                        reverse=True)[:10]:
-            print(f"  kernel {e.self_device_time_total / 1e3:10.3f} ms "
-                  f"x{e.count:<3d} {e.key[:80]}")
+        _print_stages(busy, kernels, spans)
     return 0
 
 
