@@ -20,23 +20,30 @@ without the package beside this file, it exits non-zero at once.
 Phases:
   1. probe   card name, power limit, CUDA and nvcc versions
   2. build   host native library + csrc/*.cu kernel library, timed
-  3. K1      both stage-1 kernels vs their plain version, max|kernel -
-             plain| <= 1e-5 * max|plain|: corner_stage1_wgmma (wgmma + TMA,
-             W % 16 == 0) at the main path's shape, at 1080p B=8, at the
-             512x512 B=8 grid of phase 4 and at edge shapes; corner_stage1
-             (mma.sync, any W) at the 1079x1917 B=4 grid of 4b, at W = 203
-             and, for the comparison, at the main path's shape. cuobjdump
-             shows HGMMA and UTMALDG in the wgmma library; both kernels and
-             the library call torch.mm(x_bf16, T.T, out_dtype=f32), with and
-             without the u8 -> bf16 cast, timed in turns at the main shape
-             beside the bound; the wgmma kernel must be the faster kernel;
-             corner_stage1, its plain version and the library call timed
-             again at the 4b grid, the only path that launches it
+  3. K1      both routes of the stage-1 kernel (csrc/corner_stage1_wgmma.cu)
+             vs their plain version, max|kernel - plain| <= 1e-5 *
+             max|plain|: the TMA route (W % 16 == 0, aligned base) at the
+             main path's shape, at 1080p B=8, at the 512x512 B=8 grid of
+             phase 4 and at edge shapes; the load route (any other W or
+             base) at the 4K batch cropped to 3839 columns, forced at the
+             main path's shape, at the 1079x1917 B=4 grid of 4b, at a phone
+             screenshot (1170x2532 B=8), at odd-width edge shapes and at
+             views whose base is not 16-byte aligned. cuobjdump shows HGMMA
+             and UTMALDG in both instantiations; both routes and the
+             library call torch.mm(x_bf16, T.T, out_dtype=f32), with and
+             without the u8 -> bf16 cast, timed in turns at 4K (3840 and
+             3839 columns) beside the bound; the load route, its plain
+             version and the library call again at the 4b grid. The load
+             route must beat the library call at 3839 and at the 4b grid
   4. path    512x512, B=8, 100 B round trip (also held against the port on
              the CPU), then 2160x3840, B=64, 16 KB: all secrets recovered,
-             K1 launched, warm timings, PSNR, peak memory
+             K1 launched on the TMA route alone, warm timings, PSNR, peak
+             memory
   4b. ragged 1079x1917, B=4, 1 KB round trip: W % 16 != 0, so stage 1
-             goes through corner_stage1 there
+             goes through the load route alone
+  4c. odd 4K phase 4's covers cropped to 2160x3839, B=64, 16 KB: 64/64
+             through the load route alone, warm embed and extract ms beside
+             phase 4's, PSNR, peak memory
   5a. stream embed_stream -> extract_stream of the 4K batch, depth 2,
              fixed salts: 64/64 every batch, images/s beside the serialized
              loop's, peak memory with two batches in flight; first one
@@ -94,14 +101,15 @@ Phases:
   7e. wrong key  extract_batch of the 4K B=64 stegos under another key:
              every row fails both header parses and goes through
              extract_array, all None; cold and warm ms
-Every path of phases 4-5 and 7d-7e must launch its K1 kernel
-(corner_stage1_wgmma, or corner_stage1 in 4b); the single-image paths and
-the full-grid batch cores (7a-7c) run torch.fft and must launch none. The
-launches are counted per path and per kernel, and each (planes, H, W, Kx,
-center) the paths hand the stage-1 wrapper is recorded.
+Every path of phases 4-5 and 7d-7e must launch K1 (on the TMA route,
+corner_stage1_wgmma, or in 4b and 4c on the load route,
+corner_stage1_wgmma_ldg); the single-image paths and the full-grid batch
+cores (7a-7c) run torch.fft and must launch none. The launches are counted
+per path and per route, and each (planes, H, W, Kx, center, route) the
+paths hand the stage-1 wrapper is recorded.
   6. K1 shapes  every recorded shape that phase 3 did not check is held
              against the plain version, through the wrapper, on seeded u8
-             images
+             images on the same route
 """
 
 from __future__ import annotations
@@ -268,13 +276,18 @@ def phase_build() -> None:
 # dense): bf16 tensor cores and HBM3.
 PEAK_BF16_FLOPS = 989e12
 PEAK_HBM_BYTES = 3.35e12
-# Edge shapes of the wgmma kernel: rows P*H not a multiple of its 128-row
+# Edge shapes of the stage-1 kernel: rows P*H not a multiple of its 128-row
 # tile, Kx not a multiple of its 256-column tile, W a multiple of 16 but not
-# of its 64-wide K block, P = 1, centering on and off. (2, 3, 67, 203) has
-# W % 16 != 0 and goes to the mma.sync kernel.
+# of its 64-wide K block (the TMA route), P = 1, centering on and off; then
+# widths that are not a multiple of 16 (the load route): W % 64 < 16,
+# W < 16, W < 4 with P*H < 16, and the 4b grid's width at a small P*H.
 K1_EDGES = [((1, 1, 67, 528), 45, True), ((2, 3, 67, 528), 1000, False),
             ((1, 3, 100, 256), 45, False), ((2, 3, 67, 512), 1000, True),
-            ((1, 3, 37, 64), 64, True), ((2, 3, 67, 203), 45, True)]
+            ((1, 3, 37, 64), 64, True), ((2, 3, 67, 203), 45, True),
+            ((2, 3, 100, 250), 130, False), ((1, 3, 37, 17), 17, True),
+            ((1, 1, 5, 3), 3, False), ((1, 3, 301, 1917), 512, True)]
+# A phone screenshot (landscape iPhone 12-14: 2532 x 1170), B=8
+PHONE_GRID = (8, 1170, 2532)
 
 
 def _k1_err(out, ref):
@@ -295,18 +308,18 @@ def _k1_check(what: str, out, ref) -> float:
     return err
 
 
-def mma_stage1(x, exr16, exi16, center: bool):
-    """The mma.sync kernel (csrc/corner_stage1.cu) at any W, bypassing the
-    wrapper's routing by width: for holding it against the plain version
-    and timing it beside the wgmma kernel at the main path's shape, which
-    no path gives it (the wrapper sends W % 16 == 0 to the wgmma kernel)."""
+def k1_on_route(x, tables, Kx: int, center: bool, route: str):
+    """The stage-1 kernel on `route`, through the wrapper's private
+    launcher: the load route at a shape the wrapper sends to the TMA route,
+    to time what loading A costs apart from the width."""
     import torch
 
     from steganosaurus_tpu_torch.spectral import corner_kernels as ck
 
-    out = [torch.empty((*x.shape[:-1], exr16.shape[0]), dtype=torch.float32,
+    out = [torch.empty((*x.shape[:-1], Kx), dtype=torch.float32,
                        device=x.device) for _ in range(2)]
-    ck._launch_mma(x, exr16, exi16, *out, center)
+    ck._launch(x, tables[1] if center else tables[0], *out, Kx, center,
+               route)
     return out
 
 
@@ -325,9 +338,12 @@ def k1_bound(P: int, H: int, W: int, Kx: int) -> tuple[float, str]:
 
 
 def _k1_key(x, Kx: int, center: bool) -> tuple:
-    """(planes, H, W, Kx, center) of one stage-1 call on images x."""
+    """(planes, H, W, Kx, center, route) of one stage-1 call on images x."""
+    from steganosaurus_tpu_torch.spectral import corner_kernels as ck
+
     H, W = x.shape[-2:]
-    return (x.numel() // (H * W), H, W, Kx, bool(center))
+    return (x.numel() // (H * W), H, W, Kx, bool(center),
+            ck.route_for(W, x.data_ptr()))
 
 
 def _grid_nchw(dev, B: int, h: int, w: int):
@@ -338,15 +354,42 @@ def _grid_nchw(dev, B: int, h: int, w: int):
             .permute(0, 3, 1, 2).contiguous())
 
 
-def phase_k1(covers_d) -> tuple[list[dict], set]:
-    """Both K1 kernels against their plain version: the wgmma kernel at the
-    main path's shape (the whole 4K batch, P = 192 planes), at 1080p B=8,
-    at phase 4's 512x512 B=8 grid and at the edge shapes; the mma.sync
-    kernel at 4b's 1079x1917 B=4 grid, at the ragged W = 203 and at the
-    main path's shape. Then both kernels and the library call timed in
-    turns at the main shape, the mma.sync kernel, its plain version and
-    the library call at the 4b grid, and the wgmma library's SASS. Returns
-    the kernels' records and the _k1_key of every shape checked here."""
+def _offset_u8(rng, shape, dev, offset: int):
+    """Seeded u8 images of `shape` on the card, `offset` bytes into their
+    storage, the last row ending at the storage's last byte: a view whose
+    base is not 16-byte aligned (for offset % 16 != 0)."""
+    import numpy as np
+    import torch
+
+    n = int(np.prod(shape))
+    buf = torch.from_numpy(rng.integers(0, 256, offset + n,
+                                        dtype=np.uint8)).to(dev)
+    return buf[offset:].view(shape)
+
+
+def _turns(runs: dict, rounds: int = 2) -> dict:
+    """{name: [ms per round]} of each (fn, n) in runs, by CUDA events, the
+    runs taken in turns, `rounds` times."""
+    times: dict = {k: [] for k in runs}
+    for _ in range(rounds):
+        for k, (fn, n) in runs.items():
+            times[k].append(cuda_ms(fn, n))
+    return times
+
+
+def phase_k1(covers_d):
+    """Both routes of the stage-1 kernel against their plain version: the
+    TMA route at the main path's shape (the whole 4K batch, P = 192 planes),
+    at 1080p B=8, at phase 4's 512x512 B=8 grid and at the edge shapes; the
+    load route at the 4K batch cropped to 3839 columns (phase 4c's covers),
+    forced at the main path's shape, at 4b's 1079x1917 B=4 grid, at the
+    odd-width edge shapes, at a phone screenshot (1170x2532 B=8) and at
+    views whose base is not 16-byte aligned. cuobjdump shows HGMMA in both
+    instantiations. Timed in turns at 4K: the TMA route at 3840, the load
+    route at 3839 and forced at 3840, and torch.mm at both widths with and
+    without the u8 -> bf16 cast; at the 4b grid the load route, its plain
+    version and torch.mm. Returns the routes' records, the _k1_key of every
+    shape checked here, and the 3839-column covers."""
     import numpy as np
     import torch
 
@@ -354,140 +397,156 @@ def phase_k1(covers_d) -> tuple[list[dict], set]:
     from steganosaurus_tpu_torch.spectral import corner
     from steganosaurus_tpu_torch.spectral import corner_kernels as ck
 
+    TMA, LDG = ck.KERNEL_TMA, ck.KERNEL_LDG
     dev = covers_d.device
     B, _, H, W = covers_d.shape
     Ky, Kx = corner.corner_dims(H, W, 0.45)
     tabs = corner.dft_tables_device(H, Ky, W, Kx, dev)
     main = (covers_d, tabs.exr16, tabs.exi16, False)
+    odd_d = covers_d[..., :W - 1].contiguous()
+    oky, okx = corner.corner_dims(H, W - 1, 0.45)
+    otabs = corner.dft_tables_device(H, oky, W - 1, okx, dev)
+    odd = (odd_d, otabs.exr16, otabs.exi16, False)
 
     def new(x, er, ei, c, tables=None):
         return ck.fwd_stage1(x, er, ei, c, tables)
 
-    if ck.kernel_for(W) != ck.KERNEL_WGMMA:
-        raise AssertionError(f"W={W} does not route to {ck.KERNEL_WGMMA}")
-    plain = ck.fwd_stage1_plain(*main)
-    err_new = _k1_check(f"{ck.KERNEL_WGMMA} {tuple(covers_d.shape)} Kx={Kx}",
-                        new(*main, tabs.stage1), plain)
-    _k1_check(f"{ck.KERNEL} (bypassing the wrapper) "
-              f"{tuple(covers_d.shape)} Kx={Kx}", mma_stage1(*main), plain)
-    del plain
+    def check(what, args, tables=None, route=None):
+        """args through the wrapper, which must take `route` there."""
+        x = args[0]
+        got = ck.route_for(x.shape[-1], x.data_ptr())
+        if route is not None and got != route:
+            raise AssertionError(f"{what} {tuple(x.shape)} routes to {got}")
+        err = _k1_check(f"{got} {what} {tuple(x.shape)} "
+                        f"Kx={args[1].shape[0]} center={args[3]}",
+                        new(*args, tables), ck.fwd_stage1_plain(*args))
+        checked.add(_k1_key(x, args[1].shape[0], args[3]))
+        return err
+
+    checked: set = set()
+    err_tma = check("main path", main, tabs.stage1, TMA)
+    _k1_check(f"{LDG} forced {tuple(covers_d.shape)} Kx={Kx}",
+              k1_on_route(covers_d, tabs.stage1, Kx, False, LDG),
+              ck.fwd_stage1_plain(*main))
+    err_ldg = check("4K cropped to 3839 (4c)", odd, otabs.stage1, LDG)
     torch.cuda.empty_cache()
-    checked = {_k1_key(covers_d, Kx, False)}
 
     # the other grids the paths give K1, at their own B, Kx and centering
-    # (off by default), through the wrapper: phase 4's 512x512 B=8 (the
-    # wgmma kernel) and 4b's 1079x1917 B=4 (the only path through
-    # corner_stage1)
-    if ck.kernel_for(RAGGED_GRID[2]) != ck.KERNEL:
-        raise AssertionError(f"W={RAGGED_GRID[2]} does not route to "
-                             f"{ck.KERNEL}")
+    # (off by default), through the wrapper: phase 4's 512x512 B=8 (the TMA
+    # route), 4b's 1079x1917 B=4 and a phone screenshot (the load route)
     grids = {}
-    for b, h, w in ((SMALL_B, SMALL_H, SMALL_W), RAGGED_GRID):
+    for (b, h, w), route in (((SMALL_B, SMALL_H, SMALL_W), TMA),
+                             (RAGGED_GRID, LDG), (PHONE_GRID, LDG)):
         x = _grid_nchw(dev, b, h, w)
         gky, gkx = corner.corner_dims(h, w, 0.45)
         gt = corner.dft_tables_device(h, gky, w, gkx, dev)
-        args = (x, gt.exr16, gt.exi16, False)
-        err = _k1_check(f"{ck.kernel_for(w)} {tuple(x.shape)} Kx={gkx} "
-                        f"(path grid)", new(*args, gt.stage1),
-                        ck.fwd_stage1_plain(*args))
-        grids[w] = (x, gt, gkx, err)
-        checked.add(_k1_key(x, gkx, False))
+        check("path grid", (x, gt.exr16, gt.exi16, False), gt.stage1, route)
+        grids[w] = (x, gt, gkx)
 
     rng = np.random.default_rng(5)
-    fh, fw = FHD_H, FHD_W
-    x = torch.from_numpy(rng.integers(0, 256, (FHD_B, 3, fh, fw),
+    fky, fkx = corner.corner_dims(FHD_H, FHD_W, 0.45)
+    ft = corner.dft_tables_device(FHD_H, fky, FHD_W, fkx, dev)
+    x = torch.from_numpy(rng.integers(0, 256, (FHD_B, 3, FHD_H, FHD_W),
                                       dtype=np.uint8)).to(dev)
-    fky, fkx = corner.corner_dims(fh, fw, 0.45)
-    ft = corner.dft_tables_device(fh, fky, fw, fkx, dev)
-    _k1_check(f"{ck.KERNEL_WGMMA} {tuple(x.shape)} Kx={fkx}",
-              new(x, ft.exr16, ft.exi16, False, ft.stage1),
-              ck.fwd_stage1_plain(x, ft.exr16, ft.exi16, False))
-    checked.add(_k1_key(x, fkx, False))
+    check("1080p", (x, ft.exr16, ft.exi16, False), ft.stage1, TMA)
     for shape, kx, center in K1_EDGES:
         x = torch.from_numpy(rng.integers(0, 256, shape,
                                           dtype=np.uint8)).to(dev)
         er, ei = (torch.from_numpy(t).to(dev).to(torch.bfloat16)
                   for t in corner._dft_tables(shape[-1], kx))
-        _k1_check(f"{ck.kernel_for(shape[-1])} {shape} Kx={kx} "
-                  f"center={center}", new(x, er, ei, center),
-                  ck.fwd_stage1_plain(x, er, ei, center))
-        checked.add(_k1_key(x, kx, center))
+        check("edge", (x, er, ei, center),
+              route=TMA if shape[-1] % 16 == 0 else LDG)
+    # views whose base is not 16-byte aligned, each ending at the last byte
+    # of its storage: W % 16 == 0 there goes to the load route too
+    for shape, kx, offset in (((2, 3, 67, 512), 300, 1), ((3, 45, 203), 64, 3),
+                              ((3, 301, 1917), 512, 7)):
+        x = _offset_u8(rng, shape, dev, offset)
+        er, ei = (torch.from_numpy(t).to(dev).to(torch.bfloat16)
+                  for t in corner._dft_tables(shape[-1], kx))
+        check(f"view at +{offset} B", (x, er, ei, True), route=LDG)
 
-    sass = _build.sass_counts(ck.KERNEL_WGMMA)
-    log(f"K1 {ck.KERNEL_WGMMA} SASS (cuobjdump -sass): {sass}")
-    if not all(n > 0 for n in sass.values()):
-        raise AssertionError(f"{ck.KERNEL_WGMMA} is not wgmma + TMA: {sass}")
+    for route, fn in ((TMA, "corner_stage1_tma_kernel"),
+                      (LDG, "corner_stage1_ldg_kernel")):
+        sass = _build.sass_counts(TMA, fn)
+        log(f"K1 {route} SASS ({fn}, cuobjdump -sass): {sass}")
+        if not (sass["HGMMA"] > 0 and sass["UTMALDG"] > 0):
+            raise AssertionError(f"{route} is not wgmma + TMA: {sass}")
 
-    # in turns, one process, CUDA events: wgmma kernel, mma.sync kernel,
-    # the library call with and without the u8 -> bf16 cast
+    # in turns, one process, CUDA events: both routes and the library call,
+    # torch.mm(x_bf16, T.T, out_dtype=f32), with and without the u8 -> bf16
+    # cast, at both widths
+    f32, bf16 = torch.float32, torch.bfloat16
     T = torch.cat([tabs.exr16, tabs.exi16])
-    rows = covers_d.reshape(-1, W)
-    rows16 = rows.to(torch.bfloat16)
-    f32 = torch.float32
-    runs = {
-        ck.KERNEL_WGMMA: (lambda: new(*main, tabs.stage1), 5),
-        ck.KERNEL: (lambda: mma_stage1(*main), 3),
-        "library": (lambda: torch.mm(rows.to(torch.bfloat16), T.T,
-                                     out_dtype=f32), 5),
+    oT = torch.cat([otabs.exr16, otabs.exi16])
+    rows, orows = covers_d.reshape(-1, W), odd_d.reshape(-1, W - 1)
+    rows16, orows16 = rows.to(bf16), orows.to(bf16)
+    times = _turns({
+        TMA: (lambda: new(*main, tabs.stage1), 5),
+        LDG: (lambda: new(*odd, otabs.stage1), 5),
+        f"{LDG} forced at {W}": (
+            lambda: k1_on_route(covers_d, tabs.stage1, Kx, False, LDG), 5),
+        "library": (lambda: torch.mm(rows.to(bf16), T.T, out_dtype=f32), 5),
         "library_no_cast": (lambda: torch.mm(rows16, T.T, out_dtype=f32), 5),
-    }
-    times: dict = {k: [] for k in runs}
-    for _ in range(2):
-        for k, (fn, n) in runs.items():
-            times[k].append(cuda_ms(fn, n))
-    del rows16
-    plain_ms = cuda_ms(lambda: ck.fwd_stage1_plain(*main), 2)
+        f"library at {W - 1}": (
+            lambda: torch.mm(orows.to(bf16), oT.T, out_dtype=f32), 2),
+        f"library_no_cast at {W - 1}": (
+            lambda: torch.mm(orows16, oT.T, out_dtype=f32), 2),
+    })
+    del rows16, orows16
+    torch.cuda.empty_cache()
+    plain = _turns({TMA: (lambda: ck.fwd_stage1_plain(*main), 2),
+                    LDG: (lambda: ck.fwd_stage1_plain(*odd), 2)}, rounds=1)
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     ms = {k: sum(v) / len(v) for k, v in times.items()}
-    bound, bound_by = k1_bound(B * 3, H, W, Kx)
-    flop = 2.0 * 2 * B * 3 * H * W * Kx
+    plain_ms = {k: v[0] for k, v in plain.items()}
+    bounds = {TMA: k1_bound(B * 3, H, W, Kx),
+              LDG: k1_bound(B * 3, H, W - 1, okx)}
     for k, v in times.items():
-        log(f"K1 time at {tuple(covers_d.shape)} Kx={Kx}, {k}: {v!r} ms, "
-            f"mean {ms[k]!r} ms ({flop / ms[k] / 1e9:.1f} TFLOP/s)")
-    log(f"K1 plain version {plain_ms!r} ms; bound {bound!r} ms "
-        f"({bound_by}); wgmma kernel at {bound / ms[ck.KERNEL_WGMMA]:.3f} "
-        f"of the bound")
-    if not ms[ck.KERNEL_WGMMA] < ms[ck.KERNEL]:
-        raise AssertionError(f"{ck.KERNEL_WGMMA} is not faster than "
-                             f"{ck.KERNEL}: {times}")
+        log(f"K1 time at 4K B={B} Kx={Kx}, {k}: {v!r} ms, mean {ms[k]!r} ms")
+    for k in (TMA, LDG):
+        log(f"K1 {k}: plain version {plain_ms[k]!r} ms; bound "
+            f"{bounds[k][0]!r} ms ({bounds[k][1]}), at "
+            f"{bounds[k][0] / ms[k]:.3f} of it")
 
-    # corner_stage1 where a path launches it: the 4b grid, in turns with
-    # its plain version and the library call
-    x, gt, gkx, err_old = grids[RAGGED_GRID[2]]
+    # the load route where a path launches it first: the 4b grid, in turns
+    # with its plain version and the library call
+    x, gt, gkx = grids[RAGGED_GRID[2]]
     args = (x, gt.exr16, gt.exi16, False)
-    rows = x.reshape(-1, x.shape[-1])
-    T = torch.cat([gt.exr16, gt.exi16])
-    runs = {
-        ck.KERNEL: lambda: new(*args, gt.stage1),
-        "plain": lambda: ck.fwd_stage1_plain(*args),
-        "library": lambda: torch.mm(rows.to(torch.bfloat16), T.T,
-                                    out_dtype=f32),
-    }
-    rtimes: dict = {k: [] for k in runs}
-    for _ in range(2):
-        for k, fn in runs.items():
-            rtimes[k].append(cuda_ms(fn, 20))
+    r4 = x.reshape(-1, x.shape[-1])
+    T4 = torch.cat([gt.exr16, gt.exi16])
+    rtimes = _turns({
+        LDG: (lambda: new(*args, gt.stage1), 20),
+        "plain": (lambda: ck.fwd_stage1_plain(*args), 20),
+        "library": (lambda: torch.mm(r4.to(bf16), T4.T, out_dtype=f32), 20),
+    })
     rms = {k: sum(v) / len(v) for k, v in rtimes.items()}
     rbound, rbound_by = k1_bound(x.shape[0] * 3, *x.shape[-2:], gkx)
     for k, v in rtimes.items():
         log(f"K1 time at the 4b grid {tuple(x.shape)} Kx={gkx}, {k}: {v!r} "
             f"ms, mean {rms[k]!r} ms")
-    log(f"K1 {ck.KERNEL} at the 4b grid: bound {rbound!r} ms ({rbound_by}),"
-        f" at {rbound / rms[ck.KERNEL]:.3f} of it")
+    log(f"K1 {LDG} at the 4b grid: bound {rbound!r} ms ({rbound_by}), at "
+        f"{rbound / rms[LDG]:.3f} of it")
+    if not ms[LDG] < ms[f"library at {W - 1}"]:
+        raise AssertionError(f"{LDG} is not faster than torch.mm at "
+                             f"{W - 1}: {times}")
+    if not rms[LDG] < rms["library"]:
+        raise AssertionError(f"{LDG} is not faster than torch.mm at the 4b "
+                             f"grid: {rtimes}")
+    source = "steganosaurus_tpu_torch/csrc/corner_stage1_wgmma.cu"
     replaces = "steganosaurus_tpu/spectral/corner_pallas.py:55"
-    return [
-        {"name": ck.KERNEL_WGMMA, "route": "cuda",
-         "source": "steganosaurus_tpu_torch/csrc/corner_stage1_wgmma.cu",
-         "replaces": replaces, "max_abs_err": err_new,
-         "ms": ms[ck.KERNEL_WGMMA], "plain_ms": plain_ms, "bound_ms": bound,
-         "bound_by": bound_by, "library_ms": ms["library"]},
-        {"name": ck.KERNEL, "route": "cuda",
-         "source": "steganosaurus_tpu_torch/csrc/corner_stage1.cu",
-         "replaces": replaces, "max_abs_err": err_old, "ms": rms[ck.KERNEL],
-         "plain_ms": rms["plain"], "bound_ms": rbound,
-         "bound_by": rbound_by, "library_ms": rms["library"]},
-    ], checked
+    records = [
+        {"name": TMA, "route": "cuda", "source": source,
+         "replaces": replaces, "max_abs_err": err_tma, "ms": ms[TMA],
+         "plain_ms": plain_ms[TMA], "bound_ms": bounds[TMA][0],
+         "bound_by": bounds[TMA][1], "library_ms": ms["library"]},
+        {"name": LDG, "route": "cuda", "source": source,
+         "replaces": replaces, "max_abs_err": err_ldg, "ms": ms[LDG],
+         "plain_ms": plain_ms[LDG], "bound_ms": bounds[LDG][0],
+         "bound_by": bounds[LDG][1],
+         "library_ms": ms[f"library at {W - 1}"]},
+    ]
+    return records, checked, odd_d
 
 
 def psnr_mean(stego, covers) -> float:
@@ -531,14 +590,18 @@ def phase_small(dev) -> None:
         raise AssertionError("card stego disagrees with the CPU reference")
 
 
-def phase_uhd(covers_d) -> dict:
-    """The main path at 4K UHD, B=64, 16 KB. Returns the kernels' launch
-    counts of the counted run."""
+def phase_uhd(covers_d, what: str = "4K", route: str = "") -> tuple:
+    """The main path at 4K UHD, B=64, 16 KB, on covers_d (phase 4; 4c: the
+    same covers cropped by one column). Every secret must come back, and
+    stage 1 must launch on `route` only (by default the TMA route). Returns
+    the kernels' launch counts of the counted (warm) round trip and its
+    (embed ms, extract ms)."""
     import torch
 
     import steganosaurus_tpu_torch as stt
     from steganosaurus_tpu_torch.spectral import corner_kernels as ck
 
+    route = route or ck.KERNEL_TMA
     B = covers_d.shape[0]
     secrets = secrets_for(B, UHD_SECRET)
     salts = [bytes([i]) * 16 for i in range(B)]
@@ -557,13 +620,13 @@ def phase_uhd(covers_d) -> dict:
         n_ok = sum(g == s for g, s in zip(got, secrets))
         if n_ok != B:
             bad = [i for i, (g, s) in enumerate(zip(got, secrets)) if g != s]
-            raise AssertionError(f"4K round trip recovered {n_ok}/{B}; "
+            raise AssertionError(f"{what} round trip recovered {n_ok}/{B}; "
                                  f"failed images {bad}")
         return res.stego, (t1 - t0) * 1e3, (t2 - t1) * 1e3
 
     _, e_ms, x_ms = round_trip()
-    log(f"4K first round trip (walk expansion, tables): embed {e_ms!r} ms, "
-        f"extract {x_ms!r} ms, recovered {B}/{B}")
+    log(f"{what} first round trip (walk expansion, tables): embed {e_ms!r} "
+        f"ms, extract {x_ms!r} ms, recovered {B}/{B}")
     torch.cuda.reset_peak_memory_stats()
     for k in ck.LAUNCHES:
         ck.LAUNCHES[k] = 0
@@ -576,30 +639,29 @@ def phase_uhd(covers_d) -> dict:
     if not math.isfinite(psnr):
         raise AssertionError(f"PSNR {psnr}")
     total = e_ms + x_ms
-    log(f"4K {UHD_H}x{UHD_W} B={B} {UHD_SECRET} B warm round trip: embed "
+    H, W = covers_d.shape[-2:]
+    log(f"{what} {H}x{W} B={B} {UHD_SECRET} B warm round trip: embed "
         f"{e_ms!r} ms, extract {x_ms!r} ms, total {total!r} ms, "
         f"{B / (total / 1e3)!r} img/s, recovered {B}/{B}, mean PSNR "
         f"{psnr!r} dB, peak memory {peak / 2**30!r} GiB")
     log(f"launches in the counted round trip: {launches}")
-    if launches[ck.KERNEL_WGMMA] <= 0:
-        raise AssertionError(f"{ck.KERNEL_WGMMA} was not launched on the "
-                             f"main path")
-    return launches
+    if launches[route] <= 0 or any(n for k, n in launches.items()
+                                   if k != route):
+        raise AssertionError(f"the {what} path did not launch {route} "
+                             f"alone: {launches}")
+    return launches, (e_ms, x_ms)
 
 
 def phase_ragged_grid(dev, launches: dict) -> None:
     """A round trip at a width that is not a multiple of 16 (a user PNG of
-    any size): stage 1 goes through the mma.sync kernel there, and the
-    batch must read back B/B."""
-    import numpy as np
+    any size): stage 1 goes through the load route only, and the batch must
+    read back B/B."""
     import torch
 
     import steganosaurus_tpu_torch as stt
     from steganosaurus_tpu_torch.spectral import corner_kernels as ck
 
     B, h, w = RAGGED_GRID
-    if ck.kernel_for(w) != ck.KERNEL:
-        raise AssertionError(f"W={w} does not route to {ck.KERNEL}")
     covers = torch.from_numpy(make_covers(B, h, w)).to(dev)
     secrets = secrets_for(B, 1024)
 
@@ -608,13 +670,15 @@ def phase_ragged_grid(dev, launches: dict) -> None:
                               device_resident=True)
         return stt.extract_batch(res.stego, master_key=MASTER_KEY)
 
-    got = count_launches(f"ragged grid {h}x{w}", launches, run,
-                         kernel=ck.KERNEL)
+    path = f"ragged grid {h}x{w}"
+    got = count_launches(path, launches, run, kernel=ck.KERNEL_LDG)
     n_ok = sum(g == s for g, s in zip(got, secrets))
     log(f"ragged grid {h}x{w} B={B} 1 KB: recovered {n_ok}/{B}, launches "
-        f"{launches[f'ragged grid {h}x{w}']}")
+        f"{launches[path]}")
     if n_ok != B:
         raise AssertionError(f"ragged grid recovered {n_ok}/{B}")
+    if launches[path][ck.KERNEL_TMA]:
+        raise AssertionError(f"the ragged grid launched {ck.KERNEL_TMA}")
 
 
 def timed(name: str, fn, *args):
@@ -630,14 +694,14 @@ def timed(name: str, fn, *args):
 
 def count_launches(path: str, launches: dict, fn, kernel: str = ""):
     """Run fn() with every kernel count set to 0, record the counts for
-    `path` and fail if `kernel` (the path's K1 kernel; by default the
-    wgmma one, which every grid width of the smoke but the ragged one
-    takes) was not launched. Returns fn()'s result."""
+    `path` and fail if `kernel` (the route of the path's K1 launches; by
+    default the TMA route, which every grid of the smoke but the ragged one
+    and 4c takes) was not launched. Returns fn()'s result."""
     import torch
 
     from steganosaurus_tpu_torch.spectral import corner_kernels as ck
 
-    kernel = kernel or ck.KERNEL_WGMMA
+    kernel = kernel or ck.KERNEL_TMA
     for k in ck.LAUNCHES:
         ck.LAUNCHES[k] = 0
     out = fn()
@@ -1829,9 +1893,9 @@ def phase_wrong_key(covers_d, launches: dict) -> None:
         raise AssertionError("7e: a wrong-key row read as a secret")
 
 
-def record_k1_shapes(seen: dict):
+def record_k1_shapes(seen: set):
     """Wrap the stage-1 wrapper so that the _k1_key of every call on the
-    card lands in `seen`, mapped to the kernel it launches; returns the
+    card, the route it launched included, lands in `seen`; returns the
     function that undoes it. The wrapped call is the wrapper itself, so
     launches are counted as before."""
     from steganosaurus_tpu_torch.spectral import corner_kernels as ck
@@ -1840,19 +1904,19 @@ def record_k1_shapes(seen: dict):
 
     def recorded(imgs_u8, exr_bf16, exi_bf16, center, tables=None):
         if imgs_u8.is_cuda:
-            seen[_k1_key(imgs_u8, exr_bf16.shape[0], center)] = (
-                ck.kernel_for(imgs_u8.shape[-1]))
+            seen.add(_k1_key(imgs_u8, exr_bf16.shape[0], center))
         return real(imgs_u8, exr_bf16, exi_bf16, center, tables)
 
     ck.fwd_stage1 = recorded
     return lambda: setattr(ck, "fwd_stage1", real)
 
 
-def phase_k1_shapes(dev, seen: dict, checked: set) -> None:
-    """6: each (planes, H, W, Kx, center) that the paths gave the stage-1
-    wrapper and phase 3 did not check, held against the plain version
-    through the wrapper on seeded u8 images, with the tables the path
-    builds for it."""
+def phase_k1_shapes(dev, seen: set, checked: set) -> None:
+    """6: each (planes, H, W, Kx, center, route) that the paths gave the
+    stage-1 wrapper and phase 3 did not check, held against the plain
+    version through the wrapper on seeded u8 images on the same route (the
+    load route at W % 16 == 0 on a view whose base is not 16-byte
+    aligned), with the tables the path builds for it."""
     import numpy as np
     import torch
 
@@ -1862,17 +1926,16 @@ def phase_k1_shapes(dev, seen: dict, checked: set) -> None:
     rng = np.random.default_rng(6)
     todo = sorted(k for k in seen if k not in checked)
     log(f"K1 shapes the paths gave the wrapper: {len(seen)}, of which "
-        f"{len(seen) - len(todo)} checked in phase 3: "
-        f"{sorted(seen.items())}")
+        f"{len(seen) - len(todo)} checked in phase 3: {sorted(seen)}")
     for key in todo:
-        P, H, W, Kx, center = key
-        if ck.kernel_for(W) != seen[key]:
-            raise AssertionError(f"{key} launched {seen[key]}")
-        x = torch.from_numpy(rng.integers(0, 256, (P, H, W),
-                                          dtype=np.uint8)).to(dev)
+        P, H, W, Kx, center, route = key
+        offset = 1 if route == ck.KERNEL_LDG and W % 16 == 0 else 0
+        x = _offset_u8(rng, (P, H, W), dev, offset)
+        if ck.route_for(W, x.data_ptr()) != route:
+            raise AssertionError(f"{key}: the check would not take {route}")
         er, ei = (torch.from_numpy(t).to(dev).to(torch.bfloat16)
                   for t in corner._dft_tables(W, Kx))
-        _k1_check(f"{seen[key]} path shape {key}",
+        _k1_check(f"{route} path shape {key}",
                   ck.fwd_stage1(x, er, ei, center),
                   ck.fwd_stage1_plain(x, er, ei, center))
         del x
@@ -1915,15 +1978,22 @@ def main() -> int:
             f"{tuple(covers_d.shape)} on the card in "
             f"{time.perf_counter() - t:.1f} s")
 
-        k1, checked = timed("K1", phase_k1, covers_d)
+        k1, checked, odd_d = timed("K1", phase_k1, covers_d)
         launches: dict = {}
-        seen: dict = {}
+        seen: set = set()
         undo = record_k1_shapes(seen)
         try:
             count_launches("small", launches, lambda: phase_small(dev))
-            launches["round trip"] = phase_uhd(covers_d)
+            launches["round trip"], ms4 = phase_uhd(covers_d)
             torch.cuda.synchronize()
             timed("ragged grid", phase_ragged_grid, dev, launches)
+            launches["4c round trip"], ms4c = timed(
+                "4K at 3839", phase_uhd, odd_d, "4c 4K cropped", ck.KERNEL_LDG)
+            log(f"4c against phase 4, warm ms: embed {ms4c[0]!r} vs "
+                f"{ms4[0]!r}, extract {ms4c[1]!r} vs {ms4[1]!r}, round trip "
+                f"{sum(ms4c)!r} vs {sum(ms4)!r} ({sum(ms4c) / sum(ms4):.3f}x)")
+            del odd_d
+            torch.cuda.empty_cache()
             stego = timed("stream", phase_stream, covers_d, launches)
             timed("rotating", phase_rotating, covers_d, launches)
             timed("quality", phase_quality, covers_d, stego, launches)

@@ -20,8 +20,9 @@ Layout follows the JAX package so each module's counterpart is easy to find:
 - ``spectral/``  the full-grid FFT in the reference sign (torch.fft),
                  medians, cover hash features; corner pruned-DFT math;
                  ``corner_kernels`` wraps the hand-written stage-1 DFT
-                 kernels (csrc/corner_stage1_wgmma.cu for W % 16 == 0,
-                 csrc/corner_stage1.cu otherwise).
+                 kernel (csrc/corner_stage1_wgmma.cu) for every width: A
+                 by TMA where W % 16 == 0 on an aligned base, else by the
+                 producer warpgroup's own loads.
 - ``ops/``       MSB-first bit/word packing and repetition ECC on tensors;
                  the full-spectrum phase write and read rules (phase),
                  the exact median (stats), capacity (mask).

@@ -43,8 +43,8 @@ _kernels: "Kernels | None" = None
 # c_void_p (a bare int would be cut to 32 bits), sizes and flags c_int.
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
-    "corner_stage1": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
-    "corner_stage1_wgmma": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    "corner_stage1_wgmma": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+                            _P],
 }
 
 
@@ -125,14 +125,21 @@ def kernel_library() -> Kernels:
         return _kernels
 
 
-def sass_counts(name: str, opcodes=("HGMMA", "UTMALDG")) -> dict:
-    """How often each SASS opcode occurs in the built library that holds
-    the C entry point `name` (cuobjdump -sass, beside nvcc)."""
+def sass_counts(name: str, function: str,
+                opcodes=("HGMMA", "UTMALDG", "LDL", "STL")) -> dict:
+    """How often each SASS opcode occurs in the kernels whose (mangled) name
+    holds `function`, in the built library that holds the C entry point
+    `name` (cuobjdump -sass, beside nvcc). Raises if no kernel matches."""
     lib = kernel_library().paths[name]
     tool = pathlib.Path(nvcc()).with_name("cuobjdump")
     out = subprocess.run([str(tool), "-sass", str(lib)], capture_output=True,
                          text=True, timeout=300, check=True).stdout
-    return {op: len(re.findall(rf"\b{op}\b", out)) for op in opcodes}
+    parts = re.split(r"^\s*Function : (\S+)\s*$", out, flags=re.M)
+    code = "".join(body for fn, body in zip(parts[1::2], parts[2::2])
+                   if function in fn)
+    if not code:
+        raise RuntimeError(f"no kernel named like {function!r} in {lib}")
+    return {op: len(re.findall(rf"\b{op}\b", code)) for op in opcodes}
 
 
 @functools.lru_cache(maxsize=1)

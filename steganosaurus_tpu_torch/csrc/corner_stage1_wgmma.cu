@@ -1,5 +1,6 @@
-// Corner DFT forward stage 1 (K1) for Hopper: TMA, wgmma with A from
-// registers, a persistent warp-specialised schedule.
+// Corner DFT forward stage 1 (K1) for Hopper: wgmma with A from registers,
+// a persistent warp-specialised schedule, B by TMA, and A by TMA or by the
+// producer warpgroup's own loads. One source for every image width.
 //
 // Replaces the TPU kernel steganosaurus_tpu/spectral/corner_pallas.py:fwd_stage1
 // (kernel body _s1_kernel): for every plane p and row h, and both DFT tables,
@@ -13,13 +14,14 @@
 // 4K B=64 (P=192 planes of 2160x3840, Kx=1024): 2*P*H*W*2Kx = 6.52 TFLOP,
 // 6.60 ms of tensor-core time, against 1.59 GB of u8 read + 15.7 MB of
 // tables + 3.40 GB of f32 written, ~1.5 ms of HBM time. Compute-bound:
-// 6.60 ms.
+// 6.60 ms, at any width.
 //
-// What the first kernel (corner_stage1.cu, kept for W % 16 != 0) lost:
+// What the first kernel of this function (nvcuda::wmma, since removed) lost:
 // 1. nvcuda::wmma 16x16x16 compiles to mma.sync, which does not reach
 //    Hopper's tensor-core rate; only wgmma does.
-// 2. The same warps that issue the MMAs did synchronous ld.global, the
-//    u8 -> bf16 conversion with a per-element centering sign, and st.shared.
+// 2. The same warps that issue the MMAs did synchronous ld.global (one byte
+//    at a time when W % 16 != 0), the u8 -> bf16 conversion with a
+//    per-element centering sign, and st.shared.
 // 3. Two shared-memory stages with BK = 32: 120 __syncthreads over W = 3840,
 //    latency hidden only by two resident blocks per SM.
 // 4. A 128 x (64 + 64) tile: 51,840 short-lived blocks, each A row-block
@@ -35,13 +37,44 @@
 //    copy of T and (-1)^h is a row sign applied in the epilogue. Every
 //    bf16 x bf16 product is exact in f32, so flipping the sign of whole
 //    terms and of a whole row sum changes no bit in any fixed summation
-//    order. A is then the plain u8 image rows.
-// 3. TMA loads both operands (A: 128 x 64 u8 boxes of the (P*H, W) rows;
-//    B: 256 x 64 bf16 boxes of T, 128-byte swizzle) into a 5-stage ring
-//    with full/empty mbarriers. The tensor maps are encoded on the host
-//    with cuTensorMapEncodeTiled, reached through cudaGetDriverEntryPoint.
-//    Out-of-bounds rows and columns load as zeros, so ragged P*H and W
-//    (a multiple of 16, not of 64) need no masks in the main loop.
+//    order. A is then the plain u8 image rows, at any row stride.
+// 3. A 5-stage ring of (A: 128 x 64 u8, row-major, unswizzled; B: 256 x 64
+//    bf16 of T, 128-byte swizzle) with full/empty mbarriers. B always comes
+//    by TMA: T is padded to Wp, a multiple of 64, so its row stride is a
+//    multiple of 128 bytes. The tensor maps are encoded on the host with
+//    cuTensorMapEncodeTiled, reached through cudaGetDriverEntryPoint.
+//    A comes one of two ways, a template flag of one kernel body:
+//    - TMA route (W % 16 == 0, 16-byte-aligned base; TMA needs 16-byte row
+//      strides): one thread loads A as 128 x 64 boxes of the (P*H, W) rows.
+//      Out-of-bounds rows and columns load as zeros.
+//    - Load route (any other W, or an unaligned view): all 128 threads of
+//      the producer warpgroup write the same 128 x 64 bytes into the slot,
+//      so the consumers, the K order, the row-sign epilogue and the tables
+//      are those of the TMA route. Each warp owns 32 rows of the tile, a
+//      lane one row. It copies, with 16-byte cp.async one k-block ahead
+//      into a 2-deep staging ring, the 5 aligned 16-byte chunks that hold
+//      its row's 64 bytes (80 bytes a row). A chunk is read only up to the
+//      row's pixel W - 1 (cp.async's source size; the rest stores as
+//      zeros), and only if its first byte is a pixel of the row or the
+//      chunk holds pixel c, so no copy reads a byte past the row, and none
+//      a chunk that holds no byte of the tensor; rows past P*H stage as
+//      zeros. Then each lane
+//      realigns 16 bytes of a row (two 16-byte shared loads, a word shift
+//      by selects, four __funnelshift_r) into one 16-byte shared store.
+//      Rows 32 apart are 32W bytes apart, a multiple of 16, so each lane's
+//      byte offset is one constant. full[stage] then takes the B TMA's
+//      expect_tx plus one arrival per producer warp after its stores
+//      (count 1 + 4): shared stores, __syncwarp, mbarrier.arrive
+//      (release), the consumers' try_wait (acquire). Consumers read A with
+//      ld.shared, so no proxy fence.
+//      What bounds it: fetching A this way costs more than the TMA route's
+//      one box a stage; chip_smoke.py times this route forced onto the
+//      TMA route's shape (4K B=64) beside it. Slower ways of filling the
+//      slot: loads into registers (16 in flight a thread spill out of the
+//      producer's registers, which serialises them), 4-byte cp.async, and
+//      TMA boxes into the staging ring (a box must start 16-byte aligned,
+//      so the rows, W bytes apart, need one box per group row of 16: the
+//      TMA unit's time per box then costs more than these copies).
 // 4. Each consumer thread reads its A slice with two 16-byte shared loads
 //    per stage and converts u8 -> bf16 in registers (exact: every u8 is a
 //    bf16) with byte permutes and one f32 add, already in the wgmma
@@ -50,16 +83,15 @@
 //    reads pixel 16q + 4s + e with q = (r % 8) / 2, e = r % 2 + 2 (r / 8),
 //    and the host stores T with its columns in the same order
 //    (corner_kernels.stage1_tables). The sum over k is the sum over w.
-// 5. One producer warpgroup (setmaxnreg.dec to 40) issues the TMA loads;
-//    two consumer warpgroups (setmaxnreg.inc to 232) own 64 rows each of
-//    a 128 x 256 tile, 128 f32 accumulators a thread. 132 persistent
-//    blocks (one per SM) walk the tiles N-fastest, so the 2Kx/256 tiles of
-//    one row-block run side by side: A comes from HBM about once, and T
-//    (15.7 MB at 4K) stays in L2. Nothing orders the two consumer
-//    warpgroups: each waits for its own k-block's wgmmas (wait_group 0)
-//    before it converts the next A slice, so the tensor cores stay busy
-//    through a convert only while the other warpgroup's wgmmas are in
-//    flight.
+// 5. One producer warpgroup (setmaxnreg.dec to 40); two consumer warpgroups
+//    (setmaxnreg.inc to 232) own 64 rows each of a 128 x 256 tile, 128 f32
+//    accumulators a thread. 132 persistent blocks (one per SM) walk the
+//    tiles N-fastest, so the 2Kx/256 tiles of one row-block run side by
+//    side: A comes from HBM about once, the re-reads hit L2, and T (15.7 MB
+//    at 4K) stays in L2. Nothing orders the two consumer warpgroups: each
+//    waits for its own k-block's wgmmas (wait_group 0) before it converts
+//    the next A slice, so the tensor cores stay busy through a convert only
+//    while the other warpgroup's wgmmas are in flight.
 // 6. The epilogue applies the row sign, pairs lanes with one shuffle so
 //    each thread holds four consecutive columns of one row, and writes them
 //    with 16-byte stores straight from registers (scalar masked stores when
@@ -73,6 +105,7 @@
 #include <cuda.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+#include <string.h>
 
 namespace {
 
@@ -84,7 +117,16 @@ constexpr int A_BYTES = BM * BK;          // u8
 constexpr int B_BYTES = BN * BK * 2;      // bf16
 constexpr int STAGE_BYTES = A_BYTES + B_BYTES;
 constexpr int NTHREADS = 384;             // 2 consumer + 1 producer warpgroup
-constexpr int SMEM_BYTES = STAGES * STAGE_BYTES + 2 * STAGES * 8 + 1024;
+constexpr int BAR_BYTES = 2 * STAGES * 8;
+constexpr int SMEM_TMA = STAGES * STAGE_BYTES + BAR_BYTES + 1024;
+// Load route: a ring of LD_DEPTH staged copies of A's rows, each row the 5
+// aligned 16-byte chunks that hold its 64 bytes
+constexpr int PRODUCER_WARPS = 4;
+constexpr int LD_DEPTH = 2;
+constexpr int STG_ROW = BK + 16;
+constexpr int STG_BYTES = BM * STG_ROW;
+constexpr int SMEM_LDG = SMEM_TMA + LD_DEPTH * STG_BYTES;
+static_assert(SMEM_LDG <= 232448, "the load route's shared memory");
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -131,6 +173,22 @@ __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
       " [%0], [%1, {%2, %3}], [%4];\n" ::"r"(smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(smem_u32(bar))
       : "memory");
+}
+
+// 16 bytes global -> shared, asynchronously, bypassing L1: the first n
+// bytes are read, the rest of the 16 stored as zeros (n = 0 reads nothing)
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           uint32_t n) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(n)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+__device__ __forceinline__ void cp_async_wait_ring() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(LD_DEPTH - 1) : "memory");
 }
 
 // K-major operand in 128-byte-swizzled shared memory: rows of 128 bytes,
@@ -215,12 +273,108 @@ __device__ __forceinline__ void store_out(float* ar, float* ai, long long m,
   }
 }
 
-__global__ void __launch_bounds__(NTHREADS, 1)
-corner_stage1_wgmma_kernel(const __grid_constant__ CUtensorMap tm_a,
-                           const __grid_constant__ CUtensorMap tm_b,
-                           float* __restrict__ ar, float* __restrict__ ai,
-                           int M, int H, int Kx, int Kxp, int nkb,
-                           int n_tiles_n, int n_tiles, int center, int vec) {
+// Load route: the producer warpgroup (threads 256..383) fills the A slot of
+// every stage from the (M, W) u8 rows at x; thread 256 also issues B's TMA.
+// Producer warp pw owns the 32 tile rows 8i + 2pw + h (i < 16, h < 2): it
+// stages, realigns and signals only those, so __syncwarp orders its lanes.
+__device__ __forceinline__ void produce_by_loads(
+    const CUtensorMap* tm_b, const uint8_t* __restrict__ x, int W, int M,
+    int nkb, int n_tiles_n, int n_tiles, uint8_t* smem_a, uint8_t* smem_b,
+    uint8_t* stg, uint64_t* full, uint64_t* empty) {
+  const int t = threadIdx.x - 2 * 128;
+  const int lane = t & 31;
+  const int pw = t >> 5;
+  const uintptr_t xa = reinterpret_cast<uintptr_t>(x);
+  const uint8_t* x16 = x - (xa & 15);  // the aligned chunk that holds x[0]
+
+  // copies of the stage at the load cursor (lt, lkb) into staging buffer
+  // `buf`; one commit group per call, empty past the last stage. Lane l
+  // copies the 5 chunks of the warp's row l, tile row cr, each read up to
+  // the row's pixel W - 1 and no further, so the bytes past W stage as
+  // zeros, and a row past P*H stages as zeros. Rows 128 apart are 128W
+  // bytes apart, so the row's byte offset co is one constant for the lane.
+  const int cr = 8 * (lane >> 1) + 2 * pw + (lane & 1);
+  const int co = (int)((xa + (uintptr_t)cr * (uintptr_t)W) & 15);
+  int lt = blockIdx.x, lkb = 0;
+  auto issue = [&](int buf) {
+    if (lt < n_tiles) {
+      const int m0 = (lt / n_tiles_n) * BM;
+      const int c = lkb * BK;
+      const bool row = m0 + cr < M;
+      const uint8_t* src = x + ((long long)(m0 + cr) * W + c - co);
+      uint8_t* dst = stg + buf * STG_BYTES + cr * STG_ROW;
+      const int left = W - c + co;  // bytes of the row from src on
+#pragma unroll
+      for (int j = 0; j < 5; ++j) {
+        const int n = min(max(left - 16 * j, 0), 16);
+        const bool live = row && n > 0 && (j < 4 || co != 0);
+        cp_async16(dst + 16 * j, live ? src + 16 * j : x16, live ? n : 0u);
+      }
+      if (++lkb == nkb) {
+        lkb = 0;
+        lt += gridDim.x;
+      }
+    }
+    cp_async_commit();
+  };
+  for (int b = 0; b < LD_DEPTH - 1; ++b) issue(b);
+
+  // realign: lane task q (q < 4) writes bytes 16k..16k+15, k = lane % 4, of
+  // tile row 32q + rl, from staged bytes ro + 16k.. of that row; rows 32
+  // apart are 32W bytes apart, so ro is one constant for the lane
+  const int rl = 8 * (lane >> 3) + 2 * pw + ((lane >> 2) & 1);
+  const int k = lane & 3;
+  const int ro = (int)((xa + (uintptr_t)rl * (uintptr_t)W) & 15);
+  const bool ws2 = ro & 8, ws1 = ro & 4;  // word shift ro / 4, by 2 and 1
+  const int bs = 8 * (ro & 3);            // then a byte shift
+  int stage = 0, sb = 0;
+  uint32_t phase = 0;
+  for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+    const int n0 = (tile % n_tiles_n) * BN;
+    for (int kb = 0; kb < nkb; ++kb) {
+      // buffer sb - 1 was read by every lane of the warp last iteration
+      issue(sb == 0 ? LD_DEPTH - 1 : sb - 1);
+      cp_async_wait_ring();  // this thread's copies into buffer sb landed
+      __syncwarp();          // and those of the warp's other lanes
+      mbar_wait(&empty[stage], phase ^ 1);
+      if (t == 0) {
+        mbar_expect_tx(&full[stage], B_BYTES);
+        tma_load_2d(smem_b + stage * B_BYTES, tm_b, kb * BK, n0, &full[stage]);
+      }
+      const uint8_t* sr = stg + sb * STG_BYTES + rl * STG_ROW + 16 * k;
+      uint8_t* a = smem_a + stage * A_BYTES + rl * BK + 16 * k;
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const uint4 c0 = *reinterpret_cast<const uint4*>(sr + 32 * q * STG_ROW);
+        const uint4 c1 =
+            *reinterpret_cast<const uint4*>(sr + 32 * q * STG_ROW + 16);
+        const uint32_t v[8] = {c0.x, c0.y, c0.z, c0.w, c1.x, c1.y, c1.z, c1.w};
+        uint32_t u[6], w[5];
+#pragma unroll
+        for (int i = 0; i < 6; ++i) u[i] = ws2 ? v[i + 2] : v[i];
+#pragma unroll
+        for (int i = 0; i < 5; ++i) w[i] = ws1 ? u[i + 1] : u[i];
+        *reinterpret_cast<uint4*>(a + 32 * q * BK) = make_uint4(
+            __funnelshift_r(w[0], w[1], bs), __funnelshift_r(w[1], w[2], bs),
+            __funnelshift_r(w[2], w[3], bs), __funnelshift_r(w[3], w[4], bs));
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&full[stage]);
+      if (++stage == STAGES) {
+        stage = 0;
+        phase ^= 1;
+      }
+      if (++sb == LD_DEPTH) sb = 0;
+    }
+  }
+}
+
+template <bool kTma>
+__device__ __forceinline__ void stage1_body(
+    const CUtensorMap* tm_a, const CUtensorMap* tm_b,
+    const uint8_t* __restrict__ x, int W, float* __restrict__ ar,
+    float* __restrict__ ai, int M, int H, int Kx, int Kxp, int nkb,
+    int n_tiles_n, int n_tiles, int center, int vec) {
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = reinterpret_cast<uint8_t*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
@@ -228,10 +382,13 @@ corner_stage1_wgmma_kernel(const __grid_constant__ CUtensorMap tm_a,
   uint8_t* smem_a = smem + STAGES * B_BYTES;        // STAGES x 8 KB
   uint64_t* full = reinterpret_cast<uint64_t*>(smem_a + STAGES * A_BYTES);
   uint64_t* empty = full + STAGES;
+  uint8_t* stg = smem_a + STAGES * A_BYTES + BAR_BYTES;  // load route only
 
   if (threadIdx.x == 0) {
     for (int s = 0; s < STAGES; ++s) {
-      mbar_init(&full[s], 1);
+      // TMA route: one expect_tx arrival; load route: that one plus one per
+      // producer warp after its stores
+      mbar_init(&full[s], kTma ? 1 : 1 + PRODUCER_WARPS);
       mbar_init(&empty[s], 8);  // one arrival per consumer warp
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
@@ -240,25 +397,30 @@ corner_stage1_wgmma_kernel(const __grid_constant__ CUtensorMap tm_a,
 
   const int wg = threadIdx.x / 128;
   if (wg == 2) {
-    // ---- producer warpgroup: one thread keeps the ring full ----
     asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
-    if (threadIdx.x == 256) {
-      int stage = 0;
-      uint32_t phase = 0;
-      for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
-        const int m0 = (tile / n_tiles_n) * BM;
-        const int n0 = (tile % n_tiles_n) * BN;
-        for (int kb = 0; kb < nkb; ++kb) {
-          mbar_wait(&empty[stage], phase ^ 1);
-          mbar_expect_tx(&full[stage], STAGE_BYTES);
-          tma_load_2d(smem_b + stage * B_BYTES, &tm_b, kb * BK, n0, &full[stage]);
-          tma_load_2d(smem_a + stage * A_BYTES, &tm_a, kb * BK, m0, &full[stage]);
-          if (++stage == STAGES) {
-            stage = 0;
-            phase ^= 1;
+    if constexpr (kTma) {
+      // ---- producer: one thread keeps the ring full ----
+      if (threadIdx.x == 256) {
+        int stage = 0;
+        uint32_t phase = 0;
+        for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+          const int m0 = (tile / n_tiles_n) * BM;
+          const int n0 = (tile % n_tiles_n) * BN;
+          for (int kb = 0; kb < nkb; ++kb) {
+            mbar_wait(&empty[stage], phase ^ 1);
+            mbar_expect_tx(&full[stage], STAGE_BYTES);
+            tma_load_2d(smem_b + stage * B_BYTES, tm_b, kb * BK, n0, &full[stage]);
+            tma_load_2d(smem_a + stage * A_BYTES, tm_a, kb * BK, m0, &full[stage]);
+            if (++stage == STAGES) {
+              stage = 0;
+              phase ^= 1;
+            }
           }
         }
       }
+    } else {
+      produce_by_loads(tm_b, x, W, M, nkb, n_tiles_n, n_tiles, smem_a, smem_b,
+                       stg, full, empty);
     }
   } else {
     // ---- consumer warpgroups: 64 rows x 256 columns each ----
@@ -365,6 +527,30 @@ corner_stage1_wgmma_kernel(const __grid_constant__ CUtensorMap tm_a,
   }
 }
 
+// The two instantiations, under names of their own so that the SASS of
+// each can be found (corner_kernels' sass check).
+__global__ void __launch_bounds__(NTHREADS, 1)
+corner_stage1_tma_kernel(const __grid_constant__ CUtensorMap tm_a,
+                         const __grid_constant__ CUtensorMap tm_b,
+                         const uint8_t* __restrict__ x, int W,
+                         float* __restrict__ ar, float* __restrict__ ai,
+                         int M, int H, int Kx, int Kxp, int nkb,
+                         int n_tiles_n, int n_tiles, int center, int vec) {
+  stage1_body<true>(&tm_a, &tm_b, x, W, ar, ai, M, H, Kx, Kxp, nkb,
+                    n_tiles_n, n_tiles, center, vec);
+}
+
+__global__ void __launch_bounds__(NTHREADS, 1)
+corner_stage1_ldg_kernel(const __grid_constant__ CUtensorMap tm_a,
+                         const __grid_constant__ CUtensorMap tm_b,
+                         const uint8_t* __restrict__ x, int W,
+                         float* __restrict__ ar, float* __restrict__ ai,
+                         int M, int H, int Kx, int Kxp, int nkb,
+                         int n_tiles_n, int n_tiles, int center, int vec) {
+  stage1_body<false>(&tm_a, &tm_b, x, W, ar, ai, M, H, Kx, Kxp, nkb,
+                     n_tiles_n, n_tiles, center, vec);
+}
+
 typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
                                 void*, const cuuint64_t*, const cuuint64_t*,
                                 const cuuint32_t*, const cuuint32_t*,
@@ -388,18 +574,22 @@ EncodeTiled encode_tiled() {
 }  // namespace
 
 // C interface, loaded with ctypes (steganosaurus_tpu_torch/_build.py).
-// x: (P*H, W) u8 rows, W % 16 == 0, 16-byte aligned; t: (2*Kxp, Wp) bf16,
-// the concatenated, K-permuted table of corner_kernels.stage1_tables (the
-// (-1)^w-folded copy when center is set), Kxp and Wp multiples of 64;
-// ar/ai: (P*H, Kx) f32. All contiguous, on the device that owns `stream`.
+// x: (P*H, W) u8 rows, any W >= 1 and any base address; t: (2*Kxp, Wp)
+// bf16, 16-byte aligned, the concatenated, K-permuted table of
+// corner_kernels.stage1_tables (the (-1)^w-folded copy when center is set),
+// Kxp and Wp multiples of 64; ar/ai: (P*H, Kx) f32. All contiguous, on the
+// device that owns `stream`. tma != 0 takes the TMA route for A, which
+// needs W % 16 == 0 and a 16-byte-aligned x; tma == 0 the load route.
 // Launches on `stream`, does not synchronise, and returns a CUDA error code
 // (0 on success; cudaErrorInvalidValue for shapes it does not take).
 extern "C" int corner_stage1_wgmma(const void* x, const void* t, void* ar,
                                    void* ai, int P, int H, int W, int Kx,
-                                   int Kxp, int Wp, int center, void* stream) {
-  if (P <= 0 || H <= 0 || W <= 0 || Kx <= 0 || W % 16 != 0 ||
-      Kxp % 64 != 0 || Kxp < Kx || Wp % BK != 0 || Wp < W ||
-      (uintptr_t)x % 16 != 0 || (uintptr_t)t % 16 != 0)
+                                   int Kxp, int Wp, int center, int tma,
+                                   void* stream) {
+  if (P <= 0 || H <= 0 || W <= 0 || Kx <= 0 || Kxp % 64 != 0 || Kxp < Kx ||
+      Wp % BK != 0 || Wp < W || (uintptr_t)t % 16 != 0)
+    return (int)cudaErrorInvalidValue;
+  if (tma && (W % 16 != 0 || (uintptr_t)x % 16 != 0))
     return (int)cudaErrorInvalidValue;
   const long long M = (long long)P * H;
   if (M > 0x7fffffffLL - BM) return (int)cudaErrorInvalidValue;
@@ -407,7 +597,8 @@ extern "C" int corner_stage1_wgmma(const void* x, const void* t, void* ar,
   if (!enc) return (int)cudaErrorNotSupported;
 
   CUtensorMap tm_a, tm_b;
-  {
+  memset(&tm_a, 0, sizeof(tm_a));  // the load route never reads it
+  if (tma) {
     const cuuint64_t dims[2] = {(cuuint64_t)W, (cuuint64_t)M};
     const cuuint64_t strides[1] = {(cuuint64_t)W};
     const cuuint32_t box[2] = {BK, BM};
@@ -430,12 +621,13 @@ extern "C" int corner_stage1_wgmma(const void* x, const void* t, void* ar,
       return (int)cudaErrorInvalidValue;
   }
 
+  auto kernel = tma ? corner_stage1_tma_kernel : corner_stage1_ldg_kernel;
+  const int smem = tma ? SMEM_TMA : SMEM_LDG;
   int dev = 0, sms = 0;
   cudaGetDevice(&dev);
   cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   cudaError_t err = cudaFuncSetAttribute(
-      corner_stage1_wgmma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      SMEM_BYTES);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
 
   const int n_tiles_n = (2 * Kxp + BN - 1) / BN;
@@ -444,9 +636,8 @@ extern "C" int corner_stage1_wgmma(const void* x, const void* t, void* ar,
   const int grid = (int)(n_tiles < sms ? n_tiles : sms);
   const int vec = (Kx % 4 == 0) && ((uintptr_t)ar % 16 == 0) &&
                   ((uintptr_t)ai % 16 == 0);
-  corner_stage1_wgmma_kernel<<<grid, NTHREADS, SMEM_BYTES,
-                               (cudaStream_t)stream>>>(
-      tm_a, tm_b, (float*)ar, (float*)ai, (int)M, H, Kx, Kxp, Wp / BK,
-      n_tiles_n, (int)n_tiles, center ? 1 : 0, vec);
+  kernel<<<grid, NTHREADS, smem, (cudaStream_t)stream>>>(
+      tm_a, tm_b, (const uint8_t*)x, W, (float*)ar, (float*)ai, (int)M, H, Kx,
+      Kxp, Wp / BK, n_tiles_n, (int)n_tiles, center ? 1 : 0, vec);
   return (int)cudaGetLastError();
 }

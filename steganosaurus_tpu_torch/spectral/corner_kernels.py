@@ -1,5 +1,5 @@
-"""Forward corner-DFT stage 1 (K1): the hand-written Hopper kernels and
-their plain PyTorch version.
+"""Forward corner-DFT stage 1 (K1): the hand-written Hopper kernel and its
+plain PyTorch version.
 
 Replaces steganosaurus_tpu/spectral/corner_pallas.py:fwd_stage1. For every
 plane and row, against both DFT tables:
@@ -10,20 +10,21 @@ plane and row, against both DFT tables:
 with f32 accumulation, x the u8 image batch itself ((..., H, W), e.g. NCHW
 (B, 3, H, W)) and c = (-1)^(h+w) when `center` is set, else 1.
 
-Two kernels, chosen by shape alone:
+One kernel for every width, csrc/corner_stage1_wgmma.cu: wgmma, one GEMM
+over the concatenated table of stage1_tables (by TMA) with the centering
+folded out of the A operand, the u8 image rows. A reaches shared memory
+one of two ways, chosen by route_for:
 
-- W % 16 == 0 (every grid the pipeline runs at 4K, 1080p, 512^2): the
-  wgmma + TMA kernel csrc/corner_stage1_wgmma.cu, one GEMM over the
-  concatenated table of stage1_tables with the centering folded out of the
-  A operand. TMA needs 16-byte row strides, hence the rule.
-- any other W: csrc/corner_stage1.cu (mma.sync through nvcuda::wmma, any
-  shape).
+- the TMA route (W % 16 == 0 and a 16-byte-aligned base: every grid the
+  pipeline runs at 4K, 1080p, 512^2): TMA needs 16-byte row strides;
+- the load route (any other W, or an unaligned view): the producer
+  warpgroup loads the rows itself and writes the same bytes.
 
 `fwd_stage1` launches one of them for CUDA tensors — or raises; nothing here
 catches a build or launch failure and falls back — and takes
-`fwd_stage1_plain` only for CPU tensors. `LAUNCHES` counts each kernel's
+`fwd_stage1_plain` only for CPU tensors. `LAUNCHES` counts each route's
 launches under its own name, one per launch and nowhere else, so a run can
-show that the main path went through the kernel.
+show that the main path went through the kernel, and on which route.
 """
 
 from __future__ import annotations
@@ -34,15 +35,16 @@ import torch
 
 from steganosaurus_tpu_torch import spectral
 
-KERNEL = "corner_stage1"              # any W
-KERNEL_WGMMA = "corner_stage1_wgmma"  # W % 16 == 0
-LAUNCHES = {KERNEL: 0, KERNEL_WGMMA: 0}
-BLOCK = 64  # the wgmma kernel's K block and the table's padding quantum
+KERNEL_TMA = "corner_stage1_wgmma"      # A by TMA
+KERNEL_LDG = "corner_stage1_wgmma_ldg"  # A by the producer warpgroup's loads
+LAUNCHES = {KERNEL_TMA: 0, KERNEL_LDG: 0}
+BLOCK = 64  # the kernel's K block and the table's padding quantum
 
 
-def kernel_for(W: int) -> str:
-    """Name of the kernel fwd_stage1 launches for width-W images on CUDA."""
-    return KERNEL_WGMMA if W % 16 == 0 else KERNEL
+def route_for(W: int, data_ptr: int) -> str:
+    """The route fwd_stage1 launches on CUDA for width-W images whose first
+    byte is at address data_ptr."""
+    return KERNEL_TMA if W % 16 == 0 and data_ptr % 16 == 0 else KERNEL_LDG
 
 
 def fwd_stage1_plain(imgs_u8: torch.Tensor, exr: torch.Tensor,
@@ -80,7 +82,7 @@ def k_order(Wp: int) -> torch.Tensor:
 
 
 def stage1_tables(exr16: torch.Tensor, exi16: torch.Tensor):
-    """(t, t_centered): the wgmma kernel's B operand, (2*Kxp, Wp) bf16 on
+    """(t, t_centered): the kernel's B operand, (2*Kxp, Wp) bf16 on
     the tables' device, Kxp = Kx and Wp = W rounded up to 64. Rows [0, Kx)
     hold exr, rows [Kxp, Kxp + Kx) exi, the rest zeros; columns past W are
     zeros; columns run in k_order. t_centered has (-1)^w folded in (a sign
@@ -116,10 +118,10 @@ def _check(imgs_u8, exr, exi):
 def fwd_stage1(imgs_u8: torch.Tensor, exr_bf16: torch.Tensor,
                exi_bf16: torch.Tensor, center: bool, tables=None):
     """(..., H, W) u8 images, (Kx, W) bf16 tables -> ((..., H, Kx) ar, ai)
-    f32. CUDA tensors launch kernel_for(W) on the current stream; CPU
-    tensors take fwd_stage1_plain; any other device raises. `tables` is
-    stage1_tables(exr_bf16, exi_bf16), cached by the caller (corner.Tables);
-    it is built here when not given."""
+    f32. CUDA tensors launch the kernel on route_for(W, data_ptr) on the
+    current stream; CPU tensors take fwd_stage1_plain; any other device
+    raises. `tables` is stage1_tables(exr_bf16, exi_bf16), cached by the
+    caller (corner.Tables); it is built here when not given."""
     _check(imgs_u8, exr_bf16, exi_bf16)
     dev = imgs_u8.device
     if dev.type == "cpu":
@@ -129,42 +131,22 @@ def fwd_stage1(imgs_u8: torch.Tensor, exr_bf16: torch.Tensor,
     for name, t in (("images", imgs_u8), ("exr", exr_bf16), ("exi", exi_bf16)):
         if not t.is_contiguous():
             raise ValueError(f"fwd_stage1: {name} must be contiguous")
-    H, W = imgs_u8.shape[-2:]
     Kx = exr_bf16.shape[0]
     lead = imgs_u8.shape[:-1]
     ar = torch.empty((*lead, Kx), dtype=torch.float32, device=dev)
     ai = torch.empty((*lead, Kx), dtype=torch.float32, device=dev)
     if imgs_u8.numel() == 0:
         return ar, ai
-    if kernel_for(W) == KERNEL_WGMMA:
-        if tables is None:
-            tables = stage1_tables(exr_bf16, exi_bf16)
-        _launch_wgmma(imgs_u8, tables[1] if center else tables[0], ar, ai,
-                      Kx, center)
-    else:
-        _launch_mma(imgs_u8, exr_bf16, exi_bf16, ar, ai, center)
+    if tables is None:
+        tables = stage1_tables(exr_bf16, exi_bf16)
+    _launch(imgs_u8, tables[1] if center else tables[0], ar, ai, Kx, center,
+            route_for(imgs_u8.shape[-1], imgs_u8.data_ptr()))
     return ar, ai
 
 
-def _launch_mma(imgs_u8, exr_bf16, exi_bf16, ar, ai, center: bool) -> None:
-    """csrc/corner_stage1.cu on the current stream (any shape)."""
-    from steganosaurus_tpu_torch import _build
-
-    H, W = imgs_u8.shape[-2:]
-    P = imgs_u8.numel() // (H * W)
-    with torch.cuda.device(imgs_u8.device):
-        stream = torch.cuda.current_stream(imgs_u8.device).cuda_stream
-        rc = _build.kernel_library().corner_stage1(
-            imgs_u8.data_ptr(), exr_bf16.data_ptr(), exi_bf16.data_ptr(),
-            ar.data_ptr(), ai.data_ptr(), P, H, W, exr_bf16.shape[0],
-            int(bool(center)), stream)
-    if rc != 0:
-        raise RuntimeError(f"{KERNEL} launch failed: CUDA error {rc}")
-    LAUNCHES[KERNEL] += 1
-
-
-def _launch_wgmma(imgs_u8, t, ar, ai, Kx: int, center: bool) -> None:
-    """csrc/corner_stage1_wgmma.cu on the current stream (W % 16 == 0)."""
+def _launch(imgs_u8, t, ar, ai, Kx: int, center: bool, route: str) -> None:
+    """csrc/corner_stage1_wgmma.cu on the current stream, A on `route`
+    (KERNEL_TMA or KERNEL_LDG; the load route takes any input)."""
     from steganosaurus_tpu_torch import _build
 
     H, W = imgs_u8.shape[-2:]
@@ -175,14 +157,18 @@ def _launch_wgmma(imgs_u8, t, ar, ai, Kx: int, center: bool) -> None:
                          f"contiguous bf16 ({2 * Kxp}, {Wp}) on "
                          f"{imgs_u8.device}, got {t.dtype} "
                          f"{tuple(t.shape)} on {t.device}")
-    if imgs_u8.data_ptr() % 16:
-        raise ValueError("fwd_stage1: images must be 16-byte aligned")
+    if route not in LAUNCHES:
+        raise ValueError(f"fwd_stage1: unknown route {route!r}")
+    if route == KERNEL_TMA and route_for(W, imgs_u8.data_ptr()) != route:
+        raise ValueError(f"fwd_stage1: the TMA route needs W % 16 == 0 and "
+                         f"16-byte-aligned images (W={W})")
     P = imgs_u8.numel() // (H * W)
     with torch.cuda.device(imgs_u8.device):
         stream = torch.cuda.current_stream(imgs_u8.device).cuda_stream
         rc = _build.kernel_library().corner_stage1_wgmma(
             imgs_u8.data_ptr(), t.data_ptr(), ar.data_ptr(), ai.data_ptr(),
-            P, H, W, Kx, Kxp, Wp, int(bool(center)), stream)
+            P, H, W, Kx, Kxp, Wp, int(bool(center)),
+            int(route == KERNEL_TMA), stream)
     if rc != 0:
-        raise RuntimeError(f"{KERNEL_WGMMA} launch failed: CUDA error {rc}")
-    LAUNCHES[KERNEL_WGMMA] += 1
+        raise RuntimeError(f"{route} launch failed: CUDA error {rc}")
+    LAUNCHES[route] += 1

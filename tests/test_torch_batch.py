@@ -94,6 +94,55 @@ def test_stego_bytes_match_jax(layout):
     assert n <= MAX_DIFF_FRAC * diff.size, (n, diff.size)
 
 
+ODD_H, ODD_W, ODD_B = 384, 637, 2  # W % 16 != 0: K1's load route on a card
+_ODD: dict = {}
+
+
+def _odd_stegos():
+    """(secrets, torch stego, JAX stego) of B=2 covers of width 637 at fixed
+    salts (nhwc), made once."""
+    if not _ODD:
+        rng = np.random.default_rng(22)
+        base = np.linspace(150, 235, ODD_W)
+        imgs = np.clip(base[None, None, :, None]
+                       + rng.integers(-18, 19, (ODD_B, ODD_H, ODD_W, 3)), 0,
+                       255).astype(np.uint8)
+        secrets = [bytes(rng.integers(0, 256, SECRET, dtype=np.uint8))
+                   for _ in range(ODD_B)]
+        salts = SALTS[:ODD_B]
+        ts = stt.embed_batch(imgs, secrets, master_key=MK, salts=salts,
+                             device="cpu").stego
+        js = np.array(jbatch.embed_batch(imgs, secrets, master_key=MK,
+                                         salts=salts).stego)
+        _ODD.update(secrets=secrets, ts=ts, js=js)
+    return _ODD["secrets"], _ODD["ts"], _ODD["js"]
+
+
+@pytest.mark.parametrize("writer", ["torch", "jax"])
+def test_odd_width_cross_decode(writer):
+    """At a width that is not a multiple of 16 the port's stegos read back
+    in the JAX package and the JAX package's in the port, every secret."""
+    secrets, ts, js = _odd_stegos()
+    if writer == "torch":
+        got = jbatch.extract_batch(ts, master_key=MK, clen_hint=SECRET)
+    else:
+        got = stt.extract_batch(js, master_key=MK, clen_hint=SECRET,
+                                device="cpu")
+    assert got == secrets
+
+
+def test_odd_width_stego_bytes_match_jax():
+    """The same covers, secrets, key and salts at width 637: every byte
+    that differs between the packages' stegos differs by one, and at most
+    0.1% of them do."""
+    _, ts, js = _odd_stegos()
+    assert ts.shape == js.shape == (ODD_B, ODD_H, ODD_W, 3)
+    diff = ts.astype(np.int16) - js.astype(np.int16)
+    n = int(np.count_nonzero(diff))
+    assert np.abs(diff).max() <= 1
+    assert n <= MAX_DIFF_FRAC * diff.size, (n, diff.size)
+
+
 def test_torch_round_trip_without_hint_and_device_resident():
     """No clen_hint: the header-only probe pass (912 slots) then the payload
     pass; device_resident returns the stego as a tensor in the input

@@ -71,18 +71,21 @@ def test_dft_tables_equal_exactly(N, K):
                    .astype(jnp.bfloat16).astype(jnp.float32)))
 
 
+@pytest.mark.parametrize("Wc,Kx", [(640, 256), (203, 64)])
 @pytest.mark.parametrize("center", [False, True])
-def test_stage1_plain_matches_pallas_and_einsum(center):
+def test_stage1_plain_matches_pallas_and_einsum(center, Wc, Kx):
     """fwd_stage1_plain (what the K1 wrapper runs for CPU tensors) against
-    the Pallas kernel in interpret mode and the production bf16 einsum."""
-    imgs = _nchw(_covers())[:1]                               # (1, 3, H, W)
-    Kx = 256
-    exr, exi = jcorner._dft_tables(W, Kx)
+    the Pallas kernel in interpret mode and the production bf16 einsum, at
+    the covers' width and at an odd width (the load route's; _pick_tile
+    takes the whole W there)."""
+    imgs = np.ascontiguousarray(_nchw(_covers())[:1, ..., :Wc])  # (1, 3, H, Wc)
+    exr, exi = jcorner._dft_tables(Wc, Kx)
     exr16 = torch.from_numpy(exr).to(torch.bfloat16)
     exi16 = torch.from_numpy(exi).to(torch.bfloat16)
     ar, ai = tk.fwd_stage1_plain(torch.from_numpy(imgs), exr16, exi16, center)
     planes = np.asarray(jspectral.apply_center(
         jnp.asarray(imgs[0].astype(np.float32)), center))
+    assert corner_pallas._pick_tile(Wc, 512, 128) == (Wc if Wc % 128 else 128)
     pr, pi = corner_pallas.fwd_stage1(planes, exr, exi, interpret=True)
     er = jcorner._mm("phw,xw->phx", jnp.asarray(planes), jnp.asarray(exr),
                      "bf16")
@@ -179,13 +182,15 @@ def test_stage1_tables_layout():
 
 
 @pytest.mark.parametrize("center", [False, True])
-@pytest.mark.parametrize("Ws,Kx", [(80, 45), (528, 100), (64, 64)])
+@pytest.mark.parametrize("Ws,Kx", [(80, 45), (528, 100), (64, 64),
+                                   (203, 45), (250, 130), (1917, 512)])
 def test_stage1_concatenated_gemm_matches_plain(center, Ws, Kx):
-    """The kernel's GEMM emulated on the CPU (k_order, padding, one product
-    with the concatenated table, row sign, the ar/ai column split) against
-    fwd_stage1_plain: within 1e-5 of max|plain| (the f32 sum runs in
-    another order), and bit for bit when every partial sum is exact
-    (integer tables of small magnitude)."""
+    """The kernel's GEMM emulated on the CPU (k_order, the rows padded
+    with zeros to Wp as both routes leave them in shared memory, one
+    product with the concatenated table, row sign, the ar/ai column split)
+    against fwd_stage1_plain, at widths of both routes: within 1e-5 of
+    max|plain| (the f32 sum runs in another order), and bit for bit when
+    every partial sum is exact (integer tables of small magnitude)."""
     imgs, exr, exi = _ragged_stage1_inputs(33 + Kx, P=2, Ws=Ws, Kx=Kx)
     tables = tk.stage1_tables(exr, exi)
     er, ei = _wgmma_emulation(imgs, tables, Kx, center)
@@ -203,15 +208,18 @@ def test_stage1_concatenated_gemm_matches_plain(center, Ws, Kx):
 
 
 def test_stage1_kernel_routing_by_width():
-    """W % 16 == 0 goes to the wgmma kernel, any other W to the mma.sync
-    one; each counts under its own name, and a CPU tensor counts nothing."""
-    assert tk.kernel_for(3840) == tk.kernel_for(1920) == tk.KERNEL_WGMMA
-    assert tk.kernel_for(512) == tk.kernel_for(528) == tk.KERNEL_WGMMA
-    assert tk.kernel_for(203) == tk.kernel_for(520) == tk.KERNEL
-    assert tk.kernel_for(3841) == tk.KERNEL
-    assert set(tk.LAUNCHES) == {tk.KERNEL, tk.KERNEL_WGMMA}
-    assert tk.KERNEL == "corner_stage1"
-    assert tk.KERNEL_WGMMA == "corner_stage1_wgmma"
+    """W % 16 == 0 with a 16-byte-aligned base takes the TMA route, any
+    other W or base the load route; each counts under its own name, and a
+    CPU tensor counts nothing."""
+    assert tk.route_for(3840, 0) == tk.route_for(1920, 4096) == tk.KERNEL_TMA
+    assert tk.route_for(512, 16) == tk.route_for(528, 32) == tk.KERNEL_TMA
+    assert tk.route_for(203, 0) == tk.route_for(520, 0) == tk.KERNEL_LDG
+    assert tk.route_for(3839, 0) == tk.route_for(3841, 16) == tk.KERNEL_LDG
+    for addr in (1, 4, 8, 15, 3840 * 7 + 3):  # an unaligned view, W % 16 == 0
+        assert tk.route_for(3840, addr) == tk.KERNEL_LDG
+    assert set(tk.LAUNCHES) == {tk.KERNEL_TMA, tk.KERNEL_LDG}
+    assert tk.KERNEL_TMA == "corner_stage1_wgmma"
+    assert tk.KERNEL_LDG == "corner_stage1_wgmma_ldg"
     before = dict(tk.LAUNCHES)
     for Ws in (80, 203):
         imgs, exr, exi = _ragged_stage1_inputs(34, Ws=Ws)
@@ -221,6 +229,78 @@ def test_stage1_kernel_routing_by_width():
     assert tk.LAUNCHES == before
     tabs = tcorner.dft_tables_device(37, 64, 80, 64, "cpu")
     assert tabs.stage1 is None  # built on CUDA devices only
+
+
+def _realign16(window: np.ndarray, ro: int) -> np.ndarray:
+    """The load route's realign of one lane, in numpy: the staged 32 bytes
+    as 8 little-endian words, a word shift by ro // 4 in two selects, then
+    four __funnelshift_r by 8 (ro % 4) -> 16 bytes."""
+    v = [int(w) for w in window.view("<u4")]
+    u = [v[i + 2] if ro & 8 else v[i] for i in range(6)]
+    w = [u[i + 1] if ro & 4 else u[i] for i in range(5)]
+    bs = 8 * (ro & 3)
+    out = [((w[i + 1] << 32 | w[i]) >> bs) & 0xFFFFFFFF for i in range(4)]
+    return np.array(out, dtype="<u4").view(np.uint8)
+
+
+def _load_route_slot(mem, xa, W, M, m0, kb):
+    """What the load route's producer warps leave in the A slot of the tile
+    at row m0, k-block kb: the kernel's cp.async copies (5 aligned 16-byte
+    chunks a row, each read for its source size only) into a staged row,
+    then its realign, on the bytes `mem` of an allocation whose address 0 is
+    16-byte aligned, the images at byte xa. Returns the slot and the
+    (first byte, end, image row) of every copy."""
+    c = 64 * kb
+    stg = np.full((128, 80), 0xEE, dtype=np.uint8)  # stale bytes
+    reads = []
+    for r in range(128):                        # lane r % 32 of a warp
+        co = (xa + r * W) % 16                  # one constant per lane
+        assert co == (xa + (m0 + r) * W) % 16   # tiles are 128W bytes apart
+        src0 = xa + (m0 + r) * W + c - co       # aligned: pixel c at +co
+        left = W - c + co                       # bytes of the row from src0
+        for j in range(5):
+            n = min(max(left - 16 * j, 0), 16)
+            live = m0 + r < M and n > 0 and (j < 4 or co != 0)
+            n = n if live else 0
+            src = src0 + 16 * j
+            stg[r, 16 * j:16 * j + 16] = 0
+            stg[r, 16 * j:16 * j + n] = mem[src:src + n]
+            if n:
+                reads.append((src, src + n, m0 + r))
+    slot = np.zeros((128, 64), dtype=np.uint8)
+    for r in range(128):
+        rl = r % 32                             # the lane's first row
+        ro = (xa + rl * W) % 16                 # one constant per lane
+        assert ro == (xa + r * W) % 16          # rows 32 apart: 32W % 16 == 0
+        for k in range(4):
+            slot[r, 16 * k:16 * k + 16] = _realign16(
+                stg[r, 16 * k:16 * k + 32], ro)
+    return slot, reads
+
+
+@pytest.mark.parametrize("W,M,xa", [
+    (203, 150, 0), (203, 150, 5), (250, 129, 13), (17, 40, 2), (3, 7, 9),
+    (1917, 130, 7), (512, 140, 1)])
+def test_stage1_load_route_staging_emulation(W, M, xa):
+    """The load route's index arithmetic: every slot it fills holds the
+    row's pixels c..c+63, zeros past W and zero rows past P*H, at any width
+    and base; no copy reads a byte past the images' last byte, before the
+    16-byte chunk that holds their first, or past the end of its row."""
+    rng = np.random.default_rng(W + M + xa)
+    pad = 64
+    mem = rng.integers(0, 256, xa + M * W + pad, dtype=np.uint8)
+    imgs = mem[xa:xa + M * W].reshape(M, W)
+    Wp = -(-W // 64) * 64
+    want = np.zeros((-(-M // 128) * 128, Wp), dtype=np.uint8)
+    want[:M, :W] = imgs
+    for m0 in range(0, M, 128):
+        for kb in range(Wp // 64):
+            slot, reads = _load_route_slot(mem, xa, W, M, m0, kb)
+            np.testing.assert_array_equal(
+                slot, want[m0:m0 + 128, 64 * kb:64 * kb + 64])
+            for lo, hi, row in reads:
+                assert xa - xa % 16 <= lo and hi <= xa + M * W
+                assert hi <= xa + (row + 1) * W  # never past its row's end
 
 
 @pytest.mark.parametrize("center", [False, True])

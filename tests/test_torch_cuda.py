@@ -1,8 +1,9 @@
-"""Card-only tests of the torch port: the hand-written K1 kernels
-(csrc/corner_stage1_wgmma.cu for W % 16 == 0, csrc/corner_stage1.cu for
-any other W) against their plain version, at the wgmma kernel's edge
-shapes too, the wrapper's routing, checks and launch counts, round trips
-through the kernel (small, and 1080p B=8), a two-batch stream,
+"""Card-only tests of the torch port: the hand-written K1 kernel
+(csrc/corner_stage1_wgmma.cu, A by TMA for W % 16 == 0 on an aligned base,
+by the producer's loads for any other W or base) against its plain
+version, at both routes' edge shapes and on views that end at the last
+byte of their storage, the wrapper's routing, checks and launch counts,
+round trips through the kernel (small, and 1080p B=8), a two-batch stream,
 the soft-decision retry pass (Rep-7 and RS), a QIM extract and a
 per-image-walk embed; the single-image path: a 1080p embed_array ->
 extract_array round trip, the exact median (kthvalue against the bisection
@@ -43,8 +44,8 @@ def _tables(W, Kx, dev):
 
 
 @pytest.mark.parametrize("shape,Kx,center", [
-    ((1, 3, 67, 203), 45, True),        # nothing aligned
-    ((2, 3, 100, 250), 130, False),     # W % 16 != 0: scalar loads
+    ((1, 3, 67, 203), 45, True),        # nothing aligned: the load route
+    ((2, 3, 100, 250), 130, False),     # W % 16 != 0: the load route
     ((1, 3, 128, 512), 64, True),       # exact tiles
     ((3, 384, 640), 256, False),        # no batch axis
     ((1, 3, 2160, 3840), 1024, False),  # one 4K image of the main path
@@ -65,18 +66,18 @@ def test_k1_matches_plain(dev, shape, Kx, center):
 
 
 def test_k1_wrapper_counts_and_checks(dev):
-    """Each kernel counts under its own name, chosen by W % 16 alone; bad
-    inputs raise before any launch."""
+    """Each route counts under its own name, chosen by W % 16 and the base
+    address; bad inputs raise before any launch."""
     from steganosaurus_tpu_torch.spectral import corner_kernels as ck
 
     x = torch.zeros((1, 3, 64, 256), dtype=torch.uint8, device=dev)
     exr, exi = _tables(256, 64, dev)
     n = dict(ck.LAUNCHES)
     ck.fwd_stage1(x, exr, exi, False)
-    assert ck.LAUNCHES == {**n, ck.KERNEL_WGMMA: n[ck.KERNEL_WGMMA] + 1}
+    assert ck.LAUNCHES == {**n, ck.KERNEL_TMA: n[ck.KERNEL_TMA] + 1}
     y = torch.zeros((1, 3, 64, 250), dtype=torch.uint8, device=dev)
     ck.fwd_stage1(y, *_tables(250, 64, dev), True)
-    assert ck.LAUNCHES[ck.KERNEL] == n[ck.KERNEL] + 1
+    assert ck.LAUNCHES[ck.KERNEL_LDG] == n[ck.KERNEL_LDG] + 1
     n = dict(ck.LAUNCHES)
     with pytest.raises(ValueError):
         ck.fwd_stage1(x.transpose(-1, -2).contiguous().transpose(-1, -2),
@@ -88,11 +89,58 @@ def test_k1_wrapper_counts_and_checks(dev):
     with pytest.raises(ValueError):  # a table of another Kx
         ck.fwd_stage1(x, exr, exi, False, ck.stage1_tables(
             torch.cat([exr, exr]), torch.cat([exi, exi])))
-    with pytest.raises(ValueError):  # 16-byte alignment for TMA
-        ck.fwd_stage1(torch.zeros(1 + 64 * 256, dtype=torch.uint8,
-                                  device=dev)[1:].view(1, 64, 256),
-                      exr, exi, False)
+    with pytest.raises(ValueError):  # the TMA route at an unaligned base
+        v = torch.zeros(1 + 64 * 256, dtype=torch.uint8,
+                        device=dev)[1:].view(1, 64, 256)
+        ck._launch(v, ck.stage1_tables(exr, exi)[0],
+                   *(torch.empty((1, 64, 64), device=dev) for _ in range(2)),
+                   64, False, ck.KERNEL_TMA)
     assert ck.LAUNCHES == n
+    # an unaligned base with W % 16 == 0 goes to the load route and
+    # matches the plain version there
+    rng = np.random.default_rng(9)
+    v = torch.from_numpy(rng.integers(0, 256, 1 + 64 * 256,
+                                      dtype=np.uint8)).to(dev)[1:]
+    v = v.view(1, 64, 256)
+    ar, ai = ck.fwd_stage1(v, exr, exi, False)
+    pr, pi = ck.fwd_stage1_plain(v, exr, exi, False)
+    torch.cuda.synchronize()
+    assert ck.LAUNCHES == {**n, ck.KERNEL_LDG: n[ck.KERNEL_LDG] + 1}
+    scale = max(pr.abs().max().item(), pi.abs().max().item())
+    assert (ar - pr).abs().max().item() <= REL * scale
+    assert (ai - pi).abs().max().item() <= REL * scale
+
+
+@pytest.mark.parametrize("shape,Kx,center,offset", [
+    ((2, 3, 100, 1917), 300, False, 0),  # P*H % 128 != 0, Kx % 256 != 0
+    ((1, 3, 37, 17), 17, True, 0),       # W < 64: one K block
+    ((2, 1, 129, 250), 130, True, 0),    # one row past a whole tile
+    ((1, 3, 301, 1917), 512, True, 7),   # a view ending at its storage's end
+    ((3, 45, 203), 64, False, 3),
+    ((2, 3, 67, 512), 300, True, 1),     # W % 16 == 0, unaligned base
+])
+def test_k1_load_route_matches_plain(dev, shape, Kx, center, offset):
+    """The load route at its edge shapes, on images `offset` bytes into a
+    storage of exactly their size: its last row ends at the storage's last
+    byte, which no copy may read past."""
+    from steganosaurus_tpu_torch.spectral import corner_kernels as ck
+
+    rng = np.random.default_rng(sum(shape) + Kx + offset)
+    n_img = int(np.prod(shape))
+    buf = torch.from_numpy(rng.integers(0, 256, offset + n_img,
+                                        dtype=np.uint8)).to(dev)
+    x = buf[offset:].view(shape)
+    assert ck.route_for(shape[-1], x.data_ptr()) == ck.KERNEL_LDG
+    exr, exi = _tables(shape[-1], Kx, dev)
+    n = ck.LAUNCHES[ck.KERNEL_LDG]
+    ar, ai = ck.fwd_stage1(x, exr, exi, center)
+    pr, pi = ck.fwd_stage1_plain(x, exr, exi, center)
+    torch.cuda.synchronize()
+    assert ck.LAUNCHES[ck.KERNEL_LDG] == n + 1
+    assert ar.shape == pr.shape == (*shape[:-1], Kx)
+    scale = max(pr.abs().max().item(), pi.abs().max().item())
+    assert (ar - pr).abs().max().item() <= REL * scale
+    assert (ai - pi).abs().max().item() <= REL * scale
 
 
 @pytest.mark.parametrize("shape,Kx,center", [
@@ -104,15 +152,15 @@ def test_k1_wrapper_counts_and_checks(dev):
     ((1, 3, 1080, 1920), 512, True),  # one 1080p image
 ])
 def test_k1_wgmma_edges_match_plain(dev, shape, Kx, center):
-    """The wgmma kernel at the edge shapes, with and without the cached
+    """The TMA route at its edge shapes, with and without the cached
     concatenated table."""
     from steganosaurus_tpu_torch.spectral import corner_kernels as ck
 
-    assert ck.kernel_for(shape[-1]) == ck.KERNEL_WGMMA
     rng = np.random.default_rng(sum(shape) + Kx)
     x = torch.from_numpy(rng.integers(0, 256, shape, dtype=np.uint8)).to(dev)
+    assert ck.route_for(shape[-1], x.data_ptr()) == ck.KERNEL_TMA
     exr, exi = _tables(shape[-1], Kx, dev)
-    n = ck.LAUNCHES[ck.KERNEL_WGMMA]
+    n = ck.LAUNCHES[ck.KERNEL_TMA]
     pr, pi = ck.fwd_stage1_plain(x, exr, exi, center)
     scale = max(pr.abs().max().item(), pi.abs().max().item())
     for tables in (None, ck.stage1_tables(exr, exi)):
@@ -121,12 +169,12 @@ def test_k1_wgmma_edges_match_plain(dev, shape, Kx, center):
         assert ar.shape == pr.shape == (*shape[:-1], Kx)
         assert (ar - pr).abs().max().item() <= REL * scale
         assert (ai - pi).abs().max().item() <= REL * scale
-    assert ck.LAUNCHES[ck.KERNEL_WGMMA] == n + 2
+    assert ck.LAUNCHES[ck.KERNEL_TMA] == n + 2
 
 
 def test_1080p_round_trip_through_the_wgmma_kernel(dev):
-    """1080p, B=8, 1 KB: embed and extract on the card through the wgmma
-    kernel (and never the mma.sync one), every secret read back."""
+    """1080p, B=8, 1 KB: embed and extract on the card through the kernel's
+    TMA route (and never the load route), every secret read back."""
     import steganosaurus_tpu_torch as stt
     from steganosaurus_tpu_torch.spectral import corner_kernels as ck
 
@@ -143,8 +191,8 @@ def test_1080p_round_trip_through_the_wgmma_kernel(dev):
     got = stt.extract_batch(res.stego, master_key=bytes(32), layout="nchw")
     torch.cuda.synchronize()
     assert got == secrets
-    assert ck.LAUNCHES[ck.KERNEL_WGMMA] >= n[ck.KERNEL_WGMMA] + 2
-    assert ck.LAUNCHES[ck.KERNEL] == n[ck.KERNEL]
+    assert ck.LAUNCHES[ck.KERNEL_TMA] >= n[ck.KERNEL_TMA] + 2
+    assert ck.LAUNCHES[ck.KERNEL_LDG] == n[ck.KERNEL_LDG]
 
 
 def test_round_trip_on_card_goes_through_k1(dev):
@@ -155,7 +203,7 @@ def test_round_trip_on_card_goes_through_k1(dev):
     imgs = torch.from_numpy(rng.integers(100, 160, (2, 3, 256, 256),
                                          dtype=np.uint8)).to(dev)
     secrets = [b"x" * 32, b"y" * 32]
-    n = ck.LAUNCHES[ck.KERNEL_WGMMA]
+    n = ck.LAUNCHES[ck.KERNEL_TMA]
     res = stt.embed_batch(imgs, secrets, master_key=bytes(32),
                           device_resident=True, layout="nchw")
     assert res.stego.device == imgs.device
@@ -163,7 +211,7 @@ def test_round_trip_on_card_goes_through_k1(dev):
                             layout="nchw")
     torch.cuda.synchronize()
     assert got == secrets
-    assert ck.LAUNCHES[ck.KERNEL_WGMMA] >= n + 2
+    assert ck.LAUNCHES[ck.KERNEL_TMA] >= n + 2
 
 
 def test_stream_on_card_matches_batches(dev):
@@ -227,9 +275,9 @@ def test_soft_retry_pass_on_card_launches_k1(dev, monkeypatch):
         return hard_rows, None, None
 
     def counted_retry(self, headers, out):
-        n = ck.LAUNCHES[ck.KERNEL_WGMMA]
+        n = ck.LAUNCHES[ck.KERNEL_TMA]
         real_retry(self, headers, out)
-        retry_launches.append(ck.LAUNCHES[ck.KERNEL_WGMMA] - n)
+        retry_launches.append(ck.LAUNCHES[ck.KERNEL_TMA] - n)
 
     monkeypatch.setattr(tbatch._ExtractJob, "_dispatch_pass", no_inline)
     monkeypatch.setattr(tbatch._ExtractJob, "_soft_retry_failed",
@@ -255,12 +303,12 @@ def test_qim_extract_on_card_launches_k1(dev):
     salts = [bytes([i + 1]) * 16 for i in range(2)]
     cpu = stt.embed_batch(imgs, secrets, master_key=bytes(32), params=p,
                           salts=salts, device="cpu").stego
-    n = ck.LAUNCHES[ck.KERNEL_WGMMA]
+    n = ck.LAUNCHES[ck.KERNEL_TMA]
     got = stt.extract_batch(torch.from_numpy(cpu).to(dev),
                             master_key=bytes(32), params=p)
     torch.cuda.synchronize()
     assert got == secrets
-    assert ck.LAUNCHES[ck.KERNEL_WGMMA] >= n + 2   # probe + payload pass
+    assert ck.LAUNCHES[ck.KERNEL_TMA] >= n + 2   # probe + payload pass
     card = stt.embed_batch(imgs, secrets, master_key=bytes(32), params=p,
                            salts=salts, device=dev).stego
     assert np.abs(card.astype(np.int16) - cpu.astype(np.int16)).max() <= 1
@@ -277,11 +325,11 @@ def test_piw_embed_on_card_launches_k1(dev):
                                          dtype=np.uint8)).to(dev)
     secrets = [bytes([i]) * (30 + i) for i in range(3)]
     p = stt.Params.stealth(pbkdf2_iter=500)
-    n = ck.LAUNCHES[ck.KERNEL_WGMMA]
+    n = ck.LAUNCHES[ck.KERNEL_TMA]
     res = stt.embed_batch(imgs, secrets, master_key=bytes(32), params=p,
                           device_resident=True, layout="nchw")
     torch.cuda.synchronize()
-    assert ck.LAUNCHES[ck.KERNEL_WGMMA] == n + 1
+    assert ck.LAUNCHES[ck.KERNEL_TMA] == n + 1
     assert res.stego.device == imgs.device
     assert stt.extract_batch(res.stego.cpu().numpy(), master_key=bytes(32),
                              params=p, layout="nchw",
@@ -319,9 +367,9 @@ def test_rs_soft_retry_on_card_launches_k1(dev, monkeypatch):
         return real_dispatch(self, *a, **kw)[0], None, None
 
     def counted_retry(self, headers, out):
-        n = ck.LAUNCHES[ck.KERNEL_WGMMA]
+        n = ck.LAUNCHES[ck.KERNEL_TMA]
         real_retry(self, headers, out)
-        retry_launches.append(ck.LAUNCHES[ck.KERNEL_WGMMA] - n)
+        retry_launches.append(ck.LAUNCHES[ck.KERNEL_TMA] - n)
 
     monkeypatch.setattr(tbatch._ExtractJob, "_dispatch_pass", no_inline)
     monkeypatch.setattr(tbatch._ExtractJob, "_soft_retry_failed",

@@ -1,6 +1,6 @@
 """Where the time goes in the torch port's main path, on one CUDA card.
 
-    python3 tools/profile_torch_path.py [--stream | --single] [TRACE_DIR]
+    python3 tools/profile_torch_path.py [--stream | --single | --crop] [TRACE_DIR]
 
 Runs one warm embed_batch -> extract_batch round trip of chip_smoke.py's 4K
 workload (2160x3840, B=64, 16 KB; seed-42 bench covers, rng(7) secrets,
@@ -16,6 +16,10 @@ rest: bit lookup, u8 epilogue, walk gather, ECC decode).
 the same workload against the serialized loop of two round trips, and
 prints wall ms, device busy ms and idle share of each: the overlap of host
 and device work that the stream buys shows as a lower idle share.
+
+--crop runs the same round trip on the covers cropped to 3839 columns
+(chip_smoke.py's phase 4c): a width that is not a multiple of 16, so stage 1
+takes the K1 kernel's load route and every other stage an odd width.
 
 --single profiles one warm embed_array -> extract_array of the first of
 those covers with one 16 KB secret under default Params (chip_smoke.py's
@@ -166,7 +170,8 @@ def main() -> int:
     args = sys.argv[1:]
     stream_mode = "--stream" in args
     single_mode = "--single" in args
-    args = [a for a in args if a not in ("--stream", "--single")]
+    crop = "--crop" in args
+    args = [a for a in args if a not in ("--stream", "--single", "--crop")]
     out = pathlib.Path(args[0]) if args else REPO / "build" / "profile"
     out.mkdir(parents=True, exist_ok=True)
     if single_mode:
@@ -196,6 +201,8 @@ def main() -> int:
                                   chip_smoke.UHD_W)
     covers = torch.from_numpy(base).to(dev).permute(0, 3, 1, 2)
     covers = covers.repeat(-(-B // base.shape[0]), 1, 1, 1)[:B].contiguous()
+    if crop:
+        covers = covers[..., :chip_smoke.UHD_W - 1].contiguous()
     secrets = chip_smoke.secrets_for(B, secret)
     salts = [bytes([i]) * 16 for i in range(B)]
     mk = chip_smoke.MASTER_KEY
