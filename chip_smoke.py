@@ -11,7 +11,9 @@ channel report and quality, the soft-decision retry, ragged secrets with
 verify and jitter), every corner wire mode (soft write, alpha spread, QIM,
 RS, padding, per-image walks, Params.stealth() at 4K), the single-image
 embed_array -> extract_array in every wire mode, the full-grid
-adaptive_alpha batch and a batch extraction with coherent rows, and prints
+adaptive_alpha batch and a batch extraction with coherent rows, then the
+user-facing surface (the `turtlefft serve` worker in process and as a
+process of its own, and the `turtlefft` CLI's one-shot modes), and prints
 one line per measurement. The last two lines
 are JSON: the per-kernel record, then the device record. Any failure raises,
 and the process exits non-zero without printing them. Without CUDA, or
@@ -33,8 +35,11 @@ Phases:
              library call torch.mm(x_bf16, T.T, out_dtype=f32), with and
              without the u8 -> bf16 cast, timed in turns at 4K (3840 and
              3839 columns) beside the bound; the load route, its plain
-             version and the library call again at the 4b grid. The load
-             route must beat the library call at 3839 and at the 4b grid
+             version and the library call again at the 4b grid; the TMA
+             route at the serve worker's shapes (4K B=1 and B=32: P=3 and
+             P=96) against its plain version, then timed in turns with it
+             and the library call. The load route must beat the library
+             call at 3839 and at the 4b grid
   4. path    512x512, B=8, 100 B round trip (also held against the port on
              the CPU), then 2160x3840, B=64, 16 KB: all secrets recovered,
              K1 launched on the TMA route alone, warm timings, PSNR, peak
@@ -101,10 +106,29 @@ Phases:
   7e. wrong key  extract_batch of the 4K B=64 stegos under another key:
              every row fails both header parses and goes through
              extract_array, all None; cold and warm ms
-Every path of phases 4-5 and 7d-7e must launch K1 (on the TMA route,
-corner_stage1_wgmma, or in 4b and 4c on the load route,
-corner_stage1_wgmma_ldg); the single-image paths and the full-grid batch
-cores (7a-7c) run torch.fft and must launch none. The launches are counted
+  8a. serve  the `turtlefft serve` worker in process (serve_loop on a
+             scripted request stream), warm-up 2160x3840:16384: embed and
+             extract by PNG and by .npy, embed_batch of 8 PNGs, then
+             extract_batch, stats; then a worker pinned to
+             Params(cover_dependent_path=True): one embed and extract of
+             a 4K midstep_cover. Every secret back; K1 counted per request
+  8b. worker `python -m steganosaurus_tpu_torch.cli serve --key K --warmup
+             2160x3840:16384` as its own process
+             (tools/serve_latency_torch.measure): seconds to its ready line
+             and its warm-up, warm client-side p50/p95 over 5 rounds of
+             PNG embed, PNG extract, .npy embed and .npy extract at 4K 16
+             KB, each round trip verified; its stats; exit code 0
+  8c. CLI    the one-shot modes at 1080p, each its own process: gen-key
+             --key-out --wrap-pass; embed and extract with that wrapped
+             --key on the card and on the CPU (STEGANOSAURUS_PLATFORM=cpu),
+             each reading the other's stego; extract under a wrong
+             passphrase (rc 1, "Magic not found"); check (rc 0);
+             batch-embed and batch-extract of 4 covers
+Every path of phases 4-5, 7d-7e and the serve worker's B=1 and batch ops
+(8a) must launch K1 (on the TMA route, corner_stage1_wgmma, or in 4b and
+4c on the load route, corner_stage1_wgmma_ldg); the single-image paths,
+the full-grid batch cores (7a-7c) and the cover-dependent worker (8a) run
+torch.fft and must launch none. The launches are counted
 per path and per route, and each (planes, H, W, Kx, center, route) the
 paths hand the stage-1 wrapper is recorded.
   6. K1 shapes  every recorded shape that phase 3 did not check is held
@@ -288,6 +312,17 @@ K1_EDGES = [((1, 1, 67, 528), 45, True), ((2, 3, 67, 528), 1000, False),
             ((1, 1, 5, 3), 3, False), ((1, 3, 301, 1917), 512, True)]
 # A phone screenshot (landscape iPhone 12-14: 2532 x 1170), B=8
 PHONE_GRID = (8, 1170, 2532)
+# The serve worker's batch sizes at 4K (phase 8): a single embed or extract
+# rides the batch path at B=1, a batch op runs batches of up to 32
+SERVE_K1_B = (1, 32)
+# 8a: PNG covers of the worker's embed_batch, and the cover-dependent
+# worker's secret (a 4K midstep_cover, the single-image path)
+SERVE_PNG_BATCH = 8
+CDP_SECRET = 4096
+# 8b: measured rounds of the four request classes; 8c: covers of the CLI's
+# batch modes
+SERVE_ROUNDS = 5
+CLI_BATCH_B = 4
 
 
 def _k1_err(out, ref):
@@ -377,7 +412,7 @@ def _turns(runs: dict, rounds: int = 2) -> dict:
     return times
 
 
-def phase_k1(covers_d):
+def phase_k1(covers_d, card: str):
     """Both routes of the stage-1 kernel against their plain version: the
     TMA route at the main path's shape (the whole 4K batch, P = 192 planes),
     at 1080p B=8, at phase 4's 512x512 B=8 grid and at the edge shapes; the
@@ -388,8 +423,10 @@ def phase_k1(covers_d):
     instantiations. Timed in turns at 4K: the TMA route at 3840, the load
     route at 3839 and forced at 3840, and torch.mm at both widths with and
     without the u8 -> bf16 cast; at the 4b grid the load route, its plain
-    version and torch.mm. Returns the routes' records, the _k1_key of every
-    shape checked here, and the 3839-column covers."""
+    version and torch.mm; at the serve worker's shapes (the first 1 and 32
+    covers: P=3 and P=96) the TMA route, its plain version and torch.mm
+    with and without the cast. Returns the routes' records, the _k1_key of
+    every shape checked here, and the 3839-column covers."""
     import numpy as np
     import torch
 
@@ -527,6 +564,34 @@ def phase_k1(covers_d):
             f"ms, mean {rms[k]!r} ms")
     log(f"K1 {LDG} at the 4b grid: bound {rbound!r} ms ({rbound_by}), at "
         f"{rbound / rms[LDG]:.3f} of it")
+    # the serve worker's shapes (phase 8) on the TMA route: a single embed
+    # or extract is B=1 (P=3), a batch op up to B=32 (P=96); each held to
+    # the plain version, then timed in turns with it and the library call
+    for b in SERVE_K1_B:
+        x = covers_d[:b]
+        args = (x, tabs.exr16, tabs.exi16, False)
+        check(f"serve B={b}", args, tabs.stage1, TMA)
+        r = x.reshape(-1, W)
+        r16 = r.to(bf16)
+        n = 200 if b == 1 else 10
+        st = _turns({
+            TMA: (lambda a=args: new(*a, tabs.stage1), n),
+            "plain": (lambda a=args: ck.fwd_stage1_plain(*a), max(2, n // 20)),
+            "library": (lambda r=r: torch.mm(r.to(bf16), T.T, out_dtype=f32),
+                        n),
+            "library_no_cast": (lambda r16=r16: torch.mm(r16, T.T,
+                                                         out_dtype=f32), n),
+        })
+        sms = {k: sum(v) / len(v) for k, v in st.items()}
+        sb, sb_by = k1_bound(3 * b, H, W, Kx)
+        for k, v in st.items():
+            log(f"K1 serve shape P={3 * b} {H}x{W} Kx={Kx}, {k}: {v!r} ms, "
+                f"mean {sms[k]!r} ms ({card})")
+        log(f"K1 {TMA} at P={3 * b}: bound {sb!r} ms ({sb_by}), at "
+            f"{sb / sms[TMA]:.3f} of it; {sms['library'] / sms[TMA]:.3f}x "
+            f"the library call's time ({card})")
+        del r16
+    torch.cuda.empty_cache()
     if not ms[LDG] < ms[f"library at {W - 1}"]:
         raise AssertionError(f"{LDG} is not faster than torch.mm at "
                              f"{W - 1}: {times}")
@@ -1893,6 +1958,273 @@ def phase_wrong_key(covers_d, launches: dict) -> None:
         raise AssertionError("7e: a wrong-key row read as a secret")
 
 
+def _scripted(reqs, counts: dict):
+    """serve_loop's stdin for [(name, request)]: each request's line, with
+    every K1 count set to 0 just before it; the counts of each request land
+    in counts[name] once the loop has answered it (when it asks for the
+    next line, or for the end of the input)."""
+    from steganosaurus_tpu_torch.spectral import corner_kernels as ck
+
+    prev = None
+    for name, req in reqs:
+        if prev is not None:
+            counts[prev] = dict(ck.LAUNCHES)
+        for k in ck.LAUNCHES:
+            ck.LAUNCHES[k] = 0
+        prev = name
+        yield json.dumps(req) + "\n"
+    if prev is not None:
+        counts[prev] = dict(ck.LAUNCHES)
+
+
+def _serve(reqs, params, warmup=()) -> tuple:
+    """(replies, K1 counts per request) of one in-process serve_loop on the
+    card under MASTER_KEY; the loop must answer every request and end 0."""
+    import io
+
+    from steganosaurus_tpu_torch.pipeline.serve import serve_loop
+
+    counts: dict = {}
+    out = io.StringIO()
+    rc = serve_loop(None, MASTER_KEY, params, stdin=_scripted(reqs, counts),
+                    stdout=out, warmup=warmup)
+    replies = [json.loads(x) for x in out.getvalue().splitlines()]
+    if rc != 0 or replies[0].get("op") != "ready" \
+            or len(replies) != len(reqs) + 1:
+        raise AssertionError(f"8a: rc {rc}, replies {replies}")
+    return replies[1:], counts
+
+
+def phase_serve(launches: dict, card: str) -> None:
+    """8a: the serve worker in process at 4K, under --warmup 2160x3840:16384:
+    embed / extract by PNG and by .npy, embed_batch of 8 PNGs, then
+    extract_batch, stats; then a second worker pinned to
+    Params(cover_dependent_path=True), one embed / extract of a 4K
+    midstep_cover. Every secret comes back; K1 counted per request: the
+    B=1 and batch ops must launch it, the cover-dependent ops must not."""
+    import base64
+
+    import numpy as np
+
+    import steganosaurus_tpu_torch as stt
+    from steganosaurus_tpu_torch.io import image as image_io
+    from steganosaurus_tpu_torch.spectral import corner_kernels as ck
+    from steganosaurus_tpu_torch.utils.covers import midstep_cover
+
+    B = SERVE_PNG_BATCH
+    covers = make_covers(UHD_BASE, UHD_H, UHD_W)[:B]
+    secrets = secrets_for(B, UHD_SECRET)
+    b64 = [base64.b64encode(s).decode() for s in secrets]
+    with tempfile.TemporaryDirectory(prefix="stt_serve_") as tmp:
+        cov = [os.path.join(tmp, f"c{i}.png") for i in range(B)]
+        out = [os.path.join(tmp, f"s{i}.png") for i in range(B)]
+        for p, c in zip(cov, covers):
+            image_io.save_png(p, c)
+        np.save(os.path.join(tmp, "c.npy"), covers[1])
+        reqs = [
+            ("embed png", {"op": "embed", "in": cov[0], "out": out[0],
+                           "secret_b64": b64[0]}),
+            ("extract png", {"op": "extract", "in": out[0]}),
+            ("embed npy", {"op": "embed", "in_npy": os.path.join(tmp, "c.npy"),
+                           "out_npy": os.path.join(tmp, "s.npy"),
+                           "secret_b64": b64[1]}),
+            ("extract npy", {"op": "extract",
+                             "in_npy": os.path.join(tmp, "s.npy")}),
+            ("embed_batch", {"op": "embed_batch", "jobs": [
+                {"in": c, "out": o, "secret_b64": s}
+                for c, o, s in zip(cov, out, b64)]}),
+            ("extract_batch", {"op": "extract_batch", "ins": out}),
+            ("stats", {"op": "stats"}),
+        ]
+        t = time.perf_counter()
+        rs, counts = _serve(reqs, stt.Params(),
+                            warmup=[(UHD_H, UHD_W, UHD_SECRET)])
+        wall = time.perf_counter() - t
+        cdp = midstep_cover(UHD_H, UHD_W, 44)
+        np.save(os.path.join(tmp, "m.npy"), cdp)
+        cdp_secret = secrets[2][:CDP_SECRET]
+        cdp_reqs = [
+            ("cover-dependent embed", {
+                "op": "embed", "in_npy": os.path.join(tmp, "m.npy"),
+                "out_npy": os.path.join(tmp, "ms.npy"),
+                "secret_b64": base64.b64encode(cdp_secret).decode()}),
+            ("cover-dependent extract", {
+                "op": "extract", "in_npy": os.path.join(tmp, "ms.npy")})]
+        crs, ccounts = _serve(cdp_reqs,
+                              stt.Params(cover_dependent_path=True))
+    if not all(r["ok"] for r in rs + crs):
+        raise AssertionError(f"8a: a request failed: {rs + crs}")
+    got = [base64.b64decode(rs[1]["secret_b64"]),
+           base64.b64decode(rs[3]["secret_b64"])]
+    got_b = [base64.b64decode(r["secret_b64"]) for r in rs[5]["results"]]
+    got_c = base64.b64decode(crs[1]["secret_b64"])
+    if got != secrets[:2] or got_b != secrets or rs[4]["n_ok"] != B \
+            or got_c != cdp_secret:
+        raise AssertionError("8a: a secret did not come back")
+    for name, n in counts.items():
+        launches[f"8a {name}"] = n
+        if name != "stats" and n[ck.KERNEL_TMA] <= 0:
+            raise AssertionError(f"8a: {name} launched no K1: {n}")
+    for name, n in ccounts.items():
+        launches[f"8a {name}"] = n
+        if any(n.values()):
+            raise AssertionError(f"8a: {name} launched K1: {n}")
+    log(f"8a serve in process, 4K, 16 KB, warmup + {len(reqs)} requests "
+        f"in {wall:.1f} s; ms per request " + ", ".join(
+            f"{name} {r['ms']!r}" for (name, _), r in zip(reqs, rs))
+        + f"; cover-dependent {crs[0]['ms']!r} / {crs[1]['ms']!r}; K1 "
+        f"launches per request {counts}, cover-dependent {ccounts}; "
+        f"worker stats {rs[6]['ops']} ({card})")
+
+
+def phase_serve_worker(card: str) -> dict:
+    """8b: `python -m steganosaurus_tpu_torch.cli serve --key K --warmup
+    2160x3840:16384` as a process of its own, through
+    tools/serve_latency_torch.measure: seconds to its ready line and its
+    warm-up, then warm client-side p50/p95 over SERVE_ROUNDS rounds of the
+    four request classes (PNG embed and extract, .npy embed and extract) on
+    a 4K bench cover with a 16 KB secret, every round trip verified; the
+    worker's stats; shutdown, exit code 0."""
+    import base64
+
+    sys.path.insert(0, str(REPO / "tools"))
+    try:
+        import serve_latency_torch
+    finally:
+        sys.path.remove(str(REPO / "tools"))
+    cmd = [sys.executable, "-m", "steganosaurus_tpu_torch.cli", "serve",
+           "--key", base64.b64encode(MASTER_KEY).decode(),
+           "--warmup", f"{UHD_H}x{UHD_W}:{UHD_SECRET}"]
+    cover = make_covers(UHD_BASE, UHD_H, UHD_W)[2]
+    secret = secrets_for(3, UHD_SECRET)[2]
+    with tempfile.TemporaryDirectory(prefix="stt_worker_") as tmp:
+        rec = serve_latency_torch.measure(cmd, cover, secret, SERVE_ROUNDS,
+                                          tmp)
+    log(f"8b worker: ready line after {rec['ready_s']!r} s (process start, "
+        f"imports, warm-up {rec['warmup_s']} s) ({card})")
+    for k, v in rec["client"].items():
+        log(f"8b warm client-side {k} at 4K 16 KB over n={SERVE_ROUNDS}: "
+            f"p50 {v['p50'] * 1e3!r} ms, p95 {v['p95'] * 1e3!r} ms, min "
+            f"{v['min'] * 1e3!r} ms ({card})")
+    log(f"8b worker stats: {rec['worker_stats']} ({card})")
+    return rec
+
+
+def _cli(args, platform: str = "") -> subprocess.Popen:
+    """`python -m steganosaurus_tpu_torch.cli *args` on the card (or with
+    STEGANOSAURUS_PLATFORM=platform), output captured."""
+    env = {k: v for k, v in os.environ.items()
+           if k != "STEGANOSAURUS_PLATFORM"}
+    env["PYTHONPATH"] = str(REPO)
+    if platform:
+        env["STEGANOSAURUS_PLATFORM"] = platform
+    return subprocess.Popen(
+        [sys.executable, "-m", "steganosaurus_tpu_torch.cli", *map(str, args)],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env,
+        cwd=str(REPO))
+
+
+def _cli_all(runs: dict) -> dict:
+    """{name: (args, platform)} run all at once -> {name: (rc, stdout,
+    stderr, s)}; every process is waited for or killed."""
+    procs = {}
+    try:
+        t = time.perf_counter()
+        for name, (args, plat) in runs.items():
+            procs[name] = _cli(args, plat)
+        out = {}
+        for name, p in procs.items():
+            o, e = p.communicate(timeout=600)
+            out[name] = (p.returncode, o, e, time.perf_counter() - t)
+        return out
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+
+
+def phase_cli(card: str) -> None:
+    """8c: the CLI one-shots at 1080p, each its own process: gen-key
+    --key-out F --wrap-pass W; then at once an embed on the card and one
+    with STEGANOSAURUS_PLATFORM=cpu (--key F's text --wrap-pass W), `check`
+    and batch-embed of 4 covers; then at once the card's and the CPU's
+    extract of each other's stego and of the card's own, an extract under a
+    wrong passphrase (rc 1, "Magic not found") and batch-extract. Every
+    secret comes back."""
+    from steganosaurus_tpu_torch.io import image as image_io
+
+    n = CLI_BATCH_B
+    covers = make_covers(n, FHD_H, FHD_W)
+    secret = "phase 8c one-shot secret"
+    iters = ["--pbkdf2_iter", "5000"]
+    with tempfile.TemporaryDirectory(prefix="stt_cli_") as tmp:
+        tmp = pathlib.Path(tmp)
+        (tmp / "in").mkdir()
+        for i, c in enumerate(covers):
+            image_io.save_png(str(tmp / "in" / f"c{i}.png"), c)
+        (tmp / "secrets.txt").write_text(
+            "".join(f"batch secret {i}\n" for i in range(n)))
+        cover = tmp / "in" / "c0.png"
+        r = _cli_all({"gen-key": (["gen-key", "--key-out", tmp / "key",
+                                   "--wrap-pass", "wp", *iters], "")})
+        if r["gen-key"][0] != 0:
+            raise AssertionError(f"8c gen-key: {r}")
+        key = ["--key", (tmp / "key").read_text().strip(),
+               "--wrap-pass", "wp"]
+        r1 = _cli_all({
+            "embed card": (["embed", "--in", cover, "--out", tmp / "card.png",
+                            "--secret", secret, *key, *iters], ""),
+            "embed cpu": (["embed", "--in", cover, "--out", tmp / "cpu.png",
+                           "--secret", secret, *key, *iters], "cpu"),
+            "check": (["check", "--in", cover, "--secret", secret, *key,
+                       *iters], ""),
+            "batch-embed": (["batch-embed", "--in-dir", tmp / "in",
+                             "--out-dir", tmp / "out", "--secrets-file",
+                             tmp / "secrets.txt", "--verify", "1", *key,
+                             *iters], ""),
+        })
+        r2 = _cli_all({
+            "extract card/card": (["extract", "--in", tmp / "card.png", *key,
+                                   *iters], ""),
+            "extract card/cpu": (["extract", "--in", tmp / "cpu.png", *key,
+                                  *iters], ""),
+            "extract cpu/card": (["extract", "--in", tmp / "card.png", *key,
+                                  *iters], "cpu"),
+            "extract wrong pass": (["extract", "--in", tmp / "card.png",
+                                    "--pass", "wrong", *iters], ""),
+            "batch-extract": (["batch-extract", "--in-dir", tmp / "out",
+                               *key, *iters], ""),
+        })
+    res = {**r, **r1, **r2}
+    for name, (rc, o, e, s) in res.items():
+        log(f"8c {name}: rc {rc}, done {s:.1f} s into its round; stdout "
+            f"{o.strip().splitlines()[-1:]} ({card})")
+    bad = []
+    for name in ("embed card", "embed cpu", "check", "batch-embed",
+                 "extract card/card", "extract card/cpu", "extract cpu/card",
+                 "batch-extract"):
+        if res[name][0] != 0:
+            bad.append(name)
+    for name in ("extract card/card", "extract card/cpu", "extract cpu/card"):
+        if res[name][1] != secret + "\n":
+            bad.append(name)
+    if "round-trip: ok" not in res["check"][1]:
+        bad.append("check")
+    if not res["batch-embed"][1].startswith(f"Embedded {n}/{n}"):
+        bad.append("batch-embed")
+    if res["batch-extract"][1].splitlines() != [
+            f"c{i}.png\tbatch secret {i}" for i in range(n)]:
+        bad.append("batch-extract")
+    rc, _, err, _ = res["extract wrong pass"]
+    if rc != 1 or "Magic not found" not in err:
+        bad.append("extract wrong pass")
+    if bad:
+        raise AssertionError(f"8c failed: {bad}: " + "; ".join(
+            f"{k}: {res[k][0]} {res[k][1][-300:]!r} {res[k][2][-1500:]!r}"
+            for k in dict.fromkeys(bad)))
+
+
 def record_k1_shapes(seen: set):
     """Wrap the stage-1 wrapper so that the _k1_key of every call on the
     card, the route it launched included, lands in `seen`; returns the
@@ -1963,7 +2295,7 @@ def main() -> int:
         dev = torch.device("cuda", 0)
         torch.cuda.set_device(dev)
         t_all = time.perf_counter()
-        phase_probe()
+        card = phase_probe()
         torch.cuda.synchronize()
         phase_build()
         torch.cuda.synchronize()
@@ -1978,7 +2310,7 @@ def main() -> int:
             f"{tuple(covers_d.shape)} on the card in "
             f"{time.perf_counter() - t:.1f} s")
 
-        k1, checked, odd_d = timed("K1", phase_k1, covers_d)
+        k1, checked, odd_d = timed("K1", phase_k1, covers_d, card)
         launches: dict = {}
         seen: set = set()
         undo = record_k1_shapes(seen)
@@ -2008,6 +2340,12 @@ def main() -> int:
             timed("adaptive batch", phase_adaptive_batch, covers_d, launches)
             timed("mixed coherent", phase_mixed_coherent, dev, launches)
             timed("wrong key", phase_wrong_key, covers_d, launches)
+            del covers_d
+            torch.cuda.empty_cache()
+            timed("serve", phase_serve, launches, card)
+            torch.cuda.empty_cache()
+            timed("serve worker", phase_serve_worker, card)
+            timed("cli", phase_cli, card)
         finally:
             undo()
         log(f"K1 launches per path: {launches}")

@@ -2,10 +2,12 @@
 
 The JAX package (steganosaurus_tpu/) is the reference; this package runs the
 same single-image embed_array / extract_array (and the file-level embed /
-extract) and the same batch embed -> extract path with its serving surface
-on an NVIDIA H100, in every wire mode the JAX package writes (shared or
-per-image walks, hard or soft write, jitter, alpha spread, QIM, Rep-7 or
-RS, padding, coherent, adaptive alpha, cover-dependent walks; f64 under
+extract), the same batch embed -> extract path with its serving surface,
+the same `turtlefft` / `turtlefft-key` CLIs and `turtlefft serve` worker,
+and the same warden and channel reports on an NVIDIA H100, in every wire
+mode the JAX package writes (shared or per-image walks, hard or soft
+write, jitter, alpha spread, QIM, Rep-7 or RS, padding, coherent,
+adaptive alpha, cover-dependent walks; f64 under
 Params(fft_dtype="complex128"), on the card or the CPU), and writes the
 same wire format, so stegos cross-decode between the two in both
 directions.
@@ -35,16 +37,24 @@ Layout follows the JAX package so each module's counterpart is easy to find:
                  amplitudes and QIM dithers, the embed_batch /
                  extract_batch API with verify, ragged secrets, every wire
                  mode and channel_report, and the embed_stream /
-                 extract_stream pipelining.
+                 extract_stream pipelining; ``serve`` the JSON-lines
+                 serving worker.
 - ``utils/``     PSNR, SSIM, BER and ecc_report; quality_device on the card;
-                 the reference's debug dumps (debug).
+                 the reference's debug dumps (debug); the warden reports,
+                 features and studies (steganalysis) and the channel reports
+                 (channel: requantization noise, AWGN/JPEG robustness).
+- ``cli``        the `turtlefft` CLI (gen-key, embed, extract, check,
+                 batch-embed, batch-extract, serve; bin/turtlefft-torch),
+                 on the card unless STEGANOSAURUS_PLATFORM=cpu.
+- ``keytool``    the `turtlefft-key` tool (bin/turtlefft-key-torch).
 
 - ``config``, ``crypto/``, ``keystream/``, ``_native_loader``, ``ops/rs``,
   ``io/image``, ``utils/debug``: the host modules, copied from the JAX
-  package's modules of the same paths (Params, keys and AEAD, the turtle
-  walk — coherent sites too — and its disk cache, the native-library
-  wrapper, RS(255,223), PNG load and save), so the wire format stays
-  byte-identical (tests/test_torch_host.py).
+  package's modules of the same paths (Params, keys and AEAD, the two
+  wrapped-key formats, the turtle walk — coherent sites too — and its disk
+  cache, the native-library wrapper, RS(255,223), PNG load and save), so
+  the wire format stays byte-identical (tests/test_torch_host.py,
+  tests/test_torch_keys.py).
 
 This package imports neither jax nor anything of steganosaurus_tpu.
 """
@@ -68,6 +78,31 @@ _API = {
                          "extract_dispatch"),
     "channel_report": ("steganosaurus_tpu_torch.pipeline.batch",
                        "channel_report"),
+    "phase_histogram_report": ("steganosaurus_tpu_torch.utils.steganalysis",
+                               "phase_histogram_report"),
+    "pairwise_difference_report": (
+        "steganosaurus_tpu_torch.utils.steganalysis",
+        "pairwise_difference_report"),
+    "magnitude_conditioned_report": (
+        "steganosaurus_tpu_torch.utils.steganalysis",
+        "magnitude_conditioned_report"),
+    "requantization_noise_report": ("steganosaurus_tpu_torch.utils.channel",
+                                    "requantization_noise_report"),
+    "collusion_report": ("steganosaurus_tpu_torch.utils.steganalysis",
+                         "collusion_report"),
+    "srm_report": ("steganosaurus_tpu_torch.utils.steganalysis",
+                   "srm_report"),
+    "srm_study": ("steganosaurus_tpu_torch.utils.steganalysis", "srm_study"),
+    "cross_channel_report": ("steganosaurus_tpu_torch.utils.steganalysis",
+                             "cross_channel_report"),
+    "cross_channel_study": ("steganosaurus_tpu_torch.utils.steganalysis",
+                            "cross_channel_study"),
+    "joint_residual_report": ("steganosaurus_tpu_torch.utils.steganalysis",
+                              "joint_residual_report"),
+    "joint_residual_study": ("steganosaurus_tpu_torch.utils.steganalysis",
+                             "joint_residual_study"),
+    "robustness_report": ("steganosaurus_tpu_torch.utils.channel",
+                          "robustness_report"),
     "prefetch_walk": ("steganosaurus_tpu_torch.pipeline.batch",
                       "prefetch_walk"),
     "prefetch_piw_walks": ("steganosaurus_tpu_torch.pipeline.batch",

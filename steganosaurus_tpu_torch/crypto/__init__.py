@@ -1,5 +1,7 @@
 """Host-side crypto — the port's copy of steganosaurus_tpu/crypto/, with
-the functions the port calls (byte-equal outputs, tests/test_torch_host.py).
+the functions the port calls (byte-equal outputs, tests/test_torch_host.py
+and tests/test_torch_keys.py); the two wrapped-key formats are in
+keywrap.py.
 
 The reference carries two copies of SHA-256/HMAC/PBKDF2/HKDF/ChaCha20-Poly1305
 (inline in steganosaur.cpp:45-323 and again in src/crypto/); both packages
@@ -15,6 +17,7 @@ Backends:
 
 from __future__ import annotations
 
+import base64 as _b64
 import hashlib
 import hmac as _hmac
 import os
@@ -291,3 +294,57 @@ def derive_qim_key(path_key: bytes) -> bytes:
 def get_random_bytes(n: int) -> bytes:
     """OS CSPRNG (reference crypto_utils::get_random_bytes, crypto_utils.h:87-155)."""
     return os.urandom(n)
+
+
+# ---------------------------------------------------------------------------
+# Encoding helpers / fingerprint (the CLI's gen-key and --key, the key tool)
+# ---------------------------------------------------------------------------
+
+
+def base64_encode(data: bytes) -> str:
+    return _b64.b64encode(data).decode("ascii")
+
+
+def base64_decode(text: str) -> bytes:
+    """Base64 decode skipping whitespace (reference crypto_utils.h:456-537).
+
+    Returns b"" on malformed input (the reference returns an empty vector).
+    """
+    compact = "".join(text.split())
+    try:
+        return _b64.b64decode(compact, validate=True)
+    except Exception:
+        return b""
+
+
+def key_fingerprint(key: bytes) -> str:
+    """First 8 bytes of SHA256(key) as lowercase hex
+    (reference crypto_utils::key_fingerprint, crypto_utils.h:554-558)."""
+    return sha256(key)[:8].hex()
+
+
+def constant_time_compare(a: bytes, b: bytes) -> bool:
+    """Timing-safe equality (reference steganosaur.cpp:327-333)."""
+    return _hmac.compare_digest(a, b)
+
+
+def secure_zero(buf) -> None:
+    """Best-effort in-place wipe of key material (reference secure_zero,
+    steganosaur.cpp:27-30 / crypto_utils.h:37-40).
+
+    Works on mutable buffers (bytearray, numpy arrays, memoryview). Python's
+    immutable `bytes` cannot be wiped in place — key material that must be
+    wipeable should be held in bytearray; the C++ side wipes its own
+    temporaries natively (native/aead.cc).
+    """
+    import numpy as _np
+
+    if isinstance(buf, bytearray):
+        for i in range(len(buf)):
+            buf[i] = 0
+    elif isinstance(buf, memoryview):
+        buf[:] = b"\x00" * len(buf)
+    elif isinstance(buf, _np.ndarray):
+        buf.fill(0)
+    else:
+        raise TypeError(f"cannot wipe immutable/unknown buffer {type(buf)}")

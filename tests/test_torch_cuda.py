@@ -8,7 +8,9 @@ the soft-decision retry pass (Rep-7 and RS), a QIM extract and a
 per-image-walk embed; the single-image path: a 1080p embed_array ->
 extract_array round trip, the exact median (kthvalue against the bisection
 twin) at 4K, a 1080p adaptive_alpha batch through the full-grid cores, and
-a complex128 round trip that stays on the card.
+a complex128 round trip that stays on the card; the serve worker at
+512x512 (K1 launched by every op) and the CLI's embed -> extract on the
+card.
 
 They skip without CUDA. This file imports neither jax nor the JAX package's
 device code, so it also runs on a machine without JAX:
@@ -478,3 +480,92 @@ def test_complex128_round_trip_stays_on_card(dev):
     assert np.abs(card.astype(np.int16) - cpu.astype(np.int16)).max() <= 1
     assert stt.extract_array(card, password="pw", params=p,
                              device="cpu") == secret
+
+
+def _scripted(reqs, counts):
+    """serve_loop's stdin for [(name, request)]: each request's line, with
+    every K1 count set to 0 just before it; the counts after each request
+    land in counts[name] (read when the loop asks for the next line)."""
+    import json
+
+    from steganosaurus_tpu_torch.spectral import corner_kernels as ck
+
+    prev = None
+    for name, req in reqs:
+        if prev is not None:
+            counts[prev] = dict(ck.LAUNCHES)
+        for k in ck.LAUNCHES:
+            ck.LAUNCHES[k] = 0
+        prev = name
+        yield json.dumps(req) + "\n"
+    if prev is not None:
+        counts[prev] = dict(ck.LAUNCHES)
+
+
+def _pngs(tmp_path, n, hw=(512, 512), seed=1):
+    from steganosaurus_tpu_torch.io import image as image_io
+
+    rng = np.random.default_rng(seed)
+    paths = []
+    for i in range(n):
+        img = np.clip(np.linspace(120, 200, hw[1])[None, :, None]
+                      + rng.integers(-20, 21, (*hw, 3)), 0,
+                      255).astype(np.uint8)
+        paths.append(str(tmp_path / f"c{i}.png"))
+        image_io.save_png(paths[-1], img)
+    return paths
+
+
+def test_serve_loop_on_card_launches_k1_per_op(dev, tmp_path):
+    """The worker on the card at 512x512: embed (embed_batch at B=1),
+    extract (the hinted extract_batch), embed_batch and extract_batch of 3
+    images read every secret back, and each op launches K1."""
+    import base64
+    import io
+    import json
+
+    from steganosaurus_tpu_torch.config import Params
+    from steganosaurus_tpu_torch.pipeline.serve import serve_loop
+
+    covers = _pngs(tmp_path, 3)
+    outs = [str(tmp_path / f"s{i}.png") for i in range(3)]
+    reqs = [("embed", {"op": "embed", "in": covers[0], "out": outs[0],
+                       "secret": "card serve"}),
+            ("extract", {"op": "extract", "in": outs[0]}),
+            ("embed_batch", {"op": "embed_batch", "jobs": [
+                {"in": c, "out": o, "secret": f"job {i}"}
+                for i, (c, o) in enumerate(zip(covers, outs))]}),
+            ("extract_batch", {"op": "extract_batch", "ins": outs})]
+    counts: dict = {}
+    stdout = io.StringIO()
+    rc = serve_loop(None, bytes(range(32)), Params(pbkdf2_iter=500),
+                    stdin=_scripted(reqs, counts), stdout=stdout,
+                    warmup=[(512, 512, 10)])
+    assert rc == 0
+    rs = [json.loads(x) for x in stdout.getvalue().splitlines()]
+    assert rs[0]["op"] == "ready" and rs[0]["warmed"] == ["512x512:10"]
+    assert all(r["ok"] for r in rs[1:]), rs
+    assert base64.b64decode(rs[2]["secret_b64"]) == b"card serve"
+    assert [base64.b64decode(r["secret_b64"]).decode()
+            for r in rs[4]["results"]] == [f"job {i}" for i in range(3)]
+    for name, n in counts.items():
+        assert sum(n.values()) > 0, (name, counts)
+
+
+def test_cli_embed_extract_on_card(dev, tmp_path, monkeypatch, capsys):
+    """The CLI with STEGANOSAURUS_PLATFORM unset runs on the card: a 512x512
+    embed -> extract round trip that allocates device memory (the
+    single-image path: torch.fft, no K1)."""
+    from steganosaurus_tpu_torch import cli
+
+    monkeypatch.delenv("STEGANOSAURUS_PLATFORM", raising=False)
+    cover = _pngs(tmp_path, 1, seed=2)[0]
+    stego = str(tmp_path / "s.png")
+    torch.cuda.reset_peak_memory_stats()
+    assert cli.main(["turtlefft", "embed", "--in", cover, "--out", stego,
+                     "--secret", "on the card", "--pass", "pw",
+                     "--pbkdf2_iter", "500"]) == 0
+    assert torch.cuda.max_memory_allocated() > 0
+    assert cli.main(["turtlefft", "extract", "--in", stego, "--pass", "pw",
+                     "--pbkdf2_iter", "500"]) == 0
+    assert capsys.readouterr().out.splitlines()[-1] == "on the card"

@@ -10,8 +10,10 @@ for field, keys (the cover-hash path key too), AEAD output, walks (the
 coherent walks too) and RS codewords byte- or array-equal, PNG bytes and
 debug dumps equal, the metrics equal to 1e-12. Then the port runs batch and
 single-image round trips with steganosaurus_tpu and jax blocked from
-import, and no module of the port, nor chip_smoke.py or
-tools/profile_torch_path.py, names the JAX package in an import.
+import (every name of its lazy API resolving there), and no module of the
+port, nor chip_smoke.py or its tools, names the JAX package in an import;
+every name of the JAX package's lazy API resolves in the port, and the
+port's launchers run the port's CLI and key tool.
 """
 
 import ast
@@ -335,6 +337,11 @@ import torch
 import steganosaurus_tpu_torch as stt
 import steganosaurus_tpu_torch.pipeline.stream
 import steganosaurus_tpu_torch.utils.metrics
+import steganosaurus_tpu_torch.cli
+import steganosaurus_tpu_torch.keytool
+import steganosaurus_tpu_torch.pipeline.serve
+for name in stt._API:
+    getattr(stt, name)
 torch.set_num_threads(2)
 rng = np.random.default_rng(0)
 imgs = rng.integers(90, 170, (2, 128, 128, 3), dtype=np.uint8)
@@ -363,7 +370,34 @@ def _port_sources():
     files = sorted((REPO / "steganosaurus_tpu_torch").rglob("*.py"))
     return files + [REPO / "chip_smoke.py",
                     REPO / "tools" / "profile_torch_path.py",
-                    REPO / "tools" / "time_wrong_key_batch.py"]
+                    REPO / "tools" / "time_wrong_key_batch.py",
+                    REPO / "tools" / "serve_latency_torch.py"]
+
+
+def test_launchers_run_the_ports_modules():
+    """bin/turtlefft-torch and bin/turtlefft-key-torch run the port's cli
+    and keytool (whose imports the AST test below checks), and the JAX
+    package's launchers still run the JAX package's."""
+    for name, mod in (("turtlefft-torch", "steganosaurus_tpu_torch.cli"),
+                      ("turtlefft-key-torch",
+                       "steganosaurus_tpu_torch.keytool"),
+                      ("turtlefft", "steganosaurus_tpu.cli"),
+                      ("turtlefft-key", "steganosaurus_tpu.keytool")):
+        text = (REPO / "bin" / name).read_text()
+        assert f"python3 -m {mod} " in text, name
+        assert os.access(REPO / "bin" / name, os.X_OK), name
+
+
+def test_every_jax_api_name_resolves_in_the_port():
+    """Every name of the JAX package's lazy top-level API resolves in the
+    port, to an object of the port."""
+    import steganosaurus_tpu as jst
+    import steganosaurus_tpu_torch as stt
+
+    assert set(jst._API) <= set(stt._API)
+    for name in jst._API:
+        obj = getattr(stt, name)
+        assert obj.__module__.startswith("steganosaurus_tpu_torch."), name
 
 
 def test_no_port_module_imports_the_jax_package():
@@ -371,10 +405,13 @@ def test_no_port_module_imports_the_jax_package():
     files = _port_sources()
     assert len(files) > 20
     names = {str(f.relative_to(REPO)) for f in files}
+    assert "tools/serve_latency_torch.py" in names
     for mod in ("ops/phase.py", "ops/stats.py", "ops/mask.py",
                 "pipeline/device.py", "pipeline/embed.py",
                 "pipeline/extract.py", "pipeline/frame.py",
-                "utils/covers.py", "utils/debug.py"):
+                "pipeline/serve.py", "utils/covers.py", "utils/debug.py",
+                "utils/steganalysis.py", "utils/channel.py",
+                "crypto/keywrap.py", "cli.py", "keytool.py"):
         assert f"steganosaurus_tpu_torch/{mod}" in names
     for path in files:
         for node in ast.walk(ast.parse(path.read_text(), str(path))):

@@ -156,3 +156,56 @@ def test_quality_device_identical_and_mismatched():
     assert p == float("inf") and abs(s - 1.0) <= 1e-6
     with pytest.raises(ValueError):
         stt.quality_device(x, x[:1])
+
+
+def _bench_4k_cover(i: int) -> np.ndarray:
+    """Cover i of the 4K bench covers (chip_smoke.py make_covers: gradient
+    + [-18, 18] noise, seed 42), made without keeping the others."""
+    rng = np.random.default_rng(42)
+    h, w = 2160, 3840
+    for _ in range(i):
+        rng.integers(-18, 19, (h, w, 3))
+    return np.clip(np.linspace(150, 235, w)[None, :, None]
+                   + rng.integers(-18, 19, (h, w, 3)), 0,
+                   255).astype(np.uint8)
+
+
+@pytest.mark.slow
+def test_4k_header_flip_of_image_49_matches_jax():
+    """chip_smoke.py 5c's image 49 (bench cover 17, salt bytes([49])*16,
+    key bytes(range(32)), the 16 KB rng(7) secret of row 49) as B=1
+    through both packages' embed_batch, each stego measured by both
+    packages' channel_report: the header and payload post-ECC BER are the
+    same in all four reports (the payload's 0), the raw BER within
+    RAW_TOL, and both stegos read back in both packages. The card's run
+    kept one Rep-3 header bit flipped after ECC on this image; on the CPU
+    the two packages agree on whether it does."""
+    rng = np.random.default_rng(7)
+    secret = [bytes(rng.integers(0, 256, 16384, dtype=np.uint8))
+              for _ in range(50)][49]
+    cover = _bench_4k_cover(17)[None]
+    salt = [bytes([49]) * 16]
+    p = Params()
+    stegos = {
+        "port": stt.embed_batch(cover, [secret], master_key=MK, params=p,
+                                salts=salt, device="cpu").stego,
+        "jax": np.asarray(jbatch.embed_batch(cover, [secret], master_key=MK,
+                                             params=jp(p), salts=salt).stego)}
+    reps = {}
+    for writer, st in stegos.items():
+        reps["port", writer] = stt.channel_report(
+            st, [secret], salt, master_key=MK, params=p, device="cpu")
+        reps["jax", writer] = jbatch.channel_report(
+            st, [secret], salt, master_key=MK, params=jp(p))
+        assert stt.extract_batch(st, master_key=MK, params=p,
+                                 device="cpu") == [secret]
+        assert jbatch.extract_batch(st, master_key=MK,
+                                    params=jp(p)) == [secret]
+    print({k: {f: float(v) for f, v in r.items()} for k, r in reps.items()})
+    want = reps["jax", "jax"]
+    assert want["payload_ber_post_ecc"] == 0.0
+    for r in reps.values():
+        assert r["header_ber_post_ecc"] == want["header_ber_post_ecc"]
+        assert r["payload_ber_post_ecc"] == 0.0
+        for k in ("header_ber_raw", "payload_ber_raw"):
+            assert abs(r[k] - want[k]) <= RAW_TOL, (k, reps)

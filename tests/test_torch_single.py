@@ -852,3 +852,84 @@ def test_capacity_and_key_errors_like_jax():
             stt.embed_array(cover, b"x", password="pw", params=p)
         with pytest.raises(RuntimeError, match="CUDA"):
             stt.extract_array(cover, password="pw", params=p)
+
+
+def _bench_4k_cover(i: int) -> np.ndarray:
+    """Cover i of the 4K bench covers (chip_smoke.py make_covers: gradient
+    + [-18, 18] noise, seed 42), made without keeping the others."""
+    rng = np.random.default_rng(42)
+    h, w = 2160, 3840
+    for _ in range(i):
+        rng.integers(-18, 19, (h, w, 3))
+    return np.clip(np.linspace(150, 235, w)[None, :, None]
+                   + rng.integers(-18, 19, (h, w, 3)), 0,
+                   255).astype(np.uint8)
+
+
+@pytest.mark.slow
+def test_4k_header_miss_salts_match_jax():
+    """chip_smoke.py 7a on the CPU, in both packages: bench cover 0, the
+    16 KB rng(7) secret, key bytes(range(2, 34)), default Params, salts
+    0-2. On the card (and in the CPU port) salts 0 and 1 miss the header
+    ("Magic not found") and salt 2 reads back. JAX's embed_array /
+    extract_array give the same pattern on its own stegos and on the
+    port's, the port reads JAX's the same way, and each miss comes from
+    the same Rep-3 header group in both packages' stegos."""
+    cover = _bench_4k_cover(0)
+    secret = bytes(np.random.default_rng(7).integers(0, 256, 16384,
+                                                     dtype=np.uint8))
+    key = bytes(range(2, 34))
+    p = Params()
+
+    def reads(extract, stego, **kw):
+        try:
+            return extract(stego, master_key=key, **kw) == secret
+        except Exception as e:  # noqa: BLE001 — both packages' StegoError
+            assert "Magic not found" in str(e)
+            return False
+
+    groups_seen = []
+    for s, want in {0: False, 1: False, 2: True}.items():
+        salt = bytes([s]) * 16
+        ts = stt.embed_array(cover, secret, master_key=key, params=p,
+                             salt=salt, device="cpu").stego
+        js = np.asarray(jembed(cover, secret, master_key=key, params=jp(p),
+                               salt=salt).stego)
+        got = [reads(stt.extract_array, st, params=p, device="cpu")
+               for st in (ts, js)]
+        got += [reads(jextract, st, params=jp(p)) for st in (ts, js)]
+        groups = [_header_miss_groups(st, secret, key, salt, p)
+                  for st in (ts, js)]
+        print(f"salt {s}: reads (port/port, port/jax, jax/port, jax/jax) "
+              f"{got}; Rep-3 groups with two slots wrong {groups}")
+        assert got == [want] * 4, (s, got)
+        assert groups[0] == groups[1] and (groups[0] == []) == want
+        groups_seen += groups[0]
+    assert len(set(groups_seen)) == 1
+
+
+def _midstep_cover_loop(h, w, seed, noise=10.0):
+    """midstep_cover as one full-image cosine per feature bin (its first
+    form): the reference for the matrix-product form."""
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[:h, :w]
+    img = 128.0 + rng.uniform(-noise, noise, (h, w, 3))
+    floor_mag = 20 * np.sqrt(h * w * noise ** 2 / 3)
+    k = int(np.ceil((np.log(floor_mag) - 1) / 2))
+    amp = 2 * (np.exp(2 * k + 1) - 1) / (h * w)
+    r = min(8, min(h, w) // 8)
+    for c in range(3):
+        for ky in range(r):
+            for kx in range(r):
+                if ky or kx:
+                    img[..., c] += amp * np.cos(
+                        2 * np.pi * (ky * yy / h + kx * xx / w)
+                        + rng.uniform(0, 2 * np.pi))
+    return np.clip(np.floor(img + 0.5), 0, 255).astype(np.uint8)
+
+
+@pytest.mark.parametrize("hw,seed", [((96, 128), 1), ((256, 256), 43),
+                                     ((40, 72), 7)])
+def test_midstep_cover_equals_the_loop_form(hw, seed):
+    np.testing.assert_array_equal(midstep_cover(*hw, seed),
+                                  _midstep_cover_loop(*hw, seed))
