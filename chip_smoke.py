@@ -13,8 +13,10 @@ RS, padding, per-image walks, Params.stealth() at 4K), the single-image
 embed_array -> extract_array in every wire mode, the full-grid
 adaptive_alpha batch and a batch extraction with coherent rows, then the
 user-facing surface (the `turtlefft serve` worker in process and as a
-process of its own, and the `turtlefft` CLI's one-shot modes), and prints
-one line per measurement. The last two lines
+process of its own, and the `turtlefft` CLI's one-shot modes), then the
+parallel layer (mesh= over the cards and over logical shards of one card,
+the sharded single-image FFT) and the cost model, and prints one line per
+measurement. The last two lines
 are JSON: the per-kernel record, then the device record. Any failure raises,
 and the process exits non-zero without printing them. Without CUDA, or
 without the package beside this file, it exits non-zero at once.
@@ -124,11 +126,31 @@ Phases:
              each reading the other's stego; extract under a wrong
              passphrase (rc 1, "Magic not found"); check (rc 0);
              batch-embed and batch-extract of 4 covers
-Every path of phases 4-5, 7d-7e and the serve worker's B=1 and batch ops
-(8a) must launch K1 (on the TMA route, corner_stage1_wgmma, or in 4b and
-4c on the load route, corner_stage1_wgmma_ldg); the single-image paths,
-the full-grid batch cores (7a-7c) and the cover-dependent worker (8a) run
-torch.fft and must launch none. The launches are counted
+  9a. mesh   make_mesh() over the machine's cards (one here): the 4K B=64
+             16 KB round trip with mesh=, phase 4's covers and salts:
+             64/64, the stego byte-equal to phase 4's, K1 once per shard
+             per pass, warm ms beside phase 4's
+  9b. shards 4 logical shards of the one card (the sharded arithmetic, not
+             the interconnect), the same batch: 64/64, the stego within +-1
+             of phase 4's on at most 0.5% of bytes (counted), K1 once per
+             shard per pass; embed_stream -> extract_stream over the mesh,
+             depth 2, 2 batches; verify=True with 3 rows made to fail their
+             first read-back: the retry runs unsharded (4 does not divide 3)
+  9c. fft_dist one 4K bench cover's spectrum over 4 logical shards:
+             embed_core_distributed on a 16 KB frame's walk bins within
+             2e-3 of the unsharded full-grid embed's planes, at most 4000
+             u8 bytes rounding apart, its u8 stego
+             read back by read_core_distributed (< 5% raw errors), the
+             sharded median equal to the bisection median; ms of both
+  9d. cost   utils/cost.py at the 4K headline: per-stage FLOPs, bytes and
+             bounds on the card's data-sheet peaks, the round trip's bound,
+             measure_device_step's core times and the share of the bound
+             (above 1.0 fails), measure_link with a 256 MiB pinned buffer
+Every path of phases 4-5, 7d-7e, 9a, 9b, 9d and the serve worker's B=1
+and batch ops (8a) must launch K1 (on the TMA route, corner_stage1_wgmma,
+or in 4b and 4c on the load route, corner_stage1_wgmma_ldg); the
+single-image paths, the full-grid batch cores (7a-7c), the cover-dependent
+worker (8a) and fft_dist (9c) run torch.fft and must launch none. The launches are counted
 per path and per route, and each (planes, H, W, Kx, center, route) the
 paths hand the stage-1 wrapper is recorded.
   6. K1 shapes  every recorded shape that phase 3 did not check is held
@@ -296,10 +318,6 @@ def phase_build() -> None:
         f"{time.perf_counter() - t:.3f} s")
 
 
-# The card's peak rates for a kernel's bound (NVIDIA H100 SXM data sheet,
-# dense): bf16 tensor cores and HBM3.
-PEAK_BF16_FLOPS = 989e12
-PEAK_HBM_BYTES = 3.35e12
 # Edge shapes of the stage-1 kernel: rows P*H not a multiple of its 128-row
 # tile, Kx not a multiple of its 256-column tile, W a multiple of 16 but not
 # of its 64-wide K block (the TMA route), P = 1, centering on and off; then
@@ -362,14 +380,11 @@ def k1_bound(P: int, H: int, W: int, Kx: int) -> tuple[float, str]:
     """(ms, bound_by): least time of the stage-1 function on the card, the
     larger of its operations over the bf16 peak and its bytes (u8 images
     read once, both bf16 tables once, ar and ai written once) over the HBM
-    rate, and which of the two it is."""
-    M = P * H
-    flops = 2.0 * M * W * 2 * Kx
-    nbytes = M * W + 2 * Kx * W * 2 + 2 * M * Kx * 4
-    ops_ms = flops / PEAK_BF16_FLOPS * 1e3
-    bytes_ms = nbytes / PEAK_HBM_BYTES * 1e3
-    return ((ops_ms, "operations") if ops_ms >= bytes_ms
-            else (bytes_ms, "bytes"))
+    rate, and which of the two it is: the cost model's K1 stage
+    (utils/cost.py k1_cost) at the card's data-sheet peaks."""
+    from steganosaurus_tpu_torch.utils import cost
+
+    return cost.stage_bound(cost.k1_cost(P, H, W, Kx), cost.peak_rates())
 
 
 def _k1_key(x, Kx: int, center: bool) -> tuple:
@@ -659,8 +674,8 @@ def phase_uhd(covers_d, what: str = "4K", route: str = "") -> tuple:
     """The main path at 4K UHD, B=64, 16 KB, on covers_d (phase 4; 4c: the
     same covers cropped by one column). Every secret must come back, and
     stage 1 must launch on `route` only (by default the TMA route). Returns
-    the kernels' launch counts of the counted (warm) round trip and its
-    (embed ms, extract ms)."""
+    the kernels' launch counts of the counted (warm) round trip, its
+    (embed ms, extract ms) and its stego."""
     import torch
 
     import steganosaurus_tpu_torch as stt
@@ -714,7 +729,7 @@ def phase_uhd(covers_d, what: str = "4K", route: str = "") -> tuple:
                                    if k != route):
         raise AssertionError(f"the {what} path did not launch {route} "
                              f"alone: {launches}")
-    return launches, (e_ms, x_ms)
+    return launches, (e_ms, x_ms), stego
 
 
 def phase_ragged_grid(dev, launches: dict) -> None:
@@ -2225,6 +2240,313 @@ def phase_cli(card: str) -> None:
             for k in dict.fromkeys(bad)))
 
 
+# --- phase 9: the parallel layer and the cost model ----------------------------
+
+# 9b: logical shards of the one card, and the rows whose first read-back
+# is made to fail in the verify run (3 of them: 4 does not divide 3, so the
+# retry must run unsharded, as JAX's tests/test_batch.py:158-186 forces)
+MESH_LOGICAL = 4
+MESH_FAILED_ROWS = (1, 4, 6)
+MESH_DIFF_FRAC = 5e-3
+# 9c: the sharded single-image FFT at 4K on MESH_LOGICAL logical shards:
+# its planes against the unsharded full-grid embed's, on the same bins, in
+# 0-255 units (both are f32 FFT round trips that sum in other orders),
+# about 5x the 3.66e-4 measured on an H100 (the CPU tests' 2e-3); and the
+# u8 bytes that round apart, about 5x the 789 measured there
+DIST_PLANES_ATOL = 2e-3
+DIST_MAX_ROUND_APART = 4000
+DIST_MAX_RAW_ERR = 0.05
+# 9d: the pinned buffer of the link probe
+LINK_BYTES = 256 << 20
+
+
+def _mesh_round_trip(covers_d, mesh, secrets, salts, what: str) -> tuple:
+    """One embed_batch -> extract_batch of the 4K batch over `mesh`
+    (device-resident, nchw): every secret back. Returns (stego gathered on
+    the first card, embed ms, extract ms)."""
+    import torch
+
+    import steganosaurus_tpu_torch as stt
+
+    B = covers_d.shape[0]
+    t0 = time.perf_counter()
+    res = stt.embed_batch(covers_d, secrets, master_key=MASTER_KEY,
+                          salts=salts, mesh=mesh, device_resident=True,
+                          layout="nchw")
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    got = stt.extract_batch(res.stego, master_key=MASTER_KEY,
+                            clen_hint=UHD_SECRET, layout="nchw")
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    n_ok = sum(g == s for g, s in zip(got, secrets))
+    if n_ok != B:
+        raise AssertionError(f"{what} recovered {n_ok}/{B}")
+    if [p.device for p in res.stego.parts] != list(mesh.devices):
+        raise AssertionError(f"{what}: stego shards on "
+                             f"{[p.device for p in res.stego.parts]}")
+    return (res.stego.gather(covers_d.device), (t1 - t0) * 1e3,
+            (t2 - t1) * 1e3)
+
+
+def _k1_per_shard(path: str, launches: dict, mesh, passes: int) -> None:
+    """K1 (the TMA route) launched once per shard per pass on `path`."""
+    from steganosaurus_tpu_torch.spectral import corner_kernels as ck
+
+    want = passes * mesh.size
+    if launches[path][ck.KERNEL_TMA] != want or launches[path][ck.KERNEL_LDG]:
+        raise AssertionError(f"{path}: K1 launches {launches[path]}, want "
+                             f"{want} on {ck.KERNEL_TMA} ({mesh.size} "
+                             f"shards x {passes} passes)")
+
+
+def phase_mesh_cards(covers_d, stego4, ms4, launches: dict) -> None:
+    """9a: make_mesh() over the machine's cards (one here) and the 4K B=64
+    16 KB round trip with mesh=, phase 4's covers and salts: 64/64, the
+    stego byte-equal to phase 4's, K1 once per shard per pass, warm ms
+    beside phase 4's."""
+    import torch
+
+    from steganosaurus_tpu_torch import parallel
+
+    mesh = parallel.make_mesh()
+    B = covers_d.shape[0]
+    secrets = secrets_for(B, UHD_SECRET)
+    salts = [bytes([i]) * 16 for i in range(B)]
+    _mesh_round_trip(covers_d, mesh, secrets, salts, "9a (first)")
+    path = f"9a mesh of {mesh.size} card(s)"
+    stego, e_ms, x_ms = count_launches(path, launches, lambda: (
+        _mesh_round_trip(covers_d, mesh, secrets, salts, "9a")))
+    _k1_per_shard(path, launches, mesh, 2)
+    same = torch.equal(stego, stego4)
+    log(f"9a make_mesh() = {mesh.size} card(s) {list(mesh.devices)}: 4K "
+        f"B={B} 16 KB recovered {B}/{B}; stego byte-equal to phase 4's: "
+        f"{same}; warm embed {e_ms!r} ms, extract {x_ms!r} ms, round trip "
+        f"{e_ms + x_ms!r} ms (phase 4: {ms4[0]!r} + {ms4[1]!r} = "
+        f"{sum(ms4)!r} ms); K1 {launches[path]}")
+    if not same:
+        raise AssertionError("9a: the mesh stego differs from phase 4's")
+
+
+def phase_mesh_logical(covers_d, stego4, ms4, launches: dict) -> None:
+    """9b: MESH_LOGICAL logical shards of the one card (the sharded
+    arithmetic; not the interconnect), the same batch: 64/64, the stego
+    within +-1 of phase 4's on at most MESH_DIFF_FRAC of bytes, K1 once per
+    shard per pass; embed_stream -> extract_stream over the mesh, depth 2,
+    two batches; verify=True with MESH_FAILED_ROWS failing their first
+    read-back, whose retry must run unsharded."""
+    import torch
+
+    import steganosaurus_tpu_torch as stt
+    from steganosaurus_tpu_torch import parallel
+    from steganosaurus_tpu_torch.pipeline import batch as pb
+
+    mesh = parallel.make_mesh(MESH_LOGICAL, device=covers_d.device)
+    B = covers_d.shape[0]
+    secrets = secrets_for(B, UHD_SECRET)
+    salts = [bytes([i]) * 16 for i in range(B)]
+    _mesh_round_trip(covers_d, mesh, secrets, salts, "9b (first)")
+    path = f"9b mesh of {MESH_LOGICAL} logical shards"
+    stego, e_ms, x_ms = count_launches(path, launches, lambda: (
+        _mesh_round_trip(covers_d, mesh, secrets, salts, "9b")))
+    _k1_per_shard(path, launches, mesh, 2)
+    diff = (stego.to(torch.int16) - stego4.to(torch.int16)).abs()
+    n_diff, d_max = diff.count_nonzero().item(), diff.max().item()
+    del diff, stego
+    log(f"9b {MESH_LOGICAL} logical shards of one card (shared card: the "
+        f"sharded arithmetic, not the interconnect): recovered {B}/{B}; "
+        f"stego vs phase 4's: {n_diff} of {stego4.numel()} bytes differ "
+        f"({n_diff / stego4.numel():.3e}), max |diff| {d_max}; warm embed "
+        f"{e_ms!r} ms, extract {x_ms!r} ms, round trip {e_ms + x_ms!r} ms "
+        f"(phase 4: {sum(ms4)!r} ms); K1 {launches[path]}")
+    if d_max > 1 or n_diff > MESH_DIFF_FRAC * stego4.numel():
+        raise AssertionError("9b: the logical-shard stego is not within +-1 "
+                             "of phase 4's on the allowed share of bytes")
+
+    def stream():
+        t = time.perf_counter()
+        embeds = stt.embed_stream(((covers_d, secrets, salts)
+                                   for _ in range(2)),
+                                  master_key=MASTER_KEY, mesh=mesh, depth=2,
+                                  layout="nchw")
+        n_ok = [sum(g == s for g, s in zip(got, secrets))
+                for got in stt.extract_stream(
+                    (r.stego for r in embeds), master_key=MASTER_KEY,
+                    mesh=mesh, clen_hint=UHD_SECRET, depth=2,
+                    layout="nchw")]
+        torch.cuda.synchronize()
+        return n_ok, time.perf_counter() - t
+
+    n_ok, dt = count_launches("9b stream over the mesh", launches, stream)
+    log(f"9b stream over {MESH_LOGICAL} logical shards, depth 2, 2 batches "
+        f"of {B}: recovered {n_ok}, {2 * B / dt!r} img/s (wall {dt!r} s), "
+        f"K1 {launches['9b stream over the mesh']}")
+    if n_ok != [B, B]:
+        raise AssertionError(f"9b stream recovered {n_ok}")
+    _k1_per_shard("9b stream over the mesh", launches, mesh, 4)
+
+    real_extract, real_embed = pb.extract_batch, pb.embed_batch
+    calls, sub_meshes = [], []
+
+    def flaky_extract(*a, **kw):
+        out = list(real_extract(*a, **kw))
+        calls.append(1)
+        if len(calls) == 1:
+            for i in MESH_FAILED_ROWS:
+                out[i] = None
+        return out
+
+    def recording_embed(*a, **kw):
+        sub_meshes.append(kw.get("mesh"))
+        return real_embed(*a, **kw)
+
+    pb.extract_batch, pb.embed_batch = flaky_extract, recording_embed
+    try:
+        res = count_launches("9b verify retry", launches, lambda: real_embed(
+            covers_d, secrets, master_key=MASTER_KEY, salts=salts, mesh=mesh,
+            verify=True, device_resident=True, layout="nchw"))
+    finally:
+        pb.extract_batch, pb.embed_batch = real_extract, real_embed
+    got = stt.extract_batch(res.stego, master_key=MASTER_KEY,
+                            clen_hint=UHD_SECRET, layout="nchw")
+    resalted = [i for i, (a, b) in enumerate(zip(res.salts, salts)) if a != b]
+    log(f"9b verify=True, rows {list(MESH_FAILED_ROWS)} failing their first "
+        f"read-back: retry meshes {sub_meshes}, re-salted rows {resalted}, "
+        f"verified {sum(res.verified)}/{B}, read back "
+        f"{sum(g == s for g, s in zip(got, secrets))}/{B}, K1 "
+        f"{launches['9b verify retry']}")
+    if (sub_meshes != [None] or res.verified != [True] * B or got != secrets
+            or resalted != list(MESH_FAILED_ROWS)):
+        raise AssertionError("9b: the non-divisible verify retry did not run "
+                             "unsharded or did not recover every row")
+
+
+def phase_fft_dist(covers_d, launches: dict) -> None:
+    """9c: one bench cover's spectrum sharded over MESH_LOGICAL logical
+    shards of the card (parallel/fft_dist.py): embed_core_distributed on
+    the shared walk's bins of a 16 KB frame (default Params: alpha 0.5,
+    write floor 0.45), held against the unsharded full-grid embed on the
+    same bins (DIST_PLANES_ATOL, at most DIST_MAX_ROUND_APART u8 bytes
+    rounding apart); its u8 stego read back by
+    read_core_distributed (raw errors < DIST_MAX_RAW_ERR, JAX's bar); the
+    sharded median equal to the bisection median of the whole spectrum;
+    sharded and unsharded ms beside each other. torch.fft only: K1 must not
+    launch."""
+    import numpy as np
+    import torch
+
+    import steganosaurus_tpu_torch as stt
+    from steganosaurus_tpu_torch import parallel, spectral
+    from steganosaurus_tpu_torch.ops import phase as phase_ops
+    from steganosaurus_tpu_torch.ops import stats
+    from steganosaurus_tpu_torch.parallel import fft_dist
+    from steganosaurus_tpu_torch.pipeline import batch as pb
+
+    dev = covers_d.device
+    p = stt.Params()
+    planes = covers_d[0].to(torch.float32)
+    H, W = planes.shape[-2:]
+    nbits = 912 + (UHD_SECRET + 16) * 8 * 7
+    plane, y, x, jit, nprod = pb._walk_indices(None, MASTER_KEY, p, H, W,
+                                               nbits, allow_short=True)
+    if nprod < nbits:
+        raise AssertionError(f"9c: walk of {nprod} < {nbits} bins")
+    idx = [torch.from_numpy(np.array(a[:nbits])).to(dev)
+           for a in (plane, y, x, jit)]
+    pl, yy, xx = (a.long() for a in idx[:3])
+    jj = idx[3].to(torch.float32)
+    bits = torch.from_numpy(np.random.default_rng(9).integers(
+        0, 2, nbits, dtype=np.uint8)).to(dev)
+    mesh = parallel.make_mesh(MESH_LOGICAL, axis="image", device=dev)
+    kw = dict(floor=p.write_floor, img_pixels=float(H * W))
+
+    def sharded():
+        return fft_dist.embed_core_distributed(
+            planes, pl, yy, xx, bits, jj, p.alpha, mesh, **kw).gather(dev)
+
+    def dense():
+        return spectral.ifft2_real(phase_ops.embed_phases(
+            spectral.fft2(planes), pl, yy, xx, bits, jj, p.alpha, None,
+            False, **kw))
+
+    out = count_no_launches("9c fft_dist embed", launches, sharded)
+    ref = dense()
+    err = (out - ref).abs().max().item()
+    q = torch.floor(out + 0.5).clamp_(0, 255)
+    n_round = (q != torch.floor(ref + 0.5).clamp_(0, 255)).sum().item()
+    got = count_no_launches("9c fft_dist read", launches, lambda: (
+        fft_dist.read_core_distributed(q, pl, yy, xx, jj, p.alpha, mesh)))
+    raw = (got != bits).to(torch.float32).mean().item()
+    spec = fft_dist.fft2_distributed(planes, mesh)
+    med = fft_dist.median_abs_distributed(spec, mesh)
+    mags = spec.gather(dev).abs().reshape(3, -1)
+    med_ref = stats.kth_smallest_nonneg(mags, mags.shape[-1] // 2)
+    del spec, mags
+    t = _turns({"sharded embed": (sharded, 3), "unsharded embed": (dense, 3),
+                "sharded read": (lambda: fft_dist.read_core_distributed(
+                    q, pl, yy, xx, jj, p.alpha, mesh), 3),
+                "unsharded read": (lambda: phase_ops.read_phases(
+                    spectral.fft2(q), pl, yy, xx, jj, p.alpha, None, False),
+                    3)}, rounds=1)
+    log(f"9c fft_dist at {H}x{W}, {MESH_LOGICAL} logical shards of one card "
+        f"(shared card: the collectives are copies within it), {nbits} walk "
+        f"bins: max |sharded - unsharded| planes {err!r} (tolerance "
+        f"{DIST_PLANES_ATOL}), u8 bytes rounding apart {n_round} (at most "
+        f"{DIST_MAX_ROUND_APART}); raw read "
+        f"errors {raw!r}; median {med.tolist()} vs bisection "
+        f"{med_ref.tolist()}, equal {torch.equal(med, med_ref)}; ms "
+        f"{ {k: v[0] for k, v in t.items()} }")
+    if not (err <= DIST_PLANES_ATOL and n_round <= DIST_MAX_ROUND_APART
+            and raw < DIST_MAX_RAW_ERR
+            and torch.equal(med, med_ref)):
+        raise AssertionError("9c: fft_dist disagrees with the unsharded path")
+
+
+def phase_cost(covers_d, ms4, launches: dict, card: str) -> None:
+    """9d: the cost model at the 4K headline (B=64, 16 KB, default Params):
+    per-stage FLOPs, bytes and bounds and the round trip's bound on this
+    card; measure_device_step's embed and extract core times and the share
+    of the bound each reaches (above 1.0 is a counting fault and fails);
+    measure_link with a LINK_BYTES pinned buffer, GB/s each way."""
+    from steganosaurus_tpu_torch.utils import cost
+
+    B, _, H, W = covers_d.shape
+    peaks = cost.peak_rates(covers_d.device)
+    rep = cost.roundtrip_cost(B, H, W, UHD_SECRET)
+    bound = cost.roundtrip_bound(rep, peaks)
+    for s, (_, _, ms, by) in zip(rep["stages"], bound["stages"]):
+        log(f"9d cost {s['side']} {s['stage']}: FLOPs "
+            f"{ {k: f'{v:.4e}' for k, v in s['gemm_flops'].items()} } "
+            f"+ elementwise {s['elementwise_flops']:.4e} (an estimate; "
+            f"{s['precision']}), "
+            f"HBM bytes {s['hbm_bytes']:.4e}, bound {ms!r} ms ({by})")
+    step = count_launches("9d device step", launches, lambda: (
+        cost.measure_device_step(covers_d, MASTER_KEY, UHD_SECRET)))
+    link = cost.measure_link(LINK_BYTES, reps=3, device=covers_d.device)
+    share = {"embed": bound["embed_ms"] / (step["embed_s"] * 1e3),
+             "extract": bound["extract_ms"] / (step["extract_s"] * 1e3),
+             "round trip": bound["roundtrip_ms"]
+             / (step["device_roundtrip_s"] * 1e3)}
+    log(f"9d cost at 4K B={B} 16 KB ({card}; peaks {peaks['source']}): "
+        f"embed {rep['embed_flops']:.4e} FLOPs {rep['embed_hbm_bytes']:.4e} "
+        f"B, extract {rep['extract_flops']:.4e} FLOPs "
+        f"{rep['extract_hbm_bytes']:.4e} B; bound embed "
+        f"{bound['embed_ms']!r} ms, extract {bound['extract_ms']!r} ms, "
+        f"round trip {bound['roundtrip_ms']!r} ms; measured cores (CUDA "
+        f"events) embed {step['embed_s'] * 1e3!r} ms, extract "
+        f"{step['extract_s'] * 1e3!r} ms; share of the bound {share}; "
+        f"phase 4's warm round trip {sum(ms4)!r} ms is "
+        f"{bound['roundtrip_ms'] / sum(ms4):.3f} of it; link "
+        f"{LINK_BYTES >> 20} MiB pinned: up "
+        f"{link['up_bytes_per_sec'] / 1e9!r} GB/s, down "
+        f"{link['down_bytes_per_sec'] / 1e9!r} GB/s; link bytes per image "
+        f"{rep['link_bytes_per_image']}, ingest bytes per image "
+        f"{rep['ingest_bytes_per_image']}")
+    if any(v > 1.0 for v in share.values()):
+        raise AssertionError(f"9d: a share of the bound above 1.0 is a "
+                             f"counting fault: {share}")
+
+
 def record_k1_shapes(seen: set):
     """Wrap the stage-1 wrapper so that the _k1_key of every call on the
     card, the route it launched included, lands in `seen`; returns the
@@ -2316,10 +2638,10 @@ def main() -> int:
         undo = record_k1_shapes(seen)
         try:
             count_launches("small", launches, lambda: phase_small(dev))
-            launches["round trip"], ms4 = phase_uhd(covers_d)
+            launches["round trip"], ms4, stego4 = phase_uhd(covers_d)
             torch.cuda.synchronize()
             timed("ragged grid", phase_ragged_grid, dev, launches)
-            launches["4c round trip"], ms4c = timed(
+            launches["4c round trip"], ms4c, _ = timed(
                 "4K at 3839", phase_uhd, odd_d, "4c 4K cropped", ck.KERNEL_LDG)
             log(f"4c against phase 4, warm ms: embed {ms4c[0]!r} vs "
                 f"{ms4[0]!r}, extract {ms4c[1]!r} vs {ms4[1]!r}, round trip "
@@ -2340,6 +2662,14 @@ def main() -> int:
             timed("adaptive batch", phase_adaptive_batch, covers_d, launches)
             timed("mixed coherent", phase_mixed_coherent, dev, launches)
             timed("wrong key", phase_wrong_key, covers_d, launches)
+            timed("9a mesh of the cards", phase_mesh_cards, covers_d, stego4,
+                  ms4, launches)
+            timed("9b mesh of logical shards", phase_mesh_logical, covers_d,
+                  stego4, ms4, launches)
+            del stego4
+            torch.cuda.empty_cache()
+            timed("9c fft_dist", phase_fft_dist, covers_d, launches)
+            timed("9d cost", phase_cost, covers_d, ms4, launches, card)
             del covers_d
             torch.cuda.empty_cache()
             timed("serve", phase_serve, launches, card)

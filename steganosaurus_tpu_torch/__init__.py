@@ -30,7 +30,10 @@ Layout follows the JAX package so each module's counterpart is easy to find:
                  the exact median (stats), capacity (mask).
 - ``parallel/``  the batch device cores: frame build, corner embed (shared
                  and per-image walks), fused extract, soft-decision retry,
-                 raw-bit read; the full-grid cores of adaptive alpha.
+                 raw-bit read; the full-grid cores of adaptive alpha; the
+                 mesh (make_mesh, shard_batch: the pipeline's mesh= over
+                 several cards or logical shards of one) and one image's
+                 spectrum sharded across a mesh axis (fft_dist).
 - ``pipeline/``  embed_array / extract_array over a torch backend (f32, or
                  f64 on a card) or the f64 host backend on the CPU
                  (device.py); the ECC frame (frame.py); header framing, spread
@@ -40,6 +43,7 @@ Layout follows the JAX package so each module's counterpart is easy to find:
                  extract_stream pipelining; ``serve`` the JSON-lines
                  serving worker.
 - ``utils/``     PSNR, SSIM, BER and ecc_report; quality_device on the card;
+                 the round trip's cost model, stage by stage (cost);
                  the reference's debug dumps (debug); the warden reports,
                  features and studies (steganalysis) and the channel reports
                  (channel: requantization noise, AWGN/JPEG robustness).

@@ -1,4 +1,5 @@
-"""Batch device cores of the corner fast path (single device).
+"""Batch device cores of the corner fast path, and the batch axis over a
+mesh of devices.
 
 The port's twin of the corner half of steganosaurus_tpu/parallel/batch.py.
 JAX builds each core as a cached jitted factory; here each is a plain
@@ -33,9 +34,19 @@ The full-grid cores (JAX batched_analyze_core, batched_embed_core,
 batched_gather_decode_core) carry Params.adaptive_alpha, whose write angle
 scales with |F| over the whole spectrum's median: a full-grid FFT per image
 (torch.fft), the per-bin write of ops/phase.py scattered into it, and the
-inverse FFT. The JAX package's batched_gather_bits_core and
-batched_read_core have no caller on any path (only its tests call them) and
-are not ported.
+inverse FFT. batched_read_core is the full-grid read in one call (analyze,
+gather, the phase rule). The JAX package's batched_gather_bits_core has no
+caller outside its tests and is not ported.
+
+The batch axis over several devices (JAX's "batch" mesh axis): a Mesh is an
+ordered tuple of devices, make_mesh builds one over the CUDA cards or as
+logical shards of one device, and shard_batch splits a batch along axis 0
+into a Sharded, one tensor per mesh device. One process drives every
+device, as JAX's single-controller mesh does: the pipeline runs each
+shard's rows through the single-device cores on that shard's device, with
+that card current (card, on_shards), and
+the full-grid cores here take a Sharded batch and return one. The images
+are independent, so the batch axis needs no collective.
 
 The JAX single-chip cores pack 32 images per i32 word before every bit
 gather because TPU gathers pay a full HBM granule per row
@@ -48,10 +59,13 @@ which are the values those maps hold at the walk's bins.
 
 from __future__ import annotations
 
+import contextlib
+from dataclasses import dataclass
+
 import numpy as np
 import torch
 
-from steganosaurus_tpu_torch import spectral
+from steganosaurus_tpu_torch import runtime, spectral
 from steganosaurus_tpu_torch.ops import bits as bit_ops
 from steganosaurus_tpu_torch.ops import ecc
 from steganosaurus_tpu_torch.ops import phase as phase_ops
@@ -61,6 +75,173 @@ HEADER_BITS = 304    # 38 header bytes
 HEADER_REP = 3
 PAYLOAD_REP = 7
 HEADER_SLOTS = HEADER_BITS * HEADER_REP   # 912: QIM starts at this slot
+
+
+# --- the mesh ----------------------------------------------------------------
+
+@dataclass(frozen=True)
+class Mesh:
+    """A 1-D device mesh: an ordered tuple of torch devices along one named
+    axis. A device may repeat (logical shards of one card). Hashable, so
+    caches may key on it."""
+    devices: tuple
+    axis_names: tuple = ("batch",)
+
+    @property
+    def size(self) -> int:
+        return len(self.devices)
+
+    @property
+    def shape(self) -> dict:
+        """{axis name: size}, as jax.sharding.Mesh.shape."""
+        return {self.axis_names[0]: self.size}
+
+
+def make_mesh(n_devices: int | None = None, axis: str = "batch",
+              device=None) -> Mesh:
+    """A Mesh along `axis`. Without `device`: the first n_devices CUDA
+    cards (all of them by default); raises when there is no card or too
+    few, and never falls back to the CPU. With `device`: n_devices logical
+    shards (default 1) on that one device, the counterpart of XLA's
+    --xla_force_host_platform_device_count."""
+    if device is not None:
+        dev = runtime.resolve_device(device)
+        if dev.type == "cuda" and dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
+        n = 1 if n_devices is None else n_devices
+        if n < 1:
+            raise ValueError(f"a mesh needs at least one shard, got {n}")
+        return Mesh((dev,) * n, (axis,))
+    runtime.require_cuda()
+    count = torch.cuda.device_count()
+    n = count if n_devices is None else n_devices
+    if not 1 <= n <= count:
+        raise ValueError(f"asked for a mesh of {n} CUDA devices; this "
+                         f"machine has {count}")
+    return Mesh(tuple(torch.device("cuda", i) for i in range(n)), (axis,))
+
+
+def card(dev):
+    """The context of one shard's work: on a CUDA card, that card current,
+    so every op and library plan (cuFFT's included) is made for it and
+    queued on its current stream, whatever card the caller has current.
+    Queued with card 0 current, per-shard FFTs gave stale spectra now and
+    then on a four-card H100 host (tools/mesh_cards_torch.py). Whatever
+    dispatches shard work runs each shard under it: on_shards, Sharded.map
+    and the pipeline's shard loops. Copies between cards need nothing more:
+    PyTorch orders a copy against both cards' current streams."""
+    dev = torch.device(dev)
+    return (torch.cuda.device(dev) if dev.type == "cuda"
+            else contextlib.nullcontext())
+
+
+def on_shards(devices, fn) -> list:
+    """[fn(k) for each shard k], each call made with devices[k] current
+    (card): fn queues shard k's work; nothing here waits for a device."""
+    out = []
+    for k, d in enumerate(devices):
+        with card(d):
+            out.append(fn(k))
+    return out
+
+
+class Sharded:
+    """A tensor split along one axis over a Mesh (axis 0, the batch, unless
+    said otherwise): `parts[k]` holds indices [offsets[k], offsets[k] +
+    parts[k].shape[axis]) of that axis on mesh.devices[k]. np.asarray(s)
+    gathers it to the host, as it does a JAX sharded array."""
+
+    def __init__(self, parts, mesh: Mesh, axis: int = 0):
+        self.parts = tuple(parts)
+        self.mesh = mesh
+        self.axis = axis
+        if len(self.parts) != mesh.size:
+            raise ValueError(f"{len(self.parts)} parts for a mesh of "
+                             f"{mesh.size}")
+        self.offsets = tuple(int(o) for o in np.cumsum(
+            [0] + [p.shape[axis] for p in self.parts[:-1]]))
+
+    @property
+    def shape(self) -> tuple:
+        s = list(self.parts[0].shape)
+        s[self.axis] = sum(p.shape[self.axis] for p in self.parts)
+        return tuple(s)
+
+    @property
+    def dtype(self):
+        return self.parts[0].dtype
+
+    def __array__(self, dtype=None, copy=None):
+        a = np.concatenate([p.cpu().numpy() for p in self.parts],
+                           axis=self.axis)
+        return a if dtype is None else a.astype(dtype)
+
+    def gather(self, device) -> torch.Tensor:
+        """The whole tensor on `device`."""
+        return torch.cat([p.to(device, non_blocking=True)
+                          for p in self.parts], dim=self.axis)
+
+    def locate(self, i: int) -> tuple[int, int]:
+        """(shard, index within it) of index i along the split axis."""
+        k = int(np.searchsorted(self.offsets, i, side="right")) - 1
+        return k, i - self.offsets[k]
+
+    def map(self, fn) -> "Sharded":
+        """Sharded([fn(k, parts[k]) for each shard k]) along the same
+        axis, each call made on its shard's card (on_shards)."""
+        return Sharded(on_shards([p.device for p in self.parts],
+                                 lambda k: fn(k, self.parts[k])),
+                       self.mesh, self.axis)
+
+
+def shard_batch(arr, mesh: Mesh, axis: str = "batch",
+                dim: int = 0) -> Sharded:
+    """`arr` (numpy, a tensor, or a Sharded) split along `dim` (the batch
+    axis by default) into mesh.size equal parts, part k on mesh.devices[k].
+    A size the mesh does not divide raises ValueError, as JAX's device_put
+    does."""
+    if isinstance(arr, Sharded):
+        if arr.mesh == mesh and arr.axis == dim:
+            return arr
+        arr = arr.gather(mesh.devices[0])
+    n = mesh.size
+    N = arr.shape[dim]
+    if N % n:
+        raise ValueError(f"a size of {N} along dimension {dim} does not "
+                         f"split evenly over the {n} devices of the mesh's "
+                         f"{axis!r} axis")
+    k = N // n
+    if not isinstance(arr, torch.Tensor):
+        a = np.ascontiguousarray(arr)
+        # torch.from_numpy shares memory and warns on read-only buffers
+        arr = torch.from_numpy(a if a.flags.writeable else a.copy())
+    parts = []
+    for i, d in enumerate(mesh.devices):
+        p = arr.narrow(dim, i * k, k)
+        if d.type == "cuda" and p.device.type == "cpu":
+            parts.append(runtime.upload(p.numpy(), d))
+        else:
+            parts.append(p.to(d, non_blocking=True))
+    return Sharded(parts, mesh, dim)
+
+
+def _part(a, s: Sharded, k: int, per_row: bool):
+    """An argument of a sharded core call, for shard k of batch s: a
+    Sharded argument's part k; a per-row tensor's rows of shard k; any
+    other tensor on shard k's device; anything else as it is."""
+    if isinstance(a, Sharded):
+        return a.parts[k]
+    if not isinstance(a, torch.Tensor):
+        return a
+    if per_row:
+        a = a[s.offsets[k]:s.offsets[k] + s.parts[k].shape[0]]
+    return a.to(s.parts[k].device, non_blocking=True)
+
+
+def _per_row_walk(plane) -> bool:
+    """Per-image (B, n) walk tensors, sharded or not, against a shared
+    (n,) walk."""
+    return isinstance(plane, Sharded) or plane.dim() == 2
 
 
 def corner_statics_core(plane, y, x, Ky: int, Kx: int, bucket: int,
@@ -494,7 +675,20 @@ def batched_embed_core(imgs: torch.Tensor, plane, y, x, bits_words, jit,
     Hermitian-half scatter (2*nv - v at the primary bins only: real(IFFT)
     sees exactly nv there and conj(nv) at the mirror), the inverse FFT and
     the u8 rounding. Tail-pad duplicates carry their twin's value, so the
-    scatter keeps the same value whichever write wins."""
+    scatter keeps the same value whichever write wins.
+
+    A Sharded imgs runs each shard on its own device and returns a Sharded
+    stego: the per-row arguments (bits_words; per-image walks and jitters;
+    per-image n_valid) may be Sharded or whole-batch tensors."""
+    if isinstance(imgs, Sharded):
+        walk = _per_row_walk(plane)
+        per_n = isinstance(n_valid, Sharded) or (
+            isinstance(n_valid, torch.Tensor) and n_valid.dim() == 1)
+        return imgs.map(lambda k, part: batched_embed_core(
+            part, *(_part(a, imgs, k, walk) for a in (plane, y, x)),
+            _part(bits_words, imgs, k, True), _part(jit, imgs, k, walk),
+            _part(alpha, imgs, k, False), _part(n_valid, imgs, k, per_n),
+            center=center, soft=soft, floor=floor, layout=layout))
     spec, med = batched_analyze_core(imgs, center=center, layout=layout)
     H, W = (imgs.shape[2], imgs.shape[3]) if layout == "nchw" \
         else (imgs.shape[1], imgs.shape[2])
@@ -511,6 +705,26 @@ def batched_embed_core(imgs: torch.Tensor, plane, y, x, bits_words, jit,
     del spec
     out = spectral.from_planes(spectral.apply_center(t, center))
     return out.permute(0, 3, 1, 2).contiguous() if layout == "nchw" else out
+
+
+def batched_read_core(imgs, plane, y, x, jit, alpha, *, center: bool,
+                      adaptive: bool, layout: str = "nhwc"):
+    """Full-grid read in one call (JAX batched_read_core): (imgs u8 in
+    `layout`, a shared (n,) walk or per-image (B, n) walks, their jitter
+    angles, alpha a number) -> (B, n) int32 raw bits by the reference's
+    phase rule (ops/phase.read_phases_at), alpha magnitude-adaptive when
+    `adaptive`. A Sharded imgs gives a Sharded result, each shard read on
+    its own device."""
+    if isinstance(imgs, Sharded):
+        walk = _per_row_walk(plane)
+        return imgs.map(lambda k, part: batched_read_core(
+            part, *(_part(a, imgs, k, walk) for a in (plane, y, x, jit)),
+            alpha, center=center, adaptive=adaptive, layout=layout))
+    spec, med = batched_analyze_core(imgs, center=center, layout=layout)
+    v, med_at, _ = _gather_bins(spec, med, plane, y, x)
+    del spec
+    return phase_ops.read_phases_at(v, med_at, jit, alpha, adaptive).to(
+        torch.int32)
 
 
 def batched_gather_decode_core(spec: torch.Tensor, med: torch.Tensor, plane,

@@ -1,7 +1,9 @@
 """Batched embed/extract under one shared key (the throughput path), in torch.
 
 The port's twin of steganosaurus_tpu/pipeline/batch.py for the corner fast
-path on one device, in every corner wire mode the JAX batch path writes:
+path on one device or over a mesh of them (mesh=: the batch axis split
+over parallel.make_mesh's devices, each shard's rows through the same
+single-device cores), in every corner wire mode the JAX batch path writes:
 the hard or soft write (Params.soft_write), jitter, per-bin amplitudes
 (Params.alpha_spread), dithered phase QIM on the payload (Params.qim), the
 Rep-7 or RS(255,223) payload (Params.rs), length padding
@@ -65,13 +67,75 @@ from steganosaurus_tpu_torch.pipeline.header import Header
 from steganosaurus_tpu_torch.spectral import corner
 from steganosaurus_tpu_torch.utils import metrics
 
-def _check_params(params: Params, mesh, layout: str = "nhwc") -> None:
+def _check_params(params: Params, layout: str = "nhwc") -> None:
     if layout == "nchw" and params.adaptive_alpha:
         raise StegoError("layout='nchw' is corner-path only")
-    if mesh is not None:
-        raise StegoError("mesh is not supported by steganosaurus_tpu_torch "
-                         "yet (single device only)")
     qim_mod.validate(params)
+
+
+def _place(imgs, mesh, device):
+    """(images, mesh) of a call: a Sharded batch over `mesh` (over a
+    Sharded input's own mesh when mesh is None), else (one tensor on the
+    resolved device, None). A batch the mesh does not divide raises
+    ValueError (shard_batch)."""
+    if mesh is None and isinstance(imgs, pbatch.Sharded):
+        mesh = imgs.mesh
+    if mesh is None:
+        return runtime.to_device(imgs, runtime.resolve_device(
+            device, like=imgs)), None
+    if not isinstance(mesh, pbatch.Mesh):
+        raise TypeError("mesh must be a steganosaurus_tpu_torch.parallel "
+                        f"Mesh (make_mesh), got {type(mesh).__name__}")
+    for d in dict.fromkeys(mesh.devices):
+        runtime.resolve_device(d)
+    s = pbatch.shard_batch(imgs, mesh)
+    if s.dtype != torch.uint8:
+        raise ValueError(f"images must be uint8, got {s.dtype}")
+    return s, mesh
+
+
+def _shard_rows(s):
+    """(images, their rows of the batch) for each shard of a Sharded batch,
+    or the one tensor with every row, yielded with the shard's card current
+    (parallel.batch.card): the caller queues that shard's work before it
+    asks for the next."""
+    if not isinstance(s, pbatch.Sharded):
+        yield s, slice(None)
+        return
+    for p, o in zip(s.parts, s.offsets):
+        with pbatch.card(p.device):
+            yield p, slice(o, o + p.shape[0])
+
+
+def _take_rows(t, idxs: list[int]) -> torch.Tensor:
+    """Rows idxs of a batch tensor, or of a Sharded gathered onto its
+    mesh's first device, as one tensor."""
+    if not isinstance(t, pbatch.Sharded):
+        return _rows(t, idxs, t.device)[1]
+    dev = t.mesh.devices[0]
+    return torch.stack([t.parts[k][r].to(dev, non_blocking=True)
+                        for k, r in map(t.locate, idxs)])
+
+
+def _put_rows(t, idxs: list[int], rows) -> None:
+    """Write rows (a tensor or a Sharded, one row per index) into rows
+    idxs of the batch t (a tensor or a Sharded), in place."""
+    if isinstance(rows, pbatch.Sharded):
+        rows = rows.gather(rows.mesh.devices[0])
+    if not isinstance(t, pbatch.Sharded):
+        sel = runtime.upload(np.asarray(idxs, np.int64), t.device)
+        t.index_copy_(0, sel, rows.to(t.device))
+        return
+    for j, i in enumerate(idxs):
+        k, r = t.locate(i)
+        t.parts[k][r].copy_(rows[j], non_blocking=True)
+
+
+def _host(stego) -> np.ndarray:
+    """The stego batch (a tensor or a Sharded) as a numpy array."""
+    if isinstance(stego, pbatch.Sharded):
+        return np.asarray(stego)
+    return stego.cpu().numpy()
 
 
 def _check_key(password, master_key) -> None:
@@ -132,8 +196,8 @@ def _flags(params: Params) -> int:
 
 @dataclass
 class BatchEmbedResult:
-    stego: np.ndarray | torch.Tensor  # numpy, or a device tensor if
-    #                                   device_resident
+    stego: np.ndarray | torch.Tensor | pbatch.Sharded  # numpy, or on the
+    #                                   device(s) if device_resident
     written_bits: list[int]
     payload_bytes: list[int]
     salts: list[bytes] | None = None      # final per-image salts (verify
@@ -382,6 +446,14 @@ def _upload_walks(arrays, dev) -> tuple[torch.Tensor, ...]:
     return tuple(runtime.upload(a, dev) for a in arrays)
 
 
+def _take(arrays, pos: list[int], n: int) -> tuple:
+    """Rows `pos` of each of n-row host arrays (all of them, uncopied, when
+    pos is every row)."""
+    if len(pos) == n:
+        return tuple(arrays)
+    return tuple(a[pos] for a in arrays)
+
+
 def prefetch_walk(password, master_key, params: Params, H: int, W: int,
                   secret_lens: list[int]) -> None:
     """Warm the HOST walk cache (keystream) for (key, dims, params) ahead
@@ -436,21 +508,19 @@ def _seal_streams(secrets, salts, password, master_key, params) -> list:
     return streams
 
 
-def _embed_full_grid(imgs_d, streams, frame_lens, bucket, password,
-                     master_key, params, salts, PH, PW, layout, dev):
-    """The Params.adaptive_alpha embed (JAX embed_batch's legacy branches):
-    host-built frames as packed words into batched_embed_core, on each
-    image's salt-keyed walk under per_image_walk (alpha the scalar, as
-    JAX's branch takes it), else on the shared walk with the spread
-    amplitudes as per-slot alphas. The write floor counts each image's own
-    frame (per-image walks) or the longest frame (shared walk)."""
-    nmax = max(frame_lens)
-    words = runtime.upload(bit_ops.pack_bits_words_host(
-        _host_frames(streams, bucket, params.rs)), dev)
+def _embed_full_grid(imgs_d, words, walks, frame_lens, nmax, bucket,
+                     password, master_key, params, PH, PW, layout):
+    """The Params.adaptive_alpha embed (JAX embed_batch's legacy branches)
+    of one device's rows: their host-built frames as packed words into
+    batched_embed_core, on each image's salt-keyed walk (`walks`, their
+    host arrays) under per_image_walk (alpha the scalar, as JAX's branch
+    takes it), else on the shared walk with the spread amplitudes as
+    per-slot alphas. The write floor counts each image's own frame
+    (per-image walks) or the batch's longest frame, nmax (shared walk)."""
+    dev = imgs_d.device
+    words = runtime.upload(words, dev)
     if params.per_image_walk:
-        plane, y, x, jit = _upload_walks(_piw_walk_arrays(
-            password, master_key, params, PH, PW, salts, frame_lens, bucket),
-            dev)
+        plane, y, x, jit = _upload_walks(walks, dev)
         alpha = params.alpha
         n_valid = runtime.upload(np.asarray(frame_lens, np.int64), dev)
     else:
@@ -508,6 +578,16 @@ def embed_batch(
     up to max_retries times, writing the new rows into the stego in place.
     Result.verified reports each image; result.salts the final salts.
     Explicit `salts` are respected on the first attempt only.
+
+    mesh (parallel.make_mesh; a Sharded imgs brings its own): the batch is
+    split along the mesh's devices (B must divide evenly, else ValueError)
+    and each shard's rows run the single-device cores on their device; the
+    host work (sealing, frames, walks) is done once for the batch and every
+    shard's device work is queued before anything waits. The stego is then
+    a Sharded when device_resident (np.asarray gathers it), and bytes equal
+    to the unsharded call's. A verify retry re-embeds the failed rows on
+    the mesh when the mesh size divides their count, else unsharded on the
+    mesh's first device.
     """
     _check_key(password, master_key)
     if params.cover_dependent_path:
@@ -517,13 +597,12 @@ def embed_batch(
             "coherent batch embedding is not wired into the fused batch "
             "cores; use embed_array (extract_batch auto-detects and "
             "resolves coherent stegos per image)")
-    _check_params(params, mesh, layout)
+    _check_params(params, layout)
     spread_mod.validate(params)
     B, H, W = _dims(imgs, layout)
     if len(secrets) != B:
         raise ValueError(f"{len(secrets)} secrets for {B} images")
-    dev = runtime.resolve_device(device, like=imgs)
-    imgs_d = runtime.to_device(imgs, dev)
+    imgs_d, mesh = _place(imgs, mesh, device)
     PH, PW = spectral.fft_dims(H, W)
 
     if salts is None:
@@ -543,46 +622,57 @@ def embed_batch(
     common = dict(Ky=Ky, Kx=Kx, center=params.center, layout=layout,
                   floor=params.write_floor, soft=params.soft_write,
                   qim_levels=params.qim)
-    if params.adaptive_alpha:
-        stego = _embed_full_grid(imgs_d, streams, frame_lens, bucket,
-                                 password, master_key, params, salts, PH, PW,
-                                 layout, dev)
-    elif params.per_image_walk:
-        walks = _upload_walks(_piw_walk_arrays(
-            password, master_key, params, PH, PW, salts, frame_lens, bucket),
-            dev)
-        frame = bit_ops.unpack_bits_words(runtime.upload(
-            bit_ops.pack_bits_words_host(
-                _host_frames(streams, bucket, params.rs)), dev), bucket)
+    # host work, once for the whole batch; each device takes its own rows.
+    # Equal-length Rep-7 shared-walk frames go up as the sealed streams and
+    # are expanded on the device, the rest as host-built frame bits.
+    streams_up = (len(set(frame_lens)) == 1 and not params.rs
+                  and not params.adaptive_alpha and not params.per_image_walk)
+    words = (bit_ops.pack_bytes_words_host(streams) if streams_up
+             else bit_ops.pack_bits_words_host(
+                 _host_frames(streams, bucket, params.rs)))
+    walks = (_piw_walk_arrays(password, master_key, params, PH, PW, salts,
+                              frame_lens, bucket)
+             if params.per_image_walk else None)
 
-        def full_draws(kind):  # slot-aligned, clamped per image on device
-            return _slot_values_device(kind, path_key, params, params.qim,
-                                       bucket, bucket, dev)
+    def embed_rows(imgs_p: torch.Tensor, rows: slice) -> torch.Tensor:
+        """Queue the device work of the batch rows `rows` (imgs_p, on its
+        own device)."""
+        dev = imgs_p.device
+        rows_walks = (tuple(a[rows] for a in walks) if walks is not None
+                      else None)
+        if params.adaptive_alpha:
+            return _embed_full_grid(imgs_p, words[rows], rows_walks,
+                                    frame_lens[rows], nmax, bucket, password,
+                                    master_key, params, PH, PW, layout)
+        w = runtime.upload(words[rows], dev)
+        if params.per_image_walk:
+            def full_draws(kind):  # slot-aligned, clamped per image on device
+                return _slot_values_device(kind, path_key, params,
+                                           params.qim, bucket, bucket, dev)
 
-        stego = pbatch.corner_piw_embed_core(
-            imgs_d, frame, *walks, params.alpha,
-            alphas=full_draws("alpha") if has_spread else None,
-            dither=full_draws("dither") if params.qim else None,
-            nbits=runtime.upload(np.asarray(frame_lens, np.int64), dev),
-            **common)
-    else:
+            return pbatch.corner_piw_embed_core(
+                imgs_p, bit_ops.unpack_bits_words(w, bucket),
+                *_upload_walks(rows_walks, dev), params.alpha,
+                alphas=full_draws("alpha") if has_spread else None,
+                dither=full_draws("dither") if params.qim else None,
+                nbits=runtime.upload(np.asarray(frame_lens[rows], np.int64),
+                                     dev),
+                **common)
         maps, nprod = _corner_statics_device(password, master_key, params,
                                              PH, PW, nmax, bucket, Ky, Kx,
                                              dev)
         if nprod < nmax:
             raise StegoError(f"Message too large. Need {nmax} bits (after "
                              f"ECC), walk exhausted after {nprod}.")
-        if len(set(frame_lens)) == 1 and not params.rs:
-            words = runtime.upload(bit_ops.pack_bytes_words_host(streams),
-                                   dev)
-            frame = pbatch._frame_from_words(words, len(streams[0]), bucket)
-        else:
-            words = runtime.upload(bit_ops.pack_bits_words_host(
-                _host_frames(streams, bucket, params.rs)), dev)
-            frame = bit_ops.unpack_bits_words(words, bucket)
-        stego = pbatch.corner_embed_core(
-            imgs_d, frame, maps, params.alpha,
+        frame = (pbatch._frame_from_words(w, len(streams[0]), bucket)
+                 if streams_up else bit_ops.unpack_bits_words(w, bucket))
+        return pbatch.corner_embed_core(
+            imgs_p, frame, maps, params.alpha,
             has_jitter=params.jitter != 0.0, has_spread=has_spread, **common)
+
+    # every shard's work is queued before anything waits for a device
+    parts = [embed_rows(p, rows) for p, rows in _shard_rows(imgs_d)]
+    stego = pbatch.Sharded(parts, mesh) if mesh is not None else parts[0]
 
     salts = list(salts)
     verified = None
@@ -591,27 +681,32 @@ def embed_batch(
         # would undersize the fused pass and cost a second one
         maxlen = _wire_clen(max(len(s) for s in secrets), params)
         got = extract_batch(stego, password=password, master_key=master_key,
-                            params=params, clen_hint=maxlen, layout=layout)
+                            params=params, mesh=mesh, clen_hint=maxlen,
+                            layout=layout)
         verified = [g == s for g, s in zip(got, secrets)]
         for _ in range(max_retries):
             failed = [i for i, ok in enumerate(verified) if not ok]
             if not failed:
                 break
-            sel, sub_imgs = _rows(imgs_d, failed, dev)
             new_salts = [crypto.get_random_bytes(16) for _ in failed]
-            sub = embed_batch(sub_imgs, [secrets[i] for i in failed],
+            # a failed subset the mesh does not divide is re-embedded
+            # unsharded, on the mesh's first device (as JAX does)
+            sub_mesh = (mesh if mesh is not None
+                        and len(failed) % mesh.size == 0 else None)
+            sub = embed_batch(_take_rows(imgs_d, failed),
+                              [secrets[i] for i in failed],
                               password=password, master_key=master_key,
-                              params=params, salts=new_salts,
+                              params=params, salts=new_salts, mesh=sub_mesh,
                               device_resident=True, layout=layout)
-            stego.index_copy_(0, sel, sub.stego)
+            _put_rows(stego, failed, sub.stego)
             got = extract_batch(stego, password=password,
                                 master_key=master_key, params=params,
-                                clen_hint=maxlen, layout=layout)
+                                mesh=mesh, clen_hint=maxlen, layout=layout)
             for i, s_new in zip(failed, new_salts):
                 salts[i] = s_new
             verified = [g == s for g, s in zip(got, secrets)]
     return BatchEmbedResult(
-        stego=stego if device_resident else stego.cpu().numpy(),
+        stego=stego if device_resident else _host(stego),
         written_bits=frame_lens,
         payload_bytes=[len(s) for s in secrets],
         salts=salts,
@@ -644,7 +739,7 @@ def channel_report(
     package: Params.adaptive_alpha, cover_dependent_path and
     per_image_walk raise StegoError."""
     _check_key(password, master_key)
-    _check_params(params, mesh)
+    _check_params(params)
     for field in ("adaptive_alpha", "cover_dependent_path",
                   "per_image_walk"):
         if getattr(params, field):
@@ -654,27 +749,30 @@ def channel_report(
     if len(secrets) != B or len(salts) != B:
         raise ValueError(f"{len(secrets)} secrets and {len(salts)} salts for "
                          f"{B} images")
-    dev = runtime.resolve_device(device, like=stego)
-    stego_d = runtime.to_device(stego, dev)
+    stego_d, _ = _place(stego, mesh, device)
     PH, PW = spectral.fft_dims(H, W)
     streams = _seal_streams(secrets, salts, password, master_key, params)
     frames = [frame_bits(s, params.rs) for s in streams]
     nmax = max(len(f) for f in frames)
     bucket = _bucket(nmax)
-    (pl, yy, xx, jj), nprod = _walk_indices_device(
-        password, master_key, params, PH, PW, nmax, 0, bucket, dev)
-    if nprod < nmax:
-        raise StegoError("stego batch cannot carry the claimed frames")
     Ky, Kx = corner.corner_dims(PH, PW, params.rmax)
-    dither = (_slot_values_device(
-        "dither", crypto.derive_path_key(password, master_key), params,
-        params.qim, nmax, bucket, dev) if params.qim else None)
-    words = pbatch.corner_raw_bits_core(
-        stego_d, params.alpha, pl, yy, xx, Ky=Ky, Kx=Kx,
-        center=params.center, layout=layout,
-        jit=jj if params.jitter != 0.0 else None, dither=dither,
-        qim_levels=params.qim)
-    got = bit_ops.unpack_words_host(runtime.HostCopy(words).numpy(), bucket)
+    copies = []
+    for part, _ in _shard_rows(stego_d):  # queued on every shard first
+        dev = part.device
+        (pl, yy, xx, jj), nprod = _walk_indices_device(
+            password, master_key, params, PH, PW, nmax, 0, bucket, dev)
+        if nprod < nmax:
+            raise StegoError("stego batch cannot carry the claimed frames")
+        dither = (_slot_values_device(
+            "dither", crypto.derive_path_key(password, master_key), params,
+            params.qim, nmax, bucket, dev) if params.qim else None)
+        copies.append(runtime.HostCopy(pbatch.corner_raw_bits_core(
+            part, params.alpha, pl, yy, xx, Ky=Ky, Kx=Kx,
+            center=params.center, layout=layout,
+            jit=jj if params.jitter != 0.0 else None, dither=dither,
+            qim_levels=params.qim)))
+    got = bit_ops.unpack_words_host(
+        np.concatenate([c.numpy() for c in copies]), bucket)
     reports = [metrics.ecc_report(
         f, got[i, :len(f)], HEADER_STREAM_BITS,
         rs_payload_bytes=(len(s) - header_mod.FIXED_LEN) if params.rs else 0)
@@ -720,6 +818,35 @@ def _to_bufs(words: np.ndarray) -> list[bytes]:
     return [w.view(np.uint32).astype(">u4").tobytes() for w in words]
 
 
+class _ShardRows:
+    """One pass's device rows, queued shard by shard: [(positions, rows)],
+    each shard's rows going to those positions of the pass's n rows. pull()
+    queues their copies to the host (runtime.HostCopy); numpy() waits for
+    them and returns the n rows in order."""
+
+    def __init__(self, outs: list[tuple[list[int], torch.Tensor]], n: int):
+        self._outs = outs
+        self._n = n
+        self._copies = None
+
+    def pull(self) -> "_ShardRows":
+        if self._copies is None:
+            self._copies = [(pos, runtime.HostCopy(t))
+                            for pos, t in self._outs]
+        return self
+
+    def numpy(self) -> np.ndarray:
+        self.pull()
+        arrs = [(pos, c.numpy()) for pos, c in self._copies]
+        if len(arrs) == 1:  # one shard holds every row, in order
+            return arrs[0][1]
+        a0 = arrs[0][1]
+        out = np.empty((self._n, *a0.shape[1:]), a0.dtype)
+        for pos, a in arrs:
+            out[pos] = a
+        return out
+
+
 class _ExtractJob:
     """An in-flight batch extraction. The fused header + hinted payload pass
     and the copy of its hard rows to the host are queued on the device at
@@ -730,7 +857,11 @@ class _ExtractJob:
     Rep-7) for its payload section; headers always decode (they are never
     QIM-written), and images whose header carries another mode get a
     corrected payload-only pass in finalize, so a wrong assumption never
-    misdecodes."""
+    misdecodes.
+
+    Under a mesh every pass runs on each shard holding rows of it, on that
+    shard's device, all shards queued before any result is pulled; the
+    rows come back in batch order. Without one, the batch is one shard."""
 
     def __init__(self, imgs, password, master_key, params, mesh, clen_hint,
                  layout="nhwc", device=None):
@@ -738,12 +869,12 @@ class _ExtractJob:
         if params.cover_dependent_path:
             raise StegoError(
                 "cover_dependent_path is per-image; use extract_array")
-        _check_params(params, mesh, layout)
+        _check_params(params, layout)
         self.B, H, W = _dims(imgs, layout)
         self._layout = layout
-        dev = runtime.resolve_device(device, like=imgs)
-        self._imgs_d = runtime.to_device(imgs, dev)
-        self._dev = dev
+        imgs_d, _ = _place(imgs, mesh, device)
+        # (images, first batch row) per shard
+        self._parts = [(t, rows.start or 0) for t, rows in _shard_rows(imgs_d)]
         PH, PW = spectral.fft_dims(H, W)
         self._key = (password, master_key)
         self._path_key = crypto.derive_path_key(password, master_key)
@@ -755,8 +886,11 @@ class _ExtractJob:
         # per image, kept for every read pass of the job
         self._use_corner = not params.adaptive_alpha
         if not self._use_corner:
-            self._spec, self._med = pbatch.batched_analyze_core(
-                self._imgs_d, center=params.center, layout=layout)
+            spectra = [pbatch.batched_analyze_core(t, center=params.center,
+                                                   layout=layout)
+                       for _, t, _, _ in self._shards(range(self.B))]
+            self._spec = [sp for sp, _ in spectra]
+            self._med = [md for _, md in spectra]
         # Walk capacity upper bound: each accepted bit marks a bin and its
         # conjugate. Bounds the gather under a corrupt header clen and an
         # oversized hint.
@@ -772,29 +906,49 @@ class _ExtractJob:
         """Payload stream bits for a ciphertext length, by FEC mode."""
         return _payload_stream_bits(clen + 16, rs)
 
-    def _walk(self, total: int, skip: int, bucket_total: int):
-        """Walk plane/y/x of slots [skip, total), padded to bucket_total -
-        skip, and their jitter angles (None when Params.jitter == 0 and the
-        corner path reads them: its rule then needs no angles; the
-        full-grid read always takes them)."""
+    def _walk(self, total: int, skip: int, bucket_total: int, dev):
+        """Walk plane/y/x of slots [skip, total) on dev, padded to
+        bucket_total - skip, and their jitter angles (None when
+        Params.jitter == 0 and the corner path reads them: its rule then
+        needs no angles; the full-grid read always takes them)."""
         password, master_key = self._key
         PH, PW = self._dims
         (pl, yy, xx, jj), _ = _walk_indices_device(
             password, master_key, self._params, PH, PW, total, skip,
-            bucket_total - skip, self._dev)
+            bucket_total - skip, dev)
         if self._use_corner and self._params.jitter == 0.0:
             jj = None
         return pl, yy, xx, jj
 
-    def _dither(self, L: int, nbits: int, bucket: int) -> torch.Tensor:
-        """Level-L QIM dithers of frame slots [0, nbits), padded to
+    def _dither(self, L: int, nbits: int, bucket: int, dev) -> torch.Tensor:
+        """Level-L QIM dithers of frame slots [0, nbits) on dev, padded to
         `bucket` by repeating slot nbits - 1."""
         return _slot_values_device("dither", self._path_key, self._params,
-                                   L, nbits, bucket, self._dev)
+                                   L, nbits, bucket, dev)
 
-    def _sub(self, idxs: list[int]) -> torch.Tensor:
-        return (self._imgs_d if len(idxs) == self.B
-                else _rows(self._imgs_d, idxs, self._dev)[1])
+    def _shards(self, idxs):
+        """(shard k, its images at rows of idxs, those rows within the
+        shard, their positions in idxs) for each shard holding rows of
+        idxs, yielded with the shard's card current (parallel.batch.card);
+        a shard all of whose rows are asked for gives its images as they
+        are."""
+        for k, (imgs, first) in enumerate(self._parts):
+            n = imgs.shape[0]
+            pos = [j for j, i in enumerate(idxs) if first <= i < first + n]
+            if not pos:
+                continue
+            with pbatch.card(imgs.device):
+                local = [idxs[j] - first for j in pos]
+                if local != list(range(n)):
+                    imgs = _rows(imgs, local, imgs.device)[1]
+                yield k, imgs, local, pos
+
+    def _row(self, i: int) -> torch.Tensor:
+        """Batch row i, on its shard's device."""
+        for imgs, first in self._parts:
+            if first <= i < first + imgs.shape[0]:
+                return imgs[i - first]
+        raise IndexError(i)
 
     def _dispatch_pass(self, payload_stream_bits: int, with_header: bool,
                        qim: int | None = None, rs: bool | None = None):
@@ -824,32 +978,39 @@ class _ExtractJob:
             # slots [total, bucket_total) duplicate slot total-1; only the
             # unrounded payload bits are genuinely readable
             self._covered_payload_bits = total - hdr
-        pl, yy, xx, jj = self._walk(total, skip, bucket_total)
         with_soft = bool(self._params.soft_decode_fallback)
         Ky, Kx = self._corner_kk
-        if not self._use_corner:
-            # the full-grid read (JAX's legacy branch: no QIM rule there;
-            # QIM and adaptive_alpha are mutually exclusive at embed)
-            words = pbatch.batched_gather_decode_core(
-                self._spec, self._med, pl, yy, xx, jj, self._params.alpha,
-                hdr_stream_bits=hdr_bits, payload_rep=rep,
-                with_soft=with_soft)
-        else:
-            words = pbatch.corner_extract_fused_core(
-                self._imgs_d, self._params.alpha, pl, yy, xx, Ky=Ky, Kx=Kx,
-                center=self._params.center, layout=self._layout,
-                hdr_stream_bits=hdr_bits, with_soft=with_soft, jit=jj,
-                dither=(self._dither(L, total, bucket_total)[skip:] if L
-                        else None),
-                qim_levels=L, qim_from=hdr_bits, payload_rep=rep)
+        hard, soft = [], []
+        for k, imgs, _, pos in self._shards(range(self.B)):
+            dev = imgs.device
+            pl, yy, xx, jj = self._walk(total, skip, bucket_total, dev)
+            if not self._use_corner:
+                # the full-grid read (JAX's legacy branch: no QIM rule
+                # there; QIM and adaptive_alpha are mutually exclusive at
+                # embed)
+                words = pbatch.batched_gather_decode_core(
+                    self._spec[k], self._med[k], pl, yy, xx, jj,
+                    self._params.alpha, hdr_stream_bits=hdr_bits,
+                    payload_rep=rep, with_soft=with_soft)
+            else:
+                words = pbatch.corner_extract_fused_core(
+                    imgs, self._params.alpha, pl, yy, xx, Ky=Ky, Kx=Kx,
+                    center=self._params.center, layout=self._layout,
+                    hdr_stream_bits=hdr_bits, with_soft=with_soft, jit=jj,
+                    dither=(self._dither(L, total, bucket_total, dev)[skip:]
+                            if L else None),
+                    qim_levels=L, qim_from=hdr_bits, payload_rep=rep)
+            h, sw = words if with_soft else (words, None)
+            hard.append((pos, h))
+            soft.append((pos, sw))
+        hard = _ShardRows(hard, self.B).pull()
         if not with_soft:
-            return runtime.HostCopy(words), None, None
-        hard, soft = words
-        return (runtime.HostCopy(hard), soft,
+            return hard, None, None
+        return (hard, _ShardRows(soft, self.B),
                 (hdr_bits, bucket_total - skip, rep))
 
     @staticmethod
-    def _soft_sections(soft_d, info):
+    def _soft_sections(soft_d: _ShardRows, info):
         """Pull a pass's soft rows and split them per image into (soft
         bufs, RS confidences (B, n_bytes) f32 or None); the word counts
         mirror the device-side packing exactly (checked)."""
@@ -857,7 +1018,7 @@ class _ExtractJob:
         hw = (hdr_bits // 3 + 31) // 32 if hdr_bits else 0
         wh = hw + ((n_slots - hdr_bits) // rep + 31) // 32
         c = (n_slots - hdr_bits) // 8 if rep == 1 else 0
-        words = runtime.HostCopy(soft_d).numpy()
+        words = soft_d.numpy()
         if words.shape[1] != wh + c:
             raise RuntimeError(
                 f"soft-row word-layout mismatch: device rows have "
@@ -893,17 +1054,16 @@ class _ExtractJob:
             return header_mod.maybe_unpad(
                 km.open(hdr.to_bytes(), ct, tag), hdr.flags)
 
-    def _piw_rows(self, idxs: list[int], hdrs, needs: list[int], n: int):
-        """((plane, y, x, jitter) (len(idxs), n) device tensors of the
-        per-image walks of rows `idxs` — keyed by their headers' salts,
-        expanded to `needs` frame slots, header prefix included, tolerant
-        of exhaustion — and exactly those rows' images)."""
+    def _piw_arrays(self, idxs: list[int], hdrs, needs: list[int], n: int):
+        """(plane, y, x, jitter) (len(idxs), n) host arrays of the per-image
+        walks of rows `idxs`, keyed by their headers' salts, expanded to
+        `needs` frame slots, header prefix included, tolerant of
+        exhaustion; host work, once for every shard."""
         password, master_key = self._key
         PH, PW = self._dims
-        arrays = _piw_walk_arrays(password, master_key, self._params, PH, PW,
-                                  [hdrs[i].salt for i in idxs], needs, n,
-                                  strict=False)
-        return _upload_walks(arrays, self._dev), self._sub(idxs)
+        return _piw_walk_arrays(password, master_key, self._params, PH, PW,
+                                [hdrs[i].salt for i in idxs], needs, n,
+                                strict=False)
 
     def _dispatch_piw_pass(self, idxs: list[int], headers: list,
                            qim: int = 0, rs: bool = False) -> list[bytes]:
@@ -917,28 +1077,35 @@ class _ExtractJob:
         needs = [min(self._payload_bits(headers[i].clen, rs), self._cap_bits)
                  for i in idxs]
         n = _bucket(max(needs))
-        (pl, yy, xx, jj), imgs = self._piw_rows(
-            idxs, headers, [hdr + m for m in needs], hdr + n)
+        arrays = self._piw_arrays(idxs, headers, [hdr + m for m in needs],
+                                  hdr + n)
         Ky, Kx = self._corner_kk
-        if not self._use_corner:
-            spec, med = self._spec, self._med
-            if len(idxs) != self.B:
-                sel = runtime.upload(np.asarray(idxs, np.int64), self._dev)
-                spec, med = spec.index_select(0, sel), med.index_select(0, sel)
-            words = pbatch.batched_gather_decode_core(
-                spec, med, pl[:, hdr:], yy[:, hdr:], xx[:, hdr:], jj[:, hdr:],
-                self._params.alpha, hdr_stream_bits=0,
-                payload_rep=1 if rs else 7)
-            return _to_bufs(runtime.HostCopy(words).numpy())
-        words = pbatch.corner_extract_fused_core(
-            imgs, self._params.alpha, pl[:, hdr:], yy[:, hdr:], xx[:, hdr:],
-            Ky=Ky, Kx=Kx, center=self._params.center, layout=self._layout,
-            hdr_stream_bits=0, with_soft=False, jit=jj[:, hdr:],
-            # payload-only slots: payload bit k sits at frame slot 912 + k
-            dither=(self._dither(qim, hdr + n, hdr + n)[hdr:] if qim
-                    else None),
-            qim_levels=qim, qim_from=0, payload_rep=1 if rs else 7)
-        return _to_bufs(runtime.HostCopy(words).numpy())
+        outs = []
+        for k, imgs, local, pos in self._shards(idxs):
+            dev = imgs.device
+            pl, yy, xx, jj = (t[:, hdr:] for t in _upload_walks(
+                _take(arrays, pos, len(idxs)), dev))
+            if not self._use_corner:
+                spec, med = self._spec[k], self._med[k]
+                if local != list(range(spec.shape[0])):
+                    sel = runtime.upload(np.asarray(local, np.int64), dev)
+                    spec, med = (spec.index_select(0, sel),
+                                 med.index_select(0, sel))
+                words = pbatch.batched_gather_decode_core(
+                    spec, med, pl, yy, xx, jj, self._params.alpha,
+                    hdr_stream_bits=0, payload_rep=1 if rs else 7)
+            else:
+                words = pbatch.corner_extract_fused_core(
+                    imgs, self._params.alpha, pl, yy, xx, Ky=Ky, Kx=Kx,
+                    center=self._params.center, layout=self._layout,
+                    hdr_stream_bits=0, with_soft=False, jit=jj,
+                    # payload-only slots: payload bit k sits at frame slot
+                    # 912 + k
+                    dither=(self._dither(qim, hdr + n, hdr + n, dev)[hdr:]
+                            if qim else None),
+                    qim_levels=qim, qim_from=0, payload_rep=1 if rs else 7)
+            outs.append((pos, words))
+        return _to_bufs(_ShardRows(outs, len(idxs)).numpy())
 
     def finalize(self) -> list[bytes | None]:
         """Wait for the fused pass, parse headers, group the rows by the
@@ -1062,13 +1229,15 @@ class _ExtractJob:
         """Row i through the single-image extract_array, on the device the
         row lives on (no host copy); None on its StegoError, as the JAX
         package's batch extract does."""
-        img = self._imgs_d[i]
+        img = self._row(i)
         if self._layout == "nchw":
             img = img.permute(1, 2, 0)
         password, master_key = self._key
         try:
-            return extract_array(img, password=password,
-                                 master_key=master_key, params=self._params)
+            with pbatch.card(img.device):
+                return extract_array(img, password=password,
+                                     master_key=master_key,
+                                     params=self._params)
         except StegoError:
             return None
 
@@ -1092,25 +1261,36 @@ class _ExtractJob:
                    self._cap_bits)
         total = hdr + need
         bucket_total = _bucket(total)
-        if _is_piw(hdrs[grp[0]]):
+        piw = _is_piw(hdrs[grp[0]])
+        if piw:
             needs = [hdr + min(self._payload_bits(hdrs[i].clen, R),
                                self._cap_bits) for i in grp]
-            (pl, yy, xx, jj), imgs = self._piw_rows(grp, hdrs, needs,
-                                                    bucket_total)
-            dither = self._dither(L, bucket_total, bucket_total) if L else None
-        else:
-            pl, yy, xx, jj = self._walk(total, 0, bucket_total)
-            imgs = self._sub(grp)
-            dither = self._dither(L, total, bucket_total) if L else None
+            arrays = self._piw_arrays(grp, hdrs, needs, bucket_total)
         Ky, Kx = self._corner_kk
-        out = pbatch.corner_soft_extract_core(
-            imgs, self._params.alpha, pl, yy, xx, Ky=Ky, Kx=Kx,
-            center=self._params.center, layout=self._layout,
-            hdr_stream_bits=hdr, jit=jj, dither=dither, qim_levels=L,
-            payload_rep=1 if R else 7)
-        words, conf = out if R else (out, None)
-        conf_np = runtime.HostCopy(conf).numpy() if R else None
-        return _to_bufs(runtime.HostCopy(words).numpy()), conf_np
+        words, confs = [], []
+        for _, imgs, _, pos in self._shards(grp):
+            dev = imgs.device
+            if piw:
+                pl, yy, xx, jj = _upload_walks(
+                    _take(arrays, pos, len(grp)), dev)
+                dither = (self._dither(L, bucket_total, bucket_total, dev)
+                          if L else None)
+            else:
+                pl, yy, xx, jj = self._walk(total, 0, bucket_total, dev)
+                dither = (self._dither(L, total, bucket_total, dev) if L
+                          else None)
+            out = pbatch.corner_soft_extract_core(
+                imgs, self._params.alpha, pl, yy, xx, Ky=Ky, Kx=Kx,
+                center=self._params.center, layout=self._layout,
+                hdr_stream_bits=hdr, jit=jj, dither=dither, qim_levels=L,
+                payload_rep=1 if R else 7)
+            w, c = out if R else (out, None)
+            words.append((pos, w))
+            confs.append((pos, c))
+        words = _ShardRows(words, len(grp)).pull()
+        conf = _ShardRows(confs, len(grp)).pull() if R else None
+        return (_to_bufs(words.numpy()),
+                conf.numpy() if conf is not None else None)
 
     def _soft_retry_failed(self, headers, out) -> None:
         """Soft-decision re-decode of the images whose header parsed but

@@ -8,9 +8,12 @@ AEAD streams, parses and opens batch N-1's headers, and queues the next
 kernels. With host time h and device time d per batch, a depth-bounded
 stream approaches max(h, d) per batch instead of h + d.
 
-One CUDA stream carries every batch, in order. A batch is waited for by a
-torch.cuda.Event recorded after its last op — never torch.cuda.synchronize(),
-which would also wait for the batch queued behind it.
+One CUDA stream per device carries every batch, in order. A batch is waited
+for by a torch.cuda.Event recorded after its last op on each device it ran
+on — never torch.cuda.synchronize(), which would also wait for the batch
+queued behind it. Under mesh= (parallel.make_mesh) each batch is split over
+the mesh's devices by embed_batch / extract_dispatch; the overlap across
+batches is the same.
 """
 
 from __future__ import annotations
@@ -23,6 +26,7 @@ import torch
 
 from steganosaurus_tpu_torch import crypto
 from steganosaurus_tpu_torch.config import Params
+from steganosaurus_tpu_torch.parallel.batch import Sharded
 from steganosaurus_tpu_torch.pipeline.batch import (
     embed_batch,
     extract_dispatch,
@@ -36,14 +40,20 @@ def _hw(imgs, layout: str) -> tuple[int, int]:
             else (imgs.shape[1], imgs.shape[2]))
 
 
-def _done_event(t) -> torch.cuda.Event | None:
-    """An event recorded after the last op queued so far on t's stream
-    (None off CUDA, where the work has already run)."""
-    if not isinstance(t, torch.Tensor) or t.device.type != "cuda":
-        return None
-    ev = torch.cuda.Event()
-    ev.record(torch.cuda.current_stream(t.device))
-    return ev
+def _done_events(t) -> list[torch.cuda.Event]:
+    """An event recorded after the last op queued so far on the stream of
+    each CUDA device t (a tensor, or a Sharded batch) lives on (none off
+    CUDA, where the work has already run)."""
+    parts = t.parts if isinstance(t, Sharded) else (t,)
+    devs = dict.fromkeys(p.device for p in parts
+                         if isinstance(p, torch.Tensor)
+                         and p.device.type == "cuda")
+    events = []
+    for d in devs:
+        ev = torch.cuda.Event()
+        ev.record(torch.cuda.current_stream(d))
+        events.append(ev)
+    return events
 
 
 def embed_stream(
@@ -75,7 +85,8 @@ def embed_stream(
     expanded twice, none is left in the cache).
 
     Yields one BatchEmbedResult per batch, in order, with the stego as a
-    tensor on the device (feed it straight to extract_stream). Up to
+    tensor on the device, or a Sharded over `mesh` (feed it straight to
+    extract_stream). Up to
     `depth` batches are in flight: batch N+1's host crypto runs while batch
     N's kernels execute (verify=True reads every batch back, which waits
     for it and shrinks — but does not remove — the overlap).
@@ -114,9 +125,9 @@ def embed_stream(
             yield imgs, secrets, salts, mk, pw, walks
 
     def _drain():
-        res, ev = q.popleft()
+        res, events = q.popleft()
         # bounds the batches in flight; waits for this batch's kernels only
-        if ev is not None:
+        for ev in events:
             ev.synchronize()
         return res
 
@@ -139,7 +150,7 @@ def embed_stream(
                               device_resident=True, verify=verify,
                               max_retries=max_retries, layout=layout,
                               device=device)
-            q.append((res, _done_event(res.stego)))
+            q.append((res, _done_events(res.stego)))
         while q:
             yield _drain()
     finally:

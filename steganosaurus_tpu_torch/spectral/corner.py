@@ -98,8 +98,12 @@ _DEV_TABLES: dict = {}
 
 def dft_tables_device(H: int, Ky: int, W: int, Kx: int, device) -> Tables:
     """Tables for (H, W) -> (Ky, Kx) on `device`, built once per shape and
-    device and cached."""
+    device and cached: each device of a mesh gets its own (the K1 tables
+    included), and logical shards of one card share one entry ("cuda" is
+    keyed as the current card's index)."""
     device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
     key = (H, Ky, W, Kx, device)
     ent = _DEV_TABLES.get(key)
     if ent is None:

@@ -1,0 +1,382 @@
+"""Cost model of the batch round trip (the port's twin of
+steganosaurus_tpu/utils/cost.py), counted from the shapes the port's cores
+use.
+
+The JAX package asks XLA's cost_analysis() of the lowered modules; eager
+torch has no such module, so the round trip is counted stage by stage from
+the shapes of parallel/batch.py's corner_embed_core and
+corner_extract_fused_core: for each stage its real FLOPs by the precision
+they run at (the matrix products on the bf16 tensor cores or in f32 on the
+CUDA cores; the elementwise work in f32), and its HBM bytes, each input read
+once and each output written once. A stage's least time on a card is the
+larger of its FLOPs over the card's peak rates and its bytes over the
+memory rate (stage_bound); the round trip's is the sum over its stages.
+The stage table is the one place these counts live: chip_smoke.py's K1
+bound reads k1_cost from it.
+
+The products' FLOPs are checked: tests/test_torch_cost.py holds them equal
+to what torch.utils.flop_counter counts of the two cores. The elementwise
+FLOPs are estimates, operations per element counted by hand from the code
+(_WRITE_OPS and the rest) and checked by no test; they are part of
+embed_flops and extract_flops as XLA's counts are. On an H100 every stage
+whose only work is elementwise is bound by its bytes, and in stage 2 the
+estimate adds under 1% to the products' time, so no bound rests on them.
+
+- roundtrip_cost: the counts of one embed + extract of B images, with the
+  JAX keys (embed_flops, extract_flops, embed_hbm_bytes, extract_hbm_bytes,
+  roundtrip_flops_per_image, link_bytes_per_image, ingest_bytes_per_image,
+  geometry) and the stage table under "stages".
+- peak_rates: a card's data-sheet peaks, by torch.cuda.get_device_name.
+- measure_link: host <-> device copy rate each way, pinned host memory.
+- measure_device_step: time of the two cores alone on resident inputs.
+"""
+
+from __future__ import annotations
+
+import time
+
+import numpy as np
+import torch
+
+from steganosaurus_tpu_torch import crypto, runtime, spectral
+from steganosaurus_tpu_torch.config import Params
+from steganosaurus_tpu_torch.parallel import batch as pbatch
+from steganosaurus_tpu_torch.pipeline import header as header_mod
+from steganosaurus_tpu_torch.pipeline.frame import HEADER_STREAM_BITS
+from steganosaurus_tpu_torch.spectral import corner
+
+# Data-sheet peaks (dense, no sparsity), keyed by a part of the name
+# torch.cuda.get_device_name reports. "fp32" is the rate outside the tensor
+# cores: the f32 products run there, since the port keeps TF32 off
+# (runtime.configure_precision).
+_PEAKS = (
+    ("H100 80GB HBM3", {"bf16": 989e12, "tf32": 495e12, "fp32": 67e12,
+                        "hbm_bytes": 3.35e12,
+                        "source": "NVIDIA H100 SXM5 data sheet"}),
+)
+
+# Elementwise f32 operations per element: estimates, counted by hand from
+# the code of each stage (a sqrt, a compare or a select counts one) and
+# checked by no test.
+_WRITE_OPS = 14     # corner.write_delta, hard rule: |C|, sign, 2 x (mag*cos - re)
+_FLOOR_OPS = 30     # corner.apply_write_floor: three reductions, the boost
+_EPILOGUE_OPS = 5   # _epilogue: + planes, + 0.5, floor, clamp
+_BAND_OPS = 3       # band_columns: ar^2 + ai^2 summed over h
+_READ_OPS = 4       # a decision value per slot and its Rep-3 / Rep-7 sum
+
+
+def peak_rates(device=None) -> dict:
+    """{"bf16", "tf32", "fp32": FLOP/s, "hbm_bytes": B/s, "source",
+    "name"} of the CUDA card `device` (the current one by default), looked
+    up by its name. A card this table does not know, or a device that is
+    not a CUDA card, raises ValueError: there is no default."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type != "cuda":
+        raise ValueError(f"peak rates are known for CUDA cards only, not "
+                         f"{dev}")
+    runtime.require_cuda()
+    name = torch.cuda.get_device_name(dev)
+    for key, rates in _PEAKS:
+        if key in name:
+            return dict(rates, name=name)
+    raise ValueError(f"no peak rates known for {name!r}")
+
+
+def _geometry(H: int, W: int, secret_len: int, params: Params) -> dict:
+    """Shape math of the equal-length shared-walk corner branch
+    (pipeline.batch.embed_batch / _ExtractJob._dispatch_pass), the same
+    dict as the JAX package's cost._geometry."""
+    if params.adaptive_alpha or params.per_image_walk or params.rs:
+        raise ValueError("cost model covers the headline corner branch only "
+                         "(no adaptive_alpha / per_image_walk / rs)")
+    PH, PW = spectral.fft_dims(H, W)
+    Ky, Kx = corner.corner_dims(PH, PW, params.rmax)
+    clen = (header_mod.padded_len(secret_len, params.pad_quantum)
+            if params.pad_quantum else secret_len)
+    stream_bytes = header_mod.FIXED_LEN + clen + 16
+    frame_bits = HEADER_STREAM_BITS + (clen + 16) * 8 * 7
+    bucket = -(-frame_bits // 4096) * 4096
+    hdr = HEADER_STREAM_BITS
+    # the decoded words: Rep-3 header + Rep-7 payload, bit-packed
+    hw = -((hdr // 3) // -32)
+    pw = -(((bucket - hdr) // 7) // -32)
+    return {
+        "PH": PH, "PW": PW, "Ky": Ky, "Kx": Kx, "clen": clen,
+        "stream_bytes": stream_bytes, "frame_bits": frame_bits,
+        "bucket": bucket, "hdr_bits": hdr,
+        "hard_words_per_image": hw + pw,
+        "stream_words_per_image": -(stream_bytes // -4),
+    }
+
+
+def _stage(side: str, name: str, gemm: dict, elementwise: float,
+           hbm_bytes: float, precision: str) -> dict:
+    return {"side": side, "stage": name,
+            "gemm_flops": {k: float(v) for k, v in gemm.items() if v},
+            "elementwise_flops": float(elementwise),
+            "hbm_bytes": float(hbm_bytes), "precision": precision}
+
+
+def flops_of(stage: dict) -> float:
+    """Every real FLOP of a stage: its products (counted) and its
+    elementwise work (estimated)."""
+    return sum(stage["gemm_flops"].values()) + stage["elementwise_flops"]
+
+
+def k1_cost(P: int, H: int, W: int, Kx: int, side: str = "") -> dict:
+    """Forward stage 1 (K1) over P planes of H x W: two products of the
+    (P*H, W) bf16-rounded rows with the (Kx, W) cos and sin tables; bytes:
+    the u8 images read once, both bf16 tables once, ar and ai written once
+    in f32."""
+    M = P * H
+    return _stage(side, "K1", {"bf16": 2.0 * M * W * 2 * Kx}, 0,
+                  M * W + 2 * Kx * W * 2 + 2 * M * Kx * 4, "bf16")
+
+
+def _stage2(side: str, P: int, H: int, Ky: int, Kx: int, mode: str) -> dict:
+    """Forward stage 2 (_fwd_y_split): four real (Ky, H) x (H, Kx)
+    products per plane in bf16, then the SPLIT_X0 highest-energy columns
+    again in f32 (all of them in f32 under "highest", or where the corner
+    is no wider than the band)."""
+    full = 8.0 * P * Ky * H * Kx
+    X0 = min(corner.SPLIT_X0, Kx)
+    nbytes = (2 * P * H * Kx * 4 + 2 * Ky * H * (4 + 2)
+              + 2 * P * Ky * Kx * 4)
+    if mode == "highest" or X0 == Kx:
+        return _stage(side, "stage2", {"fp32": full}, 0, nbytes, "fp32")
+    band = 8.0 * P * X0 * H * Ky
+    return _stage(side, "stage2", {"bf16": full, "fp32": band},
+                  _BAND_OPS * P * H * Kx, nbytes,
+                  f"bf16, top {X0} columns again in fp32")
+
+
+def stage_costs(B: int, H: int, W: int, secret_len: int,
+                params: Params = Params(),
+                layout: str = "nchw") -> list[dict]:
+    """The round trip's stage table: one dict per stage, in order, with
+    side ("embed" / "extract"), stage, gemm_flops {precision: FLOPs},
+    elementwise_flops, hbm_bytes and precision, under the corner precision
+    mode in force (corner.precision())."""
+    g = _geometry(H, W, secret_len, params)
+    mode = corner.precision()
+    Ky, Kx, bucket = g["Ky"], g["Kx"], g["bucket"]
+    P = 3 * B
+    E = P * Ky * Kx                      # corner bins of the batch
+    px = P * H * W                       # image-plane pixels of the batch
+    mm = "fp32" if mode == "highest" else "bf16"
+    n_maps = 2 * sum(map(bool, (params.jitter, params.alpha_spread,
+                                params.qim)))
+
+    def forward(side: str) -> list[dict]:
+        """The forward corner DFT of a side (nhwc first permutes the u8
+        images to planes: a read and a write)."""
+        out = ([_stage(side, "layout", {}, 0, 2 * px, "none")]
+               if layout == "nhwc" else [])
+        k1 = k1_cost(P, H, W, Kx, side)
+        if mm == "fp32":
+            k1["gemm_flops"] = {"fp32": k1["gemm_flops"]["bf16"]}
+            k1["precision"] = "fp32"
+        return out + [k1, _stage2(side, P, H, Ky, Kx, mode)]
+
+    embed = forward("embed") + [
+        # each bin's frame bit through pos (int64) and the other maps; the
+        # dense delta
+        _stage("embed", "write", {}, _WRITE_OPS * E,
+               2 * E * 4 + 3 * Ky * Kx * (8 + 4 * n_maps) + B * bucket
+               + 2 * E * 4, "none"),
+        _stage("embed", "floor", {}, _FLOOR_OPS * E, 4 * E * 4 + 2 * E * 4,
+               "none"),
+        # M = Ey^T conj(D) (four products), then Re(M Ex) (two)
+        _stage("embed", "inverse",
+               {mm: 8.0 * P * H * Ky * Kx + 4.0 * P * H * Kx * W}, 0,
+               2 * E * 4 + 2 * (Ky * H + Kx * W) * (4 if mm == "fp32" else 2)
+               + px * 4, mm),
+        _stage("embed", "epilogue", {}, _EPILOGUE_OPS * px, px * 4 + 2 * px,
+               "none"),
+    ]
+    if layout == "nhwc":
+        embed.append(_stage("embed", "layout out", {}, 0, 2 * px, "none"))
+    # the values at the walk bins (Im C, and Re C under jitter or QIM), the
+    # walk, the decoded hard (and soft) words
+    words = B * g["hard_words_per_image"] * (
+        2 if params.soft_decode_fallback else 1)
+    extract = forward("extract") + [_stage(
+        "extract", "read + decode", {}, _READ_OPS * B * bucket,
+        B * bucket * 4 * (2 if params.jitter or params.qim else 1)
+        + 3 * bucket * 8 + words * 4, "none")]
+    return embed + extract
+
+
+def stage_bound(stage: dict, peaks: dict) -> tuple[float, str]:
+    """(ms, "operations" or "bytes"): a stage's least time on a card of
+    `peaks` (peak_rates), the larger of its FLOPs at their precisions'
+    peaks (elementwise at the fp32 rate) and its bytes at the memory
+    rate."""
+    ops_s = sum(f / peaks[p] for p, f in stage["gemm_flops"].items())
+    ops_s += stage["elementwise_flops"] / peaks["fp32"]
+    bytes_s = stage["hbm_bytes"] / peaks["hbm_bytes"]
+    return ((ops_s * 1e3, "operations") if ops_s >= bytes_s
+            else (bytes_s * 1e3, "bytes"))
+
+
+def roundtrip_bound(cost: dict, peaks: dict) -> dict:
+    """Least times of a roundtrip_cost on a card of `peaks`: per stage
+    (side, stage, ms, bound_by), per side and for the round trip, in ms
+    (the stages run one after another)."""
+    stages = [(s["side"], s["stage"], *stage_bound(s, peaks))
+              for s in cost["stages"]]
+    side = {k: sum(ms for sd, _, ms, _ in stages if sd == k)
+            for k in ("embed", "extract")}
+    return {"stages": stages, "embed_ms": side["embed"],
+            "extract_ms": side["extract"],
+            "roundtrip_ms": side["embed"] + side["extract"]}
+
+
+def roundtrip_cost(B: int, H: int, W: int, secret_len: int,
+                   params: Params = Params(), layout: str = "nchw") -> dict:
+    """Counted FLOPs and HBM bytes of the headline round trip's embed and
+    extract at these shapes (the JAX package's keys; the FLOPs hold the
+    stages' elementwise estimates beside the counted products), plus the
+    host-link
+    bytes of the steady state per image: stream words up for the embed,
+    decoded hard words down from the extract (covers and stego stay on the
+    card; their one-time crossing is ingest_bytes_per_image). "stages" is
+    the stage table (stage_costs)."""
+    g = _geometry(H, W, secret_len, params)
+    stages = stage_costs(B, H, W, secret_len, params, layout)
+    tot = {side: (sum(flops_of(s) for s in stages if s["side"] == side),
+                  sum(s["hbm_bytes"] for s in stages if s["side"] == side))
+           for side in ("embed", "extract")}
+    return {
+        "embed_flops": tot["embed"][0],
+        "extract_flops": tot["extract"][0],
+        "embed_hbm_bytes": tot["embed"][1],
+        "extract_hbm_bytes": tot["extract"][1],
+        "roundtrip_flops_per_image": (tot["embed"][0] + tot["extract"][0])
+        / B,
+        "link_bytes_per_image": 4 * (g["stream_words_per_image"]
+                                     + g["hard_words_per_image"]),
+        "ingest_bytes_per_image": 2 * 3 * H * W,
+        "geometry": g,
+        "stages": stages,
+    }
+
+
+def measure_link(nbytes: int = 1 << 27, reps: int = 2, device=None) -> dict:
+    """Host -> device and device -> host copy rate (bytes/s, best of
+    `reps`) through a pinned host buffer, each direction fenced by
+    torch.cuda.synchronize. On the CPU (device="cpu") it times a plain host
+    copy; the result names its device."""
+    dev = runtime.resolve_device(device)
+    cuda = dev.type == "cuda"
+    host = torch.empty(nbytes, dtype=torch.uint8, pin_memory=cuda)
+    dst = torch.empty(nbytes, dtype=torch.uint8, device=dev)
+
+    def fence():
+        if cuda:
+            torch.cuda.synchronize(dev)
+
+    up = down = 0.0
+    for _ in range(reps):
+        fence()
+        t0 = time.perf_counter()
+        dst.copy_(host, non_blocking=True)
+        fence()
+        up = max(up, nbytes / (time.perf_counter() - t0))
+        t0 = time.perf_counter()
+        host.copy_(dst, non_blocking=True)
+        fence()
+        down = max(down, nbytes / (time.perf_counter() - t0))
+    return {"up_bytes_per_sec": up, "down_bytes_per_sec": down,
+            "probe_bytes": nbytes,
+            "device": torch.cuda.get_device_name(dev) if cuda else str(dev)}
+
+
+def _timed(fn, reps: int, dev) -> float:
+    """Least seconds of fn() over `reps` runs: CUDA events around each run
+    on a card, the host clock on the CPU."""
+    best = float("inf")
+    for _ in range(reps):
+        if dev.type == "cuda":
+            stream = torch.cuda.current_stream(dev)
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record(stream)
+            fn()
+            end.record(stream)
+            end.synchronize()
+            best = min(best, start.elapsed_time(end) / 1e3)
+        else:
+            best = min(best, min_over(1, fn))
+    return best
+
+
+def measure_device_step(covers_d, master_key: bytes, secret_len: int,
+                        params: Params = Params(),
+                        password: str | None = None, layout: str = "nchw",
+                        reps: int = 3) -> dict:
+    """Seconds of the embed core (the frame's on-device ECC expansion, then
+    corner_embed_core) and of corner_extract_fused_core alone, on covers
+    already on their device and random stream words (the same work as real
+    ones, no host crypto), least of `reps` after one untimed run each: the
+    device's share of the round trip, against its end-to-end wall."""
+    from steganosaurus_tpu_torch.pipeline.batch import (
+        _corner_statics_device, _slot_values_device, _walk_indices_device)
+
+    if layout == "nchw":
+        B, _, H, W = covers_d.shape
+    else:
+        B, H, W = covers_d.shape[:3]
+    g = _geometry(H, W, secret_len, params)
+    dev = covers_d.device
+    rng = np.random.default_rng(3)
+    words = runtime.upload(rng.integers(
+        np.iinfo(np.int32).min, np.iinfo(np.int32).max + 1,
+        (B, g["stream_words_per_image"]), dtype=np.int64).astype(np.int32),
+        dev)
+    nbits, bucket = g["frame_bits"], g["bucket"]
+    maps, _ = _corner_statics_device(password, master_key, params, g["PH"],
+                                     g["PW"], nbits, bucket, g["Ky"],
+                                     g["Kx"], dev)
+    kk = dict(Ky=g["Ky"], Kx=g["Kx"], center=params.center, layout=layout)
+
+    def embed():
+        frame = pbatch._frame_from_words(words, g["stream_bytes"], bucket)
+        return pbatch.corner_embed_core(
+            covers_d, frame, maps, params.alpha, floor=params.write_floor,
+            soft=params.soft_write, has_jitter=params.jitter != 0.0,
+            has_spread=params.alpha_spread != 0.0, qim_levels=params.qim,
+            **kk)
+
+    stego = embed()
+    t_emb = _timed(embed, reps, dev)
+    (pl, yy, xx, jj), _ = _walk_indices_device(
+        password, master_key, params, g["PH"], g["PW"], nbits, 0, bucket,
+        dev)
+    dither = (_slot_values_device(
+        "dither", crypto.derive_path_key(password, master_key), params,
+        params.qim, nbits, bucket, dev) if params.qim else None)
+
+    def extract():
+        return pbatch.corner_extract_fused_core(
+            stego, params.alpha, pl, yy, xx, hdr_stream_bits=g["hdr_bits"],
+            with_soft=bool(params.soft_decode_fallback),
+            jit=jj if params.jitter != 0.0 else None, dither=dither,
+            qim_levels=params.qim, qim_from=g["hdr_bits"], **kk)
+
+    extract()
+    t_ext = _timed(extract, reps, dev)
+    return {"embed_s": t_emb, "extract_s": t_ext,
+            "device_roundtrip_s": t_emb + t_ext, "batch": B,
+            "device": (torch.cuda.get_device_name(dev)
+                       if dev.type == "cuda" else str(dev))}
+
+
+def min_over(reps: int, fn) -> float:
+    """Least host-clock seconds of fn() over `reps` runs."""
+    best = float("inf")
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        best = min(best, time.perf_counter() - t0)
+    return best

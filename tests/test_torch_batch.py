@@ -237,10 +237,11 @@ def test_unsupported_params_raise(field, value):
 
 def test_unsupported_call_options_raise():
     imgs, secrets = _inputs("nhwc")
-    with pytest.raises(stt.StegoError, match="mesh"):
+    # mesh= takes a parallel Mesh (tests/test_torch_parallel.py), nothing else
+    with pytest.raises(TypeError, match="mesh"):
         stt.embed_batch(imgs, secrets, master_key=MK, mesh=object(),
                         device="cpu")
-    with pytest.raises(stt.StegoError, match="mesh"):
+    with pytest.raises(TypeError, match="mesh"):
         stt.extract_batch(imgs, master_key=MK, mesh=object(), device="cpu")
     with pytest.raises(ValueError):
         stt.embed_batch(imgs, secrets, device="cpu")  # no key

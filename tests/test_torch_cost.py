@@ -1,0 +1,177 @@
+"""utils/cost.py of the port against the JAX package's, on the CPU.
+
+The JAX cost model asks XLA to count the lowered modules; the port counts
+stage by stage from the shapes its cores use. Held here: the geometry and
+the link bytes equal JAX's, the same errors for the branches the model does
+not cover, and the model's matrix-product FLOPs equal what
+torch.utils.flop_counter counts while the two cores run (the port's
+counterpart of JAX's "the counted module is the dispatched module"). The
+ratio to XLA's counts is recorded, not asserted: XLA counts the elementwise
+work too, and its own fusions.
+"""
+
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+from torch.utils.flop_counter import FlopCounterMode
+
+from steganosaurus_tpu.config import Params as JParams
+from steganosaurus_tpu.utils import cost as jcost
+from steganosaurus_tpu_torch.config import Params
+from steganosaurus_tpu_torch.parallel import batch as pbatch
+from steganosaurus_tpu_torch.utils import cost
+
+torch.set_num_threads(2)
+
+MK = bytes(range(32))
+# the model's matrix-product FLOPs against torch's count of the same run
+FLOP_REL = 0.01
+
+
+def jp(p: Params) -> JParams:
+    return JParams(**dataclasses.asdict(p))
+
+
+def _covers(B, H, W, rng):
+    base = np.linspace(170, 225, W)
+    return np.clip(base[None, None, None, :]
+                   + rng.integers(-12, 13, (B, 3, H, W)), 0,
+                   255).astype(np.uint8)
+
+
+@pytest.mark.parametrize("H,W", [(128, 128), (384, 640), (1080, 1920),
+                                 (2160, 3840), (1079, 1917)])
+@pytest.mark.parametrize("secret_len,pad", [(40, 0), (16384, 0),
+                                            (1000, 4096), (3, 64)])
+def test_geometry_equals_jax(H, W, secret_len, pad):
+    p = Params(pad_quantum=pad)
+    assert cost._geometry(H, W, secret_len, p) == jcost._geometry(
+        H, W, secret_len, jp(p))
+
+
+@pytest.mark.parametrize("field", ["adaptive_alpha", "per_image_walk", "rs"])
+def test_off_branch_params_raise_like_jax(field):
+    p = Params(**{field: True})
+    with pytest.raises(ValueError):
+        jcost.roundtrip_cost(2, 128, 128, 40, params=jp(p))
+    with pytest.raises(ValueError):
+        cost.roundtrip_cost(2, 128, 128, 40, params=p)
+    with pytest.raises(ValueError):
+        cost._geometry(128, 128, 40, p)
+
+
+@pytest.mark.parametrize("B,H,W,n", [(4, 128, 128, 40),
+                                     (64, 2160, 3840, 16384)])
+def test_link_and_ingest_bytes_equal_jax(B, H, W, n):
+    rep = cost.roundtrip_cost(B, H, W, n)
+    g = rep["geometry"]
+    assert rep["link_bytes_per_image"] == 4 * (
+        g["stream_words_per_image"] + g["hard_words_per_image"]) == (
+        4 * (jcost._geometry(H, W, n, JParams())["stream_words_per_image"]
+             + jcost._geometry(H, W, n, JParams())["hard_words_per_image"]))
+    assert rep["ingest_bytes_per_image"] == 2 * 3 * H * W
+    assert rep["roundtrip_flops_per_image"] == (
+        rep["embed_flops"] + rep["extract_flops"]) / B
+    sides = {s["side"] for s in rep["stages"]}
+    assert sides == {"embed", "extract"}
+    assert rep["embed_hbm_bytes"] == sum(
+        s["hbm_bytes"] for s in rep["stages"] if s["side"] == "embed")
+
+
+def test_headline_stage_flops():
+    """The 4K B=64 sizing: K1 2 x 2 (192*2160) 3840 1024, stage 2's bulk
+    and the inverse's y stage 8 * 192*1024*2160*1024 each, the inverse's x
+    stage the K1 count; the embed's products ~2.0e13, the extract's
+    ~1.0e13."""
+    rep = cost.roundtrip_cost(64, 2160, 3840, 16384)
+    st = {(s["side"], s["stage"]): s["gemm_flops"] for s in rep["stages"]}
+    k1 = 2 * 2 * (192 * 2160) * 3840 * 1024
+    bulk = 8 * 192 * 1024 * 2160 * 1024
+    assert st["embed", "K1"] == {"bf16": k1} == st["extract", "K1"]
+    assert st["embed", "stage2"]["bf16"] == bulk
+    assert st["embed", "stage2"]["fp32"] == 8 * 192 * 64 * 2160 * 1024
+    assert st["embed", "inverse"] == {"bf16": bulk + k1}
+    gemm = {side: sum(sum(f.values()) for (sd, _), f in st.items()
+                      if sd == side) for side in ("embed", "extract")}
+    assert 1.9e13 < gemm["embed"] < 2.1e13
+    assert 0.95e13 < gemm["extract"] < 1.1e13
+    assert cost.k1_cost(192, 2160, 3840, 1024)["gemm_flops"] == {"bf16": k1}
+
+
+def test_stage_bounds_and_the_round_trip_bound():
+    peaks = dict(bf16=989e12, tf32=495e12, fp32=67e12, hbm_bytes=3.35e12)
+    rep = cost.roundtrip_cost(64, 2160, 3840, 16384)
+    b = cost.roundtrip_bound(rep, peaks)
+    ms = {(sd, st): (m, by) for sd, st, m, by in b["stages"]}
+    k1 = 2 * 2 * (192 * 2160) * 3840 * 1024
+    assert ms["embed", "K1"] == (k1 / 989e12 * 1e3, "operations")
+    assert ms["embed", "write"][1] == "bytes"
+    assert b["roundtrip_ms"] == pytest.approx(
+        sum(m for _, _, m, _ in b["stages"]))
+    assert b["roundtrip_ms"] == b["embed_ms"] + b["extract_ms"]
+
+
+def test_peak_rates_refuse_what_they_do_not_know():
+    with pytest.raises(ValueError):
+        cost.peak_rates("cpu")
+    if torch.cuda.is_available():
+        pytest.skip("this machine has CUDA")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        cost.peak_rates()
+
+
+def _counted(monkeypatch) -> dict:
+    """Run the two cores under FlopCounterMode, each alone."""
+    counts = {}
+    for name in ("corner_embed_core", "corner_extract_fused_core"):
+        real = getattr(pbatch, name)
+
+        def counted(*a, _real=real, _name=name, **kw):
+            with FlopCounterMode(display=False) as fc:
+                out = _real(*a, **kw)
+            counts[_name] = fc.get_total_flops()
+            return out
+
+        monkeypatch.setattr(pbatch, name, counted)
+    return counts
+
+
+@pytest.mark.parametrize("layout", ["nchw", "nhwc"])
+def test_model_flops_are_torchs_count_of_the_cores(monkeypatch, layout,
+                                                   record_property):
+    B, H, W, n = 4, 128, 128, 40
+    rng = np.random.default_rng(0)
+    covers = torch.from_numpy(_covers(B, H, W, rng))
+    if layout == "nhwc":
+        covers = covers.permute(0, 2, 3, 1).contiguous()
+    counts = _counted(monkeypatch)
+    cost.measure_device_step(covers, MK, n, layout=layout, reps=1)
+    rep = cost.roundtrip_cost(B, H, W, n, layout=layout)
+    gemm = {side: sum(sum(s["gemm_flops"].values()) for s in rep["stages"]
+                      if s["side"] == side) for side in ("embed", "extract")}
+    assert counts["corner_embed_core"] == pytest.approx(gemm["embed"],
+                                                        rel=FLOP_REL)
+    assert counts["corner_extract_fused_core"] == pytest.approx(
+        gemm["extract"], rel=FLOP_REL)
+    # recorded only: XLA's counts of JAX's modules at the same shapes
+    jrep = jcost.roundtrip_cost(B, H, W, n, layout=layout)
+    for side in ("embed", "extract"):
+        ratio = rep[f"{side}_flops"] / jrep[f"{side}_flops"]
+        record_property(f"{side}_flops_over_xla", ratio)
+        print(f"{layout} {side}: model {rep[side + '_flops']:.4g}, XLA "
+              f"{jrep[side + '_flops']:.4g}, ratio {ratio:.3f}")
+
+
+def test_measure_device_step_and_link_smoke():
+    rng = np.random.default_rng(1)
+    covers = torch.from_numpy(_covers(2, 128, 128, rng))
+    d = cost.measure_device_step(covers, MK, 40, reps=1)
+    assert d["embed_s"] > 0 and d["extract_s"] > 0
+    assert d["device_roundtrip_s"] == d["embed_s"] + d["extract_s"]
+    assert d["batch"] == 2 and d["device"] == "cpu"
+    link = cost.measure_link(nbytes=1 << 20, reps=1, device="cpu")
+    assert link["up_bytes_per_sec"] > 0 and link["down_bytes_per_sec"] > 0
+    assert link["probe_bytes"] == 1 << 20 and link["device"] == "cpu"
+    assert cost.min_over(2, lambda: None) >= 0

@@ -10,7 +10,9 @@ extract_array round trip, the exact median (kthvalue against the bisection
 twin) at 4K, a 1080p adaptive_alpha batch through the full-grid cores, and
 a complex128 round trip that stays on the card; the serve worker at
 512x512 (K1 launched by every op) and the CLI's embed -> extract on the
-card.
+card; a round trip over a 2-shard logical mesh on the card (K1 once per
+shard per pass), the sharded FFT and median against the dense ones, and
+the cost model's peak rates for the card.
 
 They skip without CUDA. This file imports neither jax nor the JAX package's
 device code, so it also runs on a machine without JAX:
@@ -569,3 +571,69 @@ def test_cli_embed_extract_on_card(dev, tmp_path, monkeypatch, capsys):
     assert cli.main(["turtlefft", "extract", "--in", stego, "--pass", "pw",
                      "--pbkdf2_iter", "500"]) == 0
     assert capsys.readouterr().out.splitlines()[-1] == "on the card"
+
+
+def test_mesh_round_trip_on_card_matches_unsharded(dev):
+    """A 2-shard logical mesh on the card: 4/4 back, the stego within +-1
+    of the unsharded call's on at most 0.5% of bytes (stage 2's GEMMs see
+    other batch counts), K1 launched once per shard per pass."""
+    import steganosaurus_tpu_torch as stt
+    from steganosaurus_tpu_torch import parallel
+    from steganosaurus_tpu_torch.spectral import corner_kernels as ck
+
+    rng = np.random.default_rng(9)
+    imgs = torch.from_numpy(rng.integers(90, 170, (4, 3, 512, 512),
+                                         dtype=np.uint8)).to(dev)
+    secrets = [bytes([i]) * (48 + i) for i in range(4)]
+    salts = [bytes([i + 1]) * 16 for i in range(4)]
+    mk = bytes(range(32))
+    mesh = parallel.make_mesh(2, device="cuda:0")
+    ref = stt.embed_batch(imgs, secrets, master_key=mk, salts=salts,
+                          device_resident=True, layout="nchw")
+    n = dict(ck.LAUNCHES)
+    res = stt.embed_batch(imgs, secrets, master_key=mk, salts=salts,
+                          mesh=mesh, device_resident=True, layout="nchw")
+    got = stt.extract_batch(res.stego, master_key=mk, clen_hint=51,
+                            layout="nchw")
+    torch.cuda.synchronize()
+    assert got == secrets
+    assert ck.LAUNCHES[ck.KERNEL_TMA] == n[ck.KERNEL_TMA] + 4
+    assert [p.device for p in res.stego.parts] == [dev, dev]
+    diff = (res.stego.gather(dev).to(torch.int16)
+            - ref.stego.to(torch.int16)).abs()
+    assert diff.max().item() <= 1
+    assert diff.count_nonzero().item() <= 0.005 * diff.numel()
+    assert stt.extract_batch(np.asarray(res.stego), master_key=mk,
+                             layout="nchw", device=dev) == secrets
+
+
+def test_fft_dist_on_card_matches_dense(dev):
+    from steganosaurus_tpu_torch import parallel, spectral
+    from steganosaurus_tpu_torch.parallel import fft_dist
+
+    rng = np.random.default_rng(10)
+    planes = torch.from_numpy(rng.uniform(0, 255, (3, 256, 512)).astype(
+        np.float32)).to(dev)
+    mesh = parallel.make_mesh(4, axis="image", device=dev)
+    spec = fft_dist.fft2_distributed(planes, mesh)
+    dense = spectral.fft2(planes)
+    got = spec.gather(dev)
+    assert (got - dense).abs().max().item() <= REL * dense.abs().max().item()
+    med = fft_dist.median_abs_distributed(spec, mesh)
+    assert torch.equal(med, spectral.median_abs(got))
+    back = fft_dist.ifft2_real_distributed(spec, mesh).gather(dev)
+    assert (back - planes).abs().max().item() <= 5e-3
+
+
+def test_peak_rates_for_the_card(dev):
+    from steganosaurus_tpu_torch.utils import cost
+
+    name = torch.cuda.get_device_name(0)
+    if "H100 80GB HBM3" not in name:
+        with pytest.raises(ValueError):
+            cost.peak_rates(dev)
+        return
+    peaks = cost.peak_rates(dev)
+    assert peaks["name"] == name
+    assert (peaks["bf16"], peaks["tf32"], peaks["fp32"],
+            peaks["hbm_bytes"]) == (989e12, 495e12, 67e12, 3.35e12)

@@ -325,9 +325,10 @@ def test_metrics_equal():
 # --- independence ------------------------------------------------------------
 
 def test_round_trip_with_jax_package_blocked():
-    """A 128x128 B=2 embed -> extract, then single-image round trips at
-    256x256 (default, coherent, the f64 backend), on the CPU in a fresh
-    interpreter where importing steganosaurus_tpu or jax raises."""
+    """A 128x128 B=2 embed -> extract, the same over a 2-shard mesh, then
+    single-image round trips at 256x256 (default, coherent, the f64
+    backend), on the CPU in a fresh interpreter where importing
+    steganosaurus_tpu or jax raises."""
     code = """
 import sys
 sys.modules["steganosaurus_tpu"] = None
@@ -340,6 +341,8 @@ import steganosaurus_tpu_torch.utils.metrics
 import steganosaurus_tpu_torch.cli
 import steganosaurus_tpu_torch.keytool
 import steganosaurus_tpu_torch.pipeline.serve
+import steganosaurus_tpu_torch.utils.cost
+from steganosaurus_tpu_torch import parallel
 for name in stt._API:
     getattr(stt, name)
 torch.set_num_threads(2)
@@ -350,6 +353,11 @@ p = stt.Params(pbkdf2_iter=500)
 res = stt.embed_batch(imgs, secrets, password="pw", params=p, device="cpu")
 got = stt.extract_batch(res.stego, password="pw", params=p, device="cpu")
 assert got == secrets, got
+mesh = parallel.make_mesh(2, device="cpu")
+res = stt.embed_batch(imgs, secrets, password="pw", params=p, mesh=mesh,
+                      device_resident=True)
+got += stt.extract_batch(res.stego, password="pw", params=p)
+assert got == secrets * 2, got
 img = rng.integers(90, 170, (256, 256, 3), dtype=np.uint8)
 for q in (p, p.replace(coherent=True), p.replace(fft_dtype="complex128")):
     one = stt.embed_array(img, b"single", password="pw", params=q,
@@ -363,7 +371,7 @@ print("recovered", len(got))
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr[-2000:]
-    assert out.stdout.split() == ["recovered", "5"], out.stdout
+    assert out.stdout.split() == ["recovered", "7"], out.stdout
 
 
 def _port_sources():
@@ -371,7 +379,8 @@ def _port_sources():
     return files + [REPO / "chip_smoke.py",
                     REPO / "tools" / "profile_torch_path.py",
                     REPO / "tools" / "time_wrong_key_batch.py",
-                    REPO / "tools" / "serve_latency_torch.py"]
+                    REPO / "tools" / "serve_latency_torch.py",
+                    REPO / "tools" / "mesh_cards_torch.py"]
 
 
 def test_launchers_run_the_ports_modules():
@@ -410,6 +419,7 @@ def test_no_port_module_imports_the_jax_package():
                 "pipeline/device.py", "pipeline/embed.py",
                 "pipeline/extract.py", "pipeline/frame.py",
                 "pipeline/serve.py", "utils/covers.py", "utils/debug.py",
+                "parallel/batch.py", "parallel/fft_dist.py", "utils/cost.py",
                 "utils/steganalysis.py", "utils/channel.py",
                 "crypto/keywrap.py", "cli.py", "keytool.py"):
         assert f"steganosaurus_tpu_torch/{mod}" in names
