@@ -42,6 +42,20 @@ Phases:
              P=96) against its plain version, then timed in turns with it
              and the library call. The load route must beat the library
              call at 3839 and at the 4b grid
+  3b. K3 K4e the embed's write, write floor and u8 epilogue kernels
+             (csrc/corner_write_floor.cu: write_floor and floor_only;
+             csrc/corner_epilogue.cu) against their plain versions
+             (spectral/write_kernels.py) at the main path's 4K B=64, 1080p
+             B=8, 512x512 B=8, the 4b grid and 4c's crop, on each grid's
+             forward corner spectrum and a seeded walk of a 16 KB frame's
+             bins: hard, soft, jittered and spread writes and QIM (floor
+             only), floor 0, 0.45, boosting (b range printed; every image
+             must boost) and clipping at 32; K3 bit-equal wherever b == 1,
+             else within 1e-5 of the plain output's scale, b within 1e-5
+             relative, the same bits read back at every walk bin; K4e on
+             the inverse DFT of K3's output, centering on and off, NCHW and
+             NHWC, bit-equal. Each entry point and its plain version timed
+             in turns at 4K B=64 beside its bound (utils/cost.py)
   4. path    512x512, B=8, 100 B round trip (also held against the port on
              the CPU), then 2160x3840, B=64, 16 KB: all secrets recovered,
              K1 launched on the TMA route alone, warm timings, PSNR, peak
@@ -150,9 +164,12 @@ Every path of phases 4-5, 7d-7e, 9a, 9b, 9d and the serve worker's B=1
 and batch ops (8a) must launch K1 (on the TMA route, corner_stage1_wgmma,
 or in 4b and 4c on the load route, corner_stage1_wgmma_ldg); the
 single-image paths, the full-grid batch cores (7a-7c), the cover-dependent
-worker (8a) and fft_dist (9c) run torch.fft and must launch none. The launches are counted
-per path and per route, and each (planes, H, W, Kx, center, route) the
-paths hand the stage-1 wrapper is recorded.
+worker (8a) and fft_dist (9c) run torch.fft and must launch no kernel of
+the port. Each corner embed must launch K4e once and K3 once: write_floor
+(phases 4, 4c, 9a, 9b, 8a's embeds, the shared-walk modes of 5f), or
+floor_only where the write stays eager (5f's QIM and per-image walks, 5g).
+The launches are counted per path and per kernel, and each (planes, H, W,
+Kx, center, route) the paths hand the stage-1 wrapper is recorded.
   6. K1 shapes  every recorded shape that phase 3 did not check is held
              against the plain version, through the wrapper, on seeded u8
              images on the same route
@@ -286,6 +303,40 @@ def cuda_ms(fn, n: int) -> float:
     return start.elapsed_time(end) / n
 
 
+def zero_counts() -> None:
+    """Set every hand kernel's launch count to 0: K1's routes
+    (corner_kernels.LAUNCHES) and the embed's K3 / K4e entry points
+    (write_kernels.LAUNCHES)."""
+    from steganosaurus_tpu_torch.spectral import corner_kernels as ck
+    from steganosaurus_tpu_torch.spectral import write_kernels as wk
+
+    for counts in (ck.LAUNCHES, wk.LAUNCHES):
+        for k in counts:
+            counts[k] = 0
+
+
+def read_counts() -> dict:
+    """{kernel name: launches since zero_counts()} of every hand kernel."""
+    from steganosaurus_tpu_torch.spectral import corner_kernels as ck
+    from steganosaurus_tpu_torch.spectral import write_kernels as wk
+
+    return {**ck.LAUNCHES, **wk.LAUNCHES}
+
+
+def check_embed_kernels(path: str, counts: dict, embeds: int,
+                        floor_only: bool = False) -> None:
+    """`embeds` corner embeds on `path`, each through K4e and through K3's
+    write_floor, or (QIM, per-image walks: floor_only) its floor_only."""
+    from steganosaurus_tpu_torch.spectral import write_kernels as wk
+
+    want = {wk.KERNEL_WRITE_FLOOR: 0 if floor_only else embeds,
+            wk.KERNEL_FLOOR_ONLY: embeds if floor_only else 0,
+            wk.KERNEL_EPILOGUE: embeds}
+    got = {k: counts[k] for k in want}
+    if got != want:
+        raise AssertionError(f"{path}: K3 / K4e launches {got}, want {want}")
+
+
 def phase_probe() -> str:
     import torch
 
@@ -333,6 +384,28 @@ PHONE_GRID = (8, 1170, 2532)
 # The serve worker's batch sizes at 4K (phase 8): a single embed or extract
 # rides the batch path at B=1, a batch op runs batches of up to 32
 SERVE_K1_B = (1, 32)
+# 3b: the embed's write, write floor (K3) and u8 epilogue (K4e) against
+# their plain versions, on (name, B, H, W) grids: the main path's, 1080p
+# B=8, phase 4's 512x512 B=8, 4b's grid and 4c's crop. K3 within WRITE_REL
+# of the plain output's scale and b within WRITE_REL relative (the three
+# per-image sums in another order), bit-equal wherever b == 1, the same
+# bits read back; K4e bit-equal.
+WRITE_GRIDS = (("4K", UHD_B, UHD_H, UHD_W), ("1080p", FHD_B, FHD_H, FHD_W),
+               ("512x512", SMALL_B, SMALL_H, SMALL_W),
+               ("4b", *RAGGED_GRID), ("4c", UHD_B, UHD_H, UHD_W - 1))
+WRITE_REL = 1e-5
+# (write rule, floor) cases: all at the main path's grid, the first
+# WRITE_CASES_SMALL at the others. "boost" is twice the largest spatial
+# RMS the write reaches alone (every image boosts), "clip" a floor no boost
+# of at most 32 reaches; a "qim" rule writes in eager torch and takes K3's
+# floor_only
+WRITE_CASES = (("hard", "0.45"), ("soft+jitter", "boost"),
+               ("spread", "0.45"), ("qim", "boost"), ("hard", "0"),
+               ("hard", "boost"), ("hard", "clip"), ("soft", "0.45"),
+               ("jitter", "0.45"), ("spread+jitter+soft", "boost"),
+               ("qim+soft+jitter", "0.45"))
+WRITE_CASES_SMALL = 4
+WRITE_QIM_LEVELS = 3
 # 8a: PNG covers of the worker's embed_batch, and the cover-dependent
 # worker's secret (a 4K midstep_cover, the single-image path)
 SERVE_PNG_BATCH = 8
@@ -629,6 +702,272 @@ def phase_k1(covers_d, card: str):
     return records, checked, odd_d
 
 
+def _write_inputs(planes, Ky: int, Kx: int, seed: int):
+    """K3's inputs for the u8 covers `planes` (B, 3, H, W) on the card:
+    their forward corner spectrum (the main path's own, centering off), the
+    static maps (corner_statics_core) of a seeded walk over a 16 KB frame's
+    919,312 bins, or 30% of a smaller corner's bins, tail-padded as the
+    walk is, with per-slot jitter, amplitudes and QIM dithers, and seeded
+    frame bits (B, bucket) u8."""
+    import numpy as np
+    import torch
+
+    from steganosaurus_tpu_torch.parallel import batch as pb
+    from steganosaurus_tpu_torch.spectral import corner
+
+    dev = planes.device
+    B, _, H, W = planes.shape
+    tabs = corner.dft_tables_device(H, Ky, W, Kx, dev)
+    cr, ci = corner.fwd_corner(planes, False, Ky, Kx, tabs,
+                               corner.precision())
+    N = 3 * Ky * Kx
+    nbits = min(912 + (UHD_SECRET + 16) * 8 * 7, int(0.3 * N))
+    bucket = -(-nbits // 4096) * 4096
+    rng = np.random.default_rng(seed)
+    flat = rng.choice(N, bucket, replace=False)
+    flat[nbits:] = flat[nbits - 1]
+    idx = [torch.from_numpy(a).to(dev)
+           for a in np.unravel_index(flat, (3, Ky, Kx))]
+
+    def per_slot(lo, hi):
+        v = rng.uniform(lo, hi, bucket).astype(np.float32)
+        v[nbits:] = v[nbits - 1]
+        return torch.from_numpy(v).to(dev)
+
+    maps = pb.corner_statics_core(*idx, Ky, Kx, bucket,
+                                  per_slot(-0.39, 0.39),
+                                  alphas=per_slot(0.25, 0.75),
+                                  dither=per_slot(-math.pi, math.pi))
+    frame = torch.from_numpy(rng.integers(0, 2, (B, bucket),
+                                          dtype=np.uint8)).to(dev)
+    return cr, ci, maps, frame, tabs
+
+
+def _boosting_floor(dr, di, pixels: float) -> float:
+    """Twice the largest spatial RMS the writes (dr, di) reach alone,
+    sqrt(2/3 * sum |0.5 D / pixels|^2) per image (Parseval, as
+    apply_write_floor counts it): a floor that boosts every image."""
+    import torch
+
+    rms = [torch.sqrt((((0.5 / pixels) * r) ** 2 + ((0.5 / pixels) * i) ** 2)
+                      .sum() * (2.0 / 3.0)).item() for r, i in zip(dr, di)]
+    return 2.0 * max(rms)
+
+
+def _write_case(cr, ci, maps, frame, pixels: float, rule: str, floor: str):
+    """(kernel, plain, floor value, entry name, bit reader) of one K3 case:
+    kernel() and plain() return (dr, di, b); bits(dr, di) reads each bin's
+    bit after the write (1 iff its decision value >= 0)."""
+    import steganosaurus_tpu_torch as stt
+    from steganosaurus_tpu_torch.parallel import batch as pb
+    from steganosaurus_tpu_torch.spectral import corner
+    from steganosaurus_tpu_torch.spectral import write_kernels as wk
+
+    pos, cjd, sjd, cad, sad, dq, qm = maps
+    cj, sj = (cjd, sjd) if "jitter" in rule else (None, None)
+    ca, sa = ((cad, sad) if "spread" in rule
+              else pb._cos_sin(stt.Params().alpha))
+    soft = "soft" in rule
+    L = WRITE_QIM_LEVELS
+    if rule.startswith("qim"):
+        sign, mask = wk.bit_signs(pos, frame)
+        dr, di = corner.write_delta_qim(cr, ci, sign, mask, qm, ca, sa, dq,
+                                        L, cj, sj, soft=soft)
+        del sign, mask
+        fl = {"0.45": 0.45, "clip": 1e6}.get(floor) or _boosting_floor(
+            dr, di, pixels)
+
+        def kernel():
+            return wk.floor_only(dr, di, cr, ci, floor=fl, img_pixels=pixels)
+
+        def plain():
+            return wk.floor_only_plain(dr, di, cr, ci, floor=fl,
+                                       img_pixels=pixels)
+
+        def bits(r, i):
+            return corner.read_bits_dense_qim(cr + 0.5 * r, ci + 0.5 * i,
+                                              1.0, qm, dq, L, cj, sj)
+
+        return kernel, plain, fl, wk.KERNEL_FLOOR_ONLY, bits
+    args = (cr, ci, pos, frame, ca, sa, cj, sj)
+    fl = {"0": 0.0, "0.45": 0.45, "clip": 1e6}.get(floor)
+    if fl is None:
+        fl = _boosting_floor(*wk.write_floor_plain(
+            *args, floor=0.0, img_pixels=pixels, soft=soft)[:2], pixels)
+
+    def kernel():
+        return wk.write_floor(*args, floor=fl, img_pixels=pixels, soft=soft)
+
+    def plain():
+        return wk.write_floor_plain(*args, floor=fl, img_pixels=pixels,
+                                    soft=soft)
+
+    def bits(r, i):
+        return corner.read_bits_dense(ci + 0.5 * i, 1.0, cr + 0.5 * r, cj, sj)
+
+    return kernel, plain, fl, wk.KERNEL_WRITE_FLOOR, bits
+
+
+def _check_write(what: str, out, ref, walk, bits) -> tuple:
+    """K3's (dr, di, b) against the plain version's: b within WRITE_REL
+    relative, each image whose boost is 1 bit-equal, the rest within
+    WRITE_REL of the plain output's scale, the same bit read back at every
+    walk bin. Returns (max_abs_err, scale, b or None)."""
+    import torch
+
+    torch.cuda.synchronize()
+    (dr, di, b), (pr, pi, pb) = out, ref
+    if (b is None) != (pb is None):
+        raise AssertionError(f"K3 {what}: boost {b} against {pb}")
+    exact = ([True] * dr.shape[0] if pb is None
+             else ((b == 1) & (pb == 1)).tolist())
+    b_rel = 0.0 if pb is None else ((b - pb).abs() / pb).max().item()
+    err = max((dr - pr).abs().max().item(), (di - pi).abs().max().item())
+    scale = max(pr.abs().max().item(), pi.abs().max().item())
+    unequal = [k for k, ex in enumerate(exact)
+               if ex and not (torch.equal(dr[k], pr[k])
+                              and torch.equal(di[k], pi[k]))]
+    same_bits = torch.equal(bits(dr, di)[:, walk], bits(pr, pi)[:, walk])
+    log(f"K3 {what}: max_abs_err {err!r} max|plain| {scale!r} rel "
+        f"{err / scale!r}; b "
+        + ("none" if b is None else
+           f"{b.min().item()!r}..{b.max().item()!r} (rel err {b_rel!r}, "
+           f"{sum(exact)}/{len(exact)} images at b == 1, bit-equal)")
+        + f"; walk bits equal {same_bits}")
+    if unequal or not (err <= WRITE_REL * scale and b_rel <= WRITE_REL
+                       and same_bits):
+        raise AssertionError(f"K3 {what} disagrees with its plain version: "
+                             f"err {err} (scale {scale}), b rel {b_rel}, "
+                             f"images at b == 1 not bit-equal {unequal}, "
+                             f"bits equal {same_bits}")
+    return err, scale, b
+
+
+# 3b's kernels line: each entry point's source and the JAX math it replaces
+WRITE_SOURCES = {
+    "corner_write_floor": (
+        "corner_write_floor.cu", "steganosaurus_tpu/spectral/corner.py:550 "
+        "write_delta + :612 apply_write_floor, with the bit lookup of "
+        "steganosaurus_tpu/parallel/batch.py:594 (corner_embed_core)"),
+    "corner_floor_only": (
+        "corner_write_floor.cu", "steganosaurus_tpu/spectral/corner.py:612 "
+        "apply_write_floor (after write_delta_qim in corner_embed_core, and "
+        "in corner_piw_embed_core)"),
+    "corner_epilogue": (
+        "corner_epilogue.cu", "steganosaurus_tpu/parallel/batch.py:622-627 "
+        "(corner_embed_core's epilogue), with the 1/(H*W) scale of "
+        "steganosaurus_tpu/spectral/corner.py:547 (ifft_corner_real)"),
+}
+
+
+def _time_entries(rows: dict, card: str) -> list:
+    """Each entry point of `rows` ({name: what, err, (kernel, plain),
+    (bound ms, bound_by)}) and its plain version timed in turns by CUDA
+    events; returns the kernels line's records."""
+    records = []
+    for entry, row in rows.items():
+        kern, plain = row["run"]
+        times = _turns({"kernel": (kern, 10), "plain": (plain, 3)})
+        ms = {k: sum(v) / len(v) for k, v in times.items()}
+        bound, by = row["bound"]
+        log(f"{row['what']} timed in turns: kernel {times['kernel']!r} ms, "
+            f"plain {times['plain']!r} ms; bound {bound!r} ms ({by}), at "
+            f"{bound / ms['kernel']:.3f} of it; "
+            f"{ms['plain'] / ms['kernel']:.2f}x faster than the plain "
+            f"version ({card})")
+        source, replaces = WRITE_SOURCES[entry]
+        records.append({
+            "name": entry, "route": "cuda",
+            "source": f"steganosaurus_tpu_torch/csrc/{source}",
+            "replaces": replaces, "max_abs_err": row["err"],
+            "ms": ms["kernel"], "plain_ms": ms["plain"], "bound_ms": bound,
+            "bound_by": by, "library_ms": None})
+    return records
+
+
+def phase_write_kernels(covers_d, odd_d, card: str) -> list:
+    """3b: K3 (both entry points) and K4e against their plain versions, on
+    the WRITE_GRIDS with the WRITE_CASES (every write rule at the main
+    path's grid; floor 0, 0.45, boosting and clipping at 32); K4e on the
+    inverse DFT of K3's output, centering on and off, NCHW and NHWC. At the
+    main path's grid each entry point and its plain version are timed in
+    turns (write_floor on the main path's hard write at floor 0.45,
+    floor_only on the first QIM case, K4e NCHW uncentered) beside the
+    bound of utils/cost.py. Returns the three entries of the kernels
+    line."""
+    import torch
+
+    import steganosaurus_tpu_torch as stt
+    from steganosaurus_tpu_torch.spectral import corner
+    from steganosaurus_tpu_torch.spectral import write_kernels as wk
+    from steganosaurus_tpu_torch.utils import cost
+
+    peaks = cost.peak_rates(covers_d.device)
+    records = []
+    for g, (name, B, H, W) in enumerate(WRITE_GRIDS):
+        main = name == "4K"
+        planes = (covers_d if main else odd_d if name == "4c"
+                  else _grid_nchw(covers_d.device, B, H, W))
+        Ky, Kx = corner.corner_dims(H, W, stt.Params().rmax)
+        cr, ci, maps, frame, tabs = _write_inputs(planes, Ky, Kx, 30 + g)
+        walk = maps[0] < frame.shape[1]
+        pixels = float(H) * float(W)
+        rows: dict = {}
+        t_in = None
+        for rule, floor in (WRITE_CASES if main
+                            else WRITE_CASES[:WRITE_CASES_SMALL]):
+            kernel, plain, fl, entry, bits = _write_case(
+                cr, ci, maps, frame, pixels, rule, floor)
+            what = (f"{entry} {name} B={B} {H}x{W} {rule}, floor {floor} "
+                    f"({fl!r})")
+            out = kernel()
+            err, _, b = _check_write(what, out, plain(), walk, bits)
+            if floor == "boost" and not (b > 1).all().item():
+                raise AssertionError(f"K3 {what}: an image was not boosted")
+            if floor == "clip" and not (b == 32).all().item():
+                raise AssertionError(f"K3 {what}: a boost is not clipped "
+                                     f"at 32")
+            if main and entry not in rows:
+                rows[entry] = dict(what=what, err=err, run=(kernel, plain),
+                                   bound=cost.stage_bound(
+                                       cost.write_floor_cost(
+                                           B, Ky, Kx, frame.shape[1], 0)
+                                       if entry == wk.KERNEL_WRITE_FLOOR
+                                       else cost.floor_only_cost(B, Ky, Kx),
+                                       peaks))
+            if t_in is None:  # K4e's input: the first case's inverse DFT
+                t_in = corner.ifft_corner_real(out[0], out[1], H, W, tabs,
+                                               corner.precision(),
+                                               scale=False)
+            del out
+        layouts = ((False, "nchw"), (True, "nhwc"), (True, "nchw"),
+                   (False, "nhwc"))
+        for center, layout in layouts if main else layouts[:2]:
+            got = wk.epilogue(t_in, planes, center, layout)
+            want = wk.epilogue_plain(t_in, planes, center, layout)
+            torch.cuda.synchronize()
+            n_diff = (got != want).sum().item()
+            log(f"K4e {name} B={B} {H}x{W} center {center} {layout}: "
+                f"{tuple(got.shape)} u8, {n_diff} bytes differ from the "
+                f"plain version")
+            if n_diff or got.shape != want.shape:
+                raise AssertionError(f"K4e {name} center {center} {layout} "
+                                     f"is not bit-equal to its plain "
+                                     f"version")
+            del got, want
+        if main:
+            rows[wk.KERNEL_EPILOGUE] = dict(
+                what=f"{wk.KERNEL_EPILOGUE} {name} B={B} {H}x{W} nchw",
+                err=0.0, run=(
+                    lambda: wk.epilogue(t_in, planes, False, "nchw"),
+                    lambda: wk.epilogue_plain(t_in, planes, False, "nchw")),
+                bound=cost.stage_bound(cost.epilogue_cost(B, H, W), peaks))
+            records = _time_entries(rows, card)
+        del cr, ci, maps, frame, t_in, rows, planes
+        torch.cuda.empty_cache()
+    return records
+
+
 def psnr_mean(stego, covers) -> float:
     import torch
 
@@ -708,10 +1047,9 @@ def phase_uhd(covers_d, what: str = "4K", route: str = "") -> tuple:
     log(f"{what} first round trip (walk expansion, tables): embed {e_ms!r} "
         f"ms, extract {x_ms!r} ms, recovered {B}/{B}")
     torch.cuda.reset_peak_memory_stats()
-    for k in ck.LAUNCHES:
-        ck.LAUNCHES[k] = 0
+    zero_counts()
     stego, e_ms, x_ms = round_trip()
-    launches = dict(ck.LAUNCHES)
+    launches = read_counts()
     peak = torch.cuda.max_memory_allocated()
     if stego.shape != covers_d.shape or stego.dtype != torch.uint8:
         raise AssertionError(f"stego {stego.dtype} {tuple(stego.shape)}")
@@ -725,10 +1063,11 @@ def phase_uhd(covers_d, what: str = "4K", route: str = "") -> tuple:
         f"{B / (total / 1e3)!r} img/s, recovered {B}/{B}, mean PSNR "
         f"{psnr!r} dB, peak memory {peak / 2**30!r} GiB")
     log(f"launches in the counted round trip: {launches}")
-    if launches[route] <= 0 or any(n for k, n in launches.items()
+    if launches[route] <= 0 or any(launches[k] for k in ck.LAUNCHES
                                    if k != route):
         raise AssertionError(f"the {what} path did not launch {route} "
                              f"alone: {launches}")
+    check_embed_kernels(what, launches, 1)
     return launches, (e_ms, x_ms), stego
 
 
@@ -782,14 +1121,13 @@ def count_launches(path: str, launches: dict, fn, kernel: str = ""):
     from steganosaurus_tpu_torch.spectral import corner_kernels as ck
 
     kernel = kernel or ck.KERNEL_TMA
-    for k in ck.LAUNCHES:
-        ck.LAUNCHES[k] = 0
+    zero_counts()
     out = fn()
     torch.cuda.synchronize()
-    if ck.LAUNCHES[kernel] <= 0:
+    launches[path] = read_counts()
+    if launches[path][kernel] <= 0:
         raise AssertionError(f"{kernel} was not launched on the {path} "
                              f"path")
-    launches[path] = dict(ck.LAUNCHES)
     return out
 
 
@@ -1222,6 +1560,10 @@ def phase_modes(dev, launches: dict) -> None:
             return st, got, time.perf_counter() - t
 
         st, got, dt = count_launches(f"5f {name}", launches, run)
+        # QIM and per-image walks write in eager torch and take K3's
+        # floor_only; every other mode K3's write_floor
+        check_embed_kernels(f"5f {name}", launches[f"5f {name}"], 1,
+                            floor_only=bool(p.qim or p.per_image_walk))
         n_ok = sum(g == s for g, s in zip(got, secrets))
         card = st.cpu().numpy()
         cpu = stt.embed_batch(covers, secrets, params=p, salts=salts,
@@ -1367,6 +1709,8 @@ def phase_stealth(covers_d, launches: dict) -> None:
         stego, e_ms, x_ms = count_launches("5g stealth 4K", launches,
                                            round_trip)
         peak = torch.cuda.max_memory_allocated()
+        check_embed_kernels("5g stealth 4K", launches["5g stealth 4K"], 1,
+                            floor_only=True)
     finally:
         undo()
     psnr = psnr_mean(stego, covers)
@@ -1495,20 +1839,17 @@ def phase_rs_padded(covers_d, launches: dict) -> None:
 def count_no_launches(path: str, launches: dict, fn):
     """Run fn() with every kernel count set to 0 and record the counts for
     `path`, a path with no hand kernel (the single-image path and the
-    full-grid batch cores run torch.fft, never the corner DFT): any K1
-    launch there means the path took the wrong route. Returns fn()'s
-    result."""
+    full-grid batch cores run torch.fft, never the corner DFT or the
+    corner write): any launch there means the path took the wrong route.
+    Returns fn()'s result."""
     import torch
 
-    from steganosaurus_tpu_torch.spectral import corner_kernels as ck
-
-    for k in ck.LAUNCHES:
-        ck.LAUNCHES[k] = 0
+    zero_counts()
     out = fn()
     torch.cuda.synchronize()
-    launches[path] = dict(ck.LAUNCHES)
+    launches[path] = read_counts()
     if any(launches[path].values()):
-        raise AssertionError(f"the {path} path launched K1: "
+        raise AssertionError(f"the {path} path launched a corner kernel: "
                              f"{launches[path]}")
     return out
 
@@ -1975,21 +2316,18 @@ def phase_wrong_key(covers_d, launches: dict) -> None:
 
 def _scripted(reqs, counts: dict):
     """serve_loop's stdin for [(name, request)]: each request's line, with
-    every K1 count set to 0 just before it; the counts of each request land
-    in counts[name] once the loop has answered it (when it asks for the
-    next line, or for the end of the input)."""
-    from steganosaurus_tpu_torch.spectral import corner_kernels as ck
-
+    every kernel count set to 0 just before it; the counts of each request
+    land in counts[name] once the loop has answered it (when it asks for
+    the next line, or for the end of the input)."""
     prev = None
     for name, req in reqs:
         if prev is not None:
-            counts[prev] = dict(ck.LAUNCHES)
-        for k in ck.LAUNCHES:
-            ck.LAUNCHES[k] = 0
+            counts[prev] = read_counts()
+        zero_counts()
         prev = name
         yield json.dumps(req) + "\n"
     if prev is not None:
-        counts[prev] = dict(ck.LAUNCHES)
+        counts[prev] = read_counts()
 
 
 def _serve(reqs, params, warmup=()) -> tuple:
@@ -2080,10 +2418,13 @@ def phase_serve(launches: dict, card: str) -> None:
         launches[f"8a {name}"] = n
         if name != "stats" and n[ck.KERNEL_TMA] <= 0:
             raise AssertionError(f"8a: {name} launched no K1: {n}")
+        if name.startswith("embed"):
+            check_embed_kernels(f"8a {name}", n, 1)
     for name, n in ccounts.items():
         launches[f"8a {name}"] = n
         if any(n.values()):
-            raise AssertionError(f"8a: {name} launched K1: {n}")
+            raise AssertionError(f"8a: {name} launched a corner kernel: "
+                                 f"{n}")
     log(f"8a serve in process, 4K, 16 KB, warmup + {len(reqs)} requests "
         f"in {wall:.1f} s; ms per request " + ", ".join(
             f"{name} {r['ms']!r}" for (name, _), r in zip(reqs, rs))
@@ -2290,7 +2631,8 @@ def _mesh_round_trip(covers_d, mesh, secrets, salts, what: str) -> tuple:
 
 
 def _k1_per_shard(path: str, launches: dict, mesh, passes: int) -> None:
-    """K1 (the TMA route) launched once per shard per pass on `path`."""
+    """K1 (the TMA route) launched once per shard per pass on `path`, and
+    K3's write_floor and K4e once per shard per embed (half the passes)."""
     from steganosaurus_tpu_torch.spectral import corner_kernels as ck
 
     want = passes * mesh.size
@@ -2298,6 +2640,7 @@ def _k1_per_shard(path: str, launches: dict, mesh, passes: int) -> None:
         raise AssertionError(f"{path}: K1 launches {launches[path]}, want "
                              f"{want} on {ck.KERNEL_TMA} ({mesh.size} "
                              f"shards x {passes} passes)")
+    check_embed_kernels(path, launches[path], passes // 2 * mesh.size)
 
 
 def phase_mesh_cards(covers_d, stego4, ms4, launches: dict) -> None:
@@ -2633,6 +2976,8 @@ def main() -> int:
             f"{time.perf_counter() - t:.1f} s")
 
         k1, checked, odd_d = timed("K1", phase_k1, covers_d, card)
+        k3 = timed("K3 and K4e", phase_write_kernels, covers_d, odd_d, card)
+        torch.cuda.empty_cache()
         launches: dict = {}
         seen: set = set()
         undo = record_k1_shapes(seen)
@@ -2678,15 +3023,15 @@ def main() -> int:
             timed("cli", phase_cli, card)
         finally:
             undo()
-        log(f"K1 launches per path: {launches}")
+        log(f"kernel launches per path: {launches}")
         timed("K1 shapes", phase_k1_shapes, dev, seen, checked)
-        for k in k1:
+        for k in k1 + k3:
             k["launches"] = sum(n[k["name"]] for n in launches.values())
         log(f"smoke wall time {time.perf_counter() - t_all:.1f} s")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [{key: k[key] for key in keys}
-                                  for k in k1]}), flush=True)
+                                  for k in k1 + k3]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

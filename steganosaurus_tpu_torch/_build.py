@@ -34,6 +34,11 @@ BUILD = REPO / "build"
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC"]
+# Flags of one source on top of NVCC_FLAGS: the elementwise kernels must
+# round op by op as torch's eager ops do, so nvcc may not contract a
+# product and a sum into one FMA there.
+NVCC_SOURCE_FLAGS = {"corner_write_floor.cu": ["-fmad=false"],
+                     "corner_epilogue.cu": ["-fmad=false"]}
 GXX_FLAGS = ["-O3", "-std=c++17", "-shared", "-fPIC"]
 
 _lock = threading.Lock()
@@ -41,10 +46,14 @@ _kernels: "Kernels | None" = None
 
 # C entry points of csrc/*.cu: name -> argtypes. Pointers and the stream are
 # c_void_p (a bare int would be cut to 32 bits), sizes and flags c_int.
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     "corner_stage1_wgmma": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
                             _P],
+    "corner_write_floor": [_P] * 12 + [_I, _I, _I, _I, _F, _F, _I, _F, _F,
+                                       _F, _I, _P],
+    "corner_floor_only": [_P] * 8 + [_I, _I, _I, _F, _F, _F, _P],
+    "corner_epilogue": [_P, _P, _P, _I, _I, _I, _F, _I, _I, _P],
 }
 
 
@@ -116,10 +125,12 @@ def kernel_library() -> Kernels:
     global _kernels
     with _lock:
         if _kernels is None:
+            flags = {src: NVCC_FLAGS + NVCC_SOURCE_FLAGS.get(src.name, [])
+                     for src in sorted(CSRC.glob("*.cu"))}
             libs = {src: BUILD / "kernels" / (
-                f"lib{src.stem}_{_digest([src], NVCC_FLAGS)}.so")
-                for src in sorted(CSRC.glob("*.cu"))}
-            _compile([([nvcc(), *NVCC_FLAGS, str(src)], lib)
+                f"lib{src.stem}_{_digest([src], f)}.so")
+                for src, f in flags.items()}
+            _compile([([nvcc(), *flags[src], str(src)], lib)
                       for src, lib in libs.items() if not lib.exists()])
             _kernels = Kernels(libs)
         return _kernels

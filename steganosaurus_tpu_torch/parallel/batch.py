@@ -69,7 +69,7 @@ from steganosaurus_tpu_torch import runtime, spectral
 from steganosaurus_tpu_torch.ops import bits as bit_ops
 from steganosaurus_tpu_torch.ops import ecc
 from steganosaurus_tpu_torch.ops import phase as phase_ops
-from steganosaurus_tpu_torch.spectral import corner
+from steganosaurus_tpu_torch.spectral import corner, write_kernels
 
 HEADER_BITS = 304    # 38 header bytes
 HEADER_REP = 3
@@ -250,22 +250,23 @@ def corner_statics_core(plane, y, x, Ky: int, Kx: int, bucket: int,
     """Static corner maps of a shared walk, in the JAX package's order:
     (pos, [cjd, sjd], [cad, sad], [dq, qm]).
 
-    pos: (3, Ky, Kx) int64, the walk slot owning each corner bin, and
-    `bucket` where no walk bin lives. cjd/sjd, when the per-slot jitter
-    angles `jit` are given: cos/sin of the owning slot's jitter, 1 and 0
-    elsewhere. cad/sad, when the per-slot amplitudes `alphas` are given
-    (Params.alpha_spread): cos/sin of the owning slot's amplitude, 1 and 0
-    elsewhere. dq/qm, when the per-slot QIM dithers `dither` are given: the
-    owning slot's dither, and 1.0 where that slot is a payload slot (>=
-    HEADER_SLOTS), 0 elsewhere. All maps f32 but pos.
+    pos: (3, Ky, Kx) int32 (as JAX's; the K3 kernel reads it as is), the
+    walk slot owning each corner bin, and `bucket` where no walk bin
+    lives. cjd/sjd, when the per-slot jitter angles `jit` are given:
+    cos/sin of the owning slot's jitter, 1 and 0 elsewhere. cad/sad, when
+    the per-slot amplitudes `alphas` are given (Params.alpha_spread):
+    cos/sin of the owning slot's amplitude, 1 and 0 elsewhere. dq/qm, when
+    the per-slot QIM dithers `dither` are given: the owning slot's dither,
+    and 1.0 where that slot is a payload slot (>= HEADER_SLOTS), 0
+    elsewhere. All maps f32 but pos.
 
     plane/y/x and the per-slot arrays are the walk's (bucket,) tensors,
     tail-padded by repeating the last real slot's values, so which of the
     duplicate writes the scatter keeps does not matter."""
     dev = plane.device
     idx = (plane, y, x)
-    pos = torch.full((3, Ky, Kx), bucket, dtype=torch.int64, device=dev)
-    slots = torch.arange(bucket, dtype=torch.int64, device=dev)
+    pos = torch.full((3, Ky, Kx), bucket, dtype=torch.int32, device=dev)
+    slots = torch.arange(bucket, dtype=torch.int32, device=dev)
     pos.index_put_(idx, slots)
     out = (pos,)
 
@@ -297,11 +298,11 @@ def _unpack_maps(maps, has_jitter: bool, has_spread: bool, qim: bool):
 def statics_from_numpy(maps, device) -> tuple[torch.Tensor, ...]:
     """Carry static corner maps built elsewhere — e.g. the JAX package's
     _corner_statics_device maps pulled to numpy — into the port's tensors on
-    `device`: integer maps (pos) become int64, float maps float32."""
+    `device`: integer maps (pos) become int32, float maps float32."""
     out = []
     for a in maps:
         a = np.asarray(a)
-        dt = torch.int64 if np.issubdtype(a.dtype, np.integer) \
+        dt = torch.int32 if np.issubdtype(a.dtype, np.integer) \
             else torch.float32
         out.append(torch.tensor(a, dtype=dt, device=device))  # a copy
     return tuple(out)
@@ -340,22 +341,6 @@ def _cos_sin(alpha: float):
     return torch.cos(a), torch.sin(a)
 
 
-def _epilogue(t: torch.Tensor, planes: torch.Tensor, center: bool,
-              layout: str) -> torch.Tensor:
-    """real(IFFT2(delta)) t (B, 3, H, W) f32 -> u8 stego in `layout`:
-    planes + delta -> floor(x + 0.5) clamped to [0, 255] (round half away
-    from zero on the surviving range, as the reference; torch.round would
-    round half to even). The embed cores drop the corner spectrum and the
-    deltas before the inverse DFT and this, so peak memory holds one
-    (B, 3, H, W) f32 tensor at a time."""
-    t = spectral.apply_center(t, center)
-    out = t.add_(planes).add_(0.5).floor_().clamp_(0.0, 255.0)
-    out = out.to(torch.uint8)
-    if layout != "nchw":
-        out = out.permute(0, 2, 3, 1).contiguous()
-    return out
-
-
 def corner_embed_core(imgs: torch.Tensor, frame: torch.Tensor, maps,
                       alpha: float, *, Ky: int, Kx: int, center: bool,
                       layout: str, floor: float, soft: bool = False,
@@ -368,38 +353,40 @@ def corner_embed_core(imgs: torch.Tensor, frame: torch.Tensor, maps,
 
     Forward corner DFT -> each bin's frame bit through `pos` -> dense
     write_delta (soft when `soft`, jittered with cjd/sjd, amplitudes from
-    cad/sad under spread) or, with qim_levels, write_delta_qim (payload
-    bins on the dithered lattice) -> write floor -> inverse corner DFT ->
-    the u8 epilogue."""
+    cad/sad under spread) and the write floor, both in the K3 kernel
+    (write_kernels.write_floor); or, with qim_levels, write_delta_qim
+    (payload bins on the dithered lattice) in eager torch and the floor
+    alone in K3 (write_kernels.floor_only) -> inverse corner DFT -> the u8
+    epilogue (K4e)."""
     planes = _planes_u8(imgs, layout)
-    B, _, H, W = planes.shape
+    H, W = planes.shape[-2:]
     pos, cjd, sjd, cad, sad, dq, qm = _unpack_maps(maps, has_jitter,
                                                    has_spread,
                                                    bool(qim_levels))
-    bucket = frame.shape[1]
     mode = corner.precision()
     tabs = corner.dft_tables_device(H, Ky, W, Kx, planes.device)
     cr, ci = corner.fwd_corner(planes, center, Ky, Kx, tabs, mode)
-    # sentinel column `bucket` (no walk bin) reads 0; the mask zeroes it
-    table = torch.cat([frame, frame.new_zeros((B, 1))], dim=1)
-    bit = table[:, pos.reshape(-1)].reshape(B, 3, Ky, Kx)
-    sign = bit.to(torch.float32) * 2.0 - 1.0
-    mask = (pos < bucket).to(torch.float32)
     ca, sa = _cos_sin(alpha) if cad is None else (cad, sad)
+    pixels = float(H) * float(W)
     if qim_levels:
+        sign, mask = write_kernels.bit_signs(pos, frame)
         dr, di = corner.write_delta_qim(cr, ci, sign, mask, qm, ca, sa, dq,
                                         qim_levels, cjd, sjd, soft=soft)
+        del sign, mask
+        if floor:
+            dr, di, _ = write_kernels.floor_only(dr, di, cr, ci, floor=floor,
+                                                 img_pixels=pixels)
     else:
-        dr, di = corner.write_delta(cr, ci, sign, mask, ca, sa, cjd, sjd,
-                                    soft=soft)
-    del sign, bit, table, mask
-    if floor:
-        dr, di = corner.apply_write_floor(dr, di, cr, ci, floor,
-                                          float(H) * float(W))
+        dr, di, _ = write_kernels.write_floor(
+            cr, ci, pos, frame, ca, sa, cjd, sjd, floor=floor,
+            img_pixels=pixels, soft=soft)
     del cr, ci
-    t = corner.ifft_corner_real(dr, di, H, W, tabs, mode)
+    # the inverse DFT left unscaled: the u8 epilogue (K4e) scales; the
+    # spectrum goes before it and the deltas after it, so peak memory holds
+    # one (B, 3, H, W) f32 tensor at a time
+    t = corner.ifft_corner_real(dr, di, H, W, tabs, mode, scale=False)
     del dr, di
-    return _epilogue(t, planes, center, layout)
+    return write_kernels.epilogue(t, planes, center, layout)
 
 
 def _flat(plane, y, x, Ky: int, Kx: int) -> torch.Tensor:
@@ -430,11 +417,11 @@ def corner_piw_embed_core(imgs: torch.Tensor, frame: torch.Tensor, plane, y,
     Each image gathers its own bins from the corner spectrum, computes its
     write values there (write_delta with the slot's own jitter and
     amplitude; QIM on slots >= HEADER_SLOTS when qim_levels) and scatters them
-    into a zero corner; then the write floor, the inverse DFT and the u8
-    epilogue. alphas (n,) (Params.alpha_spread) and dither (n,) (QIM) are
-    the shared slot-aligned per-slot arrays, read up to each image's last
-    real slot nbits[b] - 1 (nbits (B,) int64), so the tail-pad duplicates
-    of the last real bin scatter identical values."""
+    into a zero corner; then the write floor (K3's floor_only), the inverse
+    DFT and the u8 epilogue (K4e). alphas (n,) (Params.alpha_spread) and
+    dither (n,) (QIM) are the shared slot-aligned per-slot arrays, read up
+    to each image's last real slot nbits[b] - 1 (nbits (B,) int64), so the
+    tail-pad duplicates of the last real bin scatter identical values."""
     planes = _planes_u8(imgs, layout)
     B, _, H, W = planes.shape
     mode = corner.precision()
@@ -463,12 +450,15 @@ def corner_piw_embed_core(imgs: torch.Tensor, frame: torch.Tensor, plane, y,
     del flat, dr_v, di_v
     dr, di = dr.reshape(cr.shape), di.reshape(ci.shape)
     if floor:
-        dr, di = corner.apply_write_floor(dr, di, cr, ci, floor,
-                                          float(H) * float(W))
+        dr, di, _ = write_kernels.floor_only(dr, di, cr, ci, floor=floor,
+                                             img_pixels=float(H) * float(W))
     del cr, ci
-    t = corner.ifft_corner_real(dr, di, H, W, tabs, mode)
+    # the inverse DFT left unscaled: the u8 epilogue (K4e) scales; the
+    # spectrum goes before it and the deltas after it, so peak memory holds
+    # one (B, 3, H, W) f32 tensor at a time
+    t = corner.ifft_corner_real(dr, di, H, W, tabs, mode, scale=False)
     del dr, di
-    return _epilogue(t, planes, center, layout)
+    return write_kernels.epilogue(t, planes, center, layout)
 
 
 def _decode_sections(raw: torch.Tensor, hdr_stream_bits: int,

@@ -208,14 +208,17 @@ def _fwd_y_split(ar: torch.Tensor, ai: torch.Tensor, tabs: Tables):
 
 
 def ifft_corner_real(dr: torch.Tensor, di: torch.Tensor, H: int, W: int,
-                     tabs: Tables, mode: str) -> torch.Tensor:
+                     tabs: Tables, mode: str,
+                     scale: bool = True) -> torch.Tensor:
     """real(IFFT2(Delta)) for a corner-supported Delta = (dr, di) of shape
     (..., Ky, Kx) -> (..., H, W) f32.
 
     Under the reference convention this is (1/(H*W)) * Re(sum conj(Delta)
     [y,x] e^{+2pi*i*(yh/H + xw/W)}): with Dc = (dr, -di), M = Ey^T @ Dc
     (contract y), then Re(M @ Ex) (contract x). bf16 under mix_adaptive
-    (the delta has no DC term and mild dynamic range), f32 under highest."""
+    (the delta has no DC term and mild dynamic range), f32 under highest.
+    scale=False leaves out the 1/(H*W) factor, for a caller that applies it
+    itself (the embed cores' u8 epilogue, write_kernels.epilogue)."""
     Ky, Kx = dr.shape[-2:]
     lead = dr.shape[:-2]
     dcr, dci = dr.reshape(-1, Ky, Kx), -di.reshape(-1, Ky, Kx)
@@ -229,7 +232,8 @@ def ifft_corner_real(dr: torch.Tensor, di: torch.Tensor, H: int, W: int,
         mi = _mm_bf16(tabs.eyr16.T, dci) + _mm_bf16(tabs.eyi16.T, dcr)
         t = _mm_bf16(mr, tabs.exr16)
         t -= _mm_bf16(mi, tabs.exi16)
-    t *= 1.0 / (H * W)
+    if scale:
+        t *= 1.0 / (H * W)
     return t.reshape(*lead, H, W)
 
 
@@ -293,6 +297,12 @@ def apply_write_floor(dr, di, cr, ci, floor: float, img_pixels: float):
     that the spatial RMS of the write reaches `floor`; phases stay exactly
     on target and b == 1 is bit-identical to the plain write. The
     1/img_pixels pre-scaling keeps the quadratic's squares inside f32."""
+    return write_floor_boosted(dr, di, cr, ci, floor, img_pixels)[:2]
+
+
+def write_floor_boosted(dr, di, cr, ci, floor: float, img_pixels: float):
+    """(dr_b, di_b, b): apply_write_floor's boosted delta and its per-image
+    boost b (..., 1, 1, 1) f32 in [1, 32]."""
     # 0-dim host tensors: an f32 scalar like JAX's, with no host-to-device
     # copy (a blocking upload would stall the stream pipeline)
     s = torch.tensor(1.0 / img_pixels, dtype=dr.dtype)
@@ -309,7 +319,7 @@ def apply_write_floor(dr, di, cr, ci, floor: float, img_pixels: float):
     b = torch.clamp((V + X + torch.sqrt(disc)) / torch.clamp_min(p, 1e-30),
                     1.0, 32.0)
     return (b * dr + 2.0 * (b - 1.0) * wm * cr,
-            b * di + 2.0 * (b - 1.0) * wm * ci)
+            b * di + 2.0 * (b - 1.0) * wm * ci, b)
 
 
 def decision_values(ci, sign_sin_a, cr=None, cjd=None, sjd=None):

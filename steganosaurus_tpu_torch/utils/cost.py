@@ -133,6 +133,42 @@ def k1_cost(P: int, H: int, W: int, Kx: int, side: str = "") -> dict:
                   M * W + 2 * Kx * W * 2 + 2 * M * Kx * 4, "bf16")
 
 
+def write_floor_cost(B: int, Ky: int, Kx: int, bucket: int,
+                     n_maps: int) -> dict:
+    """The K3 kernel (spectral/write_kernels.py write_floor) over B images'
+    (3, Ky, Kx) corners: the write and the write floor in one function.
+    Bytes: cr and ci read once, the int32 slot map, the (B, bucket) u8
+    frame bits and n_maps (3, Ky, Kx) f32 maps (jitter, amplitude) read
+    once, dr and di written once; what the kernel reads twice (its two
+    passes) counts once."""
+    E = 3 * B * Ky * Kx
+    return _stage("embed", "K3 write + floor", {},
+                  (_WRITE_OPS + _FLOOR_OPS) * E,
+                  2 * E * 4 + 3 * Ky * Kx * (4 + 4 * n_maps) + B * bucket
+                  + 2 * E * 4, "none")
+
+
+def floor_only_cost(B: int, Ky: int, Kx: int) -> dict:
+    """The K3 kernel's floor alone (spectral/write_kernels.py floor_only)
+    over B images' (3, Ky, Kx) corners: the given delta (dr, di) and the
+    spectrum (cr, ci) read once, the boosted delta written once."""
+    E = 3 * B * Ky * Kx
+    return _stage("embed", "K3 floor", {}, _FLOOR_OPS * E, 6 * E * 4,
+                  "none")
+
+
+def epilogue_cost(B: int, H: int, W: int, layout: str = "nchw") -> dict:
+    """The K4e kernel (spectral/write_kernels.py epilogue) over B images of
+    3 planes of H x W: the unscaled inverse DFT t (f32) and the u8 cover
+    planes read once, the u8 stego written once. Both layouts move the
+    same bytes: the kernel stores NHWC directly."""
+    if layout not in ("nchw", "nhwc"):
+        raise ValueError(f"layout must be 'nchw' or 'nhwc', got {layout!r}")
+    px = 3 * B * H * W
+    return _stage("embed", "K4e epilogue", {}, _EPILOGUE_OPS * px,
+                  px * 4 + 2 * px, "none")
+
+
 def _stage2(side: str, P: int, H: int, Ky: int, Kx: int, mode: str) -> dict:
     """Forward stage 2 (_fwd_y_split): four real (Ky, H) x (H, Kx)
     products per plane in bf16, then the SPLIT_X0 highest-energy columns

@@ -11,8 +11,11 @@ twin) at 4K, a 1080p adaptive_alpha batch through the full-grid cores, and
 a complex128 round trip that stays on the card; the serve worker at
 512x512 (K1 launched by every op) and the CLI's embed -> extract on the
 card; a round trip over a 2-shard logical mesh on the card (K1 once per
-shard per pass), the sharded FFT and median against the dense ones, and
-the cost model's peak rates for the card.
+shard per pass), the sharded FFT and median against the dense ones, the
+cost model's peak rates for the card; and the embed's K3 kernel (both
+entry points) and K4e against their plain versions at 512x512 B=8 and
+1079x1917 B=4 (K4e bit-exact), the write wrappers' checks, and the
+K3 / K4e launches of each corner embed path.
 
 They skip without CUDA. This file imports neither jax nor the JAX package's
 device code, so it also runs on a machine without JAX:
@@ -637,3 +640,206 @@ def test_peak_rates_for_the_card(dev):
     assert peaks["name"] == name
     assert (peaks["bf16"], peaks["tf32"], peaks["fp32"],
             peaks["hbm_bytes"]) == (989e12, 495e12, 67e12, 3.35e12)
+
+
+# --- the embed's write, write floor (K3) and u8 epilogue (K4e) ---------------
+
+WRITE_GRIDS = [(8, 512, 512), (4, 1079, 1917)]   # (B, H, W): 512^2, 4b
+
+
+def _write_inputs(dev, B, H, W, seed):
+    """K3's inputs at the corner of an H x W grid, from a seed: a spectrum
+    (B, 3, Ky, Kx) whose first image is weak (the floor boosts it), the
+    static maps of a tail-padded walk over 30% of the corner's bins
+    (corner_statics_core: pos, jitter, amplitude, QIM maps) and frame bits
+    (B, bucket) u8."""
+    from steganosaurus_tpu_torch.config import Params
+    from steganosaurus_tpu_torch.parallel import batch as pb
+    from steganosaurus_tpu_torch.spectral import corner
+
+    Ky, Kx = corner.corner_dims(H, W, Params().rmax)
+    N = 3 * Ky * Kx
+    rng = np.random.default_rng(seed)
+    spec = (rng.normal(size=(2, B, 3, Ky, Kx)) * 1e4).astype(np.float32)
+    spec[:, 0] *= 1e-3
+    cr, ci = (torch.from_numpy(s).to(dev) for s in spec)
+    nbits = int(0.3 * N)
+    bucket = -(-nbits // 4096) * 4096
+    flat = rng.choice(N, bucket, replace=False)
+    flat[nbits:] = flat[nbits - 1]
+    plane, y, x = (torch.from_numpy(a).to(dev)
+                   for a in np.unravel_index(flat, (3, Ky, Kx)))
+
+    def per_slot(lo, hi):
+        return torch.from_numpy(rng.uniform(lo, hi, bucket).astype(
+            np.float32)).to(dev)
+
+    maps = pb.corner_statics_core(plane, y, x, Ky, Kx, bucket,
+                                  per_slot(-0.3, 0.3),
+                                  alphas=per_slot(0.3, 0.7),
+                                  dither=per_slot(-3.0, 3.0))
+    frame = torch.from_numpy(rng.integers(0, 2, (B, bucket),
+                                          dtype=np.uint8)).to(dev)
+    return cr, ci, maps, frame
+
+
+def _check_write(out, ref):
+    """K3 against its plain version: b within 1e-5 relative; each image
+    whose boost is 1 (every image without a floor) bit-equal; the rest
+    within 1e-5 of the plain output's scale."""
+    torch.cuda.synchronize()
+    (dr, di, b), (pr, pi, pb) = out, ref
+    if pb is None:
+        assert b is None
+        exact = [True] * dr.shape[0]
+    else:
+        assert ((b - pb).abs() <= REL * pb).all()
+        exact = ((b == 1) & (pb == 1)).tolist()
+    for k, ex in enumerate(exact):
+        if ex:
+            assert torch.equal(dr[k], pr[k]) and torch.equal(di[k], pi[k])
+    scale = max(pr.abs().max().item(), pi.abs().max().item())
+    assert (dr - pr).abs().max().item() <= REL * scale
+    assert (di - pi).abs().max().item() <= REL * scale
+
+
+def _boosting_floor(dr, di, pixels):
+    """Twice the largest spatial RMS that the writes (dr, di) reach by
+    themselves, sqrt(2/3 * sum |0.5 D / pixels|^2) per image (Parseval, as
+    apply_write_floor): a floor that boosts every image."""
+    h2 = ((0.5 / pixels) * dr) ** 2 + ((0.5 / pixels) * di) ** 2
+    return 2.0 * float(torch.sqrt(h2.flatten(1).sum(1) * (2.0 / 3.0)).max())
+
+
+@pytest.mark.parametrize("grid", WRITE_GRIDS)
+@pytest.mark.parametrize("mode,floor", [
+    ("hard", "0"), ("hard", "0.45"), ("soft+jitter", "boost"),
+    ("spread", "0.45"), ("spread+jitter+soft", "clip")])
+def test_write_floor_kernel_matches_plain(dev, grid, mode, floor):
+    from steganosaurus_tpu_torch.parallel import batch as pb
+    from steganosaurus_tpu_torch.spectral import write_kernels as wk
+
+    B, H, W = grid
+    cr, ci, maps, frame = _write_inputs(dev, B, H, W, sum(grid))
+    pos, cjd, sjd, cad, sad, _, _ = maps
+    if "jitter" not in mode:
+        cjd = sjd = None
+    ca, sa = (cad, sad) if "spread" in mode else pb._cos_sin(0.5)
+    args = (cr, ci, pos, frame, ca, sa, cjd, sjd)
+    kw = dict(img_pixels=float(H * W), soft="soft" in mode)
+    fl = {"0": 0.0, "0.45": 0.45, "clip": 1e6}.get(floor)
+    if fl is None:
+        fl = _boosting_floor(*wk.write_floor_plain(*args, floor=0.0,
+                                                   **kw)[:2], H * W)
+    n = dict(wk.LAUNCHES)
+    out = wk.write_floor(*args, floor=fl, **kw)
+    assert wk.LAUNCHES == {**n, wk.KERNEL_WRITE_FLOOR:
+                           n[wk.KERNEL_WRITE_FLOOR] + 1}
+    _check_write(out, wk.write_floor_plain(*args, floor=fl, **kw))
+    if floor == "boost":
+        assert (out[2] > 1).all()
+    elif floor == "clip":
+        assert (out[2] == 32).all()
+
+
+@pytest.mark.parametrize("grid", WRITE_GRIDS)
+@pytest.mark.parametrize("floor", ["0.45", "boost"])
+def test_floor_only_kernel_matches_plain(dev, grid, floor):
+    """The floor over the eager QIM write, kernel against plain."""
+    from steganosaurus_tpu_torch.parallel import batch as pb
+    from steganosaurus_tpu_torch.spectral import corner
+    from steganosaurus_tpu_torch.spectral import write_kernels as wk
+
+    B, H, W = grid
+    cr, ci, maps, frame = _write_inputs(dev, B, H, W, sum(grid) + 1)
+    pos, cjd, sjd, _, _, dq, qm = maps
+    sign, mask = wk.bit_signs(pos, frame)
+    ca, sa = pb._cos_sin(0.5)
+    dr, di = corner.write_delta_qim(cr, ci, sign, mask, qm, ca, sa, dq, 3,
+                                    cjd, sjd)
+    fl = 0.45 if floor == "0.45" else _boosting_floor(dr, di, H * W)
+    kw = dict(floor=fl, img_pixels=float(H * W))
+    n = wk.LAUNCHES[wk.KERNEL_FLOOR_ONLY]
+    out = wk.floor_only(dr, di, cr, ci, **kw)
+    assert wk.LAUNCHES[wk.KERNEL_FLOOR_ONLY] == n + 1
+    _check_write(out, wk.floor_only_plain(dr, di, cr, ci, **kw))
+    assert (out[2] > 1).all() if floor == "boost" else (out[2] > 1).any()
+
+
+@pytest.mark.parametrize("grid", WRITE_GRIDS)
+@pytest.mark.parametrize("center,layout", [(False, "nchw"), (True, "nchw"),
+                                           (False, "nhwc"), (True, "nhwc")])
+def test_epilogue_kernel_is_bit_exact(dev, grid, center, layout):
+    from steganosaurus_tpu_torch.spectral import write_kernels as wk
+
+    B, H, W = grid
+    rng = np.random.default_rng(sum(grid) + 2 * center)
+    t = torch.from_numpy((rng.normal(size=(B, 3, H, W)) * 3.0 * H * W)
+                         .astype(np.float32)).to(dev)
+    planes = torch.from_numpy(rng.integers(0, 256, (B, 3, H, W),
+                                           dtype=np.uint8)).to(dev)
+    n = wk.LAUNCHES[wk.KERNEL_EPILOGUE]
+    got = wk.epilogue(t, planes, center, layout)
+    want = wk.epilogue_plain(t, planes, center, layout)
+    torch.cuda.synchronize()
+    assert wk.LAUNCHES[wk.KERNEL_EPILOGUE] == n + 1
+    assert got.shape == want.shape and torch.equal(got, want)
+
+
+def test_write_wrappers_check_their_inputs(dev):
+    """Non-contiguous or wrongly typed inputs raise before any launch."""
+    from steganosaurus_tpu_torch.parallel import batch as pb
+    from steganosaurus_tpu_torch.spectral import write_kernels as wk
+
+    cr, ci, maps, frame = _write_inputs(dev, 2, 256, 256, 5)
+    pos = maps[0]
+    ca, sa = pb._cos_sin(0.5)
+    kw = dict(floor=0.45, img_pixels=256.0 * 256.0)
+    n = dict(wk.LAUNCHES)
+    with pytest.raises(ValueError):       # non-contiguous spectrum
+        wk.write_floor(cr.transpose(-1, -2), ci, pos, frame, ca, sa, **kw)
+    with pytest.raises(ValueError):       # an int64 slot map
+        wk.write_floor(cr, ci, pos.long(), frame, ca, sa, **kw)
+    with pytest.raises(ValueError):       # frame bits of another type
+        wk.write_floor(cr, ci, pos, frame.float(), ca, sa, **kw)
+    with pytest.raises(ValueError):       # a map on the CPU
+        wk.write_floor(cr, ci, pos, frame, ca, sa, maps[1].cpu(), maps[2],
+                       **kw)
+    with pytest.raises(ValueError):
+        wk.floor_only(cr.double(), ci, cr, ci, **kw)
+    t = torch.zeros((2, 3, 64, 64), device=dev)
+    p8 = torch.zeros((2, 3, 64, 64), dtype=torch.uint8, device=dev)
+    with pytest.raises(ValueError):
+        wk.epilogue(t.transpose(-1, -2), p8, False, "nchw")
+    with pytest.raises(ValueError):
+        wk.epilogue(t, p8.float(), False, "nchw")
+    assert wk.LAUNCHES == n
+
+
+def test_embed_cores_on_card_launch_k3_and_k4e(dev):
+    """A default-Params embed makes one write_floor and one epilogue
+    launch; QIM and per-image walks take floor_only; the stegos read
+    back."""
+    import steganosaurus_tpu_torch as stt
+    from steganosaurus_tpu_torch.spectral import write_kernels as wk
+
+    rng = np.random.default_rng(13)
+    imgs = torch.from_numpy(rng.integers(90, 170, (2, 3, 256, 256),
+                                         dtype=np.uint8)).to(dev)
+    secrets = [b"k3-0" * 8, b"k3-1" * 8]
+    for p, want in ((stt.Params(pbkdf2_iter=500),
+                     {wk.KERNEL_WRITE_FLOOR: 1, wk.KERNEL_FLOOR_ONLY: 0,
+                      wk.KERNEL_EPILOGUE: 1}),
+                    (stt.Params(qim=3, pbkdf2_iter=500),
+                     {wk.KERNEL_WRITE_FLOOR: 0, wk.KERNEL_FLOOR_ONLY: 1,
+                      wk.KERNEL_EPILOGUE: 1}),
+                    (stt.Params(per_image_walk=True, pbkdf2_iter=500),
+                     {wk.KERNEL_WRITE_FLOOR: 0, wk.KERNEL_FLOOR_ONLY: 1,
+                      wk.KERNEL_EPILOGUE: 1})):
+        n = dict(wk.LAUNCHES)
+        res = stt.embed_batch(imgs, secrets, master_key=bytes(32), params=p,
+                              device_resident=True, layout="nchw")
+        torch.cuda.synchronize()
+        assert {k: wk.LAUNCHES[k] - n[k] for k in n} == want
+        assert stt.extract_batch(res.stego, master_key=bytes(32), params=p,
+                                 layout="nchw") == secrets

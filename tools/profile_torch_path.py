@@ -9,8 +9,9 @@ separately: host wall ms (ending in torch.cuda.synchronize), device busy ms
 (the sum of the kernels' device time on the one stream), the idle share,
 device ms per stage, and the top kernels. Stages are profiler ranges put
 around the corner functions for this run only (stage1 = the K1 wrapper,
-stage2 = the adaptive y-contraction, write, floor, ifft; "other" is the
-rest: bit lookup, u8 epilogue, walk gather, ECC decode).
+stage2 = the adaptive y-contraction, write+floor = the K3 wrapper's
+write_floor, floor = its floor_only (QIM, per-image walks), ifft, epilogue
+= the K4e wrapper; "other" is the rest: walk gather, ECC decode).
 
 --stream profiles a two-batch embed_stream -> extract_stream (depth 2) of
 the same workload against the serialized loop of two round trips, and
@@ -185,11 +186,12 @@ def main() -> int:
     from steganosaurus_tpu_torch import _build, runtime
     from steganosaurus_tpu_torch.spectral import corner
     from steganosaurus_tpu_torch.spectral import corner_kernels as ck
+    from steganosaurus_tpu_torch.spectral import write_kernels as wk
 
     stages = [("stage1", ck, "fwd_stage1"), ("stage2", corner, "_fwd_y_split"),
-              ("write", corner, "write_delta"),
-              ("floor", corner, "apply_write_floor"),
-              ("ifft", corner, "ifft_corner_real")]
+              ("write+floor", wk, "write_floor"), ("floor", wk, "floor_only"),
+              ("ifft", corner, "ifft_corner_real"),
+              ("epilogue", wk, "epilogue")]
     for name, mod, attr in stages:
         setattr(mod, attr, _span(name, getattr(mod, attr)))
 
