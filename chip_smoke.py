@@ -46,20 +46,30 @@ Phases:
              (csrc/corner_write_floor.cu: write_floor and floor_only;
              csrc/corner_epilogue.cu) against their plain versions
              (spectral/write_kernels.py) at the main path's 4K B=64, 1080p
-             B=8, 512x512 B=8, the 4b grid and 4c's crop, on each grid's
-             forward corner spectrum and a seeded walk of a 16 KB frame's
-             bins: hard, soft, jittered and spread writes and QIM (floor
+             B=8, 512x512 B=8, 256x256 B=1, the 4b grid, 4c's crop and a
+             2560x2560 B=2 corner too large for write_floor's resident
+             schedule, on each grid's forward corner spectrum, a seeded
+             walk of a 16 KB frame's bins and the frame of seeded stream
+             words: hard, soft, jittered and spread writes and QIM (floor
              only), floor 0, 0.45, boosting (b range printed; every image
              must boost) and clipping at 32; K3 bit-equal wherever b == 1,
              else within 1e-5 of the plain output's scale, b within 1e-5
-             relative, the same bits read back at every walk bin; K4e on
-             the inverse DFT of K3's output, centering on and off, NCHW and
-             NHWC, bit-equal. Each entry point and its plain version timed
-             in turns at 4K B=64 beside its bound (utils/cost.py)
+             relative, the same bits read back at every walk bin;
+             write_floor's bf16 operand mode bit-equal to its f32 output
+             cast (bf16(dr), bf16(-di)), its RepFrame (stream words) and,
+             on resident corners, its two-pass schedule bit-equal to the
+             u8-frame resident output, the schedule each grid must take;
+             K4e on the inverse DFT of K3's output, centering on and off,
+             NCHW and NHWC, bit-equal. At 4K B=64, in turns beside each
+             bound (utils/cost.py): write_floor as the main path calls it
+             (RepFrame, bf16 operands) and its plain version, in f32, on
+             the u8 frame, on the two-pass schedule; floor_only and K4e and
+             their plain versions; then the resident schedule's phases by
+             its own clock
   4. path    512x512, B=8, 100 B round trip (also held against the port on
              the CPU), then 2160x3840, B=64, 16 KB: all secrets recovered,
              K1 launched on the TMA route alone, warm timings, PSNR, peak
-             memory
+             memory, the sha256 of the warm round trip's stego (4c too)
   4b. ragged 1079x1917, B=4, 1 KB round trip: W % 16 != 0, so stage 1
              goes through the load route alone
   4c. odd 4K phase 4's covers cropped to 2160x3839, B=64, 16 KB: 64/64
@@ -166,7 +176,8 @@ or in 4b and 4c on the load route, corner_stage1_wgmma_ldg); the
 single-image paths, the full-grid batch cores (7a-7c), the cover-dependent
 worker (8a) and fft_dist (9c) run torch.fft and must launch no kernel of
 the port. Each corner embed must launch K4e once and K3 once: write_floor
-(phases 4, 4c, 9a, 9b, 8a's embeds, the shared-walk modes of 5f), or
+on its resident schedule (phases 4, 4c, 9a, 9b, 8a's embeds, the
+shared-walk modes of 5f), or
 floor_only where the write stays eager (5f's QIM and per-image walks, 5g).
 The launches are counted per path and per kernel, and each (planes, H, W,
 Kx, center, route) the paths hand the stage-1 wrapper is recorded.
@@ -177,6 +188,8 @@ Kx, center, route) the paths hand the stage-1 wrapper is recorded.
 
 from __future__ import annotations
 
+import functools
+import hashlib
 import json
 import math
 import os
@@ -326,10 +339,12 @@ def read_counts() -> dict:
 def check_embed_kernels(path: str, counts: dict, embeds: int,
                         floor_only: bool = False) -> None:
     """`embeds` corner embeds on `path`, each through K4e and through K3's
-    write_floor, or (QIM, per-image walks: floor_only) its floor_only."""
+    write_floor on its resident schedule, or (QIM, per-image walks:
+    floor_only) its floor_only."""
     from steganosaurus_tpu_torch.spectral import write_kernels as wk
 
     want = {wk.KERNEL_WRITE_FLOOR: 0 if floor_only else embeds,
+            wk.KERNEL_WRITE_FLOOR_TWO_PASS: 0,
             wk.KERNEL_FLOOR_ONLY: embeds if floor_only else 0,
             wk.KERNEL_EPILOGUE: embeds}
     got = {k: counts[k] for k in want}
@@ -392,8 +407,17 @@ SERVE_K1_B = (1, 32)
 # bits read back; K4e bit-equal.
 WRITE_GRIDS = (("4K", UHD_B, UHD_H, UHD_W), ("1080p", FHD_B, FHD_H, FHD_W),
                ("512x512", SMALL_B, SMALL_H, SMALL_W),
-               ("4b", *RAGGED_GRID), ("4c", UHD_B, UHD_H, UHD_W - 1))
+               ("256x256 B=1", 1, 256, 256),
+               ("4b", *RAGGED_GRID), ("4c", UHD_B, UHD_H, UHD_W - 1),
+               ("2560x2560", 2, 2560, 2560))
 WRITE_REL = 1e-5
+# K3's write_floor at each grid: the f32 delta held against the plain
+# version as above; the bf16 operand mode bit-equal to the f32 output cast
+# (bf16(dr), bf16(-di)) and its boost equal; with a floor, the two-pass
+# schedule bit-equal to the resident one (the same sums in the same order).
+# The 2560x2560 corner (1280 x 1280) is too large for the resident
+# schedule: its write_floor runs the two-pass schedule by itself.
+WRITE_TWO_PASS_GRIDS = ("2560x2560",)
 # (write rule, floor) cases: all at the main path's grid, the first
 # WRITE_CASES_SMALL at the others. "boost" is twice the largest spatial
 # RMS the write reaches alone (every image boosts), "clip" a floor no boost
@@ -707,13 +731,16 @@ def _write_inputs(planes, Ky: int, Kx: int, seed: int):
     their forward corner spectrum (the main path's own, centering off), the
     static maps (corner_statics_core) of a seeded walk over a 16 KB frame's
     919,312 bins, or 30% of a smaller corner's bins, tail-padded as the
-    walk is, with per-slot jitter, amplitudes and QIM dithers, and seeded
-    frame bits (B, bucket) u8."""
+    walk is, with per-slot jitter, amplitudes and QIM dithers; seeded
+    stream words of the longest equal-length Rep-3/Rep-7 frame the walk
+    holds (the 4K headline's 16,438-byte stream at 4K) as a
+    write_kernels.RepFrame, and its (B, bucket) u8 frame bits."""
     import numpy as np
     import torch
 
     from steganosaurus_tpu_torch.parallel import batch as pb
     from steganosaurus_tpu_torch.spectral import corner
+    from steganosaurus_tpu_torch.spectral import write_kernels as wk
 
     dev = planes.device
     B, _, H, W = planes.shape
@@ -738,9 +765,11 @@ def _write_inputs(planes, Ky: int, Kx: int, seed: int):
                                   per_slot(-0.39, 0.39),
                                   alphas=per_slot(0.25, 0.75),
                                   dither=per_slot(-math.pi, math.pi))
-    frame = torch.from_numpy(rng.integers(0, 2, (B, bucket),
-                                          dtype=np.uint8)).to(dev)
-    return cr, ci, maps, frame, tabs
+    stream_bytes = 38 + (nbits - 912) // 56
+    words = rng.integers(-2 ** 31, 2 ** 31, (B, -(-stream_bytes // 4)),
+                         dtype=np.int64).astype(np.int32)
+    rep = wk.RepFrame(torch.from_numpy(words).to(dev), stream_bytes, bucket)
+    return cr, ci, maps, rep.bits(), tabs, rep
 
 
 def _boosting_floor(dr, di, pixels: float) -> float:
@@ -756,8 +785,11 @@ def _boosting_floor(dr, di, pixels: float) -> float:
 
 def _write_case(cr, ci, maps, frame, pixels: float, rule: str, floor: str):
     """(kernel, plain, floor value, entry name, bit reader) of one K3 case:
-    kernel() and plain() return (dr, di, b); bits(dr, di) reads each bin's
-    bit after the write (1 iff its decision value >= 0)."""
+    kernel() and plain() return (dr, di, b) (write_floor's kernel(frame,
+    **kw) takes another frame, e.g. the RepFrame of the same bits, and
+    write_kernels._write_floor's ifft_operands, schedule and phase_ns);
+    bits(dr, di) reads each bin's bit after the write (1 iff its decision
+    value >= 0)."""
     import steganosaurus_tpu_torch as stt
     from steganosaurus_tpu_torch.parallel import batch as pb
     from steganosaurus_tpu_torch.spectral import corner
@@ -795,8 +827,9 @@ def _write_case(cr, ci, maps, frame, pixels: float, rule: str, floor: str):
         fl = _boosting_floor(*wk.write_floor_plain(
             *args, floor=0.0, img_pixels=pixels, soft=soft)[:2], pixels)
 
-    def kernel():
-        return wk.write_floor(*args, floor=fl, img_pixels=pixels, soft=soft)
+    def kernel(frame=frame, **kw):
+        return wk._write_floor(cr, ci, pos, frame, ca, sa, cj, sj, floor=fl,
+                               img_pixels=pixels, soft=soft, **kw)
 
     def plain():
         return wk.write_floor_plain(*args, floor=fl, img_pixels=pixels,
@@ -843,6 +876,50 @@ def _check_write(what: str, out, ref, walk, bits) -> tuple:
     return err, scale, b
 
 
+def _check_write_modes(what: str, kernel, f32, resident: bool, rep) -> float:
+    """write_floor's other outputs against its f32 output `f32` (from the
+    u8 frame bits): the bf16 operand mode bit-equal to f32 cast as the
+    inverse DFT casts it, the same boost; the RepFrame `rep` of the same
+    bits in both modes (on a resident corner with a floor, where the kernel
+    reads the stream words); with a floor on a resident corner, the forced
+    two-pass schedule in both modes; all bit-equal. Returns the bf16 mode's
+    max |out - cast| (0.0)."""
+    import torch
+
+    from steganosaurus_tpu_torch.spectral import write_kernels as wk
+
+    runs = {"bf16": dict(ifft_operands=True),
+            "RepFrame f32": dict(frame=rep),
+            "RepFrame bf16": dict(frame=rep, ifft_operands=True)}
+    if resident:
+        runs["two-pass f32"] = dict(schedule="two_pass")
+        runs["two-pass bf16"] = dict(schedule="two_pass", ifft_operands=True)
+    want16 = wk.ifft_operands_of(f32[0], f32[1])
+    err = 0.0
+    for name, kw in runs.items():
+        out = kernel(**kw)
+        torch.cuda.synchronize()
+        want = want16 if kw.get("ifft_operands") else f32[:2]
+        same = all(o.dtype == w.dtype and torch.equal(
+            o.view(torch.int16) if o.dtype == torch.bfloat16
+            else o.view(torch.int32),
+            w.view(torch.int16) if w.dtype == torch.bfloat16
+            else w.view(torch.int32)) for o, w in zip(out[:2], want))
+        same_b = (out[2] is None and f32[2] is None) or torch.equal(out[2],
+                                                                   f32[2])
+        if name == "bf16":
+            err = max((o.float() - w.float()).abs().max().item()
+                      for o, w in zip(out[:2], want))
+        ref = ("the f32 output cast" if kw.get("ifft_operands")
+               else "the resident f32 output")
+        log(f"K3 {what}: {name} bit-equal to {ref} {same}, boost equal "
+            f"{same_b}")
+        if not (same and same_b):
+            raise AssertionError(f"K3 {what}: the {name} output differs")
+        del out
+    return err
+
+
 # 3b's kernels line: each entry point's source and the JAX math it replaces
 WRITE_SOURCES = {
     "corner_write_floor": (
@@ -861,39 +938,74 @@ WRITE_SOURCES = {
 
 
 def _time_entries(rows: dict, card: str) -> list:
-    """Each entry point of `rows` ({name: what, err, (kernel, plain),
-    (bound ms, bound_by)}) and its plain version timed in turns by CUDA
-    events; returns the kernels line's records."""
-    records = []
-    for entry, row in rows.items():
+    """The rows ({label: what, err, run (kernel, plain or None), bound (ms,
+    bound_by), entry (its name in the kernels line) or None}) timed in
+    turns with each other by CUDA events, each kernel 10 launches a round,
+    each plain version 3; returns the kernels line's records (the rows with
+    an entry) and each row's mean kernel ms."""
+    runs = {}
+    for label, row in rows.items():
         kern, plain = row["run"]
-        times = _turns({"kernel": (kern, 10), "plain": (plain, 3)})
-        ms = {k: sum(v) / len(v) for k, v in times.items()}
+        runs[label] = (kern, 10)
+        if plain is not None:
+            runs[f"{label} plain"] = (plain, 3)
+    times = _turns(runs)
+    ms = {k: sum(v) / len(v) for k, v in times.items()}
+    records = []
+    for label, row in rows.items():
         bound, by = row["bound"]
-        log(f"{row['what']} timed in turns: kernel {times['kernel']!r} ms, "
-            f"plain {times['plain']!r} ms; bound {bound!r} ms ({by}), at "
-            f"{bound / ms['kernel']:.3f} of it; "
-            f"{ms['plain'] / ms['kernel']:.2f}x faster than the plain "
-            f"version ({card})")
-        source, replaces = WRITE_SOURCES[entry]
+        plain_ms = ms.get(f"{label} plain")
+        log(f"{row['what']} timed in turns: kernel {times[label]!r} ms"
+            + ("" if plain_ms is None else
+               f", plain {times[label + ' plain']!r} ms")
+            + f"; bound {bound!r} ms ({by}), at {bound / ms[label]:.3f} of it"
+            + ("" if plain_ms is None else
+               f"; {plain_ms / ms[label]:.2f}x faster than the plain version")
+            + f" ({card})")
+        if row["entry"] is None:
+            continue
+        source, replaces = WRITE_SOURCES[row["entry"]]
         records.append({
-            "name": entry, "route": "cuda",
+            "name": row["entry"], "route": "cuda",
             "source": f"steganosaurus_tpu_torch/csrc/{source}",
             "replaces": replaces, "max_abs_err": row["err"],
-            "ms": ms["kernel"], "plain_ms": ms["plain"], "bound_ms": bound,
+            "ms": ms[label], "plain_ms": plain_ms, "bound_ms": bound,
             "bound_by": by, "library_ms": None})
-    return records
+    return records, {label: ms[label] for label in rows}
+
+
+def _resident_phases(kernel, k_ms: float, grid: int, dev) -> None:
+    """Where the resident schedule's time goes, by each block's thread 0
+    (globaltimer), summed over the images: write_kernels.PHASES, the grid
+    barrier from arrival to the last block's."""
+    import torch
+
+    from steganosaurus_tpu_torch.spectral import write_kernels as wk
+
+    ns = torch.zeros((grid, len(wk.PHASES)), dtype=torch.int64, device=dev)
+    kernel(ifft_operands=True, phase_ns=ns)
+    torch.cuda.synchronize()
+    ms = ns.double() / 1e6
+    parts = "; ".join(
+        f"{what} {ms[:, k].mean().item()!r} ms a block (max "
+        f"{ms[:, k].max().item()!r}, {ms[:, k].mean().item() / k_ms:.3f})"
+        for k, what in enumerate(wk.PHASES))
+    log(f"K3 write_floor resident schedule, {grid} blocks, against the "
+        f"kernel's {k_ms!r} ms: {parts}")
 
 
 def phase_write_kernels(covers_d, odd_d, card: str) -> list:
     """3b: K3 (both entry points) and K4e against their plain versions, on
     the WRITE_GRIDS with the WRITE_CASES (every write rule at the main
-    path's grid; floor 0, 0.45, boosting and clipping at 32); K4e on the
-    inverse DFT of K3's output, centering on and off, NCHW and NHWC. At the
-    main path's grid each entry point and its plain version are timed in
-    turns (write_floor on the main path's hard write at floor 0.45,
-    floor_only on the first QIM case, K4e NCHW uncentered) beside the
-    bound of utils/cost.py. Returns the three entries of the kernels
+    path's grid; floor 0, 0.45, boosting and clipping at 32); write_floor's
+    bf16 operand mode and its two-pass schedule against its f32 output
+    (_check_write_modes); K4e on the inverse DFT of K3's output, centering
+    on and off, NCHW and NHWC. At the main path's grid, in turns: write_floor
+    on the main path's hard write at floor 0.45 in the bf16 operand mode
+    (the kernels line's entry), in f32, and on the forced two-pass schedule
+    in bf16; floor_only on the first QIM case; K4e NCHW uncentered; each
+    beside its bound in utils/cost.py; then where the resident schedule's
+    time goes (_resident_phases). Returns the three entries of the kernels
     line."""
     import torch
 
@@ -909,9 +1021,19 @@ def phase_write_kernels(covers_d, odd_d, card: str) -> list:
         planes = (covers_d if main else odd_d if name == "4c"
                   else _grid_nchw(covers_d.device, B, H, W))
         Ky, Kx = corner.corner_dims(H, W, stt.Params().rmax)
-        cr, ci, maps, frame, tabs = _write_inputs(planes, Ky, Kx, 30 + g)
+        cr, ci, maps, frame, tabs, rep = _write_inputs(planes, Ky, Kx,
+                                                       30 + g)
         walk = maps[0] < frame.shape[1]
         pixels = float(H) * float(W)
+        N = 3 * Ky * Kx
+        grid = wk._resident_grid(N, True, cr.device)
+        fits = wk.resident_fits(N, grid, (cr, ci))
+        log(f"K3 {name} B={B}: corner ({Ky}, {Kx}), "
+            + (f"resident schedule, {grid} blocks" if fits
+               else "two-pass schedule"))
+        if fits == (name in WRITE_TWO_PASS_GRIDS):
+            raise AssertionError(f"K3 {name}: the schedule is not the one "
+                                 f"this corner should take")
         rows: dict = {}
         t_in = None
         for rule, floor in (WRITE_CASES if main
@@ -920,21 +1042,53 @@ def phase_write_kernels(covers_d, odd_d, card: str) -> list:
                 cr, ci, maps, frame, pixels, rule, floor)
             what = (f"{entry} {name} B={B} {H}x{W} {rule}, floor {floor} "
                     f"({fl!r})")
+            two_pass = wk.LAUNCHES[wk.KERNEL_WRITE_FLOOR_TWO_PASS]
             out = kernel()
+            two_pass = wk.LAUNCHES[wk.KERNEL_WRITE_FLOOR_TWO_PASS] - two_pass
             err, _, b = _check_write(what, out, plain(), walk, bits)
             if floor == "boost" and not (b > 1).all().item():
                 raise AssertionError(f"K3 {what}: an image was not boosted")
             if floor == "clip" and not (b == 32).all().item():
                 raise AssertionError(f"K3 {what}: a boost is not clipped "
                                      f"at 32")
-            if main and entry not in rows:
-                rows[entry] = dict(what=what, err=err, run=(kernel, plain),
-                                   bound=cost.stage_bound(
-                                       cost.write_floor_cost(
-                                           B, Ky, Kx, frame.shape[1], 0)
-                                       if entry == wk.KERNEL_WRITE_FLOOR
-                                       else cost.floor_only_cost(B, Ky, Kx),
-                                       peaks))
+            if entry == wk.KERNEL_WRITE_FLOOR:
+                if two_pass != int(bool(fl) and not fits):
+                    raise AssertionError(f"K3 {what}: {two_pass} two-pass "
+                                         f"launches")
+                err16 = _check_write_modes(what, kernel, out,
+                                           fits and bool(fl), rep)
+            if main and not (entry in rows or "write_floor bf16" in rows
+                             and entry == wk.KERNEL_WRITE_FLOOR):
+                if entry == wk.KERNEL_WRITE_FLOOR:
+                    def bound(n, stream_bytes=0):
+                        return cost.stage_bound(cost.write_floor_cost(
+                            B, Ky, Kx, frame.shape[1], 0, out_bytes=n,
+                            stream_bytes=stream_bytes), peaks)
+                    # the main path's call: a RepFrame, bf16 operands
+                    rows["write_floor bf16"] = dict(
+                        what=f"{what} RepFrame, bf16 operands", err=err16,
+                        entry=entry, bound=bound(2, rep.stream_bytes), run=(
+                            lambda k=kernel: k(rep, ifft_operands=True),
+                            lambda p=plain: wk.ifft_operands_of(*p()[:2])))
+                    rows["write_floor f32"] = dict(
+                        what=f"{what} RepFrame, f32", err=err, entry=None,
+                        bound=bound(4, rep.stream_bytes),
+                        run=(lambda k=kernel: k(rep), None))
+                    rows["write_floor u8 frame bf16"] = dict(
+                        what=f"{what} u8 frame bits, bf16 operands",
+                        err=err16, entry=None, bound=bound(2),
+                        run=(lambda k=kernel: k(ifft_operands=True), None))
+                    rows["write_floor two-pass bf16"] = dict(
+                        what=f"{what} two-pass schedule, bf16 operands",
+                        err=err16, entry=None, bound=bound(2), run=(
+                            lambda k=kernel: k(ifft_operands=True,
+                                               schedule="two_pass"), None))
+                    barrier = functools.partial(kernel, rep)
+                else:
+                    rows[entry] = dict(
+                        what=what, err=err, entry=entry, run=(kernel, plain),
+                        bound=cost.stage_bound(
+                            cost.floor_only_cost(B, Ky, Kx), peaks))
             if t_in is None:  # K4e's input: the first case's inverse DFT
                 t_in = corner.ifft_corner_real(out[0], out[1], H, W, tabs,
                                                corner.precision(),
@@ -958,12 +1112,15 @@ def phase_write_kernels(covers_d, odd_d, card: str) -> list:
         if main:
             rows[wk.KERNEL_EPILOGUE] = dict(
                 what=f"{wk.KERNEL_EPILOGUE} {name} B={B} {H}x{W} nchw",
-                err=0.0, run=(
+                err=0.0, entry=wk.KERNEL_EPILOGUE, run=(
                     lambda: wk.epilogue(t_in, planes, False, "nchw"),
                     lambda: wk.epilogue_plain(t_in, planes, False, "nchw")),
                 bound=cost.stage_bound(cost.epilogue_cost(B, H, W), peaks))
-            records = _time_entries(rows, card)
-        del cr, ci, maps, frame, t_in, rows, planes
+            records, ms = _time_entries(rows, card)
+            _resident_phases(barrier, ms["write_floor bf16"], grid,
+                           cr.device)
+            del barrier
+        del cr, ci, maps, frame, rep, t_in, rows, planes
         torch.cuda.empty_cache()
     return records
 
@@ -1062,6 +1219,9 @@ def phase_uhd(covers_d, what: str = "4K", route: str = "") -> tuple:
         f"{e_ms!r} ms, extract {x_ms!r} ms, total {total!r} ms, "
         f"{B / (total / 1e3)!r} img/s, recovered {B}/{B}, mean PSNR "
         f"{psnr!r} dB, peak memory {peak / 2**30!r} GiB")
+    digest = hashlib.sha256(stego.cpu().numpy().tobytes()).hexdigest()
+    log(f"{what} warm round trip's stego sha256 {digest} (a parent and a "
+        f"change compare byte for byte by it)")
     log(f"launches in the counted round trip: {launches}")
     if launches[route] <= 0 or any(launches[k] for k in ck.LAUNCHES
                                    if k != route):

@@ -50,8 +50,9 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     "corner_stage1_wgmma": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
                             _P],
-    "corner_write_floor": [_P] * 12 + [_I, _I, _I, _I, _F, _F, _I, _F, _F,
-                                       _F, _I, _P],
+    "corner_write_floor": [_P] * 15 + [_I] * 6 + [_F, _F, _I, _F, _F, _F,
+                                              _I, _I, _I, _P],
+    "corner_write_floor_grid": [_I, _I],
     "corner_floor_only": [_P] * 8 + [_I, _I, _I, _F, _F, _F, _P],
     "corner_epilogue": [_P, _P, _P, _I, _I, _I, _F, _I, _I, _P],
 }

@@ -347,17 +347,19 @@ def corner_embed_core(imgs: torch.Tensor, frame: torch.Tensor, maps,
                       has_jitter: bool = False, has_spread: bool = False,
                       qim_levels: int = 0) -> torch.Tensor:
     """Corner embed over a shared walk, single device: (imgs u8 in
-    `layout`, frame (B, bucket) u8 ECC frame bits, maps from
+    `layout`, frame (B, bucket) u8 ECC frame bits or a write_kernels
+    RepFrame (an equal-length Rep-3/Rep-7 frame as its stream words), maps from
     corner_statics_core — which pairs it carries is said by has_jitter,
     has_spread and qim_levels) -> u8 stego in the same layout.
 
     Forward corner DFT -> each bin's frame bit through `pos` -> dense
     write_delta (soft when `soft`, jittered with cjd/sjd, amplitudes from
     cad/sad under spread) and the write floor, both in the K3 kernel
-    (write_kernels.write_floor); or, with qim_levels, write_delta_qim
-    (payload bins on the dithered lattice) in eager torch and the floor
-    alone in K3 (write_kernels.floor_only) -> inverse corner DFT -> the u8
-    epilogue (K4e)."""
+    (write_kernels.write_floor, which under mix_adaptive stores the
+    inverse DFT's bf16 operands itself); or, with qim_levels,
+    write_delta_qim (payload bins on the dithered lattice) in eager torch
+    and the floor alone in K3 (write_kernels.floor_only) -> inverse corner
+    DFT -> the u8 epilogue (K4e)."""
     planes = _planes_u8(imgs, layout)
     H, W = planes.shape[-2:]
     pos, cjd, sjd, cad, sad, dq, qm = _unpack_maps(maps, has_jitter,
@@ -368,8 +370,10 @@ def corner_embed_core(imgs: torch.Tensor, frame: torch.Tensor, maps,
     cr, ci = corner.fwd_corner(planes, center, Ky, Kx, tabs, mode)
     ca, sa = _cos_sin(alpha) if cad is None else (cad, sad)
     pixels = float(H) * float(W)
+    operands = False
     if qim_levels:
-        sign, mask = write_kernels.bit_signs(pos, frame)
+        sign, mask = write_kernels.bit_signs(pos,
+                                             write_kernels.frame_bits(frame))
         dr, di = corner.write_delta_qim(cr, ci, sign, mask, qm, ca, sa, dq,
                                         qim_levels, cjd, sjd, soft=soft)
         del sign, mask
@@ -377,14 +381,18 @@ def corner_embed_core(imgs: torch.Tensor, frame: torch.Tensor, maps,
             dr, di, _ = write_kernels.floor_only(dr, di, cr, ci, floor=floor,
                                                  img_pixels=pixels)
     else:
+        # under mix_adaptive K3 stores bf16(Re D), bf16(-Im D): the inverse
+        # DFT's operands, neither cast nor negated again
+        operands = mode != "highest"
         dr, di, _ = write_kernels.write_floor(
             cr, ci, pos, frame, ca, sa, cjd, sjd, floor=floor,
-            img_pixels=pixels, soft=soft)
+            img_pixels=pixels, soft=soft, ifft_operands=operands)
     del cr, ci
     # the inverse DFT left unscaled: the u8 epilogue (K4e) scales; the
     # spectrum goes before it and the deltas after it, so peak memory holds
     # one (B, 3, H, W) f32 tensor at a time
-    t = corner.ifft_corner_real(dr, di, H, W, tabs, mode, scale=False)
+    t = corner.ifft_corner_real(dr, di, H, W, tabs, mode, scale=False,
+                                conjugated=operands)
     del dr, di
     return write_kernels.epilogue(t, planes, center, layout)
 

@@ -64,7 +64,7 @@ from steganosaurus_tpu_torch.pipeline.extract import extract_array
 from steganosaurus_tpu_torch.pipeline.frame import (HEADER_STREAM_BITS,
                                                     frame_bits)
 from steganosaurus_tpu_torch.pipeline.header import Header
-from steganosaurus_tpu_torch.spectral import corner
+from steganosaurus_tpu_torch.spectral import corner, write_kernels
 from steganosaurus_tpu_torch.utils import metrics
 
 def _check_params(params: Params, layout: str = "nhwc") -> None:
@@ -664,7 +664,9 @@ def embed_batch(
         if nprod < nmax:
             raise StegoError(f"Message too large. Need {nmax} bits (after "
                              f"ECC), walk exhausted after {nprod}.")
-        frame = (pbatch._frame_from_words(w, len(streams[0]), bucket)
+        # an equal-length Rep frame stays its stream words: K3 reads each
+        # slot's bit from them
+        frame = (write_kernels.RepFrame(w, len(streams[0]), bucket)
                  if streams_up else bit_ops.unpack_bits_words(w, bucket))
         return pbatch.corner_embed_core(
             imgs_p, frame, maps, params.alpha,

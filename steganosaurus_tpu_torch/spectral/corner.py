@@ -208,8 +208,8 @@ def _fwd_y_split(ar: torch.Tensor, ai: torch.Tensor, tabs: Tables):
 
 
 def ifft_corner_real(dr: torch.Tensor, di: torch.Tensor, H: int, W: int,
-                     tabs: Tables, mode: str,
-                     scale: bool = True) -> torch.Tensor:
+                     tabs: Tables, mode: str, scale: bool = True,
+                     conjugated: bool = False) -> torch.Tensor:
     """real(IFFT2(Delta)) for a corner-supported Delta = (dr, di) of shape
     (..., Ky, Kx) -> (..., H, W) f32.
 
@@ -218,10 +218,14 @@ def ifft_corner_real(dr: torch.Tensor, di: torch.Tensor, H: int, W: int,
     (contract y), then Re(M @ Ex) (contract x). bf16 under mix_adaptive
     (the delta has no DC term and mild dynamic range), f32 under highest.
     scale=False leaves out the 1/(H*W) factor, for a caller that applies it
-    itself (the embed cores' u8 epilogue, write_kernels.epilogue)."""
+    itself (the embed cores' u8 epilogue, write_kernels.epilogue).
+    conjugated=True: (dr, di) is Dc itself, (Re Delta, -Im Delta), taken as
+    it is (no negation; bf16 operands, as the K3 kernel stores them under
+    mix_adaptive, are not cast again)."""
     Ky, Kx = dr.shape[-2:]
     lead = dr.shape[:-2]
-    dcr, dci = dr.reshape(-1, Ky, Kx), -di.reshape(-1, Ky, Kx)
+    dcr = dr.reshape(-1, Ky, Kx)
+    dci = di.reshape(-1, Ky, Kx) if conjugated else -di.reshape(-1, Ky, Kx)
     if mode == "highest":
         mr = tabs.eyr.T @ dcr - tabs.eyi.T @ dci
         mi = tabs.eyr.T @ dci + tabs.eyi.T @ dcr

@@ -10,7 +10,14 @@ image batch through HBM. Two CUDA sources replace them:
   - write_floor: each corner bin's frame bit through the int32 slot map
     `pos`, the hard or soft write (corner.write_delta, jitter and amplitude
     maps optional) and, with a floor, the per-image boost
-    (corner.apply_write_floor), in one call;
+    (corner.apply_write_floor), in one call. Its output is the f32 delta,
+    or (ifft_operands=True) the inverse DFT's bf16 operands bf16(Re D),
+    bf16(-Im D), which corner.ifft_corner_real(..., conjugated=True) takes
+    as they are. With a floor it runs the resident schedule (one
+    cooperative launch that reads the spectrum from HBM once, keeping each
+    block's slice in shared memory across a per-image grid barrier) where
+    the corner fits on the card, else the two-pass schedule, counted apart
+    under KERNEL_WRITE_FLOOR_TWO_PASS;
   - floor_only: the floor over a delta made elsewhere (the QIM write and
     the per-image-walk scatter, whose writes stay eager torch).
 - csrc/corner_epilogue.cu (K4e), epilogue: the unscaled inverse DFT t ->
@@ -26,6 +33,8 @@ main path went through the kernels.
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import numpy as np
 import torch
 
@@ -33,13 +42,50 @@ from steganosaurus_tpu_torch import spectral
 from steganosaurus_tpu_torch.spectral import corner
 
 KERNEL_WRITE_FLOOR = "corner_write_floor"
+# the write_floor launches (also counted under KERNEL_WRITE_FLOOR) whose
+# floor took the two-pass schedule
+KERNEL_WRITE_FLOOR_TWO_PASS = "corner_write_floor_two_pass"
 KERNEL_FLOOR_ONLY = "corner_floor_only"
 KERNEL_EPILOGUE = "corner_epilogue"
-LAUNCHES = {KERNEL_WRITE_FLOOR: 0, KERNEL_FLOOR_ONLY: 0, KERNEL_EPILOGUE: 0}
-# K3's reduction: THREADS threads a block, each summing PER_THREAD bins of
-# one image (bins k*THREADS apart), so a block covers CHUNK bins
+LAUNCHES = {KERNEL_WRITE_FLOOR: 0, KERNEL_WRITE_FLOOR_TWO_PASS: 0,
+            KERNEL_FLOOR_ONLY: 0, KERNEL_EPILOGUE: 0}
+# K3's reduction: a group of THREADS threads sums a chunk of CHUNK bins of
+# one image, each thread PER_THREAD bins k*THREADS apart in order
 THREADS, PER_THREAD = 256, 16
 CHUNK = THREADS * PER_THREAD
+SCHEDULES = ("resident", "two_pass")
+# the resident schedule's phases, as _write_floor's phase_ns counts them
+PHASES = ("pass 1 waiting for its data", "pass 1", "grid barrier", "boost",
+          "apply")
+
+
+# the most stream words the resident schedule keeps for a Rep frame
+# (csrc/corner_write_floor.cu STREAM_WORDS_MAX: a 4K corner's whole bucket)
+STREAM_WORDS_MAX = 4352
+
+
+class RepFrame(NamedTuple):
+    """An equal-length Rep-3/Rep-7 ECC frame kept as its stream: words (B,
+    ceil(stream_bytes/4)) int32, the big-endian words of header||ct||tag.
+    K3's resident schedule reads each walk slot's bit from these words
+    (header bit slot/3 below slot 912, else payload bit 304 + (slot -
+    912)/7, the last bit past the frame) in place of gathering it from the
+    (B, bucket) u8 frame that bits() makes (parallel/batch.py
+    _frame_from_words)."""
+    words: torch.Tensor
+    stream_bytes: int
+    bucket: int
+
+    def bits(self) -> torch.Tensor:
+        from steganosaurus_tpu_torch.parallel import batch
+
+        return batch._frame_from_words(self.words, self.stream_bytes,
+                                       self.bucket)
+
+
+def frame_bits(frame) -> torch.Tensor:
+    """The (B, bucket) u8 frame bits of a u8 frame or a RepFrame."""
+    return frame.bits() if isinstance(frame, RepFrame) else frame
 
 
 # --- plain versions ----------------------------------------------------------
@@ -60,8 +106,8 @@ def write_floor_plain(cr, ci, pos, frame, cos_a, sin_a, cjd=None, sjd=None,
                       *, floor: float, img_pixels: float, soft: bool = False):
     """(dr, di, b): the bit lookup, corner.write_delta and, when `floor`,
     corner.apply_write_floor; b (B,) f32 is the floor's boost (None without
-    a floor)."""
-    sign, mask = bit_signs(pos, frame)
+    a floor). frame: (B, bucket) u8 or a RepFrame."""
+    sign, mask = bit_signs(pos, frame_bits(frame))
     dr, di = corner.write_delta(cr, ci, sign, mask, cos_a, sin_a, cjd, sjd,
                                 soft=soft)
     del sign, mask
@@ -69,6 +115,13 @@ def write_floor_plain(cr, ci, pos, frame, cos_a, sin_a, cjd=None, sjd=None,
         return dr, di, None
     return floor_only_plain(dr, di, cr, ci, floor=floor,
                             img_pixels=img_pixels)
+
+
+def ifft_operands_of(dr, di):
+    """(bf16(dr), bf16(-di)): the inverse DFT's operands, rounded to
+    nearest even as corner.ifft_corner_real's _mm_bf16 rounds the f32
+    delta it is given."""
+    return dr.to(torch.bfloat16), (-di).to(torch.bfloat16)
 
 
 def floor_only_plain(dr, di, cr, ci, *, floor: float, img_pixels: float):
@@ -141,24 +194,74 @@ def _check_rc(name: str, rc: int) -> None:
         raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
 
 
+_GRIDS: dict = {}
+
+
+def _resident_grid(N: int, bf16: bool, device) -> int:
+    """The resident schedule's grid for a corner of N bins on `device`
+    (from the kernel's occupancy), 0 where it does not fit; cached."""
+    key = (device.index, N, bf16)
+    if key not in _GRIDS:
+        from steganosaurus_tpu_torch import _build
+
+        with torch.cuda.device(device):
+            grid = _build.kernel_library().corner_write_floor_grid(
+                N, int(bf16))
+        _check_rc(KERNEL_WRITE_FLOOR, -min(grid, 0))
+        _GRIDS[key] = grid
+    return _GRIDS[key]
+
+
+def resident_fits(N: int, grid: int, tensors) -> bool:
+    """Whether the resident schedule takes a corner of N bins: its grid fits
+    on the card (grid > 0), each image's row is whole 16-byte words (N a
+    multiple of 4: the bulk copies and the four-bin stores) and the
+    spectrum's tensors start on 16 bytes."""
+    return grid > 0 and N % 4 == 0 and all(t.data_ptr() % 16 == 0
+                                           for t in tensors)
+
+
 def write_floor(cr, ci, pos, frame, cos_a, sin_a, cjd=None, sjd=None, *,
-                floor: float, img_pixels: float, soft: bool = False):
+                floor: float, img_pixels: float, soft: bool = False,
+                ifft_operands: bool = False):
     """(dr, di, b): the dense corner write of a shared walk and, when
     `floor`, its write floor. cr/ci: (B, 3, Ky, Kx) f32 corner spectrum;
     pos: (3, Ky, Kx) int32 slot map (`bucket` where no walk bin lives);
-    frame: (B, bucket) u8 frame bits; cos_a/sin_a: cos/sin(alpha) as f32
-    0-dim host tensors, or (3, Ky, Kx) amplitude maps (Params.alpha_spread);
+    frame: (B, bucket) u8 frame bits, or a RepFrame (the resident schedule
+    reads its stream words; the others take its bits()); cos_a/sin_a:
+    cos/sin(alpha) as f32 0-dim host tensors, or (3, Ky, Kx) amplitude maps
+    (Params.alpha_spread);
     cjd/sjd: (3, Ky, Kx) jitter maps or None. b: (B,) f32, the floor's
-    per-image boost (None without a floor). CUDA tensors launch
+    per-image boost (None without a floor). ifft_operands: return
+    (bf16(dr), bf16(-di)), the inverse DFT's operands (ifft_operands_of),
+    in place of the f32 (dr, di). CUDA tensors launch
     csrc/corner_write_floor.cu on the current stream; CPU tensors take
     write_floor_plain."""
+    return _write_floor(cr, ci, pos, frame, cos_a, sin_a, cjd, sjd,
+                        floor=floor, img_pixels=img_pixels, soft=soft,
+                        ifft_operands=ifft_operands)
+
+
+def _write_floor(cr, ci, pos, frame, cos_a, sin_a, cjd=None, sjd=None, *,
+                 floor: float, img_pixels: float, soft: bool = False,
+                 ifft_operands: bool = False, schedule: str | None = None,
+                 phase_ns=None):
+    """write_floor, with the schedule of a CUDA launch with a floor chosen
+    by shape (None) or forced ("resident" raises where it does not fit),
+    and phase_ns: None, or a zeroed (grid, len(PHASES)) int64 CUDA tensor
+    to which each block of the resident schedule adds its ns (its thread
+    0's clock) in each of PHASES, summed over the images (the smoke's
+    checks and timing)."""
     name = KERNEL_WRITE_FLOOR
     maps = isinstance(cos_a, torch.Tensor) and cos_a.dim() > 0
     kind = _device(name, cr, (ci, pos, frame, cjd, sjd, cos_a, sin_a))
     if kind == "cpu":
-        return write_floor_plain(cr, ci, pos, frame, cos_a, sin_a, cjd, sjd,
-                                 floor=floor, img_pixels=img_pixels,
-                                 soft=soft)
+        dr, di, b = write_floor_plain(cr, ci, pos, frame, cos_a, sin_a, cjd,
+                                      sjd, floor=floor,
+                                      img_pixels=img_pixels, soft=soft)
+        if ifft_operands:
+            dr, di = ifft_operands_of(dr, di)
+        return dr, di, b
     if cr.dim() != 4 or cr.shape[1] != 3:
         raise ValueError(f"{name}: the spectrum must be (B, 3, Ky, Kx), got "
                          f"{tuple(cr.shape)}")
@@ -166,10 +269,20 @@ def write_floor(cr, ci, pos, frame, cos_a, sin_a, cjd=None, sjd=None, *,
     _need(name, "cr", cr, torch.float32, cr.shape)
     _need(name, "ci", ci, torch.float32, cr.shape)
     _need(name, "pos", pos, torch.int32, (3, Ky, Kx))
-    if frame.dim() != 2 or frame.shape[0] != B or frame.shape[1] < 1:
-        raise ValueError(f"{name}: frame must be (B={B}, bucket), got "
-                         f"{tuple(frame.shape)}")
-    _need(name, "frame", frame, torch.uint8, frame.shape)
+    rep = isinstance(frame, RepFrame)
+    if rep:
+        rep_bytes = frame.stream_bytes
+        nwords = -(-rep_bytes // 4)
+        _need(name, "the stream words", frame.words, torch.int32,
+              (B, nwords))
+        bucket = frame.bucket
+        _device(name, cr, (frame.words,))
+    else:
+        if frame.dim() != 2 or frame.shape[0] != B or frame.shape[1] < 1:
+            raise ValueError(f"{name}: frame must be (B={B}, bucket), got "
+                             f"{tuple(frame.shape)}")
+        _need(name, "frame", frame, torch.uint8, frame.shape)
+        bucket = frame.shape[1]
     if (cjd is None) != (sjd is None):
         raise ValueError(f"{name}: give both jitter maps or neither")
     for what, m in (("cjd", cjd), ("sjd", sjd)) + (
@@ -179,24 +292,47 @@ def write_floor(cr, ci, pos, frame, cos_a, sin_a, cjd=None, sjd=None, *,
     if maps and not (isinstance(sin_a, torch.Tensor)
                      and sin_a.shape == cos_a.shape):
         raise ValueError(f"{name}: cos_a and sin_a must both be maps")
+    if schedule not in (None,) + SCHEDULES:
+        raise ValueError(f"{name}: schedule must be one of {SCHEDULES}")
     ca, sa = (0.0, 0.0) if maps else (float(cos_a), float(sin_a))
     N = 3 * Ky * Kx
-    dr = torch.empty_like(cr)
-    di = torch.empty_like(ci)
+    grid = _resident_grid(N, ifft_operands, cr.device) if floor else 0
+    fits = resident_fits(N, grid, (cr, ci))
+    if schedule == "resident" and not fits:
+        raise ValueError(f"{name}: the resident schedule does not take this "
+                         f"corner ({tuple(cr.shape)}, floor {floor})")
+    resident = fits and schedule != "two_pass"
+    words = None
+    if rep and resident and nwords <= STREAM_WORDS_MAX:
+        words, frame = frame.words, None
+    elif rep:
+        frame = frame.bits()
+    dt = torch.bfloat16 if ifft_operands else torch.float32
+    dr = torch.empty(cr.shape, dtype=dt, device=cr.device)
+    di = torch.empty(cr.shape, dtype=dt, device=cr.device)
     nblk, partials, boost = _scratch(B, N, cr.device)
+    arrive = (torch.zeros((1,), dtype=torch.int32, device=cr.device)
+              if resident else None)
+    if phase_ns is not None and resident:
+        _need(name, "phase_ns", phase_ns, torch.int64, (grid, len(PHASES)))
     from steganosaurus_tpu_torch import _build
 
     with torch.cuda.device(cr.device):
         stream = torch.cuda.current_stream(cr.device).cuda_stream
         rc = _build.kernel_library().corner_write_floor(
-            cr.data_ptr(), ci.data_ptr(), pos.data_ptr(), frame.data_ptr(),
-            _ptr(cjd), _ptr(sjd), _ptr(cos_a if maps else None),
+            cr.data_ptr(), ci.data_ptr(), pos.data_ptr(), _ptr(frame),
+            _ptr(words), _ptr(cjd), _ptr(sjd), _ptr(cos_a if maps else None),
             _ptr(sin_a if maps else None), dr.data_ptr(), di.data_ptr(),
-            partials.data_ptr(), boost.data_ptr(), B, N, nblk,
-            frame.shape[1], ca, sa, int(bool(soft)),
-            *_floor_scalars(floor, img_pixels), int(bool(floor)), stream)
+            partials.data_ptr(), boost.data_ptr(), _ptr(arrive),
+            _ptr(phase_ns if resident else None), B, N, nblk, bucket,
+            0 if words is None else words.shape[1],
+            0 if words is None else rep_bytes, ca, sa, int(bool(soft)),
+            *_floor_scalars(floor, img_pixels), int(bool(floor)),
+            int(bool(ifft_operands)), int(resident), stream)
     _check_rc(name, rc)
     LAUNCHES[name] += 1
+    if floor and not resident:
+        LAUNCHES[KERNEL_WRITE_FLOOR_TWO_PASS] += 1
     return dr, di, (boost if floor else None)
 
 

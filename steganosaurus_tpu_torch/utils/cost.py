@@ -133,19 +133,25 @@ def k1_cost(P: int, H: int, W: int, Kx: int, side: str = "") -> dict:
                   M * W + 2 * Kx * W * 2 + 2 * M * Kx * 4, "bf16")
 
 
-def write_floor_cost(B: int, Ky: int, Kx: int, bucket: int,
-                     n_maps: int) -> dict:
+def write_floor_cost(B: int, Ky: int, Kx: int, bucket: int, n_maps: int,
+                     out_bytes: int = 4, stream_bytes: int = 0) -> dict:
     """The K3 kernel (spectral/write_kernels.py write_floor) over B images'
     (3, Ky, Kx) corners: the write and the write floor in one function.
-    Bytes: cr and ci read once, the int32 slot map, the (B, bucket) u8
-    frame bits and n_maps (3, Ky, Kx) f32 maps (jitter, amplitude) read
-    once, dr and di written once; what the kernel reads twice (its two
-    passes) counts once."""
+    Bytes: cr and ci read once, the int32 slot map, the frame (the (B,
+    bucket) u8 frame bits, or with stream_bytes a RepFrame's (B,
+    ceil(stream_bytes/4)) int32 stream words) and n_maps (3, Ky, Kx) f32
+    maps (jitter, amplitude) read once, the two outputs written once at
+    out_bytes a value (4: the f32 delta; 2: the inverse DFT's bf16
+    operands, ifft_operands=True); what a schedule reads twice counts
+    once."""
+    if out_bytes not in (2, 4):
+        raise ValueError(f"out_bytes must be 2 or 4, got {out_bytes!r}")
     E = 3 * B * Ky * Kx
+    frame = B * -(-stream_bytes // 4) * 4 if stream_bytes else B * bucket
     return _stage("embed", "K3 write + floor", {},
                   (_WRITE_OPS + _FLOOR_OPS) * E,
-                  2 * E * 4 + 3 * Ky * Kx * (4 + 4 * n_maps) + B * bucket
-                  + 2 * E * 4, "none")
+                  2 * E * 4 + 3 * Ky * Kx * (4 + 4 * n_maps) + frame
+                  + 2 * E * out_bytes, "none")
 
 
 def floor_only_cost(B: int, Ky: int, Kx: int) -> dict:

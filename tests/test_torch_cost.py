@@ -175,3 +175,29 @@ def test_measure_device_step_and_link_smoke():
     assert link["up_bytes_per_sec"] > 0 and link["down_bytes_per_sec"] > 0
     assert link["probe_bytes"] == 1 << 20 and link["device"] == "cpu"
     assert cost.min_over(2, lambda: None) >= 0
+
+
+@pytest.mark.parametrize("B,Ky,Kx,bucket,n_maps", [
+    (64, 1024, 1024, 921600, 0), (8, 512, 512, 131072, 2),
+    (1, 256, 256, 8192, 4)])
+def test_write_floor_cost_counts_the_output_width(B, Ky, Kx, bucket, n_maps):
+    """K3's bytes with the inverse DFT's bf16 operands stored (2 B a value)
+    are the f32 count less 2 B for each of the 2E outputs, whatever the
+    maps; its operations do not change. stage_costs keeps its stage table
+    (the write and the floor apart), so the round trip's bound at the
+    headline stays 42.23 ms."""
+    E = 3 * B * Ky * Kx
+    f32 = cost.write_floor_cost(B, Ky, Kx, bucket, n_maps)
+    b16 = cost.write_floor_cost(B, Ky, Kx, bucket, n_maps, out_bytes=2)
+    assert f32 == cost.write_floor_cost(B, Ky, Kx, bucket, n_maps,
+                                        out_bytes=4)
+    assert f32["hbm_bytes"] - b16["hbm_bytes"] == 2 * E * 2
+    assert b16["hbm_bytes"] == 2 * E * 4 + 3 * Ky * Kx * (4 + 4 * n_maps) \
+        + B * bucket + 2 * E * 2
+    assert b16["elementwise_flops"] == f32["elementwise_flops"]
+    stages = {s["stage"] for s in cost.stage_costs(64, 2160, 3840, 16384)}
+    assert "K3 write + floor" not in stages
+    peaks = dict(cost._PEAKS[0][1])
+    rep = cost.roundtrip_cost(64, 2160, 3840, 16384)
+    assert cost.roundtrip_bound(rep, peaks)["roundtrip_ms"] == \
+        pytest.approx(42.23, abs=0.01)

@@ -14,7 +14,9 @@ card; a round trip over a 2-shard logical mesh on the card (K1 once per
 shard per pass), the sharded FFT and median against the dense ones, the
 cost model's peak rates for the card; and the embed's K3 kernel (both
 entry points) and K4e against their plain versions at 512x512 B=8 and
-1079x1917 B=4 (K4e bit-exact), the write wrappers' checks, and the
+1079x1917 B=4 (K4e bit-exact), write_floor's bf16 operand mode against its
+f32 output cast and its two schedules against each other (bit for bit),
+its boost independent of the batch, the write wrappers' checks, and the
 K3 / K4e launches of each corner embed path.
 
 They skip without CUDA. This file imports neither jax nor the JAX package's
@@ -742,6 +744,88 @@ def test_write_floor_kernel_matches_plain(dev, grid, mode, floor):
         assert (out[2] == 32).all()
 
 
+def _bits(t):
+    """A tensor's bit patterns, for bit-for-bit comparison."""
+    return t.view(torch.int16 if t.element_size() == 2 else torch.int32)
+
+
+@pytest.mark.parametrize("grid", WRITE_GRIDS)
+@pytest.mark.parametrize("mode,floor", [("hard", "0.45"),
+                                        ("soft+jitter", "boost"),
+                                        ("spread", "clip")])
+def test_write_floor_operands_and_schedules_agree(dev, grid, mode, floor):
+    """write_floor's bf16 operand mode equals its f32 output cast as the
+    inverse DFT casts it (bf16(dr), bf16(-di)), bit for bit, with the same
+    boost; the resident schedule (taken by itself here) and the forced
+    two-pass schedule give the same bits in both modes: the same sums in
+    the same order."""
+    from steganosaurus_tpu_torch.parallel import batch as pb
+    from steganosaurus_tpu_torch.spectral import write_kernels as wk
+
+    B, H, W = grid
+    cr, ci, maps, frame = _write_inputs(dev, B, H, W, sum(grid) + 7)
+    pos, cjd, sjd, cad, sad, _, _ = maps
+    if "jitter" not in mode:
+        cjd = sjd = None
+    ca, sa = (cad, sad) if "spread" in mode else pb._cos_sin(0.5)
+    args = (cr, ci, pos, frame, ca, sa, cjd, sjd)
+    kw = dict(img_pixels=float(H * W), soft="soft" in mode)
+    fl = {"0.45": 0.45, "clip": 1e6}.get(floor)
+    if fl is None:
+        fl = _boosting_floor(*wk.write_floor_plain(*args, floor=0.0,
+                                                   **kw)[:2], H * W)
+    n = dict(wk.LAUNCHES)
+    f32 = wk.write_floor(*args, floor=fl, **kw)
+    b16 = wk.write_floor(*args, floor=fl, **kw, ifft_operands=True)
+    assert wk.LAUNCHES == {**n, wk.KERNEL_WRITE_FLOOR:
+                           n[wk.KERNEL_WRITE_FLOOR] + 2}
+    want = wk.ifft_operands_of(f32[0], f32[1])
+    torch.cuda.synchronize()
+    assert b16[0].dtype == torch.bfloat16 and b16[0].shape == cr.shape
+    for got, w in zip(b16[:2], want):
+        assert torch.equal(_bits(got), _bits(w))
+    assert torch.equal(b16[2], f32[2])
+    for ops, ref in ((False, f32), (True, b16)):
+        two = wk._write_floor(*args, floor=fl, **kw, ifft_operands=ops,
+                              schedule="two_pass")
+        torch.cuda.synchronize()
+        for got, w in zip(two, ref):
+            assert torch.equal(_bits(got), _bits(w))
+    assert wk.LAUNCHES[wk.KERNEL_WRITE_FLOOR_TWO_PASS] == \
+        n[wk.KERNEL_WRITE_FLOOR_TWO_PASS] + 2
+
+
+def test_write_floor_boost_does_not_depend_on_b(dev):
+    """One image alone (B=1) and at other rows of batches of 3 and 8 gets
+    the same boost and the same output, bit for bit, on both schedules:
+    each sum's order is fixed by the corner and the block size alone."""
+    from steganosaurus_tpu_torch.parallel import batch as pb
+    from steganosaurus_tpu_torch.spectral import write_kernels as wk
+
+    cr, ci, maps, frame = _write_inputs(dev, 8, 512, 512, 77)
+    fl = _boosting_floor(*wk.write_floor_plain(
+        cr, ci, maps[0], frame, *pb._cos_sin(0.5), floor=0.0,
+        img_pixels=512.0 * 512.0)[:2], 512 * 512)
+    outs = []
+    for nb, row in ((1, 0), (3, 2), (8, 5)):
+        idx = [(k + 3) % 8 for k in range(nb)]
+        idx[row] = 0
+        sel = torch.tensor(idx, device=dev)
+        args = (cr[sel].contiguous(), ci[sel].contiguous(), maps[0],
+                frame[sel].contiguous(), *pb._cos_sin(0.5))
+        for schedule in wk.SCHEDULES:
+            dr, di, b = wk._write_floor(*args, floor=fl,
+                                        img_pixels=512.0 * 512.0,
+                                        ifft_operands=True,
+                                        schedule=schedule)
+            outs.append((dr[row], di[row], b[row]))
+    torch.cuda.synchronize()
+    assert outs[0][2].item() > 1.0
+    for o in outs[1:]:
+        assert all(torch.equal(_bits(g), _bits(w))
+                   for g, w in zip(o, outs[0]))
+
+
 @pytest.mark.parametrize("grid", WRITE_GRIDS)
 @pytest.mark.parametrize("floor", ["0.45", "boost"])
 def test_floor_only_kernel_matches_plain(dev, grid, floor):
@@ -817,9 +901,9 @@ def test_write_wrappers_check_their_inputs(dev):
 
 
 def test_embed_cores_on_card_launch_k3_and_k4e(dev):
-    """A default-Params embed makes one write_floor and one epilogue
-    launch; QIM and per-image walks take floor_only; the stegos read
-    back."""
+    """A default-Params embed makes one write_floor launch, on the resident
+    schedule, and one epilogue launch; QIM and per-image walks take
+    floor_only; the stegos read back."""
     import steganosaurus_tpu_torch as stt
     from steganosaurus_tpu_torch.spectral import write_kernels as wk
 
@@ -827,15 +911,16 @@ def test_embed_cores_on_card_launch_k3_and_k4e(dev):
     imgs = torch.from_numpy(rng.integers(90, 170, (2, 3, 256, 256),
                                          dtype=np.uint8)).to(dev)
     secrets = [b"k3-0" * 8, b"k3-1" * 8]
+    two = {wk.KERNEL_WRITE_FLOOR_TWO_PASS: 0}
     for p, want in ((stt.Params(pbkdf2_iter=500),
                      {wk.KERNEL_WRITE_FLOOR: 1, wk.KERNEL_FLOOR_ONLY: 0,
-                      wk.KERNEL_EPILOGUE: 1}),
+                      wk.KERNEL_EPILOGUE: 1, **two}),
                     (stt.Params(qim=3, pbkdf2_iter=500),
                      {wk.KERNEL_WRITE_FLOOR: 0, wk.KERNEL_FLOOR_ONLY: 1,
-                      wk.KERNEL_EPILOGUE: 1}),
+                      wk.KERNEL_EPILOGUE: 1, **two}),
                     (stt.Params(per_image_walk=True, pbkdf2_iter=500),
                      {wk.KERNEL_WRITE_FLOOR: 0, wk.KERNEL_FLOOR_ONLY: 1,
-                      wk.KERNEL_EPILOGUE: 1})):
+                      wk.KERNEL_EPILOGUE: 1, **two})):
         n = dict(wk.LAUNCHES)
         res = stt.embed_batch(imgs, secrets, master_key=bytes(32), params=p,
                               device_resident=True, layout="nchw")

@@ -380,7 +380,8 @@ def _port_sources():
                     REPO / "tools" / "profile_torch_path.py",
                     REPO / "tools" / "time_wrong_key_batch.py",
                     REPO / "tools" / "serve_latency_torch.py",
-                    REPO / "tools" / "mesh_cards_torch.py"]
+                    REPO / "tools" / "mesh_cards_torch.py",
+                    REPO / "tools" / "k3_ablation_torch.py"]
 
 
 def test_launchers_run_the_ports_modules():

@@ -155,6 +155,119 @@ def test_write_floor_plain_matches_jax(mode, floor):
         assert (b == 32.0).all()
 
 
+def _bits16(t):
+    """A bf16 tensor's bit patterns (int16), for bit-for-bit comparison."""
+    assert t.dtype == torch.bfloat16
+    return t.view(torch.int16)
+
+
+@pytest.mark.parametrize("mode,floor", WRITE_CASES)
+def test_write_floor_ifft_operands_on_cpu(mode, floor):
+    """The wrapper's bf16 mode (ifft_operands=True) on CPU tensors returns
+    the plain version's f32 output cast as _mm_bf16 casts it, bf16(dr) and
+    bf16(-di), bit for bit, with the same boost; and counts no launch."""
+    cr, ci, pos, frame, jd, al = _inputs(90 + WRITE_CASES.index((mode,
+                                                                floor)))
+    if "spread" in mode:
+        ca, sa = torch.from_numpy(np.cos(al)), torch.from_numpy(np.sin(al))
+    else:
+        ca, sa = tpb._cos_sin(float(ALPHA))
+    jit = "jitter" in mode
+    t = lambda a: None if a is None else torch.from_numpy(a)  # noqa: E731
+    args = (t(cr), t(ci), t(pos), t(frame), ca, sa,
+            t(np.cos(jd)) if jit else None, t(np.sin(jd)) if jit else None)
+    kw = dict(floor=FLOORS[floor], img_pixels=float(384 * 640),
+              soft="soft" in mode)
+    dr, di, b = wk.write_floor_plain(*args, **kw)
+    before = dict(wk.LAUNCHES)
+    gr, gi, gb = wk.write_floor(*args, **kw, ifft_operands=True)
+    assert wk.LAUNCHES == before
+    assert gr.shape == dr.shape and gi.shape == di.shape
+    assert torch.equal(_bits16(gr), _bits16(dr.to(torch.bfloat16)))
+    assert torch.equal(_bits16(gi), _bits16((-di).to(torch.bfloat16)))
+    assert (gb is None) == (b is None)
+    if b is not None:
+        assert torch.equal(gb, b)
+    # the f32 mode is the plain version itself
+    fr, fi, _ = wk.write_floor(*args, **kw)
+    assert torch.equal(fr, dr) and torch.equal(fi, di)
+
+
+@pytest.mark.parametrize("H,W", [(384, 640), (128, 128)])
+def test_ifft_of_conjugated_bf16_operands_equals_the_f32_call(H, W):
+    """ifft_corner_real given the inverse DFT's operands, bf16(dr) and
+    bf16(-di) with conjugated=True, computes under mix_adaptive what it
+    computes from the f32 delta, bit for bit: the negation and the casts it
+    leaves out are the ones _mm_bf16 made."""
+    Ky, Kx = tcorner.corner_dims(H, W, Params().rmax)
+    rng = np.random.default_rng(H + W)
+    dr = torch.from_numpy((rng.normal(size=(2, 3, Ky, Kx)) * 1e4)
+                          .astype(np.float32))
+    di = torch.from_numpy((rng.normal(size=(2, 3, Ky, Kx)) * 1e4)
+                          .astype(np.float32))
+    dr[:, :, ::3] = 0.0                    # unwalked bins, signed zeros too
+    di[:, :, ::3] = -0.0
+    tabs = tcorner.dft_tables_device(H, Ky, W, Kx, "cpu")
+    for scale in (True, False):
+        want = tcorner.ifft_corner_real(dr, di, H, W, tabs, "mix_adaptive",
+                                        scale=scale)
+        got = tcorner.ifft_corner_real(*wk.ifft_operands_of(dr, di), H, W,
+                                       tabs, "mix_adaptive", scale=scale,
+                                       conjugated=True)
+        assert got.dtype == torch.float32 and got.shape == (2, 3, H, W)
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    # conjugated f32 operands under highest: the same as the f32 call
+    want = tcorner.ifft_corner_real(dr, di, H, W, tabs, "highest")
+    got = tcorner.ifft_corner_real(dr, -di, H, W, tabs, "highest",
+                                   conjugated=True)
+    assert torch.equal(got, want)
+
+
+def _rep_rule_bits(words, stream_bytes, bucket):
+    """The K3 kernel's bit of each slot of a RepFrame (stream_bit in
+    csrc/corner_write_floor.cu), in numpy: header bit slot/3 below slot 912,
+    payload bit 304 + (slot - 912)/7 below the frame's end, else the last
+    bit; bit i is bit 31 - i%32 of word i/32."""
+    nbits = 8 * stream_bytes
+    nmax = 912 + 7 * (nbits - 304)
+    p = np.arange(bucket)
+    i = np.where(p < 912, p // 3,
+                 np.where(p < nmax, 304 + (p - 912) // 7, nbits - 1))
+    w = words.astype(np.int64) & 0xFFFFFFFF
+    return ((w[:, i >> 5] >> (31 - (i & 31))) & 1).astype(np.uint8)
+
+
+@pytest.mark.parametrize("stream_bytes,bucket", [
+    (138, 6512), (138, 8192), (94, BUCKET), (16438, 921600)])
+def test_rep_frame_rule_matches_frame_from_words(stream_bytes, bucket):
+    """The kernel's slot -> stream bit rule for a RepFrame gives the frame
+    _frame_from_words builds (RepFrame.bits()), slot for slot: a frame
+    that fills its bucket, one whose last bit repeats to the bucket's end,
+    and the 4K headline's 16 KB frame; and the CPU wrapper writes the same
+    delta from either form."""
+    rng = np.random.default_rng(stream_bytes + bucket)
+    words = rng.integers(-2 ** 31, 2 ** 31, (3, -(-stream_bytes // 4)),
+                         dtype=np.int64).astype(np.int32)
+    rep = wk.RepFrame(torch.from_numpy(words), stream_bytes, bucket)
+    want = rep.bits().numpy()
+    assert want.shape == (3, bucket) and wk.frame_bits(rep).shape == \
+        (3, bucket)
+    np.testing.assert_array_equal(_rep_rule_bits(words, stream_bytes,
+                                                 bucket), want)
+    if bucket != BUCKET:
+        return
+    cr, ci, pos, _, _, _ = _inputs(95)
+    args = (torch.from_numpy(cr), torch.from_numpy(ci), torch.from_numpy(pos))
+    kw = dict(floor=FLOORS["boost"], img_pixels=float(384 * 640))
+    ca, sa = tpb._cos_sin(float(ALPHA))
+    got = wk.write_floor(*args, rep, ca, sa, **kw, ifft_operands=True)
+    ref = wk.write_floor(*args, rep.bits(), ca, sa, **kw, ifft_operands=True)
+    assert all(torch.equal(g.view(torch.int16) if g.dtype == torch.bfloat16
+                           else g, r.view(torch.int16)
+                           if r.dtype == torch.bfloat16 else r)
+               for g, r in zip(got, ref))
+
+
 @pytest.mark.parametrize("floor", ["0.45", "boost"])
 @pytest.mark.parametrize("soft", [False, True])
 def test_floor_only_plain_matches_jax_on_the_qim_write(floor, soft):
@@ -311,6 +424,48 @@ def test_kernel_reduction_emulation_matches_torch_sum(Ky, Kx, nb):
     np.testing.assert_allclose(eb, b, rtol=1e-6)
 
 
+def test_kernel_reduction_order_does_not_depend_on_b():
+    """The kernel's sums run per image over that image's bins alone: the
+    same image alone (B=1) and in batches of 3 and 8 (at other rows) gets
+    the same b, bit for bit, in the emulated order, and the same b from the
+    plain version. So shards of a batch boost an image alike."""
+    Ky, Kx = 64, 50
+    cr, ci, pos, frame, _, _ = _inputs(66, Ky, Kx, 8)
+    fl, pix = FLOORS["boost"], float(384 * 640)
+    ca, sa = tpb._cos_sin(float(ALPHA))
+    got = {}
+    for nb, row in ((1, 0), (3, 2), (8, 5)):
+        idx = [(k + 3) % 8 for k in range(nb)]
+        idx[row] = 0                         # image 0 at row `row`
+        tc = [torch.from_numpy(np.ascontiguousarray(a[idx]))
+              for a in (cr, ci)]
+        fr = torch.from_numpy(np.ascontiguousarray(frame[idx]))
+        dr, di, _ = wk.write_floor_plain(tc[0], tc[1], torch.from_numpy(pos),
+                                         fr, ca, sa, floor=0.0,
+                                         img_pixels=pix)
+        eb = _emulated_boost(dr.numpy(), di.numpy(), tc[0].numpy(),
+                             tc[1].numpy(), fl, pix)[0]
+        pb_ = wk.floor_only_plain(dr, di, tc[0], tc[1], floor=fl,
+                                  img_pixels=pix)[2].numpy()
+        got[nb] = (eb[row], pb_[row])
+    assert got[1][0] > 1.0
+    assert got[1][0].tobytes() == got[3][0].tobytes() == got[8][0].tobytes()
+    assert got[1][1].tobytes() == got[3][1].tobytes() == got[8][1].tobytes()
+
+
+def test_resident_schedule_takes_only_what_fits():
+    """The wrapper's schedule rule: the resident schedule where the card's
+    grid for the corner is > 0, N is a multiple of 4 and the spectrum's
+    tensors start on 16 bytes; the two-pass schedule otherwise."""
+    a = torch.zeros(64)
+    assert a.data_ptr() % 16 == 0
+    assert wk.resident_fits(3 * 1024 * 1024, 128, (a, a))
+    assert not wk.resident_fits(3 * 1024 * 1024, 0, (a, a))
+    assert not wk.resident_fits(3 * 37 * 17, 1, (a, a))
+    assert not wk.resident_fits(3 * 256 * 256, 48, (a, a[1:]))
+    assert wk.SCHEDULES == ("resident", "two_pass")
+
+
 # --- the embed cores against the composition they replaced -------------------
 
 def _replaced_core(imgs, frame, maps, alpha, *, Ky, Kx, center, layout,
@@ -399,6 +554,61 @@ def test_embed_core_equals_the_replaced_composition(case):
     assert torch.equal(got, want)
 
 
+@pytest.mark.parametrize("fl,frac", [(0.45, 1e-3), (50.0, 5e-3)])
+def test_embed_core_operands_path_equals_f32_and_jax(fl, frac):
+    """corner_embed_core under mix_adaptive (K3 storing the inverse DFT's
+    bf16 operands, ifft_corner_real taking them as they are) writes the
+    bytes of the f32 composition (K3's f32 delta, the negating and casting
+    inverse DFT, K4e), at the default floor (b == 1 on these covers) and
+    at one that boosts every image; and JAX's corner_embed_core's bytes
+    within +-1 on at most `frac` of them: 0.1% as
+    tests/test_torch_batch.py (torch's and XLA's bf16 products sum in other
+    orders), 0.5% where the boost, whose sums also run in another order,
+    scales every write."""
+    import jax
+
+    from steganosaurus_tpu.parallel import batch as jpb
+
+    H, W, nb = 128, 192, 3
+    Ky, Kx = tcorner.corner_dims(H, W, Params().rmax)
+    rng = np.random.default_rng(85)
+    imgs = rng.integers(0, 256, (nb, 3, H, W), dtype=np.uint8)
+    bucket, nbits = 4096, 1500
+    flat = rng.choice(3 * Ky * Kx, bucket, replace=False)
+    flat[nbits:] = flat[nbits - 1]
+    idx = np.unravel_index(flat, (3, Ky, Kx))
+    maps = tpb.corner_statics_core(*(torch.from_numpy(a) for a in idx), Ky,
+                                   Kx, bucket)
+    frame = rng.integers(0, 2, (nb, bucket), dtype=np.uint8)
+    kw = dict(Ky=Ky, Kx=Kx, center=False, layout="nchw", floor=fl)
+    args = (torch.from_numpy(imgs), torch.from_numpy(frame), maps,
+            float(ALPHA))
+    got = tpb.corner_embed_core(*args, **kw)
+    # the f32 composition, stage by stage
+    planes = args[0]
+    tabs = tcorner.dft_tables_device(H, Ky, W, Kx, "cpu")
+    cr, ci = tcorner.fwd_corner(planes, False, Ky, Kx, tabs, "mix_adaptive")
+    dr, di, b = wk.write_floor(cr, ci, maps[0], args[1],
+                               *tpb._cos_sin(float(ALPHA)), floor=fl,
+                               img_pixels=float(H * W))
+    assert (b == 1).all() if fl < 1 else (b > 1).all()
+    t = tcorner.ifft_corner_real(dr, di, H, W, tabs, "mix_adaptive",
+                                 scale=False)
+    want = wk.epilogue(t, planes, False, "nchw")
+    assert torch.equal(got, want)
+    # JAX's core on the same covers, walk and frame (its batch-packed table)
+    table = np.concatenate([np.asarray(jpb._pack_batch_words(
+        jnp.asarray(frame))).T, np.zeros((1, 1), np.int32)])
+    jfn = jpb.corner_embed_core(H, W, Ky, Kx, False, layout="nchw",
+                                floor=fl)
+    js = np.asarray(jax.device_get(jfn(jnp.asarray(imgs), jnp.asarray(table),
+                                       jnp.asarray(maps[0].numpy()),
+                                       jnp.float32(ALPHA))))
+    diff = got.numpy().astype(np.int16) - js.astype(np.int16)
+    assert np.abs(diff).max() <= 1
+    assert np.count_nonzero(diff) <= frac * diff.size
+
+
 def test_piw_embed_core_equals_the_replaced_composition():
     """corner_piw_embed_core with the floor through floor_only and the
     epilogue through K4e's plain version: the bytes of the eager
@@ -453,6 +663,27 @@ def test_wrappers_refuse_other_devices():
                       img_pixels=16.0)
 
 
+def test_k3_ablation_edits_apply_to_the_committed_source():
+    """Each variant of tools/k3_ablation_torch.py is one text edit of
+    csrc/corner_write_floor.cu: the text it replaces is there, once; and
+    the tool refuses to run without a card."""
+    import importlib.util
+    import pathlib
+
+    repo = pathlib.Path(__file__).resolve().parent.parent
+    spec = importlib.util.spec_from_file_location(
+        "k3_ablation_torch", repo / "tools" / "k3_ablation_torch.py")
+    tool = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tool)
+    src = (repo / "steganosaurus_tpu_torch" / "csrc"
+           / "corner_write_floor.cu").read_text()
+    assert len(tool.VARIANTS) == 3
+    for name, _, old, new in tool.VARIANTS:
+        assert src.count(old) == 1, name
+        assert old != new
+    assert tool.main() == 2
+
+
 # --- the kernels' bytes ------------------------------------------------------
 
 def test_kernel_costs_at_the_main_shape():
@@ -468,6 +699,22 @@ def test_kernel_costs_at_the_main_shape():
     assert k3["hbm_bytes"] == 4 * E * 4 + 3 * 1024 * 1024 * 4 + 64 * 921600
     ms, by = cost.stage_bound(k3, peaks)
     assert by == "bytes" and ms == pytest.approx(0.9830, abs=1e-3)
+    # the main path's bf16 operands: cr, ci read once, the outputs at 2 B
+    k3b = cost.write_floor_cost(64, 1024, 1024, g["bucket"], 0, out_bytes=2)
+    assert k3b["hbm_bytes"] == 2 * E * 4 + 3 * 1024 * 1024 * 4 \
+        + 64 * 921600 + 2 * E * 2
+    ms, by = cost.stage_bound(k3b, peaks)
+    assert by == "bytes" and ms == pytest.approx(0.7426, abs=1e-3)
+    with pytest.raises(ValueError):
+        cost.write_floor_cost(1, 8, 8, 16, 0, out_bytes=8)
+    # the main path's frame: a RepFrame's stream words, 16,438 B an image
+    k3r = cost.write_floor_cost(64, 1024, 1024, g["bucket"], 0, out_bytes=2,
+                                stream_bytes=g["stream_bytes"])
+    assert g["stream_bytes"] == 16438
+    assert k3r["hbm_bytes"] == k3b["hbm_bytes"] - 64 * 921600 \
+        + 64 * 4110 * 4
+    ms, by = cost.stage_bound(k3r, peaks)
+    assert by == "bytes" and ms == pytest.approx(0.7253, abs=1e-3)
     k4 = cost.epilogue_cost(64, 2160, 3840, "nchw")
     assert k4["hbm_bytes"] == 6 * 3 * 64 * 2160 * 3840
     assert cost.epilogue_cost(64, 2160, 3840, "nhwc")["hbm_bytes"] == \
