@@ -15,7 +15,8 @@ adaptive_alpha batch and a batch extraction with coherent rows, then the
 user-facing surface (the `turtlefft serve` worker in process and as a
 process of its own, and the `turtlefft` CLI's one-shot modes), then the
 parallel layer (mesh= over the cards and over logical shards of one card,
-the sharded single-image FFT) and the cost model, and prints one line per
+the sharded single-image FFT) and the cost model, then the graft entry
+(its forward step and its multichip dry run), and prints one line per
 measurement. The last two lines
 are JSON: the per-kernel record, then the device record. Any failure raises,
 and the process exits non-zero without printing them. Without CUDA, or
@@ -52,9 +53,12 @@ Phases:
              walk of a 16 KB frame's bins and the frame of seeded stream
              words: hard, soft, jittered and spread writes and QIM (floor
              only), floor 0, 0.45, boosting (b range printed; every image
-             must boost) and clipping at 32; K3 bit-equal wherever b == 1,
-             else within 1e-5 of the plain output's scale, b within 1e-5
-             relative, the same bits read back at every walk bin;
+             must boost) and clipping at 32; K3 bit-equal to its ordered
+             twin (the plain version summing the floor's terms in the
+             kernel's order) in every case, and against the eager plain
+             version (torch.sum) bit-equal wherever b == 1, else within
+             1e-5 of its output's scale, b within 1e-5 relative, the same
+             bits read back at every walk bin;
              write_floor's bf16 operand mode bit-equal to its f32 output
              cast (bf16(dr), bf16(-di)), its RepFrame (stream words) and,
              on resident corners, its two-pass schedule bit-equal to the
@@ -170,13 +174,22 @@ Phases:
              bounds on the card's data-sheet peaks, the round trip's bound,
              measure_device_step's core times and the share of the bound
              (above 1.0 fails), measure_link with a 256 MiB pinned buffer
-Every path of phases 4-5, 7d-7e, 9a, 9b, 9d and the serve worker's B=1
-and batch ops (8a) must launch K1 (on the TMA route, corner_stage1_wgmma,
-or in 4b and 4c on the load route, corner_stage1_wgmma_ldg); the
-single-image paths, the full-grid batch cores (7a-7c), the cover-dependent
-worker (8a) and fft_dist (9c) run torch.fft and must launch no kernel of
-the port. Each corner embed must launch K4e once and K3 once: write_floor
-on its resident schedule (phases 4, 4c, 9a, 9b, 8a's embeds, the
+  9e. dry run  the graft entry (steganosaurus_tpu_torch/graft_entry.py):
+             entry()'s forward step (2x128x128, the full-grid core) on the
+             card against the CPU, +-1 on at most 0.5% of bytes (counted);
+             dryrun_multichip(4) on 4 logical shards of the card and, with
+             2 or more cards, dryrun_multichip(cards) over them: axes 1,
+             1b, 1c round trips at 128x128 B=n, the flat-scaling bound, the
+             sharded single-image FFT's exact and u8 reads; each part's
+             wall time and K1 / K3 / K4e launches
+Every path of phases 4-5, 7d-7e, 9a, 9b, 9d, 9e's dry runs and the serve
+worker's B=1 and batch ops (8a) must launch K1 (on the TMA route,
+corner_stage1_wgmma, or in 4b and 4c on the load route,
+corner_stage1_wgmma_ldg); the single-image paths, the full-grid batch
+cores (7a-7c, 9e's entry()), the cover-dependent worker (8a) and fft_dist
+(9c) run torch.fft and must launch no kernel of the port. Each corner
+embed must launch K4e once and K3 once: write_floor on its resident
+schedule (phases 4, 4c, 9a, 9b, 8a's embeds, the
 shared-walk modes of 5f), or
 floor_only where the write stays eager (5f's QIM and per-image walks, 5g).
 The launches are counted per path and per kernel, and each (planes, H, W,
@@ -401,10 +414,11 @@ PHONE_GRID = (8, 1170, 2532)
 SERVE_K1_B = (1, 32)
 # 3b: the embed's write, write floor (K3) and u8 epilogue (K4e) against
 # their plain versions, on (name, B, H, W) grids: the main path's, 1080p
-# B=8, phase 4's 512x512 B=8, 4b's grid and 4c's crop. K3 within WRITE_REL
-# of the plain output's scale and b within WRITE_REL relative (the three
-# per-image sums in another order), bit-equal wherever b == 1, the same
-# bits read back; K4e bit-equal.
+# B=8, phase 4's 512x512 B=8, 4b's grid and 4c's crop. K3 bit-equal to its
+# ordered twin; against the eager plain version (the three per-image sums
+# by torch.sum, in another order) within WRITE_REL of its output's scale
+# and b within WRITE_REL relative, bit-equal wherever b == 1, the same bits
+# read back; K4e bit-equal.
 WRITE_GRIDS = (("4K", UHD_B, UHD_H, UHD_W), ("1080p", FHD_B, FHD_H, FHD_W),
                ("512x512", SMALL_B, SMALL_H, SMALL_W),
                ("256x256 B=1", 1, 256, 256),
@@ -785,11 +799,11 @@ def _boosting_floor(dr, di, pixels: float) -> float:
 
 def _write_case(cr, ci, maps, frame, pixels: float, rule: str, floor: str):
     """(kernel, plain, floor value, entry name, bit reader) of one K3 case:
-    kernel() and plain() return (dr, di, b) (write_floor's kernel(frame,
-    **kw) takes another frame, e.g. the RepFrame of the same bits, and
-    write_kernels._write_floor's ifft_operands, schedule and phase_ns);
-    bits(dr, di) reads each bin's bit after the write (1 iff its decision
-    value >= 0)."""
+    kernel() and plain(ordered=False) return (dr, di, b) (write_floor's
+    kernel(frame, **kw) takes another frame, e.g. the RepFrame of the same
+    bits, and write_kernels._write_floor's ifft_operands, schedule and
+    phase_ns; plain(ordered=True) is the ordered twin); bits(dr, di) reads
+    each bin's bit after the write (1 iff its decision value >= 0)."""
     import steganosaurus_tpu_torch as stt
     from steganosaurus_tpu_torch.parallel import batch as pb
     from steganosaurus_tpu_torch.spectral import corner
@@ -812,9 +826,9 @@ def _write_case(cr, ci, maps, frame, pixels: float, rule: str, floor: str):
         def kernel():
             return wk.floor_only(dr, di, cr, ci, floor=fl, img_pixels=pixels)
 
-        def plain():
+        def plain(ordered=False):
             return wk.floor_only_plain(dr, di, cr, ci, floor=fl,
-                                       img_pixels=pixels)
+                                       img_pixels=pixels, ordered=ordered)
 
         def bits(r, i):
             return corner.read_bits_dense_qim(cr + 0.5 * r, ci + 0.5 * i,
@@ -831,9 +845,9 @@ def _write_case(cr, ci, maps, frame, pixels: float, rule: str, floor: str):
         return wk._write_floor(cr, ci, pos, frame, ca, sa, cj, sj, floor=fl,
                                img_pixels=pixels, soft=soft, **kw)
 
-    def plain():
+    def plain(ordered=False):
         return wk.write_floor_plain(*args, floor=fl, img_pixels=pixels,
-                                    soft=soft)
+                                    soft=soft, ordered=ordered)
 
     def bits(r, i):
         return corner.read_bits_dense(ci + 0.5 * i, 1.0, cr + 0.5 * r, cj, sj)
@@ -841,14 +855,24 @@ def _write_case(cr, ci, maps, frame, pixels: float, rule: str, floor: str):
     return kernel, plain, fl, wk.KERNEL_WRITE_FLOOR, bits
 
 
-def _check_write(what: str, out, ref, walk, bits) -> tuple:
-    """K3's (dr, di, b) against the plain version's: b within WRITE_REL
-    relative, each image whose boost is 1 bit-equal, the rest within
-    WRITE_REL of the plain output's scale, the same bit read back at every
-    walk bin. Returns (max_abs_err, scale, b or None)."""
+def _check_write(what: str, out, ref, ordered, walk, bits) -> tuple:
+    """K3's (dr, di, b) bit-equal to the ordered twin's (`ordered`: the
+    floor's sums in the kernel's order), and against the eager plain
+    version's (`ref`, torch.sum): b within WRITE_REL relative, each image
+    whose boost is 1 bit-equal, the rest within WRITE_REL of the plain
+    output's scale, the same bit read back at every walk bin. Returns
+    (max_abs_err, scale, b or None)."""
     import torch
 
     torch.cuda.synchronize()
+    twin = all((o is None and w is None) or (
+        o is not None and w is not None and torch.equal(
+            o.view(torch.int32), w.view(torch.int32)))
+        for o, w in zip(out, ordered))
+    log(f"K3 {what}: bit-equal to the ordered twin {twin}")
+    if not twin:
+        raise AssertionError(f"K3 {what} is not bit-equal to its ordered "
+                             f"twin")
     (dr, di, b), (pr, pi, pb) = out, ref
     if (b is None) != (pb is None):
         raise AssertionError(f"K3 {what}: boost {b} against {pb}")
@@ -1045,7 +1069,8 @@ def phase_write_kernels(covers_d, odd_d, card: str) -> list:
             two_pass = wk.LAUNCHES[wk.KERNEL_WRITE_FLOOR_TWO_PASS]
             out = kernel()
             two_pass = wk.LAUNCHES[wk.KERNEL_WRITE_FLOOR_TWO_PASS] - two_pass
-            err, _, b = _check_write(what, out, plain(), walk, bits)
+            err, _, b = _check_write(what, out, plain(),
+                                     plain(ordered=True), walk, bits)
             if floor == "boost" and not (b > 1).all().item():
                 raise AssertionError(f"K3 {what}: an image was not boosted")
             if floor == "clip" and not (b == 32).all().item():
@@ -3050,6 +3075,70 @@ def phase_cost(covers_d, ms4, launches: dict, card: str) -> None:
                              f"counting fault: {share}")
 
 
+# 9e: the graft entry (steganosaurus_tpu_torch/graft_entry.py): entry()'s
+# forward step on the card against the same function on the CPU, +-1 on at
+# most this share of the u8 bytes (cuFFT and the CPU's FFT sum in other
+# orders, so a few pixels land on the other side of .5)
+ENTRY_DIFF_FRAC = 5e-3
+
+
+def phase_dryrun(launches: dict) -> None:
+    """9e: the graft entry on the card. entry()'s forward step (the
+    full-grid embed core, torch.fft: no kernel of the port) against the
+    same function on the CPU, u8 bytes +-1 on at most ENTRY_DIFF_FRAC
+    (counted); dryrun_multichip(MESH_LOGICAL) on logical shards of card 0;
+    dryrun_multichip(min(8, cards)) over make_mesh() when the machine has
+    at least 2 cards. Each part's wall time and its K1, K3 and K4e
+    launches are logged; each dry run must launch K1 on the TMA route,
+    K3's write_floor (the shared-walk embeds) and floor_only (QIM on
+    per-image walks, axes 1b and 1c), and K4e once per corner embed."""
+    import numpy as np
+    import torch
+
+    from steganosaurus_tpu_torch import graft_entry
+    from steganosaurus_tpu_torch.spectral import corner_kernels as ck
+    from steganosaurus_tpu_torch.spectral import write_kernels as wk
+
+    def step(device=None):
+        fn, args = graft_entry.entry(device)
+        return fn(*args).cpu().numpy()
+
+    for what in ("cold", "warm"):
+        t = time.perf_counter()
+        out = count_no_launches(f"9e entry {what}", launches, step)
+        log(f"9e entry() {what}: {out.shape} {out.dtype} in "
+            f"{time.perf_counter() - t!r} s (host wall, ends in a pull)")
+    ref = step("cpu")
+    diff = out.astype(np.int16) - ref.astype(np.int16)
+    n_diff = int(np.count_nonzero(diff))
+    log(f"9e entry() on the card vs the CPU: {n_diff} of {diff.size} u8 "
+        f"bytes differ, max |diff| {int(np.abs(diff).max())}")
+    if np.abs(diff).max() > 1 or n_diff > ENTRY_DIFF_FRAC * diff.size:
+        raise AssertionError("9e: entry() on the card disagrees with the "
+                             "CPU beyond +-1 rounding")
+    runs = [(f"9e dry run, {MESH_LOGICAL} logical shards",
+             lambda: graft_entry.dryrun_multichip(MESH_LOGICAL,
+                                                  device="cuda:0"))]
+    cards = min(8, torch.cuda.device_count())
+    if cards >= 2:
+        runs.append((f"9e dry run, {cards} cards",
+                     lambda: graft_entry.dryrun_multichip(cards)))
+    for path, run in runs:
+        t = time.perf_counter()
+        report = count_launches(path, launches, run)
+        wall = time.perf_counter() - t
+        c = launches[path]
+        log(f"{path}: {wall!r} s; {report}; K1 {c[ck.KERNEL_TMA]}, K3 "
+            f"write_floor {c[wk.KERNEL_WRITE_FLOOR]} (two-pass "
+            f"{c[wk.KERNEL_WRITE_FLOOR_TWO_PASS]}), floor_only "
+            f"{c[wk.KERNEL_FLOOR_ONLY]}, K4e {c[wk.KERNEL_EPILOGUE]}")
+        if not (c[wk.KERNEL_WRITE_FLOOR] > 0 and c[wk.KERNEL_FLOOR_ONLY] > 0
+                and c[wk.KERNEL_EPILOGUE] == c[wk.KERNEL_WRITE_FLOOR]
+                + c[wk.KERNEL_FLOOR_ONLY]
+                and c[wk.KERNEL_WRITE_FLOOR_TWO_PASS] == 0):
+            raise AssertionError(f"{path}: K3 / K4e launches {c}")
+
+
 def record_k1_shapes(seen: set):
     """Wrap the stage-1 wrapper so that the _k1_key of every call on the
     card, the route it launched included, lands in `seen`; returns the
@@ -3175,6 +3264,7 @@ def main() -> int:
             torch.cuda.empty_cache()
             timed("9c fft_dist", phase_fft_dist, covers_d, launches)
             timed("9d cost", phase_cost, covers_d, ms4, launches, card)
+            timed("9e dry run", phase_dryrun, launches)
             del covers_d
             torch.cuda.empty_cache()
             timed("serve", phase_serve, launches, card)

@@ -657,10 +657,12 @@ def _gather_bins(spec: torch.Tensor, med: torch.Tensor, plane, y, x):
 
 def batched_embed_core(imgs: torch.Tensor, plane, y, x, bits_words, jit,
                        alpha, n_valid=None, *, center: bool,
-                       soft: bool = False, floor: float = 0.0,
+                       adaptive: bool = True, soft: bool = False,
+                       floor: float = 0.0,
                        layout: str = "nhwc") -> torch.Tensor:
-    """Full-grid batch embed (JAX batched_embed_core with packed bits and
-    adaptive alpha, the one mode that needs it):
+    """Full-grid batch embed (JAX batched_embed_core with packed bits;
+    adaptive alpha, the one pipeline mode that needs it, unless `adaptive`
+    is False, as in the graft entry's forward step, graft_entry.entry):
     (imgs u8, walk plane/y/x — a shared (n,) walk or per-image (B, n)
     walks — bits_words (B, n/32) int32 MSB-first frame words, jit the
     slots' jitter angles, alpha a number or the (n,) per-slot amplitudes,
@@ -673,7 +675,9 @@ def batched_embed_core(imgs: torch.Tensor, plane, y, x, bits_words, jit,
     Hermitian-half scatter (2*nv - v at the primary bins only: real(IFFT)
     sees exactly nv there and conj(nv) at the mirror), the inverse FFT and
     the u8 rounding. Tail-pad duplicates carry their twin's value, so the
-    scatter keeps the same value whichever write wins.
+    scatter keeps the same value whichever write wins (on a card
+    index_put_ lets any of a bin's writes win, on the CPU the last: a bin
+    written twice with two values differs between them).
 
     A Sharded imgs runs each shard on its own device and returns a Sharded
     stego: the per-row arguments (bits_words; per-image walks and jitters;
@@ -686,14 +690,15 @@ def batched_embed_core(imgs: torch.Tensor, plane, y, x, bits_words, jit,
             part, *(_part(a, imgs, k, walk) for a in (plane, y, x)),
             _part(bits_words, imgs, k, True), _part(jit, imgs, k, walk),
             _part(alpha, imgs, k, False), _part(n_valid, imgs, k, per_n),
-            center=center, soft=soft, floor=floor, layout=layout))
+            center=center, adaptive=adaptive, soft=soft, floor=floor,
+            layout=layout))
     spec, med = batched_analyze_core(imgs, center=center, layout=layout)
     H, W = (imgs.shape[2], imgs.shape[3]) if layout == "nchw" \
         else (imgs.shape[1], imgs.shape[2])
     PH, PW = spec.shape[-2:]
     bits = bit_ops.unpack_bits_words(bits_words, bits_words.shape[-1] * 32)
     v, med_at, idx = _gather_bins(spec, med, plane, y, x)
-    nv = phase_ops.write_values(v, bits, jit, alpha, med_at, True,
+    nv = phase_ops.write_values(v, bits, jit, alpha, med_at, adaptive,
                                 soft=soft, floor=floor,
                                 img_pixels=float(H) * W, n_valid=n_valid,
                                 gain=(H * W) / (PH * PW))

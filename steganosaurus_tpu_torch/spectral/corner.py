@@ -304,19 +304,23 @@ def apply_write_floor(dr, di, cr, ci, floor: float, img_pixels: float):
     return write_floor_boosted(dr, di, cr, ci, floor, img_pixels)[:2]
 
 
-def write_floor_boosted(dr, di, cr, ci, floor: float, img_pixels: float):
+def write_floor_boosted(dr, di, cr, ci, floor: float, img_pixels: float,
+                        total=None):
     """(dr_b, di_b, b): apply_write_floor's boosted delta and its per-image
-    boost b (..., 1, 1, 1) f32 in [1, 32]."""
+    boost b (..., 1, 1, 1) f32 in [1, 32]. total: the per-image sum of the
+    floor's terms (..., 3, Ky, Kx) -> (..., 1, 1, 1); None is torch.sum."""
     # 0-dim host tensors: an f32 scalar like JAX's, with no host-to-device
     # copy (a blocking upload would stall the stream pipeline)
     s = torch.tensor(1.0 / img_pixels, dtype=dr.dtype)
     hr, hi = (0.5 * s) * dr, (0.5 * s) * di
     wm = ((hr * hr + hi * hi) > 0).to(dr.dtype)
     crs, cis = cr * s, ci * s
-    axes = (-3, -2, -1)
-    V = torch.sum(wm * (crs * crs + cis * cis), axes, keepdim=True)
-    X = torch.sum(crs * hr + cis * hi, axes, keepdim=True)
-    Hs = torch.sum(hr * hr + hi * hi, axes, keepdim=True)
+    if total is None:
+        def total(t):
+            return torch.sum(t, (-3, -2, -1), keepdim=True)
+    V = total(wm * (crs * crs + cis * cis))
+    X = total(crs * hr + cis * hi)
+    Hs = total(hr * hr + hi * hi)
     p = V + 2.0 * X + Hs
     e_star = torch.tensor(1.5 * floor ** 2, dtype=dr.dtype)
     disc = torch.clamp_min((V + X) ** 2 - p * (V - e_star), 0.0)

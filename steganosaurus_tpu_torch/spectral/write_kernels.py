@@ -26,7 +26,10 @@ image batch through HBM. Two CUDA sources replace them:
 
 Each wrapper launches its kernel for CUDA tensors — or raises; nothing here
 catches a build or launch failure and falls back — and takes its plain
-version only for CPU tensors. `LAUNCHES` counts each entry point's launches
+version only for CPU tensors. K3's plain versions sum the floor's terms with
+torch.sum (the CPU path's); with ordered=True (the ordered twins) they sum
+in the kernel's fixed order (ordered_sum), and the kernel equals them bit
+for bit. `LAUNCHES` counts each entry point's launches
 under its own name, one per call that launches, so a run can show that the
 main path went through the kernels.
 """
@@ -103,10 +106,12 @@ def bit_signs(pos: torch.Tensor, frame: torch.Tensor):
 
 
 def write_floor_plain(cr, ci, pos, frame, cos_a, sin_a, cjd=None, sjd=None,
-                      *, floor: float, img_pixels: float, soft: bool = False):
+                      *, floor: float, img_pixels: float, soft: bool = False,
+                      ordered: bool = False):
     """(dr, di, b): the bit lookup, corner.write_delta and, when `floor`,
     corner.apply_write_floor; b (B,) f32 is the floor's boost (None without
-    a floor). frame: (B, bucket) u8 or a RepFrame."""
+    a floor). frame: (B, bucket) u8 or a RepFrame. ordered: the floor's sums
+    in K3's order (ordered_sum; the ordered twin) in place of torch.sum."""
     sign, mask = bit_signs(pos, frame_bits(frame))
     dr, di = corner.write_delta(cr, ci, sign, mask, cos_a, sin_a, cjd, sjd,
                                 soft=soft)
@@ -114,7 +119,7 @@ def write_floor_plain(cr, ci, pos, frame, cos_a, sin_a, cjd=None, sjd=None,
     if not floor:
         return dr, di, None
     return floor_only_plain(dr, di, cr, ci, floor=floor,
-                            img_pixels=img_pixels)
+                            img_pixels=img_pixels, ordered=ordered)
 
 
 def ifft_operands_of(dr, di):
@@ -124,12 +129,58 @@ def ifft_operands_of(dr, di):
     return dr.to(torch.bfloat16), (-di).to(torch.bfloat16)
 
 
-def floor_only_plain(dr, di, cr, ci, *, floor: float, img_pixels: float):
+def floor_only_plain(dr, di, cr, ci, *, floor: float, img_pixels: float,
+                     ordered: bool = False):
     """(dr_b, di_b, b): corner.apply_write_floor over (dr, di), and its
-    per-image boost b (B,) f32."""
-    br, bi, b = corner.write_floor_boosted(dr, di, cr, ci, floor,
-                                           img_pixels)
+    per-image boost b (B,) f32. ordered: the sums in K3's order (the
+    ordered twin, which the kernel equals bit for bit) in place of
+    torch.sum."""
+    br, bi, b = corner.write_floor_boosted(
+        dr, di, cr, ci, floor, img_pixels,
+        _image_sums if ordered else None)
     return br, bi, b.reshape(-1)
+
+
+def _group_sum(v):
+    """K3's sum over a group of THREADS threads, of v (..., THREADS) f32
+    (each thread's value): per warp of 32 lanes the __shfl_down_sync tree
+    (offsets 16, 8, 4, 2, 1; lane 0's sum needs only the lanes below each
+    offset), then the THREADS/32 warp sums added in order."""
+    w = v.reshape(*v.shape[:-1], THREADS // 32, 32)
+    for off in (16, 8, 4, 2, 1):
+        w = w[..., :off] + w[..., off:2 * off]
+    s = w[..., 0, 0]
+    for k in range(1, THREADS // 32):
+        s = s + w[..., k, 0]
+    return s
+
+
+def ordered_sum(terms):
+    """The sum over the last axis of terms (B, N) f32 in K3's order, every
+    step in f32 (csrc/corner_write_floor.cu, both schedules): pass 1, thread
+    t of chunk k adds bins k*CHUNK + j*THREADS + t for j in order from 0,
+    then _group_sum gives the chunk's partial; pass 2, thread t adds the
+    partials t, t + THREADS, ... in order from 0, then _group_sum. -> (B,).
+    Bins past N add +0, as the kernel's skipped bins do."""
+    B, N = terms.shape
+    nblk = -(-N // CHUNK)
+    x = torch.nn.functional.pad(terms, (0, nblk * CHUNK - N))
+    x = x.reshape(B, nblk, PER_THREAD, THREADS)
+    acc = terms.new_zeros((B, nblk, THREADS))
+    for j in range(PER_THREAD):
+        acc = acc + x[:, :, j]
+    rounds = -(-nblk // THREADS)
+    p = torch.nn.functional.pad(_group_sum(acc), (0, rounds * THREADS - nblk))
+    p = p.reshape(B, rounds, THREADS)
+    acc = terms.new_zeros((B, THREADS))
+    for r in range(rounds):
+        acc = acc + p[:, r]
+    return _group_sum(acc)
+
+
+def _image_sums(t):
+    """ordered_sum of each image's terms t (B, 3, Ky, Kx) -> (B, 1, 1, 1)."""
+    return ordered_sum(t.reshape(t.shape[0], -1)).reshape(-1, 1, 1, 1)
 
 
 def epilogue_plain(t, planes, center: bool, layout: str):

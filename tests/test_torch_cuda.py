@@ -1,23 +1,25 @@
 """Card-only tests of the torch port: the hand-written K1 kernel
 (csrc/corner_stage1_wgmma.cu, A by TMA for W % 16 == 0 on an aligned base,
-by the producer's loads for any other W or base) against its plain
-version, at both routes' edge shapes and on views that end at the last
-byte of their storage, the wrapper's routing, checks and launch counts,
-round trips through the kernel (small, and 1080p B=8), a two-batch stream,
-the soft-decision retry pass (Rep-7 and RS), a QIM extract and a
-per-image-walk embed; the single-image path: a 1080p embed_array ->
-extract_array round trip, the exact median (kthvalue against the bisection
-twin) at 4K, a 1080p adaptive_alpha batch through the full-grid cores, and
-a complex128 round trip that stays on the card; the serve worker at
-512x512 (K1 launched by every op) and the CLI's embed -> extract on the
-card; a round trip over a 2-shard logical mesh on the card (K1 once per
-shard per pass), the sharded FFT and median against the dense ones, the
-cost model's peak rates for the card; and the embed's K3 kernel (both
-entry points) and K4e against their plain versions at 512x512 B=8 and
-1079x1917 B=4 (K4e bit-exact), write_floor's bf16 operand mode against its
-f32 output cast and its two schedules against each other (bit for bit),
-its boost independent of the batch, the write wrappers' checks, and the
-K3 / K4e launches of each corner embed path.
+by the producer's loads for any other W or base) against its plain version,
+at both routes' edge shapes and on views that end at the last byte of their
+storage, the wrapper's routing, checks and launch counts, round trips
+through the kernel (small, and 1080p B=8), a two-batch stream, the soft-
+decision retry pass (Rep-7 and RS), a QIM extract and a per-image-walk
+embed; the single-image path: a 1080p embed_array -> extract_array round
+trip, the exact median (kthvalue against the bisection twin) at 4K, a 1080p
+adaptive_alpha batch through the full-grid cores, and a complex128 round
+trip that stays on the card; the serve worker at 512x512 (K1 launched by
+every op) and the CLI's embed -> extract on the card; a round trip over a
+2-shard logical mesh on the card (K1 once per shard per pass), the sharded
+FFT and median against the dense ones, the graft entry (graft_entry:
+entry() against the CPU, the dry run over 2 logical shards), the cost
+model's peak rates for the card; and the embed's K3 kernel (both entry
+points) and K4e against their plain versions at 512x512 B=8 and 1079x1917
+B=4 (K3 bit-exact against its ordered twin, which sums in the kernel's
+order, K4e bit-exact), write_floor's bf16 operand mode against its f32
+output cast and its two schedules against each other (bit for bit), its
+boost independent of the batch, the write wrappers' checks, and the K3 /
+K4e launches of each corner embed path.
 
 They skip without CUDA. This file imports neither jax nor the JAX package's
 device code, so it also runs on a machine without JAX:
@@ -630,6 +632,31 @@ def test_fft_dist_on_card_matches_dense(dev):
     assert (back - planes).abs().max().item() <= 5e-3
 
 
+def test_graft_entry_on_card(dev):
+    """The graft entry on the card: entry()'s step (random bins, each one
+    named twice carrying its last bit) within +-1 of the CPU's on at most
+    0.5% of the bytes; the dry run over 2 logical shards of the card, K1,
+    both K3 entry points and K4e launched."""
+    from steganosaurus_tpu_torch import graft_entry
+    from steganosaurus_tpu_torch.spectral import corner_kernels as ck
+    from steganosaurus_tpu_torch.spectral import write_kernels as wk
+
+    fn, args = graft_entry.entry()
+    assert args[0].device.type == "cuda"
+    out = fn(*args).cpu().numpy().astype(np.int16)
+    fn, args = graft_entry.entry(device="cpu")
+    diff = out - fn(*args).numpy().astype(np.int16)
+    assert np.abs(diff).max() <= 1
+    assert np.count_nonzero(diff) <= 5e-3 * diff.size
+    k1, k3 = dict(ck.LAUNCHES), dict(wk.LAUNCHES)
+    report = graft_entry.dryrun_multichip(2, device=dev)
+    assert report["flips"] <= 2
+    assert ck.LAUNCHES[ck.KERNEL_TMA] > k1[ck.KERNEL_TMA]
+    for k in (wk.KERNEL_WRITE_FLOOR, wk.KERNEL_FLOOR_ONLY,
+              wk.KERNEL_EPILOGUE):
+        assert wk.LAUNCHES[k] > k3[k], k
+
+
 def test_peak_rates_for_the_card(dev):
     from steganosaurus_tpu_torch.utils import cost
 
@@ -685,11 +712,17 @@ def _write_inputs(dev, B, H, W, seed):
     return cr, ci, maps, frame
 
 
-def _check_write(out, ref):
-    """K3 against its plain version: b within 1e-5 relative; each image
-    whose boost is 1 (every image without a floor) bit-equal; the rest
-    within 1e-5 of the plain output's scale."""
+def _check_write(out, ref, ordered):
+    """K3 against its plain versions: bit-equal to the ordered twin
+    (`ordered`: the floor's sums in the kernel's order), boost included;
+    against the eager one (`ref`, torch.sum) b within 1e-5 relative, each
+    image whose boost is 1 (every image without a floor) bit-equal, the
+    rest within 1e-5 of the plain output's scale."""
     torch.cuda.synchronize()
+    for got, want in zip(out, ordered):
+        assert (got is None) == (want is None)
+        if got is not None:
+            assert torch.equal(_bits(got), _bits(want))
     (dr, di, b), (pr, pi, pb) = out, ref
     if pb is None:
         assert b is None
@@ -737,7 +770,8 @@ def test_write_floor_kernel_matches_plain(dev, grid, mode, floor):
     out = wk.write_floor(*args, floor=fl, **kw)
     assert wk.LAUNCHES == {**n, wk.KERNEL_WRITE_FLOOR:
                            n[wk.KERNEL_WRITE_FLOOR] + 1}
-    _check_write(out, wk.write_floor_plain(*args, floor=fl, **kw))
+    _check_write(out, wk.write_floor_plain(*args, floor=fl, **kw),
+                 wk.write_floor_plain(*args, floor=fl, ordered=True, **kw))
     if floor == "boost":
         assert (out[2] > 1).all()
     elif floor == "clip":
@@ -829,7 +863,8 @@ def test_write_floor_boost_does_not_depend_on_b(dev):
 @pytest.mark.parametrize("grid", WRITE_GRIDS)
 @pytest.mark.parametrize("floor", ["0.45", "boost"])
 def test_floor_only_kernel_matches_plain(dev, grid, floor):
-    """The floor over the eager QIM write, kernel against plain."""
+    """The floor over the eager QIM write, kernel against plain (bit-equal
+    to the ordered twin)."""
     from steganosaurus_tpu_torch.parallel import batch as pb
     from steganosaurus_tpu_torch.spectral import corner
     from steganosaurus_tpu_torch.spectral import write_kernels as wk
@@ -846,7 +881,8 @@ def test_floor_only_kernel_matches_plain(dev, grid, floor):
     n = wk.LAUNCHES[wk.KERNEL_FLOOR_ONLY]
     out = wk.floor_only(dr, di, cr, ci, **kw)
     assert wk.LAUNCHES[wk.KERNEL_FLOOR_ONLY] == n + 1
-    _check_write(out, wk.floor_only_plain(dr, di, cr, ci, **kw))
+    _check_write(out, wk.floor_only_plain(dr, di, cr, ci, **kw),
+                 wk.floor_only_plain(dr, di, cr, ci, ordered=True, **kw))
     assert (out[2] > 1).all() if floor == "boost" else (out[2] > 1).any()
 
 

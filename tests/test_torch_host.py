@@ -422,7 +422,8 @@ def test_no_port_module_imports_the_jax_package():
                 "pipeline/serve.py", "utils/covers.py", "utils/debug.py",
                 "parallel/batch.py", "parallel/fft_dist.py", "utils/cost.py",
                 "utils/steganalysis.py", "utils/channel.py",
-                "crypto/keywrap.py", "cli.py", "keytool.py"):
+                "crypto/keywrap.py", "cli.py", "keytool.py",
+                "graft_entry.py"):
         assert f"steganosaurus_tpu_torch/{mod}" in names
     for path in files:
         for node in ast.walk(ast.parse(path.read_text(), str(path))):

@@ -2,7 +2,8 @@
 (spectral/write_kernels.py: the plain versions of the K3 and K4e kernels)
 against the JAX package's math (steganosaurus_tpu.spectral.corner
 write_delta, write_delta_qim, apply_write_floor, and corner_embed_core's
-epilogue expression), the K3 kernel's blocked reduction emulated in numpy,
+epilogue expression), the K3 kernel's blocked reduction emulated in numpy
+(and the ordered twin, its torch version, bit-equal to the emulation),
 the embed cores against the eager composition the kernels replaced, and the
 kernels' byte counts in utils/cost.py.
 
@@ -422,6 +423,38 @@ def test_kernel_reduction_emulation_matches_torch_sum(Ky, Kx, nb):
     b = b.numpy()
     assert (b > 1.0).any()
     np.testing.assert_allclose(eb, b, rtol=1e-6)
+
+
+@pytest.mark.parametrize("Ky,Kx,nb", [(64, 50, 3), (1024, 1024, 1)])
+def test_ordered_twin_sums_in_the_kernels_order(Ky, Kx, nb):
+    """The ordered twin (ordered_sum, the plain versions with ordered=True)
+    equals the numpy emulation of K3's reduction bit for bit: each of the
+    three sums, the boost b and the boosted write, at the ragged corner and
+    at the 4K corner (three rounds of pass 2)."""
+    cr, ci, pos, frame, _, _ = _inputs(60 + nb, Ky, Kx, nb)
+    fl, pix = FLOORS["boost"], float(2160 * 3840 if Ky == 1024 else 384 * 640)
+    tc = [torch.from_numpy(a) for a in (cr, ci, pos, frame)]
+    ca, sa = tpb._cos_sin(float(ALPHA))
+    dr, di, _ = wk.write_floor_plain(*tc, ca, sa, floor=0.0, img_pixels=pix)
+    eb, sums, terms = _emulated_boost(dr.numpy(), di.numpy(), cr, ci, fl,
+                                      pix)
+    for want, t in zip(sums, terms):
+        got = wk.ordered_sum(torch.from_numpy(t))
+        assert got.dtype == torch.float32
+        assert got.numpy().tobytes() == want.tobytes()
+    br, bi, b = wk.floor_only_plain(dr, di, tc[0], tc[1], floor=fl,
+                                    img_pixels=pix, ordered=True)
+    assert (eb > 1.0).any()
+    assert b.numpy().tobytes() == eb.astype(np.float32).tobytes()
+    wr, wi, wb = wk.write_floor_plain(*tc, ca, sa, floor=fl, img_pixels=pix,
+                                      ordered=True)
+    assert torch.equal(wb, b) and torch.equal(wr, br) and torch.equal(wi, bi)
+    # the boosted write with that b, term by term as apply_write_floor
+    bb = torch.from_numpy(eb.astype(np.float32)).reshape(-1, 1, 1, 1)
+    wm = torch.from_numpy((terms[2].reshape(dr.shape) > 0).astype(
+        np.float32))
+    assert torch.equal(br, bb * dr + 2.0 * (bb - 1.0) * wm * tc[0])
+    assert torch.equal(bi, bb * di + 2.0 * (bb - 1.0) * wm * tc[1])
 
 
 def test_kernel_reduction_order_does_not_depend_on_b():
