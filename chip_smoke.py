@@ -70,6 +70,22 @@ Phases:
              the u8 frame, on the two-pass schedule; floor_only and K4e and
              their plain versions; then the resident schedule's phases by
              its own clock
+  3c. K4     the inverse DFT's x-stage with the u8 epilogue fused
+             (csrc/corner_ifft_epilogue.cu) against its plain version (the
+             two cuBLAS x-stage products, their difference, K4e's
+             arithmetic in eager torch) on the main path's inputs (K3's
+             bf16 operands of each grid's forward spectrum, then the
+             y-stage) at 4K B=64, 1080p B=8, 512x512 B=8, 256x256 B=1, the
+             4b grid, 4c's crop, a phone screenshot (1170x2532 B=8) and
+             512x512 views one element off their alignment; HGMMA and
+             UTMALDG in the SASS of its NCHW and NHWC instantiations;
+             centering on and off, NCHW and NHWC: its f32 check
+             mode within 1e-5 of max|plain|, every u8 byte off by one and
+             at a plain value within that bound of a .5 boundary. At 4K
+             B=64 and at 2160x3839, in turns beside the bound: K4 NCHW and
+             NHWC, the plain version, the library composition it replaced
+             (cuBLAS products, t -=, K4e) and one torch.mm of the
+             concatenated operands
   4. path    512x512, B=8, 100 B round trip (also held against the port on
              the CPU), then 2160x3840, B=64, 16 KB: all secrets recovered,
              K1 launched on the TMA route alone, warm timings, PSNR, peak
@@ -78,7 +94,12 @@ Phases:
              goes through the load route alone
   4c. odd 4K phase 4's covers cropped to 2160x3839, B=64, 16 KB: 64/64
              through the load route alone, warm embed and extract ms beside
-             phase 4's, PSNR, peak memory
+             phase 4's, PSNR, peak memory (4 and 4c print the stego's
+             sha256, peak memory and warm round trip beside the parent's
+             record, RECORDED)
+  4d. highest phase 4's 512x512 B=8 round trip under
+             STEGANOSAURUS_MM_PRECISION=highest: 8/8, K3 and K4e once (no
+             K1, no K4), the stego within +-1 of the CPU port's
   5a. stream embed_stream -> extract_stream of the 4K batch, depth 2,
              fixed salts: 64/64 every batch, images/s beside the serialized
              loop's, peak memory with two batches in flight; first one
@@ -181,17 +202,19 @@ Phases:
              2 or more cards, dryrun_multichip(cards) over them: axes 1,
              1b, 1c round trips at 128x128 B=n, the flat-scaling bound, the
              sharded single-image FFT's exact and u8 reads; each part's
-             wall time and K1 / K3 / K4e launches
-Every path of phases 4-5, 7d-7e, 9a, 9b, 9d, 9e's dry runs and the serve
+             wall time and K1 / K3 / K4 / K4e launches
+At the end every counted path (4-5, 7, 8a, 9) must have launched K4 once
+for each K3 launch and no K4e (4d: K4e, no K4). Every path of phases 4-5,
+7d-7e, 9a, 9b, 9d, 9e's dry runs and the serve
 worker's B=1 and batch ops (8a) must launch K1 (on the TMA route,
 corner_stage1_wgmma, or in 4b and 4c on the load route,
 corner_stage1_wgmma_ldg); the single-image paths, the full-grid batch
 cores (7a-7c, 9e's entry()), the cover-dependent worker (8a) and fft_dist
 (9c) run torch.fft and must launch no kernel of the port. Each corner
-embed must launch K4e once and K3 once: write_floor on its resident
-schedule (phases 4, 4c, 9a, 9b, 8a's embeds, the
-shared-walk modes of 5f), or
-floor_only where the write stays eager (5f's QIM and per-image walks, 5g).
+embed must launch K4 once (K4e only under highest, 4d) and K3 once:
+write_floor on its resident schedule (phases 4, 4c, 9a, 9b, 8a's embeds,
+the shared-walk modes of 5f), or floor_only where the write stays eager
+(5f's QIM and per-image walks, 5g).
 The launches are counted per path and per kernel, and each (planes, H, W,
 Kx, center, route) the paths hand the stage-1 wrapper is recorded.
   6. K1 shapes  every recorded shape that phase 3 did not check is held
@@ -331,7 +354,7 @@ def cuda_ms(fn, n: int) -> float:
 
 def zero_counts() -> None:
     """Set every hand kernel's launch count to 0: K1's routes
-    (corner_kernels.LAUNCHES) and the embed's K3 / K4e entry points
+    (corner_kernels.LAUNCHES) and the embed's K3 / K4 / K4e entry points
     (write_kernels.LAUNCHES)."""
     from steganosaurus_tpu_torch.spectral import corner_kernels as ck
     from steganosaurus_tpu_torch.spectral import write_kernels as wk
@@ -350,19 +373,41 @@ def read_counts() -> dict:
 
 
 def check_embed_kernels(path: str, counts: dict, embeds: int,
-                        floor_only: bool = False) -> None:
-    """`embeds` corner embeds on `path`, each through K4e and through K3's
-    write_floor on its resident schedule, or (QIM, per-image walks:
-    floor_only) its floor_only."""
+                        floor_only: bool = False,
+                        highest: bool = False) -> None:
+    """`embeds` corner embeds on `path`, each through K3's write_floor on
+    its resident schedule, or (QIM, per-image walks: floor_only) its
+    floor_only, and through K4 (the x-stage with the u8 epilogue), or under
+    STEGANOSAURUS_MM_PRECISION=highest (`highest`) K4e."""
     from steganosaurus_tpu_torch.spectral import write_kernels as wk
 
     want = {wk.KERNEL_WRITE_FLOOR: 0 if floor_only else embeds,
             wk.KERNEL_WRITE_FLOOR_TWO_PASS: 0,
             wk.KERNEL_FLOOR_ONLY: embeds if floor_only else 0,
-            wk.KERNEL_EPILOGUE: embeds}
+            wk.KERNEL_IFFT_EPILOGUE: 0 if highest else embeds,
+            wk.KERNEL_EPILOGUE: embeds if highest else 0}
     got = {k: counts[k] for k in want}
     if got != want:
-        raise AssertionError(f"{path}: K3 / K4e launches {got}, want {want}")
+        raise AssertionError(f"{path}: K3 / K4 / K4e launches {got}, want "
+                             f"{want}")
+
+
+def check_epilogues(launches: dict) -> None:
+    """Every counted path ends each corner embed in K4, one launch for each
+    K3 launch (write_floor or floor_only: one per corner embed), and
+    launches no K4e; the highest path (4d) the other way round."""
+    from steganosaurus_tpu_torch.spectral import write_kernels as wk
+
+    bad = {}
+    for path, c in launches.items():
+        k3 = c[wk.KERNEL_WRITE_FLOOR] + c[wk.KERNEL_FLOOR_ONLY]
+        want = ((0, k3) if path == "4d highest" else (k3, 0))
+        got = (c[wk.KERNEL_IFFT_EPILOGUE], c[wk.KERNEL_EPILOGUE])
+        if got != want:
+            bad[path] = (got, want)
+    if bad:
+        raise AssertionError(f"(K4, K4e) launches against the corner embeds' "
+                             f"K3 launches, (got, want) by path: {bad}")
 
 
 def phase_probe() -> str:
@@ -444,6 +489,25 @@ WRITE_CASES = (("hard", "0.45"), ("soft+jitter", "boost"),
                ("qim+soft+jitter", "0.45"))
 WRITE_CASES_SMALL = 4
 WRITE_QIM_LEVELS = 3
+# 3c: K4, the inverse DFT's x-stage with the u8 epilogue, against its plain
+# version on the main path's inputs at 3b's grids but the 2560x2560 one,
+# at the phone screenshot's (W % 16 == 4) and at 512x512 on views one
+# element off their alignment. The f32 check
+# mode within K4_REL of the plain values' scale (K1's bound: f32 sums of
+# the same exact bf16 products in another order); u8 bytes equal but for
+# bytes one apart, each where the plain value lies within that bound of a
+# .5 boundary.
+K4_GRIDS = WRITE_GRIDS[:6] + (("phone", *PHONE_GRID),
+                              ("512x512 unaligned", SMALL_B, SMALL_H,
+                               SMALL_W))
+K4_REL = 1e-5
+# phases 4 and 4c before K4 (the eager x-stage and K4e), as measured in
+# two runs of this script on an NVIDIA H100 80GB HBM3 at 700.00 W: the
+# stego's sha256 prefix, peak memory in GiB and the warm round trip in ms,
+# printed beside this run's (K4 sums the x-stage in another order, so
+# stego bytes may move by one)
+RECORDED = {"4K": ("dccab979", 21.488, "111.43-118.14"),
+            "4c 4K cropped": ("f9b06c85", 23.009, "155.01-158.69")}
 # 8a: PNG covers of the worker's embed_batch, and the cover-dependent
 # worker's secret (a 4K midstep_cover, the single-image path)
 SERVE_PNG_BATCH = 8
@@ -1150,6 +1214,213 @@ def phase_write_kernels(covers_d, odd_d, card: str) -> list:
     return records
 
 
+def _k4_check(what: str, mr16, mi16, tabs, planes, center: bool,
+              layout: str) -> float:
+    """K4 against its plain version on one input: the f32 check mode within
+    K4_REL of the plain values' scale, and the u8 stego equal but for
+    bytes one apart, each where the plain value lies within that bound of a
+    .5 boundary (the sum order moved it across). Returns max |v - plain|."""
+    import torch
+
+    from steganosaurus_tpu_torch.spectral import write_kernels as wk
+
+    args = (mr16, mi16, tabs, planes, center, layout)
+    v = wk.ifft_epilogue(*args, values=True)
+    pv = wk.ifft_epilogue_plain(*args, values=True)
+    torch.cuda.synchronize()
+    err = (v - pv).abs().max().item()
+    scale = pv.abs().max().item()
+    del v
+    got = wk.ifft_epilogue(*args)
+    want = wk.ifft_epilogue_plain(*args)
+    torch.cuda.synchronize()
+    diff = got.to(torch.int16) - want.to(torch.int16)
+    del got, want
+    off = diff != 0
+    if layout != "nchw":
+        off = off.permute(0, 3, 1, 2)
+    n_off = int(off.sum().item())
+    near = 0.0
+    if n_off:
+        y = pv[off].double() + planes[off].double() + 0.5
+        near = (y - y.round()).abs().max().item()
+    tol = K4_REL * scale
+    log(f"K4 {what} center {center} {layout}: max |v - plain| {err!r} "
+        f"(bound {tol!r}, {err / scale:.3e} of max |plain| {scale!r}); "
+        f"{n_off} of {diff.numel()} u8 bytes off, max |diff| "
+        f"{int(diff.abs().max().item())}, each within {near!r} of a .5 "
+        f"boundary")
+    if err > tol or diff.abs().max().item() > 1 or near > tol:
+        raise AssertionError(f"K4 {what} center {center} {layout} disagrees "
+                             f"with its plain version")
+    return err
+
+
+def _shifted(t):
+    """A copy of t one element into a larger tensor: its base off the 16
+    bytes TMA wants (operands) and the 4 bytes of the vector loads
+    (covers)."""
+    import torch
+
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    buf[1:] = t.reshape(-1)
+    return buf[1:].view(t.shape)
+
+
+def phase_ifft_epilogue(covers_d, odd_d, card: str) -> list:
+    """3c: K4 (csrc/corner_ifft_epilogue.cu) against its plain version on
+    the main path's inputs: each of K4_GRIDS' forward corner spectra through
+    K3's write_floor as the main path calls it (the hard write at floor
+    0.45 of a RepFrame, bf16 operands), then the y-stage
+    (corner.ifft_corner_y); centering on and off, NCHW and NHWC
+    (_k4_check); HGMMA and UTMALDG in the SASS of both instantiations (NCHW
+    and NHWC tiles). At 4K B=64 and at 4c's 2160x3839, in turns by CUDA events
+    beside the bound (utils/cost.py ifft_epilogue_cost): K4 NCHW (the
+    kernels line's entry) and NHWC, the plain version, the library
+    composition it replaced (the two cuBLAS x-stage products, t -=, K4e)
+    and one torch.mm of [mr, mi] with [exr; -exi] (the kernels line's
+    library_ms: no one PyTorch call computes the epilogue too). Returns
+    the kernels line's entry."""
+    import torch
+
+    import steganosaurus_tpu_torch as stt
+    from steganosaurus_tpu_torch.parallel import batch as pb
+    from steganosaurus_tpu_torch.spectral import corner
+    from steganosaurus_tpu_torch.spectral import write_kernels as wk
+    from steganosaurus_tpu_torch.utils import cost
+
+    from steganosaurus_tpu_torch import _build
+
+    for fn in ("corner_ifft_nchw_kernel", "corner_ifft_nhwc_kernel"):
+        sass = _build.sass_counts(wk.KERNEL_IFFT_EPILOGUE, fn)
+        log(f"K4 SASS ({fn}, cuobjdump -sass): {sass}")
+        if not (sass["HGMMA"] > 0 and sass["UTMALDG"] > 0):
+            raise AssertionError(f"K4 {fn} is not wgmma + TMA: {sass}")
+    peaks = cost.peak_rates(covers_d.device)
+    errs, record = [], None
+    for g, (name, B, H, W) in enumerate(K4_GRIDS):
+        main = name == "4K"
+        planes = (covers_d if main else odd_d if name == "4c"
+                  else _grid_nchw(covers_d.device, B, H, W))
+        Ky, Kx = corner.corner_dims(H, W, stt.Params().rmax)
+        cr, ci, maps, _, tabs, rep = _write_inputs(planes, Ky, Kx, 60 + g)
+        dr, di, _ = wk.write_floor(cr, ci, maps[0], rep,
+                                   *pb._cos_sin(stt.Params().alpha),
+                                   floor=stt.Params().write_floor,
+                                   img_pixels=float(H) * float(W),
+                                   ifft_operands=True)
+        del cr, ci, maps, rep
+        mr16, mi16 = corner.ifft_corner_y(dr, di, tabs, conjugated=True)
+        del dr, di
+        if "unaligned" in name:
+            mr16, mi16, planes = (_shifted(t) for t in (mr16, mi16, planes))
+        for center, layout in ((False, "nchw"), (True, "nchw"),
+                               (False, "nhwc"), (True, "nhwc")):
+            errs.append(_k4_check(f"{name} B={B} {H}x{W}", mr16, mi16, tabs,
+                                  planes, center, layout))
+        if main or name == "4c":
+            P = 3 * B
+            a_cat = torch.cat([mr16, mi16], dim=1)
+            b_cat = torch.cat([tabs.exr16, -tabs.exi16], dim=0)
+
+            def composition():
+                t = corner._mm_bf16(mr16.reshape(P, H, Kx), tabs.exr16)
+                t -= corner._mm_bf16(mi16.reshape(P, H, Kx), tabs.exi16)
+                return wk.epilogue(t.reshape(B, 3, H, W), planes, False,
+                                   "nchw")
+
+            runs = {
+                "K4": (lambda: wk.ifft_epilogue(mr16, mi16, tabs, planes,
+                                                False, "nchw"), 10),
+                "K4 nhwc": (lambda: wk.ifft_epilogue(mr16, mi16, tabs, planes,
+                                                     False, "nhwc"), 10),
+                "plain": (lambda: wk.ifft_epilogue_plain(
+                    mr16, mi16, tabs, planes, False, "nchw"), 3),
+                "composition": (composition, 3),
+                "torch.mm": (lambda: torch.mm(a_cat, b_cat,
+                                              out_dtype=torch.float32), 3)}
+            times = _turns(runs)
+            ms = {k: sum(v) / len(v) for k, v in times.items()}
+            bound, by = cost.stage_bound(
+                cost.ifft_epilogue_cost(B, H, W, Kx), peaks)
+            log(f"K4 {name} B={B} {H}x{W} Kx={Kx} timed in turns ({card}): "
+                + "; ".join(f"{k} {v!r} ms" for k, v in times.items())
+                + f"; bound {bound!r} ms ({by}), K4 at "
+                f"{bound / ms['K4']:.3f} of it, {ms['composition'] / ms['K4']:.2f}x "
+                f"faster than the library composition, "
+                f"{ms['plain'] / ms['K4']:.2f}x than the plain version")
+            if main:
+                record = {
+                    "name": wk.KERNEL_IFFT_EPILOGUE, "route": "cuda",
+                    "source": "steganosaurus_tpu_torch/csrc/"
+                              "corner_ifft_epilogue.cu",
+                    "replaces": "steganosaurus_tpu/spectral/corner.py:545-547 "
+                                "(ifft_corner_real's x-stage) + "
+                                "steganosaurus_tpu/parallel/batch.py:622-627 "
+                                "(corner_embed_core's epilogue)",
+                    "ms": ms["K4"], "plain_ms": ms["plain"],
+                    "bound_ms": bound, "bound_by": by,
+                    "library_ms": ms["torch.mm"]}
+            del a_cat, b_cat, runs
+        del mr16, mi16, tabs, planes
+        torch.cuda.empty_cache()
+    record["max_abs_err"] = max(errs)
+    return [record]
+
+
+def phase_highest(dev, launches: dict) -> None:
+    """4d: phase 4's 512x512 B=8 round trip under
+    STEGANOSAURUS_MM_PRECISION=highest, the f32 mode users may ask for:
+    8/8 on the card, each corner embed through K3's write_floor and K4e
+    (the f32 inverse DFT leaves K4 out), no K1 (the f32 forward DFT), the
+    stego within +-1 of the CPU port's under the same mode."""
+    import numpy as np
+    import torch
+
+    import steganosaurus_tpu_torch as stt
+    from steganosaurus_tpu_torch.spectral import corner_kernels as ck
+    from steganosaurus_tpu_torch.spectral import write_kernels as wk
+
+    covers = make_covers(SMALL_B, SMALL_H, SMALL_W)
+    nchw = np.ascontiguousarray(covers.transpose(0, 3, 1, 2))
+    secrets = secrets_for(SMALL_B, SMALL_SECRET)
+    salts = [bytes([i]) * 16 for i in range(SMALL_B)]
+    old = os.environ.get("STEGANOSAURUS_MM_PRECISION")
+    os.environ["STEGANOSAURUS_MM_PRECISION"] = "highest"
+    try:
+        def card():
+            res = stt.embed_batch(torch.from_numpy(nchw).to(dev), secrets,
+                                  master_key=MASTER_KEY, salts=salts,
+                                  device_resident=True, layout="nchw")
+            got = stt.extract_batch(res.stego, master_key=MASTER_KEY,
+                                    clen_hint=SMALL_SECRET, layout="nchw")
+            return res.stego, got
+
+        stego, got = count_launches("4d highest", launches, card,
+                                    wk.KERNEL_EPILOGUE)
+        ref = stt.embed_batch(nchw, secrets, master_key=MASTER_KEY,
+                              salts=salts, layout="nchw", device="cpu").stego
+    finally:
+        if old is None:
+            os.environ.pop("STEGANOSAURUS_MM_PRECISION")
+        else:
+            os.environ["STEGANOSAURUS_MM_PRECISION"] = old
+    n_ok = sum(g == s for g, s in zip(got, secrets))
+    diff = stego.cpu().numpy().astype(np.int16) - ref.astype(np.int16)
+    n_diff = int(np.count_nonzero(diff))
+    c = launches["4d highest"]
+    log(f"4d highest {SMALL_H}x{SMALL_W} B={SMALL_B}: recovered "
+        f"{n_ok}/{SMALL_B}; stego vs CPU port: {n_diff} of {diff.size} bytes "
+        f"differ, max |diff| {int(np.abs(diff).max())}; launches {c}")
+    if n_ok != SMALL_B:
+        raise AssertionError(f"4d recovered {n_ok}/{SMALL_B}")
+    if np.abs(diff).max() > 1 or n_diff > SMALL_MAX_DIFF_FRAC * diff.size:
+        raise AssertionError("4d: the card's stego disagrees with the CPU's")
+    if any(c[k] for k in ck.LAUNCHES):
+        raise AssertionError(f"4d launched K1 under highest: {c}")
+    check_embed_kernels("4d highest", c, 1, highest=True)
+
+
 def psnr_mean(stego, covers) -> float:
     import torch
 
@@ -1247,6 +1518,10 @@ def phase_uhd(covers_d, what: str = "4K", route: str = "") -> tuple:
     digest = hashlib.sha256(stego.cpu().numpy().tobytes()).hexdigest()
     log(f"{what} warm round trip's stego sha256 {digest} (a parent and a "
         f"change compare byte for byte by it)")
+    sha, peak_rec, ms_rec = RECORDED[what]
+    log(f"{what} beside the parent's record (before K4): sha256 {digest[:8]} "
+        f"vs {sha}, peak memory {peak / 2**30!r} vs {peak_rec} GiB, warm "
+        f"round trip {total!r} vs {ms_rec} ms")
     log(f"launches in the counted round trip: {launches}")
     if launches[route] <= 0 or any(launches[k] for k in ck.LAUNCHES
                                    if k != route):
@@ -2817,7 +3092,7 @@ def _mesh_round_trip(covers_d, mesh, secrets, salts, what: str) -> tuple:
 
 def _k1_per_shard(path: str, launches: dict, mesh, passes: int) -> None:
     """K1 (the TMA route) launched once per shard per pass on `path`, and
-    K3's write_floor and K4e once per shard per embed (half the passes)."""
+    K3's write_floor and K4 once per shard per embed (half the passes)."""
     from steganosaurus_tpu_torch.spectral import corner_kernels as ck
 
     want = passes * mesh.size
@@ -3088,10 +3363,11 @@ def phase_dryrun(launches: dict) -> None:
     same function on the CPU, u8 bytes +-1 on at most ENTRY_DIFF_FRAC
     (counted); dryrun_multichip(MESH_LOGICAL) on logical shards of card 0;
     dryrun_multichip(min(8, cards)) over make_mesh() when the machine has
-    at least 2 cards. Each part's wall time and its K1, K3 and K4e
+    at least 2 cards. Each part's wall time and its K1, K3, K4 and K4e
     launches are logged; each dry run must launch K1 on the TMA route,
     K3's write_floor (the shared-walk embeds) and floor_only (QIM on
-    per-image walks, axes 1b and 1c), and K4e once per corner embed."""
+    per-image walks, axes 1b and 1c), and K4 once per corner embed (K4e
+    never)."""
     import numpy as np
     import torch
 
@@ -3131,12 +3407,13 @@ def phase_dryrun(launches: dict) -> None:
         log(f"{path}: {wall!r} s; {report}; K1 {c[ck.KERNEL_TMA]}, K3 "
             f"write_floor {c[wk.KERNEL_WRITE_FLOOR]} (two-pass "
             f"{c[wk.KERNEL_WRITE_FLOOR_TWO_PASS]}), floor_only "
-            f"{c[wk.KERNEL_FLOOR_ONLY]}, K4e {c[wk.KERNEL_EPILOGUE]}")
+            f"{c[wk.KERNEL_FLOOR_ONLY]}, K4 {c[wk.KERNEL_IFFT_EPILOGUE]}, "
+            f"K4e {c[wk.KERNEL_EPILOGUE]}")
         if not (c[wk.KERNEL_WRITE_FLOOR] > 0 and c[wk.KERNEL_FLOOR_ONLY] > 0
-                and c[wk.KERNEL_EPILOGUE] == c[wk.KERNEL_WRITE_FLOOR]
-                + c[wk.KERNEL_FLOOR_ONLY]
+                and c[wk.KERNEL_IFFT_EPILOGUE] == c[wk.KERNEL_WRITE_FLOOR]
+                + c[wk.KERNEL_FLOOR_ONLY] and c[wk.KERNEL_EPILOGUE] == 0
                 and c[wk.KERNEL_WRITE_FLOOR_TWO_PASS] == 0):
-            raise AssertionError(f"{path}: K3 / K4e launches {c}")
+            raise AssertionError(f"{path}: K3 / K4 / K4e launches {c}")
 
 
 def record_k1_shapes(seen: set):
@@ -3227,6 +3504,8 @@ def main() -> int:
         k1, checked, odd_d = timed("K1", phase_k1, covers_d, card)
         k3 = timed("K3 and K4e", phase_write_kernels, covers_d, odd_d, card)
         torch.cuda.empty_cache()
+        k3 += timed("K4", phase_ifft_epilogue, covers_d, odd_d, card)
+        torch.cuda.empty_cache()
         launches: dict = {}
         seen: set = set()
         undo = record_k1_shapes(seen)
@@ -3235,6 +3514,7 @@ def main() -> int:
             launches["round trip"], ms4, stego4 = phase_uhd(covers_d)
             torch.cuda.synchronize()
             timed("ragged grid", phase_ragged_grid, dev, launches)
+            timed("highest", phase_highest, dev, launches)
             launches["4c round trip"], ms4c, _ = timed(
                 "4K at 3839", phase_uhd, odd_d, "4c 4K cropped", ck.KERNEL_LDG)
             log(f"4c against phase 4, warm ms: embed {ms4c[0]!r} vs "
@@ -3274,6 +3554,7 @@ def main() -> int:
         finally:
             undo()
         log(f"kernel launches per path: {launches}")
+        check_epilogues(launches)
         timed("K1 shapes", phase_k1_shapes, dev, seen, checked)
         for k in k1 + k3:
             k["launches"] = sum(n[k["name"]] for n in launches.values())

@@ -38,7 +38,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # round op by op as torch's eager ops do, so nvcc may not contract a
 # product and a sum into one FMA there.
 NVCC_SOURCE_FLAGS = {"corner_write_floor.cu": ["-fmad=false"],
-                     "corner_epilogue.cu": ["-fmad=false"]}
+                     "corner_epilogue.cu": ["-fmad=false"],
+                     "corner_ifft_epilogue.cu": ["-fmad=false"]}
 GXX_FLAGS = ["-O3", "-std=c++17", "-shared", "-fPIC"]
 
 _lock = threading.Lock()
@@ -55,6 +56,7 @@ _SIGNATURES = {
     "corner_write_floor_grid": [_I, _I],
     "corner_floor_only": [_P] * 8 + [_I, _I, _I, _F, _F, _F, _P],
     "corner_epilogue": [_P, _P, _P, _I, _I, _I, _F, _I, _I, _P],
+    "corner_ifft_epilogue": [_P] * 5 + [_I] * 7 + [_F, _I, _I, _P],
 }
 
 

@@ -359,7 +359,8 @@ def corner_embed_core(imgs: torch.Tensor, frame: torch.Tensor, maps,
     inverse DFT's bf16 operands itself); or, with qim_levels,
     write_delta_qim (payload bins on the dithered lattice) in eager torch
     and the floor alone in K3 (write_kernels.floor_only) -> inverse corner
-    DFT -> the u8 epilogue (K4e)."""
+    DFT and the u8 epilogue (_inverse_u8: the y-stage, then K4's x-stage
+    with the epilogue fused; under highest the f32 inverse DFT and K4e)."""
     planes = _planes_u8(imgs, layout)
     H, W = planes.shape[-2:]
     pos, cjd, sjd, cad, sad, dq, qm = _unpack_maps(maps, has_jitter,
@@ -388,13 +389,30 @@ def corner_embed_core(imgs: torch.Tensor, frame: torch.Tensor, maps,
             cr, ci, pos, frame, ca, sa, cjd, sjd, floor=floor,
             img_pixels=pixels, soft=soft, ifft_operands=operands)
     del cr, ci
-    # the inverse DFT left unscaled: the u8 epilogue (K4e) scales; the
-    # spectrum goes before it and the deltas after it, so peak memory holds
-    # one (B, 3, H, W) f32 tensor at a time
-    t = corner.ifft_corner_real(dr, di, H, W, tabs, mode, scale=False,
-                                conjugated=operands)
+    return _inverse_u8(dr, di, tabs, planes, center, layout, mode, operands)
+
+
+def _inverse_u8(dr, di, tabs, planes, center: bool, layout: str, mode: str,
+                conjugated: bool) -> torch.Tensor:
+    """The embed cores' last step: the inverse corner DFT of the delta (dr,
+    di) and the u8 epilogue over the cover planes -> u8 stego in `layout`.
+    Under mix_adaptive the y-stage (corner.ifft_corner_y) hands its bf16
+    output to K4 (write_kernels.ifft_epilogue), the x-stage with the
+    epilogue in its registers: no (B, 3, H, W) f32 tensor is made, and the
+    largest tensors left are the y-stage's two f32 (3B, H, Kx) products and
+    their bf16 casts. Under highest the f32 inverse DFT, left unscaled, goes
+    to K4e (write_kernels.epilogue), which scales; peak memory then holds
+    one (B, 3, H, W) f32 tensor. The caller has dropped the spectrum, and
+    the deltas go before the last step."""
+    if mode == "highest":
+        t = corner.ifft_corner_real(dr, di, *planes.shape[-2:], tabs, mode,
+                                    scale=False, conjugated=conjugated)
+        del dr, di
+        return write_kernels.epilogue(t, planes, center, layout)
+    mr16, mi16 = corner.ifft_corner_y(dr, di, tabs, conjugated=conjugated)
     del dr, di
-    return write_kernels.epilogue(t, planes, center, layout)
+    return write_kernels.ifft_epilogue(mr16, mi16, tabs, planes, center,
+                                       layout)
 
 
 def _flat(plane, y, x, Ky: int, Kx: int) -> torch.Tensor:
@@ -426,7 +444,8 @@ def corner_piw_embed_core(imgs: torch.Tensor, frame: torch.Tensor, plane, y,
     write values there (write_delta with the slot's own jitter and
     amplitude; QIM on slots >= HEADER_SLOTS when qim_levels) and scatters them
     into a zero corner; then the write floor (K3's floor_only), the inverse
-    DFT and the u8 epilogue (K4e). alphas (n,) (Params.alpha_spread) and
+    DFT and the u8 epilogue (_inverse_u8: K4 under mix_adaptive, K4e under
+    highest). alphas (n,) (Params.alpha_spread) and
     dither (n,) (QIM) are the shared slot-aligned per-slot arrays, read up
     to each image's last real slot nbits[b] - 1 (nbits (B,) int64), so the
     tail-pad duplicates of the last real bin scatter identical values."""
@@ -461,12 +480,7 @@ def corner_piw_embed_core(imgs: torch.Tensor, frame: torch.Tensor, plane, y,
         dr, di, _ = write_kernels.floor_only(dr, di, cr, ci, floor=floor,
                                              img_pixels=float(H) * float(W))
     del cr, ci
-    # the inverse DFT left unscaled: the u8 epilogue (K4e) scales; the
-    # spectrum goes before it and the deltas after it, so peak memory holds
-    # one (B, 3, H, W) f32 tensor at a time
-    t = corner.ifft_corner_real(dr, di, H, W, tabs, mode, scale=False)
-    del dr, di
-    return write_kernels.epilogue(t, planes, center, layout)
+    return _inverse_u8(dr, di, tabs, planes, center, layout, mode, False)
 
 
 def _decode_sections(raw: torch.Tensor, hdr_stream_bits: int,

@@ -81,7 +81,8 @@ class Tables(NamedTuple):
     """Device DFT tables for one (H, W) grid's (Ky, Kx) corner: y-axis
     (Ky, H) and x-axis (Kx, W), in f32 and in bf16; and, on CUDA, the
     stage-1 kernel's concatenated x-axis table, plain and (-1)^w-folded
-    (corner_kernels.stage1_tables; None on other devices)."""
+    (corner_kernels.stage1_tables), and the K4 kernel's inverse x-axis
+    table (ifft_x_table); both None on other devices."""
     eyr: torch.Tensor
     eyi: torch.Tensor
     exr: torch.Tensor
@@ -91,6 +92,22 @@ class Tables(NamedTuple):
     exr16: torch.Tensor
     exi16: torch.Tensor
     stage1: tuple | None
+    ifft_x: torch.Tensor | None
+
+
+def ifft_x_table(exr16: torch.Tensor, exi16: torch.Tensor) -> torch.Tensor:
+    """The K4 kernel's B operand (write_kernels.ifft_epilogue): the x-stage
+    table [exr16; -exi16], (2*Kxp, Wp) with Kxp = Kx and Wp = W rounded up
+    to 64 and zeros in the padding, stored transposed as a contiguous
+    (Wp, 2*Kxp) bf16 tensor so that the contraction is its contiguous axis
+    (wgmma's K-major B). Negating bf16 is exact, so with A = [mr, mi] it
+    gives mr @ exr16 - mi @ exi16 term by term."""
+    Kx, W = exr16.shape
+    Kxp, Wp = corner_kernels._pad64(Kx), corner_kernels._pad64(W)
+    t = torch.zeros((Wp, 2 * Kxp), dtype=torch.bfloat16, device=exr16.device)
+    t[:W, :Kx] = exr16.T
+    t[:W, Kxp:Kxp + Kx] = -exi16.T
+    return t
 
 
 _DEV_TABLES: dict = {}
@@ -110,9 +127,10 @@ def dft_tables_device(H: int, Ky: int, W: int, Kx: int, device) -> Tables:
         f32 = [torch.from_numpy(a).to(device)
                for a in _dft_tables(H, Ky) + _dft_tables(W, Kx)]
         b16 = [a.to(torch.bfloat16) for a in f32]
-        s1 = (corner_kernels.stage1_tables(b16[2], b16[3])
-              if device.type == "cuda" else None)
-        ent = Tables(*f32, *b16, s1)
+        cuda = device.type == "cuda"
+        s1 = corner_kernels.stage1_tables(b16[2], b16[3]) if cuda else None
+        ix = ifft_x_table(b16[2], b16[3]) if cuda else None
+        ent = Tables(*f32, *b16, s1, ix)
         _DEV_TABLES[key] = ent
         while len(_DEV_TABLES) > 16:
             _DEV_TABLES.pop(next(iter(_DEV_TABLES)))
@@ -222,23 +240,46 @@ def ifft_corner_real(dr: torch.Tensor, di: torch.Tensor, H: int, W: int,
     conjugated=True: (dr, di) is Dc itself, (Re Delta, -Im Delta), taken as
     it is (no negation; bf16 operands, as the K3 kernel stores them under
     mix_adaptive, are not cast again)."""
-    Ky, Kx = dr.shape[-2:]
     lead = dr.shape[:-2]
-    dcr = dr.reshape(-1, Ky, Kx)
-    dci = di.reshape(-1, Ky, Kx) if conjugated else -di.reshape(-1, Ky, Kx)
+    mr, mi = _ifft_y(dr, di, tabs, mode, conjugated)
     if mode == "highest":
-        mr = tabs.eyr.T @ dcr - tabs.eyi.T @ dci
-        mi = tabs.eyr.T @ dci + tabs.eyi.T @ dcr
         t = mr @ tabs.exr
         t -= mi @ tabs.exi
     else:
-        mr = _mm_bf16(tabs.eyr16.T, dcr) - _mm_bf16(tabs.eyi16.T, dci)
-        mi = _mm_bf16(tabs.eyr16.T, dci) + _mm_bf16(tabs.eyi16.T, dcr)
         t = _mm_bf16(mr, tabs.exr16)
         t -= _mm_bf16(mi, tabs.exi16)
     if scale:
         t *= 1.0 / (H * W)
     return t.reshape(*lead, H, W)
+
+
+def _ifft_y(dr, di, tabs: Tables, mode: str, conjugated: bool):
+    """The inverse DFT's y-stage, M = Ey^T @ Dc (contract y): (mr, mi)
+    (P, H, Kx) f32 from (dr, di) (..., Ky, Kx), bf16 operands under
+    mix_adaptive."""
+    Ky, Kx = dr.shape[-2:]
+    dcr = dr.reshape(-1, Ky, Kx)
+    dci = di.reshape(-1, Ky, Kx) if conjugated else -di.reshape(-1, Ky, Kx)
+    if mode == "highest":
+        return (tabs.eyr.T @ dcr - tabs.eyi.T @ dci,
+                tabs.eyr.T @ dci + tabs.eyi.T @ dcr)
+    return (_mm_bf16(tabs.eyr16.T, dcr) - _mm_bf16(tabs.eyi16.T, dci),
+            _mm_bf16(tabs.eyr16.T, dci) + _mm_bf16(tabs.eyi16.T, dcr))
+
+
+def ifft_corner_y(dr: torch.Tensor, di: torch.Tensor, tabs: Tables,
+                  conjugated: bool = False):
+    """The y-stage of ifft_corner_real under mix_adaptive, alone: (mr16,
+    mi16), each (P*H, Kx) bf16 with P the planes of (dr, di) (..., Ky, Kx)
+    — M = Ey^T @ Dc in f32 from bf16 operands, then rounded to bf16, the
+    very values the x-stage's _mm_bf16 casts. They are the operands of the
+    x-stage with the u8 epilogue (write_kernels.ifft_epilogue, K4), so no
+    (..., H, W) f32 product is made. conjugated as in ifft_corner_real."""
+    mr, mi = _ifft_y(dr, di, tabs, "mix_adaptive", conjugated)
+    P, H, Kx = mr.shape
+    mr16 = mr.to(torch.bfloat16).reshape(P * H, Kx)
+    del mr
+    return mr16, mi.to(torch.bfloat16).reshape(P * H, Kx)
 
 
 def write_delta(cr, ci, sign, mask, cos_a, sin_a, cjd=None, sjd=None,

@@ -1,10 +1,11 @@
-"""The embed's dense corner write, write floor (K3) and u8 epilogue (K4e):
-the hand-written Hopper kernels and their plain PyTorch versions.
+"""The embed's dense corner write, write floor (K3), the inverse DFT's
+x-stage with the u8 epilogue (K4), and the u8 epilogue alone (K4e): the
+hand-written Hopper kernels and their plain PyTorch versions.
 
 XLA fuses these stages of steganosaurus_tpu/parallel/batch.py:
 corner_embed_core for the TPU; run as eager torch they are some forty
 launches, each a pass over the (B, 3, Ky, Kx) corner or the (B, 3, H, W)
-image batch through HBM. Two CUDA sources replace them:
+image batch through HBM. Three CUDA sources replace them:
 
 - csrc/corner_write_floor.cu (K3), two entry points:
   - write_floor: each corner bin's frame bit through the int32 slot map
@@ -20,9 +21,16 @@ image batch through HBM. Two CUDA sources replace them:
     under KERNEL_WRITE_FLOOR_TWO_PASS;
   - floor_only: the floor over a delta made elsewhere (the QIM write and
     the per-image-walk scatter, whose writes stay eager torch).
+- csrc/corner_ifft_epilogue.cu (K4), ifft_epilogue: the x-stage of
+  corner.ifft_corner_real as one bf16 wgmma GEMM of the y-stage's bf16
+  output [mr, mi] (corner.ifft_corner_y) with the table [exr16; -exi16]
+  (corner.ifft_x_table), and K4e's epilogue applied to its accumulators in
+  registers, so the f32 (B, 3, H, W) product never reaches HBM. The embed
+  cores run it under mix_adaptive.
 - csrc/corner_epilogue.cu (K4e), epilogue: the unscaled inverse DFT t ->
   t * f32(1/(H*W)), the centering sign, + planes, floor(x + 0.5), the clamp
-  to [0, 255], u8, stored NCHW or NHWC.
+  to [0, 255], u8, stored NCHW or NHWC. The embed cores run it after the
+  f32 inverse DFT under "highest".
 
 Each wrapper launches its kernel for CUDA tensors — or raises; nothing here
 catches a build or launch failure and falls back — and takes its plain
@@ -42,7 +50,7 @@ import numpy as np
 import torch
 
 from steganosaurus_tpu_torch import spectral
-from steganosaurus_tpu_torch.spectral import corner
+from steganosaurus_tpu_torch.spectral import corner, corner_kernels
 
 KERNEL_WRITE_FLOOR = "corner_write_floor"
 # the write_floor launches (also counted under KERNEL_WRITE_FLOOR) whose
@@ -50,8 +58,11 @@ KERNEL_WRITE_FLOOR = "corner_write_floor"
 KERNEL_WRITE_FLOOR_TWO_PASS = "corner_write_floor_two_pass"
 KERNEL_FLOOR_ONLY = "corner_floor_only"
 KERNEL_EPILOGUE = "corner_epilogue"
+KERNEL_IFFT_EPILOGUE = "corner_ifft_epilogue"
 LAUNCHES = {KERNEL_WRITE_FLOOR: 0, KERNEL_WRITE_FLOOR_TWO_PASS: 0,
-            KERNEL_FLOOR_ONLY: 0, KERNEL_EPILOGUE: 0}
+            KERNEL_FLOOR_ONLY: 0, KERNEL_EPILOGUE: 0,
+            KERNEL_IFFT_EPILOGUE: 0}
+LAYOUTS = ("nchw", "nhwc")
 # K3's reduction: a group of THREADS threads sums a chunk of CHUNK bins of
 # one image, each thread PER_THREAD bins k*THREADS apart in order
 THREADS, PER_THREAD = 256, 16
@@ -196,6 +207,25 @@ def epilogue_plain(t, planes, center: bool, layout: str):
     if layout != "nchw":
         out = out.permute(0, 2, 3, 1).contiguous()
     return out
+
+
+def ifft_epilogue_plain(mr16, mi16, tabs, planes, center: bool,
+                        layout: str, values: bool = False):
+    """The x-stage of corner.ifft_corner_real under mix_adaptive, then
+    epilogue_plain: t = mr16 @ exr16 - mi16 @ exi16 (bf16 operands, f32
+    products, then their difference), the eager composition K4 replaces.
+    mr16/mi16: (P*H, Kx) bf16 (corner.ifft_corner_y), planes (B, 3, H, W)
+    u8 with P = 3B. values=True returns the f32 value before + planes and
+    the rounding, apply_center(t * (1/(H*W))) (B, 3, H, W), in place of the
+    u8 stego."""
+    B, _, H, W = planes.shape
+    Kx = mr16.shape[-1]
+    t = corner._mm_bf16(mr16.reshape(3 * B, H, Kx), tabs.exr16)
+    t -= corner._mm_bf16(mi16.reshape(3 * B, H, Kx), tabs.exi16)
+    t = t.reshape(B, 3, H, W)
+    if values:
+        return spectral.apply_center(t * (1.0 / (H * W)), center)
+    return epilogue_plain(t, planes, center, layout)
 
 
 # --- the wrappers ------------------------------------------------------------
@@ -449,6 +479,76 @@ def epilogue(t, planes, center: bool, layout: str):
         rc = _build.kernel_library().corner_epilogue(
             t.data_ptr(), planes.data_ptr(), out.data_ptr(), B, H, W, inv,
             int(bool(center)), int(layout != "nchw"), stream)
+    _check_rc(name, rc)
+    LAUNCHES[name] += 1
+    return out
+
+
+def ifft_epilogue(mr16, mi16, tabs, planes, center: bool, layout: str, *,
+                  values: bool = False):
+    """The u8 stego from the inverse DFT's y-stage output: the x-stage
+    mr16 @ exr16 - mi16 @ exi16 and the u8 epilogue of `epilogue`, in one
+    function. mr16/mi16: (P*H, Kx) bf16 (corner.ifft_corner_y), P = 3B;
+    tabs: the grid's corner.Tables (exr16/exi16 (Kx, W); on CUDA its
+    ifft_x table); planes: (B, 3, H, W) u8 covers. Returns (B, 3, H, W) u8
+    for layout "nchw", (B, H, W, 3) for "nhwc"; values=True (the check
+    mode) the f32 (B, 3, H, W) value before + planes and the rounding. CUDA
+    tensors launch csrc/corner_ifft_epilogue.cu (K4) on the current stream;
+    CPU tensors take ifft_epilogue_plain."""
+    name = KERNEL_IFFT_EPILOGUE
+    kind = _device(name, mr16, (mi16, planes, tabs.exr16, tabs.exi16))
+    if layout not in LAYOUTS:
+        raise ValueError(f"{name}: layout must be one of {LAYOUTS}, got "
+                         f"{layout!r}")
+    if planes.dim() != 4 or planes.shape[1] != 3:
+        raise ValueError(f"{name}: planes must be (B, 3, H, W), got "
+                         f"{tuple(planes.shape)}")
+    B, _, H, W = planes.shape
+    _need(name, "planes", planes, torch.uint8, planes.shape)
+    if mr16.dim() != 2:
+        raise ValueError(f"{name}: mr16 must be (P*H, Kx), got "
+                         f"{tuple(mr16.shape)}")
+    Kx = mr16.shape[1]
+    _need(name, "mr16", mr16, torch.bfloat16, (3 * B * H, Kx))
+    _need(name, "mi16", mi16, torch.bfloat16, (3 * B * H, Kx))
+    for what, t in (("exr16", tabs.exr16), ("exi16", tabs.exi16)):
+        if t.dtype != torch.bfloat16 or tuple(t.shape) != (Kx, W):
+            raise ValueError(f"{name}: {what} must be bf16 {(Kx, W)}, got "
+                             f"{t.dtype} {tuple(t.shape)}")
+    if kind == "cpu":
+        return ifft_epilogue_plain(mr16, mi16, tabs, planes, center, layout,
+                                   values)
+    Kxp, Wp = corner_kernels._pad64(Kx), corner_kernels._pad64(W)
+    tab = tabs.ifft_x
+    if tab is None:
+        raise ValueError(f"{name}: the tables carry no K4 table")
+    _need(name, "the K4 table", tab, torch.bfloat16, (Wp, 2 * Kxp))
+    _device(name, mr16, (tab,))
+    # TMA reads rows 16-byte aligned: a copy whose rows are padded with
+    # zeros where the y-stage's are not (Kx % 8 != 0: grids below 256
+    # columns, or an unaligned view)
+    lda = -(-Kx // 8) * 8
+    if lda != Kx or mr16.data_ptr() % 16 or mi16.data_ptr() % 16:
+        mr16, mi16 = (torch.nn.functional.pad(a, (0, lda - Kx))
+                      for a in (mr16, mi16))
+    if values:
+        out = torch.empty((B, 3, H, W), dtype=torch.float32,
+                          device=planes.device)
+    else:
+        shape = (B, 3, H, W) if layout == "nchw" else (B, H, W, 3)
+        out = torch.empty(shape, dtype=torch.uint8, device=planes.device)
+    if out.numel() == 0:
+        return out
+    inv = float(np.float32(1.0 / (H * W)))
+    mode = 2 if values else int(layout != "nchw")
+    from steganosaurus_tpu_torch import _build
+
+    with torch.cuda.device(planes.device):
+        stream = torch.cuda.current_stream(planes.device).cuda_stream
+        rc = _build.kernel_library().corner_ifft_epilogue(
+            mr16.data_ptr(), mi16.data_ptr(), tab.data_ptr(),
+            planes.data_ptr(), out.data_ptr(), B, H, W, Kx, lda, Kxp, Wp,
+            inv, int(bool(center)), mode, stream)
     _check_rc(name, rc)
     LAUNCHES[name] += 1
     return out

@@ -175,6 +175,35 @@ def epilogue_cost(B: int, H: int, W: int, layout: str = "nchw") -> dict:
                   px * 4 + 2 * px, "none")
 
 
+def ifft_y_cost(B: int, H: int, Ky: int, Kx: int) -> dict:
+    """The inverse DFT's y-stage under mix_adaptive (corner.ifft_corner_y)
+    over B images' (3, Ky, Kx) deltas: four real (H, Ky) x (Ky, Kx)
+    products per plane in bf16; bytes: the delta (dr, di) read once as f32
+    (the stage table's count for the write's output), both bf16 y tables
+    once, mr and mi written once in bf16."""
+    P = 3 * B
+    return _stage("embed", "inverse y-stage", {"bf16": 8.0 * P * H * Ky * Kx},
+                  0, 2 * P * Ky * Kx * 4 + 2 * Ky * H * 2 + 2 * P * H * Kx * 2,
+                  "bf16")
+
+
+def ifft_epilogue_cost(B: int, H: int, W: int, Kx: int,
+                       layout: str = "nchw") -> dict:
+    """The K4 kernel (spectral/write_kernels.py ifft_epilogue) over B
+    images of 3 planes of H x W: the x-stage, one product of the (3B*H,
+    2Kx) bf16 rows [mr, mi] with the (2Kx, W) bf16 table [exr; -exi], and
+    the u8 epilogue on its result; bytes: mr and mi read once, the table
+    once, the u8 cover planes once, the u8 stego written once. Both layouts
+    move the same bytes."""
+    if layout not in ("nchw", "nhwc"):
+        raise ValueError(f"layout must be 'nchw' or 'nhwc', got {layout!r}")
+    M = 3 * B * H
+    px = M * W
+    return _stage("embed", "K4 inverse x-stage + epilogue",
+                  {"bf16": 2.0 * M * 2 * Kx * W}, _EPILOGUE_OPS * px,
+                  2 * M * Kx * 2 + 2 * Kx * W * 2 + 2 * px, "bf16")
+
+
 def _stage2(side: str, P: int, H: int, Ky: int, Kx: int, mode: str) -> dict:
     """Forward stage 2 (_fwd_y_split): four real (Ky, H) x (H, Kx)
     products per plane in bf16, then the SPLIT_X0 highest-energy columns
@@ -228,14 +257,20 @@ def stage_costs(B: int, H: int, W: int, secret_len: int,
                + 2 * E * 4, "none"),
         _stage("embed", "floor", {}, _FLOOR_OPS * E, 4 * E * 4 + 2 * E * 4,
                "none"),
-        # M = Ey^T conj(D) (four products), then Re(M Ex) (two)
-        _stage("embed", "inverse",
-               {mm: 8.0 * P * H * Ky * Kx + 4.0 * P * H * Kx * W}, 0,
-               2 * E * 4 + 2 * (Ky * H + Kx * W) * (4 if mm == "fp32" else 2)
-               + px * 4, mm),
-        _stage("embed", "epilogue", {}, _EPILOGUE_OPS * px, px * 4 + 2 * px,
-               "none"),
     ]
+    if mm == "fp32":
+        embed += [
+            # M = Ey^T conj(D) (four products), then Re(M Ex) (two), then
+            # K4e over the f32 result
+            _stage("embed", "inverse",
+                   {mm: 8.0 * P * H * Ky * Kx + 4.0 * P * H * Kx * W}, 0,
+                   2 * E * 4 + 2 * (Ky * H + Kx * W) * 4 + px * 4, mm),
+            _stage("embed", "epilogue", {}, _EPILOGUE_OPS * px,
+                   px * 4 + 2 * px, "none")]
+    else:
+        # the y-stage, then K4: the x-stage with the epilogue fused
+        embed += [ifft_y_cost(B, H, Ky, Kx),
+                  ifft_epilogue_cost(B, H, W, Kx, layout)]
     if layout == "nhwc":
         embed.append(_stage("embed", "layout out", {}, 0, 2 * px, "none"))
     # the values at the walk bins (Im C, and Re C under jitter or QIM), the

@@ -92,7 +92,8 @@ def test_headline_stage_flops():
     assert st["embed", "K1"] == {"bf16": k1} == st["extract", "K1"]
     assert st["embed", "stage2"]["bf16"] == bulk
     assert st["embed", "stage2"]["fp32"] == 8 * 192 * 64 * 2160 * 1024
-    assert st["embed", "inverse"] == {"bf16": bulk + k1}
+    assert st["embed", "inverse y-stage"] == {"bf16": bulk}
+    assert st["embed", "K4 inverse x-stage + epilogue"] == {"bf16": k1}
     gemm = {side: sum(sum(f.values()) for (sd, _), f in st.items()
                       if sd == side) for side in ("embed", "extract")}
     assert 1.9e13 < gemm["embed"] < 2.1e13
@@ -183,9 +184,10 @@ def test_measure_device_step_and_link_smoke():
 def test_write_floor_cost_counts_the_output_width(B, Ky, Kx, bucket, n_maps):
     """K3's bytes with the inverse DFT's bf16 operands stored (2 B a value)
     are the f32 count less 2 B for each of the 2E outputs, whatever the
-    maps; its operations do not change. stage_costs keeps its stage table
-    (the write and the floor apart), so the round trip's bound at the
-    headline stays 42.23 ms."""
+    maps; its operations do not change. stage_costs keeps the write and
+    the floor apart, so the round trip's bound at the headline is 39.49
+    ms: 42.23 with the inverse DFT and K4e counted apart, less the 2.73 ms
+    that their f32 product t cost before K4 fused them."""
     E = 3 * B * Ky * Kx
     f32 = cost.write_floor_cost(B, Ky, Kx, bucket, n_maps)
     b16 = cost.write_floor_cost(B, Ky, Kx, bucket, n_maps, out_bytes=2)
@@ -200,4 +202,35 @@ def test_write_floor_cost_counts_the_output_width(B, Ky, Kx, bucket, n_maps):
     peaks = dict(cost._PEAKS[0][1])
     rep = cost.roundtrip_cost(64, 2160, 3840, 16384)
     assert cost.roundtrip_bound(rep, peaks)["roundtrip_ms"] == \
-        pytest.approx(42.23, abs=0.01)
+        pytest.approx(39.49, abs=0.01)
+
+
+def test_ifft_epilogue_cost_and_the_split_inverse(monkeypatch):
+    """K4 at 4K B=64: 2 * (192*2160) * 2048 * 3840 bf16 FLOPs (the K1
+    count), mr and mi (1.70e9 B), the table, the planes and the stego once:
+    4.90e9 B, bound by its products (6.596 ms at 989 TFLOP/s, 6.714 with
+    the epilogue's estimate at the fp32 rate). Under mix_adaptive the stage
+    table's inverse is the y-stage and K4; under highest the f32 inverse
+    and K4e's epilogue, as before K4."""
+    peaks = dict(cost._PEAKS[0][1])
+    k4 = cost.ifft_epilogue_cost(64, 2160, 3840, 1024)
+    M = 192 * 2160
+    assert k4["gemm_flops"] == {"bf16": 2 * M * 2048 * 3840}
+    assert k4["hbm_bytes"] == 2 * M * 1024 * 2 + 2 * 1024 * 3840 * 2 \
+        + 2 * M * 3840
+    assert cost.ifft_epilogue_cost(64, 2160, 3840, 1024, "nhwc") == k4
+    ms, by = cost.stage_bound(k4, peaks)
+    assert by == "operations" and ms == pytest.approx(6.714, abs=1e-3)
+    y = cost.ifft_y_cost(64, 2160, 1024, 1024)
+    assert y["gemm_flops"] == {"bf16": 8 * 192 * 2160 * 1024 * 1024}
+    assert cost.stage_bound(y, peaks) == pytest.approx((3.518, "operations"),
+                                                        abs=1e-3)
+    with pytest.raises(ValueError):
+        cost.ifft_epilogue_cost(1, 8, 8, 8, "hwc")
+    names = [s["stage"] for s in cost.stage_costs(64, 2160, 3840, 16384)
+             if s["side"] == "embed"]
+    assert names[-2:] == ["inverse y-stage", "K4 inverse x-stage + epilogue"]
+    monkeypatch.setenv("STEGANOSAURUS_MM_PRECISION", "highest")
+    names = [s["stage"] for s in cost.stage_costs(64, 2160, 3840, 16384)
+             if s["side"] == "embed"]
+    assert names[-2:] == ["inverse", "epilogue"]

@@ -636,7 +636,7 @@ def test_graft_entry_on_card(dev):
     """The graft entry on the card: entry()'s step (random bins, each one
     named twice carrying its last bit) within +-1 of the CPU's on at most
     0.5% of the bytes; the dry run over 2 logical shards of the card, K1,
-    both K3 entry points and K4e launched."""
+    both K3 entry points and K4 launched."""
     from steganosaurus_tpu_torch import graft_entry
     from steganosaurus_tpu_torch.spectral import corner_kernels as ck
     from steganosaurus_tpu_torch.spectral import write_kernels as wk
@@ -653,7 +653,7 @@ def test_graft_entry_on_card(dev):
     assert report["flips"] <= 2
     assert ck.LAUNCHES[ck.KERNEL_TMA] > k1[ck.KERNEL_TMA]
     for k in (wk.KERNEL_WRITE_FLOOR, wk.KERNEL_FLOOR_ONLY,
-              wk.KERNEL_EPILOGUE):
+              wk.KERNEL_IFFT_EPILOGUE):
         assert wk.LAUNCHES[k] > k3[k], k
 
 
@@ -906,6 +906,113 @@ def test_epilogue_kernel_is_bit_exact(dev, grid, center, layout):
     assert got.shape == want.shape and torch.equal(got, want)
 
 
+# K4: the inverse DFT's x-stage with the u8 epilogue, on (B, H, W): 4K-like
+# (one image: 3 planes of 2160 x 3840, Kx = 1024), its 3839 crop, 1080p,
+# 512^2, 256^2 B=1, the 4b grid, a phone screenshot's width (W % 16 == 4:
+# the NHWC rows' 4-byte stores), and a tiny odd grid whose Kx = 203 rows
+# take the wrapper's padded copy
+K4_GRIDS = [(1, 2160, 3840), (1, 2160, 3839), (2, 1080, 1920), (2, 512, 512),
+            (1, 256, 256), (2, 1079, 1917), (1, 270, 2532), (1, 67, 203)]
+# max |v - v_plain| against max |v_plain|: f32 sums of the same exact bf16
+# products in another order (K1's bound)
+K4_REL = 1e-5
+
+
+def _k4_inputs(dev, B, H, W, seed):
+    """The y-stage's bf16 output for a seeded corner delta over 30% of the
+    corner's bins, scaled so that the image-plane write has an RMS of about
+    3 (a stego's), the grid's tables and u8 cover planes with both clamp
+    ends present."""
+    from steganosaurus_tpu_torch.config import Params
+    from steganosaurus_tpu_torch.spectral import corner
+
+    Ky, Kx = corner.corner_dims(H, W, Params().rmax)
+    tabs = corner.dft_tables_device(H, Ky, W, Kx, dev)
+    rng = np.random.default_rng(seed)
+    mask = rng.random((3, Ky, Kx)) < 0.3
+    amp = 3.0 * H * W / np.sqrt(0.6 * Ky * Kx)
+    dr, di = (torch.from_numpy((rng.normal(size=(B, 3, Ky, Kx)) * amp
+                                * mask).astype(np.float32)).to(dev)
+              for _ in range(2))
+    mr16, mi16 = corner.ifft_corner_y(dr, di, tabs)
+    planes = rng.integers(0, 256, (B, 3, H, W), dtype=np.uint8)
+    planes[0, 0, :2] = 0
+    planes[0, 1, :2] = 255
+    return mr16, mi16, tabs, torch.from_numpy(planes).to(dev)
+
+
+def _check_k4(mr16, mi16, tabs, planes, center, layout):
+    """K4 against its plain version: the f32 check mode within K4_REL of
+    the plain values' scale; the u8 stego equal but for bytes one apart,
+    each where the plain value lies within that bound of a .5 boundary."""
+    from steganosaurus_tpu_torch.spectral import write_kernels as wk
+
+    args = (mr16, mi16, tabs, planes, center, layout)
+    n = wk.LAUNCHES[wk.KERNEL_IFFT_EPILOGUE]
+    v = wk.ifft_epilogue(*args, values=True)
+    got = wk.ifft_epilogue(*args)
+    assert wk.LAUNCHES[wk.KERNEL_IFFT_EPILOGUE] == n + 2
+    pv = wk.ifft_epilogue_plain(*args, values=True)
+    want = wk.ifft_epilogue_plain(*args)
+    torch.cuda.synchronize()
+    assert v.shape == pv.shape and got.shape == want.shape
+    assert got.dtype == torch.uint8 and v.dtype == torch.float32
+    tol = K4_REL * pv.abs().max().item()
+    assert (v - pv).abs().max().item() <= tol
+    diff = got.to(torch.int16) - want.to(torch.int16)
+    off = diff != 0
+    assert diff.abs().max().item() <= 1
+    if layout == "nhwc":
+        off = off.permute(0, 3, 1, 2)
+    y = pv.double() + planes.double() + 0.5
+    assert ((y - y.round()).abs()[off] <= tol).all()
+
+
+@pytest.mark.parametrize("grid", K4_GRIDS)
+@pytest.mark.parametrize("center,layout", [(False, "nchw"), (True, "nchw"),
+                                           (False, "nhwc"), (True, "nhwc")])
+def test_ifft_epilogue_kernel_matches_plain(dev, grid, center, layout):
+    _check_k4(*_k4_inputs(dev, *grid, sum(grid) + center), center, layout)
+
+
+def test_ifft_epilogue_kernel_on_unaligned_views(dev):
+    """Operands and covers that start one element into a larger tensor (2
+    and 1 bytes off their alignment): the wrapper's aligned copy of the
+    operands and the kernel's byte loads of the covers give the same
+    answer."""
+    mr16, mi16, tabs, planes = _k4_inputs(dev, 1, 128, 192, 9)
+
+    def shifted(t):
+        buf = torch.zeros(t.numel() + 1, dtype=t.dtype, device=dev)
+        buf[1:] = t.reshape(-1)
+        return buf[1:].view(t.shape)
+
+    views = [shifted(t) for t in (mr16, mi16, planes)]
+    assert views[0].data_ptr() % 16 and views[2].data_ptr() % 4
+    _check_k4(views[0], views[1], tabs, views[2], True, "nchw")
+
+
+def test_ifft_epilogue_wrapper_checks_its_inputs(dev):
+    """Wrong types, shapes, layouts and devices raise before any launch."""
+    from steganosaurus_tpu_torch.spectral import write_kernels as wk
+
+    mr16, mi16, tabs, planes = _k4_inputs(dev, 1, 64, 64, 3)
+    n = dict(wk.LAUNCHES)
+    for bad in ((mr16.float(), mi16, tabs, planes),
+                (mr16, mi16[:-1], tabs, planes),
+                (mr16, mi16, tabs, planes.float()),
+                (mr16, mi16.cpu(), tabs, planes),
+                (mr16.t(), mi16, tabs, planes)):
+        with pytest.raises(ValueError):
+            wk.ifft_epilogue(*bad, False, "nchw")
+    with pytest.raises(ValueError):
+        wk.ifft_epilogue(mr16, mi16, tabs, planes, False, "hwc")
+    with pytest.raises(ValueError):
+        wk.ifft_epilogue(mr16, mi16, tabs._replace(ifft_x=None), planes,
+                         False, "nchw")
+    assert wk.LAUNCHES == n
+
+
 def test_write_wrappers_check_their_inputs(dev):
     """Non-contiguous or wrongly typed inputs raise before any launch."""
     from steganosaurus_tpu_torch.parallel import batch as pb
@@ -936,10 +1043,11 @@ def test_write_wrappers_check_their_inputs(dev):
     assert wk.LAUNCHES == n
 
 
-def test_embed_cores_on_card_launch_k3_and_k4e(dev):
+def test_embed_cores_on_card_launch_k3_and_k4e(dev, monkeypatch):
     """A default-Params embed makes one write_floor launch, on the resident
-    schedule, and one epilogue launch; QIM and per-image walks take
-    floor_only; the stegos read back."""
+    schedule, and one K4 launch; QIM and per-image walks take floor_only;
+    under STEGANOSAURUS_MM_PRECISION=highest the epilogue is K4e's, after
+    the f32 inverse DFT; the stegos read back."""
     import steganosaurus_tpu_torch as stt
     from steganosaurus_tpu_torch.spectral import write_kernels as wk
 
@@ -948,15 +1056,22 @@ def test_embed_cores_on_card_launch_k3_and_k4e(dev):
                                          dtype=np.uint8)).to(dev)
     secrets = [b"k3-0" * 8, b"k3-1" * 8]
     two = {wk.KERNEL_WRITE_FLOOR_TWO_PASS: 0}
-    for p, want in ((stt.Params(pbkdf2_iter=500),
-                     {wk.KERNEL_WRITE_FLOOR: 1, wk.KERNEL_FLOOR_ONLY: 0,
-                      wk.KERNEL_EPILOGUE: 1, **two}),
-                    (stt.Params(qim=3, pbkdf2_iter=500),
-                     {wk.KERNEL_WRITE_FLOOR: 0, wk.KERNEL_FLOOR_ONLY: 1,
-                      wk.KERNEL_EPILOGUE: 1, **two}),
-                    (stt.Params(per_image_walk=True, pbkdf2_iter=500),
-                     {wk.KERNEL_WRITE_FLOOR: 0, wk.KERNEL_FLOOR_ONLY: 1,
-                      wk.KERNEL_EPILOGUE: 1, **two})):
+    k4 = {wk.KERNEL_EPILOGUE: 0, wk.KERNEL_IFFT_EPILOGUE: 1}
+    for p, want, mode in (
+            (stt.Params(pbkdf2_iter=500),
+             {wk.KERNEL_WRITE_FLOOR: 1, wk.KERNEL_FLOOR_ONLY: 0, **k4,
+              **two}, "mix_adaptive"),
+            (stt.Params(qim=3, pbkdf2_iter=500),
+             {wk.KERNEL_WRITE_FLOOR: 0, wk.KERNEL_FLOOR_ONLY: 1, **k4,
+              **two}, "mix_adaptive"),
+            (stt.Params(per_image_walk=True, pbkdf2_iter=500),
+             {wk.KERNEL_WRITE_FLOOR: 0, wk.KERNEL_FLOOR_ONLY: 1, **k4,
+              **two}, "mix_adaptive"),
+            (stt.Params(pbkdf2_iter=500),
+             {wk.KERNEL_WRITE_FLOOR: 1, wk.KERNEL_FLOOR_ONLY: 0,
+              wk.KERNEL_EPILOGUE: 1, wk.KERNEL_IFFT_EPILOGUE: 0, **two},
+             "highest")):
+        monkeypatch.setenv("STEGANOSAURUS_MM_PRECISION", mode)
         n = dict(wk.LAUNCHES)
         res = stt.embed_batch(imgs, secrets, master_key=bytes(32), params=p,
                               device_resident=True, layout="nchw")

@@ -381,7 +381,8 @@ def _port_sources():
                     REPO / "tools" / "time_wrong_key_batch.py",
                     REPO / "tools" / "serve_latency_torch.py",
                     REPO / "tools" / "mesh_cards_torch.py",
-                    REPO / "tools" / "k3_ablation_torch.py"]
+                    REPO / "tools" / "k3_ablation_torch.py",
+                    REPO / "tools" / "k4_ablation_torch.py"]
 
 
 def test_launchers_run_the_ports_modules():
@@ -423,7 +424,8 @@ def test_no_port_module_imports_the_jax_package():
                 "parallel/batch.py", "parallel/fft_dist.py", "utils/cost.py",
                 "utils/steganalysis.py", "utils/channel.py",
                 "crypto/keywrap.py", "cli.py", "keytool.py",
-                "graft_entry.py"):
+                "graft_entry.py", "spectral/corner.py",
+                "spectral/write_kernels.py"):
         assert f"steganosaurus_tpu_torch/{mod}" in names
     for path in files:
         for node in ast.walk(ast.parse(path.read_text(), str(path))):

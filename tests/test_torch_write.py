@@ -722,8 +722,9 @@ def test_k3_ablation_edits_apply_to_the_committed_source():
 def test_kernel_costs_at_the_main_shape():
     """write_floor_cost and epilogue_cost at 4K B=64 16 KB: each input read
     once and each output written once, ~3.29e9 and 9.555e9 bytes, ~0.98 and
-    2.85 ms at the H100's 3.35 TB/s; the round trip's stage table, and so
-    its bound, are those of the stages the kernels replace, unchanged."""
+    2.85 ms at the H100's 3.35 TB/s; the round trip's stage table keeps
+    the write and the floor of the stages K3 replaces, and counts the
+    inverse DFT as the y-stage and K4 (39.49 ms in all)."""
     g = cost._geometry(2160, 3840, 16384, Params())
     assert (g["Ky"], g["Kx"], g["bucket"]) == (1024, 1024, 921600)
     peaks = dict(cost._PEAKS[0][1])
@@ -761,4 +762,4 @@ def test_kernel_costs_at_the_main_shape():
         cost.epilogue_cost(1, 8, 8, "hwc")
     rep = cost.roundtrip_cost(64, 2160, 3840, 16384)
     assert cost.roundtrip_bound(rep, peaks)["roundtrip_ms"] == \
-        pytest.approx(42.23, abs=0.01)
+        pytest.approx(39.49, abs=0.01)

@@ -10,8 +10,11 @@ separately: host wall ms (ending in torch.cuda.synchronize), device busy ms
 device ms per stage, and the top kernels. Stages are profiler ranges put
 around the corner functions for this run only (stage1 = the K1 wrapper,
 stage2 = the adaptive y-contraction, write+floor = the K3 wrapper's
-write_floor, floor = its floor_only (QIM, per-image walks), ifft, epilogue
-= the K4e wrapper; "other" is the rest: walk gather, ECC decode).
+write_floor, floor = its floor_only (QIM, per-image walks), ifft y = the
+inverse DFT's y-stage, K4 = the K4 wrapper (the x-stage with the u8
+epilogue); under STEGANOSAURUS_MM_PRECISION=highest ifft = the f32 inverse
+DFT and epilogue = the K4e wrapper; "other" is the rest: walk gather, ECC
+decode).
 
 --stream profiles a two-batch embed_stream -> extract_stream (depth 2) of
 the same workload against the serialized loop of two round trips, and
@@ -190,6 +193,8 @@ def main() -> int:
 
     stages = [("stage1", ck, "fwd_stage1"), ("stage2", corner, "_fwd_y_split"),
               ("write+floor", wk, "write_floor"), ("floor", wk, "floor_only"),
+              ("ifft y", corner, "ifft_corner_y"),
+              ("K4", wk, "ifft_epilogue"),
               ("ifft", corner, "ifft_corner_real"),
               ("epilogue", wk, "epilogue")]
     for name, mod, attr in stages:
