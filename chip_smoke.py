@@ -86,9 +86,27 @@ Phases:
              NHWC, the plain version, the library composition it replaced
              (cuBLAS products, t -=, K4e) and one torch.mm of the
              concatenated operands
+  3d. K2     forward stage 2's prep pass, band kernel and K2
+             (csrc/corner_stage2.cu) against their plain versions on 3c's
+             grids' stage-1 output (K1 on each grid's covers; the 512x512
+             views one element off their alignment): the prep's bf16 copies
+             bit-equal to .to(bf16), its energies within 1e-6 relative of
+             torch.sum's (band_columns') and of the exact f64 sum, the band
+             sets they pick beside band_columns' (differences counted and
+             printed); the band operand and mask bit-equal; K2 within 1e-5
+             of max|twin| against fwd_stage2_plain(band="bf16x6") on the
+             same band; HGMMA and UTMALDG in K2's SASS. At 4K B=64, in
+             turns beside the bounds: the three kernels, their plain
+             versions, the eager composition they replace
+             (corner._fwd_y_split), the new stage as a whole (prep, topk,
+             band, K2) and one torch.bmm of T with the bf16 operands into
+             f32 (the bulk without the band)
   4. path    512x512, B=8, 100 B round trip (also held against the port on
              the CPU), then 2160x3840, B=64, 16 KB: all secrets recovered,
-             K1 launched on the TMA route alone, warm timings, PSNR, peak
+             K1 launched on the TMA route alone, the prep, the band kernel
+             and K2 once per forward DFT (two per round trip) and the eager
+             stage 2
+             (corner._fwd_y_split) never, warm timings, PSNR, peak
              memory, the sha256 of the warm round trip's stego (4c too)
   4b. ragged 1079x1917, B=4, 1 KB round trip: W % 16 != 0, so stage 1
              goes through the load route alone
@@ -353,8 +371,8 @@ def cuda_ms(fn, n: int) -> float:
 
 
 def zero_counts() -> None:
-    """Set every hand kernel's launch count to 0: K1's routes
-    (corner_kernels.LAUNCHES) and the embed's K3 / K4 / K4e entry points
+    """Set every hand kernel's launch count to 0: K1's routes, the prep and
+    K2 (corner_kernels.LAUNCHES) and the embed's K3 / K4 / K4e entry points
     (write_kernels.LAUNCHES)."""
     from steganosaurus_tpu_torch.spectral import corner_kernels as ck
     from steganosaurus_tpu_torch.spectral import write_kernels as wk
@@ -408,6 +426,41 @@ def check_epilogues(launches: dict) -> None:
     if bad:
         raise AssertionError(f"(K4, K4e) launches against the corner embeds' "
                              f"K3 launches, (got, want) by path: {bad}")
+
+
+def check_stage2(launches: dict) -> None:
+    """Every counted path's forward DFTs run stage 2 through the prep, the
+    band kernel and K2, one launch each for each K1 launch (every corner of
+    the smoke is wider than the band), and none under highest (4d)."""
+    from steganosaurus_tpu_torch.spectral import corner_kernels as ck
+
+    bad = {}
+    for path, c in launches.items():
+        k1 = sum(c[k] for k in ck.K1_ROUTES)
+        got = (c[ck.KERNEL_PREP], c[ck.KERNEL_BAND], c[ck.KERNEL_STAGE2])
+        if got != (k1, k1, k1):
+            bad[path] = (got, k1)
+    if bad:
+        raise AssertionError(f"(prep, band, K2) launches against K1's, "
+                             f"(got, K1) by path: {bad}")
+
+
+def count_eager_stage2(fn):
+    """(fn(), how often corner._fwd_y_split, the eager stage 2 that K2
+    replaced, ran during it)."""
+    from steganosaurus_tpu_torch.spectral import corner
+
+    real, calls = corner._fwd_y_split, [0]
+
+    def counted(*a, **kw):
+        calls[0] += 1
+        return real(*a, **kw)
+
+    corner._fwd_y_split = counted
+    try:
+        return fn(), calls[0]
+    finally:
+        corner._fwd_y_split = real
 
 
 def phase_probe() -> str:
@@ -501,6 +554,26 @@ K4_GRIDS = WRITE_GRIDS[:6] + (("phone", *PHONE_GRID),
                               ("512x512 unaligned", SMALL_B, SMALL_H,
                                SMALL_W))
 K4_REL = 1e-5
+# 3d: the prep pass and K2 on 3c's grids. The prep's bf16 copies bit-equal
+# to .to(bf16); its energies (f64 sums of the f32 terms, rounded once)
+# within STAGE2_ENERGY_REL relative of torch.sum's f32 sums and of the
+# exact (f64) sum; K2 within K2_REL of max|twin| against its plain twin
+# (band="bf16x6") on the same band: the same exact bf16 products summed in
+# f32 in another order (K1's and K4's bound). K2's band columns on their
+# own scale (corner_kernels.band_error: the RMS of the error against the
+# f64 product, each element over its sum_h |T||a|) within the three-term
+# split's bound SPLIT_REL["bf16x6"], which a two-term band exceeds (held
+# at 4K through the plain bf16x3 version). At 4K B=64 the bulk's RMS error
+# against the exact sum of the same bf16 products (bulk_error, 24 planes)
+# within K2_BULK_RMS: K2 with its f32 promotion sum measured 0.0045, the
+# same kernel with the tensor cores summing the whole contraction 0.0926
+# and cuBLAS's bf16 products 0.0434 (tools/k2_ablation_torch.py on an
+# NVIDIA H100 80GB HBM3 at 700.00 W); the unpromoted sum moved a Rep-7
+# group of phase 5c's stego to a wrong bit
+STAGE2_GRIDS = K4_GRIDS
+STAGE2_ENERGY_REL = 1e-6
+K2_REL = 1e-5
+K2_BULK_RMS = 0.02
 # phases 4 and 4c before K4 (the eager x-stage and K4e), as measured in
 # two runs of this script on an NVIDIA H100 80GB HBM3 at 700.00 W: the
 # stego's sha256 prefix, peak memory in GiB and the warm round trip in ms,
@@ -1368,6 +1441,211 @@ def phase_ifft_epilogue(covers_d, odd_d, card: str) -> list:
     return [record]
 
 
+def _stage2_check(what: str, ar, ai, tabs, shift: bool = False,
+                  main: bool = False) -> tuple:
+    """The prep and K2 against their plain versions on one grid's stage-1
+    output (ar, ai): the prep's bf16 copies bit-equal, its energies within
+    STAGE2_ENERGY_REL of torch.sum's and of the exact sum, the band sets
+    beside band_columns' (differences counted); K2 within K2_REL of
+    max|twin| against fwd_stage2_plain(band="bf16x6") on the prep's band,
+    its band columns within SPLIT_REL["bf16x6"] on their own scale
+    (band_error). main (4K B=64): also the plain bf16x3 band beyond that
+    bound, and K2's bulk within K2_BULK_RMS of the exact sum of its bf16
+    products (bulk_error; cuBLAS's bf16 products printed beside it).
+    shift: ar, ai and the bf16 copies one element off their alignment (the
+    prep's scalar path, K2's padded copy). Returns (max |K2 - twin|, max
+    |energy - plain energy|, the prep's output, the band)."""
+    import torch
+
+    from steganosaurus_tpu_torch.spectral import corner
+    from steganosaurus_tpu_torch.spectral import corner_kernels as ck
+
+    if shift:
+        ar, ai = _shifted(ar), _shifted(ai)
+    prep = ck.stage2_prep(ar, ai)
+    ar16, ai16, energy = prep
+    if shift:
+        ar16, ai16 = _shifted(ar16), _shifted(ai16)
+    same = (torch.equal(ar16, ar.to(torch.bfloat16))
+            and torch.equal(ai16, ai.to(torch.bfloat16)))
+    sq = ar * ar + ai * ai
+    ref = torch.sum(sq, dim=-2)
+    exact = torch.sum(sq.double(), dim=-2)
+    del sq
+    tiny = torch.finfo(torch.float32).tiny
+    rel_sum = ((energy - ref).abs() / ref.clamp_min(tiny)).max().item()
+    rel_exact = ((energy.double() - exact).abs()
+                 / exact.clamp_min(tiny)).max().item()
+    rel_torch = ((ref.double() - exact).abs()
+                 / exact.clamp_min(tiny)).max().item()
+    err_prep = (energy - exact.float()).abs().max().item()  # the plain's
+    X0 = corner.SPLIT_X0
+    idx = corner.band_topk(energy, X0)
+    ref_idx = corner.band_topk(ref, X0)
+    P, X = energy.shape
+    m = torch.zeros((P, X), dtype=torch.bool, device=ar.device)
+    m_ref = torch.zeros_like(m)
+    m.scatter_(1, idx, True)
+    m_ref.scatter_(1, ref_idx, True)
+    moved = int((m & ~m_ref).sum().item())
+    band = ck.stage2_band(ar, ai, idx)
+    band_equal = (torch.equal(band[0], ck.band_operand(ar, ai, idx))
+                  and torch.equal(band[1], ck.band_mask(idx, X)))
+    cr, ci = ck.fwd_stage2(ar, ai, ar16, ai16, idx, tabs, band)
+    tr, ti = ck.fwd_stage2_plain(ar, ai, idx, tabs, "bf16x6", (ar16, ai16))
+    torch.cuda.synchronize()
+    err = max((cr - tr).abs().max().item(), (ci - ti).abs().max().item())
+    scale = max(tr.abs().max().item(), ti.abs().max().item())
+    finite = bool(torch.isfinite(cr).all() and torch.isfinite(ci).all())
+    del tr, ti
+    band_bound = ck.SPLIT_REL["bf16x6"]
+    band_err = ck.band_error(cr, ci, ar, ai, idx, tabs)
+    seen = True
+    more = ""
+    if main:
+        two = ck.band_error(*ck.fwd_stage2_plain(
+            ar, ai, idx, tabs, "bf16x3", (ar16, ai16)), ar, ai, idx, tabs)
+        bulk = ck.bulk_error(cr, ci, ar16, ai16, idx, tabs)
+        n = min(24, ar16.shape[0])
+        m16 = (ar16[:n], ai16[:n])
+        lib = ck.bulk_error(
+            corner._mm_bf16(tabs.eyr16, m16[0])
+            - corner._mm_bf16(tabs.eyi16, m16[1]),
+            corner._mm_bf16(tabs.eyr16, m16[1])
+            + corner._mm_bf16(tabs.eyi16, m16[0]), ar16, ai16, idx, tabs, n)
+        seen = two > band_bound and bulk <= K2_BULK_RMS
+        more = (f"; the plain bf16x3 band's {two!r} (must exceed it); K2's "
+                f"bulk RMS error against the exact sum of its bf16 products "
+                f"({n} planes) {bulk!r} (bound {K2_BULK_RMS}; cuBLAS's bf16 "
+                f"products {lib!r})")
+    del cr, ci
+    log(f"K2 {what} (P={P}, Kx={X}{', unaligned' if shift else ''}): prep "
+        f"bf16 bit-equal {same}; energies vs torch.sum max rel {rel_sum!r}, "
+        f"vs the exact sum {rel_exact!r} (torch.sum's own {rel_torch!r}), "
+        f"max |energy - plain| {err_prep!r}; "
+        f"band columns that differ from band_columns' {moved} of {P * X0}; "
+        f"band operand and mask bit-equal {band_equal}; "
+        f"K2 max |kernel - twin| {err!r} ({err / scale:.3e} of max|twin| "
+        f"{scale!r}, bound {K2_REL}), finite {finite}; band columns' RMS "
+        f"error on their own scale {band_err!r} (bound {band_bound!r})"
+        + more)
+    if not (same and band_equal and finite and rel_sum <= STAGE2_ENERGY_REL
+            and rel_exact <= STAGE2_ENERGY_REL and err <= K2_REL * scale
+            and band_err <= band_bound and seen):
+        raise AssertionError(f"K2 {what}: the prep or K2 disagrees with its "
+                             f"plain version")
+    return err, err_prep, prep, idx, band
+
+
+def phase_stage2(covers_d, odd_d, card: str) -> list:
+    """3d: forward stage 2's prep pass, band kernel and K2
+    (csrc/corner_stage2.cu) against their plain versions on each of
+    STAGE2_GRIDS' stage-1 output (K1 on the grid's covers; _stage2_check);
+    HGMMA and UTMALDG in K2's SASS. At 4K B=64, in turns by CUDA events
+    beside the bounds (utils/cost.py stage2_prep_cost, stage2_band_cost,
+    k2_cost): the three kernels through their wrappers, their plain
+    versions, the eager composition they replace (corner._fwd_y_split), the
+    new stage 2 as a whole (prep, topk, band, K2) and one torch.bmm of T0
+    with the concatenated bf16 operands into f32 (K2's library_ms: the bulk,
+    without the band; no one PyTorch call computes the prep or the band
+    operand). Returns the kernels line's three entries."""
+    import torch
+
+    import steganosaurus_tpu_torch as stt
+    from steganosaurus_tpu_torch import _build
+    from steganosaurus_tpu_torch.spectral import corner
+    from steganosaurus_tpu_torch.spectral import corner_kernels as ck
+    from steganosaurus_tpu_torch.utils import cost
+
+    sass = _build.sass_counts(ck.KERNEL_STAGE2, "corner_stage2_kernel")
+    log(f"K2 SASS (corner_stage2_kernel, cuobjdump -sass): {sass}")
+    if not (sass["HGMMA"] > 0 and sass["UTMALDG"] > 0):
+        raise AssertionError(f"K2 is not wgmma + TMA: {sass}")
+    peaks = cost.peak_rates(covers_d.device)
+    errs, errs_prep, records = [], [], []
+    for name, B, H, W in STAGE2_GRIDS:
+        main = name == "4K"
+        planes = (covers_d if main else odd_d if name == "4c"
+                  else _grid_nchw(covers_d.device, B, H, W))
+        Ky, Kx = corner.corner_dims(H, W, stt.Params().rmax)
+        tabs = corner.dft_tables_device(H, Ky, W, Kx, covers_d.device)
+        x = planes.reshape(-1, H, W)
+        ar, ai = ck.fwd_stage1(x, tabs.exr16, tabs.exi16, False, tabs.stage1)
+        err, err_prep, prep, idx, band = _stage2_check(
+            f"{name} B={B} {H}x{W}", ar, ai, tabs, shift="unaligned" in name,
+            main=main)
+        errs.append(err)
+        errs_prep.append(err_prep)
+        if main:
+            P = x.shape[0]
+            ar16, ai16, _ = prep
+            t2 = tabs.stage2
+            Hp = t2.shape[2] // 2
+            t_hi = torch.cat((t2[0, :, :H], t2[0, :, Hp:Hp + H]), 1)
+            b_cat = torch.cat((ar16, ai16), 1)
+            runs = {
+                "K2": (lambda: ck.fwd_stage2(ar, ai, ar16, ai16, idx, tabs,
+                                             band), 10),
+                "band": (lambda: ck.stage2_band(ar, ai, idx), 10),
+                "prep": (lambda: ck.stage2_prep(ar, ai), 10),
+                "K2 plain": (lambda: ck.fwd_stage2_plain(
+                    ar, ai, idx, tabs, "bf16x6", (ar16, ai16)), 2),
+                "band plain": (lambda: (ck.band_operand(ar, ai, idx),
+                                        ck.band_mask(idx, Kx)), 3),
+                "prep plain": (lambda: ck.stage2_prep_plain(ar, ai), 3),
+                "composition": (lambda: corner._fwd_y_split(ar, ai, tabs),
+                                3),
+                "stage 2": (lambda: corner._fwd_y_adaptive(ar, ai, tabs), 5),
+                "torch.bmm": (lambda: torch.bmm(
+                    t_hi.expand(P, *t_hi.shape), b_cat,
+                    out_dtype=torch.float32), 3)}
+            times = _turns(runs)
+            ms = {k: sum(v) / len(v) for k, v in times.items()}
+            bounds = {k: cost.stage_bound(c, peaks) for k, c in (
+                ("K2", cost.k2_cost(P, H, Ky, Kx)),
+                ("band", cost.stage2_band_cost(P, H, Kx)),
+                ("prep", cost.stage2_prep_cost(P, H, Kx)))}
+            log(f"K2 {name} B={B} {H}x{W} Ky={Ky} Kx={Kx} timed in turns "
+                f"({card}): " + "; ".join(f"{k} {v!r} ms"
+                                          for k, v in times.items())
+                + "; bounds: " + "; ".join(
+                    f"{k} {b!r} ms ({by}), at {b / ms[k]:.3f} of it"
+                    for k, (b, by) in bounds.items())
+                + f"; stage 2 {ms['composition'] / ms['stage 2']:.2f}x "
+                f"faster than the eager composition")
+            source = "steganosaurus_tpu_torch/csrc/corner_stage2.cu"
+
+            def entry(kernel, key, replaces, library_ms):
+                return {"name": kernel, "route": "cuda", "source": source,
+                        "replaces": replaces, "ms": ms[key],
+                        "plain_ms": ms[key + " plain"],
+                        "bound_ms": bounds[key][0],
+                        "bound_by": bounds[key][1],
+                        "library_ms": library_ms}
+
+            records = [
+                entry(ck.KERNEL_STAGE2, "K2",
+                      "steganosaurus_tpu/spectral/corner.py:430 "
+                      "(_fwd_y_split, adaptive=True: the bulk and band dots "
+                      ":496-503, the one-hot scatter :508-511)",
+                      ms["torch.bmm"]),
+                entry(ck.KERNEL_PREP, "prep",
+                      "steganosaurus_tpu/spectral/corner.py:478 "
+                      "(_fwd_y_split's column energy) and the bf16 operand "
+                      "casts of its bulk dots (_mm :141)", None),
+                entry(ck.KERNEL_BAND, "band",
+                      "steganosaurus_tpu/spectral/corner.py:480-485 "
+                      "(_fwd_y_split's one-hot gather of the band columns) "
+                      "and :506 (their column mask)", None)]
+            del t_hi, b_cat, runs
+        del ar, ai, prep, idx, band, tabs, planes
+        torch.cuda.empty_cache()
+    records[0]["max_abs_err"] = max(errs)
+    records[1]["max_abs_err"] = max(errs_prep)
+    records[2]["max_abs_err"] = 0.0  # bit-equal at every grid, or raised
+    return records
+
+
 def phase_highest(dev, launches: dict) -> None:
     """4d: phase 4's 512x512 B=8 round trip under
     STEGANOSAURUS_MM_PRECISION=highest, the f32 mode users may ask for:
@@ -1417,7 +1695,8 @@ def phase_highest(dev, launches: dict) -> None:
     if np.abs(diff).max() > 1 or n_diff > SMALL_MAX_DIFF_FRAC * diff.size:
         raise AssertionError("4d: the card's stego disagrees with the CPU's")
     if any(c[k] for k in ck.LAUNCHES):
-        raise AssertionError(f"4d launched K1 under highest: {c}")
+        raise AssertionError(f"4d launched K1 or a stage-2 kernel under "
+                             f"highest: {c}")
     check_embed_kernels("4d highest", c, 1, highest=True)
 
 
@@ -1501,7 +1780,7 @@ def phase_uhd(covers_d, what: str = "4K", route: str = "") -> tuple:
         f"ms, extract {x_ms!r} ms, recovered {B}/{B}")
     torch.cuda.reset_peak_memory_stats()
     zero_counts()
-    stego, e_ms, x_ms = round_trip()
+    (stego, e_ms, x_ms), eager = count_eager_stage2(round_trip)
     launches = read_counts()
     peak = torch.cuda.max_memory_allocated()
     if stego.shape != covers_d.shape or stego.dtype != torch.uint8:
@@ -1522,11 +1801,17 @@ def phase_uhd(covers_d, what: str = "4K", route: str = "") -> tuple:
     log(f"{what} beside the parent's record (before K4): sha256 {digest[:8]} "
         f"vs {sha}, peak memory {peak / 2**30!r} vs {peak_rec} GiB, warm "
         f"round trip {total!r} vs {ms_rec} ms")
-    log(f"launches in the counted round trip: {launches}")
-    if launches[route] <= 0 or any(launches[k] for k in ck.LAUNCHES
+    log(f"launches in the counted round trip: {launches}; eager stage 2 "
+        f"(corner._fwd_y_split) ran {eager} times")
+    if launches[route] <= 0 or any(launches[k] for k in ck.K1_ROUTES
                                    if k != route):
         raise AssertionError(f"the {what} path did not launch {route} "
                              f"alone: {launches}")
+    if (launches[ck.KERNEL_PREP], launches[ck.KERNEL_BAND],
+            launches[ck.KERNEL_STAGE2], eager) != (2, 2, 2, 0):
+        raise AssertionError(f"the {what} path's stage 2 is not the prep, "
+                             f"the band kernel and K2 twice: {launches}, "
+                             f"eager {eager}")
     check_embed_kernels(what, launches, 1)
     return launches, (e_ms, x_ms), stego
 
@@ -3506,6 +3791,8 @@ def main() -> int:
         torch.cuda.empty_cache()
         k3 += timed("K4", phase_ifft_epilogue, covers_d, odd_d, card)
         torch.cuda.empty_cache()
+        k3 += timed("K2", phase_stage2, covers_d, odd_d, card)
+        torch.cuda.empty_cache()
         launches: dict = {}
         seen: set = set()
         undo = record_k1_shapes(seen)
@@ -3555,6 +3842,7 @@ def main() -> int:
             undo()
         log(f"kernel launches per path: {launches}")
         check_epilogues(launches)
+        check_stage2(launches)
         timed("K1 shapes", phase_k1_shapes, dev, seen, checked)
         for k in k1 + k3:
             k["launches"] = sum(n[k["name"]] for n in launches.values())

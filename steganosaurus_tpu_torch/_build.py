@@ -39,7 +39,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # product and a sum into one FMA there.
 NVCC_SOURCE_FLAGS = {"corner_write_floor.cu": ["-fmad=false"],
                      "corner_epilogue.cu": ["-fmad=false"],
-                     "corner_ifft_epilogue.cu": ["-fmad=false"]}
+                     "corner_ifft_epilogue.cu": ["-fmad=false"],
+                     "corner_stage2.cu": ["-fmad=false"]}
 GXX_FLAGS = ["-O3", "-std=c++17", "-shared", "-fPIC"]
 
 _lock = threading.Lock()
@@ -57,6 +58,9 @@ _SIGNATURES = {
     "corner_floor_only": [_P] * 8 + [_I, _I, _I, _F, _F, _F, _P],
     "corner_epilogue": [_P, _P, _P, _I, _I, _I, _F, _I, _I, _P],
     "corner_ifft_epilogue": [_P] * 5 + [_I] * 7 + [_F, _I, _I, _P],
+    "corner_stage2_prep": [_P] * 5 + [_I] * 4 + [_P],
+    "corner_stage2_band": [_P] * 5 + [_I] * 3 + [_P],
+    "corner_stage2": [_P] * 8 + [_I] * 8 + [_P],
 }
 
 

@@ -13,7 +13,11 @@ Precision modes (STEGANOSAURUS_MM_PRECISION), restricted to two:
 - "mix_adaptive" (default): forward stage 1 through the hand-written K1
   kernels (corner_kernels.fwd_stage1, bf16 operands, f32 accumulation);
   forward stage 2 in bf16 except the top SPLIT_X0 = 64 energy columns per
-  (image, plane), which run in full f32; both inverse stages in bf16.
+  (image, plane), which run at higher precision: on CUDA through the prep
+  and K2 kernels (corner_kernels.stage2_prep, fwd_stage2: the band in
+  split bf16, JAX-on-TPU's Precision.HIGH), on the CPU in full f32
+  (_fwd_y_split, as the JAX package computes on the CPU); both inverse
+  stages in bf16.
 - "highest": full f32 products everywhere — the arbiter.
 Any other name raises. "bf16" here always means bf16 operands with an f32
 result: torch.mm/bmm(..., out_dtype=torch.float32) on CUDA, and on the CPU
@@ -81,8 +85,9 @@ class Tables(NamedTuple):
     """Device DFT tables for one (H, W) grid's (Ky, Kx) corner: y-axis
     (Ky, H) and x-axis (Kx, W), in f32 and in bf16; and, on CUDA, the
     stage-1 kernel's concatenated x-axis table, plain and (-1)^w-folded
-    (corner_kernels.stage1_tables), and the K4 kernel's inverse x-axis
-    table (ifft_x_table); both None on other devices."""
+    (corner_kernels.stage1_tables), the K4 kernel's inverse x-axis table
+    (ifft_x_table) and the K2 kernel's [T_hi, T_lo]
+    (corner_kernels.stage2_tables); all three None on other devices."""
     eyr: torch.Tensor
     eyi: torch.Tensor
     exr: torch.Tensor
@@ -93,6 +98,7 @@ class Tables(NamedTuple):
     exi16: torch.Tensor
     stage1: tuple | None
     ifft_x: torch.Tensor | None
+    stage2: torch.Tensor | None
 
 
 def ifft_x_table(exr16: torch.Tensor, exi16: torch.Tensor) -> torch.Tensor:
@@ -130,7 +136,8 @@ def dft_tables_device(H: int, Ky: int, W: int, Kx: int, device) -> Tables:
         cuda = device.type == "cuda"
         s1 = corner_kernels.stage1_tables(b16[2], b16[3]) if cuda else None
         ix = ifft_x_table(b16[2], b16[3]) if cuda else None
-        ent = Tables(*f32, *b16, s1, ix)
+        s2 = corner_kernels.stage2_tables(f32[0], f32[1]) if cuda else None
+        ent = Tables(*f32, *b16, s1, ix, s2)
         _DEV_TABLES[key] = ent
         while len(_DEV_TABLES) > 16:
             _DEV_TABLES.pop(next(iter(_DEV_TABLES)))
@@ -167,7 +174,7 @@ def fwd_corner(imgs_u8: torch.Tensor, center: bool, Ky: int, Kx: int,
 
     Stage 1 contracts w (the widest GEMM) — under mix_adaptive through the
     K1 kernel wrapper, which reads the u8 images directly — and stage 2
-    contracts h."""
+    contracts h (_fwd_y_adaptive under mix_adaptive)."""
     H, W = imgs_u8.shape[-2:]
     lead = imgs_u8.shape[:-2]
     x = imgs_u8.reshape(-1, H, W)
@@ -180,15 +187,37 @@ def fwd_corner(imgs_u8: torch.Tensor, center: bool, Ky: int, Kx: int,
     else:
         ar, ai = corner_kernels.fwd_stage1(x, tabs.exr16, tabs.exi16, center,
                                            tabs.stage1)
-        cr, ci = _fwd_y_split(ar, ai, tabs)
+        cr, ci = _fwd_y_adaptive(ar, ai, tabs)
     return cr.reshape(*lead, Ky, Kx), ci.reshape(*lead, Ky, Kx)
+
+
+def _fwd_y_adaptive(ar: torch.Tensor, ai: torch.Tensor, tabs: Tables):
+    """Forward stage 2 under mix_adaptive. CUDA tensors go through the prep
+    kernel (bf16 copies and column energies), band_topk, the band kernel
+    (the band columns' bf16 terms and mask) and K2; CPU tensors, and a
+    corner no wider than the band (not on the main path), take
+    _fwd_y_split."""
+    X0 = min(SPLIT_X0, ar.shape[-1])
+    if ar.device.type == "cpu" or X0 == ar.shape[-1]:
+        return _fwd_y_split(ar, ai, tabs)
+    ar16, ai16, energy = corner_kernels.stage2_prep(ar, ai)
+    idx = band_topk(energy, X0)
+    del energy
+    band = corner_kernels.stage2_band(ar, ai, idx)
+    return corner_kernels.fwd_stage2(ar, ai, ar16, ai16, idx, tabs, band)
+
+
+def band_topk(energy: torch.Tensor, X0: int) -> torch.Tensor:
+    """(P, X0) int64 indices of the X0 columns of highest energy per
+    (image, plane)."""
+    return torch.topk(energy, X0, dim=-1).indices
 
 
 def band_columns(ar: torch.Tensor, ai: torch.Tensor, X0: int) -> torch.Tensor:
     """(P, X0) indices of the X0 stage-1 columns of highest energy
     sum_h(ar^2 + ai^2) in each (image, plane) — the forward stage-2 band that
-    runs in full f32. torch.topk and lax.top_k may order ties differently;
-    that changes stego bytes, never decoded bits."""
+    runs in full f32 on the CPU. torch.topk and lax.top_k may order ties
+    differently; that changes stego bytes, never decoded bits."""
     energy = torch.sum(ar * ar + ai * ai, dim=-2)              # (P, X)
     return torch.topk(energy, X0, dim=-1).indices
 

@@ -1,5 +1,7 @@
-"""Forward corner-DFT stage 1 (K1): the hand-written Hopper kernel and its
-plain PyTorch version.
+"""The forward corner DFT's hand-written Hopper kernels and their plain
+PyTorch versions: stage 1 (K1), and stage 2 (K2) with its prep pass.
+
+Stage 1 (K1).
 
 Replaces steganosaurus_tpu/spectral/corner_pallas.py:fwd_stage1. For every
 plane and row, against both DFT tables:
@@ -22,9 +24,41 @@ one of two ways, chosen by route_for:
 
 `fwd_stage1` launches one of them for CUDA tensors — or raises; nothing here
 catches a build or launch failure and falls back — and takes
-`fwd_stage1_plain` only for CPU tensors. `LAUNCHES` counts each route's
-launches under its own name, one per launch and nowhere else, so a run can
-show that the main path went through the kernel, and on which route.
+`fwd_stage1_plain` only for CPU tensors.
+
+Stage 2 under mix_adaptive (replaces steganosaurus_tpu/spectral/corner.py:
+_fwd_y_split with adaptive=True, which XLA fuses for the TPU), in
+csrc/corner_stage2.cu. With (ar, ai) the stage-1 output (P, H, Kx) f32 and
+the y tables (eyr, eyi) (Ky, H), per plane
+
+    cr = eyr . ar - eyi . ai,   ci = eyr . ai + eyi . ar     (contract h)
+
+- `stage2_prep` reads ar and ai once and writes their bf16 copies (the
+  bulk's operands) and the column energies sum_h(ar^2 + ai^2) (P, Kx),
+  summed in f64 in an order fixed by the shape. torch.topk of the energies
+  picks the band: the BAND = 64 columns of highest energy per plane.
+- `fwd_stage2` (K2) is one wgmma GEMM per plane, [cr; ci] = T . [ar16;
+  ai16] with T = [[eyr, -eyi], [eyi, eyr]] in bf16 (stage2_tables), f32
+  accumulation, whose epilogue skips the band's columns (band_mask); the
+  band's tiles compute those columns in split bf16 with three terms a
+  value and six products (SPLITS["bf16x6"], the TPU's Precision.HIGHEST
+  emulation) from the gathered f32 columns (band_operand), and write them
+  into the holes. On the card a third kernel, `stage2_band`, gathers and
+  splits those columns and writes the mask in one pass. The two-term split (three products, the TPU's
+  Precision.HIGH) was measured first and moved one Rep-7 group of the 4K
+  benchmark stego to a wrong bit (tools/band_ber_torch.py, PERF.md).
+- `fwd_stage2_plain(band="bf16x6")` is K2's spec (the same splits, the
+  products summed in f32). `band_error` and `bulk_error` measure how far
+  a result lies from the exact sums: the band columns on their own scale
+  (SPLIT_REL), the bulk's sum order. Only the tests, the tools and
+  chip_smoke.py use these on a card; corner.fwd_corner keeps
+  corner._fwd_y_split (an f32 band) on the CPU.
+
+Every wrapper launches its kernel for CUDA tensors or raises, and takes its
+plain version only for CPU tensors. `LAUNCHES` counts each kernel's (and
+each K1 route's) launches under its own name, one per launch and nowhere
+else, so a run can show that the main path went through the kernels, and
+K1 on which route.
 """
 
 from __future__ import annotations
@@ -37,8 +71,14 @@ from steganosaurus_tpu_torch import spectral
 
 KERNEL_TMA = "corner_stage1_wgmma"      # A by TMA
 KERNEL_LDG = "corner_stage1_wgmma_ldg"  # A by the producer warpgroup's loads
-LAUNCHES = {KERNEL_TMA: 0, KERNEL_LDG: 0}
-BLOCK = 64  # the kernel's K block and the table's padding quantum
+K1_ROUTES = (KERNEL_TMA, KERNEL_LDG)
+KERNEL_PREP = "corner_stage2_prep"      # stage 2's bf16 casts and energies
+KERNEL_BAND = "corner_stage2_band"      # K2's band operand and column mask
+KERNEL_STAGE2 = "corner_stage2"         # K2
+LAUNCHES = {KERNEL_TMA: 0, KERNEL_LDG: 0, KERNEL_PREP: 0, KERNEL_BAND: 0,
+            KERNEL_STAGE2: 0}
+BLOCK = 64  # the kernels' K block and the tables' padding quantum
+BAND = 64   # K2's band width: the columns per plane it computes in split bf16
 
 
 def route_for(W: int, data_ptr: int) -> str:
@@ -172,3 +212,334 @@ def _launch(imgs_u8, t, ar, ai, Kx: int, center: bool, route: str) -> None:
     if rc != 0:
         raise RuntimeError(f"{route} launch failed: CUDA error {rc}")
     LAUNCHES[route] += 1
+
+
+# --- stage 2: the prep, band and K2 kernels (csrc/corner_stage2.cu) ---------
+
+# K2's band: split bf16 with three terms a value (x = x0 + x1 + x2, each
+# bf16, x_{k+1} = bf16(x - x0 - .. - x_k)) and the six products T_i . a_j
+# with i + j <= 2, the lowest-order first (the order the kernel sums them
+# in): the TPU's Precision.HIGHEST emulation, within a few 2^-27 of |T||a|
+# of the f32 product. SPLITS["bf16x3"] is the TPU's Precision.HIGH (two
+# terms, three products), which plain versions keep for measurement.
+SPLITS = {"bf16x6": ((2, 0), (1, 1), (0, 2), (1, 0), (0, 1), (0, 0)),
+          "bf16x3": ((1, 0), (0, 1), (0, 0))}
+# split bf16's error per term, of |T||a|: bf16 keeps 8 bits, |x - bf16(x)|
+# <= 2^-9 |x|, so a k-term split x0 + .. leaves |x - sum| <= 2^-9k |x| and
+# its term x_i is at most 2^-9i |x|. Two terms (bf16x3) drop T1.a1 and leave
+# both residuals: 3 * 2^-18; three terms (bf16x6) drop T1.a2, T2.a1, T2.a2
+# and leave both residuals: under 5 * 2^-27
+SPLIT_REL = {"bf16x3": 3 * 2.0 ** -18, "bf16x6": 5 * 2.0 ** -27}
+LEVELS = 3  # the terms of K2's split: stage2_tables and band_operand
+
+
+def split_bf16(x: torch.Tensor, levels: int = LEVELS) -> list:
+    """[x0, .., x_{levels-1}] bf16 with x_k = bf16(x - x0 - .. - x_{k-1})
+    (each difference in f32, exact while the terms shrink)."""
+    out, r = [], x.to(torch.float32)
+    for _ in range(levels):
+        out.append(r.to(torch.bfloat16))
+        r = r - out[-1].to(torch.float32)
+    return out
+
+
+def stage2_tables(eyr: torch.Tensor, eyi: torch.Tensor) -> torch.Tensor:
+    """K2's A operand, (LEVELS, 2*Kyp, 2*Hp) bf16 on the tables' device,
+    Kyp = Ky and Hp = H rounded up to 64: the split_bf16 terms [T0, T1, T2]
+    of the f32 real form of the y-stage's complex table,
+
+        T = [[eyr, -eyi],     rows [0, Ky): cr;  rows [Kyp, Kyp + Ky): ci
+             [eyi,  eyr]]     columns [0, H): ar's h; [Hp, Hp + H): ai's h
+
+    with zeros in the padding. Rows run along the contraction h (K-major).
+    T0's blocks are the bf16 tables themselves (negating is exact), the
+    bulk's operand."""
+    Ky, H = eyr.shape
+    Kyp, Hp = _pad64(Ky), _pad64(H)
+    t = torch.zeros((2 * Kyp, 2 * Hp), dtype=torch.float32,
+                    device=eyr.device)
+    t[:Ky, :H] = eyr
+    t[:Ky, Hp:Hp + H] = -eyi
+    t[Kyp:Kyp + Ky, :H] = eyi
+    t[Kyp:Kyp + Ky, Hp:Hp + H] = eyr
+    return torch.stack(split_bf16(t))
+
+
+def band_mask(idx: torch.Tensor, X: int) -> torch.Tensor:
+    """(P, ceil(X / 32)) int32: bit x % 32 of word x // 32 is set where
+    column x is one of the plane's band columns idx (P, BAND). K2's bulk
+    epilogue stores no column whose bit is set."""
+    P = idx.shape[0]
+    nw = -(-X // 32)
+    bits = torch.zeros((P, nw * 32), dtype=torch.int64, device=idx.device)
+    bits.scatter_(1, idx, 1)
+    weights = torch.arange(32, device=idx.device)
+    return (bits.view(P, nw, 32) << weights).sum(-1).to(torch.int32)
+
+
+def band_operand(ar: torch.Tensor, ai: torch.Tensor, idx: torch.Tensor,
+                 levels: int = LEVELS) -> torch.Tensor:
+    """K2's band B operand, (2*levels, P, H, BAND) bf16: the band columns
+    idx (P, BAND) of ar and ai (P, H, Kx) f32 split into split_bf16 terms,
+    in the order [ar0, ai0, ar1, ai1, ar2, ai2]."""
+    P, H, _ = ar.shape
+    gi = idx[:, None, :].expand(P, H, idx.shape[1])
+    g = torch.stack((ar.gather(2, gi), ai.gather(2, gi)))
+    return torch.cat(split_bf16(g, levels))
+
+
+def stage2_prep_plain(ar: torch.Tensor, ai: torch.Tensor):
+    """Plain version of stage2_prep: (ar.to(bf16), ai.to(bf16), energy),
+    energy (P, Kx) f32 the column sums over h of ar*ar + ai*ai (each term
+    rounded in f32, as eager torch rounds it), summed in f64 and rounded
+    once to f32 — as the kernel sums, in another order."""
+    sq = ar * ar + ai * ai
+    energy = torch.sum(sq.to(torch.float64), dim=-2).to(torch.float32)
+    return ar.to(torch.bfloat16), ai.to(torch.bfloat16), energy
+
+
+def fwd_stage2_plain(ar: torch.Tensor, ai: torch.Tensor, idx: torch.Tensor,
+                     tabs, band: str = "bf16x6", prep=None):
+    """Plain version of fwd_stage2: (cr, ci) (P, Ky, Kx) f32 from the
+    stage-1 output ar/ai (P, H, Kx) f32 and the band idx (P, X0) int64.
+    Every column is the bf16 product T0 . [ar16; ai16] (one f32 product);
+    the band columns are then replaced by the SPLITS[band] products
+    sum_(i,j) T_i . a_j, one f32 product over the concatenated terms:
+    band="bf16x6" is K2's spec, band="bf16x3" (two terms a value, the
+    TPU's HIGH) is for measurement (tools/band_ber_torch.py).
+
+    prep: stage2_prep's (ar16, ai16, ...) if the caller has them; tabs: the
+    grid's corner.Tables (its stage2 table where it has one)."""
+    if band not in SPLITS:
+        raise ValueError(f"fwd_stage2_plain: band must be one of "
+                         f"{tuple(SPLITS)}, got {band!r}")
+    P, H, X = ar.shape
+    Ky = tabs.eyr.shape[0]
+    X0 = idx.shape[1]
+    ar16, ai16 = (prep or stage2_prep_plain(ar, ai))[:2]
+    f32 = torch.float32
+    pairs = SPLITS[band]
+    levels = 1 + max(i for i, _ in pairs)
+    t = tabs.stage2 if getattr(tabs, "stage2", None) is not None else \
+        stage2_tables(tabs.eyr, tabs.eyi)
+    Kyp, Hp = t.shape[1] // 2, t.shape[2] // 2
+    ts = [torch.cat((t[i, :, :H], t[i, :, Hp:Hp + H]), 1).to(f32)
+          for i in range(levels)]                              # (2Kyp, 2H)
+    out = ts[0] @ torch.cat((ar16, ai16), 1).to(f32)           # (P, 2Kyp, X)
+    cr, ci = out[:, :Ky].contiguous(), out[:, Kyp:Kyp + Ky].contiguous()
+    del out
+    g = band_operand(ar, ai, idx, levels).to(f32)      # (2 lv, P, H, X0)
+    a = [torch.cat((g[2 * j], g[2 * j + 1]), 1)        # (P, 2H, X0)
+         for j in range(levels)]
+    h = (torch.cat([ts[i] for i, _ in pairs], 1)
+         @ torch.cat([a[j] for _, j in pairs], 1))      # (P, 2Kyp, X0)
+    si = idx[:, None, :].expand(P, Ky, X0)
+    cr.scatter_(2, si, h[:, :Ky])
+    ci.scatter_(2, si, h[:, Kyp:Kyp + Ky])
+    return cr, ci
+
+
+def band_error(cr: torch.Tensor, ci: torch.Tensor, ar: torch.Tensor,
+               ai: torch.Tensor, idx: torch.Tensor, tabs) -> float:
+    """The RMS, over every element of (cr, ci) (P, Ky, Kx) in the band
+    columns idx (P, BAND), of its error against the f64 product of the f32
+    tables (tabs.eyr, tabs.eyi) with the f32 stage-1 output ar/ai (P, H,
+    Kx), each on its own scale sum_h |T||a|. A split leaves at most
+    SPLIT_REL[band] of that scale at each element; f32 sums add noise whose
+    RMS lies well below SPLIT_REL["bf16x6"], where two terms (bf16x3) leave
+    several times it. So RMS <= SPLIT_REL["bf16x6"] holds a band to three
+    terms."""
+    P, H, _ = ar.shape
+    Ky, n = cr.shape[1], idx.shape[1]
+    f64 = torch.float64
+    gi = idx[:, None, :].expand(P, H, n)
+    a, b = ar.gather(2, gi).to(f64), ai.gather(2, gi).to(f64)
+    eyr, eyi = tabs.eyr.to(f64), tabs.eyi.to(f64)
+    go = idx[:, None, :].expand(P, Ky, n)
+    ar_, ai_, er_, ei_ = a.abs(), b.abs(), eyr.abs(), eyi.abs()
+    tiny = torch.finfo(f64).tiny
+    sq = 0.0
+    for c, exact, scale in ((cr, eyr @ a - eyi @ b, er_ @ ar_ + ei_ @ ai_),
+                            (ci, eyr @ b + eyi @ a, er_ @ ai_ + ei_ @ ar_)):
+        d = (c.gather(2, go).to(f64) - exact) / scale.clamp_min(tiny)
+        sq += d.pow(2).sum().item()
+    return (sq / (2 * go.numel())) ** 0.5
+
+
+def bulk_error(cr: torch.Tensor, ci: torch.Tensor, ar16: torch.Tensor,
+               ai16: torch.Tensor, idx: torch.Tensor, tabs,
+               planes: int = 24) -> float:
+    """The RMS, over the bulk (not band) columns of the first `planes`
+    planes of (cr, ci) (P, Ky, Kx), of their error against the exact (f64)
+    sum of the same bf16 products eyr16 . ar16 - eyi16 . ai16 (and ci's):
+    the error of the bulk's sum order alone, in the spectrum's units."""
+    n = min(planes, cr.shape[0])
+    Kx = cr.shape[2]
+    keep = torch.ones((n, 1, Kx), dtype=torch.bool, device=cr.device)
+    keep.scatter_(2, idx[:n, None, :], False)
+    keep = keep.expand(n, cr.shape[1], Kx)
+    eyr, eyi = tabs.eyr16.double(), tabs.eyi16.double()
+    a, b = ar16[:n].double(), ai16[:n].double()
+    sq = 0.0
+    for c, exact in ((cr, eyr @ a - eyi @ b), (ci, eyr @ b + eyi @ a)):
+        sq += (c[:n].double() - exact)[keep].pow(2).sum().item()
+    return (sq / (2 * keep.sum().item())) ** 0.5
+
+
+# --- the checks every kernel wrapper makes --------------------------------
+
+def _device(name: str, first: torch.Tensor, tensors) -> str:
+    """"cpu" or "cuda" for the call: every tensor argument on first's
+    device; any other device raises."""
+    dev = first.device
+    for t in tensors:
+        if t is not None and isinstance(t, torch.Tensor) and t.dim() and \
+                t.device != dev:
+            raise ValueError(f"{name}: tensors on {t.device} and {dev}")
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name}: unsupported device {dev}")
+    return dev.type
+
+
+def _need(name: str, what: str, t, dtype, shape) -> None:
+    """Raise unless t is a contiguous tensor of `dtype` and `shape`."""
+    if t.dtype != dtype or tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: {what} must be {dtype} {tuple(shape)}, "
+                         f"got {t.dtype} {tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: {what} must be contiguous")
+
+
+def _check_rc(name: str, rc: int) -> None:
+    if rc != 0:
+        raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
+
+
+def _stage1_output(name: str, ar, ai, *others) -> str:
+    """Check the stage-1 output ar/ai: contiguous f32 (P, H, Kx) on one
+    device with `others`; "cpu" or "cuda"."""
+    kind = _device(name, ar, (ai, *others))
+    if ar.dim() != 3:
+        raise ValueError(f"{name}: ar must be (P, H, Kx), got "
+                         f"{tuple(ar.shape)}")
+    _need(name, "ar", ar, torch.float32, ar.shape)
+    _need(name, "ai", ai, torch.float32, ar.shape)
+    return kind
+
+
+def _launch_stage2(name: str, device, entry: str, *args) -> None:
+    """Launch csrc/corner_stage2.cu's C entry `entry` on `device`'s
+    current stream (pointers and ints in args), raise on its error code,
+    count the launch under `name`."""
+    from steganosaurus_tpu_torch import _build
+
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        rc = getattr(_build.kernel_library(), entry)(*args, stream)
+    _check_rc(name, rc)
+    LAUNCHES[name] += 1
+
+
+def stage2_prep(ar: torch.Tensor, ai: torch.Tensor):
+    """(ar16, ai16, energy) of the stage-1 output ar/ai (P, H, Kx) f32:
+    bf16 copies (P, H, Kx) equal to ar.to(bf16) and ai.to(bf16), and the
+    column energies (P, Kx) f32 (stage2_prep_plain). CUDA tensors launch
+    csrc/corner_stage2.cu's prep kernel on the current stream (ar16 and ai16
+    are then views whose rows are padded to 16 bytes, the row stride TMA
+    reads); CPU tensors take stage2_prep_plain."""
+    name = KERNEL_PREP
+    if _stage1_output(name, ar, ai) == "cpu":
+        return stage2_prep_plain(ar, ai)
+    P, H, X = ar.shape
+    ldk = -(-X // 8) * 8
+    buf = torch.empty((2, P, H, ldk), dtype=torch.bfloat16, device=ar.device)
+    energy = torch.empty((P, X), dtype=torch.float32, device=ar.device)
+    if ar.numel():
+        _launch_stage2(name, ar.device, "corner_stage2_prep", ar.data_ptr(),
+                       ai.data_ptr(), buf.data_ptr(), buf[1].data_ptr(),
+                       energy.data_ptr(), P, H, X, ldk)
+    return buf[0, ..., :X], buf[1, ..., :X], energy
+
+
+def _tma_rows(t: torch.Tensor) -> torch.Tensor:
+    """t (P, H, X) bf16 as K2's TMA reads it: unit column stride, rows a
+    multiple of 8 values (16 bytes) apart, planes H rows apart, a 16-byte
+    aligned base; a copy with zero-padded rows where t is not."""
+    P, H, X = t.shape
+    ld = t.stride(1)
+    if (t.stride(2) == 1 and ld >= X and ld % 8 == 0 and t.stride(0) == H * ld
+            and t.data_ptr() % 16 == 0):
+        return t
+    out = torch.zeros((P, H, -(-X // 8) * 8), dtype=t.dtype, device=t.device)
+    out[..., :X] = t
+    return out[..., :X]
+
+
+def stage2_band(ar: torch.Tensor, ai: torch.Tensor, idx: torch.Tensor):
+    """(band_operand(ar, ai, idx), band_mask(idx, Kx)): K2's band operand
+    (2*LEVELS, P, H, BAND) bf16 and column mask (P, ceil(Kx/32)) int32 from
+    the stage-1 output ar/ai (P, H, Kx) f32 and the band idx (P, BAND)
+    int64, each index in [0, Kx). CUDA tensors launch csrc/corner_stage2.cu's
+    band kernel on the current stream (one pass: gather, split, mask); CPU
+    tensors take band_operand and band_mask."""
+    name = KERNEL_BAND
+    kind = _stage1_output(name, ar, ai, idx)
+    P, H, X = ar.shape
+    _need(name, "idx", idx, torch.int64, (P, BAND))
+    if kind == "cpu":
+        return band_operand(ar, ai, idx), band_mask(idx, X)
+    g = torch.empty((2 * LEVELS, P, H, BAND), dtype=torch.bfloat16,
+                    device=ar.device)
+    mask = torch.empty((P, -(-X // 32)), dtype=torch.int32, device=ar.device)
+    if P and H:
+        _launch_stage2(name, ar.device, "corner_stage2_band", ar.data_ptr(),
+                       ai.data_ptr(), idx.data_ptr(), g.data_ptr(),
+                       mask.data_ptr(), P, H, X)
+    return g, mask
+
+
+def fwd_stage2(ar: torch.Tensor, ai: torch.Tensor, ar16: torch.Tensor,
+               ai16: torch.Tensor, idx: torch.Tensor, tabs, band):
+    """Forward stage 2 under mix_adaptive: (cr, ci) (P, Ky, Kx) f32 from the
+    stage-1 output ar/ai (P, H, Kx) f32, stage2_prep's bf16 copies ar16 /
+    ai16, the band idx (P, BAND) int64 (the top-BAND columns of its
+    energies) and band = stage2_band(ar, ai, idx), with the grid's
+    corner.Tables (eyr (Ky, H); on CUDA its stage2 table). CUDA tensors
+    launch K2 (csrc/corner_stage2.cu) on the current stream; CPU tensors
+    take fwd_stage2_plain(band="bf16x6")."""
+    name = KERNEL_STAGE2
+    g, mask = band
+    kind = _stage1_output(name, ar, ai, ar16, ai16, idx, tabs.eyr, g, mask)
+    P, H, X = ar.shape
+    Ky = tabs.eyr.shape[0]
+    for what, t in (("ar16", ar16), ("ai16", ai16)):  # views: any strides
+        if t.dtype != torch.bfloat16 or tuple(t.shape) != (P, H, X):
+            raise ValueError(f"{name}: {what} must be bf16 {(P, H, X)}, got "
+                             f"{t.dtype} {tuple(t.shape)}")
+    _need(name, "idx", idx, torch.int64, (P, BAND))
+    _need(name, "eyr", tabs.eyr, torch.float32, (Ky, H))
+    _need(name, "the band operand", g, torch.bfloat16,
+          (2 * LEVELS, P, H, BAND))
+    _need(name, "the band mask", mask, torch.int32, (P, -(-X // 32)))
+    if X <= BAND:
+        raise ValueError(f"{name}: the band ({BAND} columns) must be "
+                         f"narrower than the corner (Kx={X})")
+    if kind == "cpu":
+        return fwd_stage2_plain(ar, ai, idx, tabs, "bf16x6", (ar16, ai16))
+    t2 = tabs.stage2
+    if t2 is None:
+        raise ValueError(f"{name}: the tables carry no stage-2 table")
+    Kyp, Hp = _pad64(Ky), _pad64(H)
+    _need(name, "the stage-2 table", t2, torch.bfloat16,
+          (LEVELS, 2 * Kyp, 2 * Hp))
+    _device(name, ar, (t2,))
+    cr = torch.empty((P, Ky, X), dtype=torch.float32, device=ar.device)
+    ci = torch.empty((P, Ky, X), dtype=torch.float32, device=ar.device)
+    if P:
+        ar16, ai16 = _tma_rows(ar16), _tma_rows(ai16)
+        _launch_stage2(name, ar.device, "corner_stage2", t2.data_ptr(),
+                       ar16.data_ptr(), ai16.data_ptr(), g.data_ptr(),
+                       mask.data_ptr(), idx.data_ptr(), cr.data_ptr(),
+                       ci.data_ptr(), P, H, X, Ky, Kyp, Hp, ar16.stride(1),
+                       ai16.stride(1))
+    return cr, ci

@@ -51,6 +51,8 @@ import torch
 
 from steganosaurus_tpu_torch import spectral
 from steganosaurus_tpu_torch.spectral import corner, corner_kernels
+from steganosaurus_tpu_torch.spectral.corner_kernels import (_check_rc,
+                                                              _device, _need)
 
 KERNEL_WRITE_FLOOR = "corner_write_floor"
 # the write_floor launches (also counted under KERNEL_WRITE_FLOOR) whose
@@ -230,28 +232,6 @@ def ifft_epilogue_plain(mr16, mi16, tabs, planes, center: bool,
 
 # --- the wrappers ------------------------------------------------------------
 
-def _device(name: str, first: torch.Tensor, tensors) -> str:
-    """"cpu" or "cuda" for the call: every tensor argument on first's
-    device; any other device raises."""
-    dev = first.device
-    for t in tensors:
-        if t is not None and isinstance(t, torch.Tensor) and t.dim() and \
-                t.device != dev:
-            raise ValueError(f"{name}: tensors on {t.device} and {dev}")
-    if dev.type not in ("cpu", "cuda"):
-        raise ValueError(f"{name}: unsupported device {dev}")
-    return dev.type
-
-
-def _need(name: str, what: str, t, dtype, shape) -> None:
-    """Raise unless t is a contiguous tensor of `dtype` and `shape`."""
-    if t.dtype != dtype or tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name}: {what} must be {dtype} {tuple(shape)}, "
-                         f"got {t.dtype} {tuple(t.shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name}: {what} must be contiguous")
-
-
 def _floor_scalars(floor: float, img_pixels: float):
     """(0.5*s, s, E*) in f32 as apply_write_floor rounds them: s =
     f32(1/img_pixels), E* = f32(1.5*floor^2)."""
@@ -268,11 +248,6 @@ def _scratch(B: int, N: int, dev):
 
 def _ptr(t) -> int | None:
     return None if t is None else t.data_ptr()
-
-
-def _check_rc(name: str, rc: int) -> None:
-    if rc != 0:
-        raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
 
 
 _GRIDS: dict = {}

@@ -43,7 +43,7 @@ from steganosaurus_tpu_torch.config import Params
 from steganosaurus_tpu_torch.parallel import batch as pbatch
 from steganosaurus_tpu_torch.pipeline import header as header_mod
 from steganosaurus_tpu_torch.pipeline.frame import HEADER_STREAM_BITS
-from steganosaurus_tpu_torch.spectral import corner
+from steganosaurus_tpu_torch.spectral import corner, corner_kernels
 
 # Data-sheet peaks (dense, no sparsity), keyed by a part of the name
 # torch.cuda.get_device_name reports. "fp32" is the rate outside the tensor
@@ -61,7 +61,7 @@ _PEAKS = (
 _WRITE_OPS = 14     # corner.write_delta, hard rule: |C|, sign, 2 x (mag*cos - re)
 _FLOOR_OPS = 30     # corner.apply_write_floor: three reductions, the boost
 _EPILOGUE_OPS = 5   # _epilogue: + planes, + 0.5, floor, clamp
-_BAND_OPS = 3       # band_columns: ar^2 + ai^2 summed over h
+_BAND_OPS = 3       # stage 2's energies: ar^2 + ai^2 summed over h
 _READ_OPS = 4       # a decision value per slot and its Rep-3 / Rep-7 sum
 
 
@@ -204,21 +204,62 @@ def ifft_epilogue_cost(B: int, H: int, W: int, Kx: int,
                   2 * M * Kx * 2 + 2 * Kx * W * 2 + 2 * px, "bf16")
 
 
-def _stage2(side: str, P: int, H: int, Ky: int, Kx: int, mode: str) -> dict:
-    """Forward stage 2 (_fwd_y_split): four real (Ky, H) x (H, Kx)
-    products per plane in bf16, then the SPLIT_X0 highest-energy columns
-    again in f32 (all of them in f32 under "highest", or where the corner
-    is no wider than the band)."""
-    full = 8.0 * P * Ky * H * Kx
+def stage2_prep_cost(P: int, H: int, Kx: int, side: str = "") -> dict:
+    """Forward stage 2's prep pass (corner_kernels.stage2_prep) over P
+    planes' stage-1 output: ar and ai read once in f32, their bf16 copies
+    written once, the (P, Kx) f32 energies written once; elementwise,
+    ar^2 + ai^2 and its sum over h."""
+    n = P * H * Kx
+    return _stage(side, "stage2 prep", {}, _BAND_OPS * n,
+                  2 * n * 4 + 2 * n * 2 + P * Kx * 4, "none")
+
+
+def stage2_band_cost(P: int, H: int, Kx: int, side: str = "") -> dict:
+    """K2's band operand (corner_kernels.stage2_band): the SPLIT_X0 band
+    columns of ar and ai read once (f32), their three bf16 terms written
+    once, the column mask written once."""
     X0 = min(corner.SPLIT_X0, Kx)
-    nbytes = (2 * P * H * Kx * 4 + 2 * Ky * H * (4 + 2)
-              + 2 * P * Ky * Kx * 4)
+    levels = corner_kernels.LEVELS
+    return _stage(side, "stage2 band", {}, 0,
+                  2 * P * H * X0 * 4 + 2 * levels * P * H * X0 * 2
+                  + P * -(-Kx // 32) * 4, "none")
+
+
+def k2_cost(P: int, H: int, Ky: int, Kx: int, side: str = "") -> dict:
+    """K2 (corner_kernels.fwd_stage2): the bulk, four real (Ky, H) x (H,
+    Kx - SPLIT_X0) products per plane in bf16 (the columns it keeps: the
+    band columns' bulk values are thrown away, so the function does not
+    need them), and the SPLIT_X0 band columns as the six bf16 products of
+    split bf16 (corner_kernels.SPLITS["bf16x6"]); bytes: the bf16 copies of
+    ar and ai read once, the band operand (the three bf16 terms of the band
+    columns of ar and ai) once, the tables' three terms once, cr and ci
+    written once in f32."""
+    X0 = min(corner.SPLIT_X0, Kx)
+    nprod, levels = len(corner_kernels.SPLITS["bf16x6"]), corner_kernels.LEVELS
+    bulk = 8.0 * P * Ky * H * (Kx - X0)
+    band = nprod * 8.0 * P * X0 * H * Ky
+    nbytes = (2 * P * H * Kx * 2 + 2 * levels * P * H * X0 * 2
+              + levels * (2 * Ky) * (2 * H) * 2 + 2 * P * Ky * Kx * 4)
+    return _stage(side, "K2", {"bf16": bulk + band}, 0, nbytes,
+                  f"bf16, top {X0} columns again in split bf16 "
+                  f"({nprod} bf16 products)")
+
+
+def _stage2(side: str, P: int, H: int, Ky: int, Kx: int,
+            mode: str) -> list[dict]:
+    """Forward stage 2: under mix_adaptive the prep pass, the band operand
+    and K2 (the band in split bf16, as the card runs it; the CPU path runs
+    it once in f32);
+    under "highest", or where the corner is no wider than the band, four
+    real (Ky, H) x (H, Kx) products per plane in f32."""
+    X0 = min(corner.SPLIT_X0, Kx)
     if mode == "highest" or X0 == Kx:
-        return _stage(side, "stage2", {"fp32": full}, 0, nbytes, "fp32")
-    band = 8.0 * P * X0 * H * Ky
-    return _stage(side, "stage2", {"bf16": full, "fp32": band},
-                  _BAND_OPS * P * H * Kx, nbytes,
-                  f"bf16, top {X0} columns again in fp32")
+        nbytes = (2 * P * H * Kx * 4 + 2 * Ky * H * 4
+                  + 2 * P * Ky * Kx * 4)
+        return [_stage(side, "stage2", {"fp32": 8.0 * P * Ky * H * Kx}, 0,
+                       nbytes, "fp32")]
+    return [stage2_prep_cost(P, H, Kx, side),
+            stage2_band_cost(P, H, Kx, side), k2_cost(P, H, Ky, Kx, side)]
 
 
 def stage_costs(B: int, H: int, W: int, secret_len: int,
@@ -247,7 +288,7 @@ def stage_costs(B: int, H: int, W: int, secret_len: int,
         if mm == "fp32":
             k1["gemm_flops"] = {"fp32": k1["gemm_flops"]["bf16"]}
             k1["precision"] = "fp32"
-        return out + [k1, _stage2(side, P, H, Ky, Kx, mode)]
+        return out + [k1, *_stage2(side, P, H, Ky, Kx, mode)]
 
     embed = forward("embed") + [
         # each bin's frame bit through pos (int64) and the other maps; the

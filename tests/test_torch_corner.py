@@ -217,7 +217,10 @@ def test_stage1_kernel_routing_by_width():
     assert tk.route_for(3839, 0) == tk.route_for(3841, 16) == tk.KERNEL_LDG
     for addr in (1, 4, 8, 15, 3840 * 7 + 3):  # an unaligned view, W % 16 == 0
         assert tk.route_for(3840, addr) == tk.KERNEL_LDG
-    assert set(tk.LAUNCHES) == {tk.KERNEL_TMA, tk.KERNEL_LDG}
+    assert set(tk.LAUNCHES) == {tk.KERNEL_TMA, tk.KERNEL_LDG,
+                                tk.KERNEL_PREP, tk.KERNEL_BAND,
+                                tk.KERNEL_STAGE2}
+    assert tk.K1_ROUTES == (tk.KERNEL_TMA, tk.KERNEL_LDG)
     assert tk.KERNEL_TMA == "corner_stage1_wgmma"
     assert tk.KERNEL_LDG == "corner_stage1_wgmma_ldg"
     before = dict(tk.LAUNCHES)

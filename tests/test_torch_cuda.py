@@ -19,7 +19,11 @@ B=4 (K3 bit-exact against its ordered twin, which sums in the kernel's
 order, K4e bit-exact), write_floor's bf16 operand mode against its f32
 output cast and its two schedules against each other (bit for bit), its
 boost independent of the batch, the write wrappers' checks, and the K3 /
-K4e launches of each corner embed path.
+K4e launches of each corner embed path; forward stage 2's prep pass
+(bf16 copies bit-equal, energies against the exact sum) and K2 against its
+bf16x6 twin at edge shapes, the band kernel bit-exact, a plane's bits
+independent of its batch, the
+stage-2 wrappers' counts and checks, and fwd_corner's launches on the card.
 
 They skip without CUDA. This file imports neither jax nor the JAX package's
 device code, so it also runs on a machine without JAX:
@@ -1079,3 +1083,200 @@ def test_embed_cores_on_card_launch_k3_and_k4e(dev, monkeypatch):
         assert {k: wk.LAUNCHES[k] - n[k] for k in n} == want
         assert stt.extract_batch(res.stego, master_key=bytes(32), params=p,
                                  layout="nchw") == secrets
+
+
+# --- forward stage 2: the prep pass and K2 (csrc/corner_stage2.cu) ---------
+
+def _stage1_like(dev, P, h, x, seed, scale=1e5):
+    """Stage-1-like f32 operands with a few strong columns (the band)."""
+    rng = np.random.default_rng(seed)
+    col = np.exp(rng.normal(0.0, 2.0, (P, 1, x)))
+    return tuple(torch.from_numpy((rng.normal(size=(P, h, x)) * col * scale)
+                                  .astype(np.float32)).to(dev)
+                 for _ in range(2))
+
+
+def _stage1_of_images(dev, P, h, x, seed):
+    """The stage-1 output (P, h, x) of P seeded gradient + noise image
+    planes (the bench covers' recipe) by fwd_stage1_plain: the operands K2
+    takes on the main path, with their DC column."""
+    from steganosaurus_tpu_torch.spectral import corner
+    from steganosaurus_tpu_torch.spectral import corner_kernels as ck
+
+    rng = np.random.default_rng(seed)
+    w = max(x, 96)
+    base = np.linspace(150, 235, w)
+    imgs = np.clip(base[None, None, :] + rng.integers(-18, 19, (P, h, w)),
+                   0, 255).astype(np.uint8)
+    exr, exi = (torch.from_numpy(t).to(dev).to(torch.bfloat16)
+                for t in corner._dft_tables(w, x))
+    return ck.fwd_stage1_plain(torch.from_numpy(imgs).to(dev), exr, exi,
+                               False)
+
+
+def _stage2_tabs(h, Ky, dev):
+    from steganosaurus_tpu_torch.spectral import corner
+
+    return corner.dft_tables_device(h, Ky, 96, 96, dev)
+
+
+# (P, H, Kx, Ky): H, Kx, Ky off the 64 / 256 tiles, P off the band tile's 4
+# planes, the 4b grid's H, a main-path-like corner
+STAGE2_SHAPES = [(3, 70, 200, 100), (5, 64, 256, 64), (1, 130, 96, 40),
+                 (12, 1079, 512, 512), (8, 256, 1024, 256), (2, 33, 131, 70)]
+
+
+@pytest.mark.parametrize("P,h,X,Ky", STAGE2_SHAPES)
+def test_stage2_prep_matches_plain(dev, P, h, X, Ky):
+    """The prep's bf16 copies bit-equal to .to(bf16), its energies within
+    one f32 rounding of the exact (f64) sum and 1e-6 of torch.sum's; on
+    views one element off their alignment too (the scalar path)."""
+    from steganosaurus_tpu_torch.spectral import corner_kernels as ck
+
+    ar, ai = _stage1_like(dev, P, h, X, P * h + X)
+    for shift in (False, True):
+        if shift:
+            buf = torch.empty((2, ar.numel() + 1), device=dev)
+            buf[0, 1:], buf[1, 1:] = ar.reshape(-1), ai.reshape(-1)
+            ar, ai = buf[0, 1:].view(P, h, X), buf[1, 1:].view(P, h, X)
+        ar16, ai16, energy = ck.stage2_prep(ar, ai)
+        torch.cuda.synchronize()
+        assert torch.equal(ar16, ar.to(torch.bfloat16))
+        assert torch.equal(ai16, ai.to(torch.bfloat16))
+        sq = ar * ar + ai * ai
+        exact = torch.sum(sq.double(), dim=-2)
+        assert ((energy.double() - exact).abs() / exact).max() <= 2.0 ** -24
+        ref = torch.sum(sq, dim=-2)
+        assert ((energy - ref).abs() / ref).max() <= 1e-6
+
+
+@pytest.mark.parametrize("P,h,X,Ky", STAGE2_SHAPES)
+def test_stage2_band_kernel_is_bit_exact(dev, P, h, X, Ky):
+    """The band kernel's operand and mask equal band_operand's and
+    band_mask's bit for bit (the same f32 differences, the same roundings)."""
+    from steganosaurus_tpu_torch.spectral import corner
+    from steganosaurus_tpu_torch.spectral import corner_kernels as ck
+
+    ar, ai = _stage1_like(dev, P, h, X, 3 * P + X)
+    idx = corner.band_topk(ck.stage2_prep(ar, ai)[2], 64)
+    g, mask = ck.stage2_band(ar, ai, idx)
+    torch.cuda.synchronize()
+    assert torch.equal(g, ck.band_operand(ar, ai, idx))
+    assert torch.equal(mask, ck.band_mask(idx, X))
+
+
+@pytest.mark.parametrize("P,h,X,Ky", STAGE2_SHAPES)
+def test_k2_matches_its_split_bf16_twin(dev, P, h, X, Ky):
+    """K2 against fwd_stage2_plain(band="bf16x6") on the same band: the same
+    exact bf16 products summed in f32 in another order (REL of
+    max|twin|, on image planes' stage-1 output as the main path gives it);
+    every element written (finite), the band columns too, and those within
+    the three-term split's bound on their own scale (band_error), which
+    the two-term band exceeds."""
+    from steganosaurus_tpu_torch.spectral import corner
+    from steganosaurus_tpu_torch.spectral import corner_kernels as ck
+
+    ar, ai = _stage1_of_images(dev, P, h, X, 7 * P + h)
+    tabs = _stage2_tabs(h, Ky, dev)
+    ar16, ai16, energy = ck.stage2_prep(ar, ai)
+    idx = corner.band_topk(energy, 64)
+    cr, ci = ck.fwd_stage2(ar, ai, ar16, ai16, idx, tabs,
+                           ck.stage2_band(ar, ai, idx))
+    tr, ti = ck.fwd_stage2_plain(ar, ai, idx, tabs, "bf16x6", (ar16, ai16))
+    torch.cuda.synchronize()
+    assert cr.shape == (P, Ky, X) and torch.isfinite(cr).all()
+    assert torch.isfinite(ci).all()
+    scale = max(tr.abs().max().item(), ti.abs().max().item())
+    assert (cr - tr).abs().max().item() <= REL * scale
+    assert (ci - ti).abs().max().item() <= REL * scale
+    two = ck.fwd_stage2_plain(ar, ai, idx, tabs, "bf16x3", (ar16, ai16))
+    assert ck.band_error(cr, ci, ar, ai, idx, tabs) <= ck.SPLIT_REL[
+        "bf16x6"] < ck.band_error(*two, ar, ai, idx, tabs)
+
+
+def test_k2_plane_does_not_depend_on_the_batch(dev):
+    """A plane's stage 2 gives the same bits alone, in a batch of 7 and in
+    another slot of a band tile: the sum order depends on the shape alone
+    (shards of a batch agree)."""
+    from steganosaurus_tpu_torch.spectral import corner
+    from steganosaurus_tpu_torch.spectral import corner_kernels as ck
+
+    ar, ai = _stage1_like(dev, 7, 200, 320, 21)
+    tabs = _stage2_tabs(200, 192, dev)
+
+    def stage2(a, b):
+        a16, b16, e = ck.stage2_prep(a, b)
+        i = corner.band_topk(e, 64)
+        return ck.fwd_stage2(a, b, a16, b16, i, tabs, ck.stage2_band(a, b, i))
+
+    cr, ci = stage2(ar, ai)
+    for sl in (slice(5, 6), slice(3, 7), slice(1, 6)):
+        pr, pi = stage2(ar[sl].contiguous(), ai[sl].contiguous())
+        assert torch.equal(pr, cr[sl]) and torch.equal(pi, ci[sl])
+
+
+def test_stage2_wrappers_count_and_check(dev):
+    """One count per launch under each kernel's name; bad inputs raise."""
+    from steganosaurus_tpu_torch.spectral import corner
+    from steganosaurus_tpu_torch.spectral import corner_kernels as ck
+
+    ar, ai = _stage1_like(dev, 3, 70, 200, 5)
+    tabs = _stage2_tabs(70, 100, dev)
+    n = dict(ck.LAUNCHES)
+    ar16, ai16, energy = ck.stage2_prep(ar, ai)
+    idx = corner.band_topk(energy, 64)
+    band = ck.stage2_band(ar, ai, idx)
+    ck.fwd_stage2(ar, ai, ar16, ai16, idx, tabs, band)
+    torch.cuda.synchronize()
+    assert ck.LAUNCHES == {**n, ck.KERNEL_PREP: n[ck.KERNEL_PREP] + 1,
+                           ck.KERNEL_BAND: n[ck.KERNEL_BAND] + 1,
+                           ck.KERNEL_STAGE2: n[ck.KERNEL_STAGE2] + 1}
+    n = dict(ck.LAUNCHES)
+    for bad in ((ar.double(), ai), (ar, ai.cpu()), (ar.transpose(1, 2),
+                                                    ai.transpose(1, 2))):
+        with pytest.raises(ValueError):
+            ck.stage2_prep(*bad)
+    for k, bad in ((0, ar.cpu()), (2, ar16.float()), (4, idx.to(torch.int32)),
+                   (4, idx[:, :32]), (5, _stage2_tabs(71, 100, dev)),
+                   (6, (band[0].cpu(), band[1]))):
+        args = [ar, ai, ar16, ai16, idx, tabs, band]
+        args[k] = bad
+        with pytest.raises(ValueError):
+            ck.fwd_stage2(*args)
+    for bad in ((ar, ai, idx.cpu()), (ar, ai.transpose(1, 2), idx)):
+        with pytest.raises(ValueError):
+            ck.stage2_band(*bad)
+    assert ck.LAUNCHES == n
+
+
+def test_fwd_corner_on_card_runs_prep_and_k2(dev, monkeypatch):
+    """fwd_corner under mix_adaptive on the card: K1, the prep, the band
+    pass and K2 once each, the eager stage 2 never; its spectrum within REL of the scale of
+    the plain composition's (stage 1's plain version, then the bf16x6 twin
+    on the kernel's band)."""
+    from steganosaurus_tpu_torch.spectral import corner
+    from steganosaurus_tpu_torch.spectral import corner_kernels as ck
+
+    def refuse(*a, **k):
+        raise AssertionError("the eager stage 2 ran on the card")
+
+    monkeypatch.setattr(corner, "_fwd_y_split", refuse)
+    rng = np.random.default_rng(3)
+    imgs = torch.from_numpy(rng.integers(0, 256, (2, 3, 256, 384),
+                                         dtype=np.uint8)).to(dev)
+    Ky, Kx = corner.corner_dims(256, 384, 0.45)
+    tabs = corner.dft_tables_device(256, Ky, 384, Kx, dev)
+    n = dict(ck.LAUNCHES)
+    cr, ci = corner.fwd_corner(imgs, True, Ky, Kx, tabs, "mix_adaptive")
+    torch.cuda.synchronize()
+    got = {k: ck.LAUNCHES[k] - n[k] for k in n}
+    assert got == {ck.KERNEL_TMA: 1, ck.KERNEL_LDG: 0, ck.KERNEL_PREP: 1,
+                   ck.KERNEL_BAND: 1, ck.KERNEL_STAGE2: 1}
+    ar, ai = ck.fwd_stage1_plain(imgs.reshape(-1, 256, 384), tabs.exr16,
+                                 tabs.exi16, True)
+    ar16, ai16, energy = ck.stage2_prep(ar, ai)
+    idx = corner.band_topk(energy, 64)
+    tr, ti = ck.fwd_stage2_plain(ar, ai, idx, tabs, "bf16x6", (ar16, ai16))
+    scale = max(tr.abs().max().item(), ti.abs().max().item())
+    assert (cr.reshape(tr.shape) - tr).abs().max().item() <= REL * scale
+    assert (ci.reshape(ti.shape) - ti).abs().max().item() <= REL * scale

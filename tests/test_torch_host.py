@@ -382,7 +382,9 @@ def _port_sources():
                     REPO / "tools" / "serve_latency_torch.py",
                     REPO / "tools" / "mesh_cards_torch.py",
                     REPO / "tools" / "k3_ablation_torch.py",
-                    REPO / "tools" / "k4_ablation_torch.py"]
+                    REPO / "tools" / "k4_ablation_torch.py",
+                    REPO / "tools" / "band_ber_torch.py",
+                    REPO / "tools" / "k2_ablation_torch.py"]
 
 
 def test_launchers_run_the_ports_modules():

@@ -1,0 +1,484 @@
+"""Forward corner-DFT stage 2 of the torch port under mix_adaptive: the
+prep pass and K2 (spectral/corner_kernels.py stage2_prep, fwd_stage2 over
+csrc/corner_stage2.cu), on the CPU.
+
+Held here: the prep's plain version (bf16 casts bit-equal to
+.to(torch.bfloat16), energies within 1e-6 relative of band_columns' f32
+torch.sum); fwd_stage2_plain(band="bf16x6"), K2's spec, and band="bf16x3"
+against the JAX package's _fwd_y_split(adaptive=True) on the CPU (whose
+band is f32): the same band set, the same bits at every walk bin, spectra
+within a bound derived from the split's error, and at the band columns a
+smaller error against an f64 product than the bf16 bulk's; band_error
+(the card's check of the band columns) passing three terms and failing
+two, and bulk_error measuring the sum order's error alone; the layouts of
+K2's tables [T0, T1, T2], its band operand and its column mask; a numpy
+emulation of the kernel's tile schedule (band tiles of two planes, six K
+segments, bulk tiles that skip the masked columns, TMA's zero fill past H
+and Kx)
+against the plain version; the wrappers' plain versions on the CPU and
+their input checks. The CUDA kernels themselves are held against the plain
+versions on the card (tests/test_torch_cuda.py, chip_smoke.py phase 3d).
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from steganosaurus_tpu.spectral import corner as jcorner
+from steganosaurus_tpu_torch.config import Params
+from steganosaurus_tpu_torch.pipeline import batch as tbatch
+from steganosaurus_tpu_torch.spectral import corner as tcorner
+from steganosaurus_tpu_torch.spectral import corner_kernels as ck
+
+torch.set_num_threads(2)
+
+H, W, B = 384, 640, 4        # a Ky = Kx = 256 corner: the band is a real split
+MK = bytes(range(32))
+REL = 1e-5                   # f32 sums of the same products in another order
+ENERGY_REL = 1e-6
+SPLIT_REL = ck.SPLIT_REL     # split bf16's error per term, of |T||a|
+
+
+def _covers(seed=11):
+    rng = np.random.default_rng(seed)
+    base = np.linspace(150, 235, W)
+    img = base[None, None, :, None] + rng.integers(-18, 19, (B, H, W, 3))
+    return np.ascontiguousarray(
+        np.clip(img, 0, 255).astype(np.uint8).transpose(0, 3, 1, 2))
+
+
+def _stage1(imgs, Ky, Kx):
+    tabs = tcorner.dft_tables_device(H, Ky, W, Kx, "cpu")
+    x = torch.from_numpy(imgs).reshape(-1, H, W)
+    ar, ai = ck.fwd_stage1(x, tabs.exr16, tabs.exi16, False)
+    return ar, ai, tabs
+
+
+def _dims():
+    return tcorner.corner_dims(H, W, Params().rmax)
+
+
+def _random_stage1(seed, P=5, h=70, x=200, scale=1e5):
+    """Stage-1-like operands with a few strong columns (the band)."""
+    rng = np.random.default_rng(seed)
+    col = np.exp(rng.normal(0.0, 2.0, (P, 1, x)))
+    ar = (rng.normal(size=(P, h, x)) * col * scale).astype(np.float32)
+    ai = (rng.normal(size=(P, h, x)) * col * scale).astype(np.float32)
+    return torch.from_numpy(ar), torch.from_numpy(ai)
+
+
+def _tables(h, Ky, w=96, Kx=96):
+    return tcorner.dft_tables_device(h, Ky, w, Kx, "cpu")
+
+
+# --- the prep pass -----------------------------------------------------------
+
+@pytest.mark.parametrize("P,h,x", [(12, H, 256), (5, 70, 200), (1, 3, 65)])
+def test_prep_plain_casts_and_energies(P, h, x):
+    ar, ai = _random_stage1(1, P, h, x)
+    ar16, ai16, energy = ck.stage2_prep_plain(ar, ai)
+    assert torch.equal(ar16, ar.to(torch.bfloat16))
+    assert torch.equal(ai16, ai.to(torch.bfloat16))
+    ref = torch.sum(ar * ar + ai * ai, dim=-2)            # band_columns'
+    assert energy.dtype == torch.float32 and energy.shape == (P, x)
+    rel = ((energy - ref).abs() / ref).max().item()
+    assert rel <= ENERGY_REL
+    exact = torch.sum((ar * ar + ai * ai).double(), dim=-2)
+    assert ((energy.double() - exact).abs() / exact).max().item() <= 2.0 ** -24
+
+
+def test_prep_energies_pick_the_band_of_band_columns():
+    Ky, Kx = _dims()
+    ar, ai, _ = _stage1(_covers(), Ky, Kx)
+    _, _, energy = ck.stage2_prep_plain(ar, ai)
+    idx = tcorner.band_topk(energy, tcorner.SPLIT_X0)
+    ref = tcorner.band_columns(ar, ai, tcorner.SPLIT_X0)
+    assert torch.equal(idx.sort(-1).values, ref.sort(-1).values)
+
+
+# --- the plain versions ------------------------------------------------------
+
+@pytest.mark.parametrize("seed", [11, 12])
+def test_band_error_holds_the_band_to_three_terms(seed):
+    """band_error, the card's check of K2's band columns, on image planes'
+    stage-1 output: K2's spec (three terms, six products) lies below
+    SPLIT_REL["bf16x6"], the TPU's HIGH (two terms) above it, and the
+    bf16 bulk at those columns above SPLIT_REL["bf16x3"]."""
+    Ky, Kx = _dims()
+    ar, ai, tabs = _stage1(_covers(seed), Ky, Kx)
+    prep = ck.stage2_prep_plain(ar, ai)
+    idx = tcorner.band_topk(prep[2], tcorner.SPLIT_X0)
+    err = {band: ck.band_error(*ck.fwd_stage2_plain(ar, ai, idx, tabs, band,
+                                                    prep), ar, ai, idx, tabs)
+           for band in ck.SPLITS}
+    assert err["bf16x6"] <= SPLIT_REL["bf16x6"] < err["bf16x3"]
+    bulk = (tcorner._mm_bf16(tabs.eyr16, prep[0])
+            - tcorner._mm_bf16(tabs.eyi16, prep[1]),
+            tcorner._mm_bf16(tabs.eyr16, prep[1])
+            + tcorner._mm_bf16(tabs.eyi16, prep[0]))
+    assert ck.band_error(*bulk, ar, ai, idx, tabs) > SPLIT_REL["bf16x3"]
+
+
+def test_bulk_error_is_the_sum_orders_error():
+    """bulk_error against the exact sum of the same bf16 products: 0 for
+    that sum itself, the offset for the sum moved by a constant, and f32
+    noise (above 0, far below a bf16 rounding of the values) for the plain
+    version's f32 product; the band columns and the planes past `planes`
+    are not looked at."""
+    Ky, Kx = _dims()
+    ar, ai, tabs = _stage1(_covers(), Ky, Kx)
+    ar16, ai16, energy = ck.stage2_prep_plain(ar, ai)
+    idx = tcorner.band_topk(energy, tcorner.SPLIT_X0)
+    eyr, eyi = tabs.eyr16.double(), tabs.eyi16.double()
+    a, b = ar16.double(), ai16.double()
+    er, ei = eyr @ a - eyi @ b, eyr @ b + eyi @ a
+    assert ck.bulk_error(er, ei, ar16, ai16, idx, tabs) == 0.0
+    assert ck.bulk_error(er + 0.5, ei - 0.5, ar16, ai16, idx, tabs) == \
+        pytest.approx(0.5, rel=1e-6)
+    moved = er.clone()
+    moved.scatter_(2, idx[:, None, :].expand_as(er[..., :idx.shape[1]]), 7.0)
+    moved[2:] += 1.0
+    assert ck.bulk_error(moved, ei, ar16, ai16, idx, tabs, planes=2) == 0.0
+    cr, ci = ck.fwd_stage2_plain(ar, ai, idx, tabs, "bf16x6",
+                                 (ar16, ai16))
+    err = ck.bulk_error(cr, ci, ar16, ai16, idx, tabs)
+    assert 0.0 < err < 2.0 ** -9 * er.abs().max().item() * 1e-3
+
+
+def _jax_stego():
+    """A JAX embed of 128-byte secrets at fixed salts (nchw)."""
+    from steganosaurus_tpu.pipeline import batch as jbatch
+
+    rng = np.random.default_rng(13)
+    secrets = [bytes(rng.integers(0, 256, 128, dtype=np.uint8))
+               for _ in range(B)]
+    res = jbatch.embed_batch(_covers(), secrets, master_key=MK,
+                             salts=[bytes([i]) * 16 for i in range(B)],
+                             layout="nchw")
+    return np.array(res.stego), 912 + (128 + 16) * 56
+
+
+def _f64_stage2(ar, ai, tabs):
+    eyr, eyi = tabs.eyr.double(), tabs.eyi.double()
+    a, b = ar.double(), ai.double()
+    return eyr @ a - eyi @ b, eyr @ b + eyi @ a
+
+
+@pytest.mark.parametrize("band_name", ["bf16x6", "bf16x3"])
+def test_split_bf16_plain_against_jax_adaptive_split(band_name):
+    """K2's spec (bf16x6; and the TPU's HIGH, bf16x3) on a stego against
+    JAX's _fwd_y_split(adaptive=True) on the CPU: the same band set, spectra
+    within REL of their scale on the bulk columns and within the split's
+    bound on the band columns, the same bits at every walk bin; at the band
+    columns split bf16 sits closer to the f64 product than the bf16 bulk
+    would."""
+    stego, nbits = _jax_stego()
+    Ky, Kx = _dims()
+    ar, ai, tabs = _stage1(stego, Ky, Kx)
+    _, _, energy = ck.stage2_prep_plain(ar, ai)
+    idx = tcorner.band_topk(energy, tcorner.SPLIT_X0)
+
+    jtabs = jcorner.dft_tables_device(H, Ky, W, Kx)
+    planes = jnp.asarray(stego.reshape(-1, H, W), jnp.float32)
+    jar = jcorner._mm("phw,xw->phx", planes, jtabs[2], "bf16")
+    jai = jcorner._mm("phw,xw->phx", planes, jtabs[3], "bf16")
+    _, jidx = jax.lax.top_k(jnp.sum(jar * jar + jai * jai, axis=-2),
+                            jcorner.split_x0())
+    np.testing.assert_array_equal(np.sort(idx.numpy(), -1),
+                                  np.sort(np.asarray(jidx), -1))
+    jr, ji = jcorner._fwd_y_split(jar, jai, (jtabs[0], jtabs[1]),
+                                  adaptive=True)
+    jr, ji = np.asarray(jr), np.asarray(ji)
+
+    cr, ci = ck.fwd_stage2_plain(ar, ai, idx, tabs, band=band_name)
+    scale = float(max(np.abs(jr).max(), np.abs(ji).max()))
+    band = np.zeros((ar.shape[0], 1, Kx), bool)
+    np.put_along_axis(band, idx.numpy()[:, None, :], True, -1)
+    # per band column: sum_h |T||a| <= 2 sum_h (|ar| + |ai|) (|ey| <= 1)
+    s = 2.0 * (ar.abs() + ai.abs()).double().sum(1, keepdim=True).numpy()
+    tol = np.where(band, SPLIT_REL[band_name] * s, 0.0) + REL * scale
+    for got, want in ((cr.numpy(), jr), (ci.numpy(), ji)):
+        err = np.abs(got.astype(np.float64) - want)
+        assert (err <= tol).all()
+        assert err[~np.broadcast_to(band, err.shape)].max() <= REL * scale
+
+    er, ei = _f64_stage2(ar, ai, tabs)
+    bulk_r = (tcorner._mm_bf16(tabs.eyr16, ar) - tcorner._mm_bf16(tabs.eyi16,
+                                                                  ai))
+    sel = torch.from_numpy(np.broadcast_to(band, cr.shape).copy())
+    err_split = (cr.double() - er).abs()[sel].max().item()
+    err_bulk = (bulk_r.double() - er).abs()[sel].max().item()
+    assert err_split < err_bulk / 8
+
+    plane, y, xx, _ = tbatch._walk_indices(None, MK, Params(), H, W, nbits)
+    sign = float(np.sign(np.sin(np.float32(Params().alpha))))
+    walk = tuple(torch.from_numpy(a.astype(np.int64)) for a in (plane, y, xx))
+    ci5 = ci.reshape(B, 3, Ky, Kx)
+    got = tcorner.read_bits_dense(ci5[(slice(None),) + walk], sign).numpy()
+    want = np.asarray(jcorner.read_bits_dense(
+        jr.reshape(B, 3, Ky, Kx), ji.reshape(B, 3, Ky, Kx), sign))[
+        :, plane, y, xx]
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("band", ["tf32", "f32"])
+def test_plain_band_must_be_known(band):
+    """Only the SPLITS keys: the f32 band is corner._fwd_y_split's."""
+    ar, ai = _random_stage1(2, 2, 8, 80)
+    idx = torch.topk(ck.stage2_prep_plain(ar, ai)[2], 64).indices
+    with pytest.raises(ValueError):
+        ck.fwd_stage2_plain(ar, ai, idx, _tables(8, 16), band=band)
+
+
+# --- the layouts the kernel reads --------------------------------------------
+
+@pytest.mark.parametrize("h,Ky", [(70, 100), (128, 64), (384, 256)])
+def test_stage2_tables_layout(h, Ky):
+    tabs = _tables(h, Ky)
+    t = ck.stage2_tables(tabs.eyr, tabs.eyi)
+    Kyp, Hp = -(-Ky // 64) * 64, -(-h // 64) * 64
+    assert t.dtype == torch.bfloat16 and t.shape == (3, 2 * Kyp, 2 * Hp)
+    assert torch.equal(t[0, :Ky, :h], tabs.eyr16)
+    assert torch.equal(t[0, :Ky, Hp:Hp + h], -tabs.eyi16)
+    assert torch.equal(t[0, Kyp:Kyp + Ky, :h], tabs.eyi16)
+    assert torch.equal(t[0, Kyp:Kyp + Ky, Hp:Hp + h], tabs.eyr16)
+    full = torch.zeros((2 * Kyp, 2 * Hp))
+    full[:Ky, :h], full[:Ky, Hp:Hp + h] = tabs.eyr, -tabs.eyi
+    full[Kyp:Kyp + Ky, :h], full[Kyp:Kyp + Ky, Hp:Hp + h] = tabs.eyi, tabs.eyr
+    t0, t1, t2 = (t[i].float() for i in range(3))
+    assert torch.equal(t[1], (full - t0).to(torch.bfloat16))
+    assert torch.equal(t[2], (full - t0 - t1).to(torch.bfloat16))
+    pad = torch.ones_like(full, dtype=torch.bool)
+    pad[:Ky, :h] = pad[:Ky, Hp:Hp + h] = False
+    pad[Kyp:Kyp + Ky, :h] = pad[Kyp:Kyp + Ky, Hp:Hp + h] = False
+    assert not (t0[pad].any() or t1[pad].any() or t2[pad].any())
+    assert ((t0 + t1 + t2 - full).abs() <= 2.0 ** -26 * full.abs()).all()
+
+
+@pytest.mark.parametrize("X", [65, 96, 200, 1024])
+def test_band_mask_layout(X):
+    rng = np.random.default_rng(X)
+    idx = np.stack([rng.choice(X, 64, replace=False) for _ in range(3)])
+    idx[0, 0] = 31                                   # bit 31 of a word
+    idx[0, 1] = X - 1
+    idx[0, 2:] = [i for i in range(X) if i not in (31, X - 1)][:62]
+    m = ck.band_mask(torch.from_numpy(idx), X)
+    nw = -(-X // 32)
+    assert m.dtype == torch.int32 and m.shape == (3, nw)
+    words = m.numpy().view(np.uint32)
+    bits = (words[:, :, None] >> np.arange(32, dtype=np.uint32)) & 1
+    got = bits.reshape(3, nw * 32)
+    want = np.zeros_like(got)
+    np.put_along_axis(want, idx, 1, 1)
+    np.testing.assert_array_equal(got, want)
+
+
+def test_band_operand_layout():
+    ar, ai = _random_stage1(3, 3, 40, 120)
+    idx = torch.from_numpy(np.stack([np.random.default_rng(i).choice(
+        120, 64, replace=False) for i in range(3)]))
+    g = ck.band_operand(ar, ai, idx)
+    assert g.dtype == torch.bfloat16 and g.shape == (6, 3, 40, 64)
+    assert ck.band_operand(ar, ai, idx, levels=2).shape == (4, 3, 40, 64)
+    gi = idx[:, None, :].expand(3, 40, 64)
+    for k, a in enumerate((ar, ai)):
+        col = a.gather(2, gi)
+        t0, t1, t2 = (g[2 * i + k].float() for i in range(3))
+        assert torch.equal(g[k], col.to(torch.bfloat16))
+        assert torch.equal(g[2 + k], (col - t0).to(torch.bfloat16))
+        assert torch.equal(g[4 + k], (col - t0 - t1).to(torch.bfloat16))
+        assert ((t0 + t1 + t2 - col).abs() <= 2.0 ** -26 * col.abs()).all()
+
+
+def test_split_order_is_the_kernels():
+    """SPLITS["bf16x6"] is every product T_i . a_j with i + j <= 2, the
+    lowest-order first, in the order of csrc/corner_stage2.cu's SEG_T /
+    SEG_A nibbles; bf16x3 the products with i + j <= 1."""
+    six = ck.SPLITS["bf16x6"]
+    assert sorted(six) == [(i, j) for i in range(3) for j in range(3)
+                           if i + j <= 2]
+    assert [i + j for i, j in six] == sorted((i + j for i, j in six),
+                                             reverse=True)
+    src = (ck.__file__.rsplit("/spectral/", 1)[0]
+           + "/csrc/corner_stage2.cu")
+    text = open(src).read()
+    for name, k in (("SEG_T", 0), ("SEG_A", 1)):
+        word = int(text.split(f"constexpr uint32_t {name} = ")[1]
+                   .split(";")[0], 16)
+        assert [(word >> (4 * s)) & 0xF for s in range(6)] == \
+            [p[k] for p in six]
+    assert sorted(ck.SPLITS["bf16x3"]) == [(0, 0), (0, 1), (1, 0)]
+
+
+# --- the kernel's schedule, emulated -----------------------------------------
+
+def _tma_box(src, starts, box):
+    """A TMA box of `src` (numpy, dims in TMA order reversed: the last axis
+    is dim 0) at `starts` (TMA order): out-of-bounds elements read 0."""
+    out = np.zeros(tuple(reversed(box)), src.dtype)
+    sl_src, sl_out = [], []
+    for ax, (s, b) in enumerate(zip(reversed(starts), reversed(box))):
+        n = src.shape[ax]
+        lo, hi = max(s, 0), min(s + b, n)
+        if hi <= lo:
+            return out
+        sl_src.append(slice(lo, hi))
+        sl_out.append(slice(lo - s, hi - s))
+    out[tuple(sl_out)] = src[tuple(sl_src)]
+    return out
+
+
+def _k2_emulation(t2, ar16, ai16, g, mask, idx, P, h, X, Ky):
+    """csrc/corner_stage2.cu's schedule in numpy f64: the tiles in the
+    kernel's order, each k-block's A box (128 rows of T) and B boxes (four
+    64 x 64 boxes of ar16 / ai16, or one 4-D box of the band operand) as
+    TMA loads them, and the epilogue's masked and scattered stores."""
+    BM, BN, BK, NP = 128, 128, 64, 2   # NP: planes per band tile
+    Kyp, Hp = t2.shape[1] // 2, t2.shape[2] // 2
+    nh, n_mt, n_nt = Hp // BK, 2 * Kyp // BM, -(-X // BN)
+    n_band = -(-P // NP) * n_mt
+    nw = -(-X // 32)
+    cr = np.full((P, Ky, X), np.nan)
+    ci = np.full((P, Ky, X), np.nan)
+    T = t2.astype(np.float64)
+    a16 = (ar16.astype(np.float64), ai16.astype(np.float64))
+    G = g.astype(np.float64)
+    words = mask.view(np.uint32)
+    for tile in range(n_band + P * n_mt * n_nt):
+        band = tile < n_band
+        if band:
+            mt, p, nt, nkb = tile % n_mt, (tile // n_mt) * NP, 0, 12 * nh
+        else:
+            u = tile - n_band
+            nt, mt, p = u % n_nt, (u // n_nt) % n_mt, u // (n_nt * n_mt)
+            nkb = 2 * nh
+        acc = np.zeros((BM, BN))
+        for kb in range(nkb):
+            if band:
+                seg, rem = divmod(kb, 2 * nh)
+                part, hb = divmod(rem, nh)
+                ti, aj = ck.SPLITS["bf16x6"][seg]
+                A = _tma_box(T, (rem * BK, mt * BM, ti), (BK, BM, 1))[0]
+                Bx = _tma_box(G, (0, hb * BK, p, 2 * aj + part),
+                              (64, BK, NP, 1))[0]           # (NP, BK, 64)
+                Bm = np.concatenate(list(Bx), axis=1)       # (BK, BN)
+            else:
+                part, hb = divmod(kb, nh)
+                A = _tma_box(T, (kb * BK, mt * BM, 0), (BK, BM, 1))[0]
+                Bm = np.concatenate([_tma_box(a16[part], (nt * BN + 64 * j,
+                                                          hb * BK, p),
+                                              (64, BK, 1))[0]
+                                     for j in range(BN // 64)], axis=1)
+            acc += A @ Bm              # each k-block's sum, promoted
+        for r in range(BM):
+            m = mt * BM + r
+            is_ci, y = (m >= Kyp), (m - Kyp if m >= Kyp else m)
+            if y >= Ky:
+                continue
+            out = ci if is_ci else cr
+            for n in range(BN):
+                if band:
+                    pl, j = p + n // 64, n % 64
+                    if pl < P:
+                        out[pl, y, idx[pl, j]] = acc[r, n]
+                else:
+                    x = nt * BN + n
+                    if x < X and not (words[p, x // 32] >> (x % 32)) & 1:
+                        out[p, y, x] = acc[r, n]
+    return cr, ci
+
+
+@pytest.mark.parametrize("P,h,X,Ky", [(5, 70, 200, 100), (4, 64, 300, 64),
+                                      (1, 130, 96, 40)])
+def test_kernel_schedule_emulation_matches_plain(P, h, X, Ky):
+    """Every output element written exactly once (the band tiles fill the
+    bulk tiles' holes), equal to fwd_stage2_plain(band="bf16x6") within REL
+    of its scale: P not a multiple of 4 (a band tile past the last plane),
+    H, Kx and Ky not multiples of 64 (TMA's zero fill)."""
+    ar, ai = _random_stage1(4, P, h, X)
+    tabs = _tables(h, Ky)
+    ar16, ai16, energy = ck.stage2_prep_plain(ar, ai)
+    idx = torch.topk(energy, 64).indices
+    t2 = ck.stage2_tables(tabs.eyr, tabs.eyi).float().numpy()
+    g = ck.band_operand(ar, ai, idx).float().numpy()
+    mask = ck.band_mask(idx, X).numpy()
+    er, ei = _k2_emulation(t2, ar16.float().numpy(), ai16.float().numpy(), g,
+                           mask, idx.numpy(), P, h, X, Ky)
+    assert not np.isnan(er).any() and not np.isnan(ei).any()
+    pr, pi = ck.fwd_stage2_plain(ar, ai, idx, tabs, band="bf16x6")
+    scale = float(max(pr.abs().max(), pi.abs().max()))
+    assert np.abs(er - pr.double().numpy()).max() <= REL * scale
+    assert np.abs(ei - pi.double().numpy()).max() <= REL * scale
+
+
+# --- the wrappers -------------------------------------------------------------
+
+def test_wrappers_take_plain_on_cpu_and_check_inputs():
+    ar, ai = _random_stage1(5, 3, 70, 130)
+    tabs = _tables(70, 100)
+    before = dict(ck.LAUNCHES)
+    prep = ck.stage2_prep(ar, ai)
+    for got, want in zip(prep, ck.stage2_prep_plain(ar, ai)):
+        assert torch.equal(got, want)
+    idx = tcorner.band_topk(prep[2], 64)
+    band = ck.stage2_band(ar, ai, idx)
+    assert torch.equal(band[0], ck.band_operand(ar, ai, idx))
+    assert torch.equal(band[1], ck.band_mask(idx, 130))
+    cr, ci = ck.fwd_stage2(ar, ai, prep[0], prep[1], idx, tabs, band)
+    pr, pi = ck.fwd_stage2_plain(ar, ai, idx, tabs, band="bf16x6")
+    assert torch.equal(cr, pr) and torch.equal(ci, pi)
+    assert cr.shape == (3, 100, 130) and cr.dtype == torch.float32
+    assert ck.LAUNCHES == before           # CPU tensors never count
+    assert ck.KERNEL_PREP == "corner_stage2_prep"
+    assert ck.KERNEL_BAND == "corner_stage2_band"
+    assert ck.KERNEL_STAGE2 == "corner_stage2"
+
+    with pytest.raises(ValueError):
+        ck.stage2_prep(ar.double(), ai)
+    with pytest.raises(ValueError):
+        ck.stage2_prep(ar, ai[:, :, :-1])
+    with pytest.raises(ValueError):
+        ck.stage2_prep(ar[0], ai[0])
+    with pytest.raises(ValueError):
+        ck.stage2_prep(ar.transpose(1, 2), ai.transpose(1, 2))
+    args = [ar, ai, prep[0], prep[1], idx, tabs, band]
+    for k, bad in ((0, ar.double()), (2, prep[0].float()),
+                   (3, prep[1][:, :-1]), (4, idx.to(torch.int32)),
+                   (4, idx[:, :32]), (5, _tables(71, 100)),
+                   (6, (band[0][:4], band[1])),
+                   (6, (band[0], band[1][:, :-1]))):
+        a = list(args)
+        a[k] = bad
+        with pytest.raises(ValueError):
+            ck.fwd_stage2(*a)
+    for bad in ((ar.double(), ai, idx), (ar, ai, idx[:, :8]),
+                (ar, ai, idx.to(torch.int32))):
+        with pytest.raises(ValueError):
+            ck.stage2_band(*bad)
+    narrow = [t[..., :64].contiguous() for t in (ar, ai)]
+    with pytest.raises(ValueError):             # the band is the whole corner
+        ck.fwd_stage2(*narrow, *(t.to(torch.bfloat16) for t in narrow),
+                      idx % 64, tabs, ck.stage2_band(*narrow, idx % 64))
+    assert tabs.stage2 is None                  # built on CUDA devices only
+
+
+def test_fwd_corner_on_the_cpu_keeps_fwd_y_split(monkeypatch):
+    """mix_adaptive on the CPU is _fwd_y_split's numerics (an f32 band, as
+    JAX computes on the CPU); the kernels' wrappers are not called."""
+    Ky, Kx = _dims()
+    imgs = torch.from_numpy(_covers())
+
+    def refuse(*a, **k):
+        raise AssertionError("a stage-2 kernel wrapper ran on the CPU")
+
+    monkeypatch.setattr(ck, "stage2_prep", refuse)
+    monkeypatch.setattr(ck, "stage2_band", refuse)
+    monkeypatch.setattr(ck, "fwd_stage2", refuse)
+    tabs = tcorner.dft_tables_device(H, Ky, W, Kx, "cpu")
+    cr, ci = tcorner.fwd_corner(imgs, False, Ky, Kx, tabs, "mix_adaptive")
+    ar, ai, _ = _stage1(_covers(), Ky, Kx)
+    wr, wi = tcorner._fwd_y_split(ar, ai, tabs)
+    assert torch.equal(cr.reshape(-1, Ky, Kx), wr)
+    assert torch.equal(ci.reshape(-1, Ky, Kx), wi)

@@ -1,6 +1,7 @@
 """Where the time goes in the torch port's main path, on one CUDA card.
 
-    python3 tools/profile_torch_path.py [--stream | --single | --crop] [TRACE_DIR]
+    python3 tools/profile_torch_path.py [--stream | --single | --crop | --stage2]
+        [--tree=DIR] [TRACE_DIR]
 
 Runs one warm embed_batch -> extract_batch round trip of chip_smoke.py's 4K
 workload (2160x3840, B=64, 16 KB; seed-42 bench covers, rng(7) secrets,
@@ -9,7 +10,11 @@ separately: host wall ms (ending in torch.cuda.synchronize), device busy ms
 (the sum of the kernels' device time on the one stream), the idle share,
 device ms per stage, and the top kernels. Stages are profiler ranges put
 around the corner functions for this run only (stage1 = the K1 wrapper,
-stage2 = the adaptive y-contraction, write+floor = the K3 wrapper's
+stage 2 = "stage2 prep" (the prep kernel's wrapper: bf16 copies and column
+energies), "topk" (the band's torch.topk), "band" (the band kernel: the
+band columns' bf16 terms and the column mask) and "K2" (the K2 wrapper), or
+"stage2" where the eager y-contraction
+corner._fwd_y_split runs (a tree before K2), write+floor = the K3 wrapper's
 write_floor, floor = its floor_only (QIM, per-image walks), ifft y = the
 inverse DFT's y-stage, K4 = the K4 wrapper (the x-stage with the u8
 epilogue); under STEGANOSAURUS_MM_PRECISION=highest ifft = the f32 inverse
@@ -24,6 +29,14 @@ and device work that the stream buys shows as a lower idle share.
 --crop runs the same round trip on the covers cropped to 3839 columns
 (chip_smoke.py's phase 4c): a width that is not a multiple of 16, so stage 1
 takes the K1 kernel's load route and every other stage an odd width.
+
+--stage2 profiles the embed's forward corner DFT alone (corner.fwd_corner
+under mix_adaptive on the same covers, warm) and prints every device kernel
+by its time: stage 2 broken down by op, beside K1's one kernel.
+
+--tree=DIR imports the package and chip_smoke.py from the checkout DIR
+in place of this one (another commit unpacked by `git archive`): a parent
+and a change profiled by the same tool, in one call.
 
 --single profiles one warm embed_array -> extract_array of the first of
 those covers with one 16 KB secret under default Params (chip_smoke.py's
@@ -164,21 +177,48 @@ def single_image(out: pathlib.Path) -> int:
     return 0
 
 
+def _stage2_ops(covers, out: pathlib.Path) -> int:
+    """--stage2: the embed's forward corner DFT alone, every kernel by its
+    device time."""
+    import torch
+
+    import steganosaurus_tpu_torch as stt
+    from steganosaurus_tpu_torch.spectral import corner
+
+    H, W = covers.shape[-2:]
+    Ky, Kx = corner.corner_dims(H, W, stt.Params().rmax)
+    tabs = corner.dft_tables_device(H, Ky, W, Kx, covers.device)
+
+    def fwd():
+        corner.fwd_corner(covers, False, Ky, Kx, tabs, "mix_adaptive")
+
+    fwd()
+    torch.cuda.synchronize()
+    _, busy, kernels, _ = _profile("stage2", fwd, out, set())
+    for e in sorted(kernels, key=lambda e: e.self_device_time_total,
+                    reverse=True):
+        print(f"  kernel {e.self_device_time_total / 1e3:10.3f} ms "
+              f"x{e.count:<3d} {e.key[:100]}")
+    return 0
+
+
 def main() -> int:
     import torch
 
     if not torch.cuda.is_available():
         print("profile_torch_path: needs a CUDA card", file=sys.stderr)
         return 2
-    sys.path.insert(0, str(REPO))
     args = sys.argv[1:]
-    stream_mode = "--stream" in args
-    single_mode = "--single" in args
-    crop = "--crop" in args
-    args = [a for a in args if a not in ("--stream", "--single", "--crop")]
+    flags = {a for a in args if a in ("--stream", "--single", "--crop",
+                                      "--stage2")}
+    tree = [a.split("=", 1)[1] for a in args if a.startswith("--tree=")]
+    args = [a for a in args if a not in flags and not a.startswith("--tree")]
+    sys.path.insert(0, str(pathlib.Path(tree[0]).resolve() if tree else REPO))
+    stream_mode = "--stream" in flags
+    crop = "--crop" in flags
     out = pathlib.Path(args[0]) if args else REPO / "build" / "profile"
     out.mkdir(parents=True, exist_ok=True)
-    if single_mode:
+    if "--single" in flags:
         from steganosaurus_tpu_torch import _build, runtime
 
         runtime.configure_precision()
@@ -191,14 +231,20 @@ def main() -> int:
     from steganosaurus_tpu_torch.spectral import corner_kernels as ck
     from steganosaurus_tpu_torch.spectral import write_kernels as wk
 
-    stages = [("stage1", ck, "fwd_stage1"), ("stage2", corner, "_fwd_y_split"),
+    print(f"package: {pathlib.Path(stt.__file__).parent}")
+    stages = [("stage1", ck, "fwd_stage1"), ("stage2 prep", ck, "stage2_prep"),
+              ("topk", corner, "band_topk"), ("band", ck, "stage2_band"),
+              ("K2", ck, "fwd_stage2"),
+              ("stage2", corner, "_fwd_y_split"),
               ("write+floor", wk, "write_floor"), ("floor", wk, "floor_only"),
               ("ifft y", corner, "ifft_corner_y"),
               ("K4", wk, "ifft_epilogue"),
               ("ifft", corner, "ifft_corner_real"),
               ("epilogue", wk, "epilogue")]
-    for name, mod, attr in stages:
-        setattr(mod, attr, _span(name, getattr(mod, attr)))
+    stages = [s for s in stages if hasattr(s[1], s[2])]
+    if "--stage2" not in flags:
+        for name, mod, attr in stages:
+            setattr(mod, attr, _span(name, getattr(mod, attr)))
 
     runtime.configure_precision()
     _build.ensure_native()
@@ -210,6 +256,9 @@ def main() -> int:
     covers = covers.repeat(-(-B // base.shape[0]), 1, 1, 1)[:B].contiguous()
     if crop:
         covers = covers[..., :chip_smoke.UHD_W - 1].contiguous()
+    if "--stage2" in flags:
+        chip_smoke.phase_probe()
+        return _stage2_ops(covers, out)
     secrets = chip_smoke.secrets_for(B, secret)
     salts = [bytes([i]) * 16 for i in range(B)]
     mk = chip_smoke.MASTER_KEY
