@@ -101,6 +101,22 @@ Phases:
              (corner._fwd_y_split), the new stage as a whole (prep, topk,
              band, K2) and one torch.bmm of T with the bf16 operands into
              f32 (the bulk without the band)
+  3e. K6     the inverse DFT's y-stage (csrc/corner_ifft_y.cu) against
+             its plain version (the eager chain it replaced: four cuBLAS
+             bf16 products into f32, their difference and sum, two casts)
+             on 3c's grids' main-path operands (K3's bf16 operands of each
+             grid's forward spectrum; the 512x512 views one element off
+             their alignment, through the wrapper's staging copy): its f32
+             check mode within 1e-5 of max|plain|, its bf16 outputs the
+             round-to-nearest-even casts of those sums and, against the
+             plain's, equal or one bf16 ulp apart, or where an ulp is below
+             that bound within it and one ulp (each count printed); HGMMA and
+             UTMALDG in its SASS. At 4K B=64 the RMS error of its f32 sums
+             and of the plain chain's against the exact sum of the same
+             bf16 products (24 planes), and, in turns beside the bound
+             (utils/cost.py ifft_y_cost): K6, the plain chain and one
+             torch.bmm of the real table (expanded) with the stacked
+             (P, 2Ky, Kx) operands into bf16 (stacking not timed)
   4. path    512x512, B=8, 100 B round trip (also held against the port on
              the CPU), then 2160x3840, B=64, 16 KB: all secrets recovered,
              K1 launched on the TMA route alone, the prep, the band kernel
@@ -395,37 +411,42 @@ def check_embed_kernels(path: str, counts: dict, embeds: int,
                         highest: bool = False) -> None:
     """`embeds` corner embeds on `path`, each through K3's write_floor on
     its resident schedule, or (QIM, per-image walks: floor_only) its
-    floor_only, and through K4 (the x-stage with the u8 epilogue), or under
-    STEGANOSAURUS_MM_PRECISION=highest (`highest`) K4e."""
+    floor_only, then through K6 (the y-stage, no staging copy) and K4 (the
+    x-stage with the u8 epilogue), or under
+    STEGANOSAURUS_MM_PRECISION=highest (`highest`) K4e alone."""
     from steganosaurus_tpu_torch.spectral import write_kernels as wk
 
     want = {wk.KERNEL_WRITE_FLOOR: 0 if floor_only else embeds,
             wk.KERNEL_WRITE_FLOOR_TWO_PASS: 0,
             wk.KERNEL_FLOOR_ONLY: embeds if floor_only else 0,
+            wk.KERNEL_IFFT_Y: 0 if highest else embeds,
+            wk.KERNEL_IFFT_Y_PADDED: 0,
             wk.KERNEL_IFFT_EPILOGUE: 0 if highest else embeds,
             wk.KERNEL_EPILOGUE: embeds if highest else 0}
     got = {k: counts[k] for k in want}
     if got != want:
-        raise AssertionError(f"{path}: K3 / K4 / K4e launches {got}, want "
-                             f"{want}")
+        raise AssertionError(f"{path}: K3 / K6 / K4 / K4e launches {got}, "
+                             f"want {want}")
 
 
 def check_epilogues(launches: dict) -> None:
-    """Every counted path ends each corner embed in K4, one launch for each
-    K3 launch (write_floor or floor_only: one per corner embed), and
-    launches no K4e; the highest path (4d) the other way round."""
+    """Every counted path ends each corner embed in K6 and K4, one launch
+    each for each K3 launch (write_floor or floor_only: one per corner
+    embed), and launches no K4e; the highest path (4d) K4e alone."""
     from steganosaurus_tpu_torch.spectral import write_kernels as wk
 
     bad = {}
     for path, c in launches.items():
         k3 = c[wk.KERNEL_WRITE_FLOOR] + c[wk.KERNEL_FLOOR_ONLY]
-        want = ((0, k3) if path == "4d highest" else (k3, 0))
-        got = (c[wk.KERNEL_IFFT_EPILOGUE], c[wk.KERNEL_EPILOGUE])
+        want = ((0, 0, k3) if path == "4d highest" else (k3, k3, 0))
+        got = (c[wk.KERNEL_IFFT_Y], c[wk.KERNEL_IFFT_EPILOGUE],
+               c[wk.KERNEL_EPILOGUE])
         if got != want:
             bad[path] = (got, want)
     if bad:
-        raise AssertionError(f"(K4, K4e) launches against the corner embeds' "
-                             f"K3 launches, (got, want) by path: {bad}")
+        raise AssertionError(f"(K6, K4, K4e) launches against the corner "
+                             f"embeds' K3 launches, (got, want) by path: "
+                             f"{bad}")
 
 
 def check_stage2(launches: dict) -> None:
@@ -571,6 +592,14 @@ K4_REL = 1e-5
 # NVIDIA H100 80GB HBM3 at 700.00 W); the unpromoted sum moved a Rep-7
 # group of phase 5c's stego to a wrong bit
 STAGE2_GRIDS = K4_GRIDS
+# 3e: K6 on 3c's grids: its f32 check mode within K6_REL of max|plain| (f32
+# sums of the same exact bf16 products in another order: K1's and K4's
+# bound); its bf16 outputs equal to the plain's or one bf16 ulp apart, but
+# for elements whose ulp is below that bound (small sums, whose two
+# roundings may then lie several ulps apart): those within the bound and
+# one ulp
+K6_GRIDS = K4_GRIDS
+K6_REL = 1e-5
 STAGE2_ENERGY_REL = 1e-6
 K2_REL = 1e-5
 K2_BULK_RMS = 0.02
@@ -1436,6 +1465,157 @@ def phase_ifft_epilogue(covers_d, odd_d, card: str) -> list:
                     "library_ms": ms["torch.mm"]}
             del a_cat, b_cat, runs
         del mr16, mi16, tabs, planes
+        torch.cuda.empty_cache()
+    record["max_abs_err"] = max(errs)
+    return [record]
+
+
+def _k6_check(what: str, dcr, dci, tabs, padded: bool,
+              main: bool = False) -> float:
+    """K6 against its plain version on one grid's operands (dcr, dci): the
+    f32 check mode within K6_REL of max|plain|; the bf16 outputs the
+    round-to-nearest-even casts of its own sums; against the plain bf16,
+    each element equal, one ulp apart, or, where an ulp is below that f32
+    bound, within the bound and one ulp (write_kernels.bf16_compare, the
+    counts printed); each launch through the
+    staging copy where `padded`. main (4K B=64): also the RMS error of K6's
+    f32 sums and of the plain chain's against the exact sum of the same
+    bf16 products (write_kernels.ifft_y_error, 24 planes). Returns max
+    |v - plain|."""
+    import torch
+
+    from steganosaurus_tpu_torch.spectral import write_kernels as wk
+
+    n_pad = wk.LAUNCHES[wk.KERNEL_IFFT_Y_PADDED]
+    v = wk.ifft_y(dcr, dci, tabs, values=True)
+    pv = wk.ifft_y_plain(dcr, dci, tabs, values=True)
+    torch.cuda.synchronize()
+    err = max((a - b).abs().max().item() for a, b in zip(v, pv))
+    scale = max(b.abs().max().item() for b in pv)
+    tol = K6_REL * scale
+    finite = all(bool(torch.isfinite(a).all()) for a in v)
+    more = ""
+    if main:
+        rms = wk.ifft_y_error(*v, dcr, dci, tabs)
+        rms_plain = wk.ifft_y_error(*pv, dcr, dci, tabs)
+        more = (f"; RMS error against the exact sum of the same bf16 "
+                f"products (24 planes): K6 {rms!r}, the plain chain "
+                f"{rms_plain!r}")
+    got = wk.ifft_y(dcr, dci, tabs)
+    want = wk.ifft_y_plain(dcr, dci, tabs)
+    torch.cuda.synchronize()
+    own = all(torch.equal(g, a.to(torch.bfloat16)) for g, a in zip(got, v))
+    del v
+    n: dict = {}
+    for g, w, b in zip(got, want, pv):
+        for k, c in wk.bf16_compare(g, w, b, tol).items():
+            n[k] = n.get(k, 0) + c
+    del got, want, pv
+    staged = wk.LAUNCHES[wk.KERNEL_IFFT_Y_PADDED] - n_pad
+    log(f"K6 {what}: max |v - plain| {err!r} (bound {tol!r}, "
+        f"{err / scale:.3e} of max |plain| {scale!r}), finite {finite}; bf16 "
+        f"outputs the casts of its own sums {own}; against the plain bf16 "
+        f"{n}; staging copies {staged}" + more)
+    if not (err <= tol and finite and own and n["other"] == 0
+            and staged == (2 if padded else 0)):
+        raise AssertionError(f"K6 {what} disagrees with its plain version")
+    return err
+
+
+def phase_ifft_y(covers_d, odd_d, card: str) -> list:
+    """3e: K6 (csrc/corner_ifft_y.cu) against its plain version on the
+    main path's operands: each of K6_GRIDS' forward corner spectra through
+    K3's write_floor as the main path calls it (the hard write at floor
+    0.45 of a RepFrame, bf16 operands), the 512x512 views one element off
+    their alignment (_k6_check); HGMMA and UTMALDG in its SASS. At 4K B=64,
+    in turns by CUDA events beside the bound (utils/cost.py ifft_y_cost):
+    K6, its plain version (the eager chain it replaced) and one torch.bmm
+    of the real table (corner.ifft_y_table without its padding, expanded)
+    with the stacked (P, 2Ky, Kx) operands into bf16 (the kernels line's
+    library_ms; the stacking not timed). Returns the kernels line's
+    entry."""
+    import torch
+
+    import steganosaurus_tpu_torch as stt
+    from steganosaurus_tpu_torch import _build
+    from steganosaurus_tpu_torch.parallel import batch as pb
+    from steganosaurus_tpu_torch.spectral import corner
+    from steganosaurus_tpu_torch.spectral import write_kernels as wk
+    from steganosaurus_tpu_torch.utils import cost
+
+    sass = _build.sass_counts(wk.KERNEL_IFFT_Y, "corner_ifft_y_kernel")
+    log(f"K6 SASS (corner_ifft_y_kernel, cuobjdump -sass): {sass}")
+    if not (sass["HGMMA"] > 0 and sass["UTMALDG"] > 0):
+        raise AssertionError(f"K6 is not wgmma + TMA: {sass}")
+    peaks = cost.peak_rates(covers_d.device)
+    errs, record = [], None
+    for g, (name, B, H, W) in enumerate(K6_GRIDS):
+        main = name == "4K"
+        planes = (covers_d if main else odd_d if name == "4c"
+                  else _grid_nchw(covers_d.device, B, H, W))
+        Ky, Kx = corner.corner_dims(H, W, stt.Params().rmax)
+        cr, ci, maps, _, tabs, rep = _write_inputs(planes, Ky, Kx, 70 + g)
+        dcr, dci, _ = wk.write_floor(cr, ci, maps[0], rep,
+                                     *pb._cos_sin(stt.Params().alpha),
+                                     floor=stt.Params().write_floor,
+                                     img_pixels=float(H) * float(W),
+                                     ifft_operands=True)
+        del cr, ci, maps, rep, planes
+        shift = "unaligned" in name
+        if shift:
+            dcr, dci = _shifted(dcr), _shifted(dci)
+        errs.append(_k6_check(f"{name} B={B} {H}x{W} Ky={Ky} Kx={Kx}"
+                              + (", unaligned" if shift else ""), dcr, dci,
+                              tabs, padded=shift or Kx % 8 != 0, main=main))
+        if main:
+            P = 3 * B
+            Hp, Kyp = tabs.ifft_y.shape[0] // 2, tabs.ifft_y.shape[1] // 2
+            rows = torch.cat((tabs.ifft_y[:H], tabs.ifft_y[Hp:Hp + H]))
+            a_lib = torch.cat((rows[:, :Ky], rows[:, Kyp:Kyp + Ky]), 1)
+            b_lib = torch.cat((dcr.reshape(P, Ky, Kx),
+                               dci.reshape(P, Ky, Kx)), 1)
+            del rows
+
+            def library():
+                return torch.bmm(a_lib.expand(P, *a_lib.shape), b_lib)
+
+            lib = library().reshape(P, 2, H, Kx)
+            plain = wk.ifft_y_plain(dcr, dci, tabs)
+            pv = wk.ifft_y_plain(dcr, dci, tabs, values=True)
+            tol = K6_REL * max(v.abs().max().item() for v in pv)
+            lib_cmp: dict = {}
+            for i in range(2):
+                for k, c in wk.bf16_compare(lib[:, i].reshape(P * H, Kx),
+                                            plain[i], pv[i], tol).items():
+                    lib_cmp[k] = lib_cmp.get(k, 0) + c
+            del lib, plain, pv
+            runs = {"K6": (lambda: wk.ifft_y(dcr, dci, tabs), 10),
+                    "plain": (lambda: wk.ifft_y_plain(dcr, dci, tabs), 3),
+                    "torch.bmm": (library, 3)}
+            times = _turns(runs)
+            ms = {k: sum(v) / len(v) for k, v in times.items()}
+            bound, by = cost.stage_bound(cost.ifft_y_cost(B, H, Ky, Kx),
+                                         peaks)
+            log(f"K6 {name} B={B} {H}x{W} Ky={Ky} Kx={Kx} timed in turns "
+                f"({card}): " + "; ".join(f"{k} {v!r} ms"
+                                          for k, v in times.items())
+                + f"; bound {bound!r} ms ({by}), K6 at "
+                f"{bound / ms['K6']:.3f} of it, torch.bmm at "
+                f"{bound / ms['torch.bmm']:.3f}; K6 "
+                f"{ms['plain'] / ms['K6']:.2f}x faster than the plain "
+                f"chain, {ms['torch.bmm'] / ms['K6']:.2f}x the library call "
+                f"(its bf16 output against the plain chain's, as K6's is "
+                f"held: {lib_cmp})")
+            record = {
+                "name": wk.KERNEL_IFFT_Y, "route": "cuda",
+                "source": "steganosaurus_tpu_torch/csrc/corner_ifft_y.cu",
+                "replaces": "steganosaurus_tpu/spectral/corner.py:532-539 "
+                            "(ifft_corner_real's y-stage: four dots, their "
+                            "difference and sum)",
+                "ms": ms["K6"], "plain_ms": ms["plain"], "bound_ms": bound,
+                "bound_by": by, "library_ms": ms["torch.bmm"]}
+            del a_lib, b_lib, runs
+        del dcr, dci, tabs
         torch.cuda.empty_cache()
     record["max_abs_err"] = max(errs)
     return [record]
@@ -3792,6 +3972,8 @@ def main() -> int:
         k3 += timed("K4", phase_ifft_epilogue, covers_d, odd_d, card)
         torch.cuda.empty_cache()
         k3 += timed("K2", phase_stage2, covers_d, odd_d, card)
+        torch.cuda.empty_cache()
+        k3 += timed("K6", phase_ifft_y, covers_d, odd_d, card)
         torch.cuda.empty_cache()
         launches: dict = {}
         seen: set = set()

@@ -61,6 +61,7 @@ _SIGNATURES = {
     "corner_stage2_prep": [_P] * 5 + [_I] * 4 + [_P],
     "corner_stage2_band": [_P] * 5 + [_I] * 3 + [_P],
     "corner_stage2": [_P] * 8 + [_I] * 8 + [_P],
+    "corner_ifft_y": [_P] * 5 + [_I] * 8 + [_P],
 }
 
 

@@ -359,7 +359,7 @@ def corner_embed_core(imgs: torch.Tensor, frame: torch.Tensor, maps,
     inverse DFT's bf16 operands itself); or, with qim_levels,
     write_delta_qim (payload bins on the dithered lattice) in eager torch
     and the floor alone in K3 (write_kernels.floor_only) -> inverse corner
-    DFT and the u8 epilogue (_inverse_u8: the y-stage, then K4's x-stage
+    DFT and the u8 epilogue (_inverse_u8: K6's y-stage, then K4's x-stage
     with the epilogue fused; under highest the f32 inverse DFT and K4e)."""
     planes = _planes_u8(imgs, layout)
     H, W = planes.shape[-2:]
@@ -396,11 +396,12 @@ def _inverse_u8(dr, di, tabs, planes, center: bool, layout: str, mode: str,
                 conjugated: bool) -> torch.Tensor:
     """The embed cores' last step: the inverse corner DFT of the delta (dr,
     di) and the u8 epilogue over the cover planes -> u8 stego in `layout`.
-    Under mix_adaptive the y-stage (corner.ifft_corner_y) hands its bf16
-    output to K4 (write_kernels.ifft_epilogue), the x-stage with the
-    epilogue in its registers: no (B, 3, H, W) f32 tensor is made, and the
-    largest tensors left are the y-stage's two f32 (3B, H, Kx) products and
-    their bf16 casts. Under highest the f32 inverse DFT, left unscaled, goes
+    Under mix_adaptive the y-stage (corner.ifft_corner_y: on CUDA the K6
+    kernel, write_kernels.ifft_y, which rounds its f32 sums to bf16 in
+    registers) hands its two bf16 (3B*H, Kx) outputs to K4
+    (write_kernels.ifft_epilogue), the x-stage with the epilogue in its
+    registers: neither the y-stage's f32 products nor the (B, 3, H, W) f32
+    image is made. Under highest the f32 inverse DFT, left unscaled, goes
     to K4e (write_kernels.epilogue), which scales; peak memory then holds
     one (B, 3, H, W) f32 tensor. The caller has dropped the spectrum, and
     the deltas go before the last step."""
@@ -444,8 +445,8 @@ def corner_piw_embed_core(imgs: torch.Tensor, frame: torch.Tensor, plane, y,
     write values there (write_delta with the slot's own jitter and
     amplitude; QIM on slots >= HEADER_SLOTS when qim_levels) and scatters them
     into a zero corner; then the write floor (K3's floor_only), the inverse
-    DFT and the u8 epilogue (_inverse_u8: K4 under mix_adaptive, K4e under
-    highest). alphas (n,) (Params.alpha_spread) and
+    DFT and the u8 epilogue (_inverse_u8: K6 and K4 under mix_adaptive,
+    K4e under highest). alphas (n,) (Params.alpha_spread) and
     dither (n,) (QIM) are the shared slot-aligned per-slot arrays, read up
     to each image's last real slot nbits[b] - 1 (nbits (B,) int64), so the
     tail-pad duplicates of the last real bin scatter identical values."""

@@ -17,7 +17,8 @@ Precision modes (STEGANOSAURUS_MM_PRECISION), restricted to two:
   and K2 kernels (corner_kernels.stage2_prep, fwd_stage2: the band in
   split bf16, JAX-on-TPU's Precision.HIGH), on the CPU in full f32
   (_fwd_y_split, as the JAX package computes on the CPU); both inverse
-  stages in bf16.
+  stages in bf16, on CUDA through the K6 (y-stage) and K4 (x-stage with
+  the u8 epilogue) kernels of write_kernels.
 - "highest": full f32 products everywhere — the arbiter.
 Any other name raises. "bf16" here always means bf16 operands with an f32
 result: torch.mm/bmm(..., out_dtype=torch.float32) on CUDA, and on the CPU
@@ -86,8 +87,9 @@ class Tables(NamedTuple):
     (Ky, H) and x-axis (Kx, W), in f32 and in bf16; and, on CUDA, the
     stage-1 kernel's concatenated x-axis table, plain and (-1)^w-folded
     (corner_kernels.stage1_tables), the K4 kernel's inverse x-axis table
-    (ifft_x_table) and the K2 kernel's [T_hi, T_lo]
-    (corner_kernels.stage2_tables); all three None on other devices."""
+    (ifft_x_table), the K2 kernel's split terms [T0, T1, T2]
+    (corner_kernels.stage2_tables) and the K6 kernel's inverse y-axis
+    table (ifft_y_table); all four None on other devices."""
     eyr: torch.Tensor
     eyi: torch.Tensor
     exr: torch.Tensor
@@ -99,6 +101,7 @@ class Tables(NamedTuple):
     stage1: tuple | None
     ifft_x: torch.Tensor | None
     stage2: torch.Tensor | None
+    ifft_y: torch.Tensor | None
 
 
 def ifft_x_table(exr16: torch.Tensor, exi16: torch.Tensor) -> torch.Tensor:
@@ -113,6 +116,29 @@ def ifft_x_table(exr16: torch.Tensor, exi16: torch.Tensor) -> torch.Tensor:
     t = torch.zeros((Wp, 2 * Kxp), dtype=torch.bfloat16, device=exr16.device)
     t[:W, :Kx] = exr16.T
     t[:W, Kxp:Kxp + Kx] = -exi16.T
+    return t
+
+
+def ifft_y_table(eyr16: torch.Tensor, eyi16: torch.Tensor) -> torch.Tensor:
+    """The K6 kernel's A operand (write_kernels.ifft_y): the real form of
+    the inverse y-stage's complex table,
+
+        A = [[eyr16^T, -eyi16^T],     rows [0, H): mr;  [Hp, Hp + H): mi
+             [eyi16^T,  eyr16^T]]     columns [0, Ky): Re D's y;
+                                      [Kyp, Kyp + Ky): -Im D's y
+
+    a contiguous (2*Hp, 2*Kyp) bf16 tensor with Hp = H and Kyp = Ky rounded
+    up to 64 and zeros in the padding, the contraction y its contiguous axis
+    (wgmma's K-major A). Negating bf16 is exact, so its terms are the values
+    the eager y-stage multiplies (_ifft_y)."""
+    Ky, H = eyr16.shape
+    Kyp, Hp = corner_kernels._pad64(Ky), corner_kernels._pad64(H)
+    t = torch.zeros((2 * Hp, 2 * Kyp), dtype=torch.bfloat16,
+                    device=eyr16.device)
+    t[:H, :Ky] = eyr16.T
+    t[:H, Kyp:Kyp + Ky] = -eyi16.T
+    t[Hp:Hp + H, :Ky] = eyi16.T
+    t[Hp:Hp + H, Kyp:Kyp + Ky] = eyr16.T
     return t
 
 
@@ -137,7 +163,8 @@ def dft_tables_device(H: int, Ky: int, W: int, Kx: int, device) -> Tables:
         s1 = corner_kernels.stage1_tables(b16[2], b16[3]) if cuda else None
         ix = ifft_x_table(b16[2], b16[3]) if cuda else None
         s2 = corner_kernels.stage2_tables(f32[0], f32[1]) if cuda else None
-        ent = Tables(*f32, *b16, s1, ix, s2)
+        iy = ifft_y_table(b16[0], b16[1]) if cuda else None
+        ent = Tables(*f32, *b16, s1, ix, s2, iy)
         _DEV_TABLES[key] = ent
         while len(_DEV_TABLES) > 16:
             _DEV_TABLES.pop(next(iter(_DEV_TABLES)))
@@ -285,7 +312,9 @@ def ifft_corner_real(dr: torch.Tensor, di: torch.Tensor, H: int, W: int,
 def _ifft_y(dr, di, tabs: Tables, mode: str, conjugated: bool):
     """The inverse DFT's y-stage, M = Ey^T @ Dc (contract y): (mr, mi)
     (P, H, Kx) f32 from (dr, di) (..., Ky, Kx), bf16 operands under
-    mix_adaptive."""
+    mix_adaptive: the eager chain (four products, a difference, a sum) of
+    ifft_corner_real, and under mix_adaptive also the plain version of K6
+    (write_kernels.ifft_y_plain)."""
     Ky, Kx = dr.shape[-2:]
     dcr = dr.reshape(-1, Ky, Kx)
     dci = di.reshape(-1, Ky, Kx) if conjugated else -di.reshape(-1, Ky, Kx)
@@ -300,15 +329,22 @@ def ifft_corner_y(dr: torch.Tensor, di: torch.Tensor, tabs: Tables,
                   conjugated: bool = False):
     """The y-stage of ifft_corner_real under mix_adaptive, alone: (mr16,
     mi16), each (P*H, Kx) bf16 with P the planes of (dr, di) (..., Ky, Kx)
-    — M = Ey^T @ Dc in f32 from bf16 operands, then rounded to bf16, the
-    very values the x-stage's _mm_bf16 casts. They are the operands of the
-    x-stage with the u8 epilogue (write_kernels.ifft_epilogue, K4), so no
-    (..., H, W) f32 product is made. conjugated as in ifft_corner_real."""
-    mr, mi = _ifft_y(dr, di, tabs, "mix_adaptive", conjugated)
-    P, H, Kx = mr.shape
-    mr16 = mr.to(torch.bfloat16).reshape(P * H, Kx)
-    del mr
-    return mr16, mi.to(torch.bfloat16).reshape(P * H, Kx)
+    — M = Ey^T @ Dc summed in f32 from bf16 operands, then rounded to bf16,
+    the very values the x-stage's _mm_bf16 casts. They are the operands of
+    the x-stage with the u8 epilogue (write_kernels.ifft_epilogue, K4), so
+    no (..., H, W) f32 product is made. conjugated as in ifft_corner_real:
+    K3's bf16 operands go to write_kernels.ifft_y as they are; an f32 delta
+    (QIM, per-image walks) is first cast to bf16(dr), bf16(-di), the values
+    the eager chain's _mm_bf16 casts. write_kernels.ifft_y launches the K6
+    kernel for CUDA tensors and takes its plain version, the eager chain
+    and its casts, for CPU tensors."""
+    from steganosaurus_tpu_torch.spectral import write_kernels
+
+    if conjugated:
+        dcr, dci = dr.to(torch.bfloat16), di.to(torch.bfloat16)
+    else:
+        dcr, dci = write_kernels.ifft_operands_of(dr, di)
+    return write_kernels.ifft_y(dcr, dci, tabs)
 
 
 def write_delta(cr, ci, sign, mask, cos_a, sin_a, cjd=None, sjd=None,

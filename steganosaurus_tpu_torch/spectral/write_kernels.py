@@ -1,11 +1,12 @@
 """The embed's dense corner write, write floor (K3), the inverse DFT's
-x-stage with the u8 epilogue (K4), and the u8 epilogue alone (K4e): the
-hand-written Hopper kernels and their plain PyTorch versions.
+y-stage (K6) and x-stage with the u8 epilogue (K4), and the u8 epilogue
+alone (K4e): the hand-written Hopper kernels and their plain PyTorch
+versions.
 
 XLA fuses these stages of steganosaurus_tpu/parallel/batch.py:
 corner_embed_core for the TPU; run as eager torch they are some forty
 launches, each a pass over the (B, 3, Ky, Kx) corner or the (B, 3, H, W)
-image batch through HBM. Three CUDA sources replace them:
+image batch through HBM. Four CUDA sources replace them:
 
 - csrc/corner_write_floor.cu (K3), two entry points:
   - write_floor: each corner bin's frame bit through the int32 slot map
@@ -21,6 +22,12 @@ image batch through HBM. Three CUDA sources replace them:
     under KERNEL_WRITE_FLOOR_TWO_PASS;
   - floor_only: the floor over a delta made elsewhere (the QIM write and
     the per-image-walk scatter, whose writes stay eager torch).
+- csrc/corner_ifft_y.cu (K6), ifft_y: the y-stage of
+  corner.ifft_corner_real, M = Ey^T @ Dc, as one bf16 wgmma GEMM per plane
+  of the real table [[eyr^T, -eyi^T], [eyi^T, eyr^T]] (corner.ifft_y_table)
+  with K3's bf16 operands [Re D; -Im D], its f32 sums rounded to bf16 in
+  registers: the (P*H, Kx) bf16 mr16, mi16 that K4 reads, with no f32
+  product through HBM. corner.ifft_corner_y runs it.
 - csrc/corner_ifft_epilogue.cu (K4), ifft_epilogue: the x-stage of
   corner.ifft_corner_real as one bf16 wgmma GEMM of the y-stage's bf16
   output [mr, mi] (corner.ifft_corner_y) with the table [exr16; -exi16]
@@ -61,9 +68,14 @@ KERNEL_WRITE_FLOOR_TWO_PASS = "corner_write_floor_two_pass"
 KERNEL_FLOOR_ONLY = "corner_floor_only"
 KERNEL_EPILOGUE = "corner_epilogue"
 KERNEL_IFFT_EPILOGUE = "corner_ifft_epilogue"
+KERNEL_IFFT_Y = "corner_ifft_y"
+# the ifft_y launches (also counted under KERNEL_IFFT_Y) whose operands
+# went through a staging copy with rows padded to 16 bytes
+KERNEL_IFFT_Y_PADDED = "corner_ifft_y_padded"
 LAUNCHES = {KERNEL_WRITE_FLOOR: 0, KERNEL_WRITE_FLOOR_TWO_PASS: 0,
             KERNEL_FLOOR_ONLY: 0, KERNEL_EPILOGUE: 0,
-            KERNEL_IFFT_EPILOGUE: 0}
+            KERNEL_IFFT_EPILOGUE: 0, KERNEL_IFFT_Y: 0,
+            KERNEL_IFFT_Y_PADDED: 0}
 LAYOUTS = ("nchw", "nhwc")
 # K3's reduction: a group of THREADS threads sums a chunk of CHUNK bins of
 # one image, each thread PER_THREAD bins k*THREADS apart in order
@@ -228,6 +240,76 @@ def ifft_epilogue_plain(mr16, mi16, tabs, planes, center: bool,
     if values:
         return spectral.apply_center(t * (1.0 / (H * W)), center)
     return epilogue_plain(t, planes, center, layout)
+
+
+def ifft_y_plain(dcr16, dci16, tabs, values: bool = False):
+    """The inverse DFT's y-stage under mix_adaptive as the eager chain K6
+    replaces (corner._ifft_y: four bf16 products into f32, a difference, a
+    sum), then the casts: (mr16, mi16), each (P*H, Kx) bf16, from the
+    conjugated delta dcr16 = bf16(Re D), dci16 = bf16(-Im D) (..., Ky, Kx)
+    with P the planes. values=True returns the f32 (mr, mi) (P*H, Kx)
+    before the casts."""
+    Kx = dcr16.shape[-1]
+    mr, mi = corner._ifft_y(dcr16, dci16, tabs, "mix_adaptive", True)
+    P, H, _ = mr.shape
+    if values:
+        return mr.reshape(P * H, Kx), mi.reshape(P * H, Kx)
+    mr16 = mr.to(torch.bfloat16).reshape(P * H, Kx)
+    del mr
+    return mr16, mi.to(torch.bfloat16).reshape(P * H, Kx)
+
+
+def ifft_y_error(mr, mi, dcr16, dci16, tabs, planes: int = 24) -> float:
+    """The RMS, over the first `planes` planes, of the error of the y-stage
+    sums mr, mi (P*H, Kx) f32 (ifft_y's or ifft_y_plain's values=True)
+    against the exact (f64) sum of the same bf16 products eyr16^T . dcr16
+    - eyi16^T . dci16 and eyr16^T . dci16 + eyi16^T . dcr16, (P, Ky, Kx)
+    operands: the error of the sum order alone, in the delta's units."""
+    n = min(planes, dcr16.reshape(-1, *dcr16.shape[-2:]).shape[0])
+    Ky, Kx = dcr16.shape[-2:]
+    H = tabs.eyr16.shape[1]
+    eyr, eyi = tabs.eyr16.double().T, tabs.eyi16.double().T
+    a = dcr16.reshape(-1, Ky, Kx)[:n].double()
+    b = dci16.reshape(-1, Ky, Kx)[:n].double()
+    sq = 0.0
+    for m, exact in ((mr, eyr @ a - eyi @ b), (mi, eyr @ b + eyi @ a)):
+        sq += (m[:n * H].double().reshape(n, H, Kx) - exact).pow(2).sum() \
+            .item()
+    return (sq / (2 * n * H * Kx)) ** 0.5
+
+
+def bf16_steps(a, b) -> torch.Tensor:
+    """How many bf16 values lie between a and b (bf16 tensors of one
+    shape), as int32: 0 where they are equal, 1 where they are neighbours
+    (one ulp apart), counted along the ordered line of bf16 values on which
+    +0 and -0 are one point."""
+    def line(t):
+        i = t.view(torch.int16).to(torch.int32)
+        mag = i & 0x7FFF
+        return torch.where(i < 0, -mag, mag)
+
+    return (line(a) - line(b)).abs()
+
+
+def bf16_compare(got, want, want_f32, tol: float) -> dict:
+    """How K6's bf16 output `got` stands to the plain version's `want`,
+    the round-to-nearest-even casts of the plain f32 sums `want_f32`, when
+    K6's own f32 sums lie within `tol` of those: the counts of elements
+    "equal", "one ulp" apart (bf16_steps 1), further apart but "within the
+    f32 bound" (|got - want| <= tol + one ulp of the larger: an element
+    whose ulp is below tol, where two roundings of sums tol apart may lie
+    several ulps apart), and "other" (none, for a kernel that rounds its
+    sums to nearest even)."""
+    steps = bf16_steps(got, want)
+    big = torch.maximum(got.float().abs(), want.float().abs())
+    ulp = torch.ldexp(torch.ones_like(big), torch.frexp(big).exponent - 8)
+    near = (got.float() - want.float()).abs() <= tol + ulp
+    del big, ulp
+    n = {"equal": int((steps == 0).sum().item()),
+         "one ulp": int((steps == 1).sum().item()),
+         "within the f32 bound": int(((steps > 1) & near).sum().item())}
+    n["other"] = got.numel() - sum(n.values())
+    return n
 
 
 # --- the wrappers ------------------------------------------------------------
@@ -527,3 +609,79 @@ def ifft_epilogue(mr16, mi16, tabs, planes, center: bool, layout: str, *,
     _check_rc(name, rc)
     LAUNCHES[name] += 1
     return out
+
+
+def ifft_y_rows(dcr, dci):
+    """(dcr, dci, ldd, padded): K6's operands (P, Ky, Kx) bf16 as its TMA
+    maps read them, rows ldd values apart (Kx rounded up to 8 values, 16
+    bytes) from 16-byte-aligned bases: the operands themselves where they
+    are so, else (padded) a staging copy whose rows end in zeros (Kx % 8 !=
+    0: grids below 256 columns, or an unaligned view). The maps' x extent
+    stays Kx, so the padding is never read."""
+    Kx = dcr.shape[-1]
+    ldd = -(-Kx // 8) * 8
+    padded = bool(ldd != Kx or dcr.data_ptr() % 16 or dci.data_ptr() % 16)
+    if padded:
+        dcr, dci = (torch.nn.functional.pad(a, (0, ldd - Kx))
+                    for a in (dcr, dci))
+    return dcr, dci, ldd, padded
+
+
+def ifft_y(dcr16, dci16, tabs, *, values: bool = False):
+    """The inverse DFT's y-stage under mix_adaptive: (mr16, mi16), each
+    (P*H, Kx) bf16 (the operands of ifft_epilogue), from the conjugated
+    delta dcr16 = bf16(Re D), dci16 = bf16(-Im D), contiguous (..., Ky, Kx)
+    bf16 with P planes (write_floor's ifft_operands, or ifft_operands_of),
+    and the grid's corner.Tables (eyr16 (Ky, H); on CUDA its ifft_y table).
+    values=True (the check mode) returns the f32 sums (P*H, Kx) before the
+    rounding. CUDA tensors launch csrc/corner_ifft_y.cu (K6) on the current
+    stream, operands whose rows are not whole 16-byte words (Kx % 8 != 0)
+    or whose base is not 16-byte aligned through a staging copy with padded
+    rows (counted under KERNEL_IFFT_Y_PADDED too); CPU tensors take
+    ifft_y_plain."""
+    name = KERNEL_IFFT_Y
+    kind = _device(name, dcr16, (dci16, tabs.eyr16, tabs.eyi16))
+    if dcr16.dim() < 2:
+        raise ValueError(f"{name}: dcr16 must be (..., Ky, Kx), got "
+                         f"{tuple(dcr16.shape)}")
+    Ky, Kx = dcr16.shape[-2:]
+    _need(name, "dcr16", dcr16, torch.bfloat16, dcr16.shape)
+    _need(name, "dci16", dci16, torch.bfloat16, dcr16.shape)
+    for what, t in (("eyr16", tabs.eyr16), ("eyi16", tabs.eyi16)):
+        if t.dtype != torch.bfloat16 or t.dim() != 2 or t.shape[0] != Ky:
+            raise ValueError(f"{name}: {what} must be bf16 (Ky={Ky}, H), got "
+                             f"{t.dtype} {tuple(t.shape)}")
+    H = tabs.eyr16.shape[1]
+    if tuple(tabs.eyi16.shape) != (Ky, H):
+        raise ValueError(f"{name}: eyi16 must be {(Ky, H)}, got "
+                         f"{tuple(tabs.eyi16.shape)}")
+    if kind == "cpu":
+        return ifft_y_plain(dcr16, dci16, tabs, values)
+    Hp, Kyp = corner_kernels._pad64(H), corner_kernels._pad64(Ky)
+    tab = tabs.ifft_y
+    if tab is None:
+        raise ValueError(f"{name}: the tables carry no K6 table")
+    _need(name, "the K6 table", tab, torch.bfloat16, (2 * Hp, 2 * Kyp))
+    _device(name, dcr16, (tab,))
+    dcr = dcr16.reshape(-1, Ky, Kx)
+    dci = dci16.reshape(-1, Ky, Kx)
+    P = dcr.shape[0]
+    dt = torch.float32 if values else torch.bfloat16
+    mr = torch.empty((P * H, Kx), dtype=dt, device=dcr.device)
+    mi = torch.empty((P * H, Kx), dtype=dt, device=dcr.device)
+    if mr.numel() == 0:
+        return mr, mi
+    dcr, dci, ldd, padded = ifft_y_rows(dcr, dci)
+    from steganosaurus_tpu_torch import _build
+
+    with torch.cuda.device(dcr.device):
+        stream = torch.cuda.current_stream(dcr.device).cuda_stream
+        rc = _build.kernel_library().corner_ifft_y(
+            tab.data_ptr(), dcr.data_ptr(), dci.data_ptr(), mr.data_ptr(),
+            mi.data_ptr(), P, H, Ky, Kx, Hp, Kyp, ldd, int(bool(values)),
+            stream)
+    _check_rc(name, rc)
+    LAUNCHES[name] += 1
+    if padded:
+        LAUNCHES[KERNEL_IFFT_Y_PADDED] += 1
+    return mr, mi

@@ -176,15 +176,17 @@ def epilogue_cost(B: int, H: int, W: int, layout: str = "nchw") -> dict:
 
 
 def ifft_y_cost(B: int, H: int, Ky: int, Kx: int) -> dict:
-    """The inverse DFT's y-stage under mix_adaptive (corner.ifft_corner_y)
-    over B images' (3, Ky, Kx) deltas: four real (H, Ky) x (Ky, Kx)
-    products per plane in bf16; bytes: the delta (dr, di) read once as f32
-    (the stage table's count for the write's output), both bf16 y tables
-    once, mr and mi written once in bf16."""
+    """The K6 kernel (spectral/write_kernels.py ifft_y), the inverse DFT's
+    y-stage under mix_adaptive, over B images' (3, Ky, Kx) deltas: four
+    real (H, Ky) x (Ky, Kx) products per plane in bf16; bytes: the bf16
+    delta (Re D, -Im D) read once, the (2Hp, 2Kyp) bf16 table
+    (corner.ifft_y_table) once, mr and mi written once in bf16."""
     P = 3 * B
-    return _stage("embed", "inverse y-stage", {"bf16": 8.0 * P * H * Ky * Kx},
-                  0, 2 * P * Ky * Kx * 4 + 2 * Ky * H * 2 + 2 * P * H * Kx * 2,
-                  "bf16")
+    Hp, Kyp = corner_kernels._pad64(H), corner_kernels._pad64(Ky)
+    return _stage("embed", "K6 inverse y-stage",
+                  {"bf16": 8.0 * P * H * Ky * Kx}, 0,
+                  2 * P * Ky * Kx * 2 + (2 * Hp) * (2 * Kyp) * 2
+                  + 2 * P * H * Kx * 2, "bf16")
 
 
 def ifft_epilogue_cost(B: int, H: int, W: int, Kx: int,
@@ -309,7 +311,7 @@ def stage_costs(B: int, H: int, W: int, secret_len: int,
             _stage("embed", "epilogue", {}, _EPILOGUE_OPS * px,
                    px * 4 + 2 * px, "none")]
     else:
-        # the y-stage, then K4: the x-stage with the epilogue fused
+        # K6: the y-stage, then K4: the x-stage with the epilogue fused
         embed += [ifft_y_cost(B, H, Ky, Kx),
                   ifft_epilogue_cost(B, H, W, Kx, layout)]
     if layout == "nhwc":

@@ -96,7 +96,7 @@ def test_headline_stage_flops():
         "extract", "K2"]
     assert st["embed", "stage2 prep"] == {} == st["extract", "stage2 prep"]
     assert st["embed", "stage2 band"] == {} == st["extract", "stage2 band"]
-    assert st["embed", "inverse y-stage"] == {"bf16": bulk}
+    assert st["embed", "K6 inverse y-stage"] == {"bf16": bulk}
     assert st["embed", "K4 inverse x-stage + epilogue"] == {"bf16": k1}
     gemm = {side: sum(sum(f.values()) for (sd, _), f in st.items()
                       if sd == side) for side in ("embed", "extract")}
@@ -225,9 +225,11 @@ def test_ifft_epilogue_cost_and_the_split_inverse(monkeypatch):
     """K4 at 4K B=64: 2 * (192*2160) * 2048 * 3840 bf16 FLOPs (the K1
     count), mr and mi (1.70e9 B), the table, the planes and the stego once:
     4.90e9 B, bound by its products (6.596 ms at 989 TFLOP/s, 6.714 with
-    the epilogue's estimate at the fp32 rate). Under mix_adaptive the stage
-    table's inverse is the y-stage and K4; under highest the f32 inverse
-    and K4e's epilogue, as before K4."""
+    the epilogue's estimate at the fp32 rate). K6, the y-stage: 8 * 192 *
+    2160 * 1024 * 1024 bf16 FLOPs against the bf16 delta, the (2Hp, 2Kyp)
+    table and the bf16 mr, mi once (2.52e9 B): 3.518 ms, bound by its
+    products. Under mix_adaptive the stage table's inverse is K6 and K4;
+    under highest the f32 inverse and K4e's epilogue, as before K4."""
     peaks = dict(cost._PEAKS[0][1])
     k4 = cost.ifft_epilogue_cost(64, 2160, 3840, 1024)
     M = 192 * 2160
@@ -239,13 +241,16 @@ def test_ifft_epilogue_cost_and_the_split_inverse(monkeypatch):
     assert by == "operations" and ms == pytest.approx(6.714, abs=1e-3)
     y = cost.ifft_y_cost(64, 2160, 1024, 1024)
     assert y["gemm_flops"] == {"bf16": 8 * 192 * 2160 * 1024 * 1024}
+    assert y["hbm_bytes"] == 2 * 192 * 1024 * 1024 * 2 \
+        + (2 * 2176) * (2 * 1024) * 2 + 2 * 192 * 2160 * 1024 * 2
     assert cost.stage_bound(y, peaks) == pytest.approx((3.518, "operations"),
                                                         abs=1e-3)
     with pytest.raises(ValueError):
         cost.ifft_epilogue_cost(1, 8, 8, 8, "hwc")
     names = [s["stage"] for s in cost.stage_costs(64, 2160, 3840, 16384)
              if s["side"] == "embed"]
-    assert names[-2:] == ["inverse y-stage", "K4 inverse x-stage + epilogue"]
+    assert names[-2:] == ["K6 inverse y-stage",
+                          "K4 inverse x-stage + epilogue"]
     monkeypatch.setenv("STEGANOSAURUS_MM_PRECISION", "highest")
     names = [s["stage"] for s in cost.stage_costs(64, 2160, 3840, 16384)
              if s["side"] == "embed"]

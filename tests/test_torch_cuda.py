@@ -16,7 +16,10 @@ entry() against the CPU, the dry run over 2 logical shards), the cost
 model's peak rates for the card; and the embed's K3 kernel (both entry
 points) and K4e against their plain versions at 512x512 B=8 and 1079x1917
 B=4 (K3 bit-exact against its ordered twin, which sums in the kernel's
-order, K4e bit-exact), write_floor's bf16 operand mode against its f32
+order, K4e bit-exact), K6 (the inverse DFT's y-stage) against its plain
+version (the f32 sums within 1e-5 of their scale, the bf16 outputs one ulp
+apart at most) and its staging copy, write_floor's bf16 operand mode
+against its f32
 output cast and its two schedules against each other (bit for bit), its
 boost independent of the batch, the write wrappers' checks, and the K3 /
 K4e launches of each corner embed path; forward stage 2's prep pass
@@ -1017,6 +1020,97 @@ def test_ifft_epilogue_wrapper_checks_its_inputs(dev):
     assert wk.LAUNCHES == n
 
 
+# K6: the inverse DFT's y-stage, on (B, H, W): 4K-like (one image: 3 planes,
+# Ky = Kx = 1024), 1080p, 512^2, and a tiny grid whose Kx = 50 (not a
+# multiple of 8) takes the wrapper's padded staging copy
+K6_GRIDS = [(1, 2160, 3840), (2, 1080, 1920), (2, 512, 512), (2, 64, 50)]
+# max |v - v_plain| against max |v_plain|: f32 sums of the same exact bf16
+# products in another order (K1's and K4's bound)
+K6_REL = 1e-5
+
+
+def _k6_inputs(dev, B, H, W, seed):
+    """K3's bf16 operands (bf16(Re D), bf16(-Im D)) of a seeded corner
+    delta over 30% of the corner's bins, and the grid's tables."""
+    from steganosaurus_tpu_torch.config import Params
+    from steganosaurus_tpu_torch.spectral import corner
+    from steganosaurus_tpu_torch.spectral import write_kernels as wk
+
+    Ky, Kx = corner.corner_dims(H, W, Params().rmax)
+    tabs = corner.dft_tables_device(H, Ky, W, Kx, dev)
+    rng = np.random.default_rng(seed)
+    mask = rng.random((3, Ky, Kx)) < 0.3
+    amp = 3.0 * H * W / np.sqrt(0.6 * Ky * Kx)
+    dr, di = (torch.from_numpy((rng.normal(size=(B, 3, Ky, Kx)) * amp
+                                * mask).astype(np.float32)).to(dev)
+              for _ in range(2))
+    return (*wk.ifft_operands_of(dr, di), tabs)
+
+
+def _check_k6(dcr, dci, tabs, padded):
+    """K6 against its plain version: the f32 check mode within K6_REL of
+    the plain sums' scale; its bf16 outputs the round-to-nearest-even casts
+    of those sums; against the plain bf16, each element equal, one bf16 ulp
+    apart, or, where an ulp is below that bound, within the bound and one
+    ulp (write_kernels.bf16_compare). `padded`: whether the launches take
+    the staging copy."""
+    from steganosaurus_tpu_torch.spectral import write_kernels as wk
+
+    n = dict(wk.LAUNCHES)
+    v = wk.ifft_y(dcr, dci, tabs, values=True)
+    got = wk.ifft_y(dcr, dci, tabs)
+    assert wk.LAUNCHES[wk.KERNEL_IFFT_Y] == n[wk.KERNEL_IFFT_Y] + 2
+    assert (wk.LAUNCHES[wk.KERNEL_IFFT_Y_PADDED]
+            == n[wk.KERNEL_IFFT_Y_PADDED] + 2 * padded)
+    pv = wk.ifft_y_plain(dcr, dci, tabs, values=True)
+    want = wk.ifft_y_plain(dcr, dci, tabs)
+    torch.cuda.synchronize()
+    tol = K6_REL * max(p.abs().max().item() for p in pv)
+    for k, kv, p, pw in zip(got, v, pv, want):
+        assert k.shape == p.shape == kv.shape == pw.shape
+        assert k.dtype == torch.bfloat16 and kv.dtype == torch.float32
+        assert (kv - p).abs().max().item() <= tol
+        assert torch.equal(k, kv.to(torch.bfloat16))
+        assert wk.bf16_compare(k, pw, p, tol)["other"] == 0
+
+
+@pytest.mark.parametrize("grid", K6_GRIDS)
+def test_ifft_y_kernel_matches_plain(dev, grid):
+    _check_k6(*_k6_inputs(dev, *grid, sum(grid)), padded=grid[2] == 50)
+
+
+def test_ifft_y_kernel_on_unaligned_views(dev):
+    """Operands that start one element into a larger tensor (2 bytes off
+    their alignment) go through the staging copy and give the same
+    answer."""
+    dcr, dci, tabs = _k6_inputs(dev, 1, 128, 192, 9)
+
+    def shifted(t):
+        buf = torch.zeros(t.numel() + 1, dtype=t.dtype, device=dev)
+        buf[1:] = t.reshape(-1)
+        return buf[1:].view(t.shape)
+
+    views = [shifted(t) for t in (dcr, dci)]
+    assert views[0].data_ptr() % 16
+    _check_k6(*views, tabs, padded=True)
+
+
+def test_ifft_y_wrapper_checks_its_inputs(dev):
+    """Wrong types, shapes, layouts, devices and tables raise before any
+    launch."""
+    from steganosaurus_tpu_torch.spectral import write_kernels as wk
+
+    dcr, dci, tabs = _k6_inputs(dev, 1, 64, 64, 3)
+    n = dict(wk.LAUNCHES)
+    for bad in ((dcr.float(), dci, tabs), (dcr, dci[..., :-1], tabs),
+                (dcr, dci.cpu(), tabs), (dcr.transpose(-1, -2), dci, tabs),
+                (dcr, dci, tabs._replace(ifft_y=None)),
+                (dcr, dci, tabs._replace(ifft_y=tabs.ifft_y[:-64]))):
+        with pytest.raises(ValueError):
+            wk.ifft_y(*bad)
+    assert wk.LAUNCHES == n
+
+
 def test_write_wrappers_check_their_inputs(dev):
     """Non-contiguous or wrongly typed inputs raise before any launch."""
     from steganosaurus_tpu_torch.parallel import batch as pb
@@ -1049,9 +1143,10 @@ def test_write_wrappers_check_their_inputs(dev):
 
 def test_embed_cores_on_card_launch_k3_and_k4e(dev, monkeypatch):
     """A default-Params embed makes one write_floor launch, on the resident
-    schedule, and one K4 launch; QIM and per-image walks take floor_only;
-    under STEGANOSAURUS_MM_PRECISION=highest the epilogue is K4e's, after
-    the f32 inverse DFT; the stegos read back."""
+    schedule, one K6 launch (the y-stage, no staging copy) and one K4
+    launch; QIM and per-image walks take floor_only; under
+    STEGANOSAURUS_MM_PRECISION=highest the epilogue is K4e's, after the f32
+    inverse DFT (no K6); the stegos read back."""
     import steganosaurus_tpu_torch as stt
     from steganosaurus_tpu_torch.spectral import write_kernels as wk
 
@@ -1059,8 +1154,9 @@ def test_embed_cores_on_card_launch_k3_and_k4e(dev, monkeypatch):
     imgs = torch.from_numpy(rng.integers(90, 170, (2, 3, 256, 256),
                                          dtype=np.uint8)).to(dev)
     secrets = [b"k3-0" * 8, b"k3-1" * 8]
-    two = {wk.KERNEL_WRITE_FLOOR_TWO_PASS: 0}
-    k4 = {wk.KERNEL_EPILOGUE: 0, wk.KERNEL_IFFT_EPILOGUE: 1}
+    two = {wk.KERNEL_WRITE_FLOOR_TWO_PASS: 0, wk.KERNEL_IFFT_Y_PADDED: 0}
+    k4 = {wk.KERNEL_EPILOGUE: 0, wk.KERNEL_IFFT_EPILOGUE: 1,
+          wk.KERNEL_IFFT_Y: 1}
     for p, want, mode in (
             (stt.Params(pbkdf2_iter=500),
              {wk.KERNEL_WRITE_FLOOR: 1, wk.KERNEL_FLOOR_ONLY: 0, **k4,
@@ -1073,8 +1169,8 @@ def test_embed_cores_on_card_launch_k3_and_k4e(dev, monkeypatch):
               **two}, "mix_adaptive"),
             (stt.Params(pbkdf2_iter=500),
              {wk.KERNEL_WRITE_FLOOR: 1, wk.KERNEL_FLOOR_ONLY: 0,
-              wk.KERNEL_EPILOGUE: 1, wk.KERNEL_IFFT_EPILOGUE: 0, **two},
-             "highest")):
+              wk.KERNEL_EPILOGUE: 1, wk.KERNEL_IFFT_EPILOGUE: 0,
+              wk.KERNEL_IFFT_Y: 0, **two}, "highest")):
         monkeypatch.setenv("STEGANOSAURUS_MM_PRECISION", mode)
         n = dict(wk.LAUNCHES)
         res = stt.embed_batch(imgs, secrets, master_key=bytes(32), params=p,

@@ -16,10 +16,13 @@ band columns' bf16 terms and the column mask) and "K2" (the K2 wrapper), or
 "stage2" where the eager y-contraction
 corner._fwd_y_split runs (a tree before K2), write+floor = the K3 wrapper's
 write_floor, floor = its floor_only (QIM, per-image walks), ifft y = the
-inverse DFT's y-stage, K4 = the K4 wrapper (the x-stage with the u8
-epilogue); under STEGANOSAURUS_MM_PRECISION=highest ifft = the f32 inverse
-DFT and epilogue = the K4e wrapper; "other" is the rest: walk gather, ECC
-decode).
+inverse DFT's y-stage (corner.ifft_corner_y: the K6 kernel's wrapper, or in
+a tree before K6 the eager chain of cuBLAS products, sums and casts), K4 =
+the K4 wrapper (the x-stage with the u8 epilogue); under
+STEGANOSAURUS_MM_PRECISION=highest ifft = the f32 inverse DFT and epilogue
+= the K4e wrapper; "other" is the rest: walk gather, ECC decode). Each
+window also prints the device kernels inside each stage's span, so a
+stage shows which kernels ran it.
 
 --stream profiles a two-batch embed_stream -> extract_stream (depth 2) of
 the same workload against the serialized loop of two round trips, and
@@ -46,7 +49,10 @@ epilogue) and read as profiler ranges, and the host seconds of the turtle
 walk beside them.
 
 The Chrome traces go to TRACE_DIR/profile_torch_path_<window>.json (default
-build/profile/, gitignored).
+build/profile/, gitignored). The round trip's profile ends with one more
+embed and extract, not profiled, that print the peak device memory
+allocated during each stage (torch.cuda.max_memory_allocated, reset as
+each stage starts): where each side's peak is set.
 """
 
 from __future__ import annotations
@@ -59,20 +65,73 @@ import time
 REPO = pathlib.Path(__file__).resolve().parent.parent
 
 
+# {stage: peak GiB allocated while it ran} while a pass records them (None:
+# not recording)
+_PEAKS: dict | None = None
+
+
 def _span(name, fn):
     from torch.profiler import record_function
 
     @functools.wraps(fn)
     def wrapped(*args, **kwargs):
-        with record_function(name):
+        if _PEAKS is None:
+            with record_function(name):
+                return fn(*args, **kwargs)
+        import torch
+
+        torch.cuda.reset_peak_memory_stats()
+        try:
             return fn(*args, **kwargs)
+        finally:
+            _PEAKS[name] = max(_PEAKS.get(name, 0.0),
+                               torch.cuda.max_memory_allocated() / 2 ** 30)
 
     return wrapped
 
 
+def _stage_peaks(fn) -> dict:
+    """{stage: peak GiB of device memory allocated while it ran} over one
+    unprofiled fn() (each stage span resets the peak at its entry)."""
+    import torch
+
+    global _PEAKS
+    _PEAKS = {}
+    try:
+        fn()
+        torch.cuda.synchronize()
+        return dict(_PEAKS)
+    finally:
+        _PEAKS = None
+
+
+def _kernels_within(events, spans: set) -> dict:
+    """{span: {device kernel name: count}} of the device events (kernels,
+    copies) that lie inside a device window of each stage span."""
+    from torch.autograd import DeviceType
+
+    dev = [e for e in events if e.device_type == DeviceType.CUDA]
+    wins: dict = {}
+    for e in dev:
+        if e.name in spans:
+            wins.setdefault(e.name, []).append((e.time_range.start,
+                                                e.time_range.end))
+    inside: dict = {k: {} for k in wins}
+    for e in dev:
+        if e.name in spans:
+            continue
+        t0, t1 = e.time_range.start, e.time_range.end
+        for span, ws in wins.items():
+            if any(a <= t0 and t1 <= b for a, b in ws):
+                key = e.name[:70]
+                inside[span][key] = inside[span].get(key, 0) + 1
+    return inside
+
+
 def _profile(name: str, fn, out: pathlib.Path, spans: set):
     """Run fn() under torch.profiler; print and return (wall ms, device
-    busy ms, device events other than the stage spans, span ms by name)."""
+    busy ms, device events other than the stage spans, span ms by name);
+    print the device kernels inside each span."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -94,6 +153,8 @@ def _profile(name: str, fn, out: pathlib.Path, spans: set):
     busy = sum(e.self_device_time_total for e in kernels) / 1e3
     print(f"{name}: wall {wall!r} ms, device busy {busy!r} ms, idle share "
           f"{max(0.0, 1.0 - busy / wall)!r}")
+    for span, ks in _kernels_within(prof.events(), spans).items():
+        print(f"  kernels inside {span!r}: {ks}")
     prof.export_chrome_trace(str(out / f"profile_torch_path_{name}.json"))
     return wall, busy, kernels, span_ms
 
@@ -301,6 +362,10 @@ def main() -> int:
     for name, fn in (("embed", embed), ("extract", lambda: extract(stego))):
         _, busy, kernels, spans = _profile(name, fn, out, names)
         _print_stages(busy, kernels, spans)
+    for name, fn in (("embed", embed), ("extract", lambda: extract(stego))):
+        peaks = _stage_peaks(fn)
+        print(f"{name} peak device memory by stage (GiB, unprofiled pass): "
+              + "; ".join(f"{k} {v:.3f}" for k, v in peaks.items()))
     return 0
 
 
