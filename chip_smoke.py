@@ -1527,8 +1527,10 @@ def phase_ifft_y(covers_d, odd_d, card: str) -> list:
     main path's operands: each of K6_GRIDS' forward corner spectra through
     K3's write_floor as the main path calls it (the hard write at floor
     0.45 of a RepFrame, bf16 operands), the 512x512 views one element off
-    their alignment (_k6_check); HGMMA and UTMALDG in its SASS. At 4K B=64,
-    in turns by CUDA events beside the bound (utils/cost.py ifft_y_cost):
+    their alignment (_k6_check); HGMMA and UTMALDG in its SASS (UTMASTG,
+    the store warp's TMA stores, printed). At 4K B=64 the grid launched
+    (no cluster), and in turns by CUDA events beside the bound
+    (utils/cost.py ifft_y_cost):
     K6, its plain version (the eager chain it replaced) and one torch.bmm
     of the real table (corner.ifft_y_table without its padding, expanded)
     with the stacked (P, 2Ky, Kx) operands into bf16 (the kernels line's
@@ -1543,8 +1545,11 @@ def phase_ifft_y(covers_d, odd_d, card: str) -> list:
     from steganosaurus_tpu_torch.spectral import write_kernels as wk
     from steganosaurus_tpu_torch.utils import cost
 
-    sass = _build.sass_counts(wk.KERNEL_IFFT_Y, "corner_ifft_y_kernel")
-    log(f"K6 SASS (corner_ifft_y_kernel, cuobjdump -sass): {sass}")
+    sass = _build.sass_counts(
+        wk.KERNEL_IFFT_Y, "corner_ifft_y_kernel",
+        ("HGMMA", "UTMALDG", "UTMASTG", "LDL", "STL"))
+    log(f"K6 SASS (corner_ifft_y_kernel, both instantiations, cuobjdump "
+        f"-sass): {sass}")
     if not (sass["HGMMA"] > 0 and sass["UTMALDG"] > 0):
         raise AssertionError(f"K6 is not wgmma + TMA: {sass}")
     peaks = cost.peak_rates(covers_d.device)
@@ -1596,6 +1601,13 @@ def phase_ifft_y(covers_d, odd_d, card: str) -> list:
             ms = {k: sum(v) / len(v) for k, v in times.items()}
             bound, by = cost.stage_bound(cost.ifft_y_cost(B, H, Ky, Kx),
                                          peaks)
+            # csrc/corner_ifft_y.cu's grid: a block per SM, at most one
+            # per 128 x 256 tile of the (2Hp, Kx) outputs
+            tiles = P * (2 * Hp // 128) * -(-Kx // 256)
+            sms = torch.cuda.get_device_properties(
+                covers_d.device).multi_processor_count
+            log(f"K6 {name} B={B} {H}x{W} Ky={Ky} Kx={Kx}: no cluster, "
+                f"grid {min(sms, tiles)} blocks")
             log(f"K6 {name} B={B} {H}x{W} Ky={Ky} Kx={Kx} timed in turns "
                 f"({card}): " + "; ".join(f"{k} {v!r} ms"
                                           for k, v in times.items())
@@ -1721,7 +1733,8 @@ def phase_stage2(covers_d, odd_d, card: str) -> list:
     """3d: forward stage 2's prep pass, band kernel and K2
     (csrc/corner_stage2.cu) against their plain versions on each of
     STAGE2_GRIDS' stage-1 output (K1 on the grid's covers; _stage2_check);
-    HGMMA and UTMALDG in K2's SASS. At 4K B=64, in turns by CUDA events
+    HGMMA and UTMALDG in K2's SASS. At 4K B=64 the cluster shape and the
+    grid launched, and in turns by CUDA events
     beside the bounds (utils/cost.py stage2_prep_cost, stage2_band_cost,
     k2_cost): the three kernels through their wrappers, their plain
     versions, the eager composition they replace (corner._fwd_y_split), the
@@ -1785,6 +1798,9 @@ def phase_stage2(covers_d, odd_d, card: str) -> list:
                 ("K2", cost.k2_cost(P, H, Ky, Kx)),
                 ("band", cost.stage2_band_cost(P, H, Kx)),
                 ("prep", cost.stage2_prep_cost(P, H, Kx)))}
+            log(f"K2 {name} B={B} {H}x{W} Ky={Ky} Kx={Kx}: clusters "
+                f"({ck.STAGE2_CLUSTER}, 1, 1), grid "
+                f"{ck.stage2_grid(P, Kx, Ky)} blocks")
             log(f"K2 {name} B={B} {H}x{W} Ky={Ky} Kx={Kx} timed in turns "
                 f"({card}): " + "; ".join(f"{k} {v!r} ms"
                                           for k, v in times.items())

@@ -61,6 +61,7 @@ _SIGNATURES = {
     "corner_stage2_prep": [_P] * 5 + [_I] * 4 + [_P],
     "corner_stage2_band": [_P] * 5 + [_I] * 3 + [_P],
     "corner_stage2": [_P] * 8 + [_I] * 8 + [_P],
+    "corner_stage2_grid": [_I, _I, _I],
     "corner_ifft_y": [_P] * 5 + [_I] * 8 + [_P],
 }
 
@@ -142,6 +143,33 @@ def kernel_library() -> Kernels:
                       for src, lib in libs.items() if not lib.exists()])
             _kernels = Kernels(libs)
         return _kernels
+
+
+def build_variants(source: str, variants: dict, work: pathlib.Path) -> tuple:
+    """Build variants of one csrc/*.cu (`source`, its file name): each of
+    `variants` (name -> the variant's .cu path) with that source's flags
+    and ptxas's report, all nvcc runs at once, into work/<name>.so. Returns
+    (name -> Kernels whose entry points of the variant come from it and
+    every other one from the committed build, name -> ptxas's report).
+    Raises if a build fails."""
+    base = kernel_library()
+    flags = NVCC_FLAGS + NVCC_SOURCE_FLAGS.get(source, []) + ["-Xptxas", "-v"]
+    work.mkdir(parents=True, exist_ok=True)
+    libs = {name: work / (re.sub(r"\W+", "_", name) + ".so")
+            for name in variants}
+    procs = {name: subprocess.Popen(
+        [nvcc(), *flags, str(cu), "-o", str(libs[name])],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for name, cu in variants.items()}
+    reports = {}
+    for name, proc in procs.items():
+        reports[name], _ = proc.communicate(timeout=900)
+        if proc.returncode != 0:
+            raise RuntimeError(f"{name}: build failed\n"
+                               f"{reports[name][-4000:]}")
+    committed = {q: q for q in base.paths.values()}
+    return ({name: Kernels({**committed, lib: lib})
+             for name, lib in libs.items()}, reports)
 
 
 def sass_counts(name: str, function: str,

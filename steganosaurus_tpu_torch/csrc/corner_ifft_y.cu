@@ -28,6 +28,14 @@
 // f32, a difference, a sum, two casts) wrote four f32 (P, H, Kx) products
 // of 1.70 GB each and read them back.
 //
+// What held the first version back (tools/k6_ablation_torch.py on an H100):
+// its epilogue stored from registers after the last k-block's wait, with
+// nothing to overlap it, each warp's bf16x2 stores filling half of every
+// 32-byte sector (~1.4 ms of ~5.9 at 4K B=64); and each 128 x 256 x 2Kyp
+// tile pulled its table rows and its plane's delta through L2 (~39 GB at
+// 4K B=64, ~1 ms). This design overlaps the epilogue (6); the operand
+// traffic stays (3).
+//
 // Design (the mainloop is K4's; B's layout is K2's, csrc/corner_stage2.cu):
 // 1. A is the cached table (corner.ifft_y_table), (2Hp, 2Kyp) bf16 with Hp
 //    and Kyp rounded up to 64 and zeros in the padding: rows [0, H) give
@@ -36,7 +44,8 @@
 //    very values of the eager chain's products. K-major (the contraction
 //    contiguous): 128 x 64 boxes by TMA into 128-byte-swizzled shared
 //    memory, as K4's operands. 2Hp is a multiple of the 128-row tile, so a
-//    tile never spans two planes' outputs or the mr / mi split.
+//    tile never spans two planes' outputs; Hp is a multiple of 64, so each
+//    consumer warpgroup's 64 rows lie wholly in mr or in mi.
 // 2. B is the plane's (dcr, dci), x contiguous: an MN-major wgmma operand
 //    (the transpose bit; 64-column atoms 8 KB apart as LBO, 8-row groups
 //    1 KB apart as SBO), four 64 x 64 boxes a stage from one of two 3-D
@@ -44,21 +53,44 @@
 //    past Ky load as zeros, so no plane reads its neighbour's rows; boxes
 //    wholly past Kx are not loaded (they meet only output columns that are
 //    not stored).
-// 3. A 4-stage ring of (A 16 KB, B 32 KB), full/empty mbarriers, one
+// 3. As many persistent blocks as the card has SMs (no more than tiles)
+//    walk the (nt, mt, p) tiles nt fastest, then mt, then p: plane by
+//    plane, so a plane's 4 MB of delta stays in L2 with the table. Pairs
+//    of blocks in 2-CTA clusters, each loading half of the delta boxes
+//    for both by TMA multicast (B is 2/3 of a stage's bytes), ran no
+//    faster in turns with this grid (median 4.82 ms against 4.56 at 4K
+//    B=64 on an H100, tools/k6_ablation_torch.py), so they are not used.
+// 4. A 3-stage ring of (A 16 KB, B 32 KB), full/empty mbarriers, one
 //    producer thread; two consumer warpgroups (setmaxnreg.inc 232) issue
 //    wgmma.m64n256k16 over 64 rows each of the 128 x 256 tile, keep one
 //    k-block's wgmmas in flight (wait_group 1) and free the stage before
-//    it. 132 persistent blocks walk the tiles nt fastest, then mt, then p:
-//    plane by plane, so a plane's 4 MB of delta stays in L2 with the table.
-// 4. No promotion sum (K2 has one): the result is rounded to bf16 at once,
+//    it. Three stages ran as fast as four; the fourth's 48 KB hold the
+//    epilogue's staging.
+// 5. No promotion sum (K2 has one): the result is rounded to bf16 at once,
 //    and K4 sums the same contraction length (2Kxp = 2048 at 4K) on the
 //    tensor cores within 3.5e-6 of max|plain| of its plain version.
-// 5. The epilogue stores from registers: row m of the tile's A rows is mr's
-//    row h = m or mi's h = m - Hp of plane p (padding rows skipped), two
-//    consecutive columns a thread as one bf16x2 (or float2) store where Kx
-//    is even, columns past Kx masked. It does not overlap the next tile's
-//    main loop. Each output element is one tile's sum over its k-blocks in
-//    an order fixed by Kyp, so shards and runs give the same bits.
+// 6. The epilogue overlaps the next tile's main loop. Each consumer
+//    warpgroup rounds its 64 x 256 f32 sums to bf16 (__float2bfloat16_rn,
+//    bit-equal to .to(torch.bfloat16)) into its own 32 KB staging buffer
+//    (four 64 x 64 boxes, 128-byte swizzled, so a warp's 4-byte stores hit
+//    32 banks), arrives on the buffer's FULL named barrier and goes on to
+//    its next tile's k-loop. The store warp (the producer warpgroup's
+//    second warp) waits on FULL, and one of its threads stores the boxes
+//    by TMA (cp.async.bulk.tensor, a 3-D map (x, h, p) of mr16 or mi16,
+//    which clips rows h >= H and columns x >= Kx), waits until the stores
+//    have read the buffer (cp.async.bulk.wait_group.read) and arrives on
+//    its EMPTY barrier, on which the warpgroup waits before it writes the
+//    buffer again, a tile later. Issued by the consumer warpgroup itself,
+//    the same TMA stores ran no faster than stores from registers: the
+//    warpgroup's next k-loop waited behind them. The f32 check mode
+//    (values), and outputs whose rows are not whole 16-byte words (Kx % 8
+//    != 0) or not 16-byte aligned, keep the first version's stores from
+//    registers (an instantiation without the store warp: two consecutive
+//    columns a thread, padding rows and columns past Kx skipped).
+// 7. The ring and the stores move data only: each output
+//    element is one tile's sum over its k-blocks in an order fixed by Kyp,
+//    the same wgmmas as the first version's, so outputs are bit-equal to
+//    it, and shards and runs give the same bits.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -70,19 +102,37 @@ namespace {
 constexpr int BM = 128;                 // rows of A per tile (two consumer warpgroups)
 constexpr int BN = 256;                 // output columns per tile
 constexpr int BK = 64;                  // contraction per stage (128 bytes of bf16)
-constexpr int STAGES = 4;
+constexpr int STAGES = 3;
 constexpr int BOX = 64;                 // one B box: 64 columns x BK rows
 constexpr int BOXES = BN / BOX;
 constexpr int A_BYTES = BM * BK * 2;    // bf16
 constexpr int BOX_BYTES = BOX * BK * 2; // bf16
 constexpr int B_BYTES = BOXES * BOX_BYTES;
+constexpr bool STAGED = true;           // bf16 stores staged in shared memory, stored by TMA
+constexpr int OUT_BOX_BYTES = 64 * 64 * 2;   // one 64 x 64 bf16 TMA store box
+constexpr int C_BYTES = STAGED ? BOXES * OUT_BOX_BYTES : 0;  // per consumer warpgroup
 constexpr int NTHREADS = 384;           // 2 consumer + 1 producer warpgroup
+constexpr int STORER = 288;             // the store warp: the producer warpgroup's second
+constexpr int HANDOFF = 128 + 32;       // threads at a staging buffer's named barriers
 constexpr int BAR_BYTES = 2 * STAGES * 8;
-constexpr int SMEM = STAGES * (A_BYTES + B_BYTES) + BAR_BYTES + 1024;
+constexpr int SMEM =
+    STAGES * (A_BYTES + B_BYTES) + 2 * C_BYTES + BAR_BYTES + 1024;
 static_assert(SMEM <= 232448, "shared memory");
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// Named barriers of consumer warpgroup wg's staging buffer, each between
+// its 128 threads and the store warp: FULL (the tile's values are in it)
+// and EMPTY (the store warp's TMA stores have read them)
+__device__ __forceinline__ int full_bar(int wg) { return 1 + wg; }
+__device__ __forceinline__ int empty_bar(int wg) { return 3 + wg; }
+__device__ __forceinline__ void named_sync(int id) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "n"(HANDOFF) : "memory");
+}
+__device__ __forceinline__ void named_arrive(int id) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "n"(HANDOFF) : "memory");
 }
 
 __device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
@@ -137,6 +187,37 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
       "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2),
       "r"(smem_u32(bar))
       : "memory");
+}
+
+// the box at shared address src into the map's box at (c0, c1, c2)
+__device__ __forceinline__ void tma_store_3d(const CUtensorMap* map,
+                                             uint32_t src, int c0, int c1,
+                                             int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group"
+      " [%0, {%2, %3, %4}], [%1];\n" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(src), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+__device__ __forceinline__ void st_shared(uint32_t addr, __nv_bfloat162 v) {
+  asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(addr),
+               "r"(*reinterpret_cast<const uint32_t*>(&v))
+               : "memory");
+}
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+// this thread's bulk stores have read their shared memory
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+// this thread's bulk stores are done
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+}
+// this thread's shared-memory writes, seen by the async proxy (TMA)
+__device__ __forceinline__ void fence_async_shared() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
 // K-major operand (A) in 128-byte-swizzled shared memory: rows of 128
@@ -217,7 +298,7 @@ __device__ __forceinline__ void fence_acc(float* d) {
 }
 
 // Where a tile lies: plane p, row block mt of A's 2Hp rows, column block
-// nt of the Kx columns (nt fastest, then mt, then p)
+// nt of the Kx columns (nt fastest, then mt, then p).
 struct Tile {
   int p, mt, nt;
 };
@@ -263,17 +344,23 @@ __device__ __forceinline__ void store_pair(const Args& a, void* out,
   }
 }
 
+// kStaged: the bf16 stores through shared memory and TMA (the main path);
+// else the stores from registers (the check mode, unaligned outputs)
+template <bool kStaged>
 __global__ void __launch_bounds__(NTHREADS, 1)
 corner_ifft_y_kernel(const __grid_constant__ CUtensorMap tm_a,
                      const __grid_constant__ CUtensorMap tm_r,
                      const __grid_constant__ CUtensorMap tm_i,
+                     const __grid_constant__ CUtensorMap tm_mr,
+                     const __grid_constant__ CUtensorMap tm_mi,
                      const Args a) {
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = reinterpret_cast<uint8_t*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
   uint8_t* smem_b = smem;                       // STAGES x 32 KB
   uint8_t* smem_a = smem + STAGES * B_BYTES;    // STAGES x 16 KB
-  uint64_t* full = reinterpret_cast<uint64_t*>(smem_a + STAGES * A_BYTES);
+  uint8_t* smem_c = smem_a + STAGES * A_BYTES;  // 2 x 32 KB staging
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem_c + 2 * C_BYTES);
   uint64_t* empty = full + STAGES;
 
   if (threadIdx.x == 0) {
@@ -317,74 +404,126 @@ corner_ifft_y_kernel(const __grid_constant__ CUtensorMap tm_a,
           }
         }
       }
-    }
-    return;
-  }
-
-  // ---- consumer warpgroups: 64 rows x 256 columns each ----
-  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
-  const int lane = threadIdx.x & 31;
-  const int warp = (threadIdx.x >> 5) & 3;
-  const int q = lane & 3;
-  const int r0 = wg * 64 + warp * 16 + (lane >> 2);  // tile row; r0 + 8 too
-  float d[128];
-#pragma unroll
-  for (int i = 0; i < 128; ++i) d[i] = 0.0f;
-  int stage = 0;
-  uint32_t phase = 0;
-  for (int tile = blockIdx.x; tile < a.n_tiles; tile += gridDim.x) {
-    const Tile t = tile_of(tile, a.n_mt, a.n_nt);
-    int prev = -1;
-    // the accumulators are touched by nothing but wgmma from here to the
-    // wait_group 0 below (a read in between would make ptxas serialise the
-    // wgmmas)
-    fence_acc(d);
-    for (int kb = 0; kb < nkb; ++kb) {
-      mbar_wait(&full[stage], phase);
-      const uint64_t da =
-          kmajor_desc(smem_a + stage * A_BYTES + wg * 64 * 128);
-      const uint64_t db = mnmajor_desc(smem_b + stage * B_BYTES);
-      wgmma_fence();
-#pragma unroll
-      for (int s = 0; s < 4; ++s)  // k16 step s: 32 bytes on along A's rows,
-                                   // 16 rows (2 KB) on down B's
-        wgmma_m64n256k16_tb(d, da + 2 * s, db + 128 * s,
-                            (kb > 0 || s > 0) ? 1u : 0u);
-      wgmma_commit();
-      wgmma_wait1();  // the k-block before this one is done: free its stage
-      if (prev >= 0) {
-        __syncwarp();
-        if (lane == 0) mbar_arrive(&empty[prev]);
+    } else if (kStaged && threadIdx.x / 32 == STORER / 32) {
+      // ---- the store warp: each staged 64 x 256 tile half to mr16 / mi16
+      for (int tile = blockIdx.x; tile < a.n_tiles; tile += gridDim.x) {
+        const Tile t = tile_of(tile, a.n_mt, a.n_nt);
+        const int n0 = t.nt * BN;
+        const int boxes = min(BOXES, (a.Kx - n0 + BOX - 1) / BOX);
+        for (int w = 0; w < 2; ++w) {
+          named_sync(full_bar(w));
+          if (threadIdx.x == STORER) {
+            // warpgroup w's 64 rows of A: rows h0.. of mr, or of mi
+            const int m0 = t.mt * BM + w * 64;
+            const bool is_mi = m0 >= a.Hp;
+            const int h0 = is_mi ? m0 - a.Hp : m0;
+            const uint32_t sc = smem_u32(smem_c) + w * C_BYTES;
+            const CUtensorMap* tm = is_mi ? &tm_mi : &tm_mr;
+            for (int j = 0; j < boxes; ++j)
+              tma_store_3d(tm, sc + j * OUT_BOX_BYTES, n0 + BOX * j, h0, t.p);
+            bulk_commit();
+            bulk_wait_read();
+          }
+          __syncwarp();
+          named_arrive(empty_bar(w));
+        }
       }
-      prev = stage;
-      if (++stage == STAGES) {
-        stage = 0;
-        phase ^= 1;
-      }
+      if (threadIdx.x == STORER) bulk_wait();
     }
-    wgmma_wait0();
-    fence_acc(d);
     __syncwarp();
-    if (lane == 0) mbar_arrive(&empty[prev]);
+  } else {
+    // ---- consumer warpgroups: 64 rows x 256 columns each ----
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+    const int lane = threadIdx.x & 31;
+    const int warp = (threadIdx.x >> 5) & 3;
+    const int q = lane & 3;
+    const int r0 = wg * 64 + warp * 16 + (lane >> 2);  // tile row; r0 + 8 too
+    bool staged_before = false;  // a tile of this warpgroup is in the staging
+    float d[128];
+#pragma unroll
+    for (int i = 0; i < 128; ++i) d[i] = 0.0f;
+    int stage = 0;
+    uint32_t phase = 0;
+    for (int tile = blockIdx.x; tile < a.n_tiles; tile += gridDim.x) {
+      const Tile t = tile_of(tile, a.n_mt, a.n_nt);
+      int prev = -1;
+      // the accumulators are touched by nothing but wgmma from here to the
+      // wait_group 0 below (a read in between would make ptxas serialise the
+      // wgmmas)
+      fence_acc(d);
+      for (int kb = 0; kb < nkb; ++kb) {
+        mbar_wait(&full[stage], phase);
+        const uint64_t da =
+            kmajor_desc(smem_a + stage * A_BYTES + wg * 64 * 128);
+        const uint64_t db = mnmajor_desc(smem_b + stage * B_BYTES);
+        wgmma_fence();
+#pragma unroll
+        for (int s = 0; s < 4; ++s)  // k16 step s: 32 bytes on along A's
+                                     // rows, 16 rows (2 KB) on down B's
+          wgmma_m64n256k16_tb(d, da + 2 * s, db + 128 * s,
+                              (kb > 0 || s > 0) ? 1u : 0u);
+        wgmma_commit();
+        wgmma_wait1();  // the k-block before this one is done: free its stage
+        if (prev >= 0) {
+          __syncwarp();
+          if (lane == 0) mbar_arrive(&empty[prev]);
+        }
+        prev = stage;
+        if (++stage == STAGES) {
+          stage = 0;
+          phase ^= 1;
+        }
+      }
+      wgmma_wait0();
+      fence_acc(d);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[prev]);
 
-    // ---- epilogue: round to bf16 (or keep f32) and store ----
-    const int n0 = t.nt * BN;
+      // ---- epilogue: round to bf16 (or keep f32) and store ----
+      const int n0 = t.nt * BN;
+      if constexpr (kStaged) {
+        // this thread's word of box 0: row r = r0 - 64 wg (its r + 8 a
+        // kilobyte on), bytes 4q of a 16-byte chunk; chunk c of row r lies
+        // at chunk c ^ (r % 8) (the 128-byte swizzle of a TMA box, which
+        // spreads a warp's stores over the 32 banks), and r % 8 is lane / 4
+        const uint32_t word = smem_u32(smem_c) + wg * C_BYTES +
+                              (r0 - wg * 64) * 128 + 4 * q;
+        const uint32_t swz = (uint32_t)(lane >> 2) << 4;
+        // the store warp has read this warpgroup's last tile
+        if (staged_before) named_sync(empty_bar(wg));
 #pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int m = t.mt * BM + r0 + 8 * half;  // row of A: [0, 2Hp)
-      const bool is_mi = m >= a.Hp;
-      const int h = is_mi ? m - a.Hp : m;
-      if (h >= a.H) continue;
-      void* out = is_mi ? a.mi : a.mr;
-      const long long row = (long long)t.p * a.H + h;
+        for (int half = 0; half < 2; ++half) {
 #pragma unroll
-      for (int g = 0; g < BN / 8; ++g) {
-        const int x = n0 + 8 * g + 2 * q;
-        if (x < a.Kx)
-          store_pair(a, out, row, x, d[4 * g + 2 * half],
-                     d[4 * g + 2 * half + 1]);
+          for (int g = 0; g < BN / 8; ++g)  // columns 8g + 2q, 8g + 2q + 1
+            st_shared(word + half * 1024 + (g >> 3) * OUT_BOX_BYTES +
+                          ((uint32_t)((g & 7) << 4) ^ swz),
+                      __floats2bfloat162_rn(d[4 * g + 2 * half],
+                                            d[4 * g + 2 * half + 1]));
+        }
+        fence_async_shared();
+        named_arrive(full_bar(wg));
+        staged_before = true;
+      } else {
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const int m = t.mt * BM + r0 + 8 * half;  // row of A: [0, 2Hp)
+          const bool is_mi = m >= a.Hp;
+          const int h = is_mi ? m - a.Hp : m;
+          if (h >= a.H) continue;
+          void* out = is_mi ? a.mi : a.mr;
+          const long long row = (long long)t.p * a.H + h;
+#pragma unroll
+          for (int g = 0; g < BN / 8; ++g) {
+            const int x = n0 + 8 * g + 2 * q;
+            if (x < a.Kx)
+              store_pair(a, out, row, x, d[4 * g + 2 * half],
+                         d[4 * g + 2 * half + 1]);
+          }
+        }
       }
     }
+    // the store warp's TMA stores have read the last tile
+    if (kStaged && staged_before) named_sync(empty_bar(wg));
   }
 }
 
@@ -452,15 +591,16 @@ extern "C" int corner_ifft_y(const void* tab, const void* dcr, const void* dci,
   EncodeTiled enc = encode_tiled();
   if (!enc) return (int)cudaErrorNotSupported;
 
-  CUtensorMap tm_a, tm_r, tm_i;
+  // maps: the table, dcr, dci, and (staged stores) mr16, mi16
+  CUtensorMap maps[5] = {};
   const long long ad[2] = {2LL * Kyp, 2LL * Hp}, as[1] = {2LL * Kyp};
   const int abox[2] = {BK, BM};
   const long long bd[3] = {Kx, Ky, P};
   const long long bs[2] = {ldd, (long long)Ky * ldd};
   const int bbox[3] = {BOX, BK, 1};
-  if (!encode_bf16(enc, &tm_a, tab, 2, ad, as, abox) ||
-      !encode_bf16(enc, &tm_r, dcr, 3, bd, bs, bbox) ||
-      !encode_bf16(enc, &tm_i, dci, 3, bd, bs, bbox))
+  if (!encode_bf16(enc, &maps[0], tab, 2, ad, as, abox) ||
+      !encode_bf16(enc, &maps[1], dcr, 3, bd, bs, bbox) ||
+      !encode_bf16(enc, &maps[2], dci, 3, bd, bs, bbox))
     return (int)cudaErrorInvalidValue;
 
   Args a;
@@ -477,18 +617,30 @@ extern "C" int corner_ifft_y(const void* tab, const void* dcr, const void* dci,
   const int align = values ? 8 : 4;
   a.vec2 = Kx % 2 == 0 && (uintptr_t)mr % align == 0 &&
            (uintptr_t)mi % align == 0;
+  // TMA stores take rows of whole 16-byte words from 16-byte-aligned bases
+  const bool staged =
+      STAGED && !values && Kx % 8 == 0 && aligned16(mr) && aligned16(mi);
+  if (staged) {
+    const long long od[3] = {Kx, H, P};
+    const long long os[2] = {Kx, (long long)H * Kx};
+    const int obox[3] = {BOX, 64, 1};
+    if (!encode_bf16(enc, &maps[3], mr, 3, od, os, obox) ||
+        !encode_bf16(enc, &maps[4], mi, 3, od, os, obox))
+      return (int)cudaErrorInvalidValue;
+  }
   const long long n_tiles = (long long)P * a.n_mt * a.n_nt;
   if (n_tiles > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
   a.n_tiles = (int)n_tiles;
-
+  auto kernel =
+      staged ? corner_ifft_y_kernel<true> : corner_ifft_y_kernel<false>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
+  if (err != cudaSuccess) return (int)err;
   int dev = 0, sms = 0;
   cudaGetDevice(&dev);
   cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  cudaError_t err = cudaFuncSetAttribute(
-      corner_ifft_y_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
-  if (err != cudaSuccess) return (int)err;
   const int grid = (int)(n_tiles < sms ? n_tiles : sms);
-  corner_ifft_y_kernel<<<grid, NTHREADS, SMEM, (cudaStream_t)stream>>>(
-      tm_a, tm_r, tm_i, a);
+  kernel<<<grid, NTHREADS, SMEM, (cudaStream_t)stream>>>(
+      maps[0], maps[1], maps[2], maps[3], maps[4], a);
   return (int)cudaGetLastError();
 }

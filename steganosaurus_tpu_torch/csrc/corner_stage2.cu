@@ -62,9 +62,9 @@
 //    (x contiguous), so the wgmma takes B transposed (MN-major descriptor:
 //    64-column atoms 8 KB apart, 8-row groups 1 KB apart). Two 3-D TMA
 //    descriptors (x, h, p), ar16 and ai16, switched by k-block, load two
-//    64 x 64 boxes a stage; rows past H and columns past Kx load as zeros,
-//    so no plane reads its neighbour's rows.
-// 5. Bulk tiles (128 x 128, nt fastest, then mt, then p) run every column
+//    64 x 64 boxes a k-block; rows past H and columns past Kx load as
+//    zeros, so no plane reads its neighbour's rows.
+// 5. Bulk tiles (128 x 128) run every column
 //    and store f32 cr / ci from registers, skipping the plane's band
 //    columns through a per-plane bit mask (32-bit words, built from idx).
 // 6. Band tiles run first (they are six times as long): one tile covers
@@ -76,23 +76,52 @@
 //    a0), so they are summed before the accumulator grows; its epilogue
 //    writes each column at idx[p][j], into the holes the bulk tiles left.
 //    Every output element is written once: no race, no atomics.
-// 7. Accuracy: every PROMOTE = 4 k-blocks the consumer waits for its
-//    wgmmas and adds their sum into an f32 register sum rounded to nearest
-//    (a promotion), and the next k-block starts the tensor cores' sum from
-//    zero, so that sum spans 256 products, not 2H. Summed on the tensor
-//    cores over the whole contraction (256-wide tiles, the first version),
-//    the bulk's error against the exact sum of the same bf16 products was
-//    2.1x cuBLAS's bf16 GEMM's (RMS at 4K B=64 on an H100), and the
-//    benchmark's stego took one Rep-7 group to a wrong bit. The f32 sum
-//    needs 64 more registers a thread, hence 128-wide tiles.
+// 7. Accuracy: every PROMOTE = 4 k-blocks of 64 (256 products) the
+//    consumer waits for its wgmmas and adds their sum into an f32 register
+//    sum rounded to nearest (a promotion), and the next k-block starts the
+//    tensor cores' sum from zero, so that sum spans 256 products, not 2H.
+//    Summed on the tensor cores over the whole contraction (256-wide
+//    tiles, the first version), the bulk's error against the exact sum of
+//    the same bf16 products was 2.1x cuBLAS's bf16 GEMM's (RMS at 4K B=64
+//    on an H100), and the benchmark's stego took one Rep-7 group to a
+//    wrong bit. The f32 sum needs 64 more registers a thread, hence
+//    128-wide tiles.
 // 8. Each output element is summed over its k-blocks in one order, fixed by
 //    Hp: a plane gives the same bits whatever P, its neighbour in a band
-//    tile, or the shard it sits in.
-// 9. The ring: 6 stages of (A 16 KB, B 16 KB), full/empty mbarriers, one
+//    tile, the cluster, or the shard it sits in.
+// 9. What held the 128-wide version back (tools/k2_ablation_torch.py on an
+//    H100, 4K B=64): not the promotion's arithmetic (no promotion: -0.1 ms
+//    of ~10) nor the epilogue (-0.2 ms); the operand loads (skipped after
+//    the first ring: -2 to -3 ms) and the small steps, one mbarrier wait,
+//    commit and wait_group for every four m64n128k16 wgmmas. Two levers
+//    against those small steps were measured against the 64-deep ring of 6
+//    in turns and not taken: stages 128 deep (two k-blocks under one pair
+//    of barriers, eight wgmmas a commit, a ring of 3 for lack of room):
+//    +1.2 ms, the ring then running one stage ahead of the consumers where
+//    it ran four; and two stages of 64 under one commit (eight wgmmas a
+//    round trip in the ring of 6): no gain.
+// 10. A 2-CTA cluster shares B: its two blocks take row blocks mt = 2 mp
+//    and 2 mp + 1 of T for the same plane (or band plane pair) and column
+//    block, and each loads half of the B boxes (bulk: the 64-column atom
+//    j = its rank of every stage; band: the one box, both planes, of every
+//    k-block kb with kb % 2 = its rank) with .multicast::cluster into both
+//    blocks' rings. A
+//    stage is refilled only when the consumer warps of both blocks have
+//    freed it (each empty barrier counts 2 x 8 warps; arrivals through
+//    mapa and mbarrier.arrive.shared::cluster, CTA scope: with .release
+//    .cluster every arrival cost a fence and K2 ran 17 ms). Where Kyp/64
+//    row blocks are odd the last pair's second block has no rows: it loads
+//    its half of B for its partner and computes nothing. Band units come
+//    first (pairs of band tiles of one plane pair), then bulk units (nt
+//    fastest, then mp, then p); the grid is as many clusters as
+//    cudaOccupancyMaxActiveClusters finds room for (cudaLaunchKernelEx).
+//    Measured, the multicast moves K2's time by no more than the noise
+//    (each block still takes in a whole stage; "multicast off").
+// 11. The ring: 6 stages of (A 16 KB, B 16 KB), full/empty mbarriers, one
 //    producer thread; two consumer warpgroups (setmaxnreg 232) of 64 rows,
-//    each keeping one k-block's wgmmas in flight (wait_group 1) between
-//    promotions; 132 persistent blocks walk the tiles. The epilogue does
-//    not overlap the next tile's main loop.
+//    each keeping one stage's wgmmas in flight (wait_group 1) between
+//    promotions. The epilogue stores from registers and does not overlap
+//    the next tile's main loop.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -241,22 +270,48 @@ constexpr uint32_t SEG_A = 0x010210;    // j of segment s: nibble s
 constexpr int BAND_PLANES = 2;          // planes per band tile (2 x 64 = BN)
 constexpr int BM = 128;                 // rows of T per tile (two consumer warpgroups)
 constexpr int BN = 128;                 // output columns per tile
-constexpr int BK = 64;                  // contraction per stage (128 bytes of bf16)
+constexpr int BK = 64;                  // a k-block (a stage): 128 bytes of bf16
 constexpr int STAGES = 6;
 constexpr int PROMOTE = 4;              // k-blocks a tensor-core sum spans
-constexpr int A_BYTES = BM * BK * 2;    // bf16
-constexpr int B_BYTES = BN * BK * 2;    // bf16: two 64 x 64 boxes
-constexpr int BOX_BYTES = 64 * BK * 2;  // one 64-column atom of B
+constexpr int CLUSTER = 2;              // blocks sharing B
+constexpr bool MULTICAST = true;        // B by TMA multicast (else each block loads its own)
+constexpr int A_BYTES = BM * BK * 2;    // bf16: one k-block of T's 128 rows
+constexpr int BOX_BYTES = 64 * BK * 2;  // one 64-column atom of B, one k-block
+constexpr int B_BYTES = BN / 64 * BOX_BYTES;
 constexpr int STAGE_BYTES = A_BYTES + B_BYTES;
 constexpr int NTHREADS = 384;           // 2 consumer + 1 producer warpgroup
+constexpr int EMPTY_ARRIVALS = 8 * (MULTICAST ? CLUSTER : 1);  // consumer warps
 constexpr int BAR_BYTES = 2 * STAGES * 8;
 constexpr int SMEM = STAGES * STAGE_BYTES + BAR_BYTES + 1024;
 static_assert(SMEM <= 232448, "shared memory");
 static_assert(BAND * BAND_PLANES == BN, "a band tile is one N tile");
 static_assert(BAND == BAND_COLS, "the band operand's width");
+static_assert(CLUSTER == 2 && BN / 64 == CLUSTER, "a block loads one atom");
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ uint32_t cluster_ctarank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+__device__ __forceinline__ int cluster_id() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%clusterid.x;\n" : "=r"(r));
+  return (int)r;
+}
+__device__ __forceinline__ int cluster_count() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%nclusterid.x;\n" : "=r"(r));
+  return (int)r;
+}
+// every thread of both blocks: what either block did before is seen after
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile(
+      "barrier.cluster.arrive.aligned;\n"
+      "barrier.cluster.wait.aligned;\n" ::: "memory");
 }
 
 __device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
@@ -286,6 +341,20 @@ __device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
                : "memory");
 }
 
+// one arrival on the barrier at bar's offset in block `cta` of the cluster
+// (the default .release.cta semantics: the arrival orders this thread's
+// earlier reads of the stage, and its wgmmas have completed)
+__device__ __forceinline__ void mbar_arrive_at(uint64_t* bar, uint32_t cta) {
+  asm volatile(
+      "{\n"
+      ".reg .b32 ra;\n"
+      "mapa.shared::cluster.u32 ra, %0, %1;\n"
+      "mbarrier.arrive.shared::cluster.b64 _, [ra];\n"
+      "}\n" ::"r"(smem_u32(bar)),
+      "r"(cta)
+      : "memory");
+}
+
 __device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
   asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
                    smem_u32(bar)),
@@ -312,6 +381,32 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
       " [%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(c3),
       "r"(smem_u32(bar))
+      : "memory");
+}
+
+// the box into dst and onto bar at the same offsets in every block of
+// `mask`
+__device__ __forceinline__ void tma_load_3d_mc(void* dst, const CUtensorMap* map,
+                                               int c0, int c1, int c2,
+                                               uint64_t* bar, uint16_t mask) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      ".multicast::cluster [%0], [%1, {%2, %3, %4}], [%5], %6;\n" ::"r"(
+          smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2),
+      "r"(smem_u32(bar)), "h"(mask)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_load_4d_mc(void* dst, const CUtensorMap* map,
+                                               int c0, int c1, int c2, int c3,
+                                               uint64_t* bar, uint16_t mask) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      ".multicast::cluster [%0], [%1, {%2, %3, %4, %5}], [%6], %7;\n" ::"r"(
+          smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(c3),
+      "r"(smem_u32(bar)), "h"(mask)
       : "memory");
 }
 
@@ -380,31 +475,38 @@ __device__ __forceinline__ void fence_acc(float* d) {
   for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
-// Where a tile lies: band tiles first (p the first of its BAND_PLANES
-// planes, mt fastest), then bulk tiles (nt fastest, then mt, then p)
+// A cluster's unit of work: band units first (p the first of its
+// BAND_PLANES planes, mp fastest), then bulk units (nt fastest, then mp,
+// then p); mp a pair of 128-row blocks of T. Block `rank` of the cluster
+// takes row block mt = 2 mp + rank, which lies past the last (a "ghost":
+// it loads, computes nothing) where Kyp/64 is odd. nkb: the tile's k-blocks
+// of 64.
 struct Tile {
-  bool band;
+  bool band, ghost;
   int p, mt, nt, nkb;
 };
 
-__device__ __forceinline__ Tile tile_of(int tile, int n_band, int n_mt,
-                                        int n_nt, int nh) {
+__device__ __forceinline__ Tile tile_of(int unit, int rank, int n_band,
+                                        int n_mt, int n_mp, int n_nt, int nh) {
   Tile t;
-  if (tile < n_band) {
+  int mp;
+  if (unit < n_band) {
     t.band = true;
-    t.mt = tile % n_mt;
-    t.p = (tile / n_mt) * BAND_PLANES;
+    mp = unit % n_mp;
+    t.p = (unit / n_mp) * BAND_PLANES;
     t.nt = 0;
     t.nkb = SEGS * 2 * nh;  // segments of [ar part; ai part]
   } else {
-    int u = tile - n_band;
+    int u = unit - n_band;
     t.band = false;
     t.nt = u % n_nt;
     u /= n_nt;
-    t.mt = u % n_mt;
-    t.p = u / n_mt;
+    mp = u % n_mp;
+    t.p = u / n_mp;
     t.nkb = 2 * nh;
   }
+  t.mt = 2 * mp + rank;
+  t.ghost = t.mt >= n_mt;
   return t;
 }
 
@@ -413,8 +515,15 @@ struct Args {
   const long long* idx;   // (P, BAND) band columns
   float* cr;              // (P, Ky, X)
   float* ci;
-  int P, Ky, Kyp, X, nw, nh, n_mt, n_nt, n_band, n_tiles, vec2;
+  int P, Ky, Kyp, X, nw, nh, n_mt, n_mp, n_nt, n_band, n_units, vec2;
 };
+
+// a consumer warp frees a stage in every block whose ring its block's
+// stages fed (both blocks' under multicast)
+__device__ __forceinline__ void release(uint64_t* bar, int rank) {
+  mbar_arrive(bar);
+  if (MULTICAST) mbar_arrive_at(bar, rank ^ 1);
+}
 
 __global__ void __launch_bounds__(NTHREADS, 1)
 corner_stage2_kernel(const __grid_constant__ CUtensorMap tm_t,
@@ -430,14 +539,16 @@ corner_stage2_kernel(const __grid_constant__ CUtensorMap tm_t,
   uint64_t* full = reinterpret_cast<uint64_t*>(smem_a + STAGES * A_BYTES);
   uint64_t* empty = full + STAGES;
 
+  const int rank = (int)cluster_ctarank();
   if (threadIdx.x == 0) {
     for (int s = 0; s < STAGES; ++s) {
-      mbar_init(&full[s], 1);   // the producer's expect_tx arrival
-      mbar_init(&empty[s], 8);  // one arrival per consumer warp
+      mbar_init(&full[s], 1);                 // the producer's expect_tx arrival
+      mbar_init(&empty[s], EMPTY_ARRIVALS);   // one arrival per consumer warp
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-  __syncthreads();
+  // the partner's barriers exist before any load or arrival reaches them
+  cluster_sync();
 
   const int wg = threadIdx.x / 128;
   if (wg == 2) {
@@ -447,11 +558,13 @@ corner_stage2_kernel(const __grid_constant__ CUtensorMap tm_t,
       const int nh = a.nh;
       int stage = 0;
       uint32_t phase = 0;
-      for (int tile = blockIdx.x; tile < a.n_tiles; tile += gridDim.x) {
-        const Tile t = tile_of(tile, a.n_band, a.n_mt, a.n_nt, nh);
+      for (int unit = cluster_id(); unit < a.n_units; unit += cluster_count()) {
+        const Tile t = tile_of(unit, rank, a.n_band, a.n_mt, a.n_mp, a.n_nt,
+                               nh);
+        const uint32_t bytes = (t.ghost ? 0 : A_BYTES) + B_BYTES;
         for (int kb = 0; kb < t.nkb; ++kb) {
           mbar_wait(&empty[stage], phase ^ 1);
-          mbar_expect_tx(&full[stage], STAGE_BYTES);
+          mbar_expect_tx(&full[stage], bytes);
           uint8_t* sa = smem_a + stage * A_BYTES;
           uint8_t* sb = smem_b + stage * B_BYTES;
           if (t.band) {
@@ -461,17 +574,31 @@ corner_stage2_kernel(const __grid_constant__ CUtensorMap tm_t,
             const int part = rem / nh, hb = rem - part * nh;
             const int ti = (SEG_T >> (4 * seg)) & 0xF;
             const int aj = (SEG_A >> (4 * seg)) & 0xF;
-            tma_load_3d(sa, &tm_t, rem * BK, t.mt * BM, ti, &full[stage]);
-            tma_load_4d(sb, &tm_g, 0, hb * BK, t.p, 2 * aj + part,
-                        &full[stage]);
+            if (!t.ghost)
+              tma_load_3d(sa, &tm_t, rem * BK, t.mt * BM, ti, &full[stage]);
+            // both planes' 64 band columns, one box: block kb % 2 loads it
+            if (!MULTICAST)
+              tma_load_4d(sb, &tm_g, 0, hb * BK, t.p, 2 * aj + part,
+                          &full[stage]);
+            else if (kb % CLUSTER == rank)
+              tma_load_4d_mc(sb, &tm_g, 0, hb * BK, t.p, 2 * aj + part,
+                             &full[stage], (1u << CLUSTER) - 1);
           } else {
             const int part = kb / nh, hb = kb - part * nh;
-            tma_load_3d(sa, &tm_t, kb * BK, t.mt * BM, 0, &full[stage]);
+            if (!t.ghost)
+              tma_load_3d(sa, &tm_t, kb * BK, t.mt * BM, 0, &full[stage]);
             const CUtensorMap* tm = part ? &tm_ai : &tm_ar;
 #pragma unroll
-            for (int j = 0; j < BN / 64; ++j)
-              tma_load_3d(sb + j * BOX_BYTES, tm, t.nt * BN + 64 * j, hb * BK,
-                          t.p, &full[stage]);
+            for (int j = 0; j < BN / 64; ++j) {
+              // the 64-column atom j: block j loads it
+              if (!MULTICAST)
+                tma_load_3d(sb + j * BOX_BYTES, tm, t.nt * BN + 64 * j,
+                            hb * BK, t.p, &full[stage]);
+              else if (j == rank)
+                tma_load_3d_mc(sb + j * BOX_BYTES, tm, t.nt * BN + 64 * j,
+                               hb * BK, t.p, &full[stage],
+                               (1u << CLUSTER) - 1);
+            }
           }
           if (++stage == STAGES) {
             stage = 0;
@@ -480,119 +607,129 @@ corner_stage2_kernel(const __grid_constant__ CUtensorMap tm_t,
         }
       }
     }
-    return;
-  }
-
-  // ---- consumer warpgroups: 64 rows x 128 columns each ----
-  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
-  const int lane = threadIdx.x & 31;
-  const int warp = (threadIdx.x >> 5) & 3;
-  const int q = lane & 3;
-  const int r0 = wg * 64 + warp * 16 + (lane >> 2);  // tile row; r0 + 8 too
-  // d: the products of the k-blocks since the last promotion, on the tensor
-  // cores; acc: the tile's sum of them, rounded to nearest
-  float d[64], acc[64];
+    __syncwarp();
+  } else {
+    // ---- consumer warpgroups: 64 rows x 128 columns each ----
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+    const int lane = threadIdx.x & 31;
+    const int warp = (threadIdx.x >> 5) & 3;
+    const int q = lane & 3;
+    const int r0 = wg * 64 + warp * 16 + (lane >> 2);  // tile row; r0 + 8 too
+    // d: the products of the k-blocks since the last promotion, on the
+    // tensor cores; acc: the tile's sum of them, rounded to nearest
+    float d[64], acc[64];
 #pragma unroll
-  for (int i = 0; i < 64; ++i) d[i] = 0.0f;
-  int stage = 0;
-  uint32_t phase = 0;
-  for (int tile = blockIdx.x; tile < a.n_tiles; tile += gridDim.x) {
-    const Tile t = tile_of(tile, a.n_band, a.n_mt, a.n_nt, a.nh);
+    for (int i = 0; i < 64; ++i) d[i] = 0.0f;
+    int stage = 0;
+    uint32_t phase = 0;
+    for (int unit = cluster_id(); unit < a.n_units; unit += cluster_count()) {
+      const Tile t = tile_of(unit, rank, a.n_band, a.n_mt, a.n_mp, a.n_nt,
+                             a.nh);
 #pragma unroll
-    for (int i = 0; i < 64; ++i) acc[i] = 0.0f;
-    int prev = -1;
-    // the accumulators are touched by nothing but wgmma from here to each
-    // promotion's wait_group 0 (a read in between would make ptxas
-    // serialise the wgmmas)
-    fence_acc(d);
-    for (int kb = 0; kb < t.nkb; ++kb) {
-      mbar_wait(&full[stage], phase);
-      const uint64_t da =
-          kmajor_desc(smem_a + stage * A_BYTES + wg * 64 * 128);
-      const uint64_t db = mnmajor_desc(smem_b + stage * B_BYTES);
-      const bool fresh = kb % PROMOTE == 0;
-      wgmma_fence();
-#pragma unroll
-      for (int s = 0; s < 4; ++s)  // k16 step s: 32 bytes on along A's rows,
-                                   // 16 rows (2 KB) on down B's
-        wgmma_m64n128k16_tb(d, da + 2 * s, db + 128 * s,
-                            (!fresh || s > 0) ? 1u : 0u);
-      wgmma_commit();
-      if (kb % PROMOTE != PROMOTE - 1 && kb != t.nkb - 1) {
-        wgmma_wait1();  // the k-block before this one is done: free its stage
-        if (prev >= 0) {
+      for (int i = 0; i < 64; ++i) acc[i] = 0.0f;
+      int prev = -1;
+      // the accumulators are touched by nothing but wgmma from here to each
+      // promotion's wait_group 0 (a read in between would make ptxas
+      // serialise the wgmmas)
+      fence_acc(d);
+      for (int kb = 0; kb < t.nkb; ++kb) {
+        mbar_wait(&full[stage], phase);
+        if (t.ghost) {
+          // nothing reads the stage: free it at once
           __syncwarp();
-          if (lane == 0) mbar_arrive(&empty[prev]);
-        }
-        prev = stage;
-      } else {
-        // promote: add the last PROMOTE k-blocks' sum into acc (f32, to
-        // nearest; built with -fmad=false) and free their stages
-        wgmma_wait0();
-        fence_acc(d);
-        __syncwarp();
-        if (lane == 0) {
-          if (prev >= 0) mbar_arrive(&empty[prev]);
-          mbar_arrive(&empty[stage]);
-        }
-        prev = -1;
+          if (lane == 0) release(&empty[stage], rank);
+        } else {
+          const uint64_t da =
+              kmajor_desc(smem_a + stage * A_BYTES + wg * 64 * 128);
+          const uint64_t db = mnmajor_desc(smem_b + stage * B_BYTES);
+          const bool fresh = kb % PROMOTE == 0;
+          wgmma_fence();
 #pragma unroll
-        for (int i = 0; i < 64; ++i) acc[i] = __fadd_rn(acc[i], d[i]);
-        fence_acc(d);
-      }
-      if (++stage == STAGES) {
-        stage = 0;
-        phase ^= 1;
-      }
-    }
-
-    // ---- epilogue: f32 cr / ci from registers ----
+          for (int s = 0; s < 4; ++s)  // k16 step s: 32 bytes on along A's
+                                       // rows, 16 rows (2 KB) on down B's
+            wgmma_m64n128k16_tb(d, da + 2 * s, db + 128 * s,
+                                (!fresh || s > 0) ? 1u : 0u);
+          wgmma_commit();
+          if (kb % PROMOTE == PROMOTE - 1 || kb == t.nkb - 1) {
+            // promote: add the last PROMOTE k-blocks' sum into acc (f32, to
+            // nearest; built with -fmad=false)
+            wgmma_wait0();
+            fence_acc(d);
 #pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int m = t.mt * BM + r0 + 8 * half;  // row of [cr; ci]
-      const bool is_ci = m >= a.Kyp;
-      const int y = is_ci ? m - a.Kyp : m;
-      if (y >= a.Ky) continue;
-      float* out = is_ci ? a.ci : a.cr;
-      if (t.band) {
-        // column n = 8g + 2q (+1) of the tile: plane t.p + g / 8, band
-        // column j = n % 64 of it, written at x = idx[plane][j]
-#pragma unroll
-        for (int g = 0; g < BN / 8; ++g) {
-          const int pl = t.p + (g >> 3);
-          if (pl >= a.P) continue;
-          const long long* ip = a.idx + (size_t)pl * BAND + 8 * (g & 7) + 2 * q;
-          float* row = out + ((size_t)pl * a.Ky + y) * a.X;
-          row[ip[0]] = acc[4 * g + 2 * half];
-          row[ip[1]] = acc[4 * g + 2 * half + 1];
-        }
-      } else {
-        const int n0 = t.nt * BN;
-        uint32_t mw[BN / 32];  // the tile's band bits, word i: columns n0 + 32i..
-#pragma unroll
-        for (int i = 0; i < BN / 32; ++i) {
-          const int w = n0 / 32 + i;
-          mw[i] = w < a.nw ? a.mask[(size_t)t.p * a.nw + w] : 0u;
-        }
-        float* row = out + ((size_t)t.p * a.Ky + y) * a.X;
-#pragma unroll
-        for (int g = 0; g < BN / 8; ++g) {
-          const int x = n0 + 8 * g + 2 * q;
-          const uint32_t bits = mw[g >> 2] >> (8 * (g & 3) + 2 * q);
-          const bool ok0 = x < a.X && !(bits & 1u);
-          const bool ok1 = x + 1 < a.X && !(bits & 2u);
-          const float v0 = acc[4 * g + 2 * half];
-          const float v1 = acc[4 * g + 2 * half + 1];
-          if (ok0 && ok1 && a.vec2) {
-            *reinterpret_cast<float2*>(row + x) = make_float2(v0, v1);
+            for (int i = 0; i < 64; ++i) acc[i] = __fadd_rn(acc[i], d[i]);
+            fence_acc(d);
+            // every wgmma is done: free this stage and the one before
+            __syncwarp();
+            if (lane == 0) {
+              if (prev >= 0) release(&empty[prev], rank);
+              release(&empty[stage], rank);
+            }
+            prev = -1;
           } else {
-            if (ok0) row[x] = v0;
-            if (ok1) row[x + 1] = v1;
+            wgmma_wait1();  // the stage before this one is done: free it
+            __syncwarp();
+            if (lane == 0 && prev >= 0) release(&empty[prev], rank);
+            prev = stage;
+          }
+        }
+        if (++stage == STAGES) {
+          stage = 0;
+          phase ^= 1;
+        }
+      }
+      if (t.ghost) continue;
+
+      // ---- epilogue: f32 cr / ci from registers ----
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int m = t.mt * BM + r0 + 8 * half;  // row of [cr; ci]
+        const bool is_ci = m >= a.Kyp;
+        const int y = is_ci ? m - a.Kyp : m;
+        if (y >= a.Ky) continue;
+        float* out = is_ci ? a.ci : a.cr;
+        if (t.band) {
+          // column n = 8g + 2q (+1) of the tile: plane t.p + g / 8, band
+          // column j = n % 64 of it, written at x = idx[plane][j]
+#pragma unroll
+          for (int g = 0; g < BN / 8; ++g) {
+            const int pl = t.p + (g >> 3);
+            if (pl >= a.P) continue;
+            const long long* ip = a.idx + (size_t)pl * BAND + 8 * (g & 7) + 2 * q;
+            float* row = out + ((size_t)pl * a.Ky + y) * a.X;
+            row[ip[0]] = acc[4 * g + 2 * half];
+            row[ip[1]] = acc[4 * g + 2 * half + 1];
+          }
+        } else {
+          const int n0 = t.nt * BN;
+          uint32_t mw[BN / 32];  // the tile's band bits, word i: columns n0 + 32i..
+#pragma unroll
+          for (int i = 0; i < BN / 32; ++i) {
+            const int w = n0 / 32 + i;
+            mw[i] = w < a.nw ? a.mask[(size_t)t.p * a.nw + w] : 0u;
+          }
+          float* row = out + ((size_t)t.p * a.Ky + y) * a.X;
+#pragma unroll
+          for (int g = 0; g < BN / 8; ++g) {
+            const int x = n0 + 8 * g + 2 * q;
+            const uint32_t bits = mw[g >> 2] >> (8 * (g & 3) + 2 * q);
+            const bool ok0 = x < a.X && !(bits & 1u);
+            const bool ok1 = x + 1 < a.X && !(bits & 2u);
+            const float v0 = acc[4 * g + 2 * half];
+            const float v1 = acc[4 * g + 2 * half + 1];
+            if (ok0 && ok1 && a.vec2) {
+              *reinterpret_cast<float2*>(row + x) = make_float2(v0, v1);
+            } else {
+              if (ok0) row[x] = v0;
+              if (ok1) row[x + 1] = v1;
+            }
           }
         }
       }
     }
   }
+  // neither block leaves while its partner may still arrive on its
+  // barriers
+  cluster_sync();
 }
 
 typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
@@ -636,6 +773,54 @@ bool encode_bf16(EncodeTiled enc, CUtensorMap* map, const void* base,
 }
 
 bool aligned16(const void* p) { return (uintptr_t)p % 16 == 0; }
+
+// K2's units: band units (pairs of 128-row blocks of T x plane pairs), then
+// bulk units (the pairs x planes x 128-column blocks); n_band receives the
+// band units' count
+long long stage2_units(int P, int X, int Kyp, long long* n_band) {
+  const int n_mp = (2 * Kyp / BM + 1) / 2;
+  *n_band = (long long)((P + BAND_PLANES - 1) / BAND_PLANES) * n_mp;
+  return *n_band + (long long)P * n_mp * ((X + BN - 1) / BN);
+}
+
+// The launch: clusters of CLUSTER blocks, as many as fit on the card at
+// once (cudaOccupancyMaxActiveClusters) and no more than n_units.
+// clusters_out (if given) receives that count; the kernel is not launched
+// where args is null.
+cudaError_t launch_stage2(int n_units, int* clusters_out, cudaStream_t stream,
+                          const CUtensorMap* maps, const Args* args) {
+  cudaError_t err = cudaFuncSetAttribute(
+      corner_stage2_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
+  if (err != cudaSuccess) return err;
+  int dev = 0, sms = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = CLUSTER;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(CLUSTER * (sms / CLUSTER));
+  cfg.blockDim = dim3(NTHREADS);
+  cfg.dynamicSmemBytes = SMEM;
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  int clusters = 0;
+  err = cudaOccupancyMaxActiveClusters(
+      &clusters, (const void*)corner_stage2_kernel, &cfg);
+  if (err != cudaSuccess) return err;
+  if (clusters <= 0) return cudaErrorInvalidConfiguration;
+  if (clusters > n_units) clusters = n_units;
+  if (clusters_out) *clusters_out = clusters;
+  if (!args) return cudaSuccess;
+  cfg.gridDim = dim3(CLUSTER * clusters);
+  err = cudaLaunchKernelEx(&cfg, corner_stage2_kernel, maps[0], maps[1],
+                           maps[2], maps[3], *args);
+  if (err != cudaSuccess) return err;
+  return cudaGetLastError();
+}
 
 }  // namespace
 
@@ -682,7 +867,8 @@ extern "C" int corner_stage2_band(const void* ar, const void* ai,
 // rows ldr / ldi values apart (multiples of 8, >= X), planes H rows apart;
 // g (6, P, H, 64) bf16 the band operand (corner_kernels.band_operand);
 // mask (P, ceil(X/32)) int32 the band bits (band_mask); idx (P, 64) int64
-// the band columns; cr, ci (P, Ky, X) f32 out. X > 64.
+// the band columns; cr, ci (P, Ky, X) f32 out. X > 64. Where the card
+// refuses the cluster launch, its error.
 extern "C" int corner_stage2(const void* t2, const void* ar16, const void* ai16,
                              const void* g, const void* mask, const void* idx,
                              void* cr, void* ci, int P, int H, int X, int Ky,
@@ -696,7 +882,7 @@ extern "C" int corner_stage2(const void* t2, const void* ar16, const void* ai16,
   EncodeTiled enc = encode_tiled();
   if (!enc) return (int)cudaErrorNotSupported;
 
-  CUtensorMap tm_t, tm_ar, tm_ai, tm_g;
+  CUtensorMap maps[4];  // T, ar16, ai16, the band operand
   const long long td[3] = {2LL * Hp, 2LL * Kyp, LEVELS};
   const long long ts[2] = {2LL * Hp, 4LL * Hp * Kyp};
   const int tbox[3] = {BK, BM, 1};
@@ -707,10 +893,10 @@ extern "C" int corner_stage2(const void* t2, const void* ar16, const void* ai16,
   const long long gd[4] = {BAND, H, P, 2 * LEVELS};
   const long long gs[3] = {BAND, (long long)H * BAND, (long long)P * H * BAND};
   const int gbox[4] = {BAND, BK, BAND_PLANES, 1};
-  if (!encode_bf16(enc, &tm_t, t2, 3, td, ts, tbox) ||
-      !encode_bf16(enc, &tm_ar, ar16, 3, ad, rs, abox) ||
-      !encode_bf16(enc, &tm_ai, ai16, 3, ad, is, abox) ||
-      !encode_bf16(enc, &tm_g, g, 4, gd, gs, gbox))
+  if (!encode_bf16(enc, &maps[0], t2, 3, td, ts, tbox) ||
+      !encode_bf16(enc, &maps[1], ar16, 3, ad, rs, abox) ||
+      !encode_bf16(enc, &maps[2], ai16, 3, ad, is, abox) ||
+      !encode_bf16(enc, &maps[3], g, 4, gd, gs, gbox))
     return (int)cudaErrorInvalidValue;
 
   Args a;
@@ -725,23 +911,27 @@ extern "C" int corner_stage2(const void* t2, const void* ar16, const void* ai16,
   a.nw = (X + 31) / 32;
   a.nh = Hp / BK;
   a.n_mt = 2 * Kyp / BM;
+  a.n_mp = (a.n_mt + 1) / 2;
   a.n_nt = (X + BN - 1) / BN;
-  const long long n_band =
-      (long long)((P + BAND_PLANES - 1) / BAND_PLANES) * a.n_mt;
-  const long long n_tiles = n_band + (long long)P * a.n_mt * a.n_nt;
-  if (n_tiles > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  long long n_band = 0;
+  const long long n_units = stage2_units(P, X, Kyp, &n_band);
+  if (n_units > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
   a.n_band = (int)n_band;
-  a.n_tiles = (int)n_tiles;
+  a.n_units = (int)n_units;
   a.vec2 = X % 2 == 0 && (uintptr_t)cr % 8 == 0 && (uintptr_t)ci % 8 == 0;
+  return (int)launch_stage2(a.n_units, nullptr, (cudaStream_t)stream, maps, &a);
+}
 
-  int dev = 0, sms = 0;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  cudaError_t err = cudaFuncSetAttribute(
-      corner_stage2_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
-  if (err != cudaSuccess) return (int)err;
-  const int grid = (int)(n_tiles < sms ? n_tiles : sms);
-  corner_stage2_kernel<<<grid, NTHREADS, SMEM, (cudaStream_t)stream>>>(
-      tm_t, tm_ar, tm_ai, tm_g, a);
-  return (int)cudaGetLastError();
+// The grid corner_stage2 launches for these sizes, in blocks (clusters of
+// 2), or minus a CUDA error code.
+extern "C" int corner_stage2_grid(int P, int X, int Kyp) {
+  if (P <= 0 || X <= BAND || Kyp <= 0 || Kyp % 64 != 0)
+    return -(int)cudaErrorInvalidValue;
+  long long n_band = 0;
+  const long long n_units = stage2_units(P, X, Kyp, &n_band);
+  if (n_units > 0x7fffffffLL) return -(int)cudaErrorInvalidValue;
+  int clusters = 0;
+  const cudaError_t err =
+      launch_stage2((int)n_units, &clusters, 0, nullptr, nullptr);
+  return err == cudaSuccess ? CLUSTER * clusters : -(int)err;
 }

@@ -79,6 +79,9 @@ LAUNCHES = {KERNEL_TMA: 0, KERNEL_LDG: 0, KERNEL_PREP: 0, KERNEL_BAND: 0,
             KERNEL_STAGE2: 0}
 BLOCK = 64  # the kernels' K block and the tables' padding quantum
 BAND = 64   # K2's band width: the columns per plane it computes in split bf16
+# blocks of a K2 cluster (csrc/corner_stage2.cu's CLUSTER): two row blocks
+# of T that share a plane's operand by TMA multicast
+STAGE2_CLUSTER = 2
 
 
 def route_for(W: int, data_ptr: int) -> str:
@@ -496,6 +499,19 @@ def stage2_band(ar: torch.Tensor, ai: torch.Tensor, idx: torch.Tensor):
                        ai.data_ptr(), idx.data_ptr(), g.data_ptr(),
                        mask.data_ptr(), P, H, X)
     return g, mask
+
+
+def stage2_grid(P: int, Kx: int, Ky: int, device=None) -> int:
+    """The grid K2 launches on `device` (default: the current card) for P
+    planes of a Ky x Kx corner: in blocks, clusters of STAGE2_CLUSTER, as
+    many as the card holds at once and no more than the kernel's units of
+    work; raises where the card has no room for one."""
+    from steganosaurus_tpu_torch import _build
+
+    with torch.cuda.device(device):
+        grid = _build.kernel_library().corner_stage2_grid(P, Kx, _pad64(Ky))
+    _check_rc(KERNEL_STAGE2, -min(grid, 0))
+    return grid
 
 
 def fwd_stage2(ar: torch.Tensor, ai: torch.Tensor, ar16: torch.Tensor,

@@ -292,15 +292,21 @@ def stage_costs(B: int, H: int, W: int, secret_len: int,
             k1["precision"] = "fp32"
         return out + [k1, *_stage2(side, P, H, Ky, Kx, mode)]
 
-    embed = forward("embed") + [
-        # each bin's frame bit through pos (int64) and the other maps; the
-        # dense delta
-        _stage("embed", "write", {}, _WRITE_OPS * E,
-               2 * E * 4 + 3 * Ky * Kx * (8 + 4 * n_maps) + B * bucket
-               + 2 * E * 4, "none"),
-        _stage("embed", "floor", {}, _FLOOR_OPS * E, 4 * E * 4 + 2 * E * 4,
-               "none"),
-    ]
+    if params.qim:
+        embed = forward("embed") + [
+            # the eager QIM write: each bin's frame bit through pos (int64)
+            # and the other maps; the dense delta; then K3's floor alone
+            _stage("embed", "write", {}, _WRITE_OPS * E,
+                   2 * E * 4 + 3 * Ky * Kx * (8 + 4 * n_maps) + B * bucket
+                   + 2 * E * 4, "none"),
+            floor_only_cost(B, Ky, Kx)]
+    else:
+        # one K3 write_floor launch over the equal-length frame's stream
+        # words (write_kernels.RepFrame); under mix_adaptive it stores the
+        # inverse DFT's bf16 operands, under highest the f32 delta
+        embed = forward("embed") + [write_floor_cost(
+            B, Ky, Kx, bucket, n_maps, out_bytes=4 if mm == "fp32" else 2,
+            stream_bytes=g["stream_bytes"])]
     if mm == "fp32":
         embed += [
             # M = Ey^T conj(D) (four products), then Re(M Ex) (two), then

@@ -26,13 +26,18 @@ K4e launches of each corner embed path; forward stage 2's prep pass
 (bf16 copies bit-equal, energies against the exact sum) and K2 against its
 bf16x6 twin at edge shapes, the band kernel bit-exact, a plane's bits
 independent of its batch, the
-stage-2 wrappers' counts and checks, and fwd_corner's launches on the card.
+stage-2 wrappers' counts and checks, and fwd_corner's launches on the card;
+K6 and K2 bit-equal to their builds before the redesigns (K6's staged
+stores, K2's cluster; tools/parent_kernels_torch.py), and a launch either
+kernel refuses raising in its wrapper.
 
 They skip without CUDA. This file imports neither jax nor the JAX package's
 device code, so it also runs on a machine without JAX:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
 """
+
+import functools
 
 import numpy as np
 import pytest
@@ -1023,7 +1028,9 @@ def test_ifft_epilogue_wrapper_checks_its_inputs(dev):
 # K6: the inverse DFT's y-stage, on (B, H, W): 4K-like (one image: 3 planes,
 # Ky = Kx = 1024), 1080p, 512^2, and a tiny grid whose Kx = 50 (not a
 # multiple of 8) takes the wrapper's padded staging copy
-K6_GRIDS = [(1, 2160, 3840), (2, 1080, 1920), (2, 512, 512), (2, 64, 50)]
+# odd 2Hp/128 (a 128-row tile across the mr / mi split): 1080, 1170, 64
+K6_GRIDS = [(1, 2160, 3840), (2, 1080, 1920), (2, 512, 512), (2, 64, 50),
+            (1, 1170, 2532)]
 # max |v - v_plain| against max |v_plain|: f32 sums of the same exact bf16
 # products in another order (K1's and K4's bound)
 K6_REL = 1e-5
@@ -1077,6 +1084,73 @@ def _check_k6(dcr, dci, tabs, padded):
 @pytest.mark.parametrize("grid", K6_GRIDS)
 def test_ifft_y_kernel_matches_plain(dev, grid):
     _check_k6(*_k6_inputs(dev, *grid, sum(grid)), padded=grid[2] == 50)
+
+
+@functools.lru_cache(maxsize=None)
+def _first_version(name):
+    """Kernels whose entry points of csrc/`name` are those of the commit
+    tools/parent_kernels_torch.py names BITS_OF (the version before the
+    redesigns), the rest the committed build; skips where its source
+    cannot be had (no git history and no copy under build/parents/)."""
+    import importlib.util
+    import pathlib
+
+    path = (pathlib.Path(__file__).resolve().parent.parent / "tools"
+            / "parent_kernels_torch.py")
+    spec = importlib.util.spec_from_file_location("parent_kernels_torch",
+                                                  path)
+    tool = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tool)
+    built = tool.parent_kernels(tool.BITS_OF, name)
+    if built is None:
+        pytest.skip(f"no {name} of {tool.BITS_OF}: run python3 "
+                    f"tools/parent_kernels_torch.py {tool.BITS_OF} where "
+                    f"the checkout has its history")
+    return built[0]
+
+
+def _with_kernels(kernels, fn):
+    from steganosaurus_tpu_torch import _build
+
+    base = _build.kernel_library()
+    _build._kernels = kernels
+    try:
+        return fn()
+    finally:
+        _build._kernels = base
+
+
+@pytest.mark.parametrize("grid", K6_GRIDS)
+def test_ifft_y_bit_equal_to_its_first_version(dev, grid):
+    """The staged stores move data only: K6's bf16 outputs and its f32
+    check mode equal those of the kernel before them, bit for bit, on the
+    same operands (odd 2Hp/128 included)."""
+    from steganosaurus_tpu_torch.spectral import write_kernels as wk
+
+    first = _first_version("corner_ifft_y.cu")
+    dcr, dci, tabs = _k6_inputs(dev, *grid, 2 * sum(grid))
+    for values in (False, True):
+        got = wk.ifft_y(dcr, dci, tabs, values=values)
+        want = _with_kernels(first, lambda: wk.ifft_y(dcr, dci, tabs,
+                                                      values=values))
+        torch.cuda.synchronize()
+        assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+def test_ifft_y_refused_launch_raises(dev, monkeypatch):
+    """A shape the kernel refuses (here operand rows that are not whole
+    16-byte words) comes back from the C entry as its error code and raises
+    in the wrapper: nothing else stands in, nothing is counted."""
+    from steganosaurus_tpu_torch.spectral import write_kernels as wk
+
+    dcr, dci, tabs = _k6_inputs(dev, 1, 128, 192, 4)
+    rows = wk.ifft_y_rows
+    monkeypatch.setattr(wk, "ifft_y_rows", lambda a, b: (
+        *rows(a, b)[:2], a.shape[-1] + 1, False))
+    n = dict(wk.LAUNCHES)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        wk.ifft_y(dcr, dci, tabs)
+    assert wk.LAUNCHES == n
 
 
 def test_ifft_y_kernel_on_unaligned_views(dev):
@@ -1219,7 +1293,10 @@ def _stage2_tabs(h, Ky, dev):
 # (P, H, Kx, Ky): H, Kx, Ky off the 64 / 256 tiles, P off the band tile's 4
 # planes, the 4b grid's H, a main-path-like corner
 STAGE2_SHAPES = [(3, 70, 200, 100), (5, 64, 256, 64), (1, 130, 96, 40),
-                 (12, 1079, 512, 512), (8, 256, 1024, 256), (2, 33, 131, 70)]
+                 (12, 1079, 512, 512), (8, 256, 1024, 256), (2, 33, 131, 70),
+                 (5, 130, 300, 192)]
+# odd Kyp/64 (a cluster's lone row block) at Ky = 64, 40 and 192; odd Hp/64
+# at H = 130 and 1079
 
 
 @pytest.mark.parametrize("P,h,X,Ky", STAGE2_SHAPES)
@@ -1288,6 +1365,54 @@ def test_k2_matches_its_split_bf16_twin(dev, P, h, X, Ky):
     two = ck.fwd_stage2_plain(ar, ai, idx, tabs, "bf16x3", (ar16, ai16))
     assert ck.band_error(cr, ci, ar, ai, idx, tabs) <= ck.SPLIT_REL[
         "bf16x6"] < ck.band_error(*two, ar, ai, idx, tabs)
+
+
+@pytest.mark.parametrize("P,h,X,Ky", STAGE2_SHAPES)
+def test_k2_bit_equal_to_its_first_version(dev, P, h, X, Ky):
+    """The cluster and the multicast move data only: K2's outputs equal
+    those of the kernel before them, bit for bit, on the same operands and
+    band (odd Kyp/64 and Hp/64 included)."""
+    from steganosaurus_tpu_torch.spectral import corner
+    from steganosaurus_tpu_torch.spectral import corner_kernels as ck
+
+    first = _first_version("corner_stage2.cu")
+    ar, ai = _stage1_of_images(dev, P, h, X, 11 * P + h)
+    tabs = _stage2_tabs(h, Ky, dev)
+    ar16, ai16, energy = ck.stage2_prep(ar, ai)
+    idx = corner.band_topk(energy, 64)
+    band = ck.stage2_band(ar, ai, idx)
+    got = ck.fwd_stage2(ar, ai, ar16, ai16, idx, tabs, band)
+    want = _with_kernels(first, lambda: ck.fwd_stage2(ar, ai, ar16, ai16,
+                                                      idx, tabs, band))
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+def test_k2_refused_launch_raises(dev, monkeypatch):
+    """A shape the kernel refuses (here bf16 rows whose stride is not whole
+    16-byte words) comes back from the C entry as its error code and raises
+    in the wrapper: nothing else stands in, nothing is counted."""
+    from steganosaurus_tpu_torch.spectral import corner
+    from steganosaurus_tpu_torch.spectral import corner_kernels as ck
+
+    ar, ai = _stage1_like(dev, 3, 70, 200, 8)
+    tabs = _stage2_tabs(70, 100, dev)
+    ar16, ai16, energy = ck.stage2_prep(ar, ai)
+    idx = corner.band_topk(energy, 64)
+    band = ck.stage2_band(ar, ai, idx)
+
+    def odd_rows(t):
+        buf = torch.zeros((*t.shape[:-1], t.shape[-1] + 1), dtype=t.dtype,
+                          device=t.device)
+        buf[..., :-1] = t
+        return buf[..., :-1]
+
+    monkeypatch.setattr(ck, "_tma_rows", odd_rows)
+    n = dict(ck.LAUNCHES)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        ck.fwd_stage2(ar, ai, ar16, ai16, idx, tabs, band)
+    assert ck.LAUNCHES == n
+    assert ck.stage2_grid(3, 200, 100) % ck.STAGE2_CLUSTER == 0
 
 
 def test_k2_plane_does_not_depend_on_the_batch(dev):

@@ -385,7 +385,8 @@ def _port_sources():
                     REPO / "tools" / "k4_ablation_torch.py",
                     REPO / "tools" / "band_ber_torch.py",
                     REPO / "tools" / "k2_ablation_torch.py",
-                    REPO / "tools" / "k6_ablation_torch.py"]
+                    REPO / "tools" / "k6_ablation_torch.py",
+                    REPO / "tools" / "parent_kernels_torch.py"]
 
 
 def test_launchers_run_the_ports_modules():

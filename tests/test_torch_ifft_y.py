@@ -205,6 +205,73 @@ def test_kernel_operand_algebra(grid):
         assert cmp["other"] == 0
 
 
+def _cu_consts(name):
+    """The integer and bool constexprs of csrc/`name` given as literals."""
+    import re
+
+    text = open(wk.__file__.rsplit("/spectral/", 1)[0] + "/csrc/"
+                + name).read()
+    return {k: {"true": 1, "false": 0}.get(v, None) if v in ("true", "false")
+            else int(v) for k, v in re.findall(
+                r"constexpr (?:int|bool) (\w+) = (\d+|true|false);", text)}
+
+
+K6 = _cu_consts("corner_ifft_y.cu")
+# the card grids (chip_smoke.py 3c-3e) and a grid below 256 columns
+WALK_GRIDS = [(2160, 3840), (1080, 1920), (512, 512), (256, 256),
+              (1079, 1917), (2160, 3839), (1170, 2532), (64, 50)]
+
+
+def _k6_tile(tile, n_mt, n_nt):
+    """csrc/corner_ifft_y.cu's tile_of: (p, mt, nt) of a tile index."""
+    nt, u = tile % n_nt, tile // n_nt
+    return u // n_mt, u % n_mt, nt
+
+
+@pytest.mark.parametrize("P", [3, 6])
+@pytest.mark.parametrize("grid", WALK_GRIDS)
+def test_k6_tile_walk(grid, P):
+    """The kernel's walk at the card grids' corners (3 or 6 planes): the
+    blocks' strided walk computes every (plane, row block, column block)
+    tile exactly once, at the card's grid (a block per SM, at most one per
+    tile) and at a small one; each stage receives the A box and the delta
+    boxes that hold a column below Kx, the bytes its barrier expects; and
+    the staged epilogue's TMA boxes (64 rows of one warpgroup, 64 columns,
+    clipped to H rows and Kx columns by the maps) write each element of
+    mr16 and mi16 once and start on no padding row (a 128-row tile may
+    span the mr / mi split where 2Hp/128 is odd, a warpgroup never)."""
+    H, W = grid
+    Ky, Kx = tcorner.corner_dims(H, W, Params().rmax)
+    BM, BN, BK, BOX = K6["BM"], K6["BN"], K6["BK"], K6["BOX"]
+    assert (BM, BN, BK, BOX) == (128, 256, 64, 64)
+    Hp, Kyp = -(-H // 64) * 64, -(-Ky // 64) * 64
+    n_mt, n_nt = 2 * Hp // BM, -(-Kx // BN)
+    n_tiles = P * n_mt * n_nt
+    for blocks in (min(132, n_tiles), 5):
+        seen = {}
+        stored = np.zeros((2, P * H, Kx), np.int32)
+        for b in range(blocks):
+            for tile in range(b, n_tiles, blocks):
+                p, mt, nt = _k6_tile(tile, n_mt, n_nt)
+                seen[p, mt, nt] = seen.get((p, mt, nt), 0) + 1
+                n0 = nt * BN
+                boxes = min(BN // BOX, -(-(Kx - n0) // BOX))
+                loaded = [x for x in range(n0, n0 + BN, BOX) if x < Kx]
+                assert len(loaded) == boxes
+                for wg in range(2):
+                    m0 = mt * BM + wg * 64
+                    is_mi = m0 >= Hp
+                    h0 = m0 - Hp if is_mi else m0
+                    assert h0 < H               # a box starts on a real row
+                    rows = np.arange(h0, min(h0 + 64, H)) + p * H
+                    for x0 in loaded:
+                        stored[int(is_mi), rows, x0:min(x0 + BOX, Kx)] += 1
+        assert seen == dict.fromkeys(
+            [(p, mt, nt) for p in range(P) for mt in range(n_mt)
+             for nt in range(n_nt)], 1)
+        assert (stored == 1).all()
+
+
 def test_bf16_steps_and_compare():
     """bf16_steps: 0 for equal values (+0 and -0 included), 1 for
     neighbours on either side of a power of two and across 0 at the
@@ -306,10 +373,12 @@ def test_embed_cores_take_k6_or_the_f32_chain(mode, monkeypatch):
         assert out.shape == imgs.shape and out.dtype == torch.uint8
 
 
-def test_k6_ablation_edits_apply_to_the_committed_source():
+def test_k6_ablation_edits_apply_to_the_committed_source(monkeypatch):
     """Each variant of tools/k6_ablation_torch.py is a few text edits of
-    csrc/corner_ifft_y.cu: each text it replaces is there, once; and the
-    tool refuses to run without a card."""
+    csrc/corner_ifft_y.cu (among them the staged stores turned off): each
+    text it replaces is there, once; --parent may be
+    given more than once; and the tool refuses to run without a card (made
+    to see none here, so that it never builds or launches anything)."""
     import importlib.util
     import pathlib
 
@@ -321,9 +390,13 @@ def test_k6_ablation_edits_apply_to_the_committed_source():
     src = (repo / "steganosaurus_tpu_torch" / "csrc"
            / "corner_ifft_y.cu").read_text()
     names = [name for name, _, _ in tool.VARIANTS]
-    assert {"no epilogue", "operands loaded once"} <= set(names)
+    assert {"no epilogue", "operands loaded once", "register stores",
+            "wait_group 0"} <= set(names)
     for name, _, edits in tool.VARIANTS:
         for old, new in edits:
             assert src.count(old) == 1, name
             assert old != new
-    assert tool.main() == 2
+    assert tool._args(["--parent", "a", "out.txt", "--parent", "b"]) == (
+        ["a", "b"], ["out.txt"])
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert tool.main([]) == 2

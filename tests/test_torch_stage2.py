@@ -330,63 +330,130 @@ def _tma_box(src, starts, box):
     return out
 
 
-def _k2_emulation(t2, ar16, ai16, g, mask, idx, P, h, X, Ky):
-    """csrc/corner_stage2.cu's schedule in numpy f64: the tiles in the
-    kernel's order, each k-block's A box (128 rows of T) and B boxes (four
-    64 x 64 boxes of ar16 / ai16, or one 4-D box of the band operand) as
-    TMA loads them, and the epilogue's masked and scattered stores."""
+def _cu_consts(name):
+    """The integer and bool constexprs of csrc/`name` given as literals."""
+    import re
+
+    text = open(ck.__file__.rsplit("/spectral/", 1)[0] + "/csrc/"
+                + name).read()
+    return {k: {"true": 1, "false": 0}.get(v, None) if v in ("true", "false")
+            else int(v) for k, v in re.findall(
+                r"constexpr (?:int|bool) (\w+) = (\d+|true|false);", text)}
+
+
+K2 = _cu_consts("corner_stage2.cu")
+
+
+def _k2_tile(unit, rank, n_band, n_mt, n_mp, n_nt, nh):
+    """csrc/corner_stage2.cu's tile_of: (band, p, mt, nt, nkb, ghost) of
+    block `rank` of the cluster that runs `unit`."""
+    if unit < n_band:
+        mp, p, nt, nkb, band = (unit % n_mp, (unit // n_mp) * 2, 0,
+                                6 * 2 * nh, True)
+    else:
+        u = unit - n_band
+        nt, u = u % n_nt, u // n_nt
+        mp, p, nkb, band = u % n_mp, u // n_mp, 2 * nh, False
+    mt = 2 * mp + rank
+    return band, p, mt, nt, nkb, mt >= n_mt
+
+
+def _k2_stage(tile, kb, nh):
+    """The loads of k-block (stage) kb of a tile as the kernel's producer
+    issues them: (the block's A box or None, {64-column atom: (B box, the
+    block that loads it)}) with A ("t", k offset, row, term) and B ("g",
+    x, h, plane, term) or (map, x, h, plane)."""
+    band, p, mt, nt, _, ghost = tile
+    b = {}
+    if band:
+        seg, rem = divmod(kb, 2 * nh)
+        part, hb = divmod(rem, nh)
+        ti, aj = ck.SPLITS["bf16x6"][seg]
+        a_box = ("t", rem * 64, mt * 128, ti)
+        # both planes' columns, one box: the block kb % 2 loads it
+        b[0] = (("g", 0, hb * 64, p, 2 * aj + part), kb % 2)
+    else:
+        part, hb = divmod(kb, nh)
+        a_box = ("t", kb * 64, mt * 128, 0)
+        for j in range(2):     # the atom j: block j loads it
+            b[j] = ((("ar", "ai")[part], nt * 128 + 64 * j, hb * 64, p), j)
+    return (None if ghost else a_box), b
+
+
+def _k2_walk(P, X, Ky, H):
+    """The kernel's units, n_band and its geometry, as corner_stage2 sets
+    them up."""
+    Kyp, Hp = -(-Ky // 64) * 64, -(-H // 64) * 64
+    nh, n_mt = Hp // 64, 2 * Kyp // 128
+    n_mp, n_nt = (n_mt + 1) // 2, -(-X // 128)
+    n_band = -(-P // 2) * n_mp
+    return n_band + P * n_mp * n_nt, n_band, n_mt, n_mp, n_nt, nh
+
+
+def _k2_emulation(t2, ar16, ai16, g, mask, idx, P, h, X, Ky, clusters=3):
+    """csrc/corner_stage2.cu's schedule in numpy f64: each cluster's units
+    in the kernel's order, each block's tile, each k-block's A box (128
+    rows of T) and B boxes (two 64 x 64 boxes of ar16 / ai16, or one 4-D
+    box of the band operand) as TMA loads them into the stage (the
+    partner's multicast half too), its sums promoted every PROMOTE
+    k-blocks, and the epilogue's masked and scattered stores; the lone
+    block of an odd row-block count loads and stores nothing of its
+    own."""
     BM, BN, BK, NP = 128, 128, 64, 2   # NP: planes per band tile
     Kyp, Hp = t2.shape[1] // 2, t2.shape[2] // 2
-    nh, n_mt, n_nt = Hp // BK, 2 * Kyp // BM, -(-X // BN)
-    n_band = -(-P // NP) * n_mt
-    nw = -(-X // 32)
+    n_units, n_band, n_mt, n_mp, n_nt, nh = _k2_walk(P, X, Ky, h)
     cr = np.full((P, Ky, X), np.nan)
     ci = np.full((P, Ky, X), np.nan)
     T = t2.astype(np.float64)
-    a16 = (ar16.astype(np.float64), ai16.astype(np.float64))
+    maps = {"ar": ar16.astype(np.float64), "ai": ai16.astype(np.float64)}
     G = g.astype(np.float64)
     words = mask.view(np.uint32)
-    for tile in range(n_band + P * n_mt * n_nt):
-        band = tile < n_band
-        if band:
-            mt, p, nt, nkb = tile % n_mt, (tile // n_mt) * NP, 0, 12 * nh
-        else:
-            u = tile - n_band
-            nt, mt, p = u % n_nt, (u // n_nt) % n_mt, u // (n_nt * n_mt)
-            nkb = 2 * nh
-        acc = np.zeros((BM, BN))
-        for kb in range(nkb):
-            if band:
-                seg, rem = divmod(kb, 2 * nh)
-                part, hb = divmod(rem, nh)
-                ti, aj = ck.SPLITS["bf16x6"][seg]
-                A = _tma_box(T, (rem * BK, mt * BM, ti), (BK, BM, 1))[0]
-                Bx = _tma_box(G, (0, hb * BK, p, 2 * aj + part),
-                              (64, BK, NP, 1))[0]           # (NP, BK, 64)
-                Bm = np.concatenate(list(Bx), axis=1)       # (BK, BN)
-            else:
-                part, hb = divmod(kb, nh)
-                A = _tma_box(T, (kb * BK, mt * BM, 0), (BK, BM, 1))[0]
-                Bm = np.concatenate([_tma_box(a16[part], (nt * BN + 64 * j,
-                                                          hb * BK, p),
-                                              (64, BK, 1))[0]
-                                     for j in range(BN // 64)], axis=1)
-            acc += A @ Bm              # each k-block's sum, promoted
-        for r in range(BM):
-            m = mt * BM + r
-            is_ci, y = (m >= Kyp), (m - Kyp if m >= Kyp else m)
-            if y >= Ky:
-                continue
-            out = ci if is_ci else cr
-            for n in range(BN):
-                if band:
-                    pl, j = p + n // 64, n % 64
-                    if pl < P:
-                        out[pl, y, idx[pl, j]] = acc[r, n]
-                else:
-                    x = nt * BN + n
-                    if x < X and not (words[p, x // 32] >> (x % 32)) & 1:
-                        out[p, y, x] = acc[r, n]
+    for c in range(clusters):
+        for unit in range(c, n_units, clusters):
+            for rank in range(2):
+                tile = _k2_tile(unit, rank, n_band, n_mt, n_mp, n_nt, nh)
+                band, p, mt, nt, nkb, ghost = tile
+                acc = np.zeros((BM, BN))
+                d = np.zeros((BM, BN))
+                for kb in range(nkb):
+                    a_box, b = _k2_stage(tile, kb, nh)
+                    box, _ = b[0]
+                    if band:
+                        Bx = _tma_box(G, box[1:], (64, BK, NP, 1))[0]
+                        Bm = np.concatenate(list(Bx), axis=1)
+                    else:
+                        Bm = np.concatenate(
+                            [_tma_box(maps[b[j][0][0]], b[j][0][1:],
+                                      (64, BK, 1))[0]
+                             for j in range(BN // 64)], axis=1)
+                    if ghost:
+                        continue
+                    _, x0, y0, lv = a_box
+                    A = _tma_box(T, (x0, y0, lv), (BK, BM, 1))[0]
+                    d = (0 if kb % K2["PROMOTE"] == 0 else d) + A @ Bm
+                    if kb % K2["PROMOTE"] == K2["PROMOTE"] - 1 or \
+                            kb == nkb - 1:
+                        acc += d
+                if ghost:
+                    continue
+                for r in range(BM):
+                    m = mt * BM + r
+                    is_ci, y = (m >= Kyp), (m - Kyp if m >= Kyp else m)
+                    if y >= Ky:
+                        continue
+                    out = ci if is_ci else cr
+                    for n in range(BN):
+                        if band:
+                            pl, j = p + n // 64, n % 64
+                            if pl < P:
+                                assert np.isnan(out[pl, y, idx[pl, j]])
+                                out[pl, y, idx[pl, j]] = acc[r, n]
+                        else:
+                            x = nt * BN + n
+                            if x < X and not (words[p, x // 32]
+                                              >> (x % 32)) & 1:
+                                assert np.isnan(out[p, y, x])
+                                out[p, y, x] = acc[r, n]
     return cr, ci
 
 
@@ -411,6 +478,124 @@ def test_kernel_schedule_emulation_matches_plain(P, h, X, Ky):
     scale = float(max(pr.abs().max(), pi.abs().max()))
     assert np.abs(er - pr.double().numpy()).max() <= REL * scale
     assert np.abs(ei - pi.double().numpy()).max() <= REL * scale
+
+
+def _k2_consumer(nkb):
+    """A consumer warpgroup's k-loop over a tile of nkb k-blocks, one a
+    stage (the kernel's): the k-blocks after which it promotes (waits for
+    its wgmmas and adds their sum into the f32 sum), and the order in which
+    it frees the stages (each once its wgmmas are done)."""
+    points, freed, prev = [], [], None
+    for kb in range(nkb):
+        promote = kb % K2["PROMOTE"] == K2["PROMOTE"] - 1 or kb == nkb - 1
+        if prev is not None:
+            freed.append(prev)
+        if promote:
+            points.append(kb)
+            freed.append(kb)
+        prev = None if promote else kb
+    return points, freed
+
+
+K2_GRIDS = [(2160, 3840), (1080, 1920), (512, 512), (256, 256),
+            (1079, 1917), (2160, 3839), (1170, 2532)]
+
+
+@pytest.mark.parametrize("P", [3, 6])
+@pytest.mark.parametrize("grid", K2_GRIDS)
+def test_k2_cluster_walk(grid, P):
+    """The kernel's walk at the card grids' corners (3 or 6 planes): every
+    tile (band: a plane pair and row block; bulk: plane, row block, column
+    block) is computed by one block exactly once, the lone block of an odd
+    row-block count by none; the two blocks of a cluster run the same kind
+    of tile of the same plane (band tiles of one plane pair) and the same
+    stages, hold the same B boxes in each stage and load the halves of
+    them (each box by one block, multicast to both: a bulk stage's atoms
+    one each, a band tile's boxes every other k-block each); and the
+    promotions fall every PROMOTE k-blocks (256 products), and at a tile's
+    end."""
+    H, W = grid
+    Ky, Kx = tcorner.corner_dims(H, W, Params().rmax)
+    n_units, n_band, n_mt, n_mp, n_nt, nh = _k2_walk(P, Kx, Ky, H)
+    assert K2["CLUSTER"] == 2 and K2["PROMOTE"] * 64 == 256
+    seen = {}
+    for unit in range(n_units):
+        tiles = [_k2_tile(unit, r, n_band, n_mt, n_mp, n_nt, nh)
+                 for r in range(2)]
+        assert tiles[0][:2] == tiles[1][:2] and tiles[0][3:5] == \
+            tiles[1][3:5]
+        assert not tiles[0][5] and tiles[1][5] == (tiles[1][2] == n_mt)
+        for band, p, mt, nt, nkb, ghost in tiles:
+            if not ghost:
+                key = (band, p, mt, nt)
+                seen[key] = seen.get(key, 0) + 1
+        nkb = tiles[0][4]
+        owners = set()
+        for kb in range(nkb):
+            loads = [_k2_stage(t, kb, nh) for t in tiles]
+            assert loads[0][1] == loads[1][1]      # the same B in each slot
+            owners |= {who for _, who in loads[0][1].values()}
+        assert owners == {0, 1}                    # both blocks load B
+        points, freed = _k2_consumer(nkb)
+        assert freed == list(range(nkb))
+        spans = np.diff([-1] + points) * 64         # products a sum spans
+        assert (spans[:-1] == 256).all() and 0 < spans[-1] <= 256
+        assert points[-1] == nkb - 1
+    want = {(True, p, mt, 0) for p in range(0, P, 2) for mt in range(n_mt)}
+    want |= {(False, p, mt, nt) for p in range(P) for mt in range(n_mt)
+             for nt in range(n_nt)}
+    assert seen == dict.fromkeys(want, 1)
+
+
+def _tool(name):
+    import importlib.util
+    import pathlib
+
+    path = pathlib.Path(__file__).resolve().parent.parent / "tools" / name
+    spec = importlib.util.spec_from_file_location(path.stem, path)
+    tool = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tool)
+    return tool
+
+
+def test_k2_ablation_edits_apply_to_the_committed_source(monkeypatch):
+    """Each variant of tools/k2_ablation_torch.py is a few text edits of
+    csrc/corner_stage2.cu (multicast off, the promotion's spans, the
+    dropped work): each text it replaces is there, once; --parent may be
+    given more than once; and the tool refuses to run without a card (made
+    to see none here, so that it never builds or launches anything)."""
+    import torch
+
+    tool = _tool("k2_ablation_torch.py")
+    src = open(ck.__file__.rsplit("/spectral/", 1)[0]
+               + "/csrc/corner_stage2.cu").read()
+    names = [name for name, _, _ in tool.VARIANTS]
+    assert {"multicast off", "no promotion",
+            "loads after the first ring skipped"} <= set(names)
+    for name, _, edits in tool.VARIANTS:
+        for old, new in edits:
+            assert src.count(old) == 1, name
+            assert old != new
+    assert tool._args(["--parent", "a", "out.txt", "--parent", "b"]) == (
+        ["a", "b"], ["out.txt"])
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert tool.main([]) == 2
+
+
+def test_parent_sources_come_from_the_build_directory_or_git(tmp_path,
+                                                              monkeypatch):
+    """tools/parent_kernels_torch.py: a source already under
+    build/parents/REV/ is used as it is (a checkout without history finds
+    what was copied there); a revision git does not know gives None, and
+    so --parent REV makes the ablation tools refuse before they build."""
+    tool = _tool("parent_kernels_torch.py")
+    monkeypatch.setattr(tool, "PARENTS", tmp_path)
+    (tmp_path / "abc").mkdir()
+    (tmp_path / "abc" / "corner_stage2.cu").write_text("// old\n")
+    assert tool.parent_source("abc", "corner_stage2.cu").read_text() == \
+        "// old\n"
+    assert tool.parent_source("no-such-revision", "corner_stage2.cu") is None
+    assert not (tmp_path / "no-such-revision").exists()
 
 
 # --- the wrappers -------------------------------------------------------------

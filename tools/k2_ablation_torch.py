@@ -1,7 +1,7 @@
 """Where K2 (forward stage 2's GEMM) spends its time on one CUDA card: an
-ablation of its work and its schedule.
+ablation of its work, its schedule and the pieces of its design.
 
-    python3 tools/k2_ablation_torch.py [OUT]
+    python3 tools/k2_ablation_torch.py [--parent REV ...] [OUT]
 
 At the main path's shape (4K, B=64: the stage-1 output of chip_smoke.py's
 bench covers through K1, the prep and its band, as the smoke's phase 3d
@@ -11,27 +11,36 @@ the kernel alone (its C entry on prebuilt operands, no torch glue) in turns
 with the committed build by CUDA events. A variant that drops work ("no
 epilogue", "loads after the first ring skipped", "bulk tiles only")
 computes a wrong spectrum by design, and the promotion variants another
-sum order: they are timed, never used.
-First each build's ptxas report (registers, spills, and whether ptxas
-serialised the wgmmas); last the accuracy of the sum orders (the committed
-promotion every 4 k-blocks, every k-block, none) beside cuBLAS's bf16
-products: their error on the bulk columns against the exact sum of the same
-bf16 products. Prints one line each with the card's name and power limit,
-and writes them to OUT (default build/k2_ablation.txt).
+sum order: they are timed, never used. With --parent REV (more than once
+for several) it also builds commit REV's corner_stage2.cu (tools/parent_kernels_torch.py: from git, or
+from build/parents/REV/ where the checkout has no history), times its K2 in
+the same turns and reports whether its outputs and the committed kernel's
+are bit-equal. First each build's ptxas report (registers, spills, and
+whether ptxas serialised the wgmmas); last the accuracy of the sum orders
+(the committed promotion every 4 k-blocks, every k-block, none) beside
+cuBLAS's bf16 products: their error on the bulk columns against the exact
+sum of the same bf16 products. Prints one line each with the card's name
+and power limit, and writes them to OUT (default build/k2_ablation.txt).
 """
 
 from __future__ import annotations
 
 import pathlib
-import subprocess
 import sys
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 
-_EPILOGUE = "    // ---- epilogue: f32 cr / ci from registers ----"
+SOURCE = "corner_stage2.cu"
+_EPILOGUE = "      // ---- epilogue: f32 cr / ci from registers ----"
 
 # (name, what the edits change, [(the committed text, its replacement)])
 VARIANTS = [
+    ("7 stages", "a seventh stage of the ring",
+     [("constexpr int STAGES = 6;", "constexpr int STAGES = 7;")]),
+    ("multicast off", "the multicast: each block of a cluster loads its "
+     "own B boxes and frees only its own stages",
+     [("constexpr bool MULTICAST = true;",
+       "constexpr bool MULTICAST = false;")]),
     ("promotion every k-block", "every k-block waited for and added into "
      "the f32 sum (PROMOTE = 1)",
      [("constexpr int PROMOTE = 4;", "constexpr int PROMOTE = 1;")]),
@@ -39,37 +48,66 @@ VARIANTS = [
      "whole contraction (the first version's numerics)",
      [("constexpr int PROMOTE = 4;", "constexpr int PROMOTE = 1 << 20;")]),
     ("no epilogue", "no epilogue: the sums are added up, not stored",
-     [(_EPILOGUE, "    {\n      float s_ = 0.f;\n      for (int i = 0; i < 64;"
-       " ++i) s_ += acc[i];\n      if (s_ == 1.2345e-30f) a.cr[threadIdx.x] ="
-       " s_;\n      if (a.X > 0) continue;\n    }\n" + _EPILOGUE)]),
+     [(_EPILOGUE, "      {\n        float s_ = 0.f;\n        for (int i = 0;"
+       " i < 64; ++i) s_ += acc[i];\n        if (s_ == 1.2345e-30f) "
+       "a.cr[threadIdx.x] = s_;\n        if (a.X > 0) continue;\n      }\n"
+       + _EPILOGUE)]),
     ("loads after the first ring skipped", "no TMA load after each "
-     "block's first ring of stages: no operand traffic from L2 or HBM",
-     [("          mbar_expect_tx(&full[stage], STAGE_BYTES);\n",
-       "          const bool ld = tile == (int)blockIdx.x && kb < STAGES;\n"
-       "          mbar_expect_tx(&full[stage], ld ? STAGE_BYTES : 0);\n"),
+     "cluster's first ring of stages: no operand traffic from L2 or HBM",
+     [("          mbar_expect_tx(&full[stage], bytes);\n",
+       "          const bool ld = unit == cluster_id() && kb < STAGES;\n"
+       "          mbar_expect_tx(&full[stage], ld ? bytes : 0u);\n"),
       ("          if (t.band) {\n            // segment s",
        "          if (!ld) {\n          } else if (t.band) {\n"
        "            // segment s")]),
     ("bulk tiles only", "no band tiles: their columns keep no value",
-     [("  a.n_band = (int)n_band;\n  a.n_tiles = (int)n_tiles;",
-       "  a.n_band = 0;\n  a.n_tiles = (int)(n_tiles - n_band);")]),
+     [("  a.n_band = (int)n_band;\n  a.n_units = (int)n_units;",
+       "  a.n_band = 0;\n  a.n_units = (int)(n_units - n_band);")]),
 ]
 
 
-def main() -> int:
+ROUNDS = 5  # turns of every build
+
+
+def _median(xs):
+    return sorted(xs)[len(xs) // 2]
+
+
+def _args(argv):
+    """(the revisions of each --parent REV, in order; the other
+    arguments)."""
+    parents, rest = [], []
+    it = iter(argv)
+    for a in it:
+        if a == "--parent":
+            parents.append(next(it))
+        else:
+            rest.append(a)
+    return parents, rest
+
+
+def main(argv=None) -> int:
     import torch
 
+    parents, rest = _args(sys.argv[1:] if argv is None else argv)
+    sys.path.insert(0, str(REPO))
+    sys.path.insert(0, str(REPO / "tools"))
+    import parent_kernels_torch as pk
+
+    missing = [r for r in parents if pk.parent_source(r, SOURCE) is None]
+    if missing:
+        print(f"k2_ablation_torch: no {SOURCE} of {missing[0]}", file=sys.stderr)
+        return 2
     if not torch.cuda.is_available():
         print("k2_ablation_torch: needs a CUDA card", file=sys.stderr)
         return 2
-    sys.path.insert(0, str(REPO))
     import chip_smoke
     import steganosaurus_tpu_torch as stt
     from steganosaurus_tpu_torch import _build, runtime
     from steganosaurus_tpu_torch.spectral import corner
     from steganosaurus_tpu_torch.spectral import corner_kernels as ck
 
-    out = pathlib.Path(sys.argv[1]) if len(sys.argv) > 1 else (
+    out = pathlib.Path(rest[0]) if rest else (
         REPO / "build" / "k2_ablation.txt")
     out.parent.mkdir(parents=True, exist_ok=True)
     lines = []
@@ -81,12 +119,11 @@ def main() -> int:
     runtime.configure_precision()
     card = chip_smoke.phase_probe()
     base = _build.kernel_library()
-    src = _build.CSRC / "corner_stage2.cu"
-    flags = _build.NVCC_FLAGS + _build.NVCC_SOURCE_FLAGS[src.name]
+    src = _build.CSRC / SOURCE
     work = REPO / "build" / "k2_ablation"
     work.mkdir(parents=True, exist_ok=True)
     text = src.read_text()
-    sources, libs = {"committed": src}, {}
+    sources = {"committed": src}
     for name, _, edits in VARIANTS:
         t = text
         for old, new in edits:
@@ -94,24 +131,20 @@ def main() -> int:
                 raise RuntimeError(f"variant {name!r}: its text is not in "
                                    f"{src} once")
             t = t.replace(old, new)
-        cu = work / (name.replace(" ", "_") + ".cu")
+        cu = work / (name.replace(" ", "_").replace("=", "") + ".cu")
         cu.write_text(t)
         sources[name] = cu
-        libs[name] = cu.with_suffix(".so")
-    # each build once, its ptxas report kept
-    procs = {name: subprocess.Popen(
-        [_build.nvcc(), *flags, "-Xptxas", "-v", str(cu), "-o",
-         str(libs.get(name, work / "committed.so"))],
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-        for name, cu in sources.items()}
-    for name, proc in procs.items():
-        report, _ = proc.communicate(timeout=900)
-        if proc.returncode != 0:
-            raise RuntimeError(f"{name}: build failed\n{report[-4000:]}")
+    pnames = [f"parent {r[:12]}" for r in parents]
+    for r, pname in zip(parents, pnames):
+        sources[pname] = pk.parent_source(r, SOURCE)
+    # each build once, its ptxas report kept (the committed one too)
+    kernels, reports = _build.build_variants(SOURCE, sources, work)
+    for name, report in reports.items():
         keep = [s.strip() for s in report.splitlines()
                 if "Used" in s or "spill" in s]
         log(f"K2 {name}: ptxas {'; '.join(keep)}; wgmmas serialised: "
             f"{'C7514' in report}")
+    kernels["committed"] = base
 
     dev = torch.device("cuda", 0)
     B, H, W = chip_smoke.UHD_B, chip_smoke.UHD_H, chip_smoke.UHD_W
@@ -130,31 +163,40 @@ def main() -> int:
     Kyp, Hp = t2.shape[1] // 2, t2.shape[2] // 2
     cr, ci = (torch.empty((P, Ky, Kx), dtype=torch.float32, device=dev)
               for _ in range(2))
-    others = {q: q for q in base.paths.values()
-              if q != base.paths[ck.KERNEL_STAGE2]}
-    kernels = {"committed": base}
-    kernels.update({name: _build.Kernels({**others, lib: lib})
-                    for name, lib in libs.items()})
+    log(f"K2 grid at 4K B={B}: {ck.stage2_grid(P, Kx, Ky)} blocks in "
+        f"clusters of {ck.STAGE2_CLUSTER}")
 
-    def call(name):
+    def call(name, outs=(cr, ci)):
         lib = kernels[name]
 
         def fn():
             rc = lib.corner_stage2(
                 t2.data_ptr(), ar16.data_ptr(), ai16.data_ptr(),
-                g.data_ptr(), mask.data_ptr(), idx.data_ptr(), cr.data_ptr(),
-                ci.data_ptr(), P, H, Kx, Ky, Kyp, Hp, ar16.stride(1),
-                ai16.stride(1), torch.cuda.current_stream().cuda_stream)
+                g.data_ptr(), mask.data_ptr(), idx.data_ptr(),
+                outs[0].data_ptr(), outs[1].data_ptr(), P, H, Kx, Ky, Kyp,
+                Hp, ar16.stride(1), ai16.stride(1),
+                torch.cuda.current_stream().cuda_stream)
             if rc:
                 raise RuntimeError(f"{name}: CUDA error {rc}")
         return fn
 
+    for pname in pnames:
+        pr, pi = torch.empty_like(cr), torch.empty_like(ci)
+        call("committed")()
+        call(pname, (pr, pi))()
+        torch.cuda.synchronize()
+        same = torch.equal(cr, pr) and torch.equal(ci, pi)
+        del pr, pi
+        log(f"K2 committed against {pname} at 4K B={B}: outputs bit-equal "
+            f"{same}")
+
     runs = {name: (call(name), 10) for name in kernels}
-    times = chip_smoke._turns(runs, rounds=3)
+    times = chip_smoke._turns(runs, rounds=ROUNDS)
     what = {name: change for name, change, _ in VARIANTS}
     for name in runs:
         log(f"K2 {name}" + (f" ({what[name]})" if name in what
-                            else "") + f": {times[name]!r} ms ({card})")
+                            else "") + f": median {_median(times[name])!r} "
+            f"of {times[name]!r} ms ({card})")
 
     # accuracy of the sum orders: the bulk columns of the first NP planes
     # against the exact (f64) sum of the same bf16 products

@@ -1,0 +1,73 @@
+"""Another commit's kernel sources, for timing and comparing them with the
+committed ones on a CUDA card.
+
+    python3 tools/parent_kernels_torch.py REV [NAME ...]
+
+copies steganosaurus_tpu_torch/csrc/NAME (default: corner_ifft_y.cu and
+corner_stage2.cu) of commit REV out of git into build/parents/REV/
+(gitignored), where `--parent REV` of tools/k6_ablation_torch.py and
+tools/k2_ablation_torch.py, and the card tests that hold K6 and K2 to
+BITS_OF, find them in a copy of the checkout that has no git history. A
+source put there by hand, build/parents/NAME/corner_ifft_y.cu, is taken as
+revision NAME's.
+"""
+
+from __future__ import annotations
+
+import pathlib
+import subprocess
+import sys
+
+REPO = pathlib.Path(__file__).resolve().parent.parent
+PARENTS = REPO / "build" / "parents"
+# the commit whose K6 and K2 outputs their redesigns keep bit for bit
+BITS_OF = "19a22bf762a2ba9d61f18feb16665e24a98a277f"
+SOURCES = ("corner_ifft_y.cu", "corner_stage2.cu")
+
+
+def parent_source(rev: str, name: str) -> pathlib.Path | None:
+    """csrc/`name` of commit `rev`: build/parents/<rev>/<name>, taken out of
+    git where it is missing; None where neither has it."""
+    path = PARENTS / rev / name
+    if not path.exists():
+        try:
+            text = subprocess.run(
+                ["git", "-C", str(REPO), "show",
+                 f"{rev}:steganosaurus_tpu_torch/csrc/{name}"],
+                capture_output=True, text=True, check=True, timeout=60).stdout
+        except (OSError, subprocess.SubprocessError):
+            return None
+        path.parent.mkdir(parents=True, exist_ok=True)
+        path.write_text(text)
+    return path
+
+
+def parent_kernels(rev: str, name: str):
+    """(Kernels whose entry points of csrc/`name` are commit `rev`'s and
+    every other one the committed build's, ptxas's report), built into
+    build/parents/<rev>/; None where the source cannot be had."""
+    from steganosaurus_tpu_torch import _build
+
+    src = parent_source(rev, name)
+    if src is None:
+        return None
+    libs, reports = _build.build_variants(name, {"parent": src}, src.parent)
+    return libs["parent"], reports["parent"]
+
+
+def main() -> int:
+    if len(sys.argv) < 2:
+        print(__doc__, file=sys.stderr)
+        return 2
+    rev = sys.argv[1]
+    for name in sys.argv[2:] or SOURCES:
+        path = parent_source(rev, name)
+        if path is None:
+            print(f"{name} of {rev}: not found", file=sys.stderr)
+            return 1
+        print(path)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
