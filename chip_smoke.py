@@ -78,7 +78,8 @@ Phases:
              y-stage) at 4K B=64, 1080p B=8, 512x512 B=8, 256x256 B=1, the
              4b grid, 4c's crop, a phone screenshot (1170x2532 B=8) and
              512x512 views one element off their alignment; HGMMA and
-             UTMALDG in the SASS of its NCHW and NHWC instantiations;
+             UTMALDG in the SASS of its NCHW and NHWC instantiations,
+             UTMASTG (the store warp's TMA stores) in the NCHW ones;
              centering on and off, NCHW and NHWC: its f32 check
              mode within 1e-5 of max|plain|, every u8 byte off by one and
              at a plain value within that bound of a .5 boundary. At 4K
@@ -1375,8 +1376,8 @@ def phase_ifft_epilogue(covers_d, odd_d, card: str) -> list:
     K3's write_floor as the main path calls it (the hard write at floor
     0.45 of a RepFrame, bf16 operands), then the y-stage
     (corner.ifft_corner_y); centering on and off, NCHW and NHWC
-    (_k4_check); HGMMA and UTMALDG in the SASS of both instantiations (NCHW
-    and NHWC tiles). At 4K B=64 and at 4c's 2160x3839, in turns by CUDA events
+    (_k4_check); HGMMA and UTMALDG in the SASS of the NCHW and NHWC
+    kernels, and UTMASTG (the store warp's TMA stores) in the NCHW ones. At 4K B=64 and at 4c's 2160x3839, in turns by CUDA events
     beside the bound (utils/cost.py ifft_epilogue_cost): K4 NCHW (the
     kernels line's entry) and NHWC, the plain version, the library
     composition it replaced (the two cuBLAS x-stage products, t -=, K4e)
@@ -1394,9 +1395,13 @@ def phase_ifft_epilogue(covers_d, odd_d, card: str) -> list:
     from steganosaurus_tpu_torch import _build
 
     for fn in ("corner_ifft_nchw_kernel", "corner_ifft_nhwc_kernel"):
-        sass = _build.sass_counts(wk.KERNEL_IFFT_EPILOGUE, fn)
+        sass = _build.sass_counts(wk.KERNEL_IFFT_EPILOGUE, fn,
+                                  ("HGMMA", "UTMALDG", "UTMASTG", "LDL",
+                                   "STL"))
         log(f"K4 SASS ({fn}, cuobjdump -sass): {sass}")
-        if not (sass["HGMMA"] > 0 and sass["UTMALDG"] > 0):
+        # the NCHW tiles' stego goes out by the store warp's TMA stores
+        if not (sass["HGMMA"] > 0 and sass["UTMALDG"] > 0
+                and (sass["UTMASTG"] > 0 or "nhwc" in fn)):
             raise AssertionError(f"K4 {fn} is not wgmma + TMA: {sass}")
     peaks = cost.peak_rates(covers_d.device)
     errs, record = [], None
@@ -1452,6 +1457,8 @@ def phase_ifft_epilogue(covers_d, odd_d, card: str) -> list:
                 f"faster than the library composition, "
                 f"{ms['plain'] / ms['K4']:.2f}x than the plain version")
             if main:
+                log(f"K4 {name} B={B} {H}x{W}: 2-CTA clusters, grid "
+                    f"{wk.ifft_epilogue_grid(B, H, W, 'nchw')} blocks")
                 record = {
                     "name": wk.KERNEL_IFFT_EPILOGUE, "route": "cuda",
                     "source": "steganosaurus_tpu_torch/csrc/"

@@ -58,6 +58,7 @@ _SIGNATURES = {
     "corner_floor_only": [_P] * 8 + [_I, _I, _I, _F, _F, _F, _P],
     "corner_epilogue": [_P, _P, _P, _I, _I, _I, _F, _I, _I, _P],
     "corner_ifft_epilogue": [_P] * 5 + [_I] * 7 + [_F, _I, _I, _P],
+    "corner_ifft_epilogue_grid": [_I, _I, _I, _I],
     "corner_stage2_prep": [_P] * 5 + [_I] * 4 + [_P],
     "corner_stage2_band": [_P] * 5 + [_I] * 3 + [_P],
     "corner_stage2": [_P] * 8 + [_I] * 8 + [_P],

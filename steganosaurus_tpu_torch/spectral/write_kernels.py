@@ -611,6 +611,23 @@ def ifft_epilogue(mr16, mi16, tabs, planes, center: bool, layout: str, *,
     return out
 
 
+def ifft_epilogue_grid(B: int, H: int, W: int, layout: str,
+                       device=None) -> int:
+    """The grid ifft_epilogue launches on `device` (default: the current
+    card) for B images of H x W stored in `layout`: in blocks, 2-CTA
+    clusters, as many as the card holds at once and no more than the
+    kernel's units of work; raises where the card has no room for one."""
+    from steganosaurus_tpu_torch import _build
+
+    if layout not in LAYOUTS:
+        raise ValueError(f"layout must be one of {LAYOUTS}, got {layout!r}")
+    with torch.cuda.device(device):
+        grid = _build.kernel_library().corner_ifft_epilogue_grid(
+            B, H, W, int(layout != "nchw"))
+    _check_rc(KERNEL_IFFT_EPILOGUE, -min(grid, 0))
+    return grid
+
+
 def ifft_y_rows(dcr, dci):
     """(dcr, dci, ldd, padded): K6's operands (P, Ky, Kx) bf16 as its TMA
     maps read them, rows ldd values apart (Kx rounded up to 8 values, 16

@@ -27,9 +27,9 @@ K4e launches of each corner embed path; forward stage 2's prep pass
 bf16x6 twin at edge shapes, the band kernel bit-exact, a plane's bits
 independent of its batch, the
 stage-2 wrappers' counts and checks, and fwd_corner's launches on the card;
-K6 and K2 bit-equal to their builds before the redesigns (K6's staged
-stores, K2's cluster; tools/parent_kernels_torch.py), and a launch either
-kernel refuses raising in its wrapper.
+K6, K2 and K4 bit-equal to their builds before the redesigns (K6's and
+K4's staged stores, K2's cluster; tools/parent_kernels_torch.py), and a
+launch K6 or K2 refuses raising in its wrapper.
 
 They skip without CUDA. This file imports neither jax nor the JAX package's
 device code, so it also runs on a machine without JAX:
@@ -1004,6 +1004,29 @@ def test_ifft_epilogue_kernel_on_unaligned_views(dev):
     _check_k4(views[0], views[1], tabs, views[2], True, "nchw")
 
 
+@pytest.mark.parametrize("grid", K4_GRIDS)
+def test_ifft_epilogue_bit_equal_to_its_first_version(dev, grid):
+    """The staging, the store warp and the cover by TMA move data only:
+    K4's u8 stego (NCHW and NHWC, centering off and on) and its f32 check
+    mode equal those of the kernel before them, bit for bit, on the same
+    operands (3839 and the phone width take the plain stores, the others
+    the TMA path)."""
+    from steganosaurus_tpu_torch.spectral import write_kernels as wk
+
+    first = _first_version("corner_ifft_epilogue.cu")
+    mr16, mi16, tabs, planes = _k4_inputs(dev, *grid, 3 * sum(grid))
+    for center in (False, True):
+        for layout, values in (("nchw", False), ("nhwc", False),
+                               ("nchw", True)):
+            def run():
+                return wk.ifft_epilogue(mr16, mi16, tabs, planes, center,
+                                        layout, values=values)
+            got = run()
+            want = _with_kernels(first, run)
+            torch.cuda.synchronize()
+            assert torch.equal(got, want), (center, layout, values)
+
+
 def test_ifft_epilogue_wrapper_checks_its_inputs(dev):
     """Wrong types, shapes, layouts and devices raise before any launch."""
     from steganosaurus_tpu_torch.spectral import write_kernels as wk
@@ -1023,6 +1046,14 @@ def test_ifft_epilogue_wrapper_checks_its_inputs(dev):
         wk.ifft_epilogue(mr16, mi16, tabs._replace(ifft_x=None), planes,
                          False, "nchw")
     assert wk.LAUNCHES == n
+    # the launch's grid: 2-CTA clusters, no more blocks than the card has
+    # SMs, one cluster for one pair of row blocks
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    grid = wk.ifft_epilogue_grid(64, 2160, 3840, "nchw")
+    assert grid % 2 == 0 and 0 < grid <= sms
+    assert wk.ifft_epilogue_grid(1, 64, 64, "nhwc") == 2
+    with pytest.raises(ValueError):
+        wk.ifft_epilogue_grid(1, 64, 64, "hwc")
 
 
 # K6: the inverse DFT's y-stage, on (B, H, W): 4K-like (one image: 3 planes,

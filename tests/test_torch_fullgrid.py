@@ -302,9 +302,13 @@ def test_port_coherent_stegos_read_by_both_batch_extracts():
     covers = _covers(2, seed=29)
     p = Params(coherent=True, **FAST)
     secrets = [b"port-coherent-a", b"port-coherent-b!"]
+    # fixed salts: each package's f32 coherent embed misses ~0.2% of
+    # salts (tools/coherent_salt_sweep.py), so a random one fails the
+    # read now and then in either package
     stegos = np.stack([stt.embed_array(c, s, password="pw", params=p,
+                                       salt=bytes([i]) * 16,
                                        device="cpu").stego
-                       for c, s in zip(covers, secrets)])
+                       for i, (c, s) in enumerate(zip(covers, secrets))])
     assert stt.extract_batch(stegos, password="pw", params=Params(**FAST),
                              device="cpu") == secrets
     assert jbatch.extract_batch(stegos, password="pw",

@@ -361,7 +361,7 @@ assert got == secrets * 2, got
 img = rng.integers(90, 170, (256, 256, 3), dtype=np.uint8)
 for q in (p, p.replace(coherent=True), p.replace(fft_dtype="complex128")):
     one = stt.embed_array(img, b"single", password="pw", params=q,
-                          device="cpu")
+                          salt=bytes([1]) * 16, device="cpu")
     assert stt.extract_array(one.stego, password="pw", params=q,
                              device="cpu") == b"single"
     got.append(b"single")

@@ -254,10 +254,14 @@ def test_embed_cores_take_k4_or_k4e_by_precision(mode, monkeypatch):
     assert out.dtype == out2.dtype == torch.uint8
 
 
-def test_k4_ablation_edits_apply_to_the_committed_source():
+def test_k4_ablation_edits_apply_to_the_committed_source(monkeypatch):
     """Each variant of tools/k4_ablation_torch.py is a few text edits of
-    csrc/corner_ifft_epilogue.cu: each text it replaces is there, once; and
-    the tool refuses to run without a card."""
+    csrc/corner_ifft_epilogue.cu (among them the stores issued by the
+    consumers, the cover in registers, the cluster off, 3 stages and a
+    fourth for the tiles TMA does not map): each
+    text it replaces is there, once; --parent may be given more than once;
+    and the tool refuses to run without a card (made to see none here, so
+    that it never builds or launches anything)."""
     import importlib.util
     import pathlib
 
@@ -266,11 +270,163 @@ def test_k4_ablation_edits_apply_to_the_committed_source():
         "k4_ablation_torch", repo / "tools" / "k4_ablation_torch.py")
     tool = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(tool)
-    src = (repo / "steganosaurus_tpu_torch" / "csrc"
-           / "corner_ifft_epilogue.cu").read_text()
-    assert len(tool.VARIANTS) == 6
+    src = _K4_SRC
+    names = [name for name, _, _ in tool.VARIANTS]
+    assert {"no epilogue", "stores by the consumers",
+            "cover in registers", "cluster off", "3 stages",
+            "plain ring of 4"} <= set(names)
     for name, _, edits in tool.VARIANTS:
         for old, new in edits:
             assert src.count(old) == 1, name
             assert old != new
-    assert tool.main() == 2
+    assert tool._args(["--parent", "a", "out.txt", "--parent", "b"]) == (
+        ["a", "b"], ["out.txt"])
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert tool.main([]) == 2
+
+
+# --- the kernel's schedule, staging and stores, mirrored in numpy ----------
+
+_K4_SRC = (__import__("pathlib").Path(wk.__file__).resolve().parent.parent
+           / "csrc" / "corner_ifft_epilogue.cu").read_text()
+
+
+def _cu_consts():
+    """The integer and bool constexprs of the K4 source given as
+    literals."""
+    import re
+
+    return {k: {"true": 1, "false": 0}.get(v) if v in ("true", "false")
+            else int(v) for k, v in re.findall(
+                r"constexpr (?:int|bool) (\w+) = (\d+|true|false);",
+                _K4_SRC)}
+
+
+K4 = _cu_consts()
+# the smoke's 3c grids (chip_smoke.py K4_GRIDS): (B, H, W)
+K4_CARD_GRIDS = [(64, 2160, 3840), (8, 1080, 1920), (8, 512, 512),
+                 (1, 256, 256), (4, 1079, 1917), (64, 2160, 3839),
+                 (8, 1170, 2532)]
+
+
+def _stg_offset(lr, c):
+    """csrc/corner_ifft_epilogue.cu's stg_offset: the byte of row lr,
+    column c of a consumer warpgroup's staging."""
+    return ((c >> 7) * 64 * K4["U8_BOX"] + lr * K4["U8_BOX"]
+            + ((((c & 127) >> 4) ^ (lr & 7)) << 4) + (c & 15))
+
+
+def _k4_walk(B, H, W, nhwc):
+    """corner_ifft_epilogue's walk(): (n_nt, hblocks, n_mt, n_units)."""
+    BM, BN, CL = K4["BM"], K4["BN"], K4["CLUSTER"]
+    n_nt, hblocks = -(-W // BN), -(-H // K4["NH"])
+    n_mt = B * hblocks if nhwc else -(-3 * B * H // BM)
+    return n_nt, hblocks, n_mt, -(-n_mt // CL) * n_nt
+
+
+def _k4_tile(unit, rank, n_nt, hblocks, n_mt, nhwc):
+    """The kernel's tile_of: (ghost, m0, b, h0, n0)."""
+    mp, nt = divmod(unit, n_nt)
+    mt = K4["CLUSTER"] * mp + rank
+    if nhwc:
+        b, hb = divmod(mt, hblocks)
+        return mt >= n_mt, 0, b, hb * K4["NH"], nt * K4["BN"]
+    return mt >= n_mt, mt * K4["BM"], 0, 0, nt * K4["BN"]
+
+
+@pytest.mark.parametrize("nhwc", [False, True])
+@pytest.mark.parametrize("grid", K4_CARD_GRIDS)
+def test_k4_cluster_walk_stores_every_tile_once(grid, nhwc):
+    """The kernel's walk at the smoke's 3c grids, at the card's grid (66
+    clusters of 2 blocks) and at a small one: the two blocks of a cluster
+    take row blocks 2mp and 2mp+1 of one column block (the table boxes
+    they share), every tile is computed by one block exactly once, and the
+    lone block of an odd row-block count (a ghost) computes and stores
+    nothing; the stores, mirrored box by box (NCHW: each warpgroup's two 64
+    x 128 TMA boxes, issued where their first row is below P*H and first
+    column below W, clipped by the map to P*H rows and W columns; NHWC: the
+    staged rows h < H of min(BN, W - n0) pixels), write every output
+    element exactly once."""
+    B, H, W = grid
+    M = 3 * B * H
+    n_nt, hblocks, n_mt, n_units = _k4_walk(B, H, W, nhwc)
+    assert K4["CLUSTER"] in (1, 2)
+    for clusters in (min(66, n_units), 3):
+        seen = {}
+        ghosts = 0
+        # NCHW: 64 x 128 cells of the (P*H, W) output; NHWC: the (b, h)
+        # rows and 256-pixel column blocks
+        cells = (np.zeros((-(-M // 64), -(-W // 128)), np.int64) if not nhwc
+                 else np.zeros((B, H, n_nt), np.int64))
+        area = 0
+        for c in range(clusters):
+            for unit in range(c, n_units, clusters):
+                tiles = [_k4_tile(unit, r, n_nt, hblocks, n_mt, nhwc)
+                         for r in range(K4["CLUSTER"])]
+                assert len({tl[4] for tl in tiles}) == 1   # one column block
+                for ghost, m0, b, h0, n0 in tiles:
+                    if ghost:
+                        ghosts += 1
+                        continue
+                    key = (m0, b, h0, n0)
+                    seen[key] = seen.get(key, 0) + 1
+                    if nhwc:
+                        for hl in range(K4["NH"]):
+                            if h0 + hl < H:
+                                cells[b, h0 + hl, n0 // K4["BN"]] += 1
+                                area += 3 * min(K4["BN"], W - n0)
+                        continue
+                    for w in range(2):
+                        r0 = m0 + 64 * w
+                        for j in range(2):
+                            x0 = n0 + 128 * j
+                            if r0 < M and x0 < W:
+                                cells[r0 // 64, x0 // 128] += 1
+                                area += (min(r0 + 64, M) - r0) * \
+                                    (min(x0 + 128, W) - x0)
+        assert ghosts == (n_mt % 2) * n_nt * (K4["CLUSTER"] - 1)
+        assert len(seen) == n_mt * n_nt
+        assert set(seen.values()) == {1}
+        assert (cells == 1).all()
+        assert area == M * W
+
+
+def test_k4_staging_is_the_tma_box_and_banks_are_distinct():
+    """A consumer warpgroup's staging: stg_offset gives every (row,
+    column) of the 64 x 256 u8 tile its own byte of the 16 KB, and each
+    one where a 128-byte-swizzled TMA box of 64 x 128 bytes keeps it (the
+    box's linear offset with address bits 4-6 XORed with bits 7-9); the
+    vector epilogue's words (the even lane of a pair row r, group g; the
+    odd lane row r + 8, group g ^ 1) write every 4-byte word of the staging
+    once, and a warp's 32 words of each step lie in 32 distinct banks."""
+    lr, c = np.meshgrid(np.arange(64), np.arange(256), indexing="ij")
+    off = _stg_offset(lr, c)
+    assert np.unique(off).size == 64 * 256 and off.max() == 64 * 256 - 1
+    box, x = c // 128, c % 128
+    linear = lr * 128 + x
+    swz = linear ^ (((linear >> 7) & 7) << 4)
+    np.testing.assert_array_equal(off, box * 64 * 128 + swz)
+    words = np.zeros(64 * 256 // 4, np.int64)
+    for warp in range(4):
+        lane = np.arange(32)
+        q, odd = lane & 3, lane & 1
+        lv = warp * 16 + (lane >> 2) + 8 * odd
+        for g in range(32):
+            col = 8 * (g ^ odd) + 4 * (q >> 1)
+            addr = _stg_offset(lv, col)
+            assert (addr % 4 == 0).all()
+            assert np.unique((addr // 4) % 32).size == 32
+            np.add.at(words, addr // 4, 1)
+    assert (words == 1).all()
+
+
+def test_k4_u8_maps_take_the_tma_grids():
+    """Which 3c grids store by TMA (the cover and stego 2-D u8 maps need
+    rows of whole 16-byte words): 4K, 1080p, 512x512, 256x256; the 4b
+    grid, 3839 and the phone width store from registers; the NHWC staging
+    tile fits the 32 KB staging."""
+    tma = [W % 16 == 0 for _, _, W in K4_CARD_GRIDS]
+    assert tma == [True, True, True, True, False, False, False]
+    assert "mode == OUT_NCHW && W % 16 == 0 && aligned16(planes) &&" in \
+        _K4_SRC
+    assert K4["NH"] * K4["BN"] * 3 <= 2 * 2 * 64 * K4["U8_BOX"]

@@ -3,13 +3,13 @@ committed ones on a CUDA card.
 
     python3 tools/parent_kernels_torch.py REV [NAME ...]
 
-copies steganosaurus_tpu_torch/csrc/NAME (default: corner_ifft_y.cu and
-corner_stage2.cu) of commit REV out of git into build/parents/REV/
-(gitignored), where `--parent REV` of tools/k6_ablation_torch.py and
-tools/k2_ablation_torch.py, and the card tests that hold K6 and K2 to
-BITS_OF, find them in a copy of the checkout that has no git history. A
-source put there by hand, build/parents/NAME/corner_ifft_y.cu, is taken as
-revision NAME's.
+copies steganosaurus_tpu_torch/csrc/NAME (default: corner_ifft_y.cu,
+corner_stage2.cu and corner_ifft_epilogue.cu) of commit REV out of git into
+build/parents/REV/ (gitignored), where `--parent REV` of
+tools/k{2,4,6}_ablation_torch.py, and the card tests that hold K6, K2 and
+K4 to BITS_OF, find them in a copy of the checkout that has no git
+history. A source put there by hand, build/parents/NAME/corner_ifft_y.cu,
+is taken as revision NAME's.
 """
 
 from __future__ import annotations
@@ -20,9 +20,10 @@ import sys
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 PARENTS = REPO / "build" / "parents"
-# the commit whose K6 and K2 outputs their redesigns keep bit for bit
+# the commit whose K6, K2 and K4 outputs their redesigns keep bit for bit
+# (its K4 source is the first version's, unchanged until the redesign)
 BITS_OF = "19a22bf762a2ba9d61f18feb16665e24a98a277f"
-SOURCES = ("corner_ifft_y.cu", "corner_stage2.cu")
+SOURCES = ("corner_ifft_y.cu", "corner_stage2.cu", "corner_ifft_epilogue.cu")
 
 
 def parent_source(rev: str, name: str) -> pathlib.Path | None:
