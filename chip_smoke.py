@@ -118,13 +118,31 @@ Phases:
              (utils/cost.py ifft_y_cost): K6, the plain chain and one
              torch.bmm of the real table (expanded) with the stacked
              (P, 2Ky, Kx) operands into bf16 (stacking not timed)
+  3f. K5     the extract's walk read and Rep-3/Rep-7 decode
+             (csrc/corner_read_decode.cu) against its plain version
+             (spectral/read_kernels.py read_decode_plain): at 4K B=64 on
+             phase 4's forward spectrum and walk, then on seeded spectra
+             with planted ties (+0.0, -0.0, a group summing to +0.0, a
+             tiny negative that rounds to -0.0 in bf16) at the 4K walk
+             (B=1), 1080p (B=5) and 512x512 (B=3 and B=1); every flag
+             combination (header 912 or 0, Rep-7 or RS, hard and soft rows,
+             bf16 or f32 soft values, jitter, raw bits, sign(sin alpha)
+             +1, -1, 0) bit-equal, and at 4K B=64 bit-equal to the eager
+             chain it replaced. The 4K walk's touched 32-byte sectors
+             beside a uniform walk's share; at 4K B=64, in turns beside the
+             bound (utils/cost.py read_decode_cost over this walk's
+             sectors): K5, the plain version, the eager chain (gather,
+             decision values, _decode_sections[_soft]) and the lone gather
+             ci[:, plane, y, x], which K5 must beat
   4. path    512x512, B=8, 100 B round trip (also held against the port on
              the CPU), then 2160x3840, B=64, 16 KB: all secrets recovered,
              K1 launched on the TMA route alone, the prep, the band kernel
              and K2 once per forward DFT (two per round trip) and the eager
              stage 2
-             (corner._fwd_y_split) never, warm timings, PSNR, peak
-             memory, the sha256 of the warm round trip's stego (4c too)
+             (corner._fwd_y_split) never, K5 once (the extract's one
+             fused pass) and the eager read never, warm timings, PSNR,
+             peak memory, the sha256 of the warm round trip's stego (4c
+             too)
   4b. ragged 1079x1917, B=4, 1 KB round trip: W % 16 != 0, so stage 1
              goes through the load route alone
   4c. odd 4K phase 4's covers cropped to 2160x3839, B=64, 16 KB: 64/64
@@ -229,7 +247,9 @@ Phases:
   9d. cost   utils/cost.py at the 4K headline: per-stage FLOPs, bytes and
              bounds on the card's data-sheet peaks, the round trip's bound,
              measure_device_step's core times and the share of the bound
-             (above 1.0 fails), measure_link with a 256 MiB pinned buffer
+             (above 1.0 fails), measure_link with a 256 MiB pinned buffer;
+             the 32-byte sectors the main path's walk touches beside the
+             uniform walk's share the model counts for the read
   9e. dry run  the graft entry (steganosaurus_tpu_torch/graft_entry.py):
              entry()'s forward step (2x128x128, the full-grid core) on the
              card against the CPU, +-1 on at most 0.5% of bytes (counted);
@@ -389,12 +409,14 @@ def cuda_ms(fn, n: int) -> float:
 
 def zero_counts() -> None:
     """Set every hand kernel's launch count to 0: K1's routes, the prep and
-    K2 (corner_kernels.LAUNCHES) and the embed's K3 / K4 / K4e entry points
-    (write_kernels.LAUNCHES)."""
+    K2 (corner_kernels.LAUNCHES), the embed's K3 / K4 / K4e entry points
+    (write_kernels.LAUNCHES) and the extract's K5 with the eager read
+    chain's calls (read_kernels.LAUNCHES)."""
     from steganosaurus_tpu_torch.spectral import corner_kernels as ck
+    from steganosaurus_tpu_torch.spectral import read_kernels as rk
     from steganosaurus_tpu_torch.spectral import write_kernels as wk
 
-    for counts in (ck.LAUNCHES, wk.LAUNCHES):
+    for counts in (ck.LAUNCHES, wk.LAUNCHES, rk.LAUNCHES):
         for k in counts:
             counts[k] = 0
 
@@ -402,9 +424,10 @@ def zero_counts() -> None:
 def read_counts() -> dict:
     """{kernel name: launches since zero_counts()} of every hand kernel."""
     from steganosaurus_tpu_torch.spectral import corner_kernels as ck
+    from steganosaurus_tpu_torch.spectral import read_kernels as rk
     from steganosaurus_tpu_torch.spectral import write_kernels as wk
 
-    return {**ck.LAUNCHES, **wk.LAUNCHES}
+    return {**ck.LAUNCHES, **wk.LAUNCHES, **rk.LAUNCHES}
 
 
 def check_embed_kernels(path: str, counts: dict, embeds: int,
@@ -601,6 +624,34 @@ STAGE2_GRIDS = K4_GRIDS
 # one ulp
 K6_GRIDS = K4_GRIDS
 K6_REL = 1e-5
+# 3f: K5, the extract's read and decode, on (name, B, H, W, secret bytes):
+# the main path's 4K B=64 on phase 4's forward spectrum, then seeded
+# spectra with READ_PLANTED's values at the 4K walk (B=1), 1080p (B=5) and
+# 512x512 (B=3, B=1); each flag combination of READ_FLAGS (header slots,
+# payload rep, hard row, soft row, jitter, sign(sin alpha)) bit-equal to
+# read_decode_plain
+READ_GRIDS = [("4K", UHD_B, UHD_H, UHD_W, UHD_SECRET),
+              ("4K seeded", 1, UHD_H, UHD_W, UHD_SECRET),
+              ("1080p", 5, 1080, 1920, 4096), ("512", 3, 512, 512, 200),
+              ("512", 1, 512, 512, 200)]
+READ_FLAGS = {
+    "main": (912, 7, True, "bf16", False, 1.0),
+    "hard only": (912, 7, True, None, False, 1.0),
+    "no header": (0, 7, True, "bf16", False, 1.0),
+    "rs": (912, 1, True, "bf16", False, 1.0),
+    "rs retry": (912, 1, False, "f32", False, 1.0),
+    "jitter": (912, 7, True, "bf16", True, 1.0),
+    "jitter rs retry": (912, 1, False, "f32", True, -1.0),
+    "retry": (912, 7, False, "f32", False, 1.0),
+    "raw bits": (0, 1, True, None, False, 1.0),
+    "ssa -1": (912, 7, True, "bf16", False, -1.0),
+    "ssa 0": (912, 7, True, "f32", False, 0.0),
+}
+# walk slots planted in every image of the seeded grids: a Rep-3 group of
+# ties (+0.0, -0.0, +0.0), a group whose copies sum to +0.0 (3.0, -3.0,
+# -0.0) and a tiny negative that rounds to -0.0 in bf16 (payload slot 8)
+READ_PLANTED = {0: 0.0, 1: -0.0, 2: 0.0, 12: 3.0, 13: -3.0, 14: -0.0,
+                920: -1e-42}
 STAGE2_ENERGY_REL = 1e-6
 K2_REL = 1e-5
 K2_BULK_RMS = 0.02
@@ -1640,6 +1691,177 @@ def phase_ifft_y(covers_d, odd_d, card: str) -> list:
     return [record]
 
 
+def _read_walk(dev, H: int, W: int, secret: int) -> tuple:
+    """The shared walk of a default-Params frame of `secret` bytes at
+    H x W under MASTER_KEY (phase 4's at 4K): plane, y, x (bucket,) int64
+    on the card, the jitter angles of the same walk at jitter 0.2, Ky, Kx
+    and the frame's slots before its tail padding. The pipeline's cache of
+    device walks is left as it was found, so the walks held here do not
+    count in a later phase's peak memory."""
+    import steganosaurus_tpu_torch as stt
+    from steganosaurus_tpu_torch import spectral
+    from steganosaurus_tpu_torch.pipeline import batch as tbatch
+    from steganosaurus_tpu_torch.spectral import corner
+
+    PH, PW = spectral.fft_dims(H, W)
+    Ky, Kx = corner.corner_dims(PH, PW, stt.Params().rmax)
+    total = 912 + tbatch._payload_stream_bits(secret + 16, False)
+    bucket = tbatch._bucket(total)
+    cached = set(tbatch._DEV_IDX_CACHE)
+    (pl, yy, xx, _), nprod = tbatch._walk_indices_device(
+        None, MASTER_KEY, stt.Params(), PH, PW, total, 0, bucket, dev)
+    if nprod < total:
+        raise AssertionError(f"3f: the {H}x{W} walk ends after {nprod} of "
+                             f"{total} slots")
+    (_, _, _, jj), _ = tbatch._walk_indices_device(
+        None, MASTER_KEY, stt.Params(jitter=0.2), PH, PW, total, 0, bucket,
+        dev)
+    for key in set(tbatch._DEV_IDX_CACHE) - cached:
+        del tbatch._DEV_IDX_CACHE[key]
+    return pl, yy, xx, jj, Ky, Kx, total
+
+
+def _read_check(what: str, ci, cr, walk) -> int:
+    """K5 against read_decode_plain on one spectrum and walk for every
+    READ_FLAGS combination: every word equal (raises on any difference),
+    one launch each. Returns the words compared."""
+    import torch
+
+    from steganosaurus_tpu_torch.spectral import read_kernels as rk
+
+    pl, yy, xx, jj = walk
+    words = 0
+    for name, (hdr, rep, hard, soft, jitter, ssa) in READ_FLAGS.items():
+        extra = ((cr, torch.cos(jj), torch.sin(jj)) if jitter
+                 else (None, None, None))
+        kw = dict(hdr_stream_bits=hdr, payload_rep=rep, hard=hard,
+                  soft=soft)
+        n = rk.LAUNCHES[rk.KERNEL_READ_DECODE]
+        got = rk.read_decode(ci, pl, yy, xx, ssa, *extra, **kw)
+        torch.cuda.synchronize()
+        if rk.LAUNCHES[rk.KERNEL_READ_DECODE] != n + 1:
+            raise AssertionError(f"3f {what} {name}: K5 was not launched "
+                                 f"once")
+        want = rk.read_decode_plain(ci, pl, yy, xx, ssa, *extra, **kw)
+        for g, w in zip(got, want):
+            if (g is None) != (w is None):
+                raise AssertionError(f"3f {what} {name}: rows {g} vs {w}")
+            if w is None:
+                continue
+            if g.shape != w.shape or not torch.equal(g, w):
+                bad = int((g != w).sum()) if g.shape == w.shape else -1
+                raise AssertionError(f"3f {what} {name}: K5 differs from "
+                                     f"its plain version in {bad} words "
+                                     f"of {tuple(w.shape)}")
+            words += w.numel()
+    return words
+
+
+def phase_read_decode(covers_d, card: str) -> list:
+    """3f: K5 (csrc/corner_read_decode.cu) against its plain version on
+    READ_GRIDS, every READ_FLAGS combination bit-equal; at 4K B=64 (phase
+    4's covers, their forward corner spectrum as the extract computes it,
+    phase 4's walk) the walk's touched sectors beside a uniform walk's
+    share (utils/cost.py), then in turns by CUDA events beside the bound
+    (read_decode_cost over this walk's sectors): K5 as the fused pass calls
+    it (hard and bf16 soft rows), its plain version, the eager chain it
+    replaced (the gather, the decision values, _decode_sections and
+    _decode_sections_soft) and the lone gather ci[:, plane, y, x]. Returns
+    the kernels line's entry (library_ms null: no one PyTorch call
+    computes this function)."""
+    import torch
+
+    import steganosaurus_tpu_torch as stt
+    from steganosaurus_tpu_torch.parallel import batch as pb
+    from steganosaurus_tpu_torch.spectral import corner
+    from steganosaurus_tpu_torch.spectral import read_kernels as rk
+    from steganosaurus_tpu_torch.utils import cost
+
+    dev = covers_d.device
+    peaks = cost.peak_rates(dev)
+    record, words = None, 0
+    for g, (name, B, H, W, secret) in enumerate(READ_GRIDS):
+        pl, yy, xx, jj, Ky, Kx, total = _read_walk(dev, H, W, secret)
+        if name == "4K":
+            tabs = corner.dft_tables_device(H, Ky, W, Kx, dev)
+            cr, ci = corner.fwd_corner(covers_d, stt.Params().center, Ky,
+                                       Kx, tabs, corner.precision())
+            del tabs
+        else:
+            gen = torch.Generator(device=dev).manual_seed(80 + g)
+            cr, ci = (torch.randn((B, 3, Ky, Kx), generator=gen,
+                                  device=dev) * 1e3 for _ in range(2))
+            for s, v in READ_PLANTED.items():
+                ci[:, pl[s], yy[s], xx[s]] = v
+        words += _read_check(f"{name} B={B} {H}x{W}", ci, cr,
+                             (pl, yy, xx, jj))
+        log(f"3f K5 {name} B={B} {H}x{W} Ky={Ky} Kx={Kx}, "
+            f"{pl.shape[0]}-slot walk: {len(READ_FLAGS)} flag combinations "
+            f"bit-equal to the plain version")
+        if name != "4K":
+            del cr, ci
+            continue
+        n = pl.shape[0]
+        sectors = cost.walk_sectors(pl, yy, xx, Ky, Kx)
+        share = sectors / (3 * Ky * Kx / 8)
+        uniform = cost.sector_share(n, Ky, Kx)
+        log(f"3f K5 4K walk: {total} distinct slots of {n} touch {sectors} "
+            f"of {3 * Ky * Kx // 8} 32-byte sectors of a plane ({share!r}); "
+            f"a uniform walk of {n} bins: {uniform!r} "
+            f"({share / uniform:.4f}x)")
+        del cr
+        ssa = pb._sign_sin(stt.Params().alpha)
+        kw = dict(hdr_stream_bits=912, payload_rep=7, soft="bf16")
+
+        def eager():
+            d = corner.decision_values(ci[:, pl, yy, xx], ssa)
+            return (pb._decode_sections((d >= 0).to(torch.uint8), 912),
+                    pb._decode_sections_soft(
+                        d.to(torch.bfloat16).to(torch.float32), 912))
+
+        if not all(torch.equal(a, b) for a, b in zip(
+                eager(), rk.read_decode(ci, pl, yy, xx, ssa, **kw))):
+            raise AssertionError("3f: K5 differs from the eager chain at "
+                                 "4K B=64 (soft sums in another order: a "
+                                 "sum within rounding of zero?)")
+        runs = {"K5": (lambda: rk.read_decode(ci, pl, yy, xx, ssa, **kw),
+                       10),
+                "plain": (lambda: rk.read_decode_plain(ci, pl, yy, xx, ssa,
+                                                       **kw), 3),
+                "eager chain": (eager, 3),
+                "gather": (lambda: ci[:, pl, yy, xx], 10)}
+        times = _turns(runs)
+        ms = {k: sum(v) / len(v) for k, v in times.items()}
+        hw, pw, _ = rk.row_words(n, 912, 7)
+        bound, by = cost.stage_bound(cost.read_decode_cost(
+            B, Ky, Kx, n, 2 * (hw + pw), sectors=sectors), peaks)
+        log(f"3f K5 4K B={B} timed in turns ({card}): "
+            + "; ".join(f"{k} {v!r} ms" for k, v in times.items())
+            + f"; bound {bound!r} ms ({by}, this walk's sectors), K5 at "
+            f"{bound / ms['K5']:.3f} of it; {ms['plain'] / ms['K5']:.2f}x "
+            f"faster than the plain version, "
+            f"{ms['eager chain'] / ms['K5']:.2f}x than the eager chain, "
+            f"{ms['gather'] / ms['K5']:.2f}x the lone gather")
+        if ms["K5"] >= ms["gather"]:
+            raise AssertionError(f"3f: K5 ({ms['K5']!r} ms) is not faster "
+                                 f"than the lone gather it replaces "
+                                 f"({ms['gather']!r} ms)")
+        record = {
+            "name": rk.KERNEL_READ_DECODE, "route": "cuda",
+            "source": "steganosaurus_tpu_torch/csrc/corner_read_decode.cu",
+            "replaces": "steganosaurus_tpu/parallel/batch.py:738 "
+                        "(corner_extract_fused_core's read at the walk "
+                        "bins and _decode_sections[_soft] :238-260, fused "
+                        "by XLA; no Pallas kernel)",
+            "ms": ms["K5"], "plain_ms": ms["plain"], "bound_ms": bound,
+            "bound_by": by, "library_ms": None}
+        del ci, runs
+        torch.cuda.empty_cache()
+    log(f"3f K5: {words} words compared, all equal")
+    record["max_abs_err"] = 0.0
+    return [record]
+
+
 def _stage2_check(what: str, ar, ai, tabs, shift: bool = False,
                   main: bool = False) -> tuple:
     """The prep and K2 against their plain versions on one grid's stage-1
@@ -1954,6 +2176,7 @@ def phase_uhd(covers_d, what: str = "4K", route: str = "") -> tuple:
 
     import steganosaurus_tpu_torch as stt
     from steganosaurus_tpu_torch.spectral import corner_kernels as ck
+    from steganosaurus_tpu_torch.spectral import read_kernels as rk
 
     route = route or ck.KERNEL_TMA
     B = covers_d.shape[0]
@@ -2016,6 +2239,10 @@ def phase_uhd(covers_d, what: str = "4K", route: str = "") -> tuple:
                              f"the band kernel and K2 twice: {launches}, "
                              f"eager {eager}")
     check_embed_kernels(what, launches, 1)
+    reads = (launches[rk.KERNEL_READ_DECODE], launches[rk.KERNEL_READ_EAGER])
+    if reads != (1, 0):
+        raise AssertionError(f"the {what} extract is not one K5 launch and "
+                             f"no eager read: (K5, eager reads) {reads}")
     return launches, (e_ms, x_ms), stego
 
 
@@ -3836,6 +4063,16 @@ def phase_cost(covers_d, ms4, launches: dict, card: str) -> None:
     if any(v > 1.0 for v in share.values()):
         raise AssertionError(f"9d: a share of the bound above 1.0 is a "
                              f"counting fault: {share}")
+    pl, yy, xx, _, Ky, Kx, _ = _read_walk(covers_d.device, H, W, UHD_SECRET)
+    sectors = cost.walk_sectors(pl, yy, xx, Ky, Kx)
+    walk = sectors / (3 * Ky * Kx / 8)
+    uniform = cost.sector_share(pl.shape[0], Ky, Kx)
+    off = abs(walk / uniform - 1.0)
+    log(f"9d cost read + decode: the main path's {pl.shape[0]}-slot walk "
+        f"touches {sectors} of {3 * Ky * Kx // 8} 32-byte sectors of a "
+        f"plane, a share of {walk!r}, against the uniform walk's "
+        f"{uniform!r} that the model counts ({walk / uniform:.4f}x"
+        + ("; they differ by more than 5%)" if off > 0.05 else ")"))
 
 
 # 9e: the graft entry (steganosaurus_tpu_torch/graft_entry.py): entry()'s
@@ -3997,6 +4234,8 @@ def main() -> int:
         k3 += timed("K2", phase_stage2, covers_d, odd_d, card)
         torch.cuda.empty_cache()
         k3 += timed("K6", phase_ifft_y, covers_d, odd_d, card)
+        torch.cuda.empty_cache()
+        k3 += timed("K5", phase_read_decode, covers_d, card)
         torch.cuda.empty_cache()
         launches: dict = {}
         seen: set = set()

@@ -40,7 +40,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 NVCC_SOURCE_FLAGS = {"corner_write_floor.cu": ["-fmad=false"],
                      "corner_epilogue.cu": ["-fmad=false"],
                      "corner_ifft_epilogue.cu": ["-fmad=false"],
-                     "corner_stage2.cu": ["-fmad=false"]}
+                     "corner_stage2.cu": ["-fmad=false"],
+                     "corner_read_decode.cu": ["-fmad=false"]}
 GXX_FLAGS = ["-O3", "-std=c++17", "-shared", "-fPIC"]
 
 _lock = threading.Lock()
@@ -64,6 +65,7 @@ _SIGNATURES = {
     "corner_stage2": [_P] * 8 + [_I] * 8 + [_P],
     "corner_stage2_grid": [_I, _I, _I],
     "corner_ifft_y": [_P] * 5 + [_I] * 8 + [_P],
+    "corner_read_decode": [_P] * 9 + [_I] * 8 + [_F, _P],
 }
 
 

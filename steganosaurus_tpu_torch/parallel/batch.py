@@ -24,7 +24,10 @@ payload section.
   walk bins -> Rep-3 header + payload words, hard and (optionally) soft.
   A shared walk is (n,) index tensors, per-image walks (B, n): the one
   core is the twin of JAX's corner_extract_fused_core and
-  corner_piw_extract_core.
+  corner_piw_extract_core. A shared walk without QIM reads and decodes in
+  one kernel (K5, spectral/read_kernels.py read_decode); QIM and
+  per-image walks take the eager chain (_walk_decisions), as do the
+  retry and raw-bits cores below.
 - corner_soft_extract_core: the soft-decision retry pass (f32 decision
   values, matched-filter combining; RS confidences), either walk.
 - corner_raw_bits_core: the raw (pre-ECC) bits at the walk bins, for the
@@ -69,7 +72,8 @@ from steganosaurus_tpu_torch import runtime, spectral
 from steganosaurus_tpu_torch.ops import bits as bit_ops
 from steganosaurus_tpu_torch.ops import ecc
 from steganosaurus_tpu_torch.ops import phase as phase_ops
-from steganosaurus_tpu_torch.spectral import corner, write_kernels
+from steganosaurus_tpu_torch.spectral import (corner, read_kernels,
+                                                write_kernels)
 
 HEADER_BITS = 304    # 38 header bytes
 HEADER_REP = 3
@@ -530,6 +534,20 @@ def _decode_sections_soft(d: torch.Tensor, hdr_stream_bits: int,
                      dim=1)
 
 
+def _spectrum(imgs: torch.Tensor, *, Ky: int, Kx: int, center: bool,
+              layout: str):
+    """(cr, ci): the forward corner DFT of the u8 batch in `layout`."""
+    planes = _planes_u8(imgs, layout)
+    H, W = planes.shape[-2:]
+    tabs = corner.dft_tables_device(H, Ky, W, Kx, planes.device)
+    return corner.fwd_corner(planes, center, Ky, Kx, tabs, corner.precision())
+
+
+def _sign_sin(alpha: float) -> float:
+    """sign(sin alpha) in f32, the read's factor: -1.0, 0.0 or 1.0."""
+    return float(np.sign(np.sin(np.float32(alpha))))
+
+
 def _walk_decisions(imgs: torch.Tensor, alpha: float, plane, y, x, *,
                     Ky: int, Kx: int, center: bool, layout: str,
                     jit=None, dither=None, qim_levels: int = 0,
@@ -544,13 +562,15 @@ def _walk_decisions(imgs: torch.Tensor, alpha: float, plane, y, x, *,
     walks' (B, n). Without jitter and QIM a shared read needs Im C alone,
     and Re C is freed as soon as the DFT returns. Per-image walks floor
     the QIM magnitude at 1e-12, as JAX's per-image cores do (its dense
-    shared-walk read does not)."""
-    planes = _planes_u8(imgs, layout)
-    B, _, H, W = planes.shape
-    mode = corner.precision()
-    tabs = corner.dft_tables_device(H, Ky, W, Kx, planes.device)
-    cr, ci = corner.fwd_corner(planes, center, Ky, Kx, tabs, mode)
-    ssa = float(np.sign(np.sin(np.float32(alpha))))
+    shared-walk read does not).
+
+    The eager read chain: the extract cores take it only for what K5
+    (_read_decode) does not read, QIM and per-image walks, and count each
+    such call under read_kernels.KERNEL_READ_EAGER."""
+    read_kernels.LAUNCHES[read_kernels.KERNEL_READ_EAGER] += 1
+    B = imgs.shape[0]
+    cr, ci = _spectrum(imgs, Ky=Ky, Kx=Kx, center=center, layout=layout)
+    ssa = _sign_sin(alpha)
     per_image = plane.dim() == 2
     if per_image:
         flat = _flat(plane, y, x, Ky, Kx)
@@ -577,6 +597,32 @@ def _walk_decisions(imgs: torch.Tensor, alpha: float, plane, y, x, *,
     return torch.cat([d, dq], dim=1)
 
 
+def _kernel_read(plane, qim_levels: int) -> bool:
+    """Whether K5 reads this walk: a shared (n,) walk by the half-plane
+    rule. QIM and per-image (B, n) walks take the eager chain."""
+    return plane.dim() == 1 and not qim_levels
+
+
+def _read_decode(imgs: torch.Tensor, alpha: float, plane, y, x, jit, *,
+                 Ky: int, Kx: int, center: bool, layout: str,
+                 hdr_stream_bits: int, payload_rep: int, hard: bool,
+                 soft: str | None):
+    """(hard rows, soft rows) of a shared walk: the forward corner DFT,
+    then K5 (read_kernels.read_decode: the read at the walk bins and the
+    decode in one kernel). Without jitter Re C is freed as soon as the DFT
+    returns; with it, torch takes cos and sin of the slots' angles."""
+    cr, ci = _spectrum(imgs, Ky=Ky, Kx=Kx, center=center, layout=layout)
+    cjd = sjd = None
+    if jit is None:
+        cr = None
+    else:
+        cjd, sjd = torch.cos(jit), torch.sin(jit)
+    return read_kernels.read_decode(
+        ci, plane, y, x, _sign_sin(alpha), cr, cjd, sjd,
+        hdr_stream_bits=hdr_stream_bits, payload_rep=payload_rep, hard=hard,
+        soft=soft)
+
+
 def corner_extract_fused_core(imgs: torch.Tensor, alpha: float, plane, y, x,
                               *, Ky: int, Kx: int, center: bool, layout: str,
                               hdr_stream_bits: int, with_soft: bool,
@@ -595,7 +641,15 @@ def corner_extract_fused_core(imgs: torch.Tensor, alpha: float, plane, y, x,
     RS wire's raw coded bits). The soft rows (_decode_sections_soft, RS
     confidences included) combine each group's copies by the sum of d,
     with d rounded to bf16 first, as the JAX core does before its
-    gather."""
+    gather. A shared walk without QIM reads and decodes in K5
+    (_read_decode), the rest on the eager chain."""
+    if _kernel_read(plane, qim_levels):
+        hard, soft = _read_decode(
+            imgs, alpha, plane, y, x, jit, Ky=Ky, Kx=Kx, center=center,
+            layout=layout, hdr_stream_bits=hdr_stream_bits,
+            payload_rep=payload_rep, hard=True,
+            soft="bf16" if with_soft else None)
+        return (hard, soft) if with_soft else hard
     d = _walk_decisions(imgs, alpha, plane, y, x, Ky=Ky, Kx=Kx,
                         center=center, layout=layout, jit=jit, dither=dither,
                         qim_levels=qim_levels, qim_from=qim_from)
@@ -620,7 +674,18 @@ def corner_soft_extract_core(imgs: torch.Tensor, alpha: float, plane, y, x,
     QIM on the payload slots (>= hdr_stream_bits) when qim_levels. Returns
     (B, words) int32 rows in the corner_extract_fused_core layout, and for
     the RS wire (payload_rep == 1) (rows, conf): the payload's hard bits
-    and its (B, n_bytes) f32 per-coded-byte confidences."""
+    and its (B, n_bytes) f32 per-coded-byte confidences. A shared walk
+    without QIM reads and decodes in K5."""
+    if _kernel_read(plane, qim_levels):
+        _, rows = _read_decode(
+            imgs, alpha, plane, y, x, jit, Ky=Ky, Kx=Kx, center=center,
+            layout=layout, hdr_stream_bits=hdr_stream_bits,
+            payload_rep=payload_rep, hard=False, soft="f32")
+        if payload_rep != 1:
+            return rows
+        hw, pw, _ = read_kernels.row_words(plane.shape[0], hdr_stream_bits,
+                                           payload_rep)
+        return rows[:, :hw + pw], rows[:, hw + pw:].view(torch.float32)
     d = _walk_decisions(imgs, alpha, plane, y, x, Ky=Ky, Kx=Kx,
                         center=center, layout=layout, jit=jit, dither=dither,
                         qim_levels=qim_levels, qim_from=hdr_stream_bits)
@@ -635,7 +700,12 @@ def corner_raw_bits_core(imgs: torch.Tensor, alpha: float, plane, y, x, *,
     """Raw (pre-ECC) bits of a shared walk's frame slots, packed MSB first
     into (B, ceil(n/32)) int32 words: the channel report's read (JAX
     corner_bits_core + corner_gather_raw_core, without the batch packing),
-    payload slots (>= 912) by the QIM rule when qim_levels."""
+    payload slots (>= 912) by the QIM rule when qim_levels. Without QIM
+    K5 reads them (no header section, payload_rep 1, hard rows only)."""
+    if _kernel_read(plane, qim_levels):
+        return _read_decode(imgs, alpha, plane, y, x, jit, Ky=Ky, Kx=Kx,
+                            center=center, layout=layout, hdr_stream_bits=0,
+                            payload_rep=1, hard=True, soft=None)[0]
     d = _walk_decisions(imgs, alpha, plane, y, x, Ky=Ky, Kx=Kx,
                         center=center, layout=layout, jit=jit, dither=dither,
                         qim_levels=qim_levels, qim_from=HEADER_SLOTS)

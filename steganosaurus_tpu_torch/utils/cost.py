@@ -63,6 +63,8 @@ _FLOOR_OPS = 30     # corner.apply_write_floor: three reductions, the boost
 _EPILOGUE_OPS = 5   # _epilogue: + planes, + 0.5, floor, clamp
 _BAND_OPS = 3       # stage 2's energies: ar^2 + ai^2 summed over h
 _READ_OPS = 4       # a decision value per slot and its Rep-3 / Rep-7 sum
+# the bytes the card moves for each gathered f32: a whole 32-byte sector
+SECTOR_BYTES = 32
 
 
 def peak_rates(device=None) -> dict:
@@ -247,6 +249,38 @@ def k2_cost(P: int, H: int, Ky: int, Kx: int, side: str = "") -> dict:
                   f"({nprod} bf16 products)")
 
 
+def sector_share(n: int, Ky: int, Kx: int) -> float:
+    """The share of a (3, Ky, Kx) f32 corner's 32-byte sectors that a walk
+    of n distinct bins drawn uniformly touches: 1 - (1 - n / (3 Ky Kx))^8,
+    8 values a sector."""
+    per = SECTOR_BYTES // 4
+    return 1.0 - (1.0 - n / (3 * Ky * Kx)) ** per
+
+
+def walk_sectors(plane, y, x, Ky: int, Kx: int) -> int:
+    """The 32-byte sectors of a (3, Ky, Kx) f32 corner that the walk
+    plane/y/x (n,) touches (a device count, pulled)."""
+    flat = (plane.long() * Ky + y.long()) * Kx + x.long()
+    return int(torch.unique(flat // (SECTOR_BYTES // 4)).numel())
+
+
+def read_decode_cost(B: int, Ky: int, Kx: int, n: int, words: int,
+                     planes: int = 1, jitter: bool = False,
+                     sectors: float | None = None) -> dict:
+    """K5 (spectral/read_kernels.py read_decode) over B images' (3, Ky, Kx)
+    corners at a shared walk of n slots: each 32-byte sector that the walk
+    touches in each of `planes` planes (Im C; Re C too under jitter) read
+    once, `sectors` of them an image (default: sector_share's count for a
+    uniform walk), the walk's int64 plane/y/x once, the jitter's cos and
+    sin once when `jitter`, and `words` int32 words an image (the hard and
+    soft rows) written once."""
+    if sectors is None:
+        sectors = sector_share(n, Ky, Kx) * 3 * Ky * Kx / (SECTOR_BYTES // 4)
+    return _stage("extract", "read + decode", {}, _READ_OPS * B * n,
+                  B * planes * sectors * SECTOR_BYTES + 3 * n * 8
+                  + (2 * n * 4 if jitter else 0) + B * words * 4, "none")
+
+
 def _stage2(side: str, P: int, H: int, Ky: int, Kx: int,
             mode: str) -> list[dict]:
     """Forward stage 2: under mix_adaptive the prep pass, the band operand
@@ -322,14 +356,14 @@ def stage_costs(B: int, H: int, W: int, secret_len: int,
                   ifft_epilogue_cost(B, H, W, Kx, layout)]
     if layout == "nhwc":
         embed.append(_stage("embed", "layout out", {}, 0, 2 * px, "none"))
-    # the values at the walk bins (Im C, and Re C under jitter or QIM), the
-    # walk, the decoded hard (and soft) words
-    words = B * g["hard_words_per_image"] * (
+    # K5: the sectors the walk touches (Im C, and Re C under jitter or
+    # QIM), the walk, the decoded hard (and soft) words
+    words = g["hard_words_per_image"] * (
         2 if params.soft_decode_fallback else 1)
-    extract = forward("extract") + [_stage(
-        "extract", "read + decode", {}, _READ_OPS * B * bucket,
-        B * bucket * 4 * (2 if params.jitter or params.qim else 1)
-        + 3 * bucket * 8 + words * 4, "none")]
+    extract = forward("extract") + [read_decode_cost(
+        B, Ky, Kx, bucket, words,
+        planes=2 if params.jitter or params.qim else 1,
+        jitter=bool(params.jitter))]
     return embed + extract
 
 

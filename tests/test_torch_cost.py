@@ -220,7 +220,9 @@ def test_write_floor_cost_counts_the_output_width(B, Ky, Kx, bucket, n_maps):
     maps; its operations do not change. stage_costs counts the write and
     the floor as the one K3 launch the main path runs (stream words in,
     bf16 operands out: 0.725 ms), so the round trip's bound at the
-    headline is 36.82 ms: 42.23 with the inverse DFT and K4e counted
+    headline is 36.97 ms: 36.82 when the read counted 4 bytes a gathered
+    slot in place of the 32-byte sectors the walk touches (0.078 ms for
+    the read and decode against 0.233); 42.23 with the inverse DFT and K4e counted
     apart, less the 2.73 ms that their f32 product t cost before K4 fused
     them; 38.52 with stage 2 as the prep pass (1.52 ms, bytes), the band
     operand (0.16 ms, bytes) and K2 (4.62 ms, its band in split bf16 on
@@ -242,7 +244,7 @@ def test_write_floor_cost_counts_the_output_width(B, Ky, Kx, bucket, n_maps):
     peaks = dict(cost._PEAKS[0][1])
     rep = cost.roundtrip_cost(64, 2160, 3840, 16384)
     assert cost.roundtrip_bound(rep, peaks)["roundtrip_ms"] == \
-        pytest.approx(36.82, abs=0.01)
+        pytest.approx(36.97, abs=0.01)
 
 
 def test_ifft_epilogue_cost_and_the_split_inverse(monkeypatch):
@@ -279,3 +281,43 @@ def test_ifft_epilogue_cost_and_the_split_inverse(monkeypatch):
     names = [s["stage"] for s in cost.stage_costs(64, 2160, 3840, 16384)
              if s["side"] == "embed"]
     assert names[-2:] == ["inverse", "epilogue"]
+
+
+@pytest.mark.parametrize("jitter", [0.0, 0.2])
+def test_read_decode_cost_counts_the_sectors_the_walk_touches(jitter):
+    """K5 at 4K B=64 16 KB: the 921,600-slot walk covers 29.3% of the 3 x
+    1024 x 1024 corner bins, so a uniform walk touches 1 - (1 - 0.293)^8 =
+    93.8% of the Im plane's 32-byte sectors: 755 MB over the batch, with
+    the walk's int64 plane/y/x and the hard and soft words: 0.233 ms,
+    bound by its bytes (Re C's sectors too under jitter, and the jitter's
+    cos and sin). walk_sectors counts a real walk's sectors: on a uniform
+    draw of distinct bins it lands within 1% of sector_share's."""
+    peaks = dict(cost._PEAKS[0][1])
+    p = Params(jitter=jitter)
+    g = cost.stage_costs(64, 2160, 3840, 16384, params=p)
+    st = {s["stage"]: s for s in g if s["side"] == "extract"}
+    n, E = 921600, 3 * 1024 * 1024
+    share = cost.sector_share(n, 1024, 1024)
+    assert share == pytest.approx(1 - (1 - n / E) ** 8)
+    assert share == pytest.approx(0.9376, abs=1e-4)
+    words = 2 * (10 + 4111)
+    planes = 2 if jitter else 1
+    want = (64 * planes * share * E / 8 * 32 + 3 * n * 8
+            + (2 * n * 4 if jitter else 0) + 64 * words * 4)
+    assert st["read + decode"]["hbm_bytes"] == pytest.approx(want)
+    assert st["read + decode"] == cost.read_decode_cost(
+        64, 1024, 1024, n, words, planes=planes, jitter=bool(jitter))
+    ms, by = cost.stage_bound(st["read + decode"], peaks)
+    assert by == "bytes"
+    if not jitter:
+        assert ms == pytest.approx(0.2326, abs=1e-3)
+    rng = np.random.default_rng(3)
+    Ky = Kx = 64
+    m = 3 * Ky * Kx * 3 // 10
+    flat = torch.from_numpy(rng.choice(3 * Ky * Kx, m, replace=False))
+    got = cost.walk_sectors(flat // (Ky * Kx), flat // Kx % Ky, flat % Kx,
+                            Ky, Kx)
+    assert got / (3 * Ky * Kx / 8) == pytest.approx(
+        cost.sector_share(m, Ky, Kx), rel=0.01)
+    assert cost.walk_sectors(*(torch.zeros(5, dtype=torch.int64),) * 3,
+                             Ky, Kx) == 1

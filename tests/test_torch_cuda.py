@@ -1532,3 +1532,173 @@ def test_fwd_corner_on_card_runs_prep_and_k2(dev, monkeypatch):
     scale = max(tr.abs().max().item(), ti.abs().max().item())
     assert (cr.reshape(tr.shape) - tr).abs().max().item() <= REL * scale
     assert (ci.reshape(ti.shape) - ti).abs().max().item() <= REL * scale
+
+
+# --- K5: the extract's read and decode (csrc/corner_read_decode.cu) ---------
+
+# (H, W, secret bytes): the main path's 4K walk, 1080p and 512x512
+READ_GRIDS = {"4K": (2160, 3840, 16384), "1080p": (1080, 1920, 4096),
+              "512": (512, 512, 200)}
+# (header slots, payload rep, hard row, soft row, jitter, sign(sin alpha))
+READ_FLAGS = {
+    "main": (912, 7, True, "bf16", False, 1.0),
+    "hard only": (912, 7, True, None, False, 1.0),
+    "no header": (0, 7, True, "bf16", False, 1.0),
+    "rs": (912, 1, True, "bf16", False, 1.0),
+    "rs retry": (912, 1, False, "f32", False, 1.0),
+    "jitter": (912, 7, True, "bf16", True, 1.0),
+    "jitter rs retry": (912, 1, False, "f32", True, -1.0),
+    "retry": (912, 7, False, "f32", False, 1.0),
+    "raw bits": (0, 1, True, None, False, 1.0),
+    "ssa -1": (912, 7, True, "bf16", False, -1.0),
+    "ssa 0": (912, 7, True, "f32", False, 0.0),
+}
+# walk slots planted in every image: +0.0, -0.0, +0.0 (a Rep-3 group of
+# ties), 3.0, -3.0, -0.0 (a group whose copies sum to +0.0) and a tiny
+# negative that rounds to -0.0 in bf16 (payload slot 8)
+READ_PLANTED = {0: 0.0, 1: -0.0, 2: 0.0, 12: 3.0, 13: -3.0, 14: -0.0,
+                920: -1e-42}
+
+
+@functools.lru_cache(maxsize=None)
+def _read_walk(grid: str):
+    """The shared walk of a default-Params frame of the grid's secret:
+    plane, y, x (bucket,) int64 on the card, its jitter angles at 0.2,
+    and (Ky, Kx)."""
+    from steganosaurus_tpu_torch import spectral
+    from steganosaurus_tpu_torch.config import Params
+    from steganosaurus_tpu_torch.pipeline import batch as tbatch
+    from steganosaurus_tpu_torch.spectral import corner
+
+    H, W, secret = READ_GRIDS[grid]
+    PH, PW = spectral.fft_dims(H, W)
+    Ky, Kx = corner.corner_dims(PH, PW, Params().rmax)
+    total = 912 + tbatch._payload_stream_bits(secret + 16, False)
+    bucket = tbatch._bucket(total)
+    dev = torch.device("cuda", 0)
+    (pl, yy, xx, _), nprod = tbatch._walk_indices_device(
+        None, bytes(range(32)), Params(), PH, PW, total, 0, bucket, dev)
+    assert nprod >= total
+    (_, _, _, jj), _ = tbatch._walk_indices_device(
+        None, bytes(range(32)), Params(jitter=0.2), PH, PW, total, 0,
+        bucket, dev)
+    return pl, yy, xx, jj, Ky, Kx
+
+
+def _read_inputs(dev, grid: str, B: int, seed: int):
+    pl, yy, xx, jj, Ky, Kx = _read_walk(grid)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    cr, ci = (torch.randn((B, 3, Ky, Kx), generator=g, device=dev) * 1e3
+              for _ in range(2))
+    for s, v in READ_PLANTED.items():
+        ci[:, pl[s], yy[s], xx[s]] = v
+    return cr, ci, pl, yy, xx, jj
+
+
+@pytest.mark.parametrize("B", [1, 3])
+@pytest.mark.parametrize("grid", list(READ_GRIDS))
+@pytest.mark.parametrize("flags", list(READ_FLAGS))
+def test_read_decode_kernel_is_bit_equal_to_plain(dev, grid, flags, B):
+    """K5 against read_decode_plain on the same spectrum and walk, on every
+    grid and flag combination, B odd and B = 1: every word equal, K5
+    launched once."""
+    from steganosaurus_tpu_torch.spectral import read_kernels as rk
+
+    hdr, rep, hard, soft, jitter, ssa = READ_FLAGS[flags]
+    cr, ci, pl, yy, xx, jj = _read_inputs(dev, grid, B, B + len(flags))
+    extra = ((cr, torch.cos(jj), torch.sin(jj)) if jitter
+             else (None, None, None))
+    kw = dict(hdr_stream_bits=hdr, payload_rep=rep, hard=hard, soft=soft)
+    n = dict(rk.LAUNCHES)
+    got = rk.read_decode(ci, pl, yy, xx, ssa, *extra, **kw)
+    torch.cuda.synchronize()
+    assert rk.LAUNCHES[rk.KERNEL_READ_DECODE] == \
+        n[rk.KERNEL_READ_DECODE] + 1
+    want = rk.read_decode_plain(ci, pl, yy, xx, ssa, *extra, **kw)
+    for g, w in zip(got, want):
+        assert (g is None) == (w is None)
+        if w is not None:
+            assert g.dtype == w.dtype and g.shape == w.shape
+            assert torch.equal(g, w), (int((g != w).sum()), tuple(g.shape))
+
+
+def test_read_decode_refused_launch_raises(dev, monkeypatch):
+    """An error code from the C entry raises in the wrapper; nothing else
+    stands in and nothing is counted."""
+    from steganosaurus_tpu_torch import _build
+    from steganosaurus_tpu_torch.spectral import read_kernels as rk
+
+    cr, ci, pl, yy, xx, _ = _read_inputs(dev, "512", 1, 5)
+    lib = _build.kernel_library()
+    monkeypatch.setattr(lib, "corner_read_decode", lambda *a: 1)
+    n = dict(rk.LAUNCHES)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        rk.read_decode(ci, pl, yy, xx, 1.0, hdr_stream_bits=912,
+                       payload_rep=7)
+    assert rk.LAUNCHES == n
+
+
+def test_read_decode_wrapper_checks_its_inputs(dev):
+    """Wrong types, shapes, layouts and devices raise before any launch."""
+    from steganosaurus_tpu_torch.spectral import read_kernels as rk
+
+    cr, ci, pl, yy, xx, jj = _read_inputs(dev, "512", 2, 6)
+    kw = dict(hdr_stream_bits=912, payload_rep=7)
+    n = dict(rk.LAUNCHES)
+    for args in ((ci.double(), pl, yy, xx), (ci[:, :2], pl, yy, xx),
+                 (ci.transpose(-1, -2), pl, yy, xx),
+                 (ci, pl.int(), yy, xx), (ci, pl, yy[::2], xx),
+                 (ci, pl.cpu(), yy, xx)):
+        with pytest.raises(ValueError):
+            rk.read_decode(*args, 1.0, **kw)
+    with pytest.raises(ValueError):
+        rk.read_decode(ci, pl, yy, xx, 1.0, cr[..., :-1], torch.cos(jj),
+                       torch.sin(jj), **kw)
+    assert rk.LAUNCHES == n
+
+
+def test_extract_cores_on_card_read_through_k5(dev, monkeypatch):
+    """The fused pass, the soft retry pass and the raw bits of a 512x512
+    round trip on the card each launch K5 once and never the eager read;
+    the rows equal the eager chain's on the same stego (the soft rows'
+    sums in another order: equal on a clean stego)."""
+    import steganosaurus_tpu_torch as stt
+    from steganosaurus_tpu_torch.config import Params
+    from steganosaurus_tpu_torch.parallel import batch as pb
+    from steganosaurus_tpu_torch.spectral import read_kernels as rk
+
+    rng = np.random.default_rng(8)
+    covers = np.clip(np.linspace(150, 235, 512)[None, None, :, None]
+                     + rng.integers(-18, 19, (3, 512, 512, 3)), 0,
+                     255).astype(np.uint8)
+    secrets = [bytes(rng.integers(0, 256, 200, dtype=np.uint8))
+               for _ in range(3)]
+    mk = bytes(range(32))
+    st = stt.embed_batch(torch.from_numpy(covers).to(dev), secrets,
+                         master_key=mk, device_resident=True).stego
+    n = dict(rk.LAUNCHES)
+    # with the length hinted, one fused pass reads header and payload
+    assert stt.extract_batch(st, master_key=mk, clen_hint=200) == secrets
+    assert rk.LAUNCHES[rk.KERNEL_READ_DECODE] == \
+        n[rk.KERNEL_READ_DECODE] + 1
+    assert rk.LAUNCHES[rk.KERNEL_READ_EAGER] == n[rk.KERNEL_READ_EAGER]
+    pl, yy, xx, _, Ky, Kx = _read_walk("512")
+    kw = dict(Ky=Ky, Kx=Kx, center=Params().center, layout="nhwc")
+    alpha = Params().alpha
+    fused = pb.corner_extract_fused_core(st, alpha, pl, yy, xx,
+                                         hdr_stream_bits=912,
+                                         with_soft=True, **kw)
+    retry = pb.corner_soft_extract_core(st, alpha, pl, yy, xx,
+                                        hdr_stream_bits=912, **kw)
+    raw = pb.corner_raw_bits_core(st, alpha, pl, yy, xx, **kw)
+    torch.cuda.synchronize()
+    assert rk.LAUNCHES[rk.KERNEL_READ_DECODE] == \
+        n[rk.KERNEL_READ_DECODE] + 4
+    d = pb._walk_decisions(st, alpha, pl, yy, xx, **kw)
+    assert torch.equal(fused[0], pb._decode_sections(
+        (d >= 0).to(torch.uint8), 912))
+    assert torch.equal(fused[1], pb._decode_sections_soft(
+        d.to(torch.bfloat16).to(torch.float32), 912))
+    assert torch.equal(retry, pb._decode_sections_soft(d, 912))
+    assert torch.equal(raw, pb.bit_ops.pack_bits_words(
+        (d >= 0).to(torch.uint8)))

@@ -386,6 +386,7 @@ def _port_sources():
                     REPO / "tools" / "band_ber_torch.py",
                     REPO / "tools" / "k2_ablation_torch.py",
                     REPO / "tools" / "k6_ablation_torch.py",
+                    REPO / "tools" / "k5_ablation_torch.py",
                     REPO / "tools" / "parent_kernels_torch.py"]
 
 

@@ -20,7 +20,9 @@ inverse DFT's y-stage (corner.ifft_corner_y: the K6 kernel's wrapper, or in
 a tree before K6 the eager chain of cuBLAS products, sums and casts), K4 =
 the K4 wrapper (the x-stage with the u8 epilogue); under
 STEGANOSAURUS_MM_PRECISION=highest ifft = the f32 inverse DFT and epilogue
-= the K4e wrapper; "other" is the rest: walk gather, ECC decode). Each
+= the K4e wrapper; read+decode = the K5 wrapper (the extract's read at
+the walk bins and its Rep-3/Rep-7 decode), or in a tree before K5 part
+of "other"; "other" is the rest). Each
 window also prints the device kernels inside each stage's span, so a
 stage shows which kernels ran it.
 
@@ -58,6 +60,8 @@ each stage starts): where each side's peak is set.
 from __future__ import annotations
 
 import functools
+import importlib
+import importlib.util
 import pathlib
 import sys
 import time
@@ -292,6 +296,11 @@ def main() -> int:
     from steganosaurus_tpu_torch.spectral import corner_kernels as ck
     from steganosaurus_tpu_torch.spectral import write_kernels as wk
 
+    # a tree before K5 has no read_kernels: its read stays in "other"
+    rk = (importlib.import_module("steganosaurus_tpu_torch.spectral."
+                                  "read_kernels")
+          if importlib.util.find_spec("steganosaurus_tpu_torch.spectral."
+                                      "read_kernels") else None)
     print(f"package: {pathlib.Path(stt.__file__).parent}")
     stages = [("stage1", ck, "fwd_stage1"), ("stage2 prep", ck, "stage2_prep"),
               ("topk", corner, "band_topk"), ("band", ck, "stage2_band"),
@@ -301,7 +310,8 @@ def main() -> int:
               ("ifft y", corner, "ifft_corner_y"),
               ("K4", wk, "ifft_epilogue"),
               ("ifft", corner, "ifft_corner_real"),
-              ("epilogue", wk, "epilogue")]
+              ("epilogue", wk, "epilogue"),
+              ("read+decode", rk, "read_decode")]
     stages = [s for s in stages if hasattr(s[1], s[2])]
     if "--stage2" not in flags:
         for name, mod, attr in stages:
