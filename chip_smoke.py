@@ -119,28 +119,32 @@ Phases:
              torch.bmm of the real table (expanded) with the stacked
              (P, 2Ky, Kx) operands into bf16 (stacking not timed)
   3f. K5     the extract's walk read and Rep-3/Rep-7 decode
-             (csrc/corner_read_decode.cu) against its plain version
-             (spectral/read_kernels.py read_decode_plain): at 4K B=64 on
-             phase 4's forward spectrum and walk, then on seeded spectra
-             with planted ties (+0.0, -0.0, a group summing to +0.0, a
-             tiny negative that rounds to -0.0 in bf16) at the 4K walk
-             (B=1), 1080p (B=5) and 512x512 (B=3 and B=1); every flag
-             combination (header 912 or 0, Rep-7 or RS, hard and soft rows,
-             bf16 or f32 soft values, jitter, raw bits, sign(sin alpha)
-             +1, -1, 0) bit-equal, and at 4K B=64 bit-equal to the eager
-             chain it replaced. The 4K walk's touched 32-byte sectors
-             beside a uniform walk's share; at 4K B=64, in turns beside the
-             bound (utils/cost.py read_decode_cost over this walk's
-             sectors): K5, the plain version, the eager chain (gather,
+             (csrc/corner_read_decode.cu, through the walk's read plan)
+             against its plain version (spectral/read_kernels.py
+             read_decode_plain): at 4K B=64 on phase 4's forward spectrum
+             and walk, then on seeded spectra with planted ties (+0.0,
+             -0.0, a group summing to +0.0, a tiny negative that rounds to
+             -0.0 in bf16) at the 4K walk (B=1), 1080p (B=5 and B=9) and
+             512x512 (B=3 and B=1); every flag combination (header 912 or
+             0, Rep-7 or RS, hard and soft rows, bf16 or f32 soft values,
+             jitter, raw bits, sign(sin alpha) +1, -1, 0) bit-equal, and at
+             4K B=64 bit-equal to the eager chain it replaced. The 4K
+             walk's touched 32-byte sectors beside a uniform walk's share;
+             at 4K B=64, in turns beside the bound (utils/cost.py
+             read_decode_cost over this walk's sectors and its plan's
+             bytes): K5, the plain version, the eager chain (gather,
              decision values, _decode_sections[_soft]) and the lone gather
-             ci[:, plane, y, x], which K5 must beat
+             ci[:, plane, y, x], which K5 must beat; at 4K B=1 (the serve
+             worker's hinted extract) K5, the plain version and the lone
+             gather
   4. path    512x512, B=8, 100 B round trip (also held against the port on
              the CPU), then 2160x3840, B=64, 16 KB: all secrets recovered,
              K1 launched on the TMA route alone, the prep, the band kernel
              and K2 once per forward DFT (two per round trip) and the eager
              stage 2
-             (corner._fwd_y_split) never, K5 once (the extract's one
-             fused pass) and the eager read never, warm timings, PSNR,
+             (corner._fwd_y_split) never, K5 once (the extract's one fused
+             pass) and the eager read never, no read plan built, warm
+             timings, PSNR,
              peak memory, the sha256 of the warm round trip's stego (4c
              too)
   4b. ragged 1079x1917, B=4, 1 KB round trip: W % 16 != 0, so stage 1
@@ -626,14 +630,15 @@ K6_GRIDS = K4_GRIDS
 K6_REL = 1e-5
 # 3f: K5, the extract's read and decode, on (name, B, H, W, secret bytes):
 # the main path's 4K B=64 on phase 4's forward spectrum, then seeded
-# spectra with READ_PLANTED's values at the 4K walk (B=1), 1080p (B=5) and
-# 512x512 (B=3, B=1); each flag combination of READ_FLAGS (header slots,
-# payload rep, hard row, soft row, jitter, sign(sin alpha)) bit-equal to
+# spectra with READ_PLANTED's values at the 4K walk (B=1), 1080p (B=5, and
+# B=9: a whole chunk of 8 images and a partial one) and 512x512 (B=3,
+# B=1); each flag combination of READ_FLAGS (header slots, payload rep,
+# hard row, soft row, jitter, sign(sin alpha)) bit-equal to
 # read_decode_plain
 READ_GRIDS = [("4K", UHD_B, UHD_H, UHD_W, UHD_SECRET),
               ("4K seeded", 1, UHD_H, UHD_W, UHD_SECRET),
-              ("1080p", 5, 1080, 1920, 4096), ("512", 3, 512, 512, 200),
-              ("512", 1, 512, 512, 200)]
+              ("1080p", 5, 1080, 1920, 4096), ("1080p", 9, 1080, 1920, 4096),
+              ("512", 3, 512, 512, 200), ("512", 1, 512, 512, 200)]
 READ_FLAGS = {
     "main": (912, 7, True, "bf16", False, 1.0),
     "hard only": (912, 7, True, None, False, 1.0),
@@ -1721,10 +1726,11 @@ def _read_walk(dev, H: int, W: int, secret: int) -> tuple:
     return pl, yy, xx, jj, Ky, Kx, total
 
 
-def _read_check(what: str, ci, cr, walk) -> int:
+def _read_check(what: str, ci, cr, walk, plan) -> int:
     """K5 against read_decode_plain on one spectrum and walk for every
-    READ_FLAGS combination: every word equal (raises on any difference),
-    one launch each. Returns the words compared."""
+    READ_FLAGS combination, through the walk's read plan `plan`: every word
+    equal (raises on any difference), one launch each. Returns the words
+    compared."""
     import torch
 
     from steganosaurus_tpu_torch.spectral import read_kernels as rk
@@ -1737,7 +1743,7 @@ def _read_check(what: str, ci, cr, walk) -> int:
         kw = dict(hdr_stream_bits=hdr, payload_rep=rep, hard=hard,
                   soft=soft)
         n = rk.LAUNCHES[rk.KERNEL_READ_DECODE]
-        got = rk.read_decode(ci, pl, yy, xx, ssa, *extra, **kw)
+        got = rk.read_decode(ci, pl, yy, xx, ssa, *extra, plan=plan, **kw)
         torch.cuda.synchronize()
         if rk.LAUNCHES[rk.KERNEL_READ_DECODE] != n + 1:
             raise AssertionError(f"3f {what} {name}: K5 was not launched "
@@ -1761,14 +1767,15 @@ def phase_read_decode(covers_d, card: str) -> list:
     """3f: K5 (csrc/corner_read_decode.cu) against its plain version on
     READ_GRIDS, every READ_FLAGS combination bit-equal; at 4K B=64 (phase
     4's covers, their forward corner spectrum as the extract computes it,
-    phase 4's walk) the walk's touched sectors beside a uniform walk's
-    share (utils/cost.py), then in turns by CUDA events beside the bound
-    (read_decode_cost over this walk's sectors): K5 as the fused pass calls
-    it (hard and bf16 soft rows), its plain version, the eager chain it
-    replaced (the gather, the decision values, _decode_sections and
-    _decode_sections_soft) and the lone gather ci[:, plane, y, x]. Returns
-    the kernels line's entry (library_ms null: no one PyTorch call
-    computes this function)."""
+    phase 4's walk and its read plan) the walk's touched sectors beside a
+    uniform walk's share, then in turns by CUDA events beside the bound
+    (read_decode_cost over this walk's sectors and its plan's bytes): K5 as
+    the fused pass calls it (hard and bf16 soft rows), its plain version,
+    the eager chain it replaced (the gather, the decision values,
+    _decode_sections and _decode_sections_soft) and the lone gather ci[:,
+    plane, y, x]; at 4K B=1 (the first image) K5, its plain version and
+    the lone gather. Returns the kernels line's entry, at 4K B=64
+    (library_ms null: no one PyTorch call computes this function)."""
     import torch
 
     import steganosaurus_tpu_torch as stt
@@ -1782,6 +1789,7 @@ def phase_read_decode(covers_d, card: str) -> list:
     record, words = None, 0
     for g, (name, B, H, W, secret) in enumerate(READ_GRIDS):
         pl, yy, xx, jj, Ky, Kx, total = _read_walk(dev, H, W, secret)
+        plan = rk.read_plan(pl, yy, xx, Ky, Kx)
         if name == "4K":
             tabs = corner.dft_tables_device(H, Ky, W, Kx, dev)
             cr, ci = corner.fwd_corner(covers_d, stt.Params().center, Ky,
@@ -1794,10 +1802,11 @@ def phase_read_decode(covers_d, card: str) -> list:
             for s, v in READ_PLANTED.items():
                 ci[:, pl[s], yy[s], xx[s]] = v
         words += _read_check(f"{name} B={B} {H}x{W}", ci, cr,
-                             (pl, yy, xx, jj))
+                             (pl, yy, xx, jj), plan)
         log(f"3f K5 {name} B={B} {H}x{W} Ky={Ky} Kx={Kx}, "
-            f"{pl.shape[0]}-slot walk: {len(READ_FLAGS)} flag combinations "
-            f"bit-equal to the plain version")
+            f"{pl.shape[0]}-slot walk, {plan.rows.shape[0]} plan rows: "
+            f"{len(READ_FLAGS)} flag combinations bit-equal to the plain "
+            f"version")
         if name != "4K":
             del cr, ci
             continue
@@ -1820,28 +1829,44 @@ def phase_read_decode(covers_d, card: str) -> list:
                         d.to(torch.bfloat16).to(torch.float32), 912))
 
         if not all(torch.equal(a, b) for a, b in zip(
-                eager(), rk.read_decode(ci, pl, yy, xx, ssa, **kw))):
+                eager(), rk.read_decode(ci, pl, yy, xx, ssa, plan=plan,
+                                        **kw))):
             raise AssertionError("3f: K5 differs from the eager chain at "
                                  "4K B=64 (soft sums in another order: a "
                                  "sum within rounding of zero?)")
-        runs = {"K5": (lambda: rk.read_decode(ci, pl, yy, xx, ssa, **kw),
-                       10),
+
+        def k5(spec):
+            return lambda: rk.read_decode(spec, pl, yy, xx, ssa, plan=plan,
+                                          **kw)
+
+        one = ci[:1]
+        runs = {"K5": (k5(ci), 10),
                 "plain": (lambda: rk.read_decode_plain(ci, pl, yy, xx, ssa,
                                                        **kw), 3),
                 "eager chain": (eager, 3),
-                "gather": (lambda: ci[:, pl, yy, xx], 10)}
-        times = _turns(runs)
-        ms = {k: sum(v) / len(v) for k, v in times.items()}
+                "gather": (lambda: ci[:, pl, yy, xx], 10),
+                "B=1 K5": (k5(one), 20),
+                "B=1 plain": (lambda: rk.read_decode_plain(
+                    one, pl, yy, xx, ssa, **kw), 5),
+                "B=1 gather": (lambda: one[:, pl, yy, xx], 20)}
+        times = _turns(runs, rounds=3)
+        ms = {k: sorted(v)[len(v) // 2] for k, v in times.items()}
         hw, pw, _ = rk.row_words(n, 912, 7)
         bound, by = cost.stage_bound(cost.read_decode_cost(
-            B, Ky, Kx, n, 2 * (hw + pw), sectors=sectors), peaks)
-        log(f"3f K5 4K B={B} timed in turns ({card}): "
+            B, Ky, Kx, n, 2 * (hw + pw), sectors=sectors,
+            plan_bytes=plan.nbytes), peaks)
+        bound1, _ = cost.stage_bound(cost.read_decode_cost(
+            1, Ky, Kx, n, 2 * (hw + pw), sectors=sectors,
+            plan_bytes=plan.nbytes), peaks)
+        log(f"3f K5 4K timed in turns, medians of 3 ({card}): "
             + "; ".join(f"{k} {v!r} ms" for k, v in times.items())
-            + f"; bound {bound!r} ms ({by}, this walk's sectors), K5 at "
-            f"{bound / ms['K5']:.3f} of it; {ms['plain'] / ms['K5']:.2f}x "
-            f"faster than the plain version, "
+            + f"; B={B}: bound {bound!r} ms ({by}, this walk's sectors), K5 "
+            f"at {bound / ms['K5']:.3f} of it; "
+            f"{ms['plain'] / ms['K5']:.2f}x faster than the plain version, "
             f"{ms['eager chain'] / ms['K5']:.2f}x than the eager chain, "
-            f"{ms['gather'] / ms['K5']:.2f}x the lone gather")
+            f"{ms['gather'] / ms['K5']:.2f}x the lone gather; the plan "
+            f"{plan.nbytes} bytes; B=1: bound {bound1!r} ms, K5 at "
+            f"{bound1 / ms['B=1 K5']:.3f} of it")
         if ms["K5"] >= ms["gather"]:
             raise AssertionError(f"3f: K5 ({ms['K5']!r} ms) is not faster "
                                  f"than the lone gather it replaces "
@@ -1855,7 +1880,7 @@ def phase_read_decode(covers_d, card: str) -> list:
                         "by XLA; no Pallas kernel)",
             "ms": ms["K5"], "plain_ms": ms["plain"], "bound_ms": bound,
             "bound_by": by, "library_ms": None}
-        del ci, runs
+        del ci, one, runs
         torch.cuda.empty_cache()
     log(f"3f K5: {words} words compared, all equal")
     record["max_abs_err"] = 0.0
@@ -2206,8 +2231,10 @@ def phase_uhd(covers_d, what: str = "4K", route: str = "") -> tuple:
         f"ms, extract {x_ms!r} ms, recovered {B}/{B}")
     torch.cuda.reset_peak_memory_stats()
     zero_counts()
+    plans = rk.PLANS_BUILT
     (stego, e_ms, x_ms), eager = count_eager_stage2(round_trip)
     launches = read_counts()
+    plans = rk.PLANS_BUILT - plans
     peak = torch.cuda.max_memory_allocated()
     if stego.shape != covers_d.shape or stego.dtype != torch.uint8:
         raise AssertionError(f"stego {stego.dtype} {tuple(stego.shape)}")
@@ -2243,6 +2270,9 @@ def phase_uhd(covers_d, what: str = "4K", route: str = "") -> tuple:
     if reads != (1, 0):
         raise AssertionError(f"the {what} extract is not one K5 launch and "
                              f"no eager read: (K5, eager reads) {reads}")
+    if plans:
+        raise AssertionError(f"the {what} warm round trip built {plans} "
+                             f"read plans (the walk's plan is cached)")
     return launches, (e_ms, x_ms), stego
 
 
@@ -4290,6 +4320,9 @@ def main() -> int:
         timed("K1 shapes", phase_k1_shapes, dev, seen, checked)
         for k in k1 + k3:
             k["launches"] = sum(n[k["name"]] for n in launches.values())
+            if not k["launches"]:
+                raise AssertionError(f"{k['name']} was launched on no "
+                                     f"counted path")
         log(f"smoke wall time {time.perf_counter() - t_all:.1f} s")
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

@@ -65,7 +65,7 @@ _SIGNATURES = {
     "corner_stage2": [_P] * 8 + [_I] * 8 + [_P],
     "corner_stage2_grid": [_I, _I, _I],
     "corner_ifft_y": [_P] * 5 + [_I] * 8 + [_P],
-    "corner_read_decode": [_P] * 9 + [_I] * 8 + [_F, _P],
+    "corner_read_decode": [_P] * 11 + [_I] * 8 + [_F, _P],
 }
 
 

@@ -606,10 +606,11 @@ def _kernel_read(plane, qim_levels: int) -> bool:
 def _read_decode(imgs: torch.Tensor, alpha: float, plane, y, x, jit, *,
                  Ky: int, Kx: int, center: bool, layout: str,
                  hdr_stream_bits: int, payload_rep: int, hard: bool,
-                 soft: str | None):
+                 soft: str | None, plan=None):
     """(hard rows, soft rows) of a shared walk: the forward corner DFT,
     then K5 (read_kernels.read_decode: the read at the walk bins and the
-    decode in one kernel). Without jitter Re C is freed as soon as the DFT
+    decode in one kernel, through the walk's read plan `plan` where the
+    caller has one). Without jitter Re C is freed as soon as the DFT
     returns; with it, torch takes cos and sin of the slots' angles."""
     cr, ci = _spectrum(imgs, Ky=Ky, Kx=Kx, center=center, layout=layout)
     cjd = sjd = None
@@ -620,7 +621,7 @@ def _read_decode(imgs: torch.Tensor, alpha: float, plane, y, x, jit, *,
     return read_kernels.read_decode(
         ci, plane, y, x, _sign_sin(alpha), cr, cjd, sjd,
         hdr_stream_bits=hdr_stream_bits, payload_rep=payload_rep, hard=hard,
-        soft=soft)
+        soft=soft, plan=plan)
 
 
 def corner_extract_fused_core(imgs: torch.Tensor, alpha: float, plane, y, x,
@@ -628,7 +629,7 @@ def corner_extract_fused_core(imgs: torch.Tensor, alpha: float, plane, y, x,
                               hdr_stream_bits: int, with_soft: bool,
                               jit=None, dither=None, qim_levels: int = 0,
                               qim_from: int = 0,
-                              payload_rep: int = PAYLOAD_REP):
+                              payload_rep: int = PAYLOAD_REP, plan=None):
     """Corner extract: (imgs u8 in `layout`, walk plane/y/x — a shared
     (n,) walk or per-image (B, n) walks — their jitter angles or None,
     their QIM dithers when qim_levels) -> (B, words) int32 decoded rows
@@ -642,13 +643,14 @@ def corner_extract_fused_core(imgs: torch.Tensor, alpha: float, plane, y, x,
     confidences included) combine each group's copies by the sum of d,
     with d rounded to bf16 first, as the JAX core does before its
     gather. A shared walk without QIM reads and decodes in K5
-    (_read_decode), the rest on the eager chain."""
+    (_read_decode, through the walk's read_kernels.ReadPlan `plan` where
+    the caller has one), the rest on the eager chain."""
     if _kernel_read(plane, qim_levels):
         hard, soft = _read_decode(
             imgs, alpha, plane, y, x, jit, Ky=Ky, Kx=Kx, center=center,
             layout=layout, hdr_stream_bits=hdr_stream_bits,
             payload_rep=payload_rep, hard=True,
-            soft="bf16" if with_soft else None)
+            soft="bf16" if with_soft else None, plan=plan)
         return (hard, soft) if with_soft else hard
     d = _walk_decisions(imgs, alpha, plane, y, x, Ky=Ky, Kx=Kx,
                         center=center, layout=layout, jit=jit, dither=dither,
@@ -666,7 +668,7 @@ def corner_soft_extract_core(imgs: torch.Tensor, alpha: float, plane, y, x,
                              *, Ky: int, Kx: int, center: bool, layout: str,
                              hdr_stream_bits: int, jit=None, dither=None,
                              qim_levels: int = 0,
-                             payload_rep: int = PAYLOAD_REP):
+                             payload_rep: int = PAYLOAD_REP, plan=None):
     """The soft-decision retry pass (JAX corner_soft_extract_core, shared
     walk with (n,) indices or per-image walks with (B, n)): matched-filter
     decode of the Rep-3 header and Rep-7 payload copies from f32 decision
@@ -675,12 +677,13 @@ def corner_soft_extract_core(imgs: torch.Tensor, alpha: float, plane, y, x,
     (B, words) int32 rows in the corner_extract_fused_core layout, and for
     the RS wire (payload_rep == 1) (rows, conf): the payload's hard bits
     and its (B, n_bytes) f32 per-coded-byte confidences. A shared walk
-    without QIM reads and decodes in K5."""
+    without QIM reads and decodes in K5 (`plan` as in
+    corner_extract_fused_core)."""
     if _kernel_read(plane, qim_levels):
         _, rows = _read_decode(
             imgs, alpha, plane, y, x, jit, Ky=Ky, Kx=Kx, center=center,
             layout=layout, hdr_stream_bits=hdr_stream_bits,
-            payload_rep=payload_rep, hard=False, soft="f32")
+            payload_rep=payload_rep, hard=False, soft="f32", plan=plan)
         if payload_rep != 1:
             return rows
         hw, pw, _ = read_kernels.row_words(plane.shape[0], hdr_stream_bits,
@@ -695,17 +698,19 @@ def corner_soft_extract_core(imgs: torch.Tensor, alpha: float, plane, y, x,
 
 def corner_raw_bits_core(imgs: torch.Tensor, alpha: float, plane, y, x, *,
                          Ky: int, Kx: int, center: bool, layout: str,
-                         jit=None, dither=None, qim_levels: int = 0
-                         ) -> torch.Tensor:
+                         jit=None, dither=None, qim_levels: int = 0,
+                         plan=None) -> torch.Tensor:
     """Raw (pre-ECC) bits of a shared walk's frame slots, packed MSB first
     into (B, ceil(n/32)) int32 words: the channel report's read (JAX
     corner_bits_core + corner_gather_raw_core, without the batch packing),
     payload slots (>= 912) by the QIM rule when qim_levels. Without QIM
-    K5 reads them (no header section, payload_rep 1, hard rows only)."""
+    K5 reads them (no header section, payload_rep 1, hard rows only;
+    `plan` as in corner_extract_fused_core)."""
     if _kernel_read(plane, qim_levels):
         return _read_decode(imgs, alpha, plane, y, x, jit, Ky=Ky, Kx=Kx,
                             center=center, layout=layout, hdr_stream_bits=0,
-                            payload_rep=1, hard=True, soft=None)[0]
+                            payload_rep=1, hard=True, soft=None,
+                            plan=plan)[0]
     d = _walk_decisions(imgs, alpha, plane, y, x, Ky=Ky, Kx=Kx,
                         center=center, layout=layout, jit=jit, dither=dither,
                         qim_levels=qim_levels, qim_from=HEADER_SLOTS)

@@ -64,7 +64,8 @@ from steganosaurus_tpu_torch.pipeline.extract import extract_array
 from steganosaurus_tpu_torch.pipeline.frame import (HEADER_STREAM_BITS,
                                                     frame_bits)
 from steganosaurus_tpu_torch.pipeline.header import Header
-from steganosaurus_tpu_torch.spectral import corner, write_kernels
+from steganosaurus_tpu_torch.spectral import (corner, read_kernels,
+                                              write_kernels)
 from steganosaurus_tpu_torch.utils import metrics
 
 def _check_params(params: Params, layout: str = "nhwc") -> None:
@@ -220,11 +221,11 @@ def _walk_indices(password, master_key, params, PH, PW, nbits,
     )
 
 
-# Device-resident walk indices, per-slot keyed values and static maps,
-# keyed by everything they are a pure function of (path key, dims, walk
-# params, slice, device): one expansion and one upload serve every later
-# batch under the key. Plain OrderedDicts, used from the calling thread
-# only (the prefetches never touch them).
+# Device-resident walk indices (with their read plans), per-slot keyed
+# values and static maps, keyed by everything they are a pure function of
+# (path key, dims, walk params, slice, device): one expansion and one upload
+# serve every later batch under the key. Plain OrderedDicts, used from the
+# calling thread only (the prefetches never touch them).
 _DEV_IDX_CACHE: OrderedDict[tuple, tuple] = OrderedDict()
 _CORNER_STATICS_CACHE: OrderedDict[tuple, tuple] = OrderedDict()
 _DEV_CACHE_MAX = 16
@@ -244,6 +245,14 @@ def _walk_indices_device(password, master_key, params, PH, PW, nbits, skip,
     covering walk bits [skip, nbits), tail-padded with the last index,
     nproduced). nproduced < nbits means the walk exhausted (reads past it
     re-read the last bin; embed treats it as capacity exceeded)."""
+    return _walk_entry(password, master_key, params, PH, PW, nbits, skip,
+                       bucket, device)[:2]
+
+
+def _walk_entry(password, master_key, params, PH, PW, nbits, skip, bucket,
+                device) -> tuple:
+    """_DEV_IDX_CACHE's entry of _walk_indices_device's walk: its two
+    values and the walk's read plans by (Ky, Kx) (_read_plan_device)."""
     path_key = crypto.derive_path_key(password, master_key)
     key = (path_key, PH, PW, params.rmin, params.rmax, params.density,
            params.jitter, skip, bucket, nbits, device)
@@ -259,8 +268,23 @@ def _walk_indices_device(password, master_key, params, PH, PW, nbits, skip,
         arrs = tuple(runtime.upload(a.astype(np.int64), device)
                      for a in host[:3])
         arrs += (runtime.upload(host[3].astype(np.float32), device),)
-        ent = (arrs, nprod)
+        ent = (arrs, nprod, {})
     return _cache_put(_DEV_IDX_CACHE, key, ent)
+
+
+def _read_plan_device(password, master_key, params, PH, PW, nbits, skip,
+                      bucket, Ky, Kx, device):
+    """K5's read plan (read_kernels.read_plan) of _walk_indices_device's
+    walk over (3, Ky, Kx) corners where read_decode reads through one
+    (read_kernels.uses_plan: on CUDA), else None. Built once and kept in
+    the walk's own cache entry: the warm extract builds none."""
+    if not read_kernels.uses_plan(torch.device(device)):
+        return None
+    (pl, yy, xx, _), _, plans = _walk_entry(password, master_key, params, PH,
+                                            PW, nbits, skip, bucket, device)
+    if (Ky, Kx) not in plans:
+        plans[Ky, Kx] = read_kernels.read_plan(pl, yy, xx, Ky, Kx)
+    return plans[Ky, Kx]
 
 
 def _slot_values_device(kind: str, path_key: bytes, params: Params, L: int,
@@ -768,11 +792,14 @@ def channel_report(
         dither = (_slot_values_device(
             "dither", crypto.derive_path_key(password, master_key), params,
             params.qim, nmax, bucket, dev) if params.qim else None)
+        plan = (None if params.qim else _read_plan_device(
+            password, master_key, params, PH, PW, nmax, 0, bucket, Ky, Kx,
+            dev))
         copies.append(runtime.HostCopy(pbatch.corner_raw_bits_core(
             part, params.alpha, pl, yy, xx, Ky=Ky, Kx=Kx,
             center=params.center, layout=layout,
             jit=jj if params.jitter != 0.0 else None, dither=dither,
-            qim_levels=params.qim)))
+            qim_levels=params.qim, plan=plan)))
     got = bit_ops.unpack_words_host(
         np.concatenate([c.numpy() for c in copies]), bucket)
     reports = [metrics.ecc_report(
@@ -922,6 +949,13 @@ class _ExtractJob:
             jj = None
         return pl, yy, xx, jj
 
+    def _plan(self, total: int, skip: int, bucket_total: int, dev):
+        """The read plan of _walk's walk (pipeline cache), for K5."""
+        password, master_key = self._key
+        return _read_plan_device(password, master_key, self._params,
+                                 *self._dims, total, skip,
+                                 bucket_total - skip, *self._corner_kk, dev)
+
     def _dither(self, L: int, nbits: int, bucket: int, dev) -> torch.Tensor:
         """Level-L QIM dithers of frame slots [0, nbits) on dev, padded to
         `bucket` by repeating slot nbits - 1."""
@@ -1001,7 +1035,9 @@ class _ExtractJob:
                     hdr_stream_bits=hdr_bits, with_soft=with_soft, jit=jj,
                     dither=(self._dither(L, total, bucket_total, dev)[skip:]
                             if L else None),
-                    qim_levels=L, qim_from=hdr_bits, payload_rep=rep)
+                    qim_levels=L, qim_from=hdr_bits, payload_rep=rep,
+                    plan=(None if L else
+                          self._plan(total, skip, bucket_total, dev)))
             h, sw = words if with_soft else (words, None)
             hard.append((pos, h))
             soft.append((pos, sw))
@@ -1281,11 +1317,13 @@ class _ExtractJob:
                 pl, yy, xx, jj = self._walk(total, 0, bucket_total, dev)
                 dither = (self._dither(L, total, bucket_total, dev) if L
                           else None)
+            plan = (None if piw or L else
+                    self._plan(total, 0, bucket_total, dev))
             out = pbatch.corner_soft_extract_core(
                 imgs, self._params.alpha, pl, yy, xx, Ky=Ky, Kx=Kx,
                 center=self._params.center, layout=self._layout,
                 hdr_stream_bits=hdr, jit=jj, dither=dither, qim_levels=L,
-                payload_rep=1 if R else 7)
+                payload_rep=1 if R else 7, plan=plan)
             w, c = out if R else (out, None)
             words.append((pos, w))
             confs.append((pos, c))

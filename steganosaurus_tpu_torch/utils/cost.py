@@ -266,18 +266,23 @@ def walk_sectors(plane, y, x, Ky: int, Kx: int) -> int:
 
 def read_decode_cost(B: int, Ky: int, Kx: int, n: int, words: int,
                      planes: int = 1, jitter: bool = False,
-                     sectors: float | None = None) -> dict:
+                     sectors: float | None = None,
+                     plan_bytes: float | None = None) -> dict:
     """K5 (spectral/read_kernels.py read_decode) over B images' (3, Ky, Kx)
     corners at a shared walk of n slots: each 32-byte sector that the walk
     touches in each of `planes` planes (Im C; Re C too under jitter) read
     once, `sectors` of them an image (default: sector_share's count for a
-    uniform walk), the walk's int64 plane/y/x once, the jitter's cos and
-    sin once when `jitter`, and `words` int32 words an image (the hard and
-    soft rows) written once."""
+    uniform walk), the walk's read plan once, `plan_bytes` of it (default:
+    its int32 slot ids and int16 offsets, 6 bytes a slot; its rows, about
+    one a tile, add under 1%), the jitter's cos and sin once when
+    `jitter`, and `words` int32 words an image (the hard and soft rows)
+    written once."""
     if sectors is None:
         sectors = sector_share(n, Ky, Kx) * 3 * Ky * Kx / (SECTOR_BYTES // 4)
+    if plan_bytes is None:
+        plan_bytes = 6 * n
     return _stage("extract", "read + decode", {}, _READ_OPS * B * n,
-                  B * planes * sectors * SECTOR_BYTES + 3 * n * 8
+                  B * planes * sectors * SECTOR_BYTES + plan_bytes
                   + (2 * n * 4 if jitter else 0) + B * words * 4, "none")
 
 
@@ -357,7 +362,7 @@ def stage_costs(B: int, H: int, W: int, secret_len: int,
     if layout == "nhwc":
         embed.append(_stage("embed", "layout out", {}, 0, 2 * px, "none"))
     # K5: the sectors the walk touches (Im C, and Re C under jitter or
-    # QIM), the walk, the decoded hard (and soft) words
+    # QIM), the walk's read plan, the decoded hard (and soft) words
     words = g["hard_words_per_image"] * (
         2 if params.soft_decode_fallback else 1)
     extract = forward("extract") + [read_decode_cost(
@@ -481,7 +486,8 @@ def measure_device_step(covers_d, master_key: bytes, secret_len: int,
     ones, no host crypto), least of `reps` after one untimed run each: the
     device's share of the round trip, against its end-to-end wall."""
     from steganosaurus_tpu_torch.pipeline.batch import (
-        _corner_statics_device, _slot_values_device, _walk_indices_device)
+        _corner_statics_device, _read_plan_device, _slot_values_device,
+        _walk_indices_device)
 
     if layout == "nchw":
         B, _, H, W = covers_d.shape
@@ -516,13 +522,16 @@ def measure_device_step(covers_d, master_key: bytes, secret_len: int,
     dither = (_slot_values_device(
         "dither", crypto.derive_path_key(password, master_key), params,
         params.qim, nbits, bucket, dev) if params.qim else None)
+    plan = (None if params.qim else _read_plan_device(
+        password, master_key, params, g["PH"], g["PW"], nbits, 0, bucket,
+        g["Ky"], g["Kx"], dev))
 
     def extract():
         return pbatch.corner_extract_fused_core(
             stego, params.alpha, pl, yy, xx, hdr_stream_bits=g["hdr_bits"],
             with_soft=bool(params.soft_decode_fallback),
             jit=jj if params.jitter != 0.0 else None, dither=dither,
-            qim_levels=params.qim, qim_from=g["hdr_bits"], **kk)
+            qim_levels=params.qim, qim_from=g["hdr_bits"], plan=plan, **kk)
 
     extract()
     t_ext = _timed(extract, reps, dev)

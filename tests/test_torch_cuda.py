@@ -1595,13 +1595,30 @@ def _read_inputs(dev, grid: str, B: int, seed: int):
     return cr, ci, pl, yy, xx, jj
 
 
-@pytest.mark.parametrize("B", [1, 3])
+@functools.lru_cache(maxsize=None)
+def _read_plan(grid: str):
+    from steganosaurus_tpu_torch.spectral import read_kernels as rk
+
+    pl, yy, xx, _, Ky, Kx = _read_walk(grid)
+    return rk.read_plan(pl, yy, xx, Ky, Kx)
+
+
+def _read_equal(got, want) -> None:
+    for g, w in zip(got, want):
+        assert (g is None) == (w is None)
+        if w is not None:
+            assert g.dtype == w.dtype and g.shape == w.shape
+            assert torch.equal(g, w), (int((g != w).sum()), tuple(g.shape))
+
+
+@pytest.mark.parametrize("B", [1, 3, 9])
 @pytest.mark.parametrize("grid", list(READ_GRIDS))
 @pytest.mark.parametrize("flags", list(READ_FLAGS))
 def test_read_decode_kernel_is_bit_equal_to_plain(dev, grid, flags, B):
-    """K5 against read_decode_plain on the same spectrum and walk, on every
-    grid and flag combination, B odd and B = 1: every word equal, K5
-    launched once."""
+    """K5 against read_decode_plain on the same spectrum and walk, through
+    the walk's read plan, on every grid and flag combination, B = 1, 3
+    and 9 (a whole chunk of 8 images and a partial one): every word equal,
+    K5 launched once and the eager read never."""
     from steganosaurus_tpu_torch.spectral import read_kernels as rk
 
     hdr, rep, hard, soft, jitter, ssa = READ_FLAGS[flags]
@@ -1610,16 +1627,33 @@ def test_read_decode_kernel_is_bit_equal_to_plain(dev, grid, flags, B):
              else (None, None, None))
     kw = dict(hdr_stream_bits=hdr, payload_rep=rep, hard=hard, soft=soft)
     n = dict(rk.LAUNCHES)
+    got = rk.read_decode(ci, pl, yy, xx, ssa, *extra, plan=_read_plan(grid),
+                         **kw)
+    torch.cuda.synchronize()
+    assert rk.LAUNCHES[rk.KERNEL_READ_DECODE] == n[rk.KERNEL_READ_DECODE] + 1
+    assert rk.LAUNCHES[rk.KERNEL_READ_EAGER] == n[rk.KERNEL_READ_EAGER]
+    _read_equal(got, rk.read_decode_plain(ci, pl, yy, xx, ssa, *extra, **kw))
+
+
+@pytest.mark.parametrize("B", [1, 9])
+@pytest.mark.parametrize("grid", list(READ_GRIDS))
+@pytest.mark.parametrize("flags", ["main", "jitter rs retry", "raw bits"])
+def test_read_decode_builds_its_own_plan(dev, grid, flags, B):
+    """Called without a plan, K5 builds the walk's plan itself (one build
+    counted) and reads through it: every word equal to
+    read_decode_plain's."""
+    from steganosaurus_tpu_torch.spectral import read_kernels as rk
+
+    hdr, rep, hard, soft, jitter, ssa = READ_FLAGS[flags]
+    cr, ci, pl, yy, xx, jj = _read_inputs(dev, grid, B, 40 + B)
+    extra = ((cr, torch.cos(jj), torch.sin(jj)) if jitter
+             else (None, None, None))
+    kw = dict(hdr_stream_bits=hdr, payload_rep=rep, hard=hard, soft=soft)
+    built = rk.PLANS_BUILT
     got = rk.read_decode(ci, pl, yy, xx, ssa, *extra, **kw)
     torch.cuda.synchronize()
-    assert rk.LAUNCHES[rk.KERNEL_READ_DECODE] == \
-        n[rk.KERNEL_READ_DECODE] + 1
-    want = rk.read_decode_plain(ci, pl, yy, xx, ssa, *extra, **kw)
-    for g, w in zip(got, want):
-        assert (g is None) == (w is None)
-        if w is not None:
-            assert g.dtype == w.dtype and g.shape == w.shape
-            assert torch.equal(g, w), (int((g != w).sum()), tuple(g.shape))
+    assert rk.PLANS_BUILT == built + 1
+    _read_equal(got, rk.read_decode_plain(ci, pl, yy, xx, ssa, *extra, **kw))
 
 
 def test_read_decode_refused_launch_raises(dev, monkeypatch):
@@ -1628,13 +1662,13 @@ def test_read_decode_refused_launch_raises(dev, monkeypatch):
     from steganosaurus_tpu_torch import _build
     from steganosaurus_tpu_torch.spectral import read_kernels as rk
 
-    cr, ci, pl, yy, xx, _ = _read_inputs(dev, "512", 1, 5)
     lib = _build.kernel_library()
+    cr, ci, pl, yy, xx, _ = _read_inputs(dev, "512", 1, 5)
     monkeypatch.setattr(lib, "corner_read_decode", lambda *a: 1)
     n = dict(rk.LAUNCHES)
     with pytest.raises(RuntimeError, match="CUDA error"):
         rk.read_decode(ci, pl, yy, xx, 1.0, hdr_stream_bits=912,
-                       payload_rep=7)
+                       payload_rep=7, plan=_read_plan("512"))
     assert rk.LAUNCHES == n
 
 
@@ -1654,25 +1688,30 @@ def test_read_decode_wrapper_checks_its_inputs(dev):
     with pytest.raises(ValueError):
         rk.read_decode(ci, pl, yy, xx, 1.0, cr[..., :-1], torch.cos(jj),
                        torch.sin(jj), **kw)
+    # a plan of another walk or corner
+    with pytest.raises(ValueError, match="plan"):
+        rk.read_decode(ci, pl, yy, xx, 1.0, plan=_read_plan("1080p"), **kw)
     assert rk.LAUNCHES == n
 
 
 def test_extract_cores_on_card_read_through_k5(dev, monkeypatch):
     """The fused pass, the soft retry pass and the raw bits of a 512x512
-    round trip on the card each launch K5 once and never the eager read;
-    the rows equal the eager chain's on the same stego (the soft rows'
-    sums in another order: equal on a clean stego)."""
+    round trip of 5 images on the card each launch K5 once and never the
+    eager read, and a second extract builds no read plan; the rows equal
+    the eager chain's on the same stego (the soft rows' sums in another
+    order: equal on a clean stego)."""
     import steganosaurus_tpu_torch as stt
     from steganosaurus_tpu_torch.config import Params
     from steganosaurus_tpu_torch.parallel import batch as pb
     from steganosaurus_tpu_torch.spectral import read_kernels as rk
 
+    B = 5
     rng = np.random.default_rng(8)
     covers = np.clip(np.linspace(150, 235, 512)[None, None, :, None]
-                     + rng.integers(-18, 19, (3, 512, 512, 3)), 0,
+                     + rng.integers(-18, 19, (B, 512, 512, 3)), 0,
                      255).astype(np.uint8)
     secrets = [bytes(rng.integers(0, 256, 200, dtype=np.uint8))
-               for _ in range(3)]
+               for _ in range(B)]
     mk = bytes(range(32))
     st = stt.embed_batch(torch.from_numpy(covers).to(dev), secrets,
                          master_key=mk, device_resident=True).stego
@@ -1702,3 +1741,7 @@ def test_extract_cores_on_card_read_through_k5(dev, monkeypatch):
     assert torch.equal(retry, pb._decode_sections_soft(d, 912))
     assert torch.equal(raw, pb.bit_ops.pack_bits_words(
         (d >= 0).to(torch.uint8)))
+    # the walk's read plan is cached with the walk: a second call builds none
+    built = rk.PLANS_BUILT
+    assert stt.extract_batch(st, master_key=mk, clen_hint=200) == secrets
+    assert rk.PLANS_BUILT == built

@@ -21,15 +21,31 @@
 - QIM reads and per-image walks still take the eager chain, counted under
   read_kernels.KERNEL_READ_EAGER; K5 is never counted on the CPU.
 - The wrapper's checks, and csrc/corner_read_decode.cu's C signature and
-  block size against the wrapper's.
+  tile, row and chunk sizes against the wrapper's; the signature
+  tools/parent_kernels_torch.py binds a parent's K5 with.
+- The kernel's read plan (read_kernels.read_plan) of the 512x512 and
+  1080p walks and of a walk with repeated bins: every slot once, the
+  offsets sorted, rows of at most ROW_SLOTS slots of one tile, each slot's
+  int16 offset in its tile, the rows' unit masks exactly the 32-byte
+  sectors their slots touch; a torch emulation of the kernel's two phases
+  over the plan (the scratch chunk by chunk of CHUNK_IMAGES images, each
+  slot's values taken only from its row's masked units, then the decode
+  in slot order) bit-equal to read_decode_plain at B 1, 3, 8 and 9 on
+  every flag set of the card's READ_FLAGS, and through the three cores
+  equal to the JAX package's; two extract_batch calls under one key build
+  one plan, kept in the walk's cache entry, where the kernel reads
+  through plans (read_kernels.uses_plan stubbed to say so), and none on
+  the CPU.
 
 The kernel itself is held bit-equal to read_decode_plain on the card
 (tests/test_torch_cuda.py, chip_smoke.py phase 3f).
 """
 
 import dataclasses
+import functools
 import pathlib
 import re
+from collections import OrderedDict
 
 import jax.numpy as jnp
 import numpy as np
@@ -48,6 +64,7 @@ from steganosaurus_tpu_torch.parallel import batch as pb
 from steganosaurus_tpu_torch.pipeline import batch as tbatch
 from steganosaurus_tpu_torch.spectral import corner
 from steganosaurus_tpu_torch.spectral import read_kernels as rk
+from steganosaurus_tpu_torch.utils import cost
 
 torch.set_num_threads(2)
 
@@ -360,22 +377,302 @@ def test_row_words_match_the_extract_jobs_soft_layout():
 
 def test_kernel_source_matches_the_wrapper():
     """csrc/corner_read_decode.cu's entry point takes what _build's
-    signature passes (pointers, ints, the float ssa, the stream), its
-    block holds WORDS_PER_BLOCK warps, and it is built with -fmad=false,
-    as the other bit-exact kernels are."""
+    signature passes (pointers, ints, the float ssa, the stream), its tile,
+    row and chunk sizes are the wrapper's (the plan's masks and rows, the
+    scratch's entries), and it is built with -fmad=false, as the other
+    bit-exact kernels are."""
     src = (REPO / "steganosaurus_tpu_torch" / "csrc"
            / "corner_read_decode.cu").read_text()
-    m = re.search(r'extern "C" int corner_read_decode\(([^)]*)\)', src)
-    args = [a.strip() for a in m.group(1).split(",")]
-    kinds = ["p" if "*" in a else "f" if a.startswith("float") else "i"
-             for a in args]
-    sig = _build._SIGNATURES["corner_read_decode"]
-    want = ["p" if t is _build._P else "f" if t is _build._F else "i"
-            for t in sig]
-    assert kinds == want
-    warps = int(re.search(r"constexpr int WARPS = (\d+);", src).group(1))
-    assert warps == rk.WORDS_PER_BLOCK
+    assert _kinds(src) == _kinds_of(_build._SIGNATURES["corner_read_decode"])
+
+    def const(name):
+        return int(re.search(rf"constexpr int {name} = (\d+);", src).group(1))
+
+    assert const("TILE") == rk.TILE
+    assert const("ROW_SLOTS") == rk.ROW_SLOTS
+    assert const("CHUNK") == rk.CHUNK_IMAGES
+    assert const("TILE") // 8 // 32 == rk.MASK_WORDS
     assert "-fmad=false" in _build.NVCC_SOURCE_FLAGS["corner_read_decode.cu"]
+
+
+def _kinds(src: str) -> list:
+    """"p", "i" or "f" for each argument of the C entry corner_read_decode
+    in the source text `src`."""
+    m = re.search(r'extern "C" int corner_read_decode\(([^)]*)\)', src)
+    return ["p" if "*" in a else "f" if a.strip().startswith("float")
+            else "i" for a in m.group(1).split(",")]
+
+
+def _kinds_of(argtypes) -> list:
+    return ["p" if t is _build._P else "f" if t is _build._F else "i"
+            for t in argtypes]
+
+
+def test_parent_entry_binds_the_gather_only_builds_signature():
+    """The C entry corner_read_decode of the commit whose K5 was the gather
+    alone (d14bcd8) takes the walk's indices in place of a plan:
+    tools/parent_kernels_torch.py binds it with that commit's signature
+    (OLD_SIGNATURES), not the committed one."""
+    import sys
+    sys.path.insert(0, str(REPO / "tools"))
+    import parent_kernels_torch as pk
+
+    src = pk.parent_source("d14bcd8", "corner_read_decode.cu")
+    if src is None:
+        pytest.skip("no git history to read the commit's source from")
+    old = _kinds_of(pk.OLD_SIGNATURES["corner_read_decode"])
+    assert _kinds(src.read_text()) == old
+    assert old != _kinds_of(_build._SIGNATURES["corner_read_decode"])
+
+
+# --- the read plan and an emulation of the kernel's phases ------------------
+
+# the card's flag sets (tests/test_torch_cuda.py, chip_smoke.py phase 3f):
+# (header slots, payload rep, hard row, soft row, jitter, sign(sin alpha))
+READ_FLAGS = {
+    "main": (912, 7, True, "bf16", False, 1.0),
+    "hard only": (912, 7, True, None, False, 1.0),
+    "no header": (0, 7, True, "bf16", False, 1.0),
+    "rs": (912, 1, True, "bf16", False, 1.0),
+    "rs retry": (912, 1, False, "f32", False, 1.0),
+    "jitter": (912, 7, True, "bf16", True, 1.0),
+    "jitter rs retry": (912, 1, False, "f32", True, -1.0),
+    "retry": (912, 7, False, "f32", False, 1.0),
+    "raw bits": (0, 1, True, None, False, 1.0),
+    "ssa -1": (912, 7, True, "bf16", False, -1.0),
+    "ssa 0": (912, 7, True, "f32", False, 0.0),
+}
+# walk slots planted in every image (the card's READ_PLANTED)
+READ_PLANTED = {0: 0.0, 1: -0.0, 2: 0.0, 12: 3.0, 13: -3.0, 14: -0.0,
+                920: -1e-42}
+# (H, W, secret bytes) of the walks: 512x512 and 1080p
+PLAN_GRIDS = {"512": (512, 512, 200), "1080p": (1080, 1920, 4096)}
+
+
+@functools.lru_cache(maxsize=None)
+def _grid_walk(grid: str):
+    """The shared walk of a default-Params frame of the grid's secret on
+    the CPU (its bucket's tail padding included), its jitter angles at
+    0.2, and (Ky, Kx)."""
+    H, W_, secret = PLAN_GRIDS[grid]
+    PH, PW = tspectral.fft_dims(H, W_)
+    Ky, Kx = corner.corner_dims(PH, PW, Params().rmax)
+    total = HDR + tbatch._payload_stream_bits(secret + 16, False)
+    bucket = tbatch._bucket(total)
+    cpu = torch.device("cpu")
+    (pl, yy, xx, _), nprod = tbatch._walk_indices_device(
+        None, MK, Params(), PH, PW, total, 0, bucket, cpu)
+    assert nprod >= total and bucket > total
+    (_, _, _, jj), _ = tbatch._walk_indices_device(
+        None, MK, Params(jitter=0.2), PH, PW, total, 0, bucket, cpu)
+    return pl, yy, xx, jj, Ky, Kx
+
+
+@functools.lru_cache(maxsize=None)
+def _grid_spectra(grid: str, nb: int):
+    """Seeded cr, ci (nb, 3, Ky, Kx) f32 with READ_PLANTED's values at
+    those slots of the grid's walk."""
+    pl, yy, xx, _, Ky, Kx = _grid_walk(grid)
+    rng = np.random.default_rng(nb + len(grid))
+    cr, ci = (torch.from_numpy((rng.normal(size=(nb, 3, Ky, Kx)) * 1e3)
+                               .astype(np.float32)) for _ in range(2))
+    for s, v in READ_PLANTED.items():
+        ci[:, pl[s], yy[s], xx[s]] = v
+    return cr, ci
+
+
+def _mask_bits(plan) -> torch.Tensor:
+    """(R, TILE // 8) bool: the plan rows' unit masks, unit by unit."""
+    words = plan.rows[:, 3:].long() & 0xFFFFFFFF
+    bit = torch.arange(32)
+    return ((words[:, :, None] >> bit) & 1).bool().reshape(
+        len(plan.rows), -1)
+
+
+def _row_of(plan) -> torch.Tensor:
+    """(n,) the plan row of each sorted position."""
+    start, end = plan.rows[:, 1].long(), plan.rows[:, 2].long()
+    return torch.repeat_interleave(torch.arange(len(start)), end - start)
+
+
+def _flat_offs(plan) -> torch.Tensor:
+    """(n,) each sorted slot's flat corner offset: its row's tile and its
+    offset in the tile."""
+    n = plan.order.shape[0]
+    return (plan.rows[_row_of(plan), 0].long() * rk.TILE
+            + plan.offs[:n].long())
+
+
+def _check_plan(plan, plane, y, x, Ky: int, Kx: int) -> None:
+    """A plan's properties: every slot once; the offsets sorted (ties in
+    slot order), each an int16 within its tile; the rows partition the
+    sorted list, each holding slots of one TILE-float tile, at most
+    ROW_SLOTS of them and fewer only where the tile's slots end; each
+    row's mask exactly the units its slots touch, so the masks' units,
+    each counted once, are the walk's sectors (utils/cost.walk_sectors)."""
+    n = plane.shape[0]
+    assert plan.order.dtype == plan.rows.dtype == torch.int32
+    assert plan.offs.dtype == torch.int16
+    assert plan.offs.shape == (n + n % 2,)
+    inside = plan.offs[:n].long()
+    assert bool(((inside >= 0) & (inside < rk.TILE)).all())
+    order, offs = plan.order.long(), _flat_offs(plan)
+    assert torch.equal(torch.sort(order).values, torch.arange(n))
+    flat = (plane.long() * Ky + y.long()) * Kx + x.long()
+    assert torch.equal(offs, flat[order])
+    same = offs[1:] == offs[:-1]
+    assert bool((offs[1:] >= offs[:-1]).all())
+    assert bool((order[1:][same] > order[:-1][same]).all())
+    idx, start, end = (plan.rows[:, k].long() for k in range(3))
+    assert bool((idx[1:] >= idx[:-1]).all())
+    assert int(start[0]) == 0 and int(end[-1]) == n
+    assert torch.equal(start[1:], end[:-1]) and bool((end > start).all())
+    assert bool((end - start <= rk.ROW_SLOTS).all())
+    short = (end - start < rk.ROW_SLOTS)[:-1]
+    assert bool((idx[1:][short] > idx[:-1][short]).all())
+    row_of = _row_of(plan)
+    bits = _mask_bits(plan)
+    want = torch.zeros_like(bits)
+    want[row_of, inside // 8] = True
+    assert torch.equal(bits, want)
+    rows, units = torch.nonzero(bits).T
+    touched = torch.unique(idx[rows] * (rk.TILE // 8) + units)
+    assert touched.numel() == cost.walk_sectors(plane, y, x, Ky, Kx)
+    assert plan.nbytes == 4 * n + 2 * (n + n % 2) + 4 * plan.rows.numel()
+
+
+@pytest.mark.parametrize("grid", list(PLAN_GRIDS))
+def test_read_plan_of_the_grids_walks(grid):
+    """The plans of the 512x512 and 1080p walks, whose buckets end in tail
+    padding that repeats the last bin: every property of _check_plan, the
+    padding's duplicates each kept as a slot of its own, in rows of their
+    own; one build counted each."""
+    pl, yy, xx, _, Ky, Kx = _grid_walk(grid)
+    before = rk.PLANS_BUILT
+    plan = rk.read_plan(pl, yy, xx, Ky, Kx)
+    assert rk.PLANS_BUILT == before + 1
+    assert (plan.Ky, plan.Kx) == (Ky, Kx)
+    _check_plan(plan, pl, yy, xx, Ky, Kx)
+    # the padding's slots [total - 1, n) all read the last frame slot's bin
+    H, W_, secret = PLAN_GRIDS[grid]
+    total = HDR + tbatch._payload_stream_bits(secret + 16, False)
+    n = pl.shape[0]
+    pad_bin = int((pl[-1] * Ky + yy[-1]) * Kx + xx[-1])
+    on_bin = _flat_offs(plan) == pad_bin
+    at = plan.order[on_bin].long()
+    assert n - total + 1 > 1
+    assert set(range(total - 1, n)) <= set(at.tolist())
+    # ... in rows of at most ROW_SLOTS each
+    rows = torch.unique(_row_of(plan)[on_bin])
+    assert rows.numel() >= -(-int(on_bin.sum()) // rk.ROW_SLOTS)
+
+
+def test_read_plan_keeps_repeated_bins_and_ragged_corners():
+    """A walk that reads some bins several times (in and out of order) over
+    a corner of 3 x 32 x 48 floats, not a multiple of TILE: every slot
+    keeps its entry, the last tile is partial, and the masks still count
+    the touched sectors."""
+    plane, y, x, _ = _walk(21, 400)
+    rep = torch.tensor([5, 0, 399, 5, 17, 5])
+    plane, y, x = (torch.cat([t, t[rep]]) for t in (plane, y, x))
+    plan = rk.read_plan(plane, y, x, KY, KX)
+    _check_plan(plan, plane, y, x, KY, KX)
+    assert plan.order.shape == (406,)
+    assert int(plan.rows[-1, 0]) == (3 * KY * KX - 1) // rk.TILE
+    with pytest.raises(ValueError, match="shared"):
+        rk.read_plan(plane[None], y[None], x[None], KY, KX)
+
+
+def _stream_emulation(ci, plane, y, x, ssa: float, cr=None, cjd=None,
+                      sjd=None, *, hdr_stream_bits: int, payload_rep: int,
+                      hard: bool = True, soft: str | None = None, plan=None):
+    """The kernel in torch ops over `plan` (built here when None):
+    for each chunk of CHUNK_IMAGES images, phase A fills a NaN-poisoned
+    scratch (n, CHUNK_IMAGES): each sorted slot takes its values at its
+    offset from its row's tile, where its row's mask marks the unit (the
+    row's copies: nothing else reaches the row's shared memory), NaN
+    elsewhere, and writes slot order[i]'s entry; phase B takes the
+    scratch's rows in slot order and decodes them (read_kernels
+    .decode_rows, the decode read_decode_plain shares). Raises if a slot
+    read a float its row's mask did not mark."""
+    B, _, Ky, Kx = ci.shape
+    if plan is None:
+        plan = rk.read_plan(plane, y, x, Ky, Kx)
+    N = 3 * Ky * Kx
+    n = plan.order.shape[0]
+    order, offs = plan.order.long(), _flat_offs(plan)
+    row = _row_of(plan)
+    inside = offs - plan.rows[row, 0].long() * rk.TILE
+    copied = (inside >= 0) & (inside < rk.TILE)
+    copied &= _mask_bits(plan)[row, inside.clamp(0, rk.TILE - 1) // 8]
+    d = torch.empty((B, n), dtype=torch.float32)
+    for c0 in range(0, B, rk.CHUNK_IMAGES):
+        nb = min(rk.CHUNK_IMAGES, B - c0)
+        scratch = torch.full((n, rk.CHUNK_IMAGES), float("nan"))
+        ring = []
+        for t in (ci, cr) if cjd is not None else (ci,):
+            v = t[c0:c0 + nb].reshape(nb, N)[:, offs]
+            ring.append(torch.where(copied, v, float("nan")))
+        vals = corner.decision_values(
+            ring[0], ssa, ring[1] if cjd is not None else None,
+            None if cjd is None else cjd[order],
+            None if sjd is None else sjd[order])
+        scratch[order, :nb] = vals.T
+        assert not bool(torch.isnan(scratch[:, :nb]).any())
+        d[c0:c0 + nb] = scratch[:, :nb].T
+    return rk.decode_rows(d, hdr_stream_bits, payload_rep, hard, soft)
+
+
+@pytest.mark.parametrize("B", [1, 3, 8, 9])
+@pytest.mark.parametrize("grid", list(PLAN_GRIDS))
+@pytest.mark.parametrize("flags", list(READ_FLAGS))
+def test_stream_emulation_is_bit_equal_to_plain(grid, flags, B):
+    """The emulation of the kernel's phases over the grid walk's plan
+    against read_decode_plain on the same spectrum: every word equal, on
+    every flag set, with B below, at and above one chunk."""
+    hdr, rep, hard, soft, jitter, ssa = READ_FLAGS[flags]
+    pl, yy, xx, jj, Ky, Kx = _grid_walk(grid)
+    cr, ci = _grid_spectra(grid, B)
+    extra = ((cr, torch.cos(jj), torch.sin(jj)) if jitter
+             else (None, None, None))
+    kw = dict(hdr_stream_bits=hdr, payload_rep=rep, hard=hard, soft=soft)
+    plan = _grid_plan(grid)
+    got = _stream_emulation(ci, pl, yy, xx, ssa, *extra, plan=plan, **kw)
+    want = rk.read_decode_plain(ci, pl, yy, xx, ssa, *extra, **kw)
+    for g, w in zip(got, want):
+        assert (g is None) == (w is None)
+        if w is not None:
+            _equal(g, w)
+
+
+@functools.lru_cache(maxsize=None)
+def _grid_plan(grid: str):
+    pl, yy, xx, _, Ky, Kx = _grid_walk(grid)
+    return rk.read_plan(pl, yy, xx, Ky, Kx)
+
+
+@pytest.mark.parametrize("card", [True, False])
+def test_two_extract_batch_calls_build_one_plan(monkeypatch, card):
+    """Under one key (an empty walk cache to start from), two hinted
+    extract_batch calls of the same 512x512 stego: where read_decode reads
+    through plans (read_kernels.uses_plan stubbed to say so, as on a card)
+    the first pass builds one read plan and keeps it in its walk's cache
+    entry, the second finds it there; on the CPU, whose plain version
+    needs none, no plan is built."""
+    p = Params()
+    _, secrets, st = _stego(p)
+    monkeypatch.setattr(tbatch, "_DEV_IDX_CACHE", OrderedDict())
+    if card:
+        monkeypatch.setattr(rk, "uses_plan", lambda device: True)
+    before = rk.PLANS_BUILT
+    for _ in range(2):
+        assert stt.extract_batch(st, master_key=MK, params=p,
+                                 clen_hint=SECRET, device="cpu") == secrets
+        assert rk.PLANS_BUILT == before + card
+    plans = [plan for ent in tbatch._DEV_IDX_CACHE.values() if len(ent) == 3
+             for plan in ent[2].values()]
+    assert len(plans) == card
+    assert all(isinstance(plan, rk.ReadPlan) for plan in plans)
 
 
 # --- the three cores against the JAX package's, 512x512 ---------------------
@@ -432,6 +729,20 @@ def test_three_cores_equal_jax_on_a_512_batch(name):
     stego and walk: the decoded rows equal; the raw bits equal but at bins
     whose d lies within RAW_NEAR of zero; the confidences within 1e-2 of
     their scale; both packages' extract_batch recover every secret."""
+    _three_cores_vs_jax(name)
+
+
+@pytest.mark.parametrize("name", list(JAX_CASES))
+def test_three_cores_through_the_stream_emulation_equal_jax(monkeypatch,
+                                                           name):
+    """test_three_cores_equal_jax_on_a_512_batch with read_decode's CPU
+    version replaced by the emulation of the kernel over the walk's plan:
+    the same rows as the JAX package's cores."""
+    monkeypatch.setattr(rk, "read_decode_plain", _stream_emulation)
+    _three_cores_vs_jax(name)
+
+
+def _three_cores_vs_jax(name: str) -> None:
     p = JAX_CASES[name]
     covers, secrets, st = _stego(p)
     PH, PW, Ky, Kx, total, bucket = _geometry(p)

@@ -6,14 +6,16 @@ committed ones on a CUDA card.
 copies steganosaurus_tpu_torch/csrc/NAME (default: corner_ifft_y.cu,
 corner_stage2.cu and corner_ifft_epilogue.cu) of commit REV out of git into
 build/parents/REV/ (gitignored), where `--parent REV` of
-tools/k{2,4,6}_ablation_torch.py, and the card tests that hold K6, K2 and
+tools/k{2,4,5,6}_ablation_torch.py, and the card tests that hold K6, K2 and
 K4 to BITS_OF, find them in a copy of the checkout that has no git
 history. A source put there by hand, build/parents/NAME/corner_ifft_y.cu,
-is taken as revision NAME's.
+is taken as revision NAME's. A parent's C entry whose signature has
+changed since (OLD_SIGNATURES) is bound by old_entry.
 """
 
 from __future__ import annotations
 
+import ctypes
 import pathlib
 import subprocess
 import sys
@@ -24,6 +26,12 @@ PARENTS = REPO / "build" / "parents"
 # (its K4 source is the first version's, unchanged until the redesign)
 BITS_OF = "19a22bf762a2ba9d61f18feb16665e24a98a277f"
 SOURCES = ("corner_ifft_y.cu", "corner_stage2.cu", "corner_ifft_epilogue.cu")
+# C entries that parent commits export under another signature than the
+# committed one, name -> argtypes: K5's corner_read_decode up to d14bcd8
+# (the gather, which read the walk's int64 plane/y/x and took its image
+# groups, grid.y, in place of a read plan)
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+OLD_SIGNATURES = {"corner_read_decode": [_P] * 9 + [_I] * 8 + [_F, _P]}
 
 
 def parent_source(rev: str, name: str) -> pathlib.Path | None:
@@ -54,6 +62,15 @@ def parent_kernels(rev: str, name: str):
         return None
     libs, reports = _build.build_variants(name, {"parent": src}, src.parent)
     return libs["parent"], reports["parent"]
+
+
+def old_entry(lib: pathlib.Path, name: str):
+    """The C entry `name` of a parent's built library `lib`, bound with its
+    old signature (OLD_SIGNATURES[name])."""
+    fn = getattr(ctypes.CDLL(str(lib)), name)
+    fn.argtypes = OLD_SIGNATURES[name]
+    fn.restype = ctypes.c_int
+    return fn
 
 
 def main() -> int:
