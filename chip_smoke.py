@@ -157,6 +157,23 @@ Phases:
   4d. highest phase 4's 512x512 B=8 round trip under
              STEGANOSAURUS_MM_PRECISION=highest: 8/8, K3 and K4e once (no
              K1, no K4), the stego within +-1 of the CPU port's
+  4e. modes  the other precision modes (STEGANOSAURUS_MM_PRECISION, set
+             per round trip and restored): K2 at band widths 0 (bf16), 64
+             (mix_split's static band) and Kx (every column, no bulk: the
+             HIGH modes) on phase 4's spectrum, each within 1e-5 of
+             max|twin| of fwd_stage2_plain(bf16x6) on 12 planes and timed
+             in turns beside its bound, the bf16 torch.bmm of the bulk and
+             (all band) the f32 torch.bmm of the stage; the f32 stages
+             of the HIGH modes at 4K B=16 (stage 1, stage 2 under
+             highest, the inverse's y-stage, mix2's cast, its x-stage),
+             each beside its bound and the kernel the default path runs
+             for it, timed in turns; 4K 16 KB round
+             trips under mix_split and mix at B=64 (64/64, payload post-ECC
+             0, raw BER) and under mix2, mix_conservative and high at B=16
+             (B/B), each with warm ms, PSNR, peak memory and K2's launches
+             by band width, its launches checked against its mode's route;
+             bf16 at 4K B=16 reported, not gated, and its 512x512 B=8
+             stego within +-1 of the CPU port's
   5a. stream embed_stream -> extract_stream of the 4K batch, depth 2,
              fixed salts: 64/64 every batch, images/s beside the serialized
              loop's, peak memory with two batches in flight; first one
@@ -308,6 +325,10 @@ K1_REL_TOL = 1e-5
 # CPU's bf16 emulation round in different places, so a few pixels may land
 # one step apart (the same bound as the CPU tests against the JAX package)
 SMALL_MAX_DIFF_FRAC = 1e-3
+# the card against the CPU port under the other precision modes (4e): the
+# bound of PERF.md section 2, +-1 on at most 0.5% of the bytes (the bf16
+# stages sum in other orders on the card)
+MODE_MAX_DIFF_FRAC = 5e-3
 # The same check at 1080p, B=8, 4 KB: more terms per pixel in every DFT
 # sum and 448 bf16 columns per plane in forward stage 2 (192 at 512x512),
 # so more pixels land one step apart. On the CPU the port and the JAX
@@ -413,7 +434,8 @@ def cuda_ms(fn, n: int) -> float:
 
 def zero_counts() -> None:
     """Set every hand kernel's launch count to 0: K1's routes, the prep and
-    K2 (corner_kernels.LAUNCHES), the embed's K3 / K4 / K4e entry points
+    K2 (corner_kernels.LAUNCHES, and K2's by band width,
+    corner_kernels.BAND_WIDTHS), the embed's K3 / K4 / K4e entry points
     (write_kernels.LAUNCHES) and the extract's K5 with the eager read
     chain's calls (read_kernels.LAUNCHES)."""
     from steganosaurus_tpu_torch.spectral import corner_kernels as ck
@@ -423,6 +445,19 @@ def zero_counts() -> None:
     for counts in (ck.LAUNCHES, wk.LAUNCHES, rk.LAUNCHES):
         for k in counts:
             counts[k] = 0
+    ck.BAND_WIDTHS.clear()
+
+
+# the precision mode (STEGANOSAURUS_MM_PRECISION) of each counted path
+# that does not run the default, mix_adaptive
+PATH_MODES = {"4d highest": "highest"}
+
+
+def path_mode(path: str):
+    """The resolved precision mode a counted path ran under."""
+    from steganosaurus_tpu_torch.spectral import corner
+
+    return corner.resolve(PATH_MODES.get(path, "mix_adaptive"))
 
 
 def read_counts() -> dict:
@@ -434,23 +469,35 @@ def read_counts() -> dict:
     return {**ck.LAUNCHES, **wk.LAUNCHES, **rk.LAUNCHES}
 
 
+def _inverse_launches(mode, embeds: int) -> tuple:
+    """(K6, K4, K4e) launches of `embeds` corner embeds under the resolved
+    precision mode: K6 where the inverse's y-stage is bf16 (K4 then takes
+    its output; under mix2 the f32 y-stage's, cast), K4 where its x-stage
+    is bf16, else K4e after the f32 inverse."""
+    x16 = mode.inv_x == "bf16"
+    return ((embeds if x16 and mode.inv_y == "bf16" else 0),
+            embeds if x16 else 0, 0 if x16 else embeds)
+
+
 def check_embed_kernels(path: str, counts: dict, embeds: int,
                         floor_only: bool = False,
-                        highest: bool = False) -> None:
+                        mode: str = "mix_adaptive") -> None:
     """`embeds` corner embeds on `path`, each through K3's write_floor on
     its resident schedule, or (QIM, per-image walks: floor_only) its
-    floor_only, then through K6 (the y-stage, no staging copy) and K4 (the
-    x-stage with the u8 epilogue), or under
-    STEGANOSAURUS_MM_PRECISION=highest (`highest`) K4e alone."""
+    floor_only, then, as the precision `mode` routes the inverse
+    (_inverse_launches), through K6 (the y-stage, no staging copy) and K4
+    (the x-stage with the u8 epilogue), or K4e alone."""
+    from steganosaurus_tpu_torch.spectral import corner
     from steganosaurus_tpu_torch.spectral import write_kernels as wk
 
+    k6, k4, k4e = _inverse_launches(corner.resolve(mode), embeds)
     want = {wk.KERNEL_WRITE_FLOOR: 0 if floor_only else embeds,
             wk.KERNEL_WRITE_FLOOR_TWO_PASS: 0,
             wk.KERNEL_FLOOR_ONLY: embeds if floor_only else 0,
-            wk.KERNEL_IFFT_Y: 0 if highest else embeds,
+            wk.KERNEL_IFFT_Y: k6,
             wk.KERNEL_IFFT_Y_PADDED: 0,
-            wk.KERNEL_IFFT_EPILOGUE: 0 if highest else embeds,
-            wk.KERNEL_EPILOGUE: embeds if highest else 0}
+            wk.KERNEL_IFFT_EPILOGUE: k4,
+            wk.KERNEL_EPILOGUE: k4e}
     got = {k: counts[k] for k in want}
     if got != want:
         raise AssertionError(f"{path}: K3 / K6 / K4 / K4e launches {got}, "
@@ -460,13 +507,15 @@ def check_embed_kernels(path: str, counts: dict, embeds: int,
 def check_epilogues(launches: dict) -> None:
     """Every counted path ends each corner embed in K6 and K4, one launch
     each for each K3 launch (write_floor or floor_only: one per corner
-    embed), and launches no K4e; the highest path (4d) K4e alone."""
+    embed), and launches no K4e; the paths of other precision modes
+    (PATH_MODES: 4d, 4e) as their mode routes the inverse
+    (_inverse_launches)."""
     from steganosaurus_tpu_torch.spectral import write_kernels as wk
 
     bad = {}
     for path, c in launches.items():
         k3 = c[wk.KERNEL_WRITE_FLOOR] + c[wk.KERNEL_FLOOR_ONLY]
-        want = ((0, 0, k3) if path == "4d highest" else (k3, k3, 0))
+        want = _inverse_launches(path_mode(path), k3)
         got = (c[wk.KERNEL_IFFT_Y], c[wk.KERNEL_IFFT_EPILOGUE],
                c[wk.KERNEL_EPILOGUE])
         if got != want:
@@ -477,21 +526,36 @@ def check_epilogues(launches: dict) -> None:
                              f"{bad}")
 
 
+def _stage2_launches(mode, k1: int, k2: int) -> tuple:
+    """(prep, band, K2) launches of a path under the resolved precision
+    mode whose K1 launched k1 times and K2 k2 times (the forward DFTs: K1's
+    count where stage 1 is bf16): the prep where stage 2 has a bulk, the
+    band pass where it has a band (every corner of the smoke is wider than
+    the default band), none under highest."""
+    n = k1 if mode.stage1 == "bf16" else k2
+    if mode.fwd2 == "highest":
+        return 0, 0, 0
+    return (0 if mode.fwd2 == "high" else n,
+            0 if mode.fwd2 == "bf16" else n, n)
+
+
 def check_stage2(launches: dict) -> None:
     """Every counted path's forward DFTs run stage 2 through the prep, the
-    band kernel and K2, one launch each for each K1 launch (every corner of
-    the smoke is wider than the band), and none under highest (4d)."""
+    band kernel and K2, one launch each for each K1 launch, and the paths
+    of other precision modes (PATH_MODES) as _stage2_launches says: none
+    under highest (4d)."""
     from steganosaurus_tpu_torch.spectral import corner_kernels as ck
 
     bad = {}
     for path, c in launches.items():
         k1 = sum(c[k] for k in ck.K1_ROUTES)
         got = (c[ck.KERNEL_PREP], c[ck.KERNEL_BAND], c[ck.KERNEL_STAGE2])
-        if got != (k1, k1, k1):
-            bad[path] = (got, k1)
+        want = _stage2_launches(path_mode(path), k1, c[ck.KERNEL_STAGE2])
+        if got != want or (path_mode(path).stage1 != "bf16" and k1):
+            bad[path] = (got, want)
     if bad:
         raise AssertionError(f"(prep, band, K2) launches against K1's, "
-                             f"(got, K1) by path: {bad}")
+                             f"(got, want) by path: {bad}")
 
 
 def count_eager_stage2(fn):
@@ -2042,7 +2106,7 @@ def phase_stage2(covers_d, odd_d, card: str) -> list:
                 "prep plain": (lambda: ck.stage2_prep_plain(ar, ai), 3),
                 "composition": (lambda: corner._fwd_y_split(ar, ai, tabs),
                                 3),
-                "stage 2": (lambda: corner._fwd_y_adaptive(ar, ai, tabs), 5),
+                "stage 2": (lambda: corner._fwd_y(ar, ai, tabs, "adaptive"), 5),
                 "torch.bmm": (lambda: torch.bmm(
                     t_hi.expand(P, *t_hi.shape), b_cat,
                     out_dtype=torch.float32), 3)}
@@ -2147,7 +2211,340 @@ def phase_highest(dev, launches: dict) -> None:
     if any(c[k] for k in ck.LAUNCHES):
         raise AssertionError(f"4d launched K1 or a stage-2 kernel under "
                              f"highest: {c}")
-    check_embed_kernels("4d highest", c, 1, highest=True)
+    check_embed_kernels("4d highest", c, 1, mode="highest")
+
+
+# 4e: the precision modes' round trips at 4K, (mode, B, gated): 16 KB
+# secrets on phase 4's covers; bf16 (a measurement mode) is reported, not
+# gated
+MODE_ROUND_TRIPS = (("mix_split", UHD_B, True), ("mix", UHD_B, True),
+                    ("mix2", 16, True), ("mix_conservative", 16, True),
+                    ("high", 16, True), ("bf16", 16, False))
+# the planes of phase 4's spectrum each K2 band width is held against its
+# plain version on (the plain all-band product at B=64 needs ~30 GB; a
+# plane's bits do not depend on its batch)
+K2_WIDTH_PLANES = 12
+
+
+def _with_mode(mode: str, fn):
+    """fn() under STEGANOSAURUS_MM_PRECISION=mode, the variable restored
+    after."""
+    old = os.environ.get("STEGANOSAURUS_MM_PRECISION")
+    os.environ["STEGANOSAURUS_MM_PRECISION"] = mode
+    try:
+        return fn()
+    finally:
+        if old is None:
+            os.environ.pop("STEGANOSAURUS_MM_PRECISION")
+        else:
+            os.environ["STEGANOSAURUS_MM_PRECISION"] = old
+
+
+def _mode_round_trip(covers, mode: str, gated: bool, launches: dict,
+                     card: str) -> None:
+    """One precision mode's 4K 16 KB round trip on `covers` (phase 4's, or
+    their first B): a first run, then a counted warm run (embed, extract),
+    its launches recorded under "4e <mode>" and checked, the rows
+    recovered (all of them where `gated`), warm ms, PSNR, peak memory and
+    K2's band widths; where `gated` and B = 64 also the channel report
+    (raw BER, post-ECC 0)."""
+    import torch
+
+    import steganosaurus_tpu_torch as stt
+    from steganosaurus_tpu_torch.spectral import corner
+    from steganosaurus_tpu_torch.spectral import corner_kernels as ck
+    from steganosaurus_tpu_torch.spectral import read_kernels as rk
+
+    B = covers.shape[0]
+    secrets = secrets_for(B, UHD_SECRET)
+    salts = [bytes([i]) * 16 for i in range(B)]
+    path = f"4e {mode}"
+    PATH_MODES[path] = mode
+    p = corner.resolve(mode)
+
+    def round_trip():
+        t0 = time.perf_counter()
+        res = stt.embed_batch(covers, secrets, master_key=MASTER_KEY,
+                              salts=salts, device_resident=True,
+                              layout="nchw")
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        got = stt.extract_batch(res.stego, master_key=MASTER_KEY,
+                                clen_hint=UHD_SECRET, layout="nchw")
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        return res.stego, got, (t1 - t0) * 1e3, (t2 - t1) * 1e3
+
+    def run():
+        round_trip()
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts()
+        out = round_trip()
+        torch.cuda.synchronize()
+        return out, read_counts(), dict(ck.BAND_WIDTHS), \
+            torch.cuda.max_memory_allocated()
+
+    (stego, got, e_ms, x_ms), counts, widths, peak = _with_mode(mode, run)
+    launches[path] = counts
+    bad = [i for i, (g, s) in enumerate(zip(got, secrets)) if g != s]
+    psnr = psnr_mean(stego, covers)
+    rep = None
+    if gated and B == UHD_B:
+        rep = _with_mode(mode, lambda: stt.channel_report(
+            stego, secrets, salts, master_key=MASTER_KEY, layout="nchw"))
+    log(f"4e {mode} 4K B={B} {UHD_SECRET} B warm round trip ({card}): "
+        f"embed {e_ms!r} ms, extract {x_ms!r} ms, total {e_ms + x_ms!r} ms, "
+        f"recovered {B - len(bad)}/{B} (failed images {bad}), mean PSNR "
+        f"{psnr!r} dB, peak memory {peak / 2**30!r} GiB; K2 launches by band "
+        f"width in columns {widths}"
+        + (f"; channel report: payload raw BER {rep['payload_ber_raw']!r}, "
+           f"post-ECC {rep['payload_ber_post_ecc']!r}, header raw BER "
+           f"{rep['header_ber_raw']!r}" if rep else "")
+        + ("" if gated else " (a measurement mode: reported, not gated)"))
+    if gated and bad:
+        raise AssertionError(f"4e {mode} recovered {B - len(bad)}/{B}")
+    if rep is not None and rep["payload_ber_post_ecc"] != 0.0:
+        raise AssertionError(f"4e {mode}: payload post-ECC BER is not 0: "
+                             f"{rep}")
+    if not math.isfinite(psnr) or stego.shape != covers.shape:
+        raise AssertionError(f"4e {mode}: stego {tuple(stego.shape)}, PSNR "
+                             f"{psnr}")
+    Kx = corner.corner_dims(*covers.shape[-2:], stt.Params().rmax)[1]
+    # the forward DFTs: the embed's and the extract's (more where an image
+    # fails and the soft retry reads again: bf16)
+    n_fwd = counts[ck.KERNEL_STAGE2]
+    want_width = corner.band_width(p.fwd2, Kx)
+    if (want_width is None or widths != {want_width: n_fwd}
+            or n_fwd != 2 and gated or n_fwd < 2):
+        raise AssertionError(f"4e {mode}: K2's band widths {widths}, want "
+                             f"{{{want_width}: 2}}")
+    k1 = sum(counts[k] for k in ck.K1_ROUTES)
+    if (k1 != (n_fwd if p.stage1 == "bf16" else 0)
+            or _stage2_launches(p, k1, n_fwd)
+            != (counts[ck.KERNEL_PREP], counts[ck.KERNEL_BAND], n_fwd)):
+        raise AssertionError(f"4e {mode}: stage 1 / stage 2 launches "
+                             f"{counts}")
+    check_embed_kernels(path, counts, 1, mode=mode)
+    reads = (counts[rk.KERNEL_READ_DECODE], counts[rk.KERNEL_READ_EAGER])
+    if gated and reads != (1, 0):
+        raise AssertionError(f"4e {mode}: the extract is not one K5 launch "
+                             f"and no eager read: {reads}")
+
+
+def _k2_widths(covers_d, card: str) -> None:
+    """K2 at band widths of 0 (the bulk alone, bf16), 64 (the static
+    [0, 64): mix_split) and Kx (every column, no bulk: the HIGH modes) on
+    phase 4's spectrum (K1 on its covers): each held against
+    fwd_stage2_plain(bf16x6) on K2_WIDTH_PLANES planes (K2_REL of max|twin|;
+    the band within SPLIT_REL on its own scale), then timed in turns beside
+    its bound (utils/cost.py k2_cost), one torch.bmm of T0 with the bf16
+    operands into f32 (the bulk in bf16), and, beside the all-band width,
+    the band pass at that width and one f32 torch.bmm of T with the f32
+    operands (the stage at full f32 on the CUDA cores)."""
+    import torch
+
+    import steganosaurus_tpu_torch as stt
+    from steganosaurus_tpu_torch.spectral import corner
+    from steganosaurus_tpu_torch.spectral import corner_kernels as ck
+    from steganosaurus_tpu_torch.utils import cost
+
+    dev = covers_d.device
+    H, W = covers_d.shape[-2:]
+    Ky, Kx = corner.corner_dims(H, W, stt.Params().rmax)
+    tabs = corner.dft_tables_device(H, Ky, W, Kx, dev)
+    ar, ai = ck.fwd_stage1(covers_d.reshape(-1, H, W), tabs.exr16,
+                           tabs.exi16, False, tabs.stage1)
+    P = ar.shape[0]
+    ar16, ai16, _ = ck.stage2_prep(ar, ai)
+    n = K2_WIDTH_PLANES
+    cases = {}
+    for width in (0, 64, Kx):
+        idx = ck.static_band(P, width, dev)
+        band = ck.stage2_band(ar, ai, idx) if width else None
+        bulk = (ar16, ai16) if width < Kx else (None, None)
+        cases[width] = (idx, band, bulk)
+        cr, ci = ck.fwd_stage2(ar, ai, *bulk, idx, tabs, band)
+        tr, ti = ck.fwd_stage2_plain(ar[:n], ai[:n], idx[:n], tabs, "bf16x6",
+                                     (ar16[:n], ai16[:n]))
+        torch.cuda.synchronize()
+        err = max((cr[:n] - tr).abs().max().item(),
+                  (ci[:n] - ti).abs().max().item())
+        scale = max(tr.abs().max().item(), ti.abs().max().item())
+        band_err = (ck.band_error(cr[:n], ci[:n], ar[:n], ai[:n], idx[:n],
+                                  tabs) if width else 0.0)
+        finite = bool(torch.isfinite(cr).all() and torch.isfinite(ci).all())
+        what = ", no bulk" if width == Kx else ""
+        log(f"K2 band width {width} ({width // 64} groups{what}) "
+            f"4K B={P // 3}: max |kernel - twin| over {n} planes {err!r} "
+            f"({err / scale:.3e} of max|twin| {scale!r}, bound {K2_REL}); "
+            f"band columns' RMS error on their own scale {band_err!r} "
+            f"(bound {ck.SPLIT_REL['bf16x6']!r}); finite {finite}; grid "
+            f"{ck.stage2_grid(P, Kx, Ky, nb=width // 64, bulk=width < Kx)} "
+            f"blocks")
+        del cr, ci, tr, ti
+        if not (finite and err <= K2_REL * scale
+                and band_err <= ck.SPLIT_REL["bf16x6"]):
+            raise AssertionError(f"K2 at band width {width} disagrees with "
+                                 f"its plain version")
+    t2 = tabs.stage2
+    Hp = t2.shape[2] // 2
+    t_hi = torch.cat((t2[0, :, :H], t2[0, :, Hp:Hp + H]), 1)
+    t_f32 = torch.cat((torch.cat((tabs.eyr, -tabs.eyi), 1),
+                       torch.cat((tabs.eyi, tabs.eyr), 1)))  # T, (2Ky, 2H)
+    b16 = torch.cat((ar16, ai16), 1)
+    b32 = torch.cat((ar, ai), 1)
+    runs = {f"K2 width {w}": (lambda w=w: ck.fwd_stage2(
+        ar, ai, *cases[w][2], cases[w][0], tabs, cases[w][1]),
+        5 if w == Kx else 10) for w in cases}
+    runs[f"band pass width {Kx}"] = (
+        lambda: ck.stage2_band(ar, ai, cases[Kx][0]), 5)
+    runs["torch.bmm bf16"] = (lambda: torch.bmm(
+        t_hi.expand(P, *t_hi.shape), b16, out_dtype=torch.float32), 3)
+    runs["torch.bmm f32"] = (lambda: torch.bmm(
+        t_f32.expand(P, *t_f32.shape), b32), 2)
+    times = _turns(runs)
+    ms = {k: sum(v) / len(v) for k, v in times.items()}
+    peaks = cost.peak_rates(dev)
+    bounds = {f"K2 width {w}": cost.stage_bound(
+        cost.k2_cost(P, H, Ky, Kx, band=w), peaks) for w in cases}
+    bounds[f"band pass width {Kx}"] = cost.stage_bound(
+        cost.stage2_band_cost(P, H, Kx, band=Kx), peaks)
+    log(f"K2 band widths 4K B={P // 3} timed in turns ({card}): "
+        + "; ".join(f"{k} {v!r} ms" for k, v in times.items())
+        + "; bounds: " + "; ".join(
+            f"{k} {b!r} ms ({by}), at {b / ms[k]:.3f} of it"
+            for k, (b, by) in bounds.items())
+        + f"; library beside: the bulk in bf16 (torch.bmm bf16) "
+        f"{ms['torch.bmm bf16']!r} ms, every column in f32 (torch.bmm f32) "
+        f"{ms['torch.bmm f32']!r} ms")
+    del cases, runs, b16, b32, ar, ai, ar16, ai16
+    torch.cuda.empty_cache()
+
+
+# the batch of the f32 stages' timings (4e): the B of the f32 modes' round
+# trips
+F32_STAGES_B = 16
+
+
+def _f32_stages(covers_d, card: str) -> None:
+    """The f32 stages of the HIGH modes at 4K B=F32_STAGES_B on phase 4's
+    first covers, timed in turns by CUDA events beside their bounds
+    (utils/cost.py) and beside the kernel the default path runs for each:
+    stage 1 as fwd_corner runs it under high and highest (the u8 planes
+    cast, two f32 products) beside K1; forward stage 2 under highest (four
+    f32 products, corner._fwd_y) beside K2's all-band launch (the HIGH
+    modes'); the inverse's y-stage in f32 (corner._ifft_y: mix2,
+    mix_conservative, high) beside K6, mix2's cast of its output to bf16,
+    and the x-stage in f32 (two products and a difference:
+    mix_conservative, high, highest) beside K4 (with its u8 epilogue)."""
+    import torch
+
+    import steganosaurus_tpu_torch as stt
+    from steganosaurus_tpu_torch import spectral
+    from steganosaurus_tpu_torch.spectral import corner
+    from steganosaurus_tpu_torch.spectral import corner_kernels as ck
+    from steganosaurus_tpu_torch.spectral import write_kernels as wk
+    from steganosaurus_tpu_torch.utils import cost
+
+    B = F32_STAGES_B
+    planes = covers_d[:B].contiguous()
+    H, W = planes.shape[-2:]
+    Ky, Kx = corner.corner_dims(H, W, stt.Params().rmax)
+    tabs = corner.dft_tables_device(H, Ky, W, Kx, planes.device)
+    x = planes.reshape(-1, H, W)
+    P = x.shape[0]
+
+    def stage1_f32():
+        f = spectral.apply_center(x.to(torch.float32), False)
+        return f @ tabs.exr.T, f @ tabs.exi.T
+
+    ar, ai = ck.fwd_stage1(x, tabs.exr16, tabs.exi16, False, tabs.stage1)
+    cr, ci = corner._fwd_y(ar, ai, tabs, "high")
+    dcr16, dci16 = cr.to(torch.bfloat16), (-ci).to(torch.bfloat16)
+    mr, mi = corner._ifft_y(cr, ci, tabs, "high", False)
+    mr16, mi16 = wk.ifft_y(dcr16, dci16, tabs)
+
+    def ifft_x_f32():
+        t = mr @ tabs.exr
+        t -= mi @ tabs.exi
+        return t
+
+    runs = {
+        "stage 1 f32": (stage1_f32, 3),
+        "K1": (lambda: ck.fwd_stage1(x, tabs.exr16, tabs.exi16, False,
+                                     tabs.stage1), 5),
+        "stage 2 f32": (lambda: corner._fwd_y(ar, ai, tabs, "highest"), 3),
+        "K2 every column": (lambda: corner._fwd_y(ar, ai, tabs, "high"), 3),
+        "inverse y f32": (lambda: corner._ifft_y(cr, ci, tabs, "high",
+                                                 False), 3),
+        "K6": (lambda: wk.ifft_y(dcr16, dci16, tabs), 5),
+        "cast": (lambda: (mr.to(torch.bfloat16), mi.to(torch.bfloat16)), 5),
+        "inverse x f32": (ifft_x_f32, 3),
+        "K4": (lambda: wk.ifft_epilogue(mr16, mi16, tabs, planes, False,
+                                        "nchw"), 5)}
+    times = _turns(runs)
+    peaks = cost.peak_rates(covers_d.device)
+    bounds = {k: cost.stage_bound(c, peaks) for k, c in (
+        ("stage 1 f32", cost.k1_cost(P, H, W, Kx, precision="fp32")),
+        ("K1", cost.k1_cost(P, H, W, Kx)),
+        ("stage 2 f32", cost.stage2_f32_cost(P, H, Ky, Kx)),
+        ("K2 every column", cost.k2_cost(P, H, Ky, Kx, band=Kx)),
+        ("inverse y f32", cost.ifft_y_f32_cost(B, H, Ky, Kx)),
+        ("K6", cost.ifft_y_cost(B, H, Ky, Kx)),
+        ("cast", cost.ifft_y_cast_cost(B, H, Kx)),
+        ("inverse x f32", cost.ifft_x_f32_cost(B, H, W, Kx)),
+        ("K4", cost.ifft_epilogue_cost(B, H, W, Kx)))}
+    ms = {k: sum(v) / len(v) for k, v in times.items()}
+    log(f"4e f32 stages 4K B={B} timed in turns ({card}): "
+        + "; ".join(f"{k} {v!r} ms (bound {bounds[k][0]!r} ms, "
+                    f"{bounds[k][1]}, at {bounds[k][0] / ms[k]:.3f} of it)"
+                    for k, v in times.items()))
+    del ar, ai, cr, ci, dcr16, dci16, mr, mi, mr16, mi16, runs
+    torch.cuda.empty_cache()
+
+
+def phase_precision_modes(covers_d, dev, launches: dict, card: str) -> None:
+    """4e: the precision modes other than the default on the card. K2 at
+    band widths 0, 64 and Kx on phase 4's spectrum (_k2_widths); 4K 16 KB
+    round trips (_mode_round_trip) under mix_split and mix at B=64, under
+    mix2, mix_conservative and high at B=16, each gated on recovering every
+    image (B=64: post-ECC 0 too), and under bf16 at B=16, reported; bf16's
+    512x512 B=8 stego within +-1 of the CPU port's under the same mode.
+    STEGANOSAURUS_MM_PRECISION is restored after each."""
+    import numpy as np
+    import torch
+
+    import steganosaurus_tpu_torch as stt
+
+    _k2_widths(covers_d, card)
+    _f32_stages(covers_d, card)
+    for mode, B, gated in MODE_ROUND_TRIPS:
+        _mode_round_trip(covers_d if B == UHD_B else covers_d[:B].contiguous(),
+                         mode, gated, launches, card)
+        torch.cuda.empty_cache()
+    covers = make_covers(SMALL_B, SMALL_H, SMALL_W)
+    nchw = np.ascontiguousarray(covers.transpose(0, 3, 1, 2))
+    secrets = secrets_for(SMALL_B, SMALL_SECRET)
+    salts = [bytes([i]) * 16 for i in range(SMALL_B)]
+
+    def both():
+        card_stego = stt.embed_batch(torch.from_numpy(nchw).to(dev), secrets,
+                                     master_key=MASTER_KEY, salts=salts,
+                                     device_resident=True,
+                                     layout="nchw").stego.cpu().numpy()
+        cpu = stt.embed_batch(nchw, secrets, master_key=MASTER_KEY,
+                              salts=salts, layout="nchw", device="cpu").stego
+        return card_stego, cpu
+
+    stego, ref = _with_mode("bf16", both)
+    diff = stego.astype(np.int16) - ref.astype(np.int16)
+    n_diff = int(np.count_nonzero(diff))
+    log(f"4e bf16 {SMALL_H}x{SMALL_W} B={SMALL_B}: stego vs CPU port "
+        f"{n_diff} of {diff.size} bytes differ, max |diff| "
+        f"{int(np.abs(diff).max())}")
+    if np.abs(diff).max() > 1 or n_diff > MODE_MAX_DIFF_FRAC * diff.size:
+        raise AssertionError("4e: the card's bf16 stego disagrees with the "
+                             "CPU port's")
 
 
 def psnr_mean(stego, covers) -> float:
@@ -4276,6 +4673,8 @@ def main() -> int:
             torch.cuda.synchronize()
             timed("ragged grid", phase_ragged_grid, dev, launches)
             timed("highest", phase_highest, dev, launches)
+            timed("4e precision modes", phase_precision_modes, covers_d, dev,
+                  launches, card)
             launches["4c round trip"], ms4c, _ = timed(
                 "4K at 3839", phase_uhd, odd_d, "4c 4K cropped", ck.KERNEL_LDG)
             log(f"4c against phase 4, warm ms: embed {ms4c[0]!r} vs "

@@ -61,9 +61,9 @@ _SIGNATURES = {
     "corner_ifft_epilogue": [_P] * 5 + [_I] * 7 + [_F, _I, _I, _P],
     "corner_ifft_epilogue_grid": [_I, _I, _I, _I],
     "corner_stage2_prep": [_P] * 5 + [_I] * 4 + [_P],
-    "corner_stage2_band": [_P] * 5 + [_I] * 3 + [_P],
-    "corner_stage2": [_P] * 8 + [_I] * 8 + [_P],
-    "corner_stage2_grid": [_I, _I, _I],
+    "corner_stage2_band": [_P] * 5 + [_I] * 4 + [_P],
+    "corner_stage2": [_P] * 8 + [_I] * 10 + [_P],
+    "corner_stage2_grid": [_I] * 5,
     "corner_ifft_y": [_P] * 5 + [_I] * 8 + [_P],
     "corner_read_decode": [_P] * 11 + [_I] * 8 + [_F, _P],
 }

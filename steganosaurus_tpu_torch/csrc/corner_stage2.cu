@@ -1,7 +1,11 @@
-// The forward corner DFT's stage 2 under mix_adaptive, for Hopper: a prep
-// pass (the stage-1 output's bf16 copies and column energies), a band pass
-// (the band columns' bf16 terms and the column mask) and K2, a persistent,
-// warp-specialised wgmma GEMM whose band tiles run in split bf16.
+// The forward corner DFT's stage 2, for Hopper: a prep pass (the stage-1
+// output's bf16 copies and column energies), a band pass (the band columns'
+// bf16 terms and the column mask) and K2, a persistent, warp-specialised
+// wgmma GEMM whose band tiles run in split bf16. The band is nb groups of
+// 64 columns, nb given at run time: one group under mix_adaptive and
+// mix_split (the top-64 energy columns, or the static [0, 64)), every
+// column under the modes that run the whole stage at HIGH (mix, mix2,
+// mix_conservative, high: no bulk tile), none under bf16 (no band tile).
 //
 // Replaces steganosaurus_tpu/spectral/corner.py:430 _fwd_y_split with
 // adaptive=True, which XLA fuses for the TPU (its energy, casts and
@@ -122,6 +126,13 @@
 //    each keeping one stage's wgmmas in flight (wait_group 1) between
 //    promotions. The epilogue stores from registers and does not overlap
 //    the next tile's main loop.
+// 12. The band width at run time: the band operand is (6, P, H, 64 nb) and
+//    idx (P, 64 nb); a band unit is (plane pair, group, row-block pair),
+//    its B box the group's 64 columns of the two planes. A width that is
+//    not a multiple of 64 is padded by the caller with copies of the row's
+//    last index: such a column is computed twice from the same operand and
+//    stored twice with the same value. With nb = 1 the units, their order
+//    and every tile's sums are the fixed-width kernel's (bit-equal).
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -208,7 +219,7 @@ corner_stage2_prep_kernel(const float* __restrict__ ar,
 
 // ---- the band operand ------------------------------------------------------
 
-constexpr int BAND_COLS = 64;     // band columns per plane (K2's BAND)
+constexpr int BAND_COLS = 64;     // band columns per block (K2's BAND)
 constexpr int BAND_ROWS = 32;     // rows h per block
 constexpr int BAND_THREADS = 256; // 4 rows x 64 columns at a time
 
@@ -221,35 +232,38 @@ __device__ __forceinline__ void split3(float x, __nv_bfloat16* t) {
   t[2] = __float2bfloat16_rn(__fsub_rn(r, __bfloat162float(t[1])));
 }
 
-// g (6, P, H, 64) = the split3 terms of ar and ai at the band columns idx
-// (P, 64), [ar0, ai0, ar1, ai1, ar2, ai2]; the first block of each plane
-// also writes its band bits, mask (P, nw) (word w: columns 32w..32w+31)
+// g (6, P, H, bw) = the split3 terms of ar and ai at the band columns idx
+// (P, bw), [ar0, ai0, ar1, ai1, ar2, ai2], bw = 64 nb; block (., p, k)
+// takes the columns of group k (64k..64k+63); the first block of each
+// plane also writes its band bits, mask (P, nw) (word w: columns
+// 32w..32w+31), from all bw indices (a column given twice sets its bit
+// twice)
 __global__ void __launch_bounds__(BAND_THREADS)
 corner_stage2_band_kernel(const float* __restrict__ ar,
                           const float* __restrict__ ai,
                           const long long* __restrict__ idx,
                           __nv_bfloat16* __restrict__ g,
                           uint32_t* __restrict__ mask, int P, int H, int X,
-                          int nw) {
+                          int nw, int bw) {
   const int p = blockIdx.y;
-  const long long* ip = idx + (size_t)p * BAND_COLS;
-  if (blockIdx.x == 0)
+  const long long* ip = idx + (size_t)p * bw;
+  if (blockIdx.x == 0 && blockIdx.z == 0)
     for (int w = threadIdx.x; w < nw; w += BAND_THREADS) {
       uint32_t bits = 0;
-      for (int j = 0; j < BAND_COLS; ++j) {
+      for (int j = 0; j < bw; ++j) {
         const long long x = ip[j];
         if (x >> 5 == w) bits |= 1u << (x & 31);
       }
       mask[(size_t)p * nw + w] = bits;
     }
-  const int j = threadIdx.x % BAND_COLS;
+  const int j = blockIdx.z * BAND_COLS + threadIdx.x % BAND_COLS;
   const long long x = ip[j];
-  const size_t plane = (size_t)P * H * BAND_COLS;  // one term's stride in g
+  const size_t plane = (size_t)P * H * bw;  // one term's stride in g
   for (int h = blockIdx.x * BAND_ROWS + threadIdx.x / BAND_COLS;
        h < min(H, (blockIdx.x + 1) * BAND_ROWS);
        h += BAND_THREADS / BAND_COLS) {
     const size_t src = ((size_t)p * H + h) * X + x;
-    const size_t dst = ((size_t)p * H + h) * BAND_COLS + j;
+    const size_t dst = ((size_t)p * H + h) * bw + j;
     __nv_bfloat16 t[3];
     split3(ar[src], t);
 #pragma unroll
@@ -262,7 +276,7 @@ corner_stage2_band_kernel(const float* __restrict__ ar,
 
 // ---- K2 --------------------------------------------------------------------
 
-constexpr int BAND = 64;                // band columns per plane
+constexpr int BAND = 64;                // band columns per group
 constexpr int LEVELS = 3;               // bf16 terms of a band value
 constexpr int SEGS = 6;                 // band products T_i a_j, in order:
 constexpr uint32_t SEG_T = 0x001012;    // i of segment s: nibble s
@@ -475,25 +489,30 @@ __device__ __forceinline__ void fence_acc(float* d) {
   for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
-// A cluster's unit of work: band units first (p the first of its
-// BAND_PLANES planes, mp fastest), then bulk units (nt fastest, then mp,
-// then p); mp a pair of 128-row blocks of T. Block `rank` of the cluster
-// takes row block mt = 2 mp + rank, which lies past the last (a "ghost":
-// it loads, computes nothing) where Kyp/64 is odd. nkb: the tile's k-blocks
-// of 64.
+// A cluster's unit of work: band units first (mp fastest, then the band
+// group grp of 64 columns, then p, the first of its BAND_PLANES planes),
+// then bulk units (nt fastest, then mp, then p); mp a pair of 128-row
+// blocks of T. Block `rank` of the cluster takes row block mt = 2 mp +
+// rank, which lies past the last (a "ghost": it loads, computes nothing)
+// where Kyp/64 is odd. nkb: the tile's k-blocks of 64. With one group
+// (nb = 1) the units and their order are the fixed-width kernel's.
 struct Tile {
   bool band, ghost;
-  int p, mt, nt, nkb;
+  int p, mt, nt, grp, nkb;
 };
 
 __device__ __forceinline__ Tile tile_of(int unit, int rank, int n_band,
-                                        int n_mt, int n_mp, int n_nt, int nh) {
+                                        int n_mt, int n_mp, int n_nt, int nh,
+                                        int nb) {
   Tile t;
   int mp;
+  t.grp = 0;
   if (unit < n_band) {
     t.band = true;
     mp = unit % n_mp;
-    t.p = (unit / n_mp) * BAND_PLANES;
+    const int u = unit / n_mp;
+    t.grp = u % nb;
+    t.p = (u / nb) * BAND_PLANES;
     t.nt = 0;
     t.nkb = SEGS * 2 * nh;  // segments of [ar part; ai part]
   } else {
@@ -511,11 +530,11 @@ __device__ __forceinline__ Tile tile_of(int unit, int rank, int n_band,
 }
 
 struct Args {
-  const uint32_t* mask;   // (P, nw) band column bits
-  const long long* idx;   // (P, BAND) band columns
+  const uint32_t* mask;   // (P, nw) band column bits; null: no band
+  const long long* idx;   // (P, bw) band columns, bw = BAND nb
   float* cr;              // (P, Ky, X)
   float* ci;
-  int P, Ky, Kyp, X, nw, nh, n_mt, n_mp, n_nt, n_band, n_units, vec2;
+  int P, Ky, Kyp, X, nw, nh, n_mt, n_mp, n_nt, n_band, n_units, vec2, nb, bw;
 };
 
 // a consumer warp frees a stage in every block whose ring its block's
@@ -560,7 +579,7 @@ corner_stage2_kernel(const __grid_constant__ CUtensorMap tm_t,
       uint32_t phase = 0;
       for (int unit = cluster_id(); unit < a.n_units; unit += cluster_count()) {
         const Tile t = tile_of(unit, rank, a.n_band, a.n_mt, a.n_mp, a.n_nt,
-                               nh);
+                               nh, a.nb);
         const uint32_t bytes = (t.ghost ? 0 : A_BYTES) + B_BYTES;
         for (int kb = 0; kb < t.nkb; ++kb) {
           mbar_wait(&empty[stage], phase ^ 1);
@@ -576,13 +595,15 @@ corner_stage2_kernel(const __grid_constant__ CUtensorMap tm_t,
             const int aj = (SEG_A >> (4 * seg)) & 0xF;
             if (!t.ghost)
               tma_load_3d(sa, &tm_t, rem * BK, t.mt * BM, ti, &full[stage]);
-            // both planes' 64 band columns, one box: block kb % 2 loads it
+            // both planes' 64 band columns of group grp, one box: block
+            // kb % 2 loads it
             if (!MULTICAST)
-              tma_load_4d(sb, &tm_g, 0, hb * BK, t.p, 2 * aj + part,
-                          &full[stage]);
+              tma_load_4d(sb, &tm_g, BAND * t.grp, hb * BK, t.p,
+                          2 * aj + part, &full[stage]);
             else if (kb % CLUSTER == rank)
-              tma_load_4d_mc(sb, &tm_g, 0, hb * BK, t.p, 2 * aj + part,
-                             &full[stage], (1u << CLUSTER) - 1);
+              tma_load_4d_mc(sb, &tm_g, BAND * t.grp, hb * BK, t.p,
+                             2 * aj + part, &full[stage],
+                             (1u << CLUSTER) - 1);
           } else {
             const int part = kb / nh, hb = kb - part * nh;
             if (!t.ghost)
@@ -624,7 +645,7 @@ corner_stage2_kernel(const __grid_constant__ CUtensorMap tm_t,
     uint32_t phase = 0;
     for (int unit = cluster_id(); unit < a.n_units; unit += cluster_count()) {
       const Tile t = tile_of(unit, rank, a.n_band, a.n_mt, a.n_mp, a.n_nt,
-                             a.nh);
+                             a.nh, a.nb);
 #pragma unroll
       for (int i = 0; i < 64; ++i) acc[i] = 0.0f;
       int prev = -1;
@@ -689,12 +710,15 @@ corner_stage2_kernel(const __grid_constant__ CUtensorMap tm_t,
         float* out = is_ci ? a.ci : a.cr;
         if (t.band) {
           // column n = 8g + 2q (+1) of the tile: plane t.p + g / 8, band
-          // column j = n % 64 of it, written at x = idx[plane][j]
+          // column j = 64 grp + n % 64 of it, written at x = idx[plane][j]
+          // (a column given twice in idx is computed twice, the same value
+          // from the same operand, and stored twice)
 #pragma unroll
           for (int g = 0; g < BN / 8; ++g) {
             const int pl = t.p + (g >> 3);
             if (pl >= a.P) continue;
-            const long long* ip = a.idx + (size_t)pl * BAND + 8 * (g & 7) + 2 * q;
+            const long long* ip = a.idx + (size_t)pl * a.bw + BAND * t.grp +
+                                  8 * (g & 7) + 2 * q;
             float* row = out + ((size_t)pl * a.Ky + y) * a.X;
             row[ip[0]] = acc[4 * g + 2 * half];
             row[ip[1]] = acc[4 * g + 2 * half + 1];
@@ -705,7 +729,7 @@ corner_stage2_kernel(const __grid_constant__ CUtensorMap tm_t,
 #pragma unroll
           for (int i = 0; i < BN / 32; ++i) {
             const int w = n0 / 32 + i;
-            mw[i] = w < a.nw ? a.mask[(size_t)t.p * a.nw + w] : 0u;
+            mw[i] = a.mask && w < a.nw ? a.mask[(size_t)t.p * a.nw + w] : 0u;
           }
           float* row = out + ((size_t)t.p * a.Ky + y) * a.X;
 #pragma unroll
@@ -774,13 +798,15 @@ bool encode_bf16(EncodeTiled enc, CUtensorMap* map, const void* base,
 
 bool aligned16(const void* p) { return (uintptr_t)p % 16 == 0; }
 
-// K2's units: band units (pairs of 128-row blocks of T x plane pairs), then
-// bulk units (the pairs x planes x 128-column blocks); n_band receives the
-// band units' count
-long long stage2_units(int P, int X, int Kyp, long long* n_band) {
+// K2's units: band units (pairs of 128-row blocks of T x the nb band
+// groups x plane pairs), then, with `bulk`, bulk units (the pairs x planes
+// x 128-column blocks); n_band receives the band units' count
+long long stage2_units(int P, int X, int Kyp, int nb, int bulk,
+                       long long* n_band) {
   const int n_mp = (2 * Kyp / BM + 1) / 2;
-  *n_band = (long long)((P + BAND_PLANES - 1) / BAND_PLANES) * n_mp;
-  return *n_band + (long long)P * n_mp * ((X + BN - 1) / BN);
+  *n_band = (long long)((P + BAND_PLANES - 1) / BAND_PLANES) * nb * n_mp;
+  return *n_band +
+         (bulk ? (long long)P * n_mp * ((X + BN - 1) / BN) : 0LL);
 }
 
 // The launch: clusters of CLUSTER blocks, as many as fit on the card at
@@ -847,42 +873,53 @@ extern "C" int corner_stage2_prep(const void* ar, const void* ai, void* ar16,
   return (int)cudaGetLastError();
 }
 
-// The band operand: ar, ai (P, H, X) f32 contiguous, idx (P, 64) int64 (each
-// in [0, X)) -> g (6, P, H, 64) bf16 and mask (P, ceil(X/32)) int32.
+// The band operand of nb groups of 64 columns: ar, ai (P, H, X) f32
+// contiguous, idx (P, 64 nb) int64 (each in [0, X)) -> g (6, P, H, 64 nb)
+// bf16 and mask (P, ceil(X/32)) int32. nb >= 1.
 extern "C" int corner_stage2_band(const void* ar, const void* ai,
                                   const void* idx, void* g, void* mask, int P,
-                                  int H, int X, void* stream) {
+                                  int H, int X, int nb, void* stream) {
   if (!ar || !ai || !idx || !g || !mask || P <= 0 || P > 65535 || H <= 0 ||
-      X <= 0)
+      X <= 0 || nb <= 0 || nb > 65535)
     return (int)cudaErrorInvalidValue;
-  const dim3 grid((H + BAND_ROWS - 1) / BAND_ROWS, P);
+  const dim3 grid((H + BAND_ROWS - 1) / BAND_ROWS, P, nb);
   corner_stage2_band_kernel<<<grid, BAND_THREADS, 0, (cudaStream_t)stream>>>(
       (const float*)ar, (const float*)ai, (const long long*)idx,
-      (__nv_bfloat16*)g, (uint32_t*)mask, P, H, X, (X + 31) / 32);
+      (__nv_bfloat16*)g, (uint32_t*)mask, P, H, X, (X + 31) / 32, BAND * nb);
   return (int)cudaGetLastError();
 }
 
 // K2: t2 (3, 2Kyp, 2Hp) bf16 [T0, T1, T2] (corner_kernels.stage2_tables;
 // Kyp, Hp multiples of 64, Kyp >= Ky, Hp >= H); ar16, ai16 (P, H, X) bf16,
 // rows ldr / ldi values apart (multiples of 8, >= X), planes H rows apart;
-// g (6, P, H, 64) bf16 the band operand (corner_kernels.band_operand);
-// mask (P, ceil(X/32)) int32 the band bits (band_mask); idx (P, 64) int64
-// the band columns; cr, ci (P, Ky, X) f32 out. X > 64. Where the card
+// g (6, P, H, 64 nb) bf16 the band operand (corner_kernels.band_operand);
+// mask (P, ceil(X/32)) int32 the band bits (band_mask); idx (P, 64 nb)
+// int64 the band columns; cr, ci (P, Ky, X) f32 out. nb >= 0 groups of 64
+// band columns: nb = 0 runs the bulk alone (g, mask and idx unused, may be
+// null). bulk = 0 runs no bulk tile (ar16, ai16, ldr, ldi and mask unused,
+// may be null): the caller's idx then holds every column. Where the card
 // refuses the cluster launch, its error.
 extern "C" int corner_stage2(const void* t2, const void* ar16, const void* ai16,
                              const void* g, const void* mask, const void* idx,
                              void* cr, void* ci, int P, int H, int X, int Ky,
-                             int Kyp, int Hp, int ldr, int ldi, void* stream) {
-  if (!t2 || !ar16 || !ai16 || !g || !mask || !idx || !cr || !ci || P <= 0 ||
-      H <= 0 || X <= BAND || Ky <= 0 || Kyp % 64 != 0 || Kyp < Ky ||
-      Hp % 64 != 0 || Hp < H || ldr < X || ldr % 8 != 0 || ldi < X ||
-      ldi % 8 != 0 || !aligned16(t2) || !aligned16(ar16) || !aligned16(ai16) ||
-      !aligned16(g))
+                             int Kyp, int Hp, int ldr, int ldi, int nb,
+                             int bulk, void* stream) {
+  if (!t2 || !cr || !ci || P <= 0 || H <= 0 || X <= 0 || Ky <= 0 ||
+      Kyp % 64 != 0 || Kyp < Ky || Hp % 64 != 0 || Hp < H || nb < 0 ||
+      nb > 65535 || (bulk != 0 && bulk != 1) || (nb == 0 && !bulk) ||
+      !aligned16(t2))
+    return (int)cudaErrorInvalidValue;
+  if (nb && (!g || !idx || !aligned16(g) || (bulk && !mask)))
+    return (int)cudaErrorInvalidValue;
+  if (bulk && (!ar16 || !ai16 || ldr < X || ldr % 8 != 0 || ldi < X ||
+               ldi % 8 != 0 || !aligned16(ar16) || !aligned16(ai16)))
     return (int)cudaErrorInvalidValue;
   EncodeTiled enc = encode_tiled();
   if (!enc) return (int)cudaErrorNotSupported;
 
-  CUtensorMap maps[4];  // T, ar16, ai16, the band operand
+  // T, ar16, ai16, the band operand; the maps of what a launch does not
+  // read stay zero
+  CUtensorMap maps[4] = {};
   const long long td[3] = {2LL * Hp, 2LL * Kyp, LEVELS};
   const long long ts[2] = {2LL * Hp, 4LL * Hp * Kyp};
   const int tbox[3] = {BK, BM, 1};
@@ -890,17 +927,18 @@ extern "C" int corner_stage2(const void* t2, const void* ar16, const void* ai16,
   const long long rs[2] = {ldr, (long long)H * ldr};
   const long long is[2] = {ldi, (long long)H * ldi};
   const int abox[3] = {64, BK, 1};
-  const long long gd[4] = {BAND, H, P, 2 * LEVELS};
-  const long long gs[3] = {BAND, (long long)H * BAND, (long long)P * H * BAND};
+  const long long bw = (long long)BAND * nb;
+  const long long gd[4] = {bw, H, P, 2 * LEVELS};
+  const long long gs[3] = {bw, (long long)H * bw, (long long)P * H * bw};
   const int gbox[4] = {BAND, BK, BAND_PLANES, 1};
   if (!encode_bf16(enc, &maps[0], t2, 3, td, ts, tbox) ||
-      !encode_bf16(enc, &maps[1], ar16, 3, ad, rs, abox) ||
-      !encode_bf16(enc, &maps[2], ai16, 3, ad, is, abox) ||
-      !encode_bf16(enc, &maps[3], g, 4, gd, gs, gbox))
+      (bulk && (!encode_bf16(enc, &maps[1], ar16, 3, ad, rs, abox) ||
+                !encode_bf16(enc, &maps[2], ai16, 3, ad, is, abox))) ||
+      (nb && !encode_bf16(enc, &maps[3], g, 4, gd, gs, gbox)))
     return (int)cudaErrorInvalidValue;
 
   Args a;
-  a.mask = (const uint32_t*)mask;
+  a.mask = nb && bulk ? (const uint32_t*)mask : nullptr;
   a.idx = (const long long*)idx;
   a.cr = (float*)cr;
   a.ci = (float*)ci;
@@ -913,8 +951,10 @@ extern "C" int corner_stage2(const void* t2, const void* ar16, const void* ai16,
   a.n_mt = 2 * Kyp / BM;
   a.n_mp = (a.n_mt + 1) / 2;
   a.n_nt = (X + BN - 1) / BN;
+  a.nb = nb;
+  a.bw = (int)bw;
   long long n_band = 0;
-  const long long n_units = stage2_units(P, X, Kyp, &n_band);
+  const long long n_units = stage2_units(P, X, Kyp, nb, bulk, &n_band);
   if (n_units > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
   a.n_band = (int)n_band;
   a.n_units = (int)n_units;
@@ -922,13 +962,14 @@ extern "C" int corner_stage2(const void* t2, const void* ar16, const void* ai16,
   return (int)launch_stage2(a.n_units, nullptr, (cudaStream_t)stream, maps, &a);
 }
 
-// The grid corner_stage2 launches for these sizes, in blocks (clusters of
-// 2), or minus a CUDA error code.
-extern "C" int corner_stage2_grid(int P, int X, int Kyp) {
-  if (P <= 0 || X <= BAND || Kyp <= 0 || Kyp % 64 != 0)
+// The grid corner_stage2 launches for these sizes, band groups and bulk, in
+// blocks (clusters of 2), or minus a CUDA error code.
+extern "C" int corner_stage2_grid(int P, int X, int Kyp, int nb, int bulk) {
+  if (P <= 0 || X <= 0 || Kyp <= 0 || Kyp % 64 != 0 || nb < 0 ||
+      (bulk != 0 && bulk != 1) || (nb == 0 && !bulk))
     return -(int)cudaErrorInvalidValue;
   long long n_band = 0;
-  const long long n_units = stage2_units(P, X, Kyp, &n_band);
+  const long long n_units = stage2_units(P, X, Kyp, nb, bulk, &n_band);
   if (n_units > 0x7fffffffLL) return -(int)cudaErrorInvalidValue;
   int clusters = 0;
   const cudaError_t err =

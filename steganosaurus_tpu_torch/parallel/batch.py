@@ -359,12 +359,12 @@ def corner_embed_core(imgs: torch.Tensor, frame: torch.Tensor, maps,
     Forward corner DFT -> each bin's frame bit through `pos` -> dense
     write_delta (soft when `soft`, jittered with cjd/sjd, amplitudes from
     cad/sad under spread) and the write floor, both in the K3 kernel
-    (write_kernels.write_floor, which under mix_adaptive stores the
-    inverse DFT's bf16 operands itself); or, with qim_levels,
+    (write_kernels.write_floor, which, where the inverse's y-stage is bf16,
+    stores its bf16 operands itself); or, with qim_levels,
     write_delta_qim (payload bins on the dithered lattice) in eager torch
     and the floor alone in K3 (write_kernels.floor_only) -> inverse corner
-    DFT and the u8 epilogue (_inverse_u8: K6's y-stage, then K4's x-stage
-    with the epilogue fused; under highest the f32 inverse DFT and K4e)."""
+    DFT and the u8 epilogue (_inverse_u8), each stage at the precision
+    mode's precision (corner.precision())."""
     planes = _planes_u8(imgs, layout)
     H, W = planes.shape[-2:]
     pos, cjd, sjd, cad, sad, dq, qm = _unpack_maps(maps, has_jitter,
@@ -386,9 +386,9 @@ def corner_embed_core(imgs: torch.Tensor, frame: torch.Tensor, maps,
             dr, di, _ = write_kernels.floor_only(dr, di, cr, ci, floor=floor,
                                                  img_pixels=pixels)
     else:
-        # under mix_adaptive K3 stores bf16(Re D), bf16(-Im D): the inverse
-        # DFT's operands, neither cast nor negated again
-        operands = mode != "highest"
+        # where the y-stage is bf16 K3 stores bf16(Re D), bf16(-Im D): the
+        # inverse DFT's operands, neither cast nor negated again
+        operands = mode.inv_y == "bf16"
         dr, di, _ = write_kernels.write_floor(
             cr, ci, pos, frame, ca, sa, cjd, sjd, floor=floor,
             img_pixels=pixels, soft=soft, ifft_operands=operands)
@@ -396,25 +396,36 @@ def corner_embed_core(imgs: torch.Tensor, frame: torch.Tensor, maps,
     return _inverse_u8(dr, di, tabs, planes, center, layout, mode, operands)
 
 
-def _inverse_u8(dr, di, tabs, planes, center: bool, layout: str, mode: str,
+def _inverse_u8(dr, di, tabs, planes, center: bool, layout: str, mode,
                 conjugated: bool) -> torch.Tensor:
     """The embed cores' last step: the inverse corner DFT of the delta (dr,
-    di) and the u8 epilogue over the cover planes -> u8 stego in `layout`.
-    Under mix_adaptive the y-stage (corner.ifft_corner_y: on CUDA the K6
-    kernel, write_kernels.ifft_y, which rounds its f32 sums to bf16 in
-    registers) hands its two bf16 (3B*H, Kx) outputs to K4
+    di) and the u8 epilogue over the cover planes -> u8 stego in `layout`,
+    at the precisions of `mode` (a corner.Precision or a mode name).
+    A bf16 y-stage (corner.ifft_corner_y: on CUDA the K6 kernel,
+    write_kernels.ifft_y, which rounds its f32 sums to bf16 in registers)
+    hands its two bf16 (3B*H, Kx) outputs to K4
     (write_kernels.ifft_epilogue), the x-stage with the epilogue in its
     registers: neither the y-stage's f32 products nor the (B, 3, H, W) f32
-    image is made. Under highest the f32 inverse DFT, left unscaled, goes
-    to K4e (write_kernels.epilogue), which scales; peak memory then holds
-    one (B, 3, H, W) f32 tensor. The caller has dropped the spectrum, and
-    the deltas go before the last step."""
-    if mode == "highest":
+    image is made. An f32 y-stage (mix2) hands its products, cast to bf16
+    (the x-stage's operands), to K4. An f32 x-stage takes the f32 inverse
+    DFT, left unscaled, to K4e (write_kernels.epilogue), which scales; peak
+    memory then holds one (B, 3, H, W) f32 tensor. The caller has dropped
+    the spectrum, and the deltas go before the last step."""
+    mode = corner.stages(mode)
+    if mode.inv_x != "bf16":
         t = corner.ifft_corner_real(dr, di, *planes.shape[-2:], tabs, mode,
                                     scale=False, conjugated=conjugated)
         del dr, di
         return write_kernels.epilogue(t, planes, center, layout)
-    mr16, mi16 = corner.ifft_corner_y(dr, di, tabs, conjugated=conjugated)
+    if mode.inv_y == "bf16":
+        mr16, mi16 = corner.ifft_corner_y(dr, di, tabs, conjugated=conjugated)
+    else:
+        mr, mi = corner._ifft_y(dr, di, tabs, mode.inv_y, conjugated)
+        Kx = mr.shape[-1]
+        mr16 = mr.to(torch.bfloat16).reshape(-1, Kx)
+        del mr
+        mi16 = mi.to(torch.bfloat16).reshape(-1, Kx)
+        del mi
     del dr, di
     return write_kernels.ifft_epilogue(mr16, mi16, tabs, planes, center,
                                        layout)
@@ -449,11 +460,12 @@ def corner_piw_embed_core(imgs: torch.Tensor, frame: torch.Tensor, plane, y,
     write values there (write_delta with the slot's own jitter and
     amplitude; QIM on slots >= HEADER_SLOTS when qim_levels) and scatters them
     into a zero corner; then the write floor (K3's floor_only), the inverse
-    DFT and the u8 epilogue (_inverse_u8: K6 and K4 under mix_adaptive,
-    K4e under highest). alphas (n,) (Params.alpha_spread) and
-    dither (n,) (QIM) are the shared slot-aligned per-slot arrays, read up
-    to each image's last real slot nbits[b] - 1 (nbits (B,) int64), so the
-    tail-pad duplicates of the last real bin scatter identical values."""
+    DFT and the u8 epilogue (_inverse_u8, at the precision mode's stage
+    precisions: K6 and K4 under mix_adaptive). alphas (n,)
+    (Params.alpha_spread) and dither (n,) (QIM) are the shared slot-aligned
+    per-slot arrays, read up to each image's last real slot nbits[b] - 1
+    (nbits (B,) int64), so the tail-pad duplicates of the last real bin
+    scatter identical values."""
     planes = _planes_u8(imgs, layout)
     B, _, H, W = planes.shape
     mode = corner.precision()

@@ -9,24 +9,39 @@ top-left corner of the spectrum, so
 and both directions are pruned-DFT matmuls plus dense elementwise math over
 the corner. Complex values are (re, im) f32 pairs, as in the JAX package.
 
-Precision modes (STEGANOSAURUS_MM_PRECISION), restricted to two:
-- "mix_adaptive" (default): forward stage 1 through the hand-written K1
-  kernels (corner_kernels.fwd_stage1, bf16 operands, f32 accumulation);
-  forward stage 2 in bf16 except the top SPLIT_X0 = 64 energy columns per
-  (image, plane), which run at higher precision: on CUDA through the prep
-  and K2 kernels (corner_kernels.stage2_prep, fwd_stage2: the band in
-  split bf16, JAX-on-TPU's Precision.HIGH), on the CPU in full f32
-  (_fwd_y_split, as the JAX package computes on the CPU); both inverse
-  stages in bf16, on CUDA through the K6 (y-stage) and K4 (x-stage with
-  the u8 epilogue) kernels of write_kernels.
-- "highest": full f32 products everywhere — the arbiter.
-Any other name raises. "bf16" here always means bf16 operands with an f32
-result: torch.mm/bmm(..., out_dtype=torch.float32) on CUDA, and on the CPU
-(where that overload has no kernel) the JAX package's own emulation, bf16
-rounding of both operands followed by an f32 matmul. A plain bf16 matmul
-would return bf16 and round 1e6-scale spectra to ~±2000 next to ~1e4-scale
-walk signals, so it is never used. f32 products assume TF32 is off
-(runtime.configure_precision).
+Precision modes (STEGANOSAURUS_MM_PRECISION), the JAX package's names:
+precision() resolves one to a Precision, the precision of each of the four
+stages (stage 1, forward stage 2, the inverse's y-stage, its x-stage):
+
+  mode              stage 1   fwd stage 2            inverse y  inverse x
+  mix_adaptive      bf16      bf16 + top-X0 band     bf16       bf16
+  mix_split         bf16      bf16 + band [0, X0)    bf16       bf16
+  mix, mix3         bf16      high                   bf16       bf16
+  mix2              bf16      high                   high       bf16
+  mix_conservative  bf16      high                   high       high
+  bf16              bf16      bf16                   bf16       bf16
+  high              high      high                   high       high
+  highest           highest   highest                highest    highest
+
+X0 is split_x0() (STEGANOSAURUS_SPLIT_X0, default 64; X0 >= Kx runs the
+whole stage at high, X0 = 0 in bf16). Any other name raises (the JAX
+package runs it as highest). What each precision runs:
+- "bf16": bf16 operands with an f32 result. Stage 1 through the K1 kernel
+  (corner_kernels.fwd_stage1), the inverse's y-stage through K6 and its
+  x-stage with the u8 epilogue through K4 (write_kernels); on the CPU the
+  JAX package's own emulation, bf16 rounding of both operands followed by
+  an f32 matmul. A plain bf16 matmul would return bf16 and round 1e6-scale
+  spectra to ~±2000 next to ~1e4-scale walk signals, so it is never used.
+- forward stage 2: on CUDA the prep, band and K2 kernels
+  (corner_kernels), the band in split bf16 (three terms, six products: the
+  port's HIGH, since the TPU's two-term form flipped a Rep-7 group on the
+  4K benchmark), the bulk in bf16; "high" is every column in the band. On
+  the CPU _fwd_y_split: the band, and "high", as f32 products, as the JAX
+  package computes Precision.HIGH on the CPU.
+- "high" in the other stages, and "highest": f32 products
+  (torch.matmul with TF32 off, runtime.configure_precision), then, where
+  the x-stage is f32, the u8 epilogue through K4e. f32 is at least as
+  accurate as the TPU's three-pass HIGH.
 """
 
 from __future__ import annotations
@@ -34,6 +49,7 @@ from __future__ import annotations
 import functools
 import math
 import os
+import sys
 from typing import NamedTuple
 
 import numpy as np
@@ -42,23 +58,87 @@ import torch
 from steganosaurus_tpu_torch import spectral
 from steganosaurus_tpu_torch.spectral import corner_kernels
 
-MODES = ("mix_adaptive", "highest")
+class Precision(NamedTuple):
+    """A precision mode resolved to its stages: `name`, then the precision
+    of stage 1, forward stage 2, the inverse's y-stage and its x-stage,
+    each "bf16", "high" or "highest" (fwd2 also "split" or "adaptive": bf16
+    with a static or top-energy band at high)."""
+    name: str
+    stage1: str
+    fwd2: str
+    inv_y: str
+    inv_x: str
 
 
-def precision() -> str:
-    """The corner DFT precision mode (STEGANOSAURUS_MM_PRECISION)."""
-    name = os.environ.get("STEGANOSAURUS_MM_PRECISION",
-                          "mix_adaptive").lower()
-    if name not in MODES:
-        raise ValueError(f"STEGANOSAURUS_MM_PRECISION={name!r}: the torch "
-                         f"port supports {MODES} only")
-    return name
+STAGE_PRECISIONS = ("bf16", "high", "highest")
+_MODES = {
+    "mix_split": ("bf16", "split", "bf16", "bf16"),
+    "mix_adaptive": ("bf16", "adaptive", "bf16", "bf16"),
+    "mix": ("bf16", "high", "bf16", "bf16"),
+    "mix3": ("bf16", "high", "bf16", "bf16"),
+    "mix2": ("bf16", "high", "high", "bf16"),
+    "mix_conservative": ("bf16", "high", "high", "high"),
+    "bf16": ("bf16",) * 4,
+    "high": ("high",) * 4,
+    "highest": ("highest",) * 4,
+}
+MODES = tuple(_MODES)
+_warned_bf16 = False
 
 
-# Width of the forward stage-2 full-precision column band: the JAX
-# package's default (its STEGANOSAURUS_SPLIT_X0 measurement knob is not
-# carried over).
+def resolve(name: str) -> Precision:
+    """The Precision of the mode `name` (case-insensitive); an unknown name
+    raises. "bf16" prints, once a process, that it breaks 4K/16 KB
+    recovery."""
+    global _warned_bf16
+    name = name.lower()
+    if name not in _MODES:
+        raise ValueError(f"STEGANOSAURUS_MM_PRECISION={name!r}: not one of "
+                         f"{MODES}")
+    if name == "bf16" and not _warned_bf16:
+        _warned_bf16 = True
+        print("steganosaurus_tpu_torch: STEGANOSAURUS_MM_PRECISION=bf16 runs "
+              "the forward stage-2 contraction in bf16, which is MEASURED to "
+              "break 4K/16KB payload recovery (operand dynamic range ~1e6 vs "
+              "~1e4 signal) — measurement mode only, not for real embeds",
+              file=sys.stderr)
+    return Precision(name, *_MODES[name])
+
+
+def precision() -> Precision:
+    """The corner DFT precision mode in force (STEGANOSAURUS_MM_PRECISION,
+    default mix_adaptive), resolved."""
+    return resolve(os.environ.get("STEGANOSAURUS_MM_PRECISION",
+                                  "mix_adaptive"))
+
+
+def stages(mode) -> Precision:
+    """A Precision, or a mode name resolved."""
+    return mode if isinstance(mode, Precision) else resolve(mode)
+
+
+def _stage(mode, field: str) -> str:
+    """The precision of stage `field` under `mode`: a Precision, a mode
+    name, or a stage precision itself (STAGE_PRECISIONS, each also the name
+    of the mode that runs every stage so)."""
+    if isinstance(mode, Precision):
+        return getattr(mode, field)
+    if mode in STAGE_PRECISIONS:
+        return mode
+    return getattr(resolve(mode), field)
+
+
+# The default width of the forward stage-2 band (split_x0)
 SPLIT_X0 = 64
+
+
+def split_x0() -> int:
+    """Width of the forward stage-2 band under mix_split and mix_adaptive
+    (STEGANOSAURUS_SPLIT_X0, default SPLIT_X0)."""
+    x0 = int(os.environ.get("STEGANOSAURUS_SPLIT_X0", str(SPLIT_X0)))
+    if x0 < 0:
+        raise ValueError(f"STEGANOSAURUS_SPLIT_X0={x0}: must be >= 0")
+    return x0
 
 
 def corner_dims(H: int, W: int, rmax: float) -> tuple[int, int]:
@@ -193,45 +273,86 @@ def _mm_bf16(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 def fwd_corner(imgs_u8: torch.Tensor, center: bool, Ky: int, Kx: int,
-               tabs: Tables, mode: str):
+               tabs: Tables, mode):
     """u8 images (..., H, W) -> corner spectrum (re, im) (..., Ky, Kx) of
     the (optionally centered) planes:
 
         C[y, x] = sum_{h,w} planes[h,w] * e^{+2pi*i*(yh/H + xw/W)}.
 
-    Stage 1 contracts w (the widest GEMM) — under mix_adaptive through the
-    K1 kernel wrapper, which reads the u8 images directly — and stage 2
-    contracts h (_fwd_y_adaptive under mix_adaptive)."""
+    Stage 1 contracts w (the widest GEMM) — in bf16 through the K1 kernel
+    wrapper, which reads the u8 images directly — and stage 2 contracts h
+    (_fwd_y). mode: a Precision or a mode name."""
+    p = stages(mode)
     H, W = imgs_u8.shape[-2:]
     lead = imgs_u8.shape[:-2]
     x = imgs_u8.reshape(-1, H, W)
-    if mode == "highest":
+    if p.stage1 == "bf16":
+        ar, ai = corner_kernels.fwd_stage1(x, tabs.exr16, tabs.exi16, center,
+                                           tabs.stage1)
+    else:
         planes = spectral.apply_center(x.to(torch.float32), center)
         ar = planes @ tabs.exr.T
         ai = planes @ tabs.exi.T
-        cr = tabs.eyr @ ar - tabs.eyi @ ai
-        ci = tabs.eyr @ ai + tabs.eyi @ ar
-    else:
-        ar, ai = corner_kernels.fwd_stage1(x, tabs.exr16, tabs.exi16, center,
-                                           tabs.stage1)
-        cr, ci = _fwd_y_adaptive(ar, ai, tabs)
+        del planes
+    cr, ci = _fwd_y(ar, ai, tabs, p.fwd2)
     return cr.reshape(*lead, Ky, Kx), ci.reshape(*lead, Ky, Kx)
 
 
-def _fwd_y_adaptive(ar: torch.Tensor, ai: torch.Tensor, tabs: Tables):
-    """Forward stage 2 under mix_adaptive. CUDA tensors go through the prep
-    kernel (bf16 copies and column energies), band_topk, the band kernel
-    (the band columns' bf16 terms and mask) and K2; CPU tensors, and a
-    corner no wider than the band (not on the main path), take
-    _fwd_y_split."""
-    X0 = min(SPLIT_X0, ar.shape[-1])
-    if ar.device.type == "cpu" or X0 == ar.shape[-1]:
-        return _fwd_y_split(ar, ai, tabs)
-    ar16, ai16, energy = corner_kernels.stage2_prep(ar, ai)
-    idx = band_topk(energy, X0)
+def band_width(fwd2: str, Kx: int) -> int | None:
+    """The columns of forward stage 2's high band at precision `fwd2`
+    (Precision.fwd2) for a Kx-wide corner: split_x0() (at most Kx) under
+    "split" and "adaptive", Kx under "high", 0 under "bf16"; None under
+    "highest" (f32 products, no band)."""
+    if fwd2 == "highest":
+        return None
+    if fwd2 in ("split", "adaptive"):
+        return min(split_x0(), Kx)
+    if fwd2 not in ("high", "bf16"):
+        raise ValueError(f"forward stage 2: unknown precision {fwd2!r}")
+    return Kx if fwd2 == "high" else 0
+
+
+def _fwd_y(ar: torch.Tensor, ai: torch.Tensor, tabs: Tables, fwd2: str):
+    """Forward stage 2 at precision `fwd2` (Precision.fwd2): f32 products
+    under "highest"; else a band of band_width(fwd2) columns at high and
+    the rest in bf16: the columns [0, X0) under "split", the top-X0 energy
+    columns under "adaptive". CPU tensors take _fwd_y_split, CUDA tensors
+    the kernels (_fwd_y_kernels)."""
+    X0 = band_width(fwd2, ar.shape[-1])
+    if X0 is None:
+        return (tabs.eyr @ ar - tabs.eyi @ ai,
+                tabs.eyr @ ai + tabs.eyi @ ar)
+    adaptive = fwd2 == "adaptive"
+    if ar.device.type == "cpu":
+        return _fwd_y_split(ar, ai, tabs, X0, adaptive)
+    return _fwd_y_kernels(ar, ai, tabs, X0, adaptive)
+
+
+def _fwd_y_kernels(ar: torch.Tensor, ai: torch.Tensor, tabs: Tables,
+                   X0: int, adaptive: bool):
+    """Forward stage 2 on the card with a band of X0 columns: the prep
+    kernel (bf16 copies and column energies), the band (band_topk of the
+    energies where `adaptive`, else [0, X0); padded to 64 nb columns), the
+    band kernel (the band columns' bf16 terms and mask) and K2. X0 = 0 runs
+    the prep and K2's bulk alone; X0 >= Kx the band kernel and K2's band
+    alone, every column in it (no bf16 copies)."""
+    P, _, X = ar.shape
+    ck = corner_kernels
+    if X0 >= X:
+        idx = ck.static_band(P, X, ar.device)
+        return ck.fwd_stage2(ar, ai, None, None, idx, tabs,
+                             ck.stage2_band(ar, ai, idx))
+    ar16, ai16, energy = ck.stage2_prep(ar, ai)
+    if X0 == 0:
+        idx = torch.empty((P, 0), dtype=torch.int64, device=ar.device)
+        return ck.fwd_stage2(ar, ai, ar16, ai16, idx, tabs, None)
+    if adaptive:
+        idx = ck.pad_band(band_topk(energy, X0))
+    else:
+        idx = ck.static_band(P, X0, ar.device)
     del energy
-    band = corner_kernels.stage2_band(ar, ai, idx)
-    return corner_kernels.fwd_stage2(ar, ai, ar16, ai16, idx, tabs, band)
+    band = ck.stage2_band(ar, ai, idx)
+    return ck.fwd_stage2(ar, ai, ar16, ai16, idx, tabs, band)
 
 
 def band_topk(energy: torch.Tensor, X0: int) -> torch.Tensor:
@@ -249,30 +370,47 @@ def band_columns(ar: torch.Tensor, ai: torch.Tensor, X0: int) -> torch.Tensor:
     return torch.topk(energy, X0, dim=-1).indices
 
 
-def _fwd_y_split(ar: torch.Tensor, ai: torch.Tensor, tabs: Tables):
-    """Forward stage 2 (contract h) with the adaptive column split
-    (steganosaurus_tpu.spectral.corner._fwd_y_split, adaptive=True).
+def _bf16_y(ar: torch.Tensor, ai: torch.Tensor, tabs: Tables):
+    """Forward stage 2 in bf16: four bf16 products into f32, a difference
+    and a sum, as the JAX package's "bf16" einsums."""
+    ar16, ai16 = ar.to(torch.bfloat16), ai.to(torch.bfloat16)
+    return (_mm_bf16(tabs.eyr16, ar16) - _mm_bf16(tabs.eyi16, ai16),
+            _mm_bf16(tabs.eyr16, ai16) + _mm_bf16(tabs.eyi16, ar16))
+
+
+def _fwd_y_split(ar: torch.Tensor, ai: torch.Tensor, tabs: Tables,
+                 X0: int | None = None, adaptive: bool = True):
+    """Forward stage 2 (contract h) with the column split
+    (steganosaurus_tpu.spectral.corner._fwd_y_split), its band in f32.
 
     ar/ai: (P, H, Kx). A bf16 rounding error in stage-1 column x lands only
     in output column x, with size ~2^-9 times that column's energy, so the
-    top-X0 columns by energy sum_h(ar^2 + ai^2) per (image, plane) are
-    contracted in full f32 and every other column in bf16. The band is
-    gathered with torch.gather and written over the bf16 result with
-    scatter_ — the same exact select the JAX package builds from one-hot
-    matmuls."""
+    band of X0 columns (default split_x0()) is contracted in full f32 and
+    every other column in bf16. adaptive: the band is the top-X0 columns by
+    energy sum_h(ar^2 + ai^2) per (image, plane), gathered with
+    torch.gather and written over the bf16 result with scatter_ — the same
+    exact select the JAX package builds from one-hot matmuls; else the
+    static [0, X0), each side of it contracted alone and the two
+    concatenated, as the JAX package does. X0 >= Kx runs the whole stage in
+    f32 (the JAX package's degenerate case), X0 = 0 in bf16."""
     P, H, X = ar.shape
-    X0 = min(SPLIT_X0, X)
-    if X0 == X:  # tiny corner: the whole stage at full precision
+    X0 = min(split_x0() if X0 is None else X0, X)
+    if X0 == X:  # the whole stage at full precision
         return (tabs.eyr @ ar - tabs.eyi @ ai,
                 tabs.eyr @ ai + tabs.eyi @ ar)
+    if X0 == 0:
+        return _bf16_y(ar, ai, tabs)
+    if not adaptive:
+        lo = (tabs.eyr @ ar[..., :X0] - tabs.eyi @ ai[..., :X0],
+              tabs.eyr @ ai[..., :X0] + tabs.eyi @ ar[..., :X0])
+        hi = _bf16_y(ar[..., X0:], ai[..., X0:], tabs)
+        return (torch.cat((lo[0], hi[0]), -1),
+                torch.cat((lo[1], hi[1]), -1))
     idx = band_columns(ar, ai, X0)                             # (P, X0)
     gi = idx[:, :, None].expand(P, X0, H)
     agr = ar.transpose(1, 2).gather(1, gi)                     # (P, X0, H)
     agi = ai.transpose(1, 2).gather(1, gi)
-    ar16, ai16 = ar.to(torch.bfloat16), ai.to(torch.bfloat16)
-    cr = _mm_bf16(tabs.eyr16, ar16) - _mm_bf16(tabs.eyi16, ai16)
-    ci = _mm_bf16(tabs.eyr16, ai16) + _mm_bf16(tabs.eyi16, ar16)
-    del ar16, ai16                                             # (P, Ky, X)
+    cr, ci = _bf16_y(ar, ai, tabs)                             # (P, Ky, X)
     hr = agr @ tabs.eyr.T - agi @ tabs.eyi.T                   # (P, X0, Ky)
     hi = agi @ tabs.eyr.T + agr @ tabs.eyi.T
     si = idx[:, None, :].expand(P, cr.shape[1], X0)
@@ -282,43 +420,44 @@ def _fwd_y_split(ar: torch.Tensor, ai: torch.Tensor, tabs: Tables):
 
 
 def ifft_corner_real(dr: torch.Tensor, di: torch.Tensor, H: int, W: int,
-                     tabs: Tables, mode: str, scale: bool = True,
+                     tabs: Tables, mode, scale: bool = True,
                      conjugated: bool = False) -> torch.Tensor:
     """real(IFFT2(Delta)) for a corner-supported Delta = (dr, di) of shape
     (..., Ky, Kx) -> (..., H, W) f32.
 
     Under the reference convention this is (1/(H*W)) * Re(sum conj(Delta)
     [y,x] e^{+2pi*i*(yh/H + xw/W)}): with Dc = (dr, -di), M = Ey^T @ Dc
-    (contract y), then Re(M @ Ex) (contract x). bf16 under mix_adaptive
-    (the delta has no DC term and mild dynamic range), f32 under highest.
+    (contract y), then Re(M @ Ex) (contract x), each stage at mode's
+    precision (a Precision or a mode name; inv_y and inv_x): bf16 products,
+    or f32 under high and highest.
     scale=False leaves out the 1/(H*W) factor, for a caller that applies it
     itself (the embed cores' u8 epilogue, write_kernels.epilogue).
     conjugated=True: (dr, di) is Dc itself, (Re Delta, -Im Delta), taken as
-    it is (no negation; bf16 operands, as the K3 kernel stores them under
-    mix_adaptive, are not cast again)."""
+    it is (no negation; bf16 operands, as the K3 kernel stores them, are
+    not cast again)."""
     lead = dr.shape[:-2]
-    mr, mi = _ifft_y(dr, di, tabs, mode, conjugated)
-    if mode == "highest":
-        t = mr @ tabs.exr
-        t -= mi @ tabs.exi
-    else:
+    mr, mi = _ifft_y(dr, di, tabs, _stage(mode, "inv_y"), conjugated)
+    if _stage(mode, "inv_x") == "bf16":
         t = _mm_bf16(mr, tabs.exr16)
         t -= _mm_bf16(mi, tabs.exi16)
+    else:
+        t = mr @ tabs.exr
+        t -= mi @ tabs.exi
     if scale:
         t *= 1.0 / (H * W)
     return t.reshape(*lead, H, W)
 
 
-def _ifft_y(dr, di, tabs: Tables, mode: str, conjugated: bool):
+def _ifft_y(dr, di, tabs: Tables, mode, conjugated: bool):
     """The inverse DFT's y-stage, M = Ey^T @ Dc (contract y): (mr, mi)
-    (P, H, Kx) f32 from (dr, di) (..., Ky, Kx), bf16 operands under
-    mix_adaptive: the eager chain (four products, a difference, a sum) of
-    ifft_corner_real, and under mix_adaptive also the plain version of K6
-    (write_kernels.ifft_y_plain)."""
+    (P, H, Kx) f32 from (dr, di) (..., Ky, Kx) at mode's inv_y precision
+    (bf16 operands, or f32 products): the eager chain (four products, a
+    difference, a sum) of ifft_corner_real, and in bf16 also the plain
+    version of K6 (write_kernels.ifft_y_plain)."""
     Ky, Kx = dr.shape[-2:]
     dcr = dr.reshape(-1, Ky, Kx)
     dci = di.reshape(-1, Ky, Kx) if conjugated else -di.reshape(-1, Ky, Kx)
-    if mode == "highest":
+    if _stage(mode, "inv_y") != "bf16":
         return (tabs.eyr.T @ dcr - tabs.eyi.T @ dci,
                 tabs.eyr.T @ dci + tabs.eyi.T @ dcr)
     return (_mm_bf16(tabs.eyr16.T, dcr) - _mm_bf16(tabs.eyi16.T, dci),
@@ -327,7 +466,7 @@ def _ifft_y(dr, di, tabs: Tables, mode: str, conjugated: bool):
 
 def ifft_corner_y(dr: torch.Tensor, di: torch.Tensor, tabs: Tables,
                   conjugated: bool = False):
-    """The y-stage of ifft_corner_real under mix_adaptive, alone: (mr16,
+    """The y-stage of ifft_corner_real in bf16, alone: (mr16,
     mi16), each (P*H, Kx) bf16 with P the planes of (dr, di) (..., Ky, Kx)
     — M = Ey^T @ Dc summed in f32 from bf16 operands, then rounded to bf16,
     the very values the x-stage's _mm_bf16 casts. They are the operands of

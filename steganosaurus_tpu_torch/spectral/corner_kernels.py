@@ -26,17 +26,25 @@ one of two ways, chosen by route_for:
 catches a build or launch failure and falls back — and takes
 `fwd_stage1_plain` only for CPU tensors.
 
-Stage 2 under mix_adaptive (replaces steganosaurus_tpu/spectral/corner.py:
-_fwd_y_split with adaptive=True, which XLA fuses for the TPU), in
+Stage 2 (replaces steganosaurus_tpu/spectral/corner.py:_fwd_y_split and
+the HIGH and bf16 einsums of fwd_corner, which XLA fuses for the TPU), in
 csrc/corner_stage2.cu. With (ar, ai) the stage-1 output (P, H, Kx) f32 and
 the y tables (eyr, eyi) (Ky, H), per plane
 
     cr = eyr . ar - eyi . ai,   ci = eyr . ai + eyi . ar     (contract h)
 
+with a band of columns in split bf16 and the bulk in bf16. The band is
+nb >= 0 groups of BAND = 64 columns, nb a run-time count: under
+mix_adaptive the top-64 energy columns per plane, under mix_split the
+static [0, 64) (STEGANOSAURUS_SPLIT_X0 sets the width), under the HIGH
+modes every column (no bulk), under bf16 none (no band). A width that is
+not a multiple of 64 is padded with copies of each row's last index
+(pad_band): the kernel computes such a column again, with the same value.
+
 - `stage2_prep` reads ar and ai once and writes their bf16 copies (the
   bulk's operands) and the column energies sum_h(ar^2 + ai^2) (P, Kx),
   summed in f64 in an order fixed by the shape. torch.topk of the energies
-  picks the band: the BAND = 64 columns of highest energy per plane.
+  picks the adaptive band: the columns of highest energy per plane.
 - `fwd_stage2` (K2) is one wgmma GEMM per plane, [cr; ci] = T . [ar16;
   ai16] with T = [[eyr, -eyi], [eyi, eyr]] in bf16 (stage2_tables), f32
   accumulation, whose epilogue skips the band's columns (band_mask); the
@@ -58,11 +66,13 @@ Every wrapper launches its kernel for CUDA tensors or raises, and takes its
 plain version only for CPU tensors. `LAUNCHES` counts each kernel's (and
 each K1 route's) launches under its own name, one per launch and nowhere
 else, so a run can show that the main path went through the kernels, and
-K1 on which route.
+K1 on which route; `BAND_WIDTHS` counts K2's launches by their band width
+in columns (64 nb; 0: no band).
 """
 
 from __future__ import annotations
 
+import collections
 import functools
 
 import torch
@@ -77,8 +87,10 @@ KERNEL_BAND = "corner_stage2_band"      # K2's band operand and column mask
 KERNEL_STAGE2 = "corner_stage2"         # K2
 LAUNCHES = {KERNEL_TMA: 0, KERNEL_LDG: 0, KERNEL_PREP: 0, KERNEL_BAND: 0,
             KERNEL_STAGE2: 0}
+# K2's launches by band width in columns, 64 nb (0: the bulk alone)
+BAND_WIDTHS: collections.Counter = collections.Counter()
 BLOCK = 64  # the kernels' K block and the tables' padding quantum
-BAND = 64   # K2's band width: the columns per plane it computes in split bf16
+BAND = 64   # a K2 band group: the columns per plane of one band tile
 # blocks of a K2 cluster (csrc/corner_stage2.cu's CLUSTER): two row blocks
 # of T that share a plane's operand by TMA multicast
 STAGE2_CLUSTER = 2
@@ -268,9 +280,27 @@ def stage2_tables(eyr: torch.Tensor, eyi: torch.Tensor) -> torch.Tensor:
     return torch.stack(split_bf16(t))
 
 
+def pad_band(idx: torch.Tensor) -> torch.Tensor:
+    """The band idx (P, n) int64 as K2 takes it: (P, 64 nb), nb = ceil(n /
+    64), the columns past n copies of each row's last index (idx itself
+    where n % 64 == 0)."""
+    P, n = idx.shape
+    w = -(-n // BAND) * BAND
+    if w == n:
+        return idx
+    return torch.cat((idx, idx[:, -1:].expand(P, w - n)), 1).contiguous()
+
+
+def static_band(P: int, n: int, device) -> torch.Tensor:
+    """The static band [0, n) of every plane, padded (pad_band): (P, 64 nb)
+    int64 on `device`."""
+    idx = torch.arange(n, dtype=torch.int64, device=device)
+    return pad_band(idx.expand(P, n).contiguous())
+
+
 def band_mask(idx: torch.Tensor, X: int) -> torch.Tensor:
     """(P, ceil(X / 32)) int32: bit x % 32 of word x // 32 is set where
-    column x is one of the plane's band columns idx (P, BAND). K2's bulk
+    column x is one of the plane's band columns idx (P, n). K2's bulk
     epilogue stores no column whose bit is set."""
     P = idx.shape[0]
     nw = -(-X // 32)
@@ -282,8 +312,8 @@ def band_mask(idx: torch.Tensor, X: int) -> torch.Tensor:
 
 def band_operand(ar: torch.Tensor, ai: torch.Tensor, idx: torch.Tensor,
                  levels: int = LEVELS) -> torch.Tensor:
-    """K2's band B operand, (2*levels, P, H, BAND) bf16: the band columns
-    idx (P, BAND) of ar and ai (P, H, Kx) f32 split into split_bf16 terms,
+    """K2's band B operand, (2*levels, P, H, n) bf16: the band columns
+    idx (P, n) of ar and ai (P, H, Kx) f32 split into split_bf16 terms,
     in the order [ar0, ai0, ar1, ai1, ar2, ai2]."""
     P, H, _ = ar.shape
     gi = idx[:, None, :].expand(P, H, idx.shape[1])
@@ -304,7 +334,8 @@ def stage2_prep_plain(ar: torch.Tensor, ai: torch.Tensor):
 def fwd_stage2_plain(ar: torch.Tensor, ai: torch.Tensor, idx: torch.Tensor,
                      tabs, band: str = "bf16x6", prep=None):
     """Plain version of fwd_stage2: (cr, ci) (P, Ky, Kx) f32 from the
-    stage-1 output ar/ai (P, H, Kx) f32 and the band idx (P, X0) int64.
+    stage-1 output ar/ai (P, H, Kx) f32 and the band idx (P, n) int64, any
+    n >= 0 (a column given twice takes the same value twice).
     Every column is the bf16 product T0 . [ar16; ai16] (one f32 product);
     the band columns are then replaced by the SPLITS[band] products
     sum_(i,j) T_i . a_j, one f32 product over the concatenated terms:
@@ -345,7 +376,7 @@ def fwd_stage2_plain(ar: torch.Tensor, ai: torch.Tensor, idx: torch.Tensor,
 def band_error(cr: torch.Tensor, ci: torch.Tensor, ar: torch.Tensor,
                ai: torch.Tensor, idx: torch.Tensor, tabs) -> float:
     """The RMS, over every element of (cr, ci) (P, Ky, Kx) in the band
-    columns idx (P, BAND), of its error against the f64 product of the f32
+    columns idx (P, n), of its error against the f64 product of the f32
     tables (tabs.eyr, tabs.eyi) with the f32 stage-1 output ar/ai (P, H,
     Kx), each on its own scale sum_h |T||a|. A split leaves at most
     SPLIT_REL[band] of that scale at each element; f32 sums add noise whose
@@ -478,70 +509,98 @@ def _tma_rows(t: torch.Tensor) -> torch.Tensor:
     return out[..., :X]
 
 
+def _band_idx(name: str, idx: torch.Tensor, P: int, empty: bool) -> int:
+    """Check a band idx (P, 64 nb) contiguous int64 and return nb; nb = 0
+    (a (P, 0) idx) only where `empty`."""
+    if idx.dim() != 2:
+        raise ValueError(f"{name}: idx must be (P, 64 nb), got "
+                         f"{tuple(idx.shape)}")
+    _need(name, "idx", idx, torch.int64, (P, idx.shape[1]))
+    nb, rest = divmod(idx.shape[1], BAND)
+    if rest or not (nb or empty):
+        raise ValueError(f"{name}: idx must hold 64 nb columns a plane, nb "
+                         f">= {0 if empty else 1} (pad_band), got "
+                         f"{idx.shape[1]}")
+    return nb
+
+
 def stage2_band(ar: torch.Tensor, ai: torch.Tensor, idx: torch.Tensor):
     """(band_operand(ar, ai, idx), band_mask(idx, Kx)): K2's band operand
-    (2*LEVELS, P, H, BAND) bf16 and column mask (P, ceil(Kx/32)) int32 from
-    the stage-1 output ar/ai (P, H, Kx) f32 and the band idx (P, BAND)
-    int64, each index in [0, Kx). CUDA tensors launch csrc/corner_stage2.cu's
-    band kernel on the current stream (one pass: gather, split, mask); CPU
-    tensors take band_operand and band_mask."""
+    (2*LEVELS, P, H, 64 nb) bf16 and column mask (P, ceil(Kx/32)) int32 from
+    the stage-1 output ar/ai (P, H, Kx) f32 and the band idx (P, 64 nb)
+    int64 (pad_band), nb >= 1, each index in [0, Kx). CUDA tensors launch
+    csrc/corner_stage2.cu's band kernel on the current stream (one pass:
+    gather, split, mask); CPU tensors take band_operand and band_mask."""
     name = KERNEL_BAND
     kind = _stage1_output(name, ar, ai, idx)
     P, H, X = ar.shape
-    _need(name, "idx", idx, torch.int64, (P, BAND))
+    nb = _band_idx(name, idx, P, False)
     if kind == "cpu":
         return band_operand(ar, ai, idx), band_mask(idx, X)
-    g = torch.empty((2 * LEVELS, P, H, BAND), dtype=torch.bfloat16,
+    g = torch.empty((2 * LEVELS, P, H, BAND * nb), dtype=torch.bfloat16,
                     device=ar.device)
     mask = torch.empty((P, -(-X // 32)), dtype=torch.int32, device=ar.device)
     if P and H:
         _launch_stage2(name, ar.device, "corner_stage2_band", ar.data_ptr(),
                        ai.data_ptr(), idx.data_ptr(), g.data_ptr(),
-                       mask.data_ptr(), P, H, X)
+                       mask.data_ptr(), P, H, X, nb)
     return g, mask
 
 
-def stage2_grid(P: int, Kx: int, Ky: int, device=None) -> int:
+def stage2_grid(P: int, Kx: int, Ky: int, device=None, nb: int = 1,
+                bulk: bool = True) -> int:
     """The grid K2 launches on `device` (default: the current card) for P
-    planes of a Ky x Kx corner: in blocks, clusters of STAGE2_CLUSTER, as
-    many as the card holds at once and no more than the kernel's units of
-    work; raises where the card has no room for one."""
+    planes of a Ky x Kx corner with nb band groups and (`bulk`) the bulk:
+    in blocks, clusters of STAGE2_CLUSTER, as many as the card holds at
+    once and no more than the kernel's units of work; raises where the card
+    has no room for one."""
     from steganosaurus_tpu_torch import _build
 
     with torch.cuda.device(device):
-        grid = _build.kernel_library().corner_stage2_grid(P, Kx, _pad64(Ky))
+        grid = _build.kernel_library().corner_stage2_grid(
+            P, Kx, _pad64(Ky), nb, int(bool(bulk)))
     _check_rc(KERNEL_STAGE2, -min(grid, 0))
     return grid
 
 
-def fwd_stage2(ar: torch.Tensor, ai: torch.Tensor, ar16: torch.Tensor,
-               ai16: torch.Tensor, idx: torch.Tensor, tabs, band):
-    """Forward stage 2 under mix_adaptive: (cr, ci) (P, Ky, Kx) f32 from the
-    stage-1 output ar/ai (P, H, Kx) f32, stage2_prep's bf16 copies ar16 /
-    ai16, the band idx (P, BAND) int64 (the top-BAND columns of its
-    energies) and band = stage2_band(ar, ai, idx), with the grid's
-    corner.Tables (eyr (Ky, H); on CUDA its stage2 table). CUDA tensors
-    launch K2 (csrc/corner_stage2.cu) on the current stream; CPU tensors
-    take fwd_stage2_plain(band="bf16x6")."""
+def fwd_stage2(ar: torch.Tensor, ai: torch.Tensor, ar16, ai16,
+               idx: torch.Tensor, tabs, band):
+    """Forward stage 2: (cr, ci) (P, Ky, Kx) f32 from the stage-1 output
+    ar/ai (P, H, Kx) f32, stage2_prep's bf16 copies ar16 / ai16, the band
+    idx (P, 64 nb) int64 (pad_band; nb >= 0) and band = stage2_band(ar, ai,
+    idx) (None where nb = 0: the bulk alone), with the grid's corner.Tables
+    (eyr (Ky, H); on CUDA its stage2 table). ar16 = ai16 = None runs no
+    bulk: idx must then hold every column of [0, Kx) (static_band(P, Kx)),
+    which the band computes. CUDA tensors launch K2 (csrc/corner_stage2.cu)
+    on the current stream; CPU tensors take fwd_stage2_plain(band="bf16x6")."""
     name = KERNEL_STAGE2
-    g, mask = band
+    g, mask = band if band is not None else (None, None)
     kind = _stage1_output(name, ar, ai, ar16, ai16, idx, tabs.eyr, g, mask)
     P, H, X = ar.shape
     Ky = tabs.eyr.shape[0]
+    bulk = ar16 is not None
+    if bulk != (ai16 is not None):
+        raise ValueError(f"{name}: give both bf16 copies or neither")
     for what, t in (("ar16", ar16), ("ai16", ai16)):  # views: any strides
-        if t.dtype != torch.bfloat16 or tuple(t.shape) != (P, H, X):
+        if bulk and (t.dtype != torch.bfloat16
+                     or tuple(t.shape) != (P, H, X)):
             raise ValueError(f"{name}: {what} must be bf16 {(P, H, X)}, got "
                              f"{t.dtype} {tuple(t.shape)}")
-    _need(name, "idx", idx, torch.int64, (P, BAND))
+    nb = _band_idx(name, idx, P, bulk)
+    if not bulk and BAND * nb < X:
+        raise ValueError(f"{name}: without the bulk the band must hold "
+                         f"every column (Kx={X}), got {BAND * nb}")
+    if (band is None) != (nb == 0):
+        raise ValueError(f"{name}: a band of {nb} groups needs "
+                         f"{'a' if nb else 'no'} band operand")
     _need(name, "eyr", tabs.eyr, torch.float32, (Ky, H))
-    _need(name, "the band operand", g, torch.bfloat16,
-          (2 * LEVELS, P, H, BAND))
-    _need(name, "the band mask", mask, torch.int32, (P, -(-X // 32)))
-    if X <= BAND:
-        raise ValueError(f"{name}: the band ({BAND} columns) must be "
-                         f"narrower than the corner (Kx={X})")
+    if nb:
+        _need(name, "the band operand", g, torch.bfloat16,
+              (2 * LEVELS, P, H, BAND * nb))
+        _need(name, "the band mask", mask, torch.int32, (P, -(-X // 32)))
     if kind == "cpu":
-        return fwd_stage2_plain(ar, ai, idx, tabs, "bf16x6", (ar16, ai16))
+        return fwd_stage2_plain(ar, ai, idx, tabs, "bf16x6",
+                                (ar16, ai16) if bulk else None)
     t2 = tabs.stage2
     if t2 is None:
         raise ValueError(f"{name}: the tables carry no stage-2 table")
@@ -552,10 +611,15 @@ def fwd_stage2(ar: torch.Tensor, ai: torch.Tensor, ar16: torch.Tensor,
     cr = torch.empty((P, Ky, X), dtype=torch.float32, device=ar.device)
     ci = torch.empty((P, Ky, X), dtype=torch.float32, device=ar.device)
     if P:
-        ar16, ai16 = _tma_rows(ar16), _tma_rows(ai16)
+        ldr = ldi = 0
+        if bulk:
+            ar16, ai16 = _tma_rows(ar16), _tma_rows(ai16)
+            ldr, ldi = ar16.stride(1), ai16.stride(1)
+        # what a launch does not read goes as a null pointer
+        ptrs = [None if t is None else t.data_ptr()
+                for t in (ar16, ai16, g, mask, idx if nb else None)]
         _launch_stage2(name, ar.device, "corner_stage2", t2.data_ptr(),
-                       ar16.data_ptr(), ai16.data_ptr(), g.data_ptr(),
-                       mask.data_ptr(), idx.data_ptr(), cr.data_ptr(),
-                       ci.data_ptr(), P, H, X, Ky, Kyp, Hp, ar16.stride(1),
-                       ai16.stride(1))
+                       *ptrs, cr.data_ptr(), ci.data_ptr(), P, H, X, Ky,
+                       Kyp, Hp, ldr, ldi, nb, int(bulk))
+        BAND_WIDTHS[BAND * nb] += 1
     return cr, ci

@@ -33,11 +33,12 @@ image batch through HBM. Four CUDA sources replace them:
   output [mr, mi] (corner.ifft_corner_y) with the table [exr16; -exi16]
   (corner.ifft_x_table), and K4e's epilogue applied to its accumulators in
   registers, so the f32 (B, 3, H, W) product never reaches HBM. The embed
-  cores run it under mix_adaptive.
+  cores run it wherever the inverse's x-stage is bf16 (corner.precision()).
 - csrc/corner_epilogue.cu (K4e), epilogue: the unscaled inverse DFT t ->
   t * f32(1/(H*W)), the centering sign, + planes, floor(x + 0.5), the clamp
   to [0, 255], u8, stored NCHW or NHWC. The embed cores run it after the
-  f32 inverse DFT under "highest".
+  f32 inverse DFT, wherever the inverse's x-stage is f32 (mix_conservative,
+  high, highest).
 
 Each wrapper launches its kernel for CUDA tensors — or raises; nothing here
 catches a build or launch failure and falls back — and takes its plain

@@ -125,14 +125,49 @@ def flops_of(stage: dict) -> float:
     return sum(stage["gemm_flops"].values()) + stage["elementwise_flops"]
 
 
-def k1_cost(P: int, H: int, W: int, Kx: int, side: str = "") -> dict:
+def k1_cost(P: int, H: int, W: int, Kx: int, side: str = "",
+            precision: str = "bf16") -> dict:
     """Forward stage 1 (K1) over P planes of H x W: two products of the
     (P*H, W) bf16-rounded rows with the (Kx, W) cos and sin tables; bytes:
     the u8 images read once, both bf16 tables once, ar and ai written once
-    in f32."""
+    in f32. precision="fp32": the stage as the f32 modes run it (high,
+    highest: f32 products of the planes with the f32 tables)."""
     M = P * H
-    return _stage(side, "K1", {"bf16": 2.0 * M * W * 2 * Kx}, 0,
-                  M * W + 2 * Kx * W * 2 + 2 * M * Kx * 4, "bf16")
+    tab = 4 if precision == "fp32" else 2
+    return _stage(side, "K1", {precision: 2.0 * M * W * 2 * Kx}, 0,
+                  M * W + 2 * Kx * W * tab + 2 * M * Kx * 4, precision)
+
+
+def ifft_y_f32_cost(B: int, H: int, Ky: int, Kx: int) -> dict:
+    """The inverse DFT's y-stage in f32 (mix2, mix_conservative, high:
+    corner._ifft_y) over B images' (3, Ky, Kx) deltas: four real (H, Ky) x
+    (Ky, Kx) products per plane; bytes: the f32 delta read once, the two
+    f32 (Ky, H) tables once, mr and mi written once in f32."""
+    P = 3 * B
+    return _stage("embed", "inverse y-stage",
+                  {"fp32": 8.0 * P * H * Ky * Kx}, 0,
+                  2 * P * Ky * Kx * 4 + 2 * Ky * H * 4 + 2 * P * H * Kx * 4,
+                  "fp32")
+
+
+def ifft_y_cast_cost(B: int, H: int, Kx: int) -> dict:
+    """mix2's cast of the f32 y-stage's mr and mi (3B*H, Kx) to bf16, K4's
+    operands: read once in f32, written once in bf16."""
+    n = 3 * B * H * Kx
+    return _stage("embed", "cast", {}, 0, 2 * n * 4 + 2 * n * 2, "none")
+
+
+def ifft_x_f32_cost(B: int, H: int, W: int, Kx: int) -> dict:
+    """The inverse DFT's x-stage in f32 (mix_conservative, high, highest:
+    corner.ifft_corner_real) over B images: two real (H, Kx) x (Kx, W)
+    products per plane and their difference; bytes: mr and mi read once
+    in f32, the two f32 (Kx, W) tables once, the (B, 3, H, W) f32 result
+    written once."""
+    P = 3 * B
+    return _stage("embed", "inverse x-stage",
+                  {"fp32": 4.0 * P * H * Kx * W}, 0,
+                  2 * P * H * Kx * 4 + 2 * Kx * W * 4 + P * H * W * 4,
+                  "fp32")
 
 
 def write_floor_cost(B: int, Ky: int, Kx: int, bucket: int, n_maps: int,
@@ -218,35 +253,42 @@ def stage2_prep_cost(P: int, H: int, Kx: int, side: str = "") -> dict:
                   2 * n * 4 + 2 * n * 2 + P * Kx * 4, "none")
 
 
-def stage2_band_cost(P: int, H: int, Kx: int, side: str = "") -> dict:
-    """K2's band operand (corner_kernels.stage2_band): the SPLIT_X0 band
-    columns of ar and ai read once (f32), their three bf16 terms written
-    once, the column mask written once."""
-    X0 = min(corner.SPLIT_X0, Kx)
+def stage2_band_cost(P: int, H: int, Kx: int, side: str = "",
+                     band: int | None = None) -> dict:
+    """K2's band operand (corner_kernels.stage2_band): the `band` columns
+    (default SPLIT_X0; at most Kx) of ar and ai read once (f32), their
+    three bf16 terms written once, the column mask written once."""
+    X0 = min(corner.SPLIT_X0 if band is None else band, Kx)
     levels = corner_kernels.LEVELS
     return _stage(side, "stage2 band", {}, 0,
                   2 * P * H * X0 * 4 + 2 * levels * P * H * X0 * 2
                   + P * -(-Kx // 32) * 4, "none")
 
 
-def k2_cost(P: int, H: int, Ky: int, Kx: int, side: str = "") -> dict:
-    """K2 (corner_kernels.fwd_stage2): the bulk, four real (Ky, H) x (H,
-    Kx - SPLIT_X0) products per plane in bf16 (the columns it keeps: the
+def k2_cost(P: int, H: int, Ky: int, Kx: int, side: str = "",
+            band: int | None = None) -> dict:
+    """K2 (corner_kernels.fwd_stage2) with a band of `band` columns
+    (default SPLIT_X0; at most Kx): the bulk, four real (Ky, H) x (H,
+    Kx - band) products per plane in bf16 (the columns it keeps: the
     band columns' bulk values are thrown away, so the function does not
-    need them), and the SPLIT_X0 band columns as the six bf16 products of
-    split bf16 (corner_kernels.SPLITS["bf16x6"]); bytes: the bf16 copies of
-    ar and ai read once, the band operand (the three bf16 terms of the band
-    columns of ar and ai) once, the tables' three terms once, cr and ci
-    written once in f32."""
-    X0 = min(corner.SPLIT_X0, Kx)
+    need them), and the band columns as the six bf16 products of split
+    bf16 (corner_kernels.SPLITS["bf16x6"]); bytes: the bf16 copies of ar
+    and ai read once (none where the band holds every column), the band
+    operand (the three bf16 terms of the band columns of ar and ai) once,
+    the table's terms the launch reads (T0 alone without a band) once, cr
+    and ci written once in f32."""
+    X0 = min(corner.SPLIT_X0 if band is None else band, Kx)
     nprod, levels = len(corner_kernels.SPLITS["bf16x6"]), corner_kernels.LEVELS
     bulk = 8.0 * P * Ky * H * (Kx - X0)
-    band = nprod * 8.0 * P * X0 * H * Ky
-    nbytes = (2 * P * H * Kx * 2 + 2 * levels * P * H * X0 * 2
-              + levels * (2 * Ky) * (2 * H) * 2 + 2 * P * Ky * Kx * 4)
-    return _stage(side, "K2", {"bf16": bulk + band}, 0, nbytes,
-                  f"bf16, top {X0} columns again in split bf16 "
-                  f"({nprod} bf16 products)")
+    band_flops = nprod * 8.0 * P * X0 * H * Ky
+    nbytes = ((2 * P * H * Kx * 2 if X0 < Kx else 0)
+              + 2 * levels * P * H * X0 * 2
+              + (levels if X0 else 1) * (2 * Ky) * (2 * H) * 2
+              + 2 * P * Ky * Kx * 4)
+    what = ("bf16" if not X0 else "split bf16" if X0 == Kx else
+            f"bf16, {X0} columns again in split bf16")
+    return _stage(side, "K2", {"bf16": bulk + band_flops}, 0, nbytes,
+                  f"{what} ({nprod} bf16 products a band value)")
 
 
 def sector_share(n: int, Ky: int, Kx: int) -> float:
@@ -286,21 +328,29 @@ def read_decode_cost(B: int, Ky: int, Kx: int, n: int, words: int,
                   + (2 * n * 4 if jitter else 0) + B * words * 4, "none")
 
 
+def stage2_f32_cost(P: int, H: int, Ky: int, Kx: int, side: str = "") -> dict:
+    """Forward stage 2 under highest: four real (Ky, H) x (H, Kx) products
+    per plane in f32; bytes: ar and ai read once, the two f32 (Ky, H)
+    tables once, cr and ci written once in f32."""
+    nbytes = 2 * P * H * Kx * 4 + 2 * Ky * H * 4 + 2 * P * Ky * Kx * 4
+    return _stage(side, "stage2", {"fp32": 8.0 * P * Ky * H * Kx}, 0, nbytes,
+                  "fp32")
+
+
 def _stage2(side: str, P: int, H: int, Ky: int, Kx: int,
-            mode: str) -> list[dict]:
-    """Forward stage 2: under mix_adaptive the prep pass, the band operand
-    and K2 (the band in split bf16, as the card runs it; the CPU path runs
-    it once in f32);
-    under "highest", or where the corner is no wider than the band, four
-    real (Ky, H) x (H, Kx) products per plane in f32."""
-    X0 = min(corner.SPLIT_X0, Kx)
-    if mode == "highest" or X0 == Kx:
-        nbytes = (2 * P * H * Kx * 4 + 2 * Ky * H * 4
-                  + 2 * P * Ky * Kx * 4)
-        return [_stage(side, "stage2", {"fp32": 8.0 * P * Ky * H * Kx}, 0,
-                       nbytes, "fp32")]
-    return [stage2_prep_cost(P, H, Kx, side),
-            stage2_band_cost(P, H, Kx, side), k2_cost(P, H, Ky, Kx, side)]
+            fwd2: str) -> list[dict]:
+    """Forward stage 2 at precision fwd2 (corner.Precision.fwd2), as the
+    card runs it (corner._fwd_y_kernels; the CPU path runs the band once
+    in f32): under "highest" four real (Ky, H) x (H, Kx) products per
+    plane in f32; else K2 with a band of corner.band_width(fwd2, Kx)
+    columns, after the prep pass where it has a bulk and the band pass
+    where it has a band."""
+    X0 = corner.band_width(fwd2, Kx)
+    if X0 is None:
+        return [stage2_f32_cost(P, H, Ky, Kx, side)]
+    return ([stage2_prep_cost(P, H, Kx, side)] if X0 < Kx else []) + (
+        [stage2_band_cost(P, H, Kx, side, X0)] if X0 else []) + [
+        k2_cost(P, H, Ky, Kx, side, X0)]
 
 
 def stage_costs(B: int, H: int, W: int, secret_len: int,
@@ -309,14 +359,15 @@ def stage_costs(B: int, H: int, W: int, secret_len: int,
     """The round trip's stage table: one dict per stage, in order, with
     side ("embed" / "extract"), stage, gemm_flops {precision: FLOPs},
     elementwise_flops, hbm_bytes and precision, under the corner precision
-    mode in force (corner.precision())."""
+    mode in force (corner.precision()): each stage at its precision, the
+    f32 ("high" and "highest") products at the fp32 rate."""
     g = _geometry(H, W, secret_len, params)
     mode = corner.precision()
     Ky, Kx, bucket = g["Ky"], g["Kx"], g["bucket"]
     P = 3 * B
     E = P * Ky * Kx                      # corner bins of the batch
     px = P * H * W                       # image-plane pixels of the batch
-    mm = "fp32" if mode == "highest" else "bf16"
+    y16, x16 = mode.inv_y == "bf16", mode.inv_x == "bf16"
     n_maps = 2 * sum(map(bool, (params.jitter, params.alpha_spread,
                                 params.qim)))
 
@@ -325,11 +376,9 @@ def stage_costs(B: int, H: int, W: int, secret_len: int,
         images to planes: a read and a write)."""
         out = ([_stage(side, "layout", {}, 0, 2 * px, "none")]
                if layout == "nhwc" else [])
-        k1 = k1_cost(P, H, W, Kx, side)
-        if mm == "fp32":
-            k1["gemm_flops"] = {"fp32": k1["gemm_flops"]["bf16"]}
-            k1["precision"] = "fp32"
-        return out + [k1, *_stage2(side, P, H, Ky, Kx, mode)]
+        k1 = k1_cost(P, H, W, Kx, side,
+                     "bf16" if mode.stage1 == "bf16" else "fp32")
+        return out + [k1, *_stage2(side, P, H, Ky, Kx, mode.fwd2)]
 
     if params.qim:
         embed = forward("embed") + [
@@ -341,20 +390,25 @@ def stage_costs(B: int, H: int, W: int, secret_len: int,
             floor_only_cost(B, Ky, Kx)]
     else:
         # one K3 write_floor launch over the equal-length frame's stream
-        # words (write_kernels.RepFrame); under mix_adaptive it stores the
-        # inverse DFT's bf16 operands, under highest the f32 delta
+        # words (write_kernels.RepFrame); where the y-stage is bf16 it
+        # stores the inverse DFT's bf16 operands, else the f32 delta
         embed = forward("embed") + [write_floor_cost(
-            B, Ky, Kx, bucket, n_maps, out_bytes=4 if mm == "fp32" else 2,
+            B, Ky, Kx, bucket, n_maps, out_bytes=2 if y16 else 4,
             stream_bytes=g["stream_bytes"])]
-    if mm == "fp32":
+    if not x16:
         embed += [
             # M = Ey^T conj(D) (four products), then Re(M Ex) (two), then
             # K4e over the f32 result
             _stage("embed", "inverse",
-                   {mm: 8.0 * P * H * Ky * Kx + 4.0 * P * H * Kx * W}, 0,
-                   2 * E * 4 + 2 * (Ky * H + Kx * W) * 4 + px * 4, mm),
+                   {"fp32": 8.0 * P * H * Ky * Kx + 4.0 * P * H * Kx * W}, 0,
+                   2 * E * 4 + 2 * (Ky * H + Kx * W) * 4 + px * 4, "fp32"),
             _stage("embed", "epilogue", {}, _EPILOGUE_OPS * px,
                    px * 4 + 2 * px, "none")]
+    elif not y16:
+        # mix2: M = Ey^T conj(D) in f32 (four products), M cast to bf16
+        # (K4's operands), then K4
+        embed += [ifft_y_f32_cost(B, H, Ky, Kx), ifft_y_cast_cost(B, H, Kx),
+                  ifft_epilogue_cost(B, H, W, Kx, layout)]
     else:
         # K6: the y-stage, then K4: the x-stage with the epilogue fused
         embed += [ifft_y_cost(B, H, Ky, Kx),

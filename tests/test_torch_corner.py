@@ -352,13 +352,25 @@ def test_ifft_corner_real_matches_jax(mode, monkeypatch):
 
 
 def test_precision_modes(monkeypatch):
+    """Every name the JAX package's precision() takes resolves, in any
+    case, to the JAX tuple's stage precisions (its order: stage 1, forward
+    stage 2, the inverse's x-stage, its y-stage); an unknown name raises
+    (the JAX package runs it as highest)."""
     monkeypatch.delenv("STEGANOSAURUS_MM_PRECISION", raising=False)
-    assert tcorner.precision() == "mix_adaptive"
-    for name in ("mix_adaptive", "highest"):
+    assert tcorner.precision().name == "mix_adaptive"
+    names = {jax.lax.Precision.HIGH: "high",
+             jax.lax.Precision.HIGHEST: "highest"}
+    assert set(tcorner.MODES) == {"mix_split", "mix_adaptive", "mix", "mix3",
+                                  "mix2", "mix_conservative", "bf16", "high",
+                                  "highest"}
+    for name in tcorner.MODES:
         with pytest.MonkeyPatch.context() as mp:
-            mp.setenv("STEGANOSAURUS_MM_PRECISION", name)
-            assert tcorner.precision() == name
-    for name in ("mix", "mix_split", "bf16", "high"):
+            mp.setenv("STEGANOSAURUS_MM_PRECISION", name.upper())
+            p = tcorner.precision()
+            want = tuple(names.get(v, v) for v in jcorner.precision())
+            assert p.name == name
+            assert (p.stage1, p.fwd2, p.inv_x, p.inv_y) == want
+    for name in ("mix4", "fp32", "highest "):
         with pytest.MonkeyPatch.context() as mp:
             mp.setenv("STEGANOSAURUS_MM_PRECISION", name)
             with pytest.raises(ValueError):

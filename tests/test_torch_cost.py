@@ -321,3 +321,104 @@ def test_read_decode_cost_counts_the_sectors_the_walk_touches(jitter):
         cost.sector_share(m, Ky, Kx), rel=0.01)
     assert cost.walk_sectors(*(torch.zeros(5, dtype=torch.int64),) * 3,
                              Ky, Kx) == 1
+
+
+@pytest.mark.parametrize("band", [0, 64, 1024])
+def test_k2_cost_by_band_width(band):
+    """K2 at 4K B=64 (P = 192, H = 2160, Ky = Kx = 1024) with a band of
+    nb = 0, 1 and Kx/64 groups: the bulk's four bf16 products over the
+    Kx - band columns it keeps, six split-bf16 products over the band's;
+    bytes: the bf16 copies only where there is a bulk, the band operand's
+    three terms, the table's terms read (T0 alone without a band), cr and
+    ci in f32. The band pass moves the band columns' f32 values and terms
+    and the mask."""
+    P, H, Ky, Kx = 192, 2160, 1024, 1024
+    k2 = cost.k2_cost(P, H, Ky, Kx, band=band)
+    assert k2["gemm_flops"] == {"bf16": 8 * P * Ky * H * (Kx - band)
+                                + 6 * 8 * P * band * H * Ky}
+    assert k2["hbm_bytes"] == ((2 * P * H * Kx * 2 if band < Kx else 0)
+                               + 6 * P * H * band * 2
+                               + (3 if band else 1) * 2 * Ky * 2 * H * 2
+                               + 2 * P * Ky * Kx * 4)
+    assert cost.k2_cost(P, H, Ky, Kx, band=2048) == cost.k2_cost(
+        P, H, Ky, Kx, band=Kx)
+    if band == 64:
+        assert k2 == cost.k2_cost(P, H, Ky, Kx)
+    b = cost.stage2_band_cost(P, H, Kx, band=band)
+    assert b["gemm_flops"] == {} and b["hbm_bytes"] == (
+        2 * P * H * band * 4 + 6 * P * H * band * 2 + P * Kx // 32 * 4)
+
+
+# the stages of each mode's embed at 4K B=64 16 KB after K1, the forward
+# stage 2 and K3, and its forward stage 2's stages
+MODE_STAGES = {
+    "mix_adaptive": (["K6 inverse y-stage", "K4 inverse x-stage + epilogue"],
+                     ["stage2 prep", "stage2 band", "K2"]),
+    "mix_split": (["K6 inverse y-stage", "K4 inverse x-stage + epilogue"],
+                  ["stage2 prep", "stage2 band", "K2"]),
+    "mix": (["K6 inverse y-stage", "K4 inverse x-stage + epilogue"],
+            ["stage2 band", "K2"]),
+    "mix3": (["K6 inverse y-stage", "K4 inverse x-stage + epilogue"],
+             ["stage2 band", "K2"]),
+    "mix2": (["inverse y-stage", "cast", "K4 inverse x-stage + epilogue"],
+             ["stage2 band", "K2"]),
+    "mix_conservative": (["inverse", "epilogue"], ["stage2 band", "K2"]),
+    "bf16": (["K6 inverse y-stage", "K4 inverse x-stage + epilogue"],
+             ["stage2 prep", "K2"]),
+    "high": (["inverse", "epilogue"], ["stage2 band", "K2"]),
+    "highest": (["inverse", "epilogue"], ["stage2"]),
+}
+
+
+@pytest.mark.parametrize("name", list(MODE_STAGES))
+def test_stage_costs_per_precision_mode(name, monkeypatch):
+    """Each mode's stage table at 4K B=64 16 KB counts every stage at its
+    precision: K1 in bf16 (f32 under high and highest); K2's band of 64
+    columns (mix_adaptive, mix_split), every column (the HIGH modes: no
+    prep) or none (bf16: no band pass); the f32 stages exactly (forward
+    stage 2 under highest 8 P Ky H Kx, the inverse's y-stage 8 P H Ky Kx,
+    its x-stage 4 P H Kx W) at the fp32 rate; K3's output bf16 only where
+    the y-stage is bf16. Every mode has a round-trip bound."""
+    monkeypatch.setenv("STEGANOSAURUS_MM_PRECISION", name)
+    P, H, W, Ky, Kx = 192, 2160, 3840, 1024, 1024
+    stages = cost.stage_costs(64, H, W, 16384)
+    embed = [s for s in stages if s["side"] == "embed"]
+    extract = [s for s in stages if s["side"] == "extract"]
+    inverse, fwd2 = MODE_STAGES[name]
+    assert [s["stage"] for s in embed] == ["K1", *fwd2, "K3 write + floor",
+                                           *inverse]
+    assert [s["stage"] for s in extract] == ["K1", *fwd2, "read + decode"]
+    k1 = 2 * 2 * (P * H) * W * Kx
+    f32 = name in ("high", "highest")
+    assert embed[0]["gemm_flops"] == {"fp32" if f32 else "bf16": k1}
+    assert embed[0] == cost.k1_cost(P, H, W, Kx, "embed",
+                                    "fp32" if f32 else "bf16")
+    band = {"mix_adaptive": 64, "mix_split": 64, "bf16": 0}.get(name, Kx)
+    st = {s["stage"]: s for s in embed}
+    if name == "highest":
+        assert st["stage2"]["gemm_flops"] == {"fp32": 8 * P * Ky * H * Kx}
+    else:
+        assert st["K2"] == cost.k2_cost(P, H, Ky, Kx, "embed", band)
+    y = 8 * P * H * Ky * Kx
+    x = 4 * P * H * Kx * W
+    assert cost.ifft_y_f32_cost(64, H, Ky, Kx)["gemm_flops"] == {"fp32": y}
+    assert cost.ifft_x_f32_cost(64, H, W, Kx)["gemm_flops"] == {"fp32": x}
+    assert cost.ifft_x_f32_cost(64, H, W, Kx)["hbm_bytes"] == (
+        2 * P * H * Kx * 4 + 2 * Kx * W * 4 + P * H * W * 4)
+    if "inverse" in st:
+        assert st["inverse"]["gemm_flops"] == {"fp32": y + x}
+    if "inverse y-stage" in st:
+        assert st["inverse y-stage"] == cost.ifft_y_f32_cost(64, H, Ky, Kx)
+        assert st["cast"]["hbm_bytes"] == 2 * P * H * Kx * (4 + 2)
+    y16 = name in ("mix_adaptive", "mix_split", "mix", "mix3", "bf16")
+    g = cost._geometry(H, W, 16384, Params())
+    assert st["K3 write + floor"] == cost.write_floor_cost(
+        64, Ky, Kx, g["bucket"], 0, out_bytes=2 if y16 else 4,
+        stream_bytes=g["stream_bytes"])
+    peaks = dict(cost._PEAKS[0][1])
+    b = cost.roundtrip_bound(cost.roundtrip_cost(64, H, W, 16384), peaks)
+    assert b["roundtrip_ms"] > 0
+    if name == "high":   # stage 1 at 67 TFLOP/s: >= 97 ms a side
+        assert dict(((sd, s), ms) for sd, s, ms, _ in b["stages"])[
+            "embed", "K1"] == pytest.approx(k1 / 67e12 * 1e3)
+        assert k1 / 67e12 * 1e3 > 97

@@ -1118,11 +1118,8 @@ def test_ifft_y_kernel_matches_plain(dev, grid):
 
 
 @functools.lru_cache(maxsize=None)
-def _first_version(name):
-    """Kernels whose entry points of csrc/`name` are those of the commit
-    tools/parent_kernels_torch.py names BITS_OF (the version before the
-    redesigns), the rest the committed build; skips where its source
-    cannot be had (no git history and no copy under build/parents/)."""
+def _parent_tool():
+    """tools/parent_kernels_torch.py as a module."""
     import importlib.util
     import pathlib
 
@@ -1132,12 +1129,51 @@ def _first_version(name):
                                                   path)
     tool = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(tool)
-    built = tool.parent_kernels(tool.BITS_OF, name)
+    return tool
+
+
+@functools.lru_cache(maxsize=None)
+def _first_version(name, rev=None):
+    """Kernels whose entry points of csrc/`name` are those of commit `rev`
+    (default: the one tools/parent_kernels_torch.py names BITS_OF, the
+    version before the redesigns), the rest the committed build; skips
+    where its source cannot be had (no git history and no copy under
+    build/parents/)."""
+    tool = _parent_tool()
+    rev = rev or tool.BITS_OF
+    built = tool.parent_kernels(rev, name)
     if built is None:
-        pytest.skip(f"no {name} of {tool.BITS_OF}: run python3 "
-                    f"tools/parent_kernels_torch.py {tool.BITS_OF} where "
+        pytest.skip(f"no {name} of {rev}: run python3 "
+                    f"tools/parent_kernels_torch.py {rev} {name} where "
                     f"the checkout has its history")
     return built[0]
+
+
+# the parent of the run-time band width: its K2 took one band group
+K2_PARENT = "4f717a6"
+
+
+def _old_k2(kernels, ar16, ai16, idx, tabs, band):
+    """K2 of a build from before the run-time band width (one group of 64
+    columns and the bulk, always), bound with its own signature
+    (parent_kernels_torch.OLD_SIGNATURES): (cr, ci)."""
+    from steganosaurus_tpu_torch.spectral import corner_kernels as ck
+
+    entry = _parent_tool().old_entry(kernels.paths["corner_stage2"],
+                                     "corner_stage2")
+    P, H, X = ar16.shape
+    Ky = tabs.eyr.shape[0]
+    t2 = tabs.stage2
+    ar16, ai16 = ck._tma_rows(ar16), ck._tma_rows(ai16)
+    cr, ci = (torch.empty((P, Ky, X), dtype=torch.float32,
+                          device=ar16.device) for _ in range(2))
+    rc = entry(t2.data_ptr(), ar16.data_ptr(), ai16.data_ptr(),
+               band[0].data_ptr(), band[1].data_ptr(), idx.data_ptr(),
+               cr.data_ptr(), ci.data_ptr(), P, H, X, Ky, t2.shape[1] // 2,
+               t2.shape[2] // 2, ar16.stride(1), ai16.stride(1),
+               torch.cuda.current_stream().cuda_stream)
+    assert rc == 0
+    return cr, ci
 
 
 def _with_kernels(kernels, fn):
@@ -1398,25 +1434,176 @@ def test_k2_matches_its_split_bf16_twin(dev, P, h, X, Ky):
         "bf16x6"] < ck.band_error(*two, ar, ai, idx, tabs)
 
 
+@pytest.mark.parametrize("rev", [None, K2_PARENT])
 @pytest.mark.parametrize("P,h,X,Ky", STAGE2_SHAPES)
-def test_k2_bit_equal_to_its_first_version(dev, P, h, X, Ky):
-    """The cluster and the multicast move data only: K2's outputs equal
-    those of the kernel before them, bit for bit, on the same operands and
-    band (odd Kyp/64 and Hp/64 included)."""
+def test_k2_bit_equal_to_its_first_version(dev, P, h, X, Ky, rev):
+    """The cluster and the multicast move data only, and so does the
+    run-time band width at one group: K2's outputs equal those of the
+    kernel before them (BITS_OF), and those of the parent of the run-time
+    width, bit for bit, on the same operands and band (odd Kyp/64 and
+    Hp/64 included). Both builds take the old signature."""
     from steganosaurus_tpu_torch.spectral import corner
     from steganosaurus_tpu_torch.spectral import corner_kernels as ck
 
-    first = _first_version("corner_stage2.cu")
+    first = _first_version("corner_stage2.cu", rev)
     ar, ai = _stage1_of_images(dev, P, h, X, 11 * P + h)
     tabs = _stage2_tabs(h, Ky, dev)
     ar16, ai16, energy = ck.stage2_prep(ar, ai)
     idx = corner.band_topk(energy, 64)
     band = ck.stage2_band(ar, ai, idx)
     got = ck.fwd_stage2(ar, ai, ar16, ai16, idx, tabs, band)
-    want = _with_kernels(first, lambda: ck.fwd_stage2(ar, ai, ar16, ai16,
-                                                      idx, tabs, band))
+    want = _old_k2(first, ar16, ai16, idx, tabs, band)
     torch.cuda.synchronize()
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+# (P, H, Kx, Ky) and the band widths in columns (0, 1, 2 and Kx/64 groups,
+# and 100, padded to two groups)
+K2_WIDTH_SHAPES = [(5, 130, 300, 192), (8, 256, 1024, 256),
+                   (3, 70, 64, 100)]
+
+
+@pytest.mark.parametrize("static", [False, True])
+@pytest.mark.parametrize("width", [0, 64, 128, 100, "all"])
+@pytest.mark.parametrize("P,h,X,Ky", K2_WIDTH_SHAPES)
+def test_k2_band_widths_match_the_twin(dev, P, h, X, Ky, width, static):
+    """K2 with nb = 0, 1, 2 and Kx/64 band groups (every column: no bulk
+    tile, no bf16 copies) and at a width padded to 64 nb (the last index
+    repeated), on top-energy and static bands, against fwd_stage2_plain
+    (bf16x6) on the unpadded band within REL of max|twin|; the band
+    columns within the three-term split's bound (band_error); every element
+    written; the launch counted under its band width."""
+    from steganosaurus_tpu_torch.spectral import corner
+    from steganosaurus_tpu_torch.spectral import corner_kernels as ck
+
+    n = X if width == "all" else min(width, X)
+    ar, ai = _stage1_of_images(dev, P, h, X, 13 * P + n + static)
+    tabs = _stage2_tabs(h, Ky, dev)
+    prep = ck.stage2_prep(ar, ai)
+    idx = (torch.arange(n, device=dev).expand(P, n).contiguous() if static
+           else corner.band_topk(prep[2], n))
+    padded = ck.pad_band(idx)
+    band = ck.stage2_band(ar, ai, padded) if n else None
+    widths = dict(ck.BAND_WIDTHS)
+    bulk = n < X
+    cr, ci = ck.fwd_stage2(ar, ai, *(prep[:2] if bulk else (None, None)),
+                           padded, tabs, band)
+    tr, ti = ck.fwd_stage2_plain(ar, ai, idx, tabs, "bf16x6", prep)
+    torch.cuda.synchronize()
+    assert torch.isfinite(cr).all() and torch.isfinite(ci).all()
+    scale = max(tr.abs().max().item(), ti.abs().max().item())
+    assert (cr - tr).abs().max().item() <= REL * scale
+    assert (ci - ti).abs().max().item() <= REL * scale
+    if n:
+        assert ck.band_error(cr, ci, ar, ai, idx, tabs) <= ck.SPLIT_REL[
+            "bf16x6"]
+    w = padded.shape[1]
+    assert ck.BAND_WIDTHS[w] == widths.get(w, 0) + 1
+    assert ck.stage2_grid(P, X, Ky, nb=w // 64, bulk=bulk) > 0
+
+
+@pytest.mark.parametrize("mode,launches", [
+    ("mix_adaptive", (1, 1, 1, 1, 64)), ("mix_split", (1, 1, 1, 1, 64)),
+    ("mix", (1, 0, 1, 1, 256)), ("mix2", (1, 0, 1, 1, 256)),
+    ("bf16", (1, 1, 0, 1, 0)), ("high", (0, 0, 1, 1, 256)),
+    ("highest", (0, 0, 0, 0, None))])
+def test_fwd_corner_on_card_under_each_mode(dev, monkeypatch, mode,
+                                            launches):
+    """fwd_corner's launches on the card under each mode, (K1, prep, band,
+    K2, K2's band width): the band pass and K2 without the prep where the
+    whole stage is high, the prep and K2 without the band pass under bf16,
+    f32 products alone under highest; the eager stage 2 never; the spectrum
+    within REL of the plain composition's scale (stage 1's plain version or
+    the f32 product, then the twin on the band or f32 products)."""
+    from steganosaurus_tpu_torch.spectral import corner
+    from steganosaurus_tpu_torch.spectral import corner_kernels as ck
+
+    def refuse(*a, **k):
+        raise AssertionError("the eager stage 2 ran on the card")
+
+    monkeypatch.setattr(corner, "_fwd_y_split", refuse)
+    monkeypatch.setenv("STEGANOSAURUS_MM_PRECISION", mode)
+    p = corner.precision()
+    rng = np.random.default_rng(4)
+    imgs = torch.from_numpy(rng.integers(0, 256, (2, 3, 256, 384),
+                                         dtype=np.uint8)).to(dev)
+    Ky, Kx = corner.corner_dims(256, 384, 0.45)
+    tabs = corner.dft_tables_device(256, Ky, 384, Kx, dev)
+    n, widths = dict(ck.LAUNCHES), dict(ck.BAND_WIDTHS)
+    cr, ci = corner.fwd_corner(imgs, True, Ky, Kx, tabs, p)
+    torch.cuda.synchronize()
+    got = {k: ck.LAUNCHES[k] - n[k] for k in n}
+    k1, prep, band, k2, width = launches
+    assert got == {ck.KERNEL_TMA: k1, ck.KERNEL_LDG: 0, ck.KERNEL_PREP: prep,
+                   ck.KERNEL_BAND: band, ck.KERNEL_STAGE2: k2}
+    grew = {w for w in ck.BAND_WIDTHS if ck.BAND_WIDTHS[w] != widths.get(w)}
+    assert grew == (set() if width is None else {width})
+    x = imgs.reshape(-1, 256, 384)
+    if p.stage1 == "bf16":
+        ar, ai = ck.fwd_stage1_plain(x, tabs.exr16, tabs.exi16, True)
+    else:
+        from steganosaurus_tpu_torch import spectral
+
+        planes = spectral.apply_center(x.to(torch.float32), True)
+        ar, ai = planes @ tabs.exr.T, planes @ tabs.exi.T
+    if p.fwd2 == "highest":
+        tr = tabs.eyr @ ar - tabs.eyi @ ai
+        ti = tabs.eyr @ ai + tabs.eyi @ ar
+    else:
+        P = ar.shape[0]
+        idx = {"adaptive": lambda: corner.band_topk(
+                   ck.stage2_prep_plain(ar, ai)[2], 64),
+               "split": lambda: torch.arange(64, device=dev).expand(P, 64),
+               "high": lambda: torch.arange(Kx, device=dev).expand(P, Kx),
+               "bf16": lambda: torch.empty((P, 0), dtype=torch.int64,
+                                           device=dev)}[p.fwd2]()
+        tr, ti = ck.fwd_stage2_plain(ar, ai, idx.contiguous(), tabs,
+                                     "bf16x6")
+    scale = max(tr.abs().max().item(), ti.abs().max().item())
+    assert (cr.reshape(tr.shape) - tr).abs().max().item() <= REL * scale
+    assert (ci.reshape(ti.shape) - ti).abs().max().item() <= REL * scale
+
+
+MODES = ("mix_split", "mix_adaptive", "mix", "mix3", "mix2",
+         "mix_conservative", "bf16", "high", "highest")
+
+
+@pytest.mark.parametrize("mode", MODES)
+def test_round_trip_512_under_each_mode(dev, monkeypatch, mode):
+    """A 512x512 B=4 round trip on the card under each mode: B/B recovered
+    (bf16, a measurement mode: the rows the CPU port recovers of its own
+    stego), the stego within +-1 of the CPU port's on at most 0.5% of its
+    bytes (PERF.md section 2's card-against-CPU bound: the bf16 stages sum
+    in other orders on the card)."""
+    import steganosaurus_tpu_torch as stt
+
+    monkeypatch.setenv("STEGANOSAURUS_MM_PRECISION", mode)
+    rng = np.random.default_rng(17)
+    base = np.linspace(150, 235, 512)
+    covers = np.clip(base[None, None, None, :]
+                     + rng.integers(-18, 19, (4, 3, 512, 512)), 0,
+                     255).astype(np.uint8)
+    secrets = [bytes(rng.integers(0, 256, 1024, dtype=np.uint8))
+               for _ in range(4)]
+    salts = [bytes([i]) * 16 for i in range(4)]
+    mk = bytes(range(32))
+    res = stt.embed_batch(torch.from_numpy(covers).to(dev), secrets,
+                          master_key=mk, salts=salts, device_resident=True,
+                          layout="nchw")
+    got = stt.extract_batch(res.stego, master_key=mk, clen_hint=1024,
+                            layout="nchw")
+    ref = stt.embed_batch(covers, secrets, master_key=mk, salts=salts,
+                          layout="nchw", device="cpu").stego
+    diff = res.stego.cpu().numpy().astype(np.int16) - ref.astype(np.int16)
+    assert np.abs(diff).max() <= 1
+    assert np.count_nonzero(diff) <= 5e-3 * diff.size
+    rows = [g == s for g, s in zip(got, secrets)]
+    if mode == "bf16":
+        cpu = stt.extract_batch(ref, master_key=mk, clen_hint=1024,
+                                layout="nchw", device="cpu")
+        assert rows == [g == s for g, s in zip(cpu, secrets)]
+    else:
+        assert all(rows)
 
 
 def test_k2_refused_launch_raises(dev, monkeypatch):
@@ -1498,6 +1685,11 @@ def test_stage2_wrappers_count_and_check(dev):
     for bad in ((ar, ai, idx.cpu()), (ar, ai.transpose(1, 2), idx)):
         with pytest.raises(ValueError):
             ck.stage2_band(*bad)
+    with pytest.raises(ValueError):    # no bulk: the band must hold Kx
+        ck.fwd_stage2(ar, ai, None, None, idx, tabs, band)
+    with pytest.raises(ValueError):    # no band: no band operand
+        ck.fwd_stage2(ar, ai, ar16, ai16, idx[:, :0].contiguous(), tabs,
+                      band)
     assert ck.LAUNCHES == n
 
 

@@ -582,6 +582,59 @@ def test_k2_ablation_edits_apply_to_the_committed_source(monkeypatch):
     assert tool.main([]) == 2
 
 
+@pytest.mark.parametrize("entry", ["corner_stage2", "corner_stage2_band",
+                                   "corner_stage2_grid",
+                                   "corner_stage2_prep"])
+def test_k2_entries_take_the_signatures_bound_to_them(entry):
+    """Each C entry of csrc/corner_stage2.cu takes the argument kinds
+    _build binds it with; K2's entries of the parent of the run-time band
+    width (4f717a6: one band group, no bulk flag) take
+    parent_kernels_torch.OLD_SIGNATURES', which the ablation and the card
+    tests bind a parent build with."""
+    from steganosaurus_tpu_torch import _build
+
+    tool = _tool("parent_kernels_torch.py")
+    text = (_build.CSRC / "corner_stage2.cu").read_text()
+    assert tool.c_kinds(text, entry) == tool.kinds_of(
+        _build._SIGNATURES[entry])
+    if entry not in tool.OLD_SIGNATURES:
+        return
+    assert tool.OLD_SIGNATURES[entry] != _build._SIGNATURES[entry]
+    src = tool.parent_source("4f717a6", "corner_stage2.cu")
+    if src is None:
+        pytest.skip("no git history to read the parent's source from")
+    assert tool.takes_old_signature(src, entry)
+
+
+def test_parent_builds_of_two_sources_are_two_libraries(tmp_path,
+                                                        monkeypatch):
+    """tools/parent_kernels_torch.py builds each source of a revision into
+    a library of its own name: a process that loaded one parent build
+    (K6's) would get it back from dlopen under the same path in place of
+    the next (K2's)."""
+    from steganosaurus_tpu_torch import _build
+
+    tool = _tool("parent_kernels_torch.py")
+    monkeypatch.setattr(tool, "PARENTS", tmp_path)
+    (tmp_path / "abc").mkdir()
+    built = []
+
+    def fake(source, variants, work):
+        built.append((source, dict(variants), work))
+        return ({k: f"lib of {k}" for k in variants},
+                {k: "" for k in variants})
+
+    monkeypatch.setattr(_build, "build_variants", fake)
+    names = ("corner_ifft_y.cu", "corner_stage2.cu")
+    for name in names:
+        (tmp_path / "abc" / name).write_text("// old\n")
+        assert tool.parent_kernels("abc", name)[0].startswith("lib of")
+    keys = [next(iter(v)) for _, v, _ in built]
+    assert [s for s, _, _ in built] == list(names)
+    assert len(set(keys)) == 2 and all(w == tmp_path / "abc"
+                                       for _, _, w in built)
+
+
 def test_parent_sources_come_from_the_build_directory_or_git(tmp_path,
                                                               monkeypatch):
     """tools/parent_kernels_torch.py: a source already under
@@ -642,10 +695,19 @@ def test_wrappers_take_plain_on_cpu_and_check_inputs():
                 (ar, ai, idx.to(torch.int32))):
         with pytest.raises(ValueError):
             ck.stage2_band(*bad)
+    # without the bulk the band must hold every column: 64 of 130 raises;
+    # a band as wide as the corner runs, equal to the plain version
+    with pytest.raises(ValueError):
+        ck.fwd_stage2(ar, ai, None, None, idx, tabs, band)
+    with pytest.raises(ValueError):             # one bf16 copy alone
+        ck.fwd_stage2(ar, ai, prep[0], None, idx, tabs, band)
     narrow = [t[..., :64].contiguous() for t in (ar, ai)]
-    with pytest.raises(ValueError):             # the band is the whole corner
-        ck.fwd_stage2(*narrow, *(t.to(torch.bfloat16) for t in narrow),
-                      idx % 64, tabs, ck.stage2_band(*narrow, idx % 64))
+    whole = ck.static_band(3, 64, "cpu")
+    got = ck.fwd_stage2(*narrow, None, None, whole, tabs,
+                        ck.stage2_band(*narrow, whole))
+    want = ck.fwd_stage2_plain(*narrow, whole, tabs, band="bf16x6")
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert ck.LAUNCHES == before
     assert tabs.stage2 is None                  # built on CUDA devices only
 
 

@@ -1,7 +1,7 @@
 """The channel's bit error rate under each precision of forward stage 2's
-band, on one CUDA card.
+band, or under each precision mode, on one CUDA card.
 
-    python3 tools/band_ber_torch.py [OUT]
+    python3 tools/band_ber_torch.py [--mode NAME ...] [OUT]
 
 chip_smoke.py's 4K workload (2160x3840, B=64, 16 KB; seed-42 bench covers,
 rng(7) secrets) embedded and read at three salt sets (bytes([i + s])*16
@@ -17,7 +17,11 @@ stage 2, at the embed and at every read, computed four ways on the card:
 - "kernel": the prep and K2 kernels, the default path.
 
 and once more at s = 0 with the bf16x3 embed read by the f32 chain, which
-tells a write's error from a read's. For each run: every secret read back
+tells a write's error from a read's. With --mode NAME (more than once for
+several) it runs the card's path instead under each mode named
+(STEGANOSAURUS_MM_PRECISION=NAME, embed and reads), beside mix_adaptive's
+at the same salt sets, and the same qualification is taken against
+mix_adaptive's BER. For each run: every secret read back
 (extract_batch, with its soft-decision retry), channel_report's payload
 and header raw and post-ECC BER with the images whose hard decode keeps a
 wrong bit, and for the main salts quality_device's PSNR and SSIM. A band
@@ -37,20 +41,38 @@ BER_REL = 0.01
 SALT_SETS = (0, 64, 128)
 
 
-def main() -> int:
+def _args(argv):
+    """(the modes of each --mode NAME, in order; the other arguments)."""
+    modes, rest = [], []
+    it = iter(argv)
+    for a in it:
+        if a == "--mode":
+            modes.append(next(it))
+        else:
+            rest.append(a)
+    return modes, rest
+
+
+def main(argv=None) -> int:
+    import os
+
     import torch
 
-    if not torch.cuda.is_available():
-        print("band_ber_torch: needs a CUDA card", file=sys.stderr)
-        return 2
+    names, rest = _args(sys.argv[1:] if argv is None else argv)
     sys.path.insert(0, str(REPO))
-    import chip_smoke
-    import steganosaurus_tpu_torch as stt
-    from steganosaurus_tpu_torch import _build, runtime
     from steganosaurus_tpu_torch.spectral import corner
     from steganosaurus_tpu_torch.spectral import corner_kernels as ck
 
-    out = pathlib.Path(sys.argv[1]) if len(sys.argv) > 1 else (
+    for name in names:
+        corner.resolve(name)   # an unknown name raises before any work
+    if not torch.cuda.is_available():
+        print("band_ber_torch: needs a CUDA card", file=sys.stderr)
+        return 2
+    import chip_smoke
+    import steganosaurus_tpu_torch as stt
+    from steganosaurus_tpu_torch import _build, runtime
+
+    out = pathlib.Path(rest[0]) if rest else (
         REPO / "build" / "band_ber.txt")
     out.parent.mkdir(parents=True, exist_ok=True)
     lines = []
@@ -72,27 +94,39 @@ def main() -> int:
     mk = chip_smoke.MASTER_KEY
 
     def plain(band):
-        def stage2(ar, ai, tabs):
+        def stage2(ar, ai, tabs, X0, adaptive):
             prep = ck.stage2_prep_plain(ar, ai)
-            idx = corner.band_topk(prep[2], corner.SPLIT_X0)
+            idx = (corner.band_topk(prep[2], X0) if adaptive else
+                   ck.static_band(ar.shape[0], X0, ar.device))
             return ck.fwd_stage2_plain(ar, ai, idx, tabs, band, prep)
         return stage2
 
-    modes = {"f32": corner._fwd_y_split, "bf16x3": plain("bf16x3"),
-             "bf16x6": plain("bf16x6"), "kernel": corner._fwd_y_adaptive}
-    runs = [(s, m, m) for s in SALT_SETS for m in modes]
-    runs.insert(len(modes), (0, "bf16x3", "f32"))
-    real = corner._fwd_y_adaptive
+    # forward stage 2's card route (corner._fwd_y_kernels) replaced by each
+    # band precision; under --mode, the card route itself under each mode
+    real = corner._fwd_y_kernels
+    if names:
+        modes = {name: real for name in ("mix_adaptive", *names)}
+        runs = [(s, m, m) for s in SALT_SETS for m in modes]
+        base = "mix_adaptive"
+    else:
+        modes = {"f32": corner._fwd_y_split, "bf16x3": plain("bf16x3"),
+                 "bf16x6": plain("bf16x6"), "kernel": real}
+        runs = [(s, m, m) for s in SALT_SETS for m in modes]
+        runs.insert(len(modes), (0, "bf16x3", "f32"))
+        base = "f32"
+    env = os.environ.get("STEGANOSAURUS_MM_PRECISION")
     raw, post = {}, {}
     f32_stego = None
     try:
         for s, em, rd in runs:
             salts = [bytes([(i + s) % 256]) * 16 for i in range(B)]
-            corner._fwd_y_adaptive = modes[em]
+            if names:
+                os.environ["STEGANOSAURUS_MM_PRECISION"] = em
+            corner._fwd_y_kernels = modes[em]
             stego = stt.embed_batch(covers, secrets, master_key=mk,
                                     salts=salts, device_resident=True,
                                     layout="nchw").stego
-            corner._fwd_y_adaptive = modes[rd]
+            corner._fwd_y_kernels = modes[rd]
             got = stt.extract_batch(stego, master_key=mk, clen_hint=n,
                                     layout="nchw")
             rep = stt.channel_report(stego, secrets, salts, master_key=mk,
@@ -107,11 +141,11 @@ def main() -> int:
             extra = ""
             if s == 0 and em == rd:
                 psnr, ssim = stt.quality_device(covers, stego)
-                if em == "f32":
+                if em == base:
                     f32_stego = stego
                 diff = int((stego != f32_stego).sum().item())
                 extra = (f"; PSNR {psnr!r} dB, SSIM {ssim!r}; stego bytes "
-                         f"that differ from the f32 band's {diff} of "
+                         f"that differ from the {base} run's {diff} of "
                          f"{stego.numel()}")
             if em == rd:
                 raw.setdefault(em, []).append(rep["payload_ber_raw"])
@@ -124,11 +158,16 @@ def main() -> int:
                 + extra)
             del stego
     finally:
-        corner._fwd_y_adaptive = real
+        corner._fwd_y_kernels = real
+        if env is None:
+            os.environ.pop("STEGANOSAURUS_MM_PRECISION", None)
+        else:
+            os.environ["STEGANOSAURUS_MM_PRECISION"] = env
     for mode in modes:
-        rel = [(b - f) / f for b, f in zip(raw[mode], raw["f32"])]
+        rel = [(b - f) / f for b, f in zip(raw[mode], raw[base])]
         ok = all(abs(r) <= BER_REL for r in rel) and not any(post[mode])
-        say(f"band {mode}: payload raw BER against the f32 band's at salts "
+        say(f"{'mode' if names else 'band'} {mode}: payload raw BER against "
+            f"the {base} run's at salts "
             f"{SALT_SETS}: " + ", ".join(f"{r:+.4%}" for r in rel)
             + f"; payload post-ECC {post[mode]}; qualifies (within "
             f"{BER_REL:.0%}, post-ECC 0 everywhere): {ok}")

@@ -15,7 +15,9 @@ sum order: they are timed, never used. With --parent REV (more than once
 for several) it also builds commit REV's corner_stage2.cu (tools/parent_kernels_torch.py: from git, or
 from build/parents/REV/ where the checkout has no history), times its K2 in
 the same turns and reports whether its outputs and the committed kernel's
-are bit-equal. First each build's ptxas report (registers, spills, and
+are bit-equal (a parent up to 4f717a6, whose K2 took one band group and no
+bulk flag, binds through parent_kernels_torch.OLD_SIGNATURES; the
+committed build runs there with nb = 1 and the bulk). First each build's ptxas report (registers, spills, and
 whether ptxas serialised the wgmmas); last the accuracy of the sum orders
 (the committed promotion every 4 k-blocks, every k-block, none) beside
 cuBLAS's bf16 products: their error on the bulk columns against the exact
@@ -168,13 +170,20 @@ def main(argv=None) -> int:
 
     def call(name, outs=(cr, ci)):
         lib = kernels[name]
+        # a parent built before the band width was a run-time count: its
+        # own signature, without nb and the bulk flag
+        old = name in pnames and pk.takes_old_signature(sources[name],
+                                                        "corner_stage2")
+        entry = (pk.old_entry(lib.paths["corner_stage2"], "corner_stage2")
+                 if old else lib.corner_stage2)
+        tail = () if old else (1, 1)
 
         def fn():
-            rc = lib.corner_stage2(
+            rc = entry(
                 t2.data_ptr(), ar16.data_ptr(), ai16.data_ptr(),
                 g.data_ptr(), mask.data_ptr(), idx.data_ptr(),
                 outs[0].data_ptr(), outs[1].data_ptr(), P, H, Kx, Ky, Kyp,
-                Hp, ar16.stride(1), ai16.stride(1),
+                Hp, ar16.stride(1), ai16.stride(1), *tail,
                 torch.cuda.current_stream().cuda_stream)
             if rc:
                 raise RuntimeError(f"{name}: CUDA error {rc}")

@@ -17,6 +17,7 @@ from __future__ import annotations
 
 import ctypes
 import pathlib
+import re
 import subprocess
 import sys
 
@@ -29,9 +30,14 @@ SOURCES = ("corner_ifft_y.cu", "corner_stage2.cu", "corner_ifft_epilogue.cu")
 # C entries that parent commits export under another signature than the
 # committed one, name -> argtypes: K5's corner_read_decode up to d14bcd8
 # (the gather, which read the walk's int64 plane/y/x and took its image
-# groups, grid.y, in place of a read plan)
+# groups, grid.y, in place of a read plan); K2's corner_stage2, its band
+# pass and its grid up to 4f717a6 (a band of one group of 64 columns, and
+# the bulk, always: no nb and no bulk flag)
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-OLD_SIGNATURES = {"corner_read_decode": [_P] * 9 + [_I] * 8 + [_F, _P]}
+OLD_SIGNATURES = {"corner_read_decode": [_P] * 9 + [_I] * 8 + [_F, _P],
+                  "corner_stage2": [_P] * 8 + [_I] * 8 + [_P],
+                  "corner_stage2_band": [_P] * 5 + [_I] * 3 + [_P],
+                  "corner_stage2_grid": [_I] * 3}
 
 
 def parent_source(rev: str, name: str) -> pathlib.Path | None:
@@ -60,8 +66,33 @@ def parent_kernels(rev: str, name: str):
     src = parent_source(rev, name)
     if src is None:
         return None
-    libs, reports = _build.build_variants(name, {"parent": src}, src.parent)
-    return libs["parent"], reports["parent"]
+    # one library per source: a process that dlopens a second build under
+    # a path it has loaded gets the first library back
+    key = f"parent {pathlib.Path(name).stem}"
+    libs, reports = _build.build_variants(name, {key: src}, src.parent)
+    return libs[key], reports[key]
+
+
+def c_kinds(text: str, name: str) -> list:
+    """"p", "i" or "f" for each argument of the C entry `name` in the
+    source text `text` (pointer, int, float)."""
+    m = re.search(r'extern "C" int ' + name + r'\(([^)]*)\)', text)
+    if m is None:
+        raise ValueError(f"no C entry {name} in the source")
+    return ["p" if "*" in a else "f" if a.strip().startswith("float")
+            else "i" for a in m.group(1).split(",")]
+
+
+def kinds_of(argtypes) -> list:
+    """c_kinds' letters of a ctypes argtypes list."""
+    return ["p" if t is _P else "f" if t is _F else "i" for t in argtypes]
+
+
+def takes_old_signature(source: pathlib.Path, name: str) -> bool:
+    """Whether the C entry `name` in the .cu file `source` has its
+    OLD_SIGNATURES signature (bind it with old_entry)."""
+    return c_kinds(source.read_text(), name) == kinds_of(
+        OLD_SIGNATURES[name])
 
 
 def old_entry(lib: pathlib.Path, name: str):
