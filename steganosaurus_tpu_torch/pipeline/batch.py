@@ -67,6 +67,7 @@ from steganosaurus_tpu_torch.pipeline.header import Header
 from steganosaurus_tpu_torch.spectral import (corner, read_kernels,
                                               write_kernels)
 from steganosaurus_tpu_torch.utils import metrics
+from steganosaurus_tpu_torch.utils.spans import span
 
 def _check_params(params: Params, layout: str = "nhwc") -> None:
     if layout == "nchw" and params.adaptive_alpha:
@@ -258,9 +259,10 @@ def _walk_entry(password, master_key, params, PH, PW, nbits, skip, bucket,
            params.jitter, skip, bucket, nbits, device)
     ent = _DEV_IDX_CACHE.get(key)
     if ent is None:
-        plane, y, x, jit, nprod = _walk_indices(password, master_key, params,
-                                                PH, PW, nbits,
-                                                allow_short=True)
+        with span("stt.walk.expand"):
+            plane, y, x, jit, nprod = _walk_indices(
+                password, master_key, params, PH, PW, nbits,
+                allow_short=True)
         pad = bucket - (nbits - skip)
         sl = slice(skip, nbits)
         host = [np.concatenate([a[sl], np.repeat(a[nbits - 1], pad)])
@@ -633,7 +635,8 @@ def embed_batch(
         salts = [crypto.get_random_bytes(16) for _ in range(B)]
     if len(salts) != B:
         raise ValueError(f"{len(salts)} salts for {B} images")
-    streams = _seal_streams(secrets, salts, password, master_key, params)
+    with span("stt.embed.seal"):
+        streams = _seal_streams(secrets, salts, password, master_key, params)
     frame_lens = [HEADER_STREAM_BITS + _payload_stream_bits(
         len(s) - header_mod.FIXED_LEN, params.rs) for s in streams]
     nmax = max(frame_lens)
@@ -651,12 +654,15 @@ def embed_batch(
     # are expanded on the device, the rest as host-built frame bits.
     streams_up = (len(set(frame_lens)) == 1 and not params.rs
                   and not params.adaptive_alpha and not params.per_image_walk)
-    words = (bit_ops.pack_bytes_words_host(streams) if streams_up
-             else bit_ops.pack_bits_words_host(
-                 _host_frames(streams, bucket, params.rs)))
-    walks = (_piw_walk_arrays(password, master_key, params, PH, PW, salts,
-                              frame_lens, bucket)
-             if params.per_image_walk else None)
+    with span("stt.embed.frame"):
+        words = (bit_ops.pack_bytes_words_host(streams) if streams_up
+                 else bit_ops.pack_bits_words_host(
+                     _host_frames(streams, bucket, params.rs)))
+    walks = None
+    if params.per_image_walk:
+        with span("stt.embed.walk"):
+            walks = _piw_walk_arrays(password, master_key, params, PH, PW,
+                                     salts, frame_lens, bucket)
 
     def embed_rows(imgs_p: torch.Tensor, rows: slice) -> torch.Tensor:
         """Queue the device work of the batch rows `rows` (imgs_p, on its
@@ -682,9 +688,10 @@ def embed_batch(
                 nbits=runtime.upload(np.asarray(frame_lens[rows], np.int64),
                                      dev),
                 **common)
-        maps, nprod = _corner_statics_device(password, master_key, params,
-                                             PH, PW, nmax, bucket, Ky, Kx,
-                                             dev)
+        with span("stt.embed.walk"):
+            maps, nprod = _corner_statics_device(password, master_key,
+                                                 params, PH, PW, nmax,
+                                                 bucket, Ky, Kx, dev)
         if nprod < nmax:
             raise StegoError(f"Message too large. Need {nmax} bits (after "
                              f"ECC), walk exhausted after {nprod}.")
@@ -697,7 +704,8 @@ def embed_batch(
             has_jitter=params.jitter != 0.0, has_spread=has_spread, **common)
 
     # every shard's work is queued before anything waits for a device
-    parts = [embed_rows(p, rows) for p, rows in _shard_rows(imgs_d)]
+    with span("stt.embed.queue"):
+        parts = [embed_rows(p, rows) for p, rows in _shard_rows(imgs_d)]
     stego = pbatch.Sharded(parts, mesh) if mesh is not None else parts[0]
 
     salts = list(salts)
@@ -1017,31 +1025,36 @@ class _ExtractJob:
         with_soft = bool(self._params.soft_decode_fallback)
         Ky, Kx = self._corner_kk
         hard, soft = [], []
-        for k, imgs, _, pos in self._shards(range(self.B)):
-            dev = imgs.device
-            pl, yy, xx, jj = self._walk(total, skip, bucket_total, dev)
-            if not self._use_corner:
-                # the full-grid read (JAX's legacy branch: no QIM rule
-                # there; QIM and adaptive_alpha are mutually exclusive at
-                # embed)
-                words = pbatch.batched_gather_decode_core(
-                    self._spec[k], self._med[k], pl, yy, xx, jj,
-                    self._params.alpha, hdr_stream_bits=hdr_bits,
-                    payload_rep=rep, with_soft=with_soft)
-            else:
-                words = pbatch.corner_extract_fused_core(
-                    imgs, self._params.alpha, pl, yy, xx, Ky=Ky, Kx=Kx,
-                    center=self._params.center, layout=self._layout,
-                    hdr_stream_bits=hdr_bits, with_soft=with_soft, jit=jj,
-                    dither=(self._dither(L, total, bucket_total, dev)[skip:]
-                            if L else None),
-                    qim_levels=L, qim_from=hdr_bits, payload_rep=rep,
-                    plan=(None if L else
-                          self._plan(total, skip, bucket_total, dev)))
-            h, sw = words if with_soft else (words, None)
-            hard.append((pos, h))
-            soft.append((pos, sw))
-        hard = _ShardRows(hard, self.B).pull()
+        with span("stt.extract.queue"):
+            for k, imgs, _, pos in self._shards(range(self.B)):
+                dev = imgs.device
+                with span("stt.extract.walk"):
+                    pl, yy, xx, jj = self._walk(total, skip, bucket_total,
+                                                dev)
+                    plan = (self._plan(total, skip, bucket_total, dev)
+                            if self._use_corner and not L else None)
+                if not self._use_corner:
+                    # the full-grid read (JAX's legacy branch: no QIM rule
+                    # there; QIM and adaptive_alpha are mutually exclusive
+                    # at embed)
+                    words = pbatch.batched_gather_decode_core(
+                        self._spec[k], self._med[k], pl, yy, xx, jj,
+                        self._params.alpha, hdr_stream_bits=hdr_bits,
+                        payload_rep=rep, with_soft=with_soft)
+                else:
+                    words = pbatch.corner_extract_fused_core(
+                        imgs, self._params.alpha, pl, yy, xx, Ky=Ky, Kx=Kx,
+                        center=self._params.center, layout=self._layout,
+                        hdr_stream_bits=hdr_bits, with_soft=with_soft,
+                        jit=jj,
+                        dither=(self._dither(L, total, bucket_total,
+                                             dev)[skip:] if L else None),
+                        qim_levels=L, qim_from=hdr_bits, payload_rep=rep,
+                        plan=plan)
+                h, sw = words if with_soft else (words, None)
+                hard.append((pos, h))
+                soft.append((pos, sw))
+            hard = _ShardRows(hard, self.B).pull()
         if not with_soft:
             return hard, None, None
         return (hard, _ShardRows(soft, self.B),
@@ -1159,7 +1172,6 @@ class _ExtractJob:
             raise StegoError("extract job already failed; re-dispatch it")
         hard0, soft0_d, info0 = self._pending
         self._pending = None
-        bufs = _to_bufs(hard0.numpy())
         pulled: dict[int, tuple] = {}
 
         def _soft_of(soft_d, info):
@@ -1168,14 +1180,16 @@ class _ExtractJob:
                 pulled[key] = self._soft_sections(soft_d, info)
             return pulled[key]
 
-        headers = [_parse_hdr(b) for b in bufs]
-        if soft0_d is not None and any(h is None for h in headers):
-            # a header the hard Rep-3 majority corrupted can still parse
-            # from the matched-filter sections of the same pass
-            soft_bufs0, _ = _soft_of(soft0_d, info0)
-            for i, h in enumerate(headers):
-                if h is None:
-                    headers[i] = _parse_hdr(soft_bufs0[i])
+        with span("stt.extract.parse"):
+            bufs = _to_bufs(hard0.numpy())
+            headers = [_parse_hdr(b) for b in bufs]
+            if soft0_d is not None and any(h is None for h in headers):
+                # a header the hard Rep-3 majority corrupted can still
+                # parse from the matched-filter sections of the same pass
+                soft_bufs0, _ = _soft_of(soft0_d, info0)
+                for i, h in enumerate(headers):
+                    if h is None:
+                        headers[i] = _parse_hdr(soft_bufs0[i])
         # rows the batch readers cannot read go to the single-image
         # extract_array (its two-rule header trial reads the coherent rule;
         # a genuinely corrupt row pays one FFT and two header reads there)
@@ -1216,50 +1230,54 @@ class _ExtractJob:
                         soft_src[i] = (soft0_d, info0, 40)
             else:  # hint too small or absent, or another mode: a
                 #    payload-only pass under the group's own mode
-                ghard, gsoft_d, ginfo = self._dispatch_pass(need, False,
-                                                            qim=L, rs=R)
-                grp = _to_bufs(ghard.numpy())
+                with span("stt.extract.payload_pass"):
+                    ghard, gsoft_d, ginfo = self._dispatch_pass(
+                        need, False, qim=L, rs=R)
+                    grp = _to_bufs(ghard.numpy())
                 for i in idxs:
                     payloads[i] = grp[i]
                     if gsoft_d is not None:
                         soft_src[i] = (gsoft_d, ginfo, 0)
         for (L, R), idxs in piw_by_mode.items():
-            for i, buf in zip(idxs, self._dispatch_piw_pass(idxs, headers,
-                                                            L, R)):
+            with span("stt.extract.payload_pass"):
+                bufs_piw = self._dispatch_piw_pass(idxs, headers, L, R)
+            for i, buf in zip(idxs, bufs_piw):
                 payloads[i] = buf
         resolved = {i: self._extract_row(i) for i in coh_idx}
 
         out: list[bytes | None] = []
-        for i, hdr in enumerate(headers):
-            if i in resolved:
-                out.append(resolved[i])
-                continue
-            got = self._open_payload(hdr, payloads[i])
-            soft_pay = None
-            if got is None and soft_src[i] is not None:
-                sd, info, off = soft_src[i]
-                soft_bufs, confs = _soft_of(sd, info)
-                soft_pay = (soft_bufs[i][off:],
-                            confs[i] if confs is not None else None)
-                got = self._open_payload(hdr, *soft_pay)
-            if got is None and soft0_d is not None:
-                # a parseable hard header can still carry corrupted
-                # salt/clen/nonce/flag bits; the soft header usually holds
-                # the true bytes (same decode mode assumed: a mode mismatch
-                # fails again and goes to the retry pass)
-                h2 = _parse_hdr(_soft_of(soft0_d, info0)[0][i])
-                if h2 is not None and h2.to_bytes() != hdr.to_bytes():
-                    got = self._open_payload(h2, payloads[i])
-                    if got is None and soft_pay is not None:
-                        got = self._open_payload(h2, *soft_pay)
-            out.append(got)
+        with span("stt.extract.open"):
+            for i, hdr in enumerate(headers):
+                if i in resolved:
+                    out.append(resolved[i])
+                    continue
+                got = self._open_payload(hdr, payloads[i])
+                soft_pay = None
+                if got is None and soft_src[i] is not None:
+                    sd, info, off = soft_src[i]
+                    soft_bufs, confs = _soft_of(sd, info)
+                    soft_pay = (soft_bufs[i][off:],
+                                confs[i] if confs is not None else None)
+                    got = self._open_payload(hdr, *soft_pay)
+                if got is None and soft0_d is not None:
+                    # a parseable hard header can still carry corrupted
+                    # salt/clen/nonce/flag bits; the soft header usually holds
+                    # the true bytes (same decode mode assumed: a mode mismatch
+                    # fails again and goes to the retry pass)
+                    h2 = _parse_hdr(_soft_of(soft0_d, info0)[0][i])
+                    if h2 is not None and h2.to_bytes() != hdr.to_bytes():
+                        got = self._open_payload(h2, payloads[i])
+                        if got is None and soft_pay is not None:
+                            got = self._open_payload(h2, *soft_pay)
+                out.append(got)
         # the retry's corner readers carry neither the coherent rule (those
         # rows ran extract_array's own retry) nor the full-grid read (as in
         # the JAX package, whose retry is corner-only)
         if self._params.soft_decode_fallback and self._use_corner and any(
                 not _is_coherent(h) and o is None
                 for h, o in zip(headers, out)):
-            self._soft_retry_failed(headers, out)
+            with span("stt.extract.soft_retry"):
+                self._soft_retry_failed(headers, out)
         self._result = out
         return out
 
@@ -1272,7 +1290,7 @@ class _ExtractJob:
             img = img.permute(1, 2, 0)
         password, master_key = self._key
         try:
-            with pbatch.card(img.device):
+            with pbatch.card(img.device), span("stt.extract.row_fallback"):
                 return extract_array(img, password=password,
                                      master_key=master_key,
                                      params=self._params)

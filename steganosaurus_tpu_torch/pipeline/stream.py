@@ -13,7 +13,8 @@ for by a torch.cuda.Event recorded after its last op on each device it ran
 on — never torch.cuda.synchronize(), which would also wait for the batch
 queued behind it. Under mesh= (parallel.make_mesh) each batch is split over
 the mesh's devices by embed_batch / extract_dispatch; the overlap across
-batches is the same.
+batches is the same. Each batch's steps and waits run under the spans of
+utils/spans.py, numbered by batch, for a profiler to read.
 """
 
 from __future__ import annotations
@@ -33,6 +34,7 @@ from steganosaurus_tpu_torch.pipeline.batch import (
     prefetch_piw_walks,
     prefetch_walk,
 )
+from steganosaurus_tpu_torch.utils.spans import span
 
 
 def _hw(imgs, layout: str) -> tuple[int, int]:
@@ -125,32 +127,38 @@ def embed_stream(
             yield imgs, secrets, salts, mk, pw, walks
 
     def _drain():
-        res, events = q.popleft()
+        b, res, events = q.popleft()
         # bounds the batches in flight; waits for this batch's kernels only
-        for ev in events:
-            ev.synchronize()
+        with span("stt.wait.stream", b):
+            for ev in events:
+                ev.synchronize()
         return res
 
     try:
         items = _prepared()
-        nxt = next(items, None)
+        b = 0
+        with span("stt.stream.take", b):
+            nxt = next(items, None)
         while nxt is not None:
             imgs, secrets, salts, mk, pw, walks = nxt
             # one batch of look-ahead: batch N+1's walks expand on the
             # worker while batch N embeds
-            nxt = next(items, None)
+            with span("stt.stream.take", b + 1):
+                nxt = next(items, None)
             if walks is not None:
                 # batch N's own walks: embed_batch pops them rather than
                 # expanding them a second time beside the worker
                 walks.result()
             if len(q) >= depth:
                 yield _drain()
-            res = embed_batch(imgs, secrets, password=pw, master_key=mk,
-                              params=params, salts=salts, mesh=mesh,
-                              device_resident=True, verify=verify,
-                              max_retries=max_retries, layout=layout,
-                              device=device)
-            q.append((res, _done_events(res.stego)))
+            with span("stt.stream.embed", b):
+                res = embed_batch(imgs, secrets, password=pw, master_key=mk,
+                                  params=params, salts=salts, mesh=mesh,
+                                  device_resident=True, verify=verify,
+                                  max_retries=max_retries, layout=layout,
+                                  device=device)
+                q.append((b, res, _done_events(res.stego)))
+            b += 1
         while q:
             yield _drain()
     finally:
@@ -182,9 +190,15 @@ def extract_stream(
     """
     q: deque = deque()
     pool: ThreadPoolExecutor | None = None
+
+    def _finalize():
+        b, job = q.popleft()
+        with span("stt.stream.extract_finalize", b):
+            return job.finalize()
+
     try:
         last_mk = master_key
-        for item in batches:
+        for b, item in enumerate(batches):
             if isinstance(item, tuple):
                 imgs, mk = item[0], (item[1] if item[1] is not None
                                      else master_key)
@@ -199,13 +213,14 @@ def extract_stream(
                             [clen_hint or 0])
                 last_mk = mk
             if len(q) >= depth:
-                yield q.popleft().finalize()
-            q.append(extract_dispatch(imgs, password=pw, master_key=mk,
-                                      params=params, mesh=mesh,
-                                      clen_hint=clen_hint, layout=layout,
-                                      device=device))
+                yield _finalize()
+            with span("stt.stream.extract_dispatch", b):
+                q.append((b, extract_dispatch(
+                    imgs, password=pw, master_key=mk, params=params,
+                    mesh=mesh, clen_hint=clen_hint, layout=layout,
+                    device=device)))
         while q:
-            yield q.popleft().finalize()
+            yield _finalize()
     finally:
         if pool is not None:
             pool.shutdown(wait=False)

@@ -11,6 +11,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from steganosaurus_tpu_torch.utils.spans import span
+
 
 def configure_precision() -> None:
     """Disable TF32 for float32 matmuls and convolutions, on purpose.
@@ -91,5 +93,6 @@ class HostCopy:
 
     def numpy(self) -> np.ndarray:
         if self._event is not None:
-            self._event.synchronize()
+            with span("stt.wait.pull"):
+                self._event.synchronize()
         return self._host.numpy()

@@ -60,6 +60,7 @@ from steganosaurus_tpu_torch.ops import ecc
 from steganosaurus_tpu_torch.spectral import corner
 from steganosaurus_tpu_torch.spectral.corner_kernels import (_check_rc,
                                                               _device, _need)
+from steganosaurus_tpu_torch.utils.spans import span
 
 KERNEL_READ_DECODE = "corner_read_decode"
 # calls of the eager read chain (QIM, per-image walks): not a kernel
@@ -112,37 +113,39 @@ def read_plan(plane, y, x, Ky: int, Kx: int) -> ReadPlan:
     """The ReadPlan of the shared walk plane/y/x (n,) over (3, Ky, Kx)
     corners, in torch ops on the walk's device. Every slot keeps its own
     entry: a bin read by several slots (the bucket's tail padding repeats
-    the last bin) appears once for each. Counted in PLANS_BUILT."""
+    the last bin) appears once for each. Counted in PLANS_BUILT, and
+    spanned as stt.read.plan_build (utils/spans.py)."""
     global PLANS_BUILT
     if plane.dim() != 1 or 3 * Ky * Kx > 2**31 - 1:
         raise ValueError(f"read_plan: a shared (n,) walk over corners of "
                          f"fewer than 2**31 floats, got {tuple(plane.shape)} "
                          f"and {Ky}x{Kx}")
-    dev = plane.device
-    flat = (plane.long() * Ky + y.long()) * Kx + x.long()
-    offs, order = torch.sort(flat, stable=True)
-    n = offs.numel()
-    tile = offs // TILE
-    inside = offs % TILE
-    # a new row where the tile changes and after each ROW_SLOTS of a tile
-    _, counts = torch.unique_consecutive(tile, return_counts=True)
-    first = torch.repeat_interleave(counts.cumsum(0) - counts, counts)
-    new = (torch.arange(n, device=dev) - first) % ROW_SLOTS == 0
-    starts = torch.nonzero(new).flatten()
-    ends = torch.cat([starts[1:], starts.new_full((min(n, 1),), n)])
-    row = torch.cumsum(new, 0) - 1
-    touched = torch.unique(row * (TILE // 8) + inside // 8)
-    mask = torch.zeros(starts.numel() * MASK_WORDS, dtype=torch.int64,
-                       device=dev).index_add_(
-        0, touched // 32, torch.ones_like(touched) << touched % 32)
-    mask = torch.where(mask >= 2**31, mask - 2**32, mask)
-    rows = torch.cat([torch.stack([tile[starts], starts, ends], 1),
-                      mask.view(-1, MASK_WORDS)], 1).to(torch.int32)
-    PLANS_BUILT += 1
-    return ReadPlan(order.to(torch.int32),
-                    torch.nn.functional.pad(inside, (0, n % 2)).to(
-                        torch.int16),
-                    rows.contiguous(), Ky, Kx)
+    with span("stt.read.plan_build"):
+        dev = plane.device
+        flat = (plane.long() * Ky + y.long()) * Kx + x.long()
+        offs, order = torch.sort(flat, stable=True)
+        n = offs.numel()
+        tile = offs // TILE
+        inside = offs % TILE
+        # a new row where the tile changes and after each ROW_SLOTS of a tile
+        _, counts = torch.unique_consecutive(tile, return_counts=True)
+        first = torch.repeat_interleave(counts.cumsum(0) - counts, counts)
+        new = (torch.arange(n, device=dev) - first) % ROW_SLOTS == 0
+        starts = torch.nonzero(new).flatten()
+        ends = torch.cat([starts[1:], starts.new_full((min(n, 1),), n)])
+        row = torch.cumsum(new, 0) - 1
+        touched = torch.unique(row * (TILE // 8) + inside // 8)
+        mask = torch.zeros(starts.numel() * MASK_WORDS, dtype=torch.int64,
+                           device=dev).index_add_(
+            0, touched // 32, torch.ones_like(touched) << touched % 32)
+        mask = torch.where(mask >= 2**31, mask - 2**32, mask)
+        rows = torch.cat([torch.stack([tile[starts], starts, ends], 1),
+                          mask.view(-1, MASK_WORDS)], 1).to(torch.int32)
+        PLANS_BUILT += 1
+        return ReadPlan(order.to(torch.int32),
+                        torch.nn.functional.pad(inside, (0, n % 2)).to(
+                            torch.int16),
+                        rows.contiguous(), Ky, Kx)
 
 
 def row_words(n: int, hdr_stream_bits: int, payload_rep: int,

@@ -377,7 +377,6 @@ print("recovered", len(got))
 def _port_sources():
     files = sorted((REPO / "steganosaurus_tpu_torch").rglob("*.py"))
     return files + [REPO / "chip_smoke.py",
-                    REPO / "tools" / "profile_torch_path.py",
                     REPO / "tools" / "time_wrong_key_batch.py",
                     REPO / "tools" / "serve_latency_torch.py",
                     REPO / "tools" / "mesh_cards_torch.py",
