@@ -42,7 +42,11 @@ Phases:
              route at the serve worker's shapes (4K B=1 and B=32: P=3 and
              P=96) against its plain version, then timed in turns with it
              and the library call. The load route must beat the library
-             call at 3839 and at the 4b grid
+             call at 3839 and at the 4b grid. Stage 2's prep in K1's
+             epilogue (the copies, the energies and their reduce) timed at
+             4K on both routes in launches paired back to back against K1
+             then the prep pass (the route before), K1 alone and K1
+             writing the copies alone
   3b. K3 K4e the embed's write, write floor and u8 epilogue kernels
              (csrc/corner_write_floor.cu: write_floor and floor_only;
              csrc/corner_epilogue.cu) against their plain versions
@@ -96,9 +100,13 @@ Phases:
              sets they pick beside band_columns' (differences counted and
              printed); the band operand and mask bit-equal; K2 within 1e-5
              of max|twin| against fwd_stage2_plain(band="bf16x6") on the
-             same band; HGMMA and UTMALDG in K2's SASS. At 4K B=64, in
-             turns beside the bounds: the three kernels, their plain
-             versions, the eager composition they replace
+             same band; HGMMA and UTMALDG in K2's SASS; K1 with the prep
+             in its epilogue on each grid: ar, ai and the copies bit-equal
+             to K1 alone and the prep pass's, its energies within 2^-24 of
+             the exact sum, band differences against the prep pass's
+             counted. At 4K B=64, in turns beside the bounds: the three
+             kernels and the prep's reduce, their plain versions, the
+             eager composition they replace
              (corner._fwd_y_split), the new stage as a whole (prep, topk,
              band, K2) and one torch.bmm of T with the bf16 operands into
              f32 (the bulk without the band)
@@ -139,14 +147,15 @@ Phases:
              gather
   4. path    512x512, B=8, 100 B round trip (also held against the port on
              the CPU), then 2160x3840, B=64, 16 KB: all secrets recovered,
-             K1 launched on the TMA route alone, the prep, the band kernel
-             and K2 once per forward DFT (two per round trip) and the eager
-             stage 2
-             (corner._fwd_y_split) never, K5 once (the extract's one fused
-             pass) and the eager read never, no read plan built, warm
-             timings, PSNR,
-             peak memory, the sha256 of the warm round trip's stego (4c
-             too)
+             K1 launched on the TMA route alone, with stage 2's prep in its
+             epilogue, the prep's reduce, the band kernel and K2 once per
+             forward DFT (two per round trip), the prep pass and the eager
+             stage 2 (corner._fwd_y_split) never, K5 once (the extract's
+             one fused pass) and the eager read never, no read plan built,
+             warm timings, PSNR, peak memory, the sha256 of the warm round
+             trip's stego (4c too); the 4K stego against the prep pass's
+             route (bytes that differ, planes whose band moved: bytes may
+             differ only where a band did)
   4b. ragged 1079x1917, B=4, 1 KB round trip: W % 16 != 0, so stage 1
              goes through the load route alone
   4c. odd 4K phase 4's covers cropped to 2160x3839, B=64, 16 KB: 64/64
@@ -292,10 +301,12 @@ write_floor on its resident schedule (phases 4, 4c, 9a, 9b, 8a's embeds,
 the shared-walk modes of 5f), or floor_only where the write stays eager
 (5f's QIM and per-image walks, 5g).
 The launches are counted per path and per kernel, and each (planes, H, W,
-Kx, center, route) the paths hand the stage-1 wrapper is recorded.
+Kx, center, route, prep) the paths hand the stage-1 wrapper is recorded.
   6. K1 shapes  every recorded shape that phase 3 did not check is held
              against the plain version, through the wrapper, on seeded u8
-             images on the same route
+             images on the same route, with the prep the path asked for
+             (copies against .to(bf16), energies against
+             stage1_energy_plain)
 """
 
 from __future__ import annotations
@@ -527,35 +538,52 @@ def check_epilogues(launches: dict) -> None:
 
 
 def _stage2_launches(mode, k1: int, k2: int) -> tuple:
-    """(prep, band, K2) launches of a path under the resolved precision
-    mode whose K1 launched k1 times and K2 k2 times (the forward DFTs: K1's
-    count where stage 1 is bf16): the prep where stage 2 has a bulk, the
-    band pass where it has a band (every corner of the smoke is wider than
-    the default band), none under highest."""
+    """(K1 with the prep, the prep's reduce, the prep pass, band, K2)
+    launches of a path under the resolved precision mode whose K1 launched
+    k1 times and K2 k2 times (the forward DFTs: K1's count where stage 1 is
+    bf16). Where stage 2 has a bulk its bf16 copies come from K1's
+    epilogue after a bf16 stage 1, with the energies and their reduce
+    where they pick the band (adaptive), and from the prep pass after an
+    f32 stage 1; the band pass runs where stage 2 has a band (every corner
+    of the smoke is wider than the default band); none under highest."""
     n = k1 if mode.stage1 == "bf16" else k2
     if mode.fwd2 == "highest":
-        return 0, 0, 0
-    return (0 if mode.fwd2 == "high" else n,
-            0 if mode.fwd2 == "bf16" else n, n)
+        return 0, 0, 0, 0, 0
+    bulk = mode.fwd2 != "high"
+    fused = bulk and mode.stage1 == "bf16"
+    return (n if fused else 0, n if fused and mode.fwd2 == "adaptive" else 0,
+            n if bulk and not fused else 0, 0 if mode.fwd2 == "bf16" else n,
+            n)
+
+
+def _stage2_counts(c: dict) -> tuple:
+    """(K1 with the prep, the prep's reduce, the prep pass, band, K2)
+    launches in the counts c, as _stage2_launches orders them."""
+    from steganosaurus_tpu_torch.spectral import corner_kernels as ck
+
+    return (c[ck.KERNEL_K1_PREP], c[ck.KERNEL_PREP_REDUCE], c[ck.KERNEL_PREP],
+            c[ck.KERNEL_BAND], c[ck.KERNEL_STAGE2])
 
 
 def check_stage2(launches: dict) -> None:
-    """Every counted path's forward DFTs run stage 2 through the prep, the
-    band kernel and K2, one launch each for each K1 launch, and the paths
-    of other precision modes (PATH_MODES) as _stage2_launches says: none
-    under highest (4d)."""
+    """Every counted path's forward DFTs run stage 2 as _stage2_launches
+    says for its precision mode (PATH_MODES; mix_adaptive by default: K1
+    with the prep in its epilogue, the prep's reduce, the band kernel and
+    K2, one launch each for each K1 launch, and the prep pass never; none
+    under highest, 4d)."""
     from steganosaurus_tpu_torch.spectral import corner_kernels as ck
 
     bad = {}
     for path, c in launches.items():
         k1 = sum(c[k] for k in ck.K1_ROUTES)
-        got = (c[ck.KERNEL_PREP], c[ck.KERNEL_BAND], c[ck.KERNEL_STAGE2])
+        got = _stage2_counts(c)
         want = _stage2_launches(path_mode(path), k1, c[ck.KERNEL_STAGE2])
         if got != want or (path_mode(path).stage1 != "bf16" and k1):
             bad[path] = (got, want)
     if bad:
-        raise AssertionError(f"(prep, band, K2) launches against K1's, "
-                             f"(got, want) by path: {bad}")
+        raise AssertionError(f"(K1 with the prep, reduce, prep pass, band, "
+                             f"K2) launches against K1's, (got, want) by "
+                             f"path: {bad}")
 
 
 def count_eager_stage2(fn):
@@ -785,13 +813,14 @@ def k1_bound(P: int, H: int, W: int, Kx: int) -> tuple[float, str]:
     return cost.stage_bound(cost.k1_cost(P, H, W, Kx), cost.peak_rates())
 
 
-def _k1_key(x, Kx: int, center: bool) -> tuple:
-    """(planes, H, W, Kx, center, route) of one stage-1 call on images x."""
+def _k1_key(x, Kx: int, center: bool, prep=None) -> tuple:
+    """(planes, H, W, Kx, center, route, prep) of one stage-1 call on
+    images x."""
     from steganosaurus_tpu_torch.spectral import corner_kernels as ck
 
     H, W = x.shape[-2:]
     return (x.numel() // (H * W), H, W, Kx, bool(center),
-            ck.route_for(W, x.data_ptr()))
+            ck.route_for(W, x.data_ptr()), prep)
 
 
 def _grid_nchw(dev, B: int, h: int, w: int):
@@ -823,6 +852,69 @@ def _turns(runs: dict, rounds: int = 2) -> dict:
         for k, (fn, n) in runs.items():
             times[k].append(cuda_ms(fn, n))
     return times
+
+
+def _paired(fa, fb, n: int = 16) -> list:
+    """[(ms of a, ms of b)] of n pairs of launches back to back, each timed
+    by its own CUDA events, every other pair in the order b, a: both sides
+    of a pair run at the same clocks, so the card's drift over the smoke
+    (power, heat) falls out of their difference."""
+    import torch
+
+    fa(), fb()
+    torch.cuda.synchronize()
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(3 * n)]
+    for i in range(n):
+        first, second = (fa, fb) if i % 2 == 0 else (fb, fa)
+        ev[3 * i].record()
+        first()
+        ev[3 * i + 1].record()
+        second()
+        ev[3 * i + 2].record()
+    torch.cuda.synchronize()
+    out = []
+    for i in range(n):
+        t1 = ev[3 * i].elapsed_time(ev[3 * i + 1])
+        t2 = ev[3 * i + 1].elapsed_time(ev[3 * i + 2])
+        out.append((t1, t2) if i % 2 == 0 else (t2, t1))
+    return out
+
+
+def _k1_prep_turns(main, tables, odd, otables, card: str) -> None:
+    """Stage 2's prep in K1's epilogue, timed at 4K B=64 on both routes
+    (main: 3840 columns, TMA; odd: 3839, the load route) in launches paired
+    back to back (_paired): K1 writing the copies and the energies' partials
+    with their reduce (mix_adaptive) against K1 followed by the prep pass
+    (stage 2's route before the epilogue took the prep over), and against
+    K1 alone and K1 writing the copies alone (bf16, mix_split). Logs the
+    medians of each side and of the difference."""
+    import torch
+
+    from steganosaurus_tpu_torch.spectral import corner_kernels as ck
+
+    def unfused(args, t):
+        ar, ai = ck.fwd_stage1(*args, t)
+        H = args[0].shape[-2]
+        return ck.stage2_prep(ar.reshape(-1, H, ar.shape[-1]),
+                              ai.reshape(-1, H, ai.shape[-1]))
+
+    for w, args, t in (("3840", main, tables), ("3839", odd, otables)):
+        fused = (lambda a=args, t=t: ck.fwd_stage1(*a, t, "energies"))
+        for name, other in (
+                ("K1 + prep pass", lambda a=args, t=t: unfused(a, t)),
+                ("K1 alone", lambda a=args, t=t: ck.fwd_stage1(*a, t)),
+                ("K1 with the copies",
+                 lambda a=args, t=t: ck.fwd_stage1(*a, t, "copies"))):
+            got = _paired(other, fused)
+            n = len(got)
+            a = sorted(x for x, _ in got)[n // 2]
+            b = sorted(y for _, y in got)[n // 2]
+            d = sorted(y - x for x, y in got)
+            log(f"K1 prep at {w}, paired ({n} pairs): K1 with the prep "
+                f"(its reduce included) {b!r} ms, {name} {a!r} ms: "
+                f"difference median {d[n // 2]!r} ms, quartiles "
+                f"{d[n // 4]!r} .. {d[3 * n // 4]!r} ({card})")
+        torch.cuda.empty_cache()
 
 
 def phase_k1(covers_d, card: str):
@@ -958,6 +1050,7 @@ def phase_k1(covers_d, card: str):
         log(f"K1 {k}: plain version {plain_ms[k]!r} ms; bound "
             f"{bounds[k][0]!r} ms ({bounds[k][1]}), at "
             f"{bounds[k][0] / ms[k]:.3f} of it")
+    _k1_prep_turns(main, tabs.stage1, odd, otabs.stage1, card)
 
     # the load route where a path launches it first: the 4b grid, in turns
     # with its plain version and the library call
@@ -2047,6 +2140,46 @@ def _stage2_check(what: str, ar, ai, tabs, shift: bool = False,
     return err, err_prep, prep, idx, band
 
 
+def _k1_prep_check(what: str, x, tabs, ar, ai, prep) -> float:
+    """K1 with stage 2's prep in its epilogue (fwd_stage1, prep="energies")
+    on the planes x against K1 alone (ar, ai) and the prep pass's output
+    `prep`: ar, ai and the bf16 copies bit-equal, the energies within
+    2^-24 of the exact sum, the band sets beside the prep pass's
+    (differences counted). Returns max |energy - exact|."""
+    import torch
+
+    from steganosaurus_tpu_torch.spectral import corner
+    from steganosaurus_tpu_torch.spectral import corner_kernels as ck
+
+    r, i, (r16, i16, energy) = ck.fwd_stage1(x, tabs.exr16, tabs.exi16,
+                                             False, tabs.stage1, "energies")
+    same = torch.equal(r, ar) and torch.equal(i, ai)
+    del r, i
+    copies = torch.equal(r16, prep[0]) and torch.equal(i16, prep[1])
+    del r16, i16
+    rel, err = 0.0, 0.0
+    for p0 in range(0, ar.shape[0], 16):  # the exact sums 16 planes a time
+        a, b = ar[p0:p0 + 16], ai[p0:p0 + 16]
+        exact = torch.sum((a * a + b * b).double(), dim=1)
+        e = energy[p0:p0 + 16]
+        rel = max(rel, ((e.double() - exact).abs() / exact.clamp_min(
+            torch.finfo(torch.float32).tiny)).max().item())
+        err = max(err, (e - exact.float()).abs().max().item())
+    X0 = min(corner.SPLIT_X0, ar.shape[-1])
+    mine = corner.band_topk(energy, X0).sort(1).values
+    theirs = corner.band_topk(prep[2], X0).sort(1).values
+    moved = int((mine != theirs).any(1).sum().item())
+    log(f"K1 with the prep, {what}: ar, ai bit-equal to K1's alone {same}; "
+        f"copies bit-equal to the prep pass's {copies}; energies against "
+        f"the exact sum max rel {rel!r} (bound 2^-24), max abs {err!r}; "
+        f"planes whose band differs from the prep pass's {moved} of "
+        f"{ar.shape[0]}")
+    if not (same and copies and rel <= 2.0 ** -24):
+        raise AssertionError(f"K1 with the prep, {what}: disagrees with K1 "
+                             f"alone and the prep pass")
+    return err
+
+
 def phase_stage2(covers_d, odd_d, card: str) -> list:
     """3d: forward stage 2's prep pass, band kernel and K2
     (csrc/corner_stage2.cu) against their plain versions on each of
@@ -2073,7 +2206,7 @@ def phase_stage2(covers_d, odd_d, card: str) -> list:
     if not (sass["HGMMA"] > 0 and sass["UTMALDG"] > 0):
         raise AssertionError(f"K2 is not wgmma + TMA: {sass}")
     peaks = cost.peak_rates(covers_d.device)
-    errs, errs_prep, records = [], [], []
+    errs, errs_prep, errs_fused, records = [], [], [], []
     for name, B, H, W in STAGE2_GRIDS:
         main = name == "4K"
         planes = (covers_d if main else odd_d if name == "4c"
@@ -2087,6 +2220,8 @@ def phase_stage2(covers_d, odd_d, card: str) -> list:
             main=main)
         errs.append(err)
         errs_prep.append(err_prep)
+        errs_fused.append(_k1_prep_check(f"{name} B={B} {H}x{W}", x, tabs,
+                                         ar, ai, prep))
         if main:
             P = x.shape[0]
             ar16, ai16, _ = prep
@@ -2094,16 +2229,21 @@ def phase_stage2(covers_d, odd_d, card: str) -> list:
             Hp = t2.shape[2] // 2
             t_hi = torch.cat((t2[0, :, :H], t2[0, :, Hp:Hp + H]), 1)
             b_cat = torch.cat((ar16, ai16), 1)
+            part = torch.zeros((ck.energy_slots(P, H), Kx),
+                               dtype=torch.float64, device=ar.device)
             runs = {
                 "K2": (lambda: ck.fwd_stage2(ar, ai, ar16, ai16, idx, tabs,
                                              band), 10),
                 "band": (lambda: ck.stage2_band(ar, ai, idx), 10),
                 "prep": (lambda: ck.stage2_prep(ar, ai), 10),
+                "reduce": (lambda: ck.prep_reduce(part, P, H), 20),
                 "K2 plain": (lambda: ck.fwd_stage2_plain(
                     ar, ai, idx, tabs, "bf16x6", (ar16, ai16)), 2),
                 "band plain": (lambda: (ck.band_operand(ar, ai, idx),
                                         ck.band_mask(idx, Kx)), 3),
                 "prep plain": (lambda: ck.stage2_prep_plain(ar, ai), 3),
+                "reduce plain": (lambda: ck.prep_reduce_plain(part, P, H),
+                                 3),
                 "composition": (lambda: corner._fwd_y_split(ar, ai, tabs),
                                 3),
                 "stage 2": (lambda: corner._fwd_y(ar, ai, tabs, "adaptive"), 5),
@@ -2115,7 +2255,8 @@ def phase_stage2(covers_d, odd_d, card: str) -> list:
             bounds = {k: cost.stage_bound(c, peaks) for k, c in (
                 ("K2", cost.k2_cost(P, H, Ky, Kx)),
                 ("band", cost.stage2_band_cost(P, H, Kx)),
-                ("prep", cost.stage2_prep_cost(P, H, Kx)))}
+                ("prep", cost.stage2_prep_cost(P, H, Kx)),
+                ("reduce", cost.prep_reduce_cost(P, H, Kx)))}
             log(f"K2 {name} B={B} {H}x{W} Ky={Ky} Kx={Kx}: clusters "
                 f"({ck.STAGE2_CLUSTER}, 1, 1), grid "
                 f"{ck.stage2_grid(P, Kx, Ky)} blocks")
@@ -2143,19 +2284,22 @@ def phase_stage2(covers_d, odd_d, card: str) -> list:
                       "(_fwd_y_split, adaptive=True: the bulk and band dots "
                       ":496-503, the one-hot scatter :508-511)",
                       ms["torch.bmm"]),
-                entry(ck.KERNEL_PREP, "prep",
+                entry(ck.KERNEL_PREP_REDUCE, "reduce",
                       "steganosaurus_tpu/spectral/corner.py:478 "
-                      "(_fwd_y_split's column energy) and the bf16 operand "
-                      "casts of its bulk dots (_mm :141)", None),
+                      "(_fwd_y_split's column energy; its bf16 operand "
+                      "casts of the bulk dots, _mm :141, and the energies' "
+                      "terms are in K1's epilogue)", None),
                 entry(ck.KERNEL_BAND, "band",
                       "steganosaurus_tpu/spectral/corner.py:480-485 "
                       "(_fwd_y_split's one-hot gather of the band columns) "
                       "and :506 (their column mask)", None)]
-            del t_hi, b_cat, runs
+            del t_hi, b_cat, runs, part
         del ar, ai, prep, idx, band, tabs, planes
         torch.cuda.empty_cache()
     records[0]["max_abs_err"] = max(errs)
-    records[1]["max_abs_err"] = max(errs_prep)
+    records[1]["max_abs_err"] = max(errs_fused)
+    log(f"K2 prep pass max |energy - exact| over the grids {max(errs_prep)!r}, "
+        f"K1's prep and its reduce {max(errs_fused)!r}")
     records[2]["max_abs_err"] = 0.0  # bit-equal at every grid, or raised
     return records
 
@@ -2320,8 +2464,7 @@ def _mode_round_trip(covers, mode: str, gated: bool, launches: dict,
                              f"{{{want_width}: 2}}")
     k1 = sum(counts[k] for k in ck.K1_ROUTES)
     if (k1 != (n_fwd if p.stage1 == "bf16" else 0)
-            or _stage2_launches(p, k1, n_fwd)
-            != (counts[ck.KERNEL_PREP], counts[ck.KERNEL_BAND], n_fwd)):
+            or _stage2_launches(p, k1, n_fwd) != _stage2_counts(counts)):
         raise AssertionError(f"4e {mode}: stage 1 / stage 2 launches "
                              f"{counts}")
     check_embed_kernels(path, counts, 1, mode=mode)
@@ -2588,6 +2731,51 @@ def phase_small(dev) -> None:
         raise AssertionError("card stego disagrees with the CPU reference")
 
 
+def _stego_against_prep_pass(covers_d, secrets, salts, stego) -> None:
+    """Phase 4's 4K stego against the one stage 2's route before K1 took
+    over its prep gives (corner.stage1_prep made to ask for nothing, so the
+    prep pass runs; K1's ar and ai are the same bits either way): the bytes
+    that differ, and the planes whose top-64 band the embed's forward DFT
+    picks differently on the two routes (K1's energies against the prep
+    pass's). Bytes may differ only where a band did."""
+    import torch
+
+    import steganosaurus_tpu_torch as stt
+    from steganosaurus_tpu_torch.spectral import corner
+    from steganosaurus_tpu_torch.spectral import corner_kernels as ck
+
+    real = corner.stage1_prep
+    corner.stage1_prep = lambda fwd2, Kx: None
+    try:
+        ref = stt.embed_batch(covers_d, secrets, master_key=MASTER_KEY,
+                              salts=salts, device_resident=True,
+                              layout="nchw").stego
+    finally:
+        corner.stage1_prep = real
+    diff = int((ref != stego).sum().item())
+    del ref
+    H, W = covers_d.shape[-2:]
+    params = stt.Params()
+    Ky, Kx = corner.corner_dims(H, W, params.rmax)
+    tabs = corner.dft_tables_device(H, Ky, W, Kx, covers_d.device)
+    ar, ai, (_, _, energy) = ck.fwd_stage1(
+        covers_d.reshape(-1, H, W), tabs.exr16, tabs.exi16, params.center,
+        tabs.stage1, "energies")
+    passed = ck.stage2_prep(ar, ai)[2]
+    del ar, ai
+    X0 = corner.split_x0()
+    mine = corner.band_topk(energy, X0).sort(1).values
+    theirs = corner.band_topk(passed, X0).sort(1).values
+    moved = torch.nonzero((mine != theirs).any(1)).flatten().tolist()
+    torch.cuda.empty_cache()
+    log(f"4K stego against the prep pass's route: {diff} bytes differ; "
+        f"planes whose embed band differs {moved} (columns "
+        f"{[sorted(set(mine[p].tolist()) ^ set(theirs[p].tolist())) for p in moved]})")
+    if diff and not moved:
+        raise AssertionError(f"4K stego: {diff} bytes differ from the prep "
+                             f"pass's route with every band the same")
+
+
 def phase_uhd(covers_d, what: str = "4K", route: str = "") -> tuple:
     """The main path at 4K UHD, B=64, 16 KB, on covers_d (phase 4; 4c: the
     same covers cropped by one column). Every secret must come back, and
@@ -2651,17 +2839,18 @@ def phase_uhd(covers_d, what: str = "4K", route: str = "") -> tuple:
     log(f"{what} beside the parent's record (before K4): sha256 {digest[:8]} "
         f"vs {sha}, peak memory {peak / 2**30!r} vs {peak_rec} GiB, warm "
         f"round trip {total!r} vs {ms_rec} ms")
+    if what == "4K":
+        _stego_against_prep_pass(covers_d, secrets, salts, stego)
     log(f"launches in the counted round trip: {launches}; eager stage 2 "
         f"(corner._fwd_y_split) ran {eager} times")
     if launches[route] <= 0 or any(launches[k] for k in ck.K1_ROUTES
                                    if k != route):
         raise AssertionError(f"the {what} path did not launch {route} "
                              f"alone: {launches}")
-    if (launches[ck.KERNEL_PREP], launches[ck.KERNEL_BAND],
-            launches[ck.KERNEL_STAGE2], eager) != (2, 2, 2, 0):
-        raise AssertionError(f"the {what} path's stage 2 is not the prep, "
-                             f"the band kernel and K2 twice: {launches}, "
-                             f"eager {eager}")
+    if (*_stage2_counts(launches), eager) != (2, 2, 0, 2, 2, 0):
+        raise AssertionError(f"the {what} path's stage 2 is not K1's prep, "
+                             f"its reduce, the band kernel and K2 twice: "
+                             f"{launches}, eager {eager}")
     check_embed_kernels(what, launches, 1)
     reads = (launches[rk.KERNEL_READ_DECODE], launches[rk.KERNEL_READ_EAGER])
     if reads != (1, 0):
@@ -4577,21 +4766,24 @@ def record_k1_shapes(seen: set):
 
     real = ck.fwd_stage1
 
-    def recorded(imgs_u8, exr_bf16, exi_bf16, center, tables=None):
+    def recorded(imgs_u8, exr_bf16, exi_bf16, center, tables=None,
+                 prep=None):
         if imgs_u8.is_cuda:
-            seen.add(_k1_key(imgs_u8, exr_bf16.shape[0], center))
-        return real(imgs_u8, exr_bf16, exi_bf16, center, tables)
+            seen.add(_k1_key(imgs_u8, exr_bf16.shape[0], center, prep))
+        return real(imgs_u8, exr_bf16, exi_bf16, center, tables, prep)
 
     ck.fwd_stage1 = recorded
     return lambda: setattr(ck, "fwd_stage1", real)
 
 
 def phase_k1_shapes(dev, seen: set, checked: set) -> None:
-    """6: each (planes, H, W, Kx, center, route) that the paths gave the
-    stage-1 wrapper and phase 3 did not check, held against the plain
+    """6: each (planes, H, W, Kx, center, route, prep) that the paths gave
+    the stage-1 wrapper and phase 3 did not check, held against the plain
     version through the wrapper on seeded u8 images on the same route (the
     load route at W % 16 == 0 on a view whose base is not 16-byte
-    aligned), with the tables the path builds for it."""
+    aligned), with the tables the path builds for it; with the prep in
+    K1's epilogue also its copies against .to(bf16) and its energies
+    against stage1_energy_plain, bit for bit."""
     import numpy as np
     import torch
 
@@ -4599,21 +4791,32 @@ def phase_k1_shapes(dev, seen: set, checked: set) -> None:
     from steganosaurus_tpu_torch.spectral import corner_kernels as ck
 
     rng = np.random.default_rng(6)
-    todo = sorted(k for k in seen if k not in checked)
+    todo = sorted((k for k in seen if k not in checked), key=repr)
     log(f"K1 shapes the paths gave the wrapper: {len(seen)}, of which "
-        f"{len(seen) - len(todo)} checked in phase 3: {sorted(seen)}")
+        f"{len(seen) - len(todo)} checked in phase 3: "
+        f"{sorted(seen, key=repr)}")
     for key in todo:
-        P, H, W, Kx, center, route = key
+        P, H, W, Kx, center, route, prep = key
         offset = 1 if route == ck.KERNEL_LDG and W % 16 == 0 else 0
         x = _offset_u8(rng, (P, H, W), dev, offset)
         if ck.route_for(W, x.data_ptr()) != route:
             raise AssertionError(f"{key}: the check would not take {route}")
         er, ei = (torch.from_numpy(t).to(dev).to(torch.bfloat16)
                   for t in corner._dft_tables(W, Kx))
-        _k1_check(f"{route} path shape {key}",
-                  ck.fwd_stage1(x, er, ei, center),
+        out = ck.fwd_stage1(x, er, ei, center, None, prep)
+        _k1_check(f"{route} path shape {key}", out[:2],
                   ck.fwd_stage1_plain(x, er, ei, center))
-        del x
+        if prep is not None:
+            ar16, ai16, energy = out[2]
+            ok = (torch.equal(ar16, out[0].to(torch.bfloat16))
+                  and torch.equal(ai16, out[1].to(torch.bfloat16))
+                  and (energy is None) == (prep == "copies")
+                  and (energy is None or torch.equal(
+                      energy, ck.stage1_energy_plain(out[0], out[1]))))
+            if not ok:
+                raise AssertionError(f"{key}: K1's prep disagrees with its "
+                                     f"plain version")
+        del x, out
         torch.cuda.empty_cache()
 
 

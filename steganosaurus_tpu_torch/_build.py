@@ -51,8 +51,7 @@ _kernels: "Kernels | None" = None
 # c_void_p (a bare int would be cut to 32 bits), sizes and flags c_int.
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
-    "corner_stage1_wgmma": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
-                            _P],
+    "corner_stage1_wgmma": [_P] * 7 + [_I] * 10 + [_P],
     "corner_write_floor": [_P] * 15 + [_I] * 6 + [_F, _F, _I, _F, _F, _F,
                                               _I, _I, _I, _P],
     "corner_write_floor_grid": [_I, _I],
@@ -61,6 +60,7 @@ _SIGNATURES = {
     "corner_ifft_epilogue": [_P] * 5 + [_I] * 7 + [_F, _I, _I, _P],
     "corner_ifft_epilogue_grid": [_I, _I, _I, _I],
     "corner_stage2_prep": [_P] * 5 + [_I] * 4 + [_P],
+    "corner_stage2_prep_reduce": [_P] * 2 + [_I] * 3 + [_P],
     "corner_stage2_band": [_P] * 5 + [_I] * 4 + [_P],
     "corner_stage2": [_P] * 8 + [_I] * 10 + [_P],
     "corner_stage2_grid": [_I] * 5,

@@ -14,7 +14,9 @@
 // 4K B=64 (P=192 planes of 2160x3840, Kx=1024): 2*P*H*W*2Kx = 6.52 TFLOP,
 // 6.60 ms of tensor-core time, against 1.59 GB of u8 read + 15.7 MB of
 // tables + 3.40 GB of f32 written, ~1.5 ms of HBM time. Compute-bound:
-// 6.60 ms, at any width.
+// 6.60 ms, at any width. With stage 2's prep in the epilogue (7. below)
+// 1.70 GB of bf16 copies and 28 MB of f64 partials more: ~2.0 ms of HBM
+// time, still compute-bound.
 //
 // What the first kernel of this function (nvcuda::wmma, since removed) lost:
 // 1. nvcuda::wmma 16x16x16 compiles to mma.sync, which does not reach
@@ -30,9 +32,14 @@
 //    stores per lane, for 3.4 GB of f32 output.
 //
 // What this kernel does about it:
-// 1. One GEMM over the concatenated table T = [exr; exi] (N = 2*Kxp rows,
-//    Kxp = Kx rounded up to 64), issued as wgmma.m64n256k16 with B from
-//    128-byte-swizzled shared memory and A from registers.
+// 1. One GEMM over the concatenated table T (N = 2*Kxh rows, Kxh = Kx
+//    rounded up to 128), issued as wgmma.m64n256k16 with B from
+//    128-byte-swizzled shared memory and A from registers. T is laid out
+//    in groups of 256 rows, each 128 rows of exr followed by the same 128
+//    rows of exi (zero rows past Kx), so that a tile's accumulator columns
+//    n and n + 128, which the m64n256 layout gives one thread, are ar and
+//    ai of one output column. Each output is still the sum over w of one
+//    table row's products, in the same order.
 // 2. Centering leaves the A operand: (-1)^w is folded into a second cached
 //    copy of T and (-1)^h is a row sign applied in the epilogue. Every
 //    bf16 x bf16 product is exact in f32, so flipping the sign of whole
@@ -101,8 +108,36 @@
 //    The epilogue does not overlap the next tile's main loop: neither a
 //    shared-memory + TMA store nor consumer warpgroups on alternate tiles
 //    is done yet.
+// 7. Forward stage 2's prep, from registers (template flag kPrep). Stage 2
+//    needs bf16 copies of ar and ai and, under mix_adaptive, the column
+//    energies sum_h(ar^2 + ai^2) that pick its band; a separate pass
+//    (corner_stage2.cu's prep) read the 3.40 GB of f32 that this kernel
+//    had just written to make them (1.76 ms a side at 4K B=64). Here the
+//    epilogue makes them from the values it stores, on a kernel with HBM
+//    time to spare:
+//    - kPrep >= 1: the bf16 copies (__float2bfloat16_rn of the signed
+//      values, bit-equal to .to(torch.bfloat16)) into rows ldk values
+//      apart (columns [Kx, ldk) not written), the layout K2's TMA reads.
+//      The two lanes that hold a row's 8-column group swap halves over a
+//      pair of groups, so each stores 16 bytes and a store covers one
+//      32-byte sector a row (8 bytes a lane, half a sector a row, cost
+//      four times as much: 1.29 against 0.32 ms a side at 4K B=64).
+//    - kPrep == 2: each value's energy e = fl(fl(ar*ar) + fl(ai*ai)) (as
+//      eager torch rounds it), summed in f64 over the tile's rows of each
+//      plane the tile touches (a 128-row tile can straddle planes: 2160 =
+//      16 * 128 + 112) into the slot of row t + p of `part` (t the row
+//      tile, p the plane; slots nobody writes are never read). The order
+//      is fixed by the shape, with no atomics: a lane adds its two rows,
+//      a warp's 8 row lanes reduce-scatter by shuffles (xor 16, 8, 4),
+//      each lane keeping 2 of a round's 64 columns, and after a named
+//      barrier of the 256 consumer threads 64 of them add the 8 warps'
+//      sums in warp order through a 4 KB shared buffer, two rounds a
+//      plane. corner_stage2.cu's prep reduce then adds each plane's slots
+//      in order and rounds once to f32; corner_kernels.stage1_energy_plain
+//      is the same order in plain torch.
 
 #include <cuda.h>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 #include <string.h>
@@ -110,7 +145,8 @@
 namespace {
 
 constexpr int BM = 128;          // rows per tile (two consumer warpgroups)
-constexpr int BN = 256;          // table rows (output columns) per tile
+constexpr int BN = 256;          // table rows per tile: 128 of exr, 128 of exi
+constexpr int BX = BN / 2;       // output columns per tile
 constexpr int BK = 64;           // contraction per stage
 constexpr int STAGES = 5;
 constexpr int A_BYTES = BM * BK;          // u8
@@ -126,7 +162,27 @@ constexpr int LD_DEPTH = 2;
 constexpr int STG_ROW = BK + 16;
 constexpr int STG_BYTES = BM * STG_ROW;
 constexpr int SMEM_LDG = SMEM_TMA + LD_DEPTH * STG_BYTES;
-static_assert(SMEM_LDG <= 232448, "the load route's shared memory");
+// The energies' cross-warp sum: 8 consumer warps x 64 columns of f64
+constexpr int CONSUMER_WARPS = 8;
+constexpr int RED_COLS = 64;
+constexpr int RED_BYTES = CONSUMER_WARPS * RED_COLS * 8;
+static_assert(SMEM_LDG + RED_BYTES <= 232448, "the load route's shared memory");
+
+// kPrep: what the epilogue writes besides ar and ai
+constexpr int PREP_NONE = 0;
+constexpr int PREP_COPIES = 1;    // the bf16 copies
+constexpr int PREP_ENERGIES = 2;  // the copies and the energies' partials
+
+// Where the epilogue writes: ar, ai (M, Kx) f32; with kPrep >= 1 ar16, ai16
+// (M, ldk) bf16; with kPrep == 2 part (n_row_tiles + P - 1, Kx) f64.
+struct Out {
+  float* ar;
+  float* ai;
+  __nv_bfloat16* ar16;
+  __nv_bfloat16* ai16;
+  double* part;
+  int ldk;
+};
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -264,12 +320,34 @@ __device__ __forceinline__ void fence_acc(float* d) {
   for (int i = 0; i < 128; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
-__device__ __forceinline__ void store_out(float* ar, float* ai, long long m,
-                                          int c, int Kx, int Kxp, float v) {
-  if (c < Kxp) {
-    if (c < Kx) ar[m * Kx + c] = v;
-  } else if (c - Kxp < Kx) {
-    ai[m * Kx + (c - Kxp)] = v;
+// fl(fl(a*a) + fl(b*b)): the intrinsics round each step, as eager torch
+// does (this file is built without -fmad=false)
+__device__ __forceinline__ float sq2(float a, float b) {
+  return __fadd_rn(__fmul_rn(a, a), __fmul_rn(b, b));
+}
+
+__device__ __forceinline__ uint2 bf16x4(float4 v) {
+  __nv_bfloat162 lo = __floats2bfloat162_rn(v.x, v.y);
+  __nv_bfloat162 hi = __floats2bfloat162_rn(v.z, v.w);
+  return make_uint2(*reinterpret_cast<uint32_t*>(&lo),
+                    *reinterpret_cast<uint32_t*>(&hi));
+}
+
+// the 256 consumer threads (warpgroups 0 and 1); the producer never joins
+__device__ __forceinline__ void consumer_sync() {
+  asm volatile("bar.sync 1, 256;\n" ::: "memory");
+}
+
+// One output element from registers: its f32 value, and with kPrep its
+// bf16 copy
+template <int kPrep>
+__device__ __forceinline__ void store_one(const Out& o, long long m, int c,
+                                          int Kx, float vr, float vi) {
+  o.ar[m * Kx + c] = vr;
+  o.ai[m * Kx + c] = vi;
+  if constexpr (kPrep != PREP_NONE) {
+    o.ar16[m * o.ldk + c] = __float2bfloat16_rn(vr);
+    o.ai16[m * o.ldk + c] = __float2bfloat16_rn(vi);
   }
 }
 
@@ -369,12 +447,74 @@ __device__ __forceinline__ void produce_by_loads(
   }
 }
 
-template <bool kTma>
+// kPrep == 2: the tile's column energies into `part` (7. above). d holds
+// rows r0 and r0 + 8 (tile rows; global mA, mB) of the tile's columns
+// k0 + 8g + 2q + {0, 1} (g < 16), ar at d[4g..] and ai at d[4g + 64..].
+// Row indices fit in an int: the C entry refuses P*H > 2^31 - 1 - BM.
+__device__ __forceinline__ void energy_partials(
+    const float* d, double* red, double* __restrict__ part, int m0, int mA,
+    int mB, int M, int H, int Kx, int k0) {
+  const int lane = threadIdx.x & 31;
+  const int gw = threadIdx.x >> 5;  // consumer warp 0..7: tile rows 16 gw..
+  const int slot0 = m0 / BM;
+  const int mL = min(m0 + BM, M) - 1;
+  const int pA = mA < M ? mA / H : -1;
+  const int pB = mB < M ? mB / H : -1;
+  const bool b4 = lane & 16, b3 = lane & 8, b2 = lane & 4;
+  for (int p = m0 / H; p <= mL / H; ++p) {
+    const bool inA = pA == p, inB = pB == p;
+    double* out = part + (size_t)(slot0 + p) * Kx;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {  // the tile's columns [64r, 64r + 64)
+      // v[2i + e]: this lane's two rows of column 64r + 8i + 2q + e
+      double v[16];
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int j = 4 * (8 * r + i) + e;
+          const double ea = inA ? (double)sq2(d[j], d[j + 64]) : 0.0;
+          const double eb = inB ? (double)sq2(d[j + 2], d[j + 66]) : 0.0;
+          v[2 * i + e] = ea + eb;
+        }
+      }
+      // reduce-scatter over the 8 row lanes: lane bit 4 keeps i bit 2,
+      // bit 3 i bit 1, bit 2 i bit 0, so the lane ends with i = lane / 4
+      double w[8], y[4], z[2];
+#pragma unroll
+      for (int k = 0; k < 8; ++k)
+        w[k] = (b4 ? v[8 + k] : v[k]) +
+               __shfl_xor_sync(0xffffffffu, b4 ? v[k] : v[8 + k], 16);
+#pragma unroll
+      for (int k = 0; k < 4; ++k)
+        y[k] = (b3 ? w[4 + k] : w[k]) +
+               __shfl_xor_sync(0xffffffffu, b3 ? w[k] : w[4 + k], 8);
+#pragma unroll
+      for (int k = 0; k < 2; ++k)
+        z[k] = (b2 ? y[2 + k] : y[k]) +
+               __shfl_xor_sync(0xffffffffu, b2 ? y[k] : y[2 + k], 4);
+      // column 64r + 8(lane / 4) + 2(lane % 4) + e = 64r + 2 lane + e
+      *reinterpret_cast<double2*>(red + gw * RED_COLS + 2 * lane) =
+          make_double2(z[0], z[1]);
+      consumer_sync();
+      const int c = k0 + 64 * r + (int)threadIdx.x;
+      if (threadIdx.x < RED_COLS && c < Kx) {
+        double s = red[threadIdx.x];
+#pragma unroll
+        for (int k = 1; k < CONSUMER_WARPS; ++k)
+          s += red[k * RED_COLS + threadIdx.x];
+        out[c] = s;
+      }
+      consumer_sync();
+    }
+  }
+}
+
+template <bool kTma, int kPrep>
 __device__ __forceinline__ void stage1_body(
     const CUtensorMap* tm_a, const CUtensorMap* tm_b,
-    const uint8_t* __restrict__ x, int W, float* __restrict__ ar,
-    float* __restrict__ ai, int M, int H, int Kx, int Kxp, int nkb,
-    int n_tiles_n, int n_tiles, int center, int vec) {
+    const uint8_t* __restrict__ x, int W, const Out o, int M, int H,
+    int Kx, int nkb, int n_tiles_n, int n_tiles, int center, int vec) {
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = reinterpret_cast<uint8_t*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
@@ -383,6 +523,8 @@ __device__ __forceinline__ void stage1_body(
   uint64_t* full = reinterpret_cast<uint64_t*>(smem_a + STAGES * A_BYTES);
   uint64_t* empty = full + STAGES;
   uint8_t* stg = smem_a + STAGES * A_BYTES + BAR_BYTES;  // load route only
+  // kPrep == 2: the energies' cross-warp buffer, after the staging ring
+  double* red = reinterpret_cast<double*>(stg + (kTma ? 0 : LD_DEPTH * STG_BYTES));
 
   if (threadIdx.x == 0) {
     for (int s = 0; s < STAGES; ++s) {
@@ -473,6 +615,9 @@ __device__ __forceinline__ void stage1_body(
       }
 
       // ---- epilogue: row sign, then 16-byte (or masked scalar) stores ----
+      // accumulator columns 8g + 2q + {0, 1}: g < 16 ar, g >= 16 ai, of
+      // output column k0 + 8(g % 16) + 2q + {0, 1}
+      const int k0 = (n0 / BN) * BX;
       const long long mA = (long long)m0 + r0;
       const long long mB = mA + 8;
       const float sA = (center && ((mA % H) & 1)) ? -1.0f : 1.0f;
@@ -484,71 +629,106 @@ __device__ __forceinline__ void stage1_body(
         const long long m = odd ? mB : mA;
         const float sg = odd ? sB : sA;
         const bool live = m < M;
+        const bool lo = !(q & 2);  // columns 8g..8g+3 of its row, else +4..
 #pragma unroll
-        for (int g = 0; g < 32; ++g) {
-          const float x0 = odd ? d[4 * g] : d[4 * g + 2];
-          const float x1 = odd ? d[4 * g + 1] : d[4 * g + 3];
-          const float y0 = __shfl_xor_sync(0xffffffffu, x0, 1);
-          const float y1 = __shfl_xor_sync(0xffffffffu, x1, 1);
-          float4 v;
-          if (odd) {
-            v = make_float4(y0, y1, d[4 * g + 2], d[4 * g + 3]);
-          } else {
-            v = make_float4(d[4 * g], d[4 * g + 1], y0, y1);
+        for (int g = 0; g < 16; g += 2) {
+          float4 v[2][2];  // [group g, g + 1][ar, ai]
+#pragma unroll
+          for (int u = 0; u < 2; ++u) {
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              const float* dg = d + 4 * (g + u) + 64 * h;
+              const float x0 = odd ? dg[0] : dg[2];
+              const float x1 = odd ? dg[1] : dg[3];
+              const float y0 = __shfl_xor_sync(0xffffffffu, x0, 1);
+              const float y1 = __shfl_xor_sync(0xffffffffu, x1, 1);
+              float4 w = odd ? make_float4(y0, y1, dg[2], dg[3])
+                             : make_float4(dg[0], dg[1], y0, y1);
+              w.x *= sg;
+              w.y *= sg;
+              w.z *= sg;
+              w.w *= sg;
+              v[u][h] = w;
+            }
+            const int c = k0 + 8 * (g + u) + 2 * (q & 2);
+            if (live && c < Kx) {
+              *reinterpret_cast<float4*>(o.ar + m * Kx + c) = v[u][0];
+              *reinterpret_cast<float4*>(o.ai + m * Kx + c) = v[u][1];
+            }
           }
-          v.x *= sg;
-          v.y *= sg;
-          v.z *= sg;
-          v.w *= sg;
-          const int c = n0 + 8 * g + 2 * (q & 2);
-          if (live) {
-            if (c < Kxp) {
-              if (c < Kx) *reinterpret_cast<float4*>(ar + m * Kx + c) = v;
-            } else if (c - Kxp < Kx) {
-              *reinterpret_cast<float4*>(ai + m * Kx + (c - Kxp)) = v;
+          if constexpr (kPrep != PREP_NONE) {
+            // the bf16 copies 16 bytes a lane: the lane pair (q, q^2) of a
+            // row swaps halves, so the lo lane holds columns 8g..8g+7 and
+            // the hi lane 8g+8..8g+15, one 32-byte sector a row
+            const int c = k0 + 8 * g + 8 * !lo;
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              const uint2 a = bf16x4(v[0][h]), b = bf16x4(v[1][h]);
+              const uint2 send = lo ? b : a;
+              const uint32_t rx = __shfl_xor_sync(0xffffffffu, send.x, 2);
+              const uint32_t ry = __shfl_xor_sync(0xffffffffu, send.y, 2);
+              const uint4 row = lo ? make_uint4(a.x, a.y, rx, ry)
+                                   : make_uint4(rx, ry, b.x, b.y);
+              __nv_bfloat16* dst = (h ? o.ai16 : o.ar16) + m * o.ldk + c;
+              if (live && c + 8 <= Kx) {
+                *reinterpret_cast<uint4*>(dst) = row;
+              } else if (live && c + 4 <= Kx) {  // Kx % 8 == 4
+                *reinterpret_cast<uint2*>(dst) = make_uint2(row.x, row.y);
+              }
             }
           }
         }
       } else {
 #pragma unroll
-        for (int g = 0; g < 32; ++g) {
-          const int c = n0 + 8 * g + 2 * q;
-          if (mA < M) {
-            store_out(ar, ai, mA, c, Kx, Kxp, sA * d[4 * g]);
-            store_out(ar, ai, mA, c + 1, Kx, Kxp, sA * d[4 * g + 1]);
-          }
-          if (mB < M) {
-            store_out(ar, ai, mB, c, Kx, Kxp, sB * d[4 * g + 2]);
-            store_out(ar, ai, mB, c + 1, Kx, Kxp, sB * d[4 * g + 3]);
+        for (int g = 0; g < 16; ++g) {
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int c = k0 + 8 * g + 2 * q + e;
+            if (c >= Kx) continue;
+            if (mA < M)
+              store_one<kPrep>(o, mA, c, Kx, sA * d[4 * g + e],
+                               sA * d[4 * g + 64 + e]);
+            if (mB < M)
+              store_one<kPrep>(o, mB, c, Kx, sB * d[4 * g + 2 + e],
+                               sB * d[4 * g + 66 + e]);
           }
         }
       }
+      if constexpr (kPrep == PREP_ENERGIES)
+        energy_partials(d, red, o.part, m0, (int)mA, (int)mB, M, H, Kx, k0);
     }
   }
 }
 
-// The two instantiations, under names of their own so that the SASS of
-// each can be found (corner_kernels' sass check).
+// The two routes, under names of their own so that the SASS of each can be
+// found (corner_kernels' sass check), each instantiated for every kPrep.
+template <int kPrep>
 __global__ void __launch_bounds__(NTHREADS, 1)
 corner_stage1_tma_kernel(const __grid_constant__ CUtensorMap tm_a,
                          const __grid_constant__ CUtensorMap tm_b,
-                         const uint8_t* __restrict__ x, int W,
-                         float* __restrict__ ar, float* __restrict__ ai,
-                         int M, int H, int Kx, int Kxp, int nkb,
-                         int n_tiles_n, int n_tiles, int center, int vec) {
-  stage1_body<true>(&tm_a, &tm_b, x, W, ar, ai, M, H, Kx, Kxp, nkb,
-                    n_tiles_n, n_tiles, center, vec);
+                         const uint8_t* __restrict__ x, int W, const Out o,
+                         int M, int H, int Kx, int nkb, int n_tiles_n,
+                         int n_tiles, int center, int vec) {
+  stage1_body<true, kPrep>(&tm_a, &tm_b, x, W, o, M, H, Kx, nkb, n_tiles_n,
+                           n_tiles, center, vec);
 }
 
+template <int kPrep>
 __global__ void __launch_bounds__(NTHREADS, 1)
 corner_stage1_ldg_kernel(const __grid_constant__ CUtensorMap tm_a,
                          const __grid_constant__ CUtensorMap tm_b,
-                         const uint8_t* __restrict__ x, int W,
-                         float* __restrict__ ar, float* __restrict__ ai,
-                         int M, int H, int Kx, int Kxp, int nkb,
-                         int n_tiles_n, int n_tiles, int center, int vec) {
-  stage1_body<false>(&tm_a, &tm_b, x, W, ar, ai, M, H, Kx, Kxp, nkb,
-                     n_tiles_n, n_tiles, center, vec);
+                         const uint8_t* __restrict__ x, int W, const Out o,
+                         int M, int H, int Kx, int nkb, int n_tiles_n,
+                         int n_tiles, int center, int vec) {
+  stage1_body<false, kPrep>(&tm_a, &tm_b, x, W, o, M, H, Kx, nkb, n_tiles_n,
+                            n_tiles, center, vec);
+}
+
+using Stage1Kernel = decltype(&corner_stage1_tma_kernel<PREP_NONE>);
+
+template <int kPrep>
+Stage1Kernel stage1_kernel(bool tma) {
+  return tma ? corner_stage1_tma_kernel<kPrep> : corner_stage1_ldg_kernel<kPrep>;
 }
 
 typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
@@ -574,22 +754,35 @@ EncodeTiled encode_tiled() {
 }  // namespace
 
 // C interface, loaded with ctypes (steganosaurus_tpu_torch/_build.py).
-// x: (P*H, W) u8 rows, any W >= 1 and any base address; t: (2*Kxp, Wp)
-// bf16, 16-byte aligned, the concatenated, K-permuted table of
+// x: (P*H, W) u8 rows, any W >= 1 and any base address; t: (2*Kxh, Wp)
+// bf16, 16-byte aligned, the paired, K-permuted table of
 // corner_kernels.stage1_tables (the (-1)^w-folded copy when center is set),
-// Kxp and Wp multiples of 64; ar/ai: (P*H, Kx) f32. All contiguous, on the
-// device that owns `stream`. tma != 0 takes the TMA route for A, which
-// needs W % 16 == 0 and a 16-byte-aligned x; tma == 0 the load route.
+// Kxh a multiple of 128 and Wp of 64; ar/ai: (P*H, Kx) f32. All contiguous,
+// on the device that owns `stream`. tma != 0 takes the TMA route for A,
+// which needs W % 16 == 0 and a 16-byte-aligned x; tma == 0 the load route.
+// prep (kPrep): 0 ar and ai alone; 1 also their bf16 copies ar16/ai16,
+// (P*H, ldk) bf16 rows, ldk >= Kx a multiple of 8, 16-byte-aligned bases
+// (columns [Kx, ldk) not written); 2 also the energies' f64 partials,
+// part (ceil(P*H / 128) + P - 1, Kx), 8-byte aligned, which
+// corner_stage2_prep_reduce sums. Pointers prep does not use may be null.
 // Launches on `stream`, does not synchronise, and returns a CUDA error code
 // (0 on success; cudaErrorInvalidValue for shapes it does not take).
 extern "C" int corner_stage1_wgmma(const void* x, const void* t, void* ar,
-                                   void* ai, int P, int H, int W, int Kx,
-                                   int Kxp, int Wp, int center, int tma,
-                                   void* stream) {
-  if (P <= 0 || H <= 0 || W <= 0 || Kx <= 0 || Kxp % 64 != 0 || Kxp < Kx ||
-      Wp % BK != 0 || Wp < W || (uintptr_t)t % 16 != 0)
+                                   void* ai, void* ar16, void* ai16,
+                                   void* part, int P, int H, int W, int Kx,
+                                   int Kxh, int Wp, int ldk, int center,
+                                   int tma, int prep, void* stream) {
+  if (P <= 0 || H <= 0 || W <= 0 || Kx <= 0 || Kxh % BX != 0 || Kxh < Kx ||
+      Wp % BK != 0 || Wp < W || (uintptr_t)t % 16 != 0 || prep < PREP_NONE ||
+      prep > PREP_ENERGIES)
     return (int)cudaErrorInvalidValue;
   if (tma && (W % 16 != 0 || (uintptr_t)x % 16 != 0))
+    return (int)cudaErrorInvalidValue;
+  if (prep != PREP_NONE &&
+      (!ar16 || !ai16 || (uintptr_t)ar16 % 16 != 0 ||
+       (uintptr_t)ai16 % 16 != 0 || ldk < Kx || ldk % 8 != 0))
+    return (int)cudaErrorInvalidValue;
+  if (prep == PREP_ENERGIES && (!part || (uintptr_t)part % 8 != 0))
     return (int)cudaErrorInvalidValue;
   const long long M = (long long)P * H;
   if (M > 0x7fffffffLL - BM) return (int)cudaErrorInvalidValue;
@@ -610,7 +803,7 @@ extern "C" int corner_stage1_wgmma(const void* x, const void* t, void* ar,
       return (int)cudaErrorInvalidValue;
   }
   {
-    const cuuint64_t dims[2] = {(cuuint64_t)Wp, (cuuint64_t)(2 * Kxp)};
+    const cuuint64_t dims[2] = {(cuuint64_t)Wp, (cuuint64_t)(2 * Kxh)};
     const cuuint64_t strides[1] = {(cuuint64_t)Wp * 2};
     const cuuint32_t box[2] = {BK, BN};
     const cuuint32_t el[2] = {1, 1};
@@ -621,8 +814,11 @@ extern "C" int corner_stage1_wgmma(const void* x, const void* t, void* ar,
       return (int)cudaErrorInvalidValue;
   }
 
-  auto kernel = tma ? corner_stage1_tma_kernel : corner_stage1_ldg_kernel;
-  const int smem = tma ? SMEM_TMA : SMEM_LDG;
+  const Stage1Kernel kernel = prep == PREP_ENERGIES ? stage1_kernel<PREP_ENERGIES>(tma)
+                              : prep == PREP_COPIES ? stage1_kernel<PREP_COPIES>(tma)
+                                                    : stage1_kernel<PREP_NONE>(tma);
+  const int smem = (tma ? SMEM_TMA : SMEM_LDG) +
+                   (prep == PREP_ENERGIES ? RED_BYTES : 0);
   int dev = 0, sms = 0;
   cudaGetDevice(&dev);
   cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
@@ -630,14 +826,16 @@ extern "C" int corner_stage1_wgmma(const void* x, const void* t, void* ar,
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
 
-  const int n_tiles_n = (2 * Kxp + BN - 1) / BN;
+  const int n_tiles_n = Kxh / BX;
   const long long n_tiles = ((M + BM - 1) / BM) * n_tiles_n;
   if (n_tiles > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
   const int grid = (int)(n_tiles < sms ? n_tiles : sms);
   const int vec = (Kx % 4 == 0) && ((uintptr_t)ar % 16 == 0) &&
                   ((uintptr_t)ai % 16 == 0);
+  const Out o = {(float*)ar, (float*)ai, (__nv_bfloat16*)ar16,
+                 (__nv_bfloat16*)ai16, (double*)part, ldk};
   kernel<<<grid, NTHREADS, smem, (cudaStream_t)stream>>>(
-      tm_a, tm_b, (const uint8_t*)x, W, (float*)ar, (float*)ai, (int)M, H, Kx,
-      Kxp, Wp / BK, n_tiles_n, (int)n_tiles, center ? 1 : 0, vec);
+      tm_a, tm_b, (const uint8_t*)x, W, o, (int)M, H, Kx, Wp / BK, n_tiles_n,
+      (int)n_tiles, center ? 1 : 0, vec);
   return (int)cudaGetLastError();
 }

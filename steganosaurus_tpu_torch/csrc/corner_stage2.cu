@@ -51,6 +51,10 @@
 //    on H alone and uses no atomics, so every run and every shard of a
 //    batch gives the same energies, within an f32 rounding of the exact
 //    sum of the f32 terms (torch.sum's f32 sum is no closer).
+//    Where stage 1 runs through K1 (bf16), K1's epilogue does this pass's
+//    work from its registers (corner_stage1_wgmma.cu, 7.) and
+//    corner_stage2_prep_kernel_reduce adds its per-tile f64 partials; this
+//    pass stays for an f32 stage 1.
 // 2. Band pass: one block of 256 threads per (32 rows, plane); thread
 //    (r, j) loads ar and ai at column idx[p][j] of its rows and stores
 //    their three bf16 terms (the differences exact in f32, as the plain
@@ -215,6 +219,27 @@ corner_stage2_prep_kernel(const float* __restrict__ ar,
     for (int k = 0; k < PREP_LANES; ++k) s += part[k][threadIdx.x];
     energy[(size_t)p * X + x] = (float)s;
   }
+}
+
+// The prep's energies where K1's epilogue made the rest of it
+// (corner_stage1_wgmma.cu, 7.): part (ceil(P*H / K1_ROWS) + P - 1, X) f64
+// holds, at row t + p, the sum of plane p's rows in K1's row tile t. One
+// thread a (column, plane) adds the plane's slots in tile order and
+// rounds once to f32. Named after the prep, whose energy pass it is.
+constexpr int K1_ROWS = 128;      // K1's row tile (its BM)
+constexpr int REDUCE_THREADS = 256;
+
+__global__ void __launch_bounds__(REDUCE_THREADS)
+corner_stage2_prep_kernel_reduce(const double* __restrict__ part,
+                                 float* __restrict__ energy, int H, int X) {
+  const int p = blockIdx.y;
+  const int x = blockIdx.x * REDUCE_THREADS + threadIdx.x;
+  if (x >= X) return;
+  const long long r0 = (long long)p * H;
+  const int t0 = (int)(r0 / K1_ROWS), t1 = (int)((r0 + H - 1) / K1_ROWS);
+  double s = 0.0;
+  for (int t = t0; t <= t1; ++t) s += part[(size_t)(t + p) * X + x];
+  energy[(size_t)p * X + x] = (float)s;
 }
 
 // ---- the band operand ------------------------------------------------------
@@ -870,6 +895,19 @@ extern "C" int corner_stage2_prep(const void* ar, const void* ai, void* ar16,
   corner_stage2_prep_kernel<<<grid, PREP_THREADS, 0, (cudaStream_t)stream>>>(
       (const float*)ar, (const float*)ai, (__nv_bfloat16*)ar16,
       (__nv_bfloat16*)ai16, (float*)energy, H, X, ldk, vec);
+  return (int)cudaGetLastError();
+}
+
+// The prep's energies from K1's partials: part (ceil(P*H / 128) + P - 1, X)
+// f64 (corner_stage1_wgmma with prep = 2) -> energy (P, X) f32.
+extern "C" int corner_stage2_prep_reduce(const void* part, void* energy,
+                                         int P, int H, int X, void* stream) {
+  if (!part || !energy || P <= 0 || P > 65535 || H <= 0 || X <= 0)
+    return (int)cudaErrorInvalidValue;
+  const dim3 grid((X + REDUCE_THREADS - 1) / REDUCE_THREADS, P);
+  corner_stage2_prep_kernel_reduce<<<grid, REDUCE_THREADS, 0,
+                                     (cudaStream_t)stream>>>(
+      (const double*)part, (float*)energy, H, X);
   return (int)cudaGetLastError();
 }
 

@@ -32,8 +32,9 @@ package runs it as highest). What each precision runs:
   JAX package's own emulation, bf16 rounding of both operands followed by
   an f32 matmul. A plain bf16 matmul would return bf16 and round 1e6-scale
   spectra to ~±2000 next to ~1e4-scale walk signals, so it is never used.
-- forward stage 2: on CUDA the prep, band and K2 kernels
-  (corner_kernels), the band in split bf16 (three terms, six products: the
+- forward stage 2: on CUDA the prep (in K1's epilogue where stage 1 is
+  bf16: stage1_prep), band and K2 kernels (corner_kernels), the band in
+  split bf16 (three terms, six products: the
   port's HIGH, since the TPU's two-term form flipped a Rep-7 group on the
   4K benchmark), the bulk in bf16; "high" is every column in the band. On
   the CPU _fwd_y_split: the band, and "high", as f32 products, as the JAX
@@ -286,16 +287,32 @@ def fwd_corner(imgs_u8: torch.Tensor, center: bool, Ky: int, Kx: int,
     H, W = imgs_u8.shape[-2:]
     lead = imgs_u8.shape[:-2]
     x = imgs_u8.reshape(-1, H, W)
+    prep = None
     if p.stage1 == "bf16":
-        ar, ai = corner_kernels.fwd_stage1(x, tabs.exr16, tabs.exi16, center,
-                                           tabs.stage1)
+        want = stage1_prep(p.fwd2, Kx) if _on_card(x) else None
+        ar, ai, *rest = corner_kernels.fwd_stage1(
+            x, tabs.exr16, tabs.exi16, center, tabs.stage1, want)
+        prep = rest[0] if rest else None
     else:
         planes = spectral.apply_center(x.to(torch.float32), center)
         ar = planes @ tabs.exr.T
         ai = planes @ tabs.exi.T
         del planes
-    cr, ci = _fwd_y(ar, ai, tabs, p.fwd2)
+    cr, ci = _fwd_y(ar, ai, tabs, p.fwd2, prep)
     return cr.reshape(*lead, Ky, Kx), ci.reshape(*lead, Ky, Kx)
+
+
+def stage1_prep(fwd2: str, Kx: int) -> str | None:
+    """What K1 hands forward stage 2 at precision `fwd2` (Precision.fwd2)
+    for a Kx-wide corner on the card, besides ar and ai
+    (corner_kernels.PREPS): where stage 2 has a bulk, the bf16 copies, and
+    the column energies too where they pick its band ("adaptive" with a
+    band); None where it has no bulk (every column in the band, or f32
+    products)."""
+    X0 = band_width(fwd2, Kx)
+    if X0 is None or X0 >= Kx:
+        return None
+    return "energies" if fwd2 == "adaptive" and X0 else "copies"
 
 
 def band_width(fwd2: str, Kx: int) -> int | None:
@@ -312,37 +329,47 @@ def band_width(fwd2: str, Kx: int) -> int | None:
     return Kx if fwd2 == "high" else 0
 
 
-def _fwd_y(ar: torch.Tensor, ai: torch.Tensor, tabs: Tables, fwd2: str):
+def _fwd_y(ar: torch.Tensor, ai: torch.Tensor, tabs: Tables, fwd2: str,
+           prep=None):
     """Forward stage 2 at precision `fwd2` (Precision.fwd2): f32 products
     under "highest"; else a band of band_width(fwd2) columns at high and
     the rest in bf16: the columns [0, X0) under "split", the top-X0 energy
     columns under "adaptive". CPU tensors take _fwd_y_split, CUDA tensors
-    the kernels (_fwd_y_kernels)."""
+    the kernels (_fwd_y_kernels), with stage 1's `prep` where K1 made it."""
     X0 = band_width(fwd2, ar.shape[-1])
     if X0 is None:
         return (tabs.eyr @ ar - tabs.eyi @ ai,
                 tabs.eyr @ ai + tabs.eyi @ ar)
     adaptive = fwd2 == "adaptive"
-    if ar.device.type == "cpu":
+    if not _on_card(ar):
         return _fwd_y_split(ar, ai, tabs, X0, adaptive)
-    return _fwd_y_kernels(ar, ai, tabs, X0, adaptive)
+    return _fwd_y_kernels(ar, ai, tabs, X0, adaptive, prep=prep)
+
+
+def _on_card(t: torch.Tensor) -> bool:
+    """Whether the forward DFT takes the card's route (K1's prep, the
+    stage-2 kernels) for tensor t: CUDA tensors. The tests run that route
+    on CPU tensors, whose wrappers take their plain versions, by making
+    this true."""
+    return t.device.type == "cuda"
 
 
 def _fwd_y_kernels(ar: torch.Tensor, ai: torch.Tensor, tabs: Tables,
-                   X0: int, adaptive: bool):
+                   X0: int, adaptive: bool, prep=None):
     """Forward stage 2 on the card with a band of X0 columns: the prep
-    kernel (bf16 copies and column energies), the band (band_topk of the
-    energies where `adaptive`, else [0, X0); padded to 64 nb columns), the
-    band kernel (the band columns' bf16 terms and mask) and K2. X0 = 0 runs
-    the prep and K2's bulk alone; X0 >= Kx the band kernel and K2's band
-    alone, every column in it (no bf16 copies)."""
+    (bf16 copies and column energies: `prep`, the (ar16, ai16, energy)
+    that K1 made with stage1_prep's request, else the prep kernel), the
+    band (band_topk of the energies where `adaptive`, else [0, X0); padded
+    to 64 nb columns), the band kernel (the band columns' bf16 terms and
+    mask) and K2. X0 = 0 runs K2's bulk alone; X0 >= Kx the band kernel and
+    K2's band alone, every column in it (no bf16 copies)."""
     P, _, X = ar.shape
     ck = corner_kernels
     if X0 >= X:
         idx = ck.static_band(P, X, ar.device)
         return ck.fwd_stage2(ar, ai, None, None, idx, tabs,
                              ck.stage2_band(ar, ai, idx))
-    ar16, ai16, energy = ck.stage2_prep(ar, ai)
+    ar16, ai16, energy = prep if prep is not None else ck.stage2_prep(ar, ai)
     if X0 == 0:
         idx = torch.empty((P, 0), dtype=torch.int64, device=ar.device)
         return ck.fwd_stage2(ar, ai, ar16, ai16, idx, tabs, None)

@@ -26,6 +26,14 @@ one of two ways, chosen by route_for:
 catches a build or launch failure and falls back — and takes
 `fwd_stage1_plain` only for CPU tensors.
 
+K1 also does stage 2's prep where its caller asks (`prep`, PREPS): its
+epilogue writes the bf16 copies of ar and ai and ("energies") per-tile f64
+partial sums of the column energies from the values it holds, and
+`prep_reduce` adds each plane's partials (stage1_energy_plain is their
+order in plain torch), so stage 2 does not read ar and ai back for them.
+The table pairs exr and exi rows in each 256-row tile (stage1_tables) so
+that one thread holds ar and ai of one column.
+
 Stage 2 (replaces steganosaurus_tpu/spectral/corner.py:_fwd_y_split and
 the HIGH and bf16 einsums of fwd_corner, which XLA fuses for the TPU), in
 csrc/corner_stage2.cu. With (ar, ai) the stage-1 output (P, H, Kx) f32 and
@@ -44,7 +52,9 @@ not a multiple of 64 is padded with copies of each row's last index
 - `stage2_prep` reads ar and ai once and writes their bf16 copies (the
   bulk's operands) and the column energies sum_h(ar^2 + ai^2) (P, Kx),
   summed in f64 in an order fixed by the shape. torch.topk of the energies
-  picks the adaptive band: the columns of highest energy per plane.
+  picks the adaptive band: the columns of highest energy per plane. Where
+  stage 1 runs through K1, K1's epilogue and `prep_reduce` make the same
+  three outputs instead; `stage2_prep` stays for an f32 stage 1.
 - `fwd_stage2` (K2) is one wgmma GEMM per plane, [cr; ci] = T . [ar16;
   ai16] with T = [[eyr, -eyi], [eyi, eyr]] in bf16 (stage2_tables), f32
   accumulation, whose epilogue skips the band's columns (band_mask); the
@@ -66,7 +76,8 @@ Every wrapper launches its kernel for CUDA tensors or raises, and takes its
 plain version only for CPU tensors. `LAUNCHES` counts each kernel's (and
 each K1 route's) launches under its own name, one per launch and nowhere
 else, so a run can show that the main path went through the kernels, and
-K1 on which route; `BAND_WIDTHS` counts K2's launches by their band width
+K1 on which route; a K1 launch with the prep counts also under
+KERNEL_K1_PREP; `BAND_WIDTHS` counts K2's launches by their band width
 in columns (64 nb; 0: no band).
 """
 
@@ -74,6 +85,7 @@ from __future__ import annotations
 
 import collections
 import functools
+from typing import NamedTuple
 
 import torch
 
@@ -82,14 +94,23 @@ from steganosaurus_tpu_torch import spectral
 KERNEL_TMA = "corner_stage1_wgmma"      # A by TMA
 KERNEL_LDG = "corner_stage1_wgmma_ldg"  # A by the producer warpgroup's loads
 K1_ROUTES = (KERNEL_TMA, KERNEL_LDG)
+# K1 launches (also counted under their route) whose epilogue writes stage
+# 2's bf16 copies, and with them the energies' partials where asked
+KERNEL_K1_PREP = "corner_stage1_wgmma_prep"
 KERNEL_PREP = "corner_stage2_prep"      # stage 2's bf16 casts and energies
+KERNEL_PREP_REDUCE = "corner_stage2_prep_reduce"  # energies from K1's partials
 KERNEL_BAND = "corner_stage2_band"      # K2's band operand and column mask
 KERNEL_STAGE2 = "corner_stage2"         # K2
-LAUNCHES = {KERNEL_TMA: 0, KERNEL_LDG: 0, KERNEL_PREP: 0, KERNEL_BAND: 0,
-            KERNEL_STAGE2: 0}
+LAUNCHES = {KERNEL_TMA: 0, KERNEL_LDG: 0, KERNEL_K1_PREP: 0, KERNEL_PREP: 0,
+            KERNEL_PREP_REDUCE: 0, KERNEL_BAND: 0, KERNEL_STAGE2: 0}
+# what fwd_stage1 can hand stage 2 besides ar and ai: the bf16 copies, or
+# the copies and the column energies
+PREPS = ("copies", "energies")
 # K2's launches by band width in columns, 64 nb (0: the bulk alone)
 BAND_WIDTHS: collections.Counter = collections.Counter()
 BLOCK = 64  # the kernels' K block and the tables' padding quantum
+K1_ROWS = 128  # K1's row tile: the energies' partials are per (tile, plane)
+K1_COLS = 128  # K1's output columns a tile: the table pads Kx to them
 BAND = 64   # a K2 band group: the columns per plane of one band tile
 # blocks of a K2 cluster (csrc/corner_stage2.cu's CLUSTER): two row blocks
 # of T that share a plane's operand by TMA multicast
@@ -136,22 +157,49 @@ def k_order(Wp: int) -> torch.Tensor:
     return base + 16 * ((r % 8) // 2) + 4 * s + r % 2 + 2 * (r // 8)
 
 
-def stage1_tables(exr16: torch.Tensor, exi16: torch.Tensor):
-    """(t, t_centered): the kernel's B operand, (2*Kxp, Wp) bf16 on
-    the tables' device, Kxp = Kx and Wp = W rounded up to 64. Rows [0, Kx)
-    hold exr, rows [Kxp, Kxp + Kx) exi, the rest zeros; columns past W are
-    zeros; columns run in k_order. t_centered has (-1)^w folded in (a sign
-    flip, exact in bf16): with the (-1)^h row sign that the kernel applies
-    to its output it gives the centered product bit for bit."""
+def _pad_cols(Kx: int) -> int:
+    """Kx rounded up to K1_COLS: the columns of K1's paired table."""
+    return -(-Kx // K1_COLS) * K1_COLS
+
+
+def stage1_rows(Kx: int):
+    """((Kx,) int64, (Kx,) int64): the rows of stage1_tables' table that
+    hold exr[k] and exi[k]. Each 256-row tile holds 128 rows of exr, then
+    the same 128 rows of exi, so one K1 thread holds ar and ai of a
+    column."""
+    k = torch.arange(Kx)
+    r = 2 * K1_COLS * (k // K1_COLS) + k % K1_COLS
+    return r, r + K1_COLS
+
+
+class Stage1Tables(NamedTuple):
+    """stage1_tables' two tables and the Kx they hold: the paired layout
+    pads Kx to 128, so a table's shape does not tell its Kx."""
+    plain: torch.Tensor
+    centered: torch.Tensor
+    Kx: int
+
+
+def stage1_tables(exr16: torch.Tensor, exi16: torch.Tensor) -> Stage1Tables:
+    """(t, t_centered, Kx): the kernel's B operand, (2*Kxh, Wp) bf16 on the
+    tables' device, Kxh = Kx rounded up to 128 (K1_COLS) and Wp = W rounded
+    up to 64. Row stage1_rows(Kx)[0][k] holds exr[k], [1][k] exi[k]: in
+    each 256-row tile 128 rows of exr, then the same 128 of exi; the rest
+    zeros; columns past W are zeros; columns run in k_order. t_centered
+    has (-1)^w folded in (a sign flip, exact in bf16): with the (-1)^h row
+    sign that the kernel applies to its output it gives the centered
+    product bit for bit."""
     Kx, W = exr16.shape
-    Kxp, Wp = _pad64(Kx), _pad64(W)
-    t = torch.zeros((2 * Kxp, Wp), dtype=torch.bfloat16, device=exr16.device)
-    t[:Kx, :W] = exr16
-    t[Kxp:Kxp + Kx, :W] = exi16
+    Kxh, Wp = _pad_cols(Kx), _pad64(W)
+    t = torch.zeros((2 * Kxh, Wp), dtype=torch.bfloat16, device=exr16.device)
+    rr, ri = stage1_rows(Kx)
+    t[rr.to(t.device), :W] = exr16
+    t[ri.to(t.device), :W] = exi16
     sign = 1 - 2 * (torch.arange(Wp, device=t.device) % 2)
     tc = t * sign.to(torch.bfloat16)
     order = k_order(Wp).to(t.device)
-    return t[:, order].contiguous(), tc[:, order].contiguous()
+    return Stage1Tables(t[:, order].contiguous(), tc[:, order].contiguous(),
+                        Kx)
 
 
 def _check(imgs_u8, exr, exi):
@@ -171,62 +219,198 @@ def _check(imgs_u8, exr, exi):
 
 
 def fwd_stage1(imgs_u8: torch.Tensor, exr_bf16: torch.Tensor,
-               exi_bf16: torch.Tensor, center: bool, tables=None):
+               exi_bf16: torch.Tensor, center: bool, tables=None,
+               prep: str | None = None):
     """(..., H, W) u8 images, (Kx, W) bf16 tables -> ((..., H, Kx) ar, ai)
     f32. CUDA tensors launch the kernel on route_for(W, data_ptr) on the
     current stream; CPU tensors take fwd_stage1_plain; any other device
     raises. `tables` is stage1_tables(exr_bf16, exi_bf16), cached by the
-    caller (corner.Tables); it is built here when not given."""
+    caller (corner.Tables); it is built here when not given.
+
+    prep (one of PREPS) also hands stage 2 what stage2_prep would make of
+    ar and ai, as a third item (ar16, ai16, energy): P = the images'
+    planes (the leading axes flattened), ar16 / ai16 (P, H, Kx) bf16 equal
+    to ar.to(bf16) / ai.to(bf16) (on CUDA views of rows padded to 16
+    bytes, the stride K2's TMA reads), energy (P, Kx) f32 the column
+    energies under "energies", else None. On CUDA K1's epilogue writes
+    them (prep_reduce adds the energies' partials), counted also under
+    KERNEL_K1_PREP; on the CPU ar.to(bf16), ai.to(bf16) and the energies of
+    stage1_partials_plain through prep_reduce (stage1_energy_plain)."""
     _check(imgs_u8, exr_bf16, exi_bf16)
+    if prep is not None and prep not in PREPS:
+        raise ValueError(f"fwd_stage1: prep must be None or one of {PREPS}, "
+                         f"got {prep!r}")
     dev = imgs_u8.device
+    H, W = imgs_u8.shape[-2:]
+    P = imgs_u8.numel() // (H * W) if H * W else 0
+    Kx = exr_bf16.shape[0]
     if dev.type == "cpu":
-        return fwd_stage1_plain(imgs_u8, exr_bf16, exi_bf16, center)
+        ar, ai = fwd_stage1_plain(imgs_u8, exr_bf16, exi_bf16, center)
+        if prep is None:
+            return ar, ai
+        a, b = ar.reshape(P, H, Kx), ai.reshape(P, H, Kx)
+        energy = (prep_reduce(stage1_partials_plain(a, b), P, H)
+                  if prep == "energies" else None)
+        return ar, ai, (a.to(torch.bfloat16), b.to(torch.bfloat16), energy)
     if dev.type != "cuda":
         raise ValueError(f"fwd_stage1: unsupported device {dev}")
     for name, t in (("images", imgs_u8), ("exr", exr_bf16), ("exi", exi_bf16)):
         if not t.is_contiguous():
             raise ValueError(f"fwd_stage1: {name} must be contiguous")
-    Kx = exr_bf16.shape[0]
     lead = imgs_u8.shape[:-1]
     ar = torch.empty((*lead, Kx), dtype=torch.float32, device=dev)
     ai = torch.empty((*lead, Kx), dtype=torch.float32, device=dev)
-    if imgs_u8.numel() == 0:
+    copies = part = None
+    if prep is not None:
+        copies = _copies(P, H, Kx, dev)
+        if prep == "energies" and P:
+            part = torch.empty((energy_slots(P, H), Kx), dtype=torch.float64,
+                               device=dev)
+    if tables is not None and tables.Kx != Kx:
+        raise ValueError(f"fwd_stage1: tables of Kx={tables.Kx} for Kx={Kx}")
+    if imgs_u8.numel():
+        if tables is None:
+            tables = stage1_tables(exr_bf16, exi_bf16)
+        _launch(imgs_u8, tables[1] if center else tables[0], ar, ai, Kx,
+                center, route_for(W, imgs_u8.data_ptr()), copies, part)
+    if prep is None:
         return ar, ai
-    if tables is None:
-        tables = stage1_tables(exr_bf16, exi_bf16)
-    _launch(imgs_u8, tables[1] if center else tables[0], ar, ai, Kx, center,
-            route_for(imgs_u8.shape[-1], imgs_u8.data_ptr()))
-    return ar, ai
+    energy = None
+    if prep == "energies":
+        energy = (prep_reduce(part, P, H) if part is not None else
+                  torch.zeros((P, Kx), dtype=torch.float32, device=dev))
+    return ar, ai, (copies[0, ..., :Kx], copies[1, ..., :Kx], energy)
 
 
-def _launch(imgs_u8, t, ar, ai, Kx: int, center: bool, route: str) -> None:
+def _launch(imgs_u8, t, ar, ai, Kx: int, center: bool, route: str,
+            copies=None, part=None) -> None:
     """csrc/corner_stage1_wgmma.cu on the current stream, A on `route`
-    (KERNEL_TMA or KERNEL_LDG; the load route takes any input)."""
+    (KERNEL_TMA or KERNEL_LDG; the load route takes any input); with
+    `copies` (_copies' (2, P, H, ldk) buffer) the epilogue also writes the
+    bf16 copies, with `part` ((energy_slots(P, H), Kx) f64) the energies'
+    partials too."""
     from steganosaurus_tpu_torch import _build
 
     H, W = imgs_u8.shape[-2:]
-    Kxp, Wp = _pad64(Kx), _pad64(W)
-    if (t.dtype != torch.bfloat16 or tuple(t.shape) != (2 * Kxp, Wp)
+    Kxh, Wp = _pad_cols(Kx), _pad64(W)
+    if (t.dtype != torch.bfloat16 or tuple(t.shape) != (2 * Kxh, Wp)
             or t.device != imgs_u8.device or not t.is_contiguous()):
         raise ValueError(f"fwd_stage1: the concatenated table must be a "
-                         f"contiguous bf16 ({2 * Kxp}, {Wp}) on "
+                         f"contiguous bf16 ({2 * Kxh}, {Wp}) on "
                          f"{imgs_u8.device}, got {t.dtype} "
                          f"{tuple(t.shape)} on {t.device}")
-    if route not in LAUNCHES:
+    if route not in K1_ROUTES:
         raise ValueError(f"fwd_stage1: unknown route {route!r}")
     if route == KERNEL_TMA and route_for(W, imgs_u8.data_ptr()) != route:
         raise ValueError(f"fwd_stage1: the TMA route needs W % 16 == 0 and "
                          f"16-byte-aligned images (W={W})")
+    if part is not None and copies is None:
+        raise ValueError("fwd_stage1: the energies' partials need the copies")
     P = imgs_u8.numel() // (H * W)
+    ptr = [0 if x is None else x.data_ptr() for x in
+           (copies, None if copies is None else copies[1], part)]
+    ldk = 0 if copies is None else copies.shape[-1]
+    prep = 0 if copies is None else 1 if part is None else 2
     with torch.cuda.device(imgs_u8.device):
         stream = torch.cuda.current_stream(imgs_u8.device).cuda_stream
         rc = _build.kernel_library().corner_stage1_wgmma(
             imgs_u8.data_ptr(), t.data_ptr(), ar.data_ptr(), ai.data_ptr(),
-            P, H, W, Kx, Kxp, Wp, int(bool(center)),
-            int(route == KERNEL_TMA), stream)
+            *ptr, P, H, W, Kx, Kxh, Wp, ldk, int(bool(center)),
+            int(route == KERNEL_TMA), prep, stream)
     if rc != 0:
         raise RuntimeError(f"{route} launch failed: CUDA error {rc}")
     LAUNCHES[route] += 1
+    if copies is not None:
+        LAUNCHES[KERNEL_K1_PREP] += 1
+
+
+def _copies(P: int, H: int, X: int, device) -> torch.Tensor:
+    """(2, P, H, ldk) bf16 for the bf16 copies of the stage-1 output,
+    ldk = X rounded up to 8 values (16 bytes): the rows K2's TMA reads.
+    Columns [X, ldk) are never written."""
+    ldk = -(-X // 8) * 8
+    return torch.empty((2, P, H, ldk), dtype=torch.bfloat16, device=device)
+
+
+def energy_slots(P: int, H: int) -> int:
+    """The rows of K1's energy partials for P planes of H rows: row t + p
+    holds plane p's rows in row tile t (K1_ROWS rows of the P*H), so
+    ceil(P*H / K1_ROWS) + P - 1 rows, some of which (a tile ending where
+    its plane ends) no tile writes."""
+    return -(-P * H // K1_ROWS) + P - 1
+
+
+def stage1_partials_plain(ar: torch.Tensor, ai: torch.Tensor) -> torch.Tensor:
+    """K1's energy partials in plain torch, (energy_slots(P, H), Kx) f64
+    from ar/ai (P, H, Kx) f32, summed in the kernel's order: e = ar*ar +
+    ai*ai (each step rounded in f32, as eager torch rounds it); in each row
+    tile, for each plane it touches (rows of other planes as zeros), tile
+    row 16w + 8s + l is row s of lane l of warp w: each lane adds its two
+    rows, the 8 lanes reduce by a butterfly over l ^ 4, l ^ 2, l ^ 1, then
+    the 8 warps' sums are added in warp order. Rows no tile writes are
+    zeros here."""
+    P, H, X = ar.shape
+    M = P * H
+    f64 = torch.float64
+    e = (ar * ar + ai * ai).reshape(M, X).to(f64)
+    rows = torch.arange(M, device=ar.device)
+    tiles = torch.zeros((energy_slots(P, H), K1_ROWS, X), dtype=f64,
+                        device=ar.device)
+    tiles[rows // K1_ROWS + rows // H, rows % K1_ROWS] = e
+    x = tiles.view(-1, 8, 2, 8, X)
+    x = x[:, :, 0] + x[:, :, 1]        # a lane's rows l and l + 8
+    x = x[:, :, :4] + x[:, :, 4:]      # lanes l, l ^ 4 (shuffle xor 16)
+    x = x[:, :, :2] + x[:, :, 2:]      # l ^ 2 (xor 8)
+    x = x[:, :, 0] + x[:, :, 1]        # l ^ 1 (xor 4)
+    out = x[:, 0]
+    for w in range(1, 8):
+        out = out + x[:, w]
+    return out
+
+
+def prep_reduce_plain(part: torch.Tensor, P: int, H: int) -> torch.Tensor:
+    """Plain version of prep_reduce: (P, Kx) f32, plane p's partials (rows
+    t + p of part for the row tiles t its rows lie in) added in tile order
+    in f64 and rounded once."""
+    p = torch.arange(P, device=part.device)
+    t0, t1 = p * H // K1_ROWS, (p * H + H - 1) // K1_ROWS
+    s = torch.zeros((P, part.shape[1]), dtype=torch.float64,
+                    device=part.device)
+    for k in range(int((t1 - t0).max()) + 1 if P else 0):
+        live = (t0 + k <= t1)[:, None]
+        s = s + torch.where(live, part[(t0 + k + p).clamp_max(
+            part.shape[0] - 1)], 0.0)
+    return s.to(torch.float32)
+
+
+def stage1_energy_plain(ar: torch.Tensor, ai: torch.Tensor) -> torch.Tensor:
+    """The column energies (P, Kx) f32 that K1 with prep="energies" and
+    prep_reduce give, in plain torch and in their order: within an f32
+    rounding of the exact sum, as stage2_prep_plain's, in another order."""
+    P, H, _ = ar.shape
+    return prep_reduce_plain(stage1_partials_plain(ar, ai), P, H)
+
+
+def prep_reduce(part: torch.Tensor, P: int, H: int) -> torch.Tensor:
+    """The column energies (P, Kx) f32 from K1's partials part
+    (energy_slots(P, H), Kx) f64 (fwd_stage1 with prep="energies"). CUDA
+    tensors launch csrc/corner_stage2.cu's reduce on the current stream
+    (counted under KERNEL_PREP_REDUCE); CPU tensors take
+    prep_reduce_plain."""
+    name = KERNEL_PREP_REDUCE
+    if part.dim() != 2:
+        raise ValueError(f"{name}: part must be (slots, Kx), got "
+                         f"{tuple(part.shape)}")
+    _need(name, "part", part, torch.float64, (energy_slots(P, H),
+                                              part.shape[1]))
+    if _device(name, part, ()) == "cpu":
+        return prep_reduce_plain(part, P, H)
+    X = part.shape[1]
+    energy = torch.empty((P, X), dtype=torch.float32, device=part.device)
+    if P and X:
+        _launch_stage2(name, part.device, "corner_stage2_prep_reduce",
+                       part.data_ptr(), energy.data_ptr(), P, H, X)
+    return energy
 
 
 # --- stage 2: the prep, band and K2 kernels (csrc/corner_stage2.cu) ---------
@@ -485,13 +669,12 @@ def stage2_prep(ar: torch.Tensor, ai: torch.Tensor):
     if _stage1_output(name, ar, ai) == "cpu":
         return stage2_prep_plain(ar, ai)
     P, H, X = ar.shape
-    ldk = -(-X // 8) * 8
-    buf = torch.empty((2, P, H, ldk), dtype=torch.bfloat16, device=ar.device)
+    buf = _copies(P, H, X, ar.device)
     energy = torch.empty((P, X), dtype=torch.float32, device=ar.device)
     if ar.numel():
         _launch_stage2(name, ar.device, "corner_stage2_prep", ar.data_ptr(),
                        ai.data_ptr(), buf.data_ptr(), buf[1].data_ptr(),
-                       energy.data_ptr(), P, H, X, ldk)
+                       energy.data_ptr(), P, H, X, buf.shape[-1])
     return buf[0, ..., :X], buf[1, ..., :X], energy
 
 

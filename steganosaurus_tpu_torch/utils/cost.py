@@ -253,6 +253,15 @@ def stage2_prep_cost(P: int, H: int, Kx: int, side: str = "") -> dict:
                   2 * n * 4 + 2 * n * 2 + P * Kx * 4, "none")
 
 
+def prep_reduce_cost(P: int, H: int, Kx: int, side: str = "") -> dict:
+    """The prep's energies where K1's epilogue made its partials
+    (corner_kernels.prep_reduce): the (energy_slots(P, H), Kx) f64 partials
+    read once, the (P, Kx) f32 energies written once; a sum each."""
+    slots = corner_kernels.energy_slots(P, H)
+    return _stage(side, "stage2 prep reduce", {}, slots * Kx,
+                  slots * Kx * 8 + P * Kx * 4, "none")
+
+
 def stage2_band_cost(P: int, H: int, Kx: int, side: str = "",
                      band: int | None = None) -> dict:
     """K2's band operand (corner_kernels.stage2_band): the `band` columns

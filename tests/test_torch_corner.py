@@ -126,10 +126,11 @@ def _ragged_stage1_inputs(seed, P=3, Hs=37, Ws=80, Kx=45):
     return imgs, exr, exi
 
 
-def _wgmma_emulation(imgs, tables, Kx, center):
+def _wgmma_emulation(imgs, tables, Kx, center, paired=True):
     """What the wgmma kernel computes, in plain torch: the u8 rows padded to
     Wp and read in k_order, one f32 product with the concatenated table,
-    the (-1)^h row sign, then the split of the columns into ar and ai."""
+    the (-1)^h row sign, then the split of the columns into ar and ai (the
+    paired table's stage1_rows, or exr rows then exi rows at Kxp)."""
     P, Hs, Ws = imgs.shape
     t = tables[1] if center else tables[0]
     Np, Wp = t.shape
@@ -138,9 +139,10 @@ def _wgmma_emulation(imgs, tables, Kx, center):
     out = rows[:, tk.k_order(Wp)] @ t.to(torch.float32).T
     if center:
         out *= (1 - 2 * (torch.arange(P * Hs) % Hs % 2)).to(out.dtype)[:, None]
-    Kxp = Np // 2
-    return (out[:, :Kx].reshape(P, Hs, Kx),
-            out[:, Kxp:Kxp + Kx].reshape(P, Hs, Kx))
+    rr, ri = tk.stage1_rows(Kx)
+    if not paired:
+        rr, ri = torch.arange(Kx), Np // 2 + torch.arange(Kx)
+    return out[:, rr].reshape(P, Hs, Kx), out[:, ri].reshape(P, Hs, Kx)
 
 
 def test_stage1_centering_folds_out_of_the_operand_bit_for_bit():
@@ -158,12 +160,14 @@ def test_stage1_centering_folds_out_of_the_operand_bit_for_bit():
 
 
 def test_stage1_tables_layout():
-    """The concatenated table: exr rows then exi rows at Kxp = Kx rounded up
-    to 64, zeros elsewhere, columns in k_order (a permutation inside every
-    64-wide block), the centered copy the (-1)^w-signed one."""
+    """The paired table: in each 256-row tile 128 rows of exr, then the same
+    128 rows of exi (Kx rounded up to 128), zeros elsewhere, columns in
+    k_order (a permutation inside every 64-wide block), the centered copy
+    the (-1)^w-signed one."""
     _, exr, exi = _ragged_stage1_inputs(32, Ws=80, Kx=45)
-    t, tc = tk.stage1_tables(exr, exi)
-    assert t.shape == tc.shape == (128, 128) and t.dtype == torch.bfloat16
+    t, tc, kx = tk.stage1_tables(exr, exi)
+    assert kx == 45
+    assert t.shape == tc.shape == (256, 128) and t.dtype == torch.bfloat16
     order = tk.k_order(128)
     for b in range(2):
         blk = order[64 * b:64 * (b + 1)]
@@ -174,11 +178,24 @@ def test_stage1_tables_layout():
     inv = torch.argsort(order)
     plain_t = t[:, inv]
     assert torch.equal(plain_t[:45, :80], exr)
-    assert torch.equal(plain_t[64:109, :80], exi)
-    assert not plain_t[45:64].any() and not plain_t[109:].any()
+    assert torch.equal(plain_t[128:173, :80], exi)
+    assert not plain_t[45:128].any() and not plain_t[173:].any()
     assert not plain_t[:, 80:].any()
     sign = (1 - 2 * (torch.arange(128) % 2)).to(torch.bfloat16)
     assert torch.equal(tc[:, inv], plain_t * sign)
+    # Kx = 300: three tiles, the last holding exr and exi rows 256..299
+    _, exr, exi = _ragged_stage1_inputs(35, Ws=80, Kx=300)
+    plain_t = tk.stage1_tables(exr, exi)[0][:, inv]
+    assert plain_t.shape == (768, 128)
+    for j, n in ((0, 128), (1, 128), (2, 44)):
+        k = slice(128 * j, 128 * j + n)
+        assert torch.equal(plain_t[256 * j:256 * j + n, :80], exr[k])
+        assert torch.equal(plain_t[256 * j + 128:256 * j + 128 + n, :80],
+                           exi[k])
+    assert not plain_t[512 + 44:640].any() and not plain_t[640 + 44:].any()
+    rr, ri = tk.stage1_rows(300)
+    assert torch.equal(plain_t[rr, :80], exr)
+    assert torch.equal(plain_t[ri, :80], exi)
 
 
 @pytest.mark.parametrize("center", [False, True])
@@ -207,6 +224,94 @@ def test_stage1_concatenated_gemm_matches_plain(center, Ws, Kx):
     assert torch.equal(er, pr) and torch.equal(ei, pi)
 
 
+def _k1_tool():
+    import importlib.util
+    import pathlib
+
+    path = (pathlib.Path(__file__).resolve().parent.parent / "tools"
+            / "k1_ablation_torch.py")
+    spec = importlib.util.spec_from_file_location(path.stem, path)
+    tool = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tool)
+    return tool
+
+
+@pytest.mark.parametrize("Ws,Kx", [(80, 45), (250, 300), (528, 1000),
+                                   (203, 128), (64, 64)])
+def test_stage1_paired_table_holds_the_old_tables(Ws, Kx):
+    """The paired table against the exr-then-exi one K1 took before
+    (tools/k1_ablation_torch.py old_table): the same rows, so
+    fwd_stage1_plain on the tables read back from either layout gives the
+    same ar and ai bit for bit, and the kernel's GEMM emulated on each
+    layout (integer tables: exact sums) too, Kxp/64 odd (Kx = 45, 300,
+    1000) and even."""
+    tool = _k1_tool()
+    imgs, exr, exi = _ragged_stage1_inputs(36 + Kx, P=2, Ws=Ws, Kx=Kx)
+    t = tk.stage1_tables(exr, exi)[0]
+    old = tool.old_table(t, Kx)
+    Kxp = tk._pad64(Kx)
+    assert old.shape == (2 * Kxp, t.shape[1])
+    inv = torch.argsort(tk.k_order(t.shape[1]))
+    rr, ri = tk.stage1_rows(Kx)
+    new_tabs = (t[rr][:, inv][:, :Ws], t[ri][:, inv][:, :Ws])
+    old_tabs = (old[:Kx][:, inv][:, :Ws], old[Kxp:Kxp + Kx][:, inv][:, :Ws])
+    assert torch.equal(new_tabs[0], exr) and torch.equal(new_tabs[1], exi)
+    assert not old[Kx:Kxp].any() and not old[Kxp + Kx:].any()
+    for center in (False, True):
+        a = tk.fwd_stage1_plain(imgs, *new_tabs, center)
+        b = tk.fwd_stage1_plain(imgs, *old_tabs, center)
+        assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+    rng = np.random.default_rng(Ws + Kx)
+    ir, ii = (torch.from_numpy(rng.integers(-8, 9, (Kx, Ws))).to(
+        torch.bfloat16) for _ in range(2))
+    t = tk.stage1_tables(ir, ii)
+    for center in (False, True):
+        a = _wgmma_emulation(imgs, t, Kx, center)
+        tc = t[1] if center else t[0]
+        out = _wgmma_emulation(imgs, (tool.old_table(tc, Kx),) * 2, Kx,
+                               center, paired=False)
+        assert torch.equal(a[0], out[0]) and torch.equal(a[1], out[1])
+
+
+def test_k1_entry_and_ablation_tool():
+    """K1's C entry takes the argument kinds _build binds it with (its
+    images, table, ar, ai, copies and partials; sizes, ldk and the prep
+    flag); the parent before the paired table (5b99743) takes
+    parent_kernels_torch.OLD_SIGNATURES'; each variant of
+    tools/k1_ablation_torch.py is text of the committed source, there once;
+    --parent may be given more than once."""
+    import pathlib
+
+    from steganosaurus_tpu_torch import _build
+
+    root = pathlib.Path(__file__).resolve().parent.parent
+    tool = _k1_tool()
+    pk = _load(root / "tools" / "parent_kernels_torch.py")
+    text = (_build.CSRC / "corner_stage1_wgmma.cu").read_text()
+    entry = "corner_stage1_wgmma"
+    assert pk.c_kinds(text, entry) == pk.kinds_of(_build._SIGNATURES[entry])
+    assert pk.OLD_SIGNATURES[entry] != _build._SIGNATURES[entry]
+    for name, _, edits in tool.VARIANTS:
+        for old, new in edits:
+            assert text.count(old) == 1, name
+            assert old != new
+    assert tool._args(["--parent", "a", "out.txt", "--parent", "b"]) == (
+        ["a", "b"], ["out.txt"])
+    src = pk.parent_source("5b99743", "corner_stage1_wgmma.cu")
+    if src is None:
+        pytest.skip("no git history to read the parent's source from")
+    assert pk.takes_old_signature(src, entry)
+
+
+def _load(path):
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(path.stem, path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
 def test_stage1_kernel_routing_by_width():
     """W % 16 == 0 with a 16-byte-aligned base takes the TMA route, any
     other W or base the load route; each counts under its own name, and a
@@ -218,7 +323,8 @@ def test_stage1_kernel_routing_by_width():
     for addr in (1, 4, 8, 15, 3840 * 7 + 3):  # an unaligned view, W % 16 == 0
         assert tk.route_for(3840, addr) == tk.KERNEL_LDG
     assert set(tk.LAUNCHES) == {tk.KERNEL_TMA, tk.KERNEL_LDG,
-                                tk.KERNEL_PREP, tk.KERNEL_BAND,
+                                tk.KERNEL_K1_PREP, tk.KERNEL_PREP,
+                                tk.KERNEL_PREP_REDUCE, tk.KERNEL_BAND,
                                 tk.KERNEL_STAGE2}
     assert tk.K1_ROUTES == (tk.KERNEL_TMA, tk.KERNEL_LDG)
     assert tk.KERNEL_TMA == "corner_stage1_wgmma"

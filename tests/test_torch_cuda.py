@@ -195,6 +195,119 @@ def test_k1_wgmma_edges_match_plain(dev, shape, Kx, center):
     assert ck.LAUNCHES[ck.KERNEL_TMA] == n + 2
 
 
+# (shape, Kx, center, offset into the images' storage): 4K-tall planes
+# (2160 = 16 * 128 + 112: a plane boundary inside a row tile), H = 70 (a
+# row tile over three planes), P = 1 and 3, an odd Kxp/64 (Kx = 300), the
+# 2160 x 3839 load route, an unaligned view (the load route at W % 16 ==
+# 0), Kx % 4 != 0 (the scalar stores)
+K1_PREP_CASES = [
+    ((1, 3, 2160, 512), 256, False, 0), ((1, 3, 2160, 512), 256, True, 0),
+    ((3, 70, 256), 300, True, 0), ((1, 70, 250), 130, False, 0),
+    ((1, 1, 2160, 3839), 1024, False, 0), ((2, 3, 67, 512), 300, True, 1),
+    ((1, 37, 203), 45, False, 3)]
+# the commit before K1's paired table and prep: its K1 took the table as
+# exr rows then exi rows
+K1_PARENT = "5b99743"
+
+
+def _u8_at(shape, offset, seed, dev):
+    """Seeded u8 images of `shape` `offset` bytes into a storage of exactly
+    their size."""
+    rng = np.random.default_rng(seed)
+    n = int(np.prod(shape))
+    buf = torch.from_numpy(rng.integers(0, 256, offset + n,
+                                        dtype=np.uint8)).to(dev)
+    return buf[offset:].view(shape)
+
+
+@pytest.mark.parametrize("prep", ["energies", "copies"])
+@pytest.mark.parametrize("shape,Kx,center,offset", K1_PREP_CASES)
+def test_k1_prep_matches_k1_and_the_prep_pass(dev, monkeypatch, shape, Kx,
+                                             center, offset, prep):
+    """K1 with stage 2's prep in its epilogue against K1 alone followed by
+    the prep pass: ar and ai bit-equal; the bf16 copies bit-equal to
+    .to(bf16) and the prep pass's, in rows ldk apart whose padding columns
+    are never written; under "energies" the energies equal to
+    stage1_energy_plain's bit for bit, within 2^-24 of the exact sum and
+    picking the top-64 band band_columns picks; the launch counted under
+    its route, KERNEL_K1_PREP and (energies) KERNEL_PREP_REDUCE."""
+    from steganosaurus_tpu_torch.spectral import corner
+    from steganosaurus_tpu_torch.spectral import corner_kernels as ck
+
+    x = _u8_at(shape, offset, sum(shape) + Kx + offset, dev)
+    H, W = shape[-2:]
+    P = x.numel() // (H * W)
+    exr, exi = _tables(W, Kx, dev)
+    real = ck._copies
+
+    def marked(*a):  # the padding columns hold a mark no copy can take
+        buf = real(*a)
+        buf.view(torch.int16).fill_(-1)
+        return buf
+
+    monkeypatch.setattr(ck, "_copies", marked)
+    n = dict(ck.LAUNCHES)
+    ar, ai, (ar16, ai16, energy) = ck.fwd_stage1(x, exr, exi, center,
+                                                 prep=prep)
+    route = ck.route_for(W, x.data_ptr())
+    assert {k: ck.LAUNCHES[k] - n[k] for k in n if ck.LAUNCHES[k] != n[k]} \
+        == {route: 1, ck.KERNEL_K1_PREP: 1,
+            **({ck.KERNEL_PREP_REDUCE: 1} if prep == "energies" else {})}
+    want_r, want_i = ck.fwd_stage1(x, exr, exi, center)
+    torch.cuda.synchronize()
+    assert torch.equal(ar, want_r) and torch.equal(ai, want_i)
+    a, b = ar.reshape(P, H, Kx), ai.reshape(P, H, Kx)
+    pass16r, pass16i, pass_energy = ck.stage2_prep(a, b)
+    for got, f32, other in ((ar16, a, pass16r), (ai16, b, pass16i)):
+        assert torch.equal(got, f32.to(torch.bfloat16))
+        assert torch.equal(got, other)
+        ldk = -(-Kx // 8) * 8
+        assert got.shape == (P, H, Kx) and got.stride() == (H * ldk, ldk, 1)
+        pad = got.as_strided((P, H, ldk - Kx), got.stride(),
+                             got.storage_offset() + Kx)
+        assert (pad.view(torch.int16) == -1).all()
+    if prep == "copies":
+        assert energy is None
+        return
+    assert energy.shape == (P, Kx) and energy.dtype == torch.float32
+    assert torch.equal(energy, ck.stage1_energy_plain(a, b))
+    exact = torch.sum((a * a + b * b).double(), dim=1)
+    assert ((energy.double() - exact).abs() / exact).max() <= 2.0 ** -24
+    assert ((energy - pass_energy).abs() / pass_energy).max() <= 2.0 ** -23
+    X0 = min(64, Kx)
+    mine = corner.band_topk(energy, X0).sort(1).values
+    assert torch.equal(mine, corner.band_columns(a, b, X0).sort(1).values)
+
+
+@pytest.mark.parametrize("shape,Kx,center,offset", K1_PREP_CASES)
+def test_k1_bit_equal_to_its_parent(dev, shape, Kx, center, offset):
+    """The paired table moves data only: K1's ar and ai, without the prep
+    and with it, equal those of K1_PARENT's build (its exr-then-exi table,
+    its own signature: tools/k1_ablation_torch.py parent_stage1) bit for
+    bit on both routes."""
+    import importlib.util
+    import pathlib
+
+    from steganosaurus_tpu_torch.spectral import corner_kernels as ck
+
+    first = _first_version("corner_stage1_wgmma.cu", K1_PARENT)
+    path = (pathlib.Path(__file__).resolve().parent.parent / "tools"
+            / "k1_ablation_torch.py")
+    spec = importlib.util.spec_from_file_location("k1_ablation_torch", path)
+    tool = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tool)
+    source = _parent_tool().parent_source(K1_PARENT, "corner_stage1_wgmma.cu")
+    x = _u8_at(shape, offset, 2 * sum(shape) + Kx, dev)
+    exr, exi = _tables(shape[-1], Kx, dev)
+    t = ck.stage1_tables(exr, exi)
+    want = tool.parent_stage1(first, source, x, t[1] if center else t[0], Kx,
+                              center)
+    for prep in (None, "energies"):
+        got = ck.fwd_stage1(x, exr, exi, center, t, prep)
+        torch.cuda.synchronize()
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
 def test_1080p_round_trip_through_the_wgmma_kernel(dev):
     """1080p, B=8, 1 KB: embed and extract on the card through the kernel's
     TMA route (and never the load route), every secret read back."""
@@ -1503,16 +1616,19 @@ def test_k2_band_widths_match_the_twin(dev, P, h, X, Ky, width, static):
 
 
 @pytest.mark.parametrize("mode,launches", [
-    ("mix_adaptive", (1, 1, 1, 1, 64)), ("mix_split", (1, 1, 1, 1, 64)),
-    ("mix", (1, 0, 1, 1, 256)), ("mix2", (1, 0, 1, 1, 256)),
-    ("bf16", (1, 1, 0, 1, 0)), ("high", (0, 0, 1, 1, 256)),
-    ("highest", (0, 0, 0, 0, None))])
+    ("mix_adaptive", (1, 1, 1, 1, 1, 64)), ("mix_split", (1, 1, 0, 1, 1, 64)),
+    ("mix", (1, 0, 0, 1, 1, 256)), ("mix2", (1, 0, 0, 1, 1, 256)),
+    ("bf16", (1, 1, 0, 0, 1, 0)), ("high", (0, 0, 0, 1, 1, 256)),
+    ("highest", (0, 0, 0, 0, 0, None))])
 def test_fwd_corner_on_card_under_each_mode(dev, monkeypatch, mode,
                                             launches):
-    """fwd_corner's launches on the card under each mode, (K1, prep, band,
-    K2, K2's band width): the band pass and K2 without the prep where the
-    whole stage is high, the prep and K2 without the band pass under bf16,
-    f32 products alone under highest; the eager stage 2 never; the spectrum
+    """fwd_corner's launches on the card under each mode, (K1, K1 with the
+    prep, the prep's reduce, band, K2, K2's band width): K1 writes the
+    bf16 copies wherever stage 2 has a bulk and the energies' partials
+    (then reduced) where they pick the band, so the prep pass never runs;
+    the band pass and K2 without the copies where the whole stage is high,
+    K2 without the band pass under bf16, f32 products alone under highest;
+    the eager stage 2 never; the spectrum
     within REL of the plain composition's scale (stage 1's plain version or
     the f32 product, then the twin on the band or f32 products)."""
     from steganosaurus_tpu_torch.spectral import corner
@@ -1533,9 +1649,11 @@ def test_fwd_corner_on_card_under_each_mode(dev, monkeypatch, mode,
     cr, ci = corner.fwd_corner(imgs, True, Ky, Kx, tabs, p)
     torch.cuda.synchronize()
     got = {k: ck.LAUNCHES[k] - n[k] for k in n}
-    k1, prep, band, k2, width = launches
-    assert got == {ck.KERNEL_TMA: k1, ck.KERNEL_LDG: 0, ck.KERNEL_PREP: prep,
-                   ck.KERNEL_BAND: band, ck.KERNEL_STAGE2: k2}
+    k1, k1_prep, reduce, band, k2, width = launches
+    assert got == {ck.KERNEL_TMA: k1, ck.KERNEL_LDG: 0,
+                   ck.KERNEL_K1_PREP: k1_prep, ck.KERNEL_PREP: 0,
+                   ck.KERNEL_PREP_REDUCE: reduce, ck.KERNEL_BAND: band,
+                   ck.KERNEL_STAGE2: k2}
     grew = {w for w in ck.BAND_WIDTHS if ck.BAND_WIDTHS[w] != widths.get(w)}
     assert grew == (set() if width is None else {width})
     x = imgs.reshape(-1, 256, 384)
@@ -1694,10 +1812,11 @@ def test_stage2_wrappers_count_and_check(dev):
 
 
 def test_fwd_corner_on_card_runs_prep_and_k2(dev, monkeypatch):
-    """fwd_corner under mix_adaptive on the card: K1, the prep, the band
-    pass and K2 once each, the eager stage 2 never; its spectrum within REL of the scale of
-    the plain composition's (stage 1's plain version, then the bf16x6 twin
-    on the kernel's band)."""
+    """fwd_corner under mix_adaptive on the card: K1 with the prep in its
+    epilogue, the prep's reduce, the band pass and K2 once each, the prep
+    pass and the eager stage 2 never; its spectrum within REL of the scale
+    of the plain composition's (stage 1's plain version, then the bf16x6
+    twin on the kernel's band)."""
     from steganosaurus_tpu_torch.spectral import corner
     from steganosaurus_tpu_torch.spectral import corner_kernels as ck
 
@@ -1714,7 +1833,8 @@ def test_fwd_corner_on_card_runs_prep_and_k2(dev, monkeypatch):
     cr, ci = corner.fwd_corner(imgs, True, Ky, Kx, tabs, "mix_adaptive")
     torch.cuda.synchronize()
     got = {k: ck.LAUNCHES[k] - n[k] for k in n}
-    assert got == {ck.KERNEL_TMA: 1, ck.KERNEL_LDG: 0, ck.KERNEL_PREP: 1,
+    assert got == {ck.KERNEL_TMA: 1, ck.KERNEL_LDG: 0, ck.KERNEL_K1_PREP: 1,
+                   ck.KERNEL_PREP: 0, ck.KERNEL_PREP_REDUCE: 1,
                    ck.KERNEL_BAND: 1, ck.KERNEL_STAGE2: 1}
     ar, ai = ck.fwd_stage1_plain(imgs.reshape(-1, 256, 384), tabs.exr16,
                                  tabs.exi16, True)

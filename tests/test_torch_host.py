@@ -383,6 +383,7 @@ def _port_sources():
                     REPO / "tools" / "k3_ablation_torch.py",
                     REPO / "tools" / "k4_ablation_torch.py",
                     REPO / "tools" / "band_ber_torch.py",
+                    REPO / "tools" / "k1_ablation_torch.py",
                     REPO / "tools" / "k2_ablation_torch.py",
                     REPO / "tools" / "k6_ablation_torch.py",
                     REPO / "tools" / "k5_ablation_torch.py",

@@ -397,6 +397,76 @@ def test_card_route_of_each_band(X0, adaptive, monkeypatch):
     assert _max_err(ci, ref[1]) <= REL * scale
 
 
+# (K1 with the prep, the prep's reduce, the prep pass, band pass, K2) of one
+# forward DFT on the card's route, by the precision of its stages
+PREP_ROUTES = {
+    "mix_adaptive": (1, 1, 0, 1, 1), "mix_split": (1, 0, 0, 1, 1),
+    "mix": (0, 0, 0, 1, 1), "mix3": (0, 0, 0, 1, 1), "mix2": (0, 0, 0, 1, 1),
+    "mix_conservative": (0, 0, 0, 1, 1), "bf16": (1, 0, 0, 0, 1),
+    "high": (0, 0, 0, 1, 1), "highest": (0, 0, 0, 0, 0),
+    # an f32 stage 1 before a band picked by energy: the prep pass
+    "high stage 1, adaptive": (0, 0, 1, 1, 1)}
+
+
+@pytest.mark.parametrize("route", list(PREP_ROUTES))
+def test_k1_prep_routes_of_each_mode(route, monkeypatch):
+    """Which modes take K1's prep, which the prep pass and which neither:
+    fwd_corner on the card's route (corner._on_card made true, so CPU
+    tensors take each wrapper's plain version), each wrapper counted into
+    LAUNCHES as the card counts it. K1 writes the bf16 copies wherever
+    stage 2 has a bulk and the energies too where they pick the band
+    (corner.stage1_prep); the prep pass runs only after an f32 stage 1;
+    neither where the band holds every column or stage 2 runs in f32. The
+    spectrum equals that of the same route with the prep pass."""
+    name, fwd2 = route, None
+    if route == "high stage 1, adaptive":
+        name, fwd2 = "mix_adaptive", "adaptive"
+    p = tcorner.resolve(name)
+    if fwd2:
+        p = p._replace(stage1="high")
+    monkeypatch.setattr(ck, "LAUNCHES", dict.fromkeys(ck.LAUNCHES, 0))
+
+    def count(fn, key):
+        def f(*a, **kw):
+            ck.LAUNCHES[key] += 1
+            return fn(*a, **kw)
+        return f
+
+    real_k1, real_y = ck.fwd_stage1, tcorner._fwd_y_kernels
+
+    def k1(x, exr, exi, center, tables=None, prep=None):
+        ck.LAUNCHES[ck.route_for(x.shape[-1], x.data_ptr())] += 1
+        ck.LAUNCHES[ck.KERNEL_K1_PREP] += prep is not None
+        return real_k1(x, exr, exi, center, tables, prep)
+
+    monkeypatch.setattr(ck, "fwd_stage1", k1)
+    for fn, key in (("stage2_prep", ck.KERNEL_PREP),
+                    ("prep_reduce", ck.KERNEL_PREP_REDUCE),
+                    ("stage2_band", ck.KERNEL_BAND),
+                    ("fwd_stage2", ck.KERNEL_STAGE2)):
+        monkeypatch.setattr(ck, fn, count(getattr(ck, fn), key))
+    monkeypatch.setattr(tcorner, "_on_card", lambda t: True)
+    Ky, Kx = _dims()
+    tabs = tcorner.dft_tables_device(H, Ky, W, Kx, "cpu")
+    imgs = torch.from_numpy(_covers(23))
+    got = tcorner.fwd_corner(imgs, True, Ky, Kx, tabs, p)
+    k1 = int(p.stage1 == "bf16")
+    k1_prep, reduce, prep, band, k2 = PREP_ROUTES[route]
+    assert ck.LAUNCHES == {ck.KERNEL_TMA: k1, ck.KERNEL_LDG: 0,
+                           ck.KERNEL_K1_PREP: k1_prep, ck.KERNEL_PREP: prep,
+                           ck.KERNEL_PREP_REDUCE: reduce,
+                           ck.KERNEL_BAND: band, ck.KERNEL_STAGE2: k2}
+    if k1:
+        assert (tcorner.stage1_prep(p.fwd2, Kx) is not None) == bool(k1_prep)
+    if not k1_prep:
+        return
+    monkeypatch.setattr(tcorner, "_fwd_y_kernels",
+                        lambda *a, prep=None: real_y(*a))
+    want = tcorner.fwd_corner(imgs, True, Ky, Kx, tabs, p)
+    assert ck.LAUNCHES[ck.KERNEL_PREP] == 1
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
 # --- the embed's inverse per mode --------------------------------------------
 
 @pytest.mark.parametrize("name", MODES)

@@ -89,6 +89,97 @@ def test_prep_plain_casts_and_energies(P, h, x):
     assert ((energy.double() - exact).abs() / exact).max().item() <= 2.0 ** -24
 
 
+def _k1_partials_by_loops(ar, ai):
+    """K1's energy partials (csrc/corner_stage1_wgmma.cu, energy_partials)
+    one value at a time in the kernel's own order: for each row tile and
+    plane it touches, each column's lanes' two-row sums, the shuffles xor
+    16, 8, 4 (lanes l and l ^ 4, then l ^ 2, then l ^ 1 of a warp's 8 row
+    lanes: row 16w + l and 16w + 8 + l is lane l of warp w), then the 8
+    warps in order; slots as a dict {(t, p): (Kx,) float64}."""
+    P, h, X = ar.shape
+    e = (ar * ar + ai * ai).reshape(P * h, X).double().numpy()
+    M = P * h
+    out = {}
+    for t in range(-(-M // 128)):
+        rows = range(128 * t, min(128 * t + 128, M))
+        for p in sorted({m // h for m in rows}):
+            def val(r):
+                m = 128 * t + r
+                return e[m] if m < M and m // h == p else np.zeros(X)
+            s = None
+            for w in range(8):
+                x = [val(16 * w + l) + val(16 * w + 8 + l) for l in range(8)]
+                a = [x[j] + x[j + 4] for j in range(4)]
+                b = [a[j] + a[j + 2] for j in range(2)]
+                ws = b[0] + b[1]
+                s = ws if s is None else s + ws
+            out[t, p] = s
+    return out
+
+
+@pytest.mark.parametrize("P,h,x", [(3, 70, 200), (2, 2160, 40), (1, 3, 65),
+                                   (2, 128, 33), (5, 256, 64), (1, 130, 96)])
+def test_k1_energy_partials_in_the_kernel_order(P, h, x):
+    """The plain twin of K1's fused energies (stage1_partials_plain, then
+    prep_reduce_plain): each (row tile, plane) slot at row t + p equal bit
+    for bit to a loop over the kernel's own sum order, the planes' slots
+    added in tile order within 2^-24 of the exact sum and of the prep
+    pass's energies, at planes a tile straddles (2160 = 16 * 128 + 112),
+    tiles over several planes (h < 128), planes that end on a tile edge
+    (h = 128, 256: slots no tile writes) and a ragged last tile."""
+    ar, ai = _random_stage1(3 + P + h, P, h, x)
+    part = ck.stage1_partials_plain(ar, ai)
+    assert part.shape == (ck.energy_slots(P, h), x) == (
+        -(-P * h // 128) + P - 1, x)
+    assert part.dtype == torch.float64
+    loops = _k1_partials_by_loops(ar, ai)
+    for (t, p), want in loops.items():
+        assert np.array_equal(part[t + p].numpy(), want)
+    written = {t + p for t, p in loops}
+    for r in set(range(part.shape[0])) - written:
+        assert not part[r].any()
+    energy = ck.prep_reduce_plain(part, P, h)
+    assert torch.equal(energy, ck.stage1_energy_plain(ar, ai))
+    assert torch.equal(energy, ck.prep_reduce(part, P, h))
+    assert energy.shape == (P, x) and energy.dtype == torch.float32
+    exact = torch.sum((ar * ar + ai * ai).double(), dim=-2)
+    assert ((energy.double() - exact).abs() / exact).max().item() <= 2.0 ** -24
+    by_loop = torch.stack([sum(torch.from_numpy(loops[t, p]) for t in range(
+        p * h // 128, (p * h + h - 1) // 128 + 1)) for p in range(P)])
+    assert ((energy.double() - by_loop).abs() / exact).max() <= 2.0 ** -24
+    prep = ck.stage2_prep_plain(ar, ai)[2]
+    assert ((energy - prep).abs() / prep).max().item() <= 2.0 ** -23
+
+
+def test_k1_prep_on_the_cpu_is_the_plain_prep():
+    """fwd_stage1's prep on CPU tensors: the copies ar.to(bf16) and
+    ai.to(bf16) of its own output, the energies stage1_energy_plain's,
+    none under "copies"; the spectrum's ar and ai those without the prep;
+    nothing counted as a launch."""
+    Ky, Kx = _dims()
+    tabs = tcorner.dft_tables_device(H, Ky, W, Kx, "cpu")
+    x = torch.from_numpy(_covers()[:1])
+    before = dict(ck.LAUNCHES)
+    ar, ai = ck.fwd_stage1(x, tabs.exr16, tabs.exi16, True)
+    a, b = ar.reshape(3, H, Kx), ai.reshape(3, H, Kx)
+    for prep in ck.PREPS:
+        r, i, (r16, i16, energy) = ck.fwd_stage1(x, tabs.exr16, tabs.exi16,
+                                                 True, None, prep)
+        assert torch.equal(r, ar) and torch.equal(i, ai)
+        assert r16.shape == (3, H, Kx)
+        assert torch.equal(r16, a.to(torch.bfloat16))
+        assert torch.equal(i16, b.to(torch.bfloat16))
+        if prep == "copies":
+            assert energy is None
+        else:
+            assert torch.equal(energy, ck.stage1_energy_plain(a, b))
+    assert ck.LAUNCHES == before
+    with pytest.raises(ValueError):
+        ck.fwd_stage1(x, tabs.exr16, tabs.exi16, True, None, "energy")
+    with pytest.raises(ValueError):  # partials of another shape
+        ck.prep_reduce(torch.zeros((5, Kx), dtype=torch.float64), 3, H)
+
+
 def test_prep_energies_pick_the_band_of_band_columns():
     Ky, Kx = _dims()
     ar, ai, _ = _stage1(_covers(), Ky, Kx)
@@ -584,7 +675,8 @@ def test_k2_ablation_edits_apply_to_the_committed_source(monkeypatch):
 
 @pytest.mark.parametrize("entry", ["corner_stage2", "corner_stage2_band",
                                    "corner_stage2_grid",
-                                   "corner_stage2_prep"])
+                                   "corner_stage2_prep",
+                                   "corner_stage2_prep_reduce"])
 def test_k2_entries_take_the_signatures_bound_to_them(entry):
     """Each C entry of csrc/corner_stage2.cu takes the argument kinds
     _build binds it with; K2's entries of the parent of the run-time band

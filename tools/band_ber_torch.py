@@ -94,7 +94,7 @@ def main(argv=None) -> int:
     mk = chip_smoke.MASTER_KEY
 
     def plain(band):
-        def stage2(ar, ai, tabs, X0, adaptive):
+        def stage2(ar, ai, tabs, X0, adaptive, prep=None):
             prep = ck.stage2_prep_plain(ar, ai)
             idx = (corner.band_topk(prep[2], X0) if adaptive else
                    ck.static_band(ar.shape[0], X0, ar.device))
@@ -109,7 +109,10 @@ def main(argv=None) -> int:
         runs = [(s, m, m) for s in SALT_SETS for m in modes]
         base = "mix_adaptive"
     else:
-        modes = {"f32": corner._fwd_y_split, "bf16x3": plain("bf16x3"),
+        def f32(ar, ai, tabs, X0, adaptive, prep=None):
+            return corner._fwd_y_split(ar, ai, tabs, X0, adaptive)
+
+        modes = {"f32": f32, "bf16x3": plain("bf16x3"),
                  "bf16x6": plain("bf16x6"), "kernel": real}
         runs = [(s, m, m) for s in SALT_SETS for m in modes]
         runs.insert(len(modes), (0, "bf16x3", "f32"))

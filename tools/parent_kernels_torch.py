@@ -32,9 +32,11 @@ SOURCES = ("corner_ifft_y.cu", "corner_stage2.cu", "corner_ifft_epilogue.cu")
 # (the gather, which read the walk's int64 plane/y/x and took its image
 # groups, grid.y, in place of a read plan); K2's corner_stage2, its band
 # pass and its grid up to 4f717a6 (a band of one group of 64 columns, and
-# the bulk, always: no nb and no bulk flag)
+# the bulk, always: no nb and no bulk flag); K1's corner_stage1_wgmma up to
+# 5b99743 (an exr-then-exi table of 2 Kxp rows, no prep in its epilogue)
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 OLD_SIGNATURES = {"corner_read_decode": [_P] * 9 + [_I] * 8 + [_F, _P],
+                  "corner_stage1_wgmma": [_P] * 4 + [_I] * 8 + [_P],
                   "corner_stage2": [_P] * 8 + [_I] * 8 + [_P],
                   "corner_stage2_band": [_P] * 5 + [_I] * 3 + [_P],
                   "corner_stage2_grid": [_I] * 3}
