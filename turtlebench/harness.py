@@ -1,25 +1,43 @@
 """The benchmark of steganosaurus_tpu_torch, driven by data.
 
 A cell of BENCHMARK.json names a configuration (configs/<config>.json: the
-deployment's shapes, parameters and precision), a traffic mix
-(traffic/<traffic>.json: its parameters, and the driver that reads them)
-and its check (checks/<cell>.json: the sample the reference reads and each
-limit). A driver, drivers/<driver>.py, is one kind of traffic: a class
+deployment's shapes, parameters and precision, and under "checker" the
+checker that judges its cells), a traffic mix (traffic/<traffic>.json: its
+parameters, and the driver that reads them) and its check
+(checks/<cell>.json: the sample the checker reads and each limit).
+
+A driver, drivers/<driver>.py, is one kind of traffic: a class
 `Driver(stt, cell, seed, device)` with `warm()`,
 `stream(until=, count=, sample=) -> Stream`, and the `shape`, `params`,
-`key`, `covers` (NCHW), `layout` and `unread` the check reads
-(drivers/stream.py says what each is). Every metric, end-to-end or per layer, is a reader of
-its own, metrics/<name>.py, with `read(run) -> float | None`: the harness
-hands each the run's window record and, in a traced run, its trace, and
-leaves a metric out when its reader returns None. A later cell, mix, kind
-of traffic or metric is new files and entries.
+`key`, `covers` (NCHW), `layout` and `unread` the checker reads
+(drivers/stream.py says what each is).
+
+A checker, checkers/<checker>.py, is one way of deciding `correct`: a
+function `check(stt, service, sample, wrong, read_precision, cache) ->
+(numbers, info)`. It may read the driver's `shape`, `params`, `key`,
+`covers`, `layout` and `unread`, the (cover, secret, salt, stego) items of
+`sample.drawn()`, the count `wrong` of answers that were another secret or
+never came, and the program through `stt`; read_precision, where not None,
+is the corner DFT precision the program's compared read runs under (a
+control's); cache is a directory of the checkout where it may keep what its
+reference computes, for the checkout's later runs. It returns every number
+`verdict` compares, each as [value, limit], the limits taken from
+`service.cell.check["limits"]`, and a record of what else it read. Its
+plain reference lives in reference/, which imports nothing of the program;
+a checker imports nothing of the harness.
+
+Every metric, end-to-end or per layer, is a reader of its own,
+metrics/<name>.py, with `read(run) -> float | None`: the harness hands each
+the run's window record and, in a traced run, its trace, and leaves a
+metric out when its reader returns None. A later cell, configuration, mix,
+kind of traffic, checker or metric is new files and entries.
 
 One run: the covers are made on the card from the seed, the driver warms
 every shape the window uses, the peak statistics are reset, then the
-service runs for the window, optionally followed by a traced stretch under torch.profiler, and
-last the plain reference in reference/ judges what the window produced.
-The harness takes from the program only the system under test, its kernel
-names and the profiler's view of it.
+service runs for the window, optionally followed by a traced stretch under
+torch.profiler, and last the configuration's checker judges what the
+window produced. The harness takes from the program only the system under
+test, its kernel names and the profiler's view of it.
 """
 
 from __future__ import annotations
@@ -39,14 +57,11 @@ import numpy as np
 import torch
 
 from turtlebench.reference import stego as ref_stego
-from turtlebench.reference import walk as ref_walk
 
 ROOT = pathlib.Path(__file__).resolve().parent
 CACHE = ROOT / ".cache"
 # top-level module names that no run may hold once its window has closed
 FORBIDDEN = ("jax", "jaxlib", "flax", "steganosaurus_tpu")
-# the column bands spec_err compares (equal numbers of walk bins, by x)
-SPEC_BANDS = 64
 
 
 @dataclasses.dataclass
@@ -70,6 +85,9 @@ def load_cell(bench: dict, root: pathlib.Path, name: str) -> Cell:
     cfg = next(c for c in bench["configs"] if c["name"] == w["config"])
     here = root / "turtlebench"
     config = json.loads((root / cfg["file"]).read_text())
+    if "checker" not in config:
+        raise ValueError(f'{cfg["file"]} has no "checker" key: the name of '
+                         "the checkers/<name>.py that judges its cells")
     traffic = json.loads((here / "traffic" / f"{w['traffic']}.json")
                          .read_text())
     check = json.loads((here / "checks" / f"{name}.json").read_text())
@@ -334,124 +352,16 @@ def load_driver(name: str):
     return _load("drivers", name).Driver
 
 
+def load_checker(name: str):
+    """checkers/<name>.py's check()."""
+    return _load("checkers", name).check
+
+
 def card_peaks(kind: str) -> dict | None:
     for card in json.loads((ROOT / "peaks.json").read_text())["cards"]:
         if card["match"] in kind:
             return card
     return None
-
-
-def reference_check(stt, service, sample: Sample, wrong: int,
-                    read_precision: str | None = None) -> tuple[dict, dict]:
-    """Each number the check compares, as [value, limit], and what else the
-    reference read, for the record:
-    - wrong: answers that were another secret than the one embedded, or that
-      never came (exact: 0);
-    - unread: images the program answered None for whose stego the plain
-      reference reads decisively, every Rep-3 group of its header unanimous
-      and its hard read opening (exact: 0). A stego whose header the u8
-      rounding has made ambiguous, as on a cover with weak bins under the
-      shared walk, is no one's to read and is not counted;
-    - spec_err: the sampled stegos against the reference's stegos of the
-      same cover, secret, salt and key: the spectrum of their difference at
-      the walk's bins, |E|^2 over the plane's flipped-byte energy (1 where
-      the two differ by rounding alone), averaged in SPEC_BANDS bands of the
-      walk's bins ordered by column; the worst band. Where the error sits;
-    - bytes_off: the same stegos, the bytes that differ from the
-      reference's by more than one u8 step. Rounding alone moves a byte by
-      one step, and mix_adaptive's bf16 inverse DFT by two at a few points
-      where its table's roundings add up. How large the error is, wherever
-      it sits;
-    - read_gap: the program's read (its channel_report: the extract's
-      forward DFT and raw read, at the cell's batch, the sampled stegos
-      repeated to fill it) against the reference's float64 read of the same
-      stegos: the raw bit errors over every row's frame, |program -
-      reference| / reference.
-    read_precision: the corner DFT precision the program's read runs under
-    (the control's), else the one in force."""
-    shape, cfg = service.shape, service.cell.config
-    p = cfg["params"]
-    dev = service.covers.device
-    walk = ref_walk.cached_walk(
-        CACHE / "reference", ref_walk.walk_key(service.key), shape["H"],
-        shape["W"], p["rmin"], p["rmax"], p["density"], shape["slots"])
-    walk_d = tuple(torch.as_tensor(a, device=dev).long() for a in walk)
-    unread = 0
-    for _, secret, _, prog in service.unread:
-        d = ref_stego.decision_values(prog, walk_d, p["alpha"])
-        if ref_stego.read_decisive(d, service.key) == secret:
-            unread += 1
-    items = sample.drawn()
-    norm_sum = torch.zeros(shape["slots"], dtype=torch.float64, device=dev)
-    norm_cnt = torch.zeros(shape["slots"], dtype=torch.float64, device=dev)
-    rms, off, ref_err = [], 0, []
-    for cover, secret, salt, prog in items:
-        bits = ref_stego.frame_bits(
-            ref_stego.seal_stream(service.key, salt, secret))
-        ref = ref_stego.embed(cover, bits, walk_d, alpha=p["alpha"],
-                              floor=p["write_floor"])
-        diff = prog.to(torch.float64) - ref.to(torch.float64)
-        rms.append(diff.square().mean().sqrt().item())
-        off += int((diff.abs() > 1).sum())
-        flips = (diff * diff).sum((1, 2))
-        e2 = torch.fft.fft2(diff)[walk_d].abs() ** 2
-        fl = flips[walk_d[0]]
-        has = fl > 0
-        norm_sum += torch.where(has, e2 / fl.clamp_min(1.0), 0.0)
-        norm_cnt += has.to(torch.float64)
-        del ref, diff, e2
-        d = ref_stego.decision_values(prog, walk_d, p["alpha"])
-        ref_err.append(int(((d >= 0) != bits.astype(bool)).sum()))
-    order = torch.argsort(walk_d[2], stable=True)
-    bands = [(norm_sum[g].sum() / norm_cnt[g].sum()).item()
-             for g in torch.tensor_split(order, SPEC_BANDS)
-             if norm_cnt[g].sum() > 0]
-    spec_err = max(bands) if bands else 0.0
-    prog_err = program_read_errors(stt, service, items, read_precision)
-    rows = [ref_err[j % len(items)] for j in range(len(prog_err))]
-    gap = abs(sum(prog_err) - sum(rows)) / max(sum(rows), 1)
-    lim = service.cell.check["limits"]
-    numbers = {"wrong": [wrong, 0], "unread": [unread, 0],
-               "spec_err": [spec_err, lim["spec_err"]],
-               "bytes_off": [off, lim["bytes_off"]],
-               "read_gap": [gap, lim["read_gap"]]}
-    info = {"images": len(items), "rows": len(prog_err),
-            "ref_raw_errors": sum(rows), "prog_raw_errors": sum(prog_err),
-            "worst_row_gap": max(abs(a - b) / max(b, 1)
-                                 for a, b in zip(prog_err, rows)),
-            "stego_rms": [min(rms), max(rms)]}
-    return numbers, info
-
-
-def program_read_errors(stt, service, items: list,
-                        read_precision: str | None) -> list[int]:
-    """Raw bit errors over each row's frame as the program reads the
-    sampled stegos back, in one channel_report of the cell's batch (the
-    samples repeated to fill it), served in the driver's layout."""
-    B = service.shape["B"]
-    pick = [items[j % len(items)] for j in range(B)]
-    batch = torch.stack([it[3] for it in pick])
-    layout = service.layout
-    if layout == "nhwc":
-        batch = batch.permute(0, 2, 3, 1).contiguous()
-    saved = os.environ.get("STEGANOSAURUS_MM_PRECISION")
-    if read_precision is not None:
-        os.environ["STEGANOSAURUS_MM_PRECISION"] = read_precision
-    try:
-        rep = stt.channel_report(
-            batch, [it[1] for it in pick], [it[2] for it in pick],
-            master_key=service.key, params=service.params, layout=layout,
-            per_image=True)
-    finally:
-        if read_precision is not None:
-            if saved is None:
-                del os.environ["STEGANOSAURUS_MM_PRECISION"]
-            else:
-                os.environ["STEGANOSAURUS_MM_PRECISION"] = saved
-    nh = ref_stego.HEADER_SLOTS
-    npay = service.shape["slots"] - nh
-    return [round(r["header_ber_raw"] * nh + r["payload_ber_raw"] * npay)
-            for r in rep["per_image"]]
 
 
 def verdict(numbers: dict) -> bool:
@@ -471,8 +381,10 @@ def measure(stt, cell: Cell, seed: int, seconds: float, trace: bool,
             read_precision: str | None = None) -> tuple[dict, dict]:
     """One run of `cell`: (the result line's fields, the check's numbers).
     t_start: the process's start on the perf_counter clock;
-    read_precision: see reference_check."""
+    read_precision: the precision of the checker's compared read (the
+    checker contract, in the module's docstring)."""
     on_card = torch.device(device).type == "cuda"
+    check = load_checker(cell.config["checker"])
     service = load_driver(cell.traffic["driver"])(stt, cell, seed, device)
     sample = Sample(seed, int(cell.check["sample_images"]))
     service.warm()
@@ -510,13 +422,13 @@ def measure(stt, cell: Cell, seed: int, seconds: float, trace: bool,
         device_info["busy_s"] = busy_seconds(tr)
         device_info["window_s"] = tr.window_s
         result["breakdown"] = breakdown(tr)
-    # the reference runs once the window is over and the peak is read, with
+    # the checker runs once the window is over and the peak is read, with
     # the program's in-flight state gone
     if on_card:
         torch.cuda.synchronize()
         torch.cuda.empty_cache()
-    numbers, result["reference"] = reference_check(
-        stt, service, sample, wrong, read_precision)
+    numbers, result["reference"] = check(stt, service, sample, wrong,
+                                         read_precision, CACHE / "reference")
     return result, numbers
 
 

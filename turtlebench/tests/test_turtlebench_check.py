@@ -95,8 +95,9 @@ def test_the_read_control_reaches_the_read(env, tmp_path):
     sample = harness.Sample(SEED, 2)
     service.warm()
     service.stream(count=2, sample=sample)
-    sound, info0 = harness.reference_check(env, service, sample, 0)
-    nums, info = harness.reference_check(env, service, sample, 0, "bf16")
+    check = harness.load_checker("shared_walk")
+    sound, info0 = check(env, service, sample, 0, None, tmp_path)
+    nums, info = check(env, service, sample, 0, "bf16", tmp_path)
     for k in ("spec_err", "bytes_off", "wrong", "unread"):
         assert nums[k] == sound[k]
     assert info["ref_raw_errors"] == info0["ref_raw_errors"]
